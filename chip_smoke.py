@@ -21,12 +21,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    checked against the pass accounting.  Then ``sweep_dtype="bfloat16"``
    (eps 1e-4, rtol 1e-2) on the same ``A``, and a contiguous wide input
    (the operator's transposed path).
-4. determinism: two solves of a 16384 x 4096 matrix, bitwise equal.
+4. the deflation kernels (``matvec``, ``deflate_rmatvec``, ``gram``,
+   both layouts; ``gram`` symmetric and full, fp32 and bf16) against
+   their plain versions at ragged shapes (relative Frobenius error, limit
+   1e-5; ``gram`` 4 sqrt(r) 2^-24 for a reduction of length r, at least
+   1e-5, see ``gram_tol``), and at the deflation paths' shapes with
+   kernel, plain, bound and library (a yardstick only) times.
+5. the gram-free path: ``repro_torch.svd(A, 16, method="gramfree")`` on
+   the same 262144 x 32768 ``A``; sigma within rtol 2e-3 of the
+   prescribed spectrum (the JAX package's deflation tolerance), launches
+   ``matvec`` sum(iters) + k and ``deflate_rmatvec`` sum(iters), passes
+   3 sum(iters) + k.  Then the gram path: ``svd(A, 8, method="gram")`` on
+   a 262144 x 8192 ``A`` (launches ``gram`` k, ``matvec`` k; passes 3k),
+   and both methods at k = 4 on the contiguous wide input (the ``trans``
+   kernels).
+6. determinism: two block solves and two gram-free solves of a
+   16384 x 4096 matrix, each pair bitwise equal.
 
-Prints a ``{"kernels": [...]}`` line (the fp32 main path's launch counts
-and times), the ``nvidia-smi`` name and power limit line again, and last
-``{"ok": true, "device": {...}}``.  Exits 2 without a CUDA device or
-without ``src/repro_torch`` beside this script.
+Prints a ``{"kernels": [...]}`` line (each kernel's launches in the
+solve of its path, and its times), the ``nvidia-smi`` name and power
+limit line again, and last ``{"ok": true, "device": {...}}``.  Exits 2
+without a CUDA device or without ``src/repro_torch`` beside this script.
 """
 from __future__ import annotations
 
@@ -42,6 +57,9 @@ N_SPECTRUM = 64                        # s_i = 100 * 0.9**i, i < 64
 NOISE = 1e-6                           # entry std; ||noise||_2 ~ 7e-4 << s_31
 WIDE = (8192, 131072)                  # contiguous wide input
 RERUN = (16384, 4096)
+K_GRAMFREE, K_GRAM, K_WIDE = 16, 8, 4  # ranks of the deflation solves
+N_GRAM = 8192                          # columns of the gram path's A
+TOL_DEFLATION = 2e-3                   # sigma rtol, tests/test_tsvd.py:20
 SLAB = 16384                           # rows per chunk of the plain versions
 # Limits of kernel vs plain: the same (bf16-rounded) operands summed in
 # fp32 in another order.  The bf16 chain rounds its fp32 intermediate to
@@ -49,14 +67,36 @@ SLAB = 16384                           # rows per chunk of the plain versions
 # boundary that entry moves by a whole bf16 step (2^-8 relative).
 TOL = {"float32": 1e-5, "bfloat16": 1e-5}
 TOL_CHAIN_BF16 = 1e-3
+
+
+def gram_tol(r: int) -> float:
+    """Limit of the gram kernel against its plain version for a reduction
+    of length ``r``: the kernel sums each entry in one fixed sequence (no
+    split of the reduction, so no atomics), which rounds to about
+    sqrt(r) * 2^-24 relative, where the plain version (cuBLAS) sums in
+    blocks and rounds less; 4 sqrt(r) 2^-24, and at least the 1e-5 of
+    the other kernels (1.2e-4 at r = 262144)."""
+    return max(1e-5, 4 * r ** 0.5 * 2.0 ** -24)
 # H100 SXM data sheet: HBM3 rate, fp32 (non-tensor) and bf16 dense peaks
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 TPU_KERNEL = "src/repro/kernels/block_matvec.py"
 REPLACES = {"block_matvec": f"{TPU_KERNEL}:81",
             "block_rmatvec": f"{TPU_KERNEL}:127",
-            "block_gram_chain": f"{TPU_KERNEL}:146"}
-SOURCE = "src/repro_torch/csrc/block_matvec.cu"
+            "block_gram_chain": f"{TPU_KERNEL}:146",
+            "matvec": "src/repro/kernels/deflate_matvec.py:55",
+            "deflate_rmatvec": "src/repro/kernels/deflate_matvec.py:127",
+            "gram": "src/repro/kernels/gram.py:84"}
+SOURCES = {"block_matvec": "src/repro_torch/csrc/block_matvec.cu",
+           "block_rmatvec": "src/repro_torch/csrc/block_matvec.cu",
+           "block_gram_chain": "src/repro_torch/csrc/block_matvec.cu",
+           "matvec": "src/repro_torch/csrc/deflate_matvec.cu",
+           "deflate_rmatvec": "src/repro_torch/csrc/deflate_matvec.cu",
+           "gram": "src/repro_torch/csrc/gram.cu"}
+LIBRARY = {"matvec": "torch.mv(A, v)",
+           "deflate_rmatvec": "torch.mv(A.mT, Xv - U @ SVtv) + U.mT @ Xv "
+                              "(two calls)",
+           "gram": "torch.mm(A.mT, A) (TF32 off)"}
 
 
 def fail(msg: str) -> None:
@@ -84,6 +124,26 @@ def time_ms(torch, fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def pick(t_bytes: float, t_ops: float) -> tuple:
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def deflation_bound(name: str, m: int, n: int, k: int = 0) -> tuple:
+    """Least time on an H100 SXM for the fp32 deflation kernels: each
+    input read once and each output written once over the memory rate,
+    the flop over the fp32 (non-tensor) peak.  ``gram`` counts the
+    symmetric schedule's m*n*(n+1) flop (each of the n(n+1)/2 distinct
+    entries is a length-m dot product)."""
+    if name == "matvec":
+        nbytes, flop = 4 * (m * n + n + m), 2 * m * n
+    elif name == "deflate_rmatvec":
+        nbytes = 4 * (m * n + m * k + m + k + n + k)
+        flop = 2 * m * n + 4 * m * k
+    else:
+        nbytes, flop = 4 * (m * n + n * n), m * n * (n + 1)
+    return pick(nbytes / PEAK_BYTES * 1e3, flop / PEAK_OPS["float32"] * 1e3)
+
+
 def bound(name: str, m: int, n: int, k: int, dtype: str) -> tuple:
     """Least time for the function on an H100 SXM: A and the skinny
     input read once in ``dtype``, the fp32 output written once, over the
@@ -96,7 +156,7 @@ def bound(name: str, m: int, n: int, k: int, dtype: str) -> tuple:
     nbytes = m * n * isz + skinny_in * k * isz + out * k * 4
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = products * 2 * m * n * k / PEAK_OPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return pick(t_bytes, t_ops)
 
 
 # ---------------------------------------------------------------------------
@@ -147,6 +207,127 @@ def spectral_matrix(torch, m, n, seed, dev):
         A[r:r + step].add_(torch.randn((min(step, m - r), n), generator=g,
                                        device=dev), alpha=NOISE)
     return A, s
+
+
+def check(torch, label: str, got, want, tol: float) -> float:
+    """Fail unless ``got`` is a finite fp32 tensor of ``want``'s shape
+    within ``tol`` relative Frobenius error of it; return the error."""
+    if got.dtype != torch.float32 or got.shape != want.shape:
+        fail(f"{label}: got {got.dtype} {tuple(got.shape)}, want "
+             f"{tuple(want.shape)}")
+    e = rel_err(torch, got, want)
+    if not (bool(torch.isfinite(got).all()) and e <= tol):
+        fail(f"{label}: rel err {e} > {tol}")
+    return e
+
+
+def deflation_ragged(torch, ops, ref, g, dev) -> float:
+    """The deflation kernels against their plain versions at ragged
+    shapes, both layouts; returns the worst error as a share of its
+    limit."""
+    worst = 0.0
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    for (m, n, k) in [(1000, 300, 7), (4097, 515, 1), (257, 4100, 16),
+                      (40000, 96, 3), (33, 1, 2), (3000, 2051, 5)]:
+        A = rnd(m, n)
+        v, u, c = rnd(n), rnd(m), rnd(k)
+        U, V = rnd(m, k), rnd(n, k)
+        cases = [("matvec", ops.matvec(A, v), ref.matvec_ref(A, v), 1e-5),
+                 ("matvec[trans]", ops.matvec(A, u, trans=True),
+                  ref.matvec_ref(A, u, True), 1e-5)]
+        for lab, got, want in (
+                ("deflate_rmatvec", ops.deflate_rmatvec(A, U, u, c),
+                 ref.deflate_rmatvec_ref(A, U, u, c)),
+                ("deflate_rmatvec[trans]",
+                 ops.deflate_rmatvec(A, V, v, c, trans=True),
+                 ref.deflate_rmatvec_ref(A, V, v, c, True))):
+            cases += [(lab + ".t13", got[0], want[0], 1e-5),
+                      (lab + ".utx", got[1], want[1], 1e-5)]
+        for sd in ("float32", "bfloat16"):
+            As = A.to(getattr(torch, sd))
+            for trans in (False, True):
+                want = ref.gram_ref(As, trans)
+                for sym in (True, False):
+                    got = ops.gram(As, symmetric=sym, trans=trans)
+                    cases.append((f"gram[{sd},{'sym' if sym else 'full'}"
+                                  f"{',trans' if trans else ''}]", got, want,
+                                  gram_tol(n if trans else m)))
+                    if not torch.equal(got, got.mT):
+                        fail(f"gram {sd} {(m, n)}: B is not symmetric")
+        torch.cuda.synchronize()
+        for lab, got, want, tol in cases:
+            e = check(torch, f"{lab} m={m} n={n} k={k}", got, want, tol)
+            worst = max(worst, e / tol)
+            print(f"  {lab:30s} m={m} n={n} k={k}: rel err {e:.2e} "
+                  f"(limit {tol:.1e})")
+    return worst
+
+
+def time_kernel(torch, name, kern, plain, lib, reps, tol, bnd) -> dict:
+    """Check the kernel at a path shape and time it, its plain version
+    and its library yardstick (``reps`` runs each, CUDA events)."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if isinstance(got, tuple):
+        errs = [check(torch, name, a, b, tol) for a, b in zip(got, want)]
+        e = max(errs)
+        mae = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    else:
+        e = check(torch, name, got, want, tol)
+        mae = float((got - want).abs().max())
+    del got, want
+    row = {"max_abs_err": mae, "rel_err": e, "limit": tol,
+           "ms": time_ms(torch, kern, reps),
+           "plain_ms": time_ms(torch, plain, reps),
+           "library_ms": time_ms(torch, lib, reps)}
+    row["bound_ms"], row["bound_by"] = bnd
+    print(f"  {name:16s} fp32: rel err {e:.2e} (limit {tol:.0e}), kernel "
+          f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
+          f"{row['library_ms']:.3f} ms ({LIBRARY[name]}), bound "
+          f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
+    return row
+
+
+def deflation_solve(torch, repro_torch, ops, X, k, method, label, s,
+                    table=None):
+    """One deflation solve through ``repro_torch.svd``, held to the
+    prescribed spectrum and to the pass accounting; returns the launch
+    counts of its run."""
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = repro_torch.svd(X, k, method=method)
+    counts = {n: c for n, c in ops.launches.items() if c}
+    it = [int(i) for i in res.iters]
+    err = float((res.S.double().cpu() / s[:k].double().cpu() - 1)
+                .abs().max())
+    print(f"{label}: iters per rank {it} (sum {sum(it)}), passes_over_A "
+          f"{res.passes_over_A}, bytes_per_pass {res.bytes_per_pass}, "
+          f"converged {res.converged}, wall_time_s {res.wall_time_s:.3f}, "
+          f"launches {counts}, max sigma rel err {err:.2e} (limit "
+          f"{TOL_DEFLATION:.0e}), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    if method == "gramfree":
+        want = {"matvec": sum(it) + k, "deflate_rmatvec": sum(it)}
+        passes = 3 * sum(it) + k
+    else:
+        want, passes = {"gram": k, "matvec": k}, 3 * k
+    if counts != want:
+        fail(f"{label}: launches {counts}, pass accounting implies {want}")
+    if res.passes_over_A != passes or res.backend != "dense" \
+            or res.bytes_moved is not None:
+        fail(f"{label}: passes {res.passes_over_A} (want {passes}), "
+             f"backend {res.backend}")
+    if not (res.converged and err <= TOL_DEFLATION
+            and bool(torch.isfinite(res.U).all())
+            and bool(torch.isfinite(res.V).all())):
+        fail(f"{label}: not converged to the prescribed sigma")
+    if table is not None:           # kernel time x launches vs wall time
+        kern_s = sum(table[n]["ms"] * c for n, c in counts.items()) / 1e3
+        print(f"  {label}: kernels {kern_s:.3f} s of {res.wall_time_s:.3f} "
+              f"s ({100 * kern_s / res.wall_time_s:.1f} %, kernel ms x "
+              f"launches); the rest, {res.wall_time_s - kern_s:.3f} s, is "
+              f"the per-step sync, the small products and host work")
+    return counts
 
 
 def main() -> int:
@@ -224,6 +405,9 @@ def main() -> int:
                 if not e <= tol:
                     fail(f"{name} {sd} {(m, n, k)}: rel err {e} > {tol}")
     print(f"ragged shapes: all within limits (worst {worst:.2f} of limit)")
+    worst = deflation_ragged(torch, ops, ref, g, dev)
+    print(f"deflation kernels at ragged shapes: all within limits (worst "
+          f"{worst:.2f} of limit)")
 
     # -- 2b/3. the main path's A ----------------------------------------
     t0 = time.perf_counter()
@@ -279,12 +463,32 @@ def main() -> int:
         del As, Qs, Ys
     torch.cuda.empty_cache()
 
-    # -- 3. the main path ------------------------------------------------
+    # -- 4. the gram-free kernels at the gram-free path's shape -------------
+    v = torch.randn(N, generator=g, device=dev)
+    Xv = torch.randn(M, generator=g, device=dev)
+    Ud = torch.randn((M, K_GRAMFREE), generator=g, device=dev)
+    c = torch.randn(K_GRAMFREE, generator=g, device=dev)
+    dtable = {
+        "matvec": time_kernel(
+            torch, "matvec", lambda: ops.matvec(A, v),
+            lambda: ref.matvec_ref(A, v), lambda: torch.mv(A, v), 5,
+            TOL["float32"], deflation_bound("matvec", M, N)),
+        "deflate_rmatvec": time_kernel(
+            torch, "deflate_rmatvec",
+            lambda: ops.deflate_rmatvec(A, Ud, Xv, c),
+            lambda: ref.deflate_rmatvec_ref(A, Ud, Xv, c),
+            lambda: (torch.mv(A.mT, Xv - Ud @ c), Ud.mT @ Xv), 5,
+            TOL["float32"],
+            deflation_bound("deflate_rmatvec", M, N, K_GRAMFREE)),
+    }
+    del v, Xv, Ud, c
+
+    # -- 3. the main path (block) -----------------------------------------
     def solve(X, label, expect_trans=False, rtol=1e-4, **kw):
         ops.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         res = repro_torch.svd(X, K, **kw)
-        counts = dict(ops.launches)
+        counts = {n: c for n, c in ops.launches.items() if c}
         it = int(res.iters[0])
         err = float((res.S.double().cpu() / s[:K].double().cpu() - 1)
                     .abs().max())
@@ -311,30 +515,62 @@ def main() -> int:
     _, main_counts = solve(A, f"main path svd(A, {K}) fp32")
     solve(A, f"svd(A, {K}) bf16 sweeps", rtol=1e-2,
           sweep_dtype="bfloat16", eps=1e-4)
+
+    # -- 5. the deflation paths ------------------------------------------
+    path_counts = {n: main_counts[n] for n in main_counts}
+    counts = deflation_solve(
+        torch, repro_torch, ops, A, K_GRAMFREE, "gramfree",
+        f"gram-free path svd(A, {K_GRAMFREE}, method='gramfree') "
+        f"{M}x{N}", s, table=dtable)
+    path_counts.update(counts)
     del A
     torch.cuda.empty_cache()
+
+    Ag, _ = spectral_matrix(torch, M, N_GRAM, SEED + 4, dev)
+    torch.cuda.synchronize()
+    dtable["gram"] = time_kernel(
+        torch, "gram", lambda: ops.gram(Ag), lambda: ref.gram_ref(Ag),
+        lambda: torch.mm(Ag.mT, Ag), 2, gram_tol(M),
+        deflation_bound("gram", M, N_GRAM))
+    counts = deflation_solve(
+        torch, repro_torch, ops, Ag, K_GRAM, "gram",
+        f"gram path svd(A, {K_GRAM}, method='gram') {M}x{N_GRAM}", s,
+        table=dtable)
+    path_counts["gram"] = counts["gram"]
+    del Ag
+    torch.cuda.empty_cache()
+
     Aw, _ = spectral_matrix(torch, *WIDE, SEED + 2, dev)
     solve(Aw, f"wide {WIDE[0]}x{WIDE[1]} svd(A, {K}) fp32",
           expect_trans=True)
+    for method in ("gramfree", "gram"):
+        deflation_solve(torch, repro_torch, ops, Aw, K_WIDE, method,
+                        f"wide {WIDE[0]}x{WIDE[1]} svd(A, {K_WIDE}, "
+                        f"method={method!r})", s)
     del Aw
 
-    # -- 4. determinism --------------------------------------------------
+    # -- 6. determinism --------------------------------------------------
     Ar, _ = spectral_matrix(torch, *RERUN, SEED + 3, dev)
-    r1, r2 = repro_torch.svd(Ar, K), repro_torch.svd(Ar, K)
-    same = all(torch.equal(a, b) for a, b in zip(r1[:3], r2[:3]))
-    print(f"rerun {RERUN[0]}x{RERUN[1]}: U, S, V bitwise equal: {same}")
-    if not same:
-        fail("two solves with the same seed differ")
+    for kw in ({}, {"method": "gramfree"}):
+        k = K_GRAMFREE if kw else K
+        r1, r2 = repro_torch.svd(Ar, k, **kw), repro_torch.svd(Ar, k, **kw)
+        same = all(torch.equal(a, b) for a, b in zip(r1[:3], r2[:3]))
+        print(f"rerun {RERUN[0]}x{RERUN[1]} svd(A, {k}"
+              f"{', method=' + repr(kw['method']) if kw else ''}): "
+              f"U, S, V bitwise equal: {same}")
+        if not same:
+            fail(f"two solves with the same seed differ ({kw})")
 
-    kernels = []
-    for name in ("block_matvec", "block_rmatvec", "block_gram_chain"):
-        row = table[(name, "float32")]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": main_counts[name],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    rows = {name: table[(name, "float32")]
+            for name in ("block_matvec", "block_rmatvec", "block_gram_chain")}
+    rows.update(dtable)
+    kernels = [{
+        "name": name, "route": "cuda", "source": SOURCES[name],
+        "replaces": REPLACES[name], "launches": path_counts[name],
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+        for name, row in rows.items()]
     print(json.dumps({"kernels_bfloat16": [
         {"name": name, **table[(name, "bfloat16")]}
         for name in ("block_matvec", "block_rmatvec", "block_gram_chain")]}))

@@ -2,13 +2,19 @@
 
 The JAX package ``repro`` is the reference; this package re-implements
 it slice by slice with PyTorch around hand-written CUDA kernels, and
-never imports JAX or ``repro``.  Ported so far: the dense block t-SVD
-(``svd(A, k)`` on a ``torch.Tensor``), whose two A-sized sweeps run on
-the ``block_matvec``/``block_rmatvec`` kernels of ``csrc/block_matvec.cu``.
+never imports JAX or ``repro``.  Ported so far, on a ``torch.Tensor``
+resident on one device: the dense block t-SVD (``svd(A, k)``), whose two
+A-sized sweeps run on the ``block_matvec``/``block_rmatvec`` kernels of
+``csrc/block_matvec.cu``, and the rank-one deflation engines
+(``method="gramfree"`` on the ``matvec``/``deflate_rmatvec`` kernels of
+``csrc/deflate_matvec.cu``, ``method="gram"`` on the ``gram`` kernel of
+``csrc/gram.cu``).
 
     import torch, repro_torch
-    res = repro_torch.svd(A, 32)                  # A on the card
-    res = repro_torch.svd(A, 8, device="cpu")     # plain PyTorch on the CPU
+    res = repro_torch.svd(A, 32)                      # A on the card
+    res = repro_torch.svd(A, 16, method="gramfree")   # Alg 1 around Alg 4
+    res = repro_torch.svd(A, 8, method="gram")        # Alg 1 around Alg 2/3
+    res = repro_torch.svd(A, 8, device="cpu")         # plain PyTorch, CPU
 
 Entry points run on the card unless the caller asks for the CPU: with
 no ``device`` and no visible CUDA device they raise.
@@ -23,11 +29,15 @@ from repro_torch.core import (  # noqa: F401
     SVDResult,
     finalize,
     init_state,
+    power_iterate_chain,
+    power_iterate_gram,
     step,
+    svd_1d,
     svd,
     svd_update,
 )
 
 __all__ = ["svd", "svd_update", "SVDConfig", "SVDResult", "SolverState",
            "init_state", "step", "finalize", "LinearOperator",
-           "DenseOperator", "SVDError", "InputError"]
+           "DenseOperator", "SVDError", "InputError", "svd_1d",
+           "power_iterate_gram", "power_iterate_chain"]

@@ -3,8 +3,9 @@
 Mirrors the names of the JAX package's ``repro.core`` for what is
 ported: ``svd``/``svd_update``, the ``init_state``/``step``/``finalize``
 state machine, ``SVDConfig``/``SVDResult``/``SolverState``, the
-``LinearOperator`` protocol with ``DenseOperator``, the shared numerical
-helpers, the typed errors and the fault-injection harness.
+``LinearOperator`` protocol with ``DenseOperator``, the deflation
+engines' power loops (``svd_1d``, ``power_iterate_gram``,
+``power_iterate_chain``), the shared numerical helpers, the typed errors and the fault-injection harness.
 """
 from repro_torch.core.config import (  # noqa: F401
     SolverState,
@@ -16,6 +17,9 @@ from repro_torch.core.precision import (  # noqa: F401
     resolve_sweep_dtype,
 )
 from repro_torch.core.tsvd import (  # noqa: F401
+    power_iterate_chain,
+    power_iterate_gram,
+    svd_1d,
     sweep_ops,
     warm_start_width,
     rayleigh_ritz,
@@ -64,6 +68,9 @@ __all__ = [
     "SWEEP_DTYPES",
     "resolve_sweep_dtype",
     "sweep_ops",
+    "svd_1d",
+    "power_iterate_gram",
+    "power_iterate_chain",
     "warm_start_width",
     "rayleigh_ritz",
     "rayleigh_ritz_from_W",

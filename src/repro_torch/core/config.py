@@ -35,8 +35,8 @@ class SVDConfig:
     """All solver knobs, validated once (see the JAX package's
     ``SVDConfig`` for the meaning of each field; the two agree).
 
-    Fields that select paths this port does not run yet (the deflation
-    methods, ``checkpoint_dir``) validate exactly as in the JAX package;
+    Fields that select paths this port does not run yet
+    (``checkpoint_dir``) validate exactly as in the JAX package;
     ``repro_torch.svd`` then raises ``NotImplementedError`` naming the
     ROADMAP item that ports them.
     """

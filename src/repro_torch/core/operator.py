@@ -29,7 +29,8 @@ import torch
 
 from repro_torch.core.errors import InputError
 from repro_torch.core.precision import dtype_name, resolve_sweep_dtype
-from repro_torch.core.tsvd import rayleigh_ritz_from_W, warm_start_width
+from repro_torch.core.tsvd import (rayleigh_ritz_from_W, seeded_generator,
+                                   warm_start_width)
 from repro_torch.kernels import ops
 
 __all__ = [
@@ -76,14 +77,6 @@ def _gap(Q: torch.Tensor, Qn: torch.Tensor) -> torch.Tensor:
     # span(Qn): invariant to rotations within the subspace.  Returned
     # unsynced — a 0-d device tensor the driver floats one step late.
     return Q.shape[1] - torch.sum((Q.mT @ Qn) ** 2)
-
-
-def _generator(device: torch.device, seed: int) -> torch.Generator:
-    """The operator-native RNG: a ``torch.Generator`` on the operand's
-    device seeded with ``cfg.seed``.  It does not reproduce the JAX
-    package's threefry draws; the subspace, not the values, is the
-    contract between the packages."""
-    return torch.Generator(device=device).manual_seed(int(seed) % 2**64)
 
 
 # ---------------------------------------------------------------------------
@@ -325,12 +318,12 @@ class DenseOperator(LinearOperator):
 
     def range_sketch(self, l, seed):
         self._count(self.sketch_passes)
-        Om = torch.randn((self._shape[0], l), generator=_generator(
+        Om = torch.randn((self._shape[0], l), generator=seeded_generator(
             self.device, seed), device=self.device, dtype=torch.float32)
         return self._bwd(self._As, Om)
 
     def random_block(self, k, seed):
-        return torch.randn((self._shape[1], k), generator=_generator(
+        return torch.randn((self._shape[1], k), generator=seeded_generator(
             self.device, seed), device=self.device, dtype=torch.float32)
 
     def extract(self, Q):

@@ -1,8 +1,10 @@
-"""The SVD front door and the block driver (PyTorch port).
+"""The SVD front door, the block driver and the deflation dispatch
+(PyTorch port).
 
 The counterpart of the JAX package's ``repro/core/svd.py`` for the
-dense in-memory path: ``svd(A, k)`` on a ``torch.Tensor`` runs the same
-three-phase state machine over a ``SolverState`` —
+dense in-memory path.  ``svd(A, k)`` on a ``torch.Tensor`` runs, for
+``method="block"``, the same three-phase state machine over a
+``SolverState`` —
 
 * ``init_state(op, k, cfg)``: cold start ``Q0 = orth(random)``, the
   randomized range-finder warm start ``Q0 = orth((A^T A)^q A^T Omega)``
@@ -18,7 +20,11 @@ composed by ``_run_block`` into the self-healing loop (health-guard
 rollback, OOM demotion down ``op.demote``, fault telemetry), with the
 same pass and byte accounting, so ``passes_over_A``, ``bytes_per_pass``,
 ``bytes_moved`` and ``iters`` under ``force_iters`` equal the JAX
-package's exactly.
+package's exactly.  For the rank-one deflation methods ``"gram"`` and
+``"gramfree"`` it calls the engine ``core/tsvd.py::_dense_deflation``
+and reports, as the JAX package does, per-rank ``iters``, the schedule's
+``passes_over_A``, ``converged`` from ``_deflation_converged`` and no
+``bytes_moved``.
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and
 raises when no card is visible; the caller passes ``device="cpu"`` to
@@ -27,8 +33,7 @@ run the plain PyTorch versions of the kernels on the CPU.
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP.md queue-1 item: numpy inputs (the host-blocked tier), paths and
 ``np.memmap`` (the disk tier), scipy sparse inputs, ``mesh=`` (the
-sharded backend), the deflation methods ``"gram"``/``"gramfree"``, and
-``checkpoint_dir`` (checkpoint/resume).
+sharded backend), and ``checkpoint_dir`` (checkpoint/resume).
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ from repro_torch.core.operator import (DenseOperator, LinearOperator,
                                        host_sync_scalar, resolve_device,
                                        warm_start_width)
 from repro_torch.core.precision import resolve_sweep_dtype
+from repro_torch.core.tsvd import _dense_deflation
 
 __all__ = ["svd", "svd_update", "init_state", "step", "finalize",
            "SolverState", "SVDConfig", "SVDResult"]
@@ -354,6 +360,16 @@ def _run_block(op: LinearOperator, k: int, cfg: SVDConfig, warm=None):
         op.release_solve()
 
 
+def _deflation_converged(iters, cfg: SVDConfig) -> bool:
+    """Conservative, as in the JAX package: True iff every rank stopped
+    strictly before ``max_iters`` (a rank meeting the criterion exactly
+    on the last allowed step is indistinguishable from one that ran
+    out); never under ``force_iters``."""
+    if cfg.force_iters:
+        return False
+    return bool(np.all(np.asarray(iters) < cfg.max_iters))
+
+
 # ---------------------------------------------------------------------------
 # Per-backend assembly
 # ---------------------------------------------------------------------------
@@ -391,9 +407,10 @@ def _pick_seed(warm, transposed: bool):
 
 def _dense_svd(A: torch.Tensor, k: int, cfg: SVDConfig, device,
                warm=None) -> SVDResult:
-    """The dense block solve of a tensor on ``device``.  A wide input is
+    """The dense solve of a tensor on ``device``.  Block: a wide input is
     handed to the operator as the transposed view ``A.mT`` — no copy;
-    the operator swaps the two kernels — and the factors swap back."""
+    the operator swaps the two kernels — and the factors swap back.
+    Deflation: the engine handles both orientations itself."""
     A = A.to(device=device, dtype=torch.float32)
     if A.ndim != 2:
         raise InputError(f"svd() takes a 2-D matrix, got shape "
@@ -401,6 +418,12 @@ def _dense_svd(A: torch.Tensor, k: int, cfg: SVDConfig, device,
     m, n = A.shape
     _validate_problem((m, n), k)
     bpp = m * n * resolve_sweep_dtype(cfg.sweep_dtype).itemsize
+    if cfg.method != "block":
+        U, S, V, iters, passes = _dense_deflation(
+            A, k, seed=cfg.seed, eps=cfg.eps, max_iters=cfg.max_iters,
+            force_iters=cfg.force_iters, method=cfg.method)
+        return SVDResult(U, S, V, iters, int(passes), bpp,
+                         _deflation_converged(iters, cfg), "dense")
     tall = m >= n
     X = A if tall else A.mT
     op = DenseOperator(X, device=device, sweep_dtype=cfg.sweep_dtype)
@@ -412,6 +435,9 @@ def _dense_svd(A: torch.Tensor, k: int, cfg: SVDConfig, device,
 
 def _operator_svd(op: LinearOperator, k: int, cfg: SVDConfig,
                   warm=None) -> SVDResult:
+    if cfg.method != "block":
+        raise ValueError("custom LinearOperator inputs run the shared "
+                         "block driver; method must be 'block'")
     _validate_problem(op.shape, k)
     op_sd = getattr(op, "sweep_dtype", cfg.sweep_dtype)
     if resolve_sweep_dtype(op_sd) != resolve_sweep_dtype(cfg.sweep_dtype):
@@ -430,12 +456,13 @@ def svd(A, k: int, *, device=None, mesh=None, axes=("data",),
         **overrides) -> SVDResult:
     """Truncated SVD of ``A`` to rank ``k`` — the port's entry point.
 
-    * ``torch.Tensor``      -> dense block solve on ``device``
-      (``None`` = the card; ``"cpu"`` runs the plain PyTorch versions);
+    * ``torch.Tensor``      -> dense solve on ``device`` (``None`` = the
+      card; ``"cpu"`` runs the plain PyTorch versions): the block driver,
+      or the deflation engine for ``method="gram"``/``"gramfree"``;
     * a ``LinearOperator``  -> the shared block driver on it;
-    * numpy arrays, paths, ``np.memmap``, scipy sparse inputs, ``mesh=``
-      and the deflation methods raise ``NotImplementedError`` naming the
-      ROADMAP.md item that ports them.
+    * numpy arrays, paths, ``np.memmap``, scipy sparse inputs and
+      ``mesh=`` raise ``NotImplementedError`` naming the ROADMAP.md item
+      that ports them.
 
     Solver knobs come from ``config`` and/or keyword ``overrides``, as in
     the JAX package's ``svd``.  Returns an ``SVDResult``.
@@ -455,9 +482,6 @@ def _dispatch(A, k: int, *, device=None, mesh=None, axes=("data",),
     if _warm is not None and cfg.method != "block":
         raise ValueError("warm restarts (svd_update) seed the block "
                          "iterate; method must be 'block'")
-    if cfg.method != "block":
-        raise _not_ported(f"method={cfg.method!r} (rank-one deflation)",
-                          "6")
     if cfg.checkpoint_dir is not None:
         raise _not_ported("checkpoint_dir (checkpoint/resume)", "9")
     if mesh is not None:

@@ -5,6 +5,13 @@
 * ``block_rmatvec``    — multi-vector ``A^T @ Y`` sweep, reduction over
                          the long m axis in ordered slabs (same source)
 * ``block_gram_chain`` — their composition ``A^T (A Q)``
+* ``matvec``           — ``A @ v`` (CUDA C++, ``csrc/deflate_matvec.cu``)
+* ``deflate_rmatvec``  — the fused Alg-4 reverse sweep
+                         ``A^T (Xv - U c)``, ``U^T Xv`` (same source)
+* ``gram``             — ``A^T A``, reduced-task schedule (CUDA C++,
+                         ``csrc/gram.cu``)
+
+The last three take ``trans=True`` for the same function of ``A^T``.
 
 Each kernel has a plain PyTorch version in ``ref.py``; ``ops.py`` holds
 the public wrappers (CPU tensors -> plain version, CUDA tensors -> the
@@ -18,6 +25,12 @@ from repro_torch.kernels.ops import (  # noqa: F401
     block_matvec_ref,
     block_rmatvec_ref,
     block_gram_chain_ref,
+    matvec,
+    deflate_rmatvec,
+    gram,
+    matvec_ref,
+    deflate_rmatvec_ref,
+    gram_ref,
     launches,
     reset_launches,
 )

@@ -1,8 +1,11 @@
-"""Public wrappers of the block-sweep kernels.
+"""Public wrappers of the port's kernels.
 
-``block_matvec`` (``A @ Q``), ``block_rmatvec`` (``A^T @ Y``) and their
-composition ``block_gram_chain`` (``A^T (A Q)``) check their operands,
-then:
+The block sweeps ``block_matvec`` (``A @ Q``), ``block_rmatvec``
+(``A^T @ Y``) and their composition ``block_gram_chain``
+(``A^T (A Q)``); the deflation engines' ``matvec`` (``A @ v``),
+``deflate_rmatvec`` (the fused Alg-4 reverse sweep) and ``gram``
+(``A^T A``), each with ``trans=True`` for the same function of ``A^T``.
+Each checks its operands, then:
 
 * for tensors on the CPU, run the plain PyTorch version
   (``kernels/ref.py``) — the caller asked for the CPU;
@@ -14,9 +17,14 @@ dtype): both operands are cast to it and the sums are fp32, so the
 output is always fp32.  A caller that sweeps many times casts ``A``
 once itself (``DenseOperator`` does), which makes the cast here a no-op.
 
+``matvec`` and ``deflate_rmatvec`` read fp32 (the deflation engines are
+the fp32 oracle); an operand of another dtype is cast first.  ``gram``
+reads fp32 or bf16, like ``block_matvec``.
+
 ``launches`` counts, per kernel, the launches these wrappers made on the
-card; the CPU path never touches it.  ``block_rmatvec`` counts one per
-call, although a split reduction is a second (summing) launch.
+card; the CPU path never touches it.  A wrapper counts one per call,
+whatever the layout (``trans``), although a split reduction adds a
+second (summing) launch on the card.
 
 The JAX package's TPU-only wrapper logic has no counterpart here: the
 kernels mask ragged edges themselves, so there is no lane padding of k,
@@ -29,10 +37,13 @@ import torch
 
 from repro_torch.core.precision import resolve_sweep_dtype
 from repro_torch.kernels import block_matvec as _bm
+from repro_torch.kernels import deflate_matvec as _dm
+from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import ref as _ref
 
 #: launches made on the card since the last ``reset_launches()``
-launches = {"block_matvec": 0, "block_rmatvec": 0, "block_gram_chain": 0}
+launches = {"block_matvec": 0, "block_rmatvec": 0, "block_gram_chain": 0,
+            "matvec": 0, "deflate_rmatvec": 0, "gram": 0}
 
 
 def reset_launches() -> None:
@@ -124,6 +135,112 @@ def block_gram_chain(A: torch.Tensor, X: torch.Tensor, *, dtype=None,
     return Z
 
 
+def _vector_operands(what: str, A, *vecs) -> None:
+    """Check the deflation sweeps' operands: tensors, 2-D ``A``, one
+    device, 'cpu' or 'cuda'."""
+    for x in (A, *vecs):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{what} takes torch tensors, got "
+                            f"{type(x).__name__}")
+        if x.device != A.device:
+            raise ValueError(f"{what}: operands on different devices "
+                             f"({A.device} and {x.device})")
+    if A.ndim != 2:
+        raise ValueError(f"{what} takes a 2-D A, got shape "
+                         f"{tuple(A.shape)}")
+    if A.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on 'cpu' (plain PyTorch) or 'cuda' "
+                         f"(the Hopper kernel), got {A.device}")
+
+
+def _fp32_on_card(A: torch.Tensor, *vecs):
+    """Operands as the fp32 kernels read them; a non-contiguous ``A`` is
+    refused rather than copied."""
+    if not A.is_contiguous():
+        raise ValueError("the CUDA kernels read A row-major: pass a "
+                         "contiguous A (for A^T use trans=True)")
+    return (A.to(torch.float32),
+            *(x.to(torch.float32).contiguous() for x in vecs))
+
+
+def matvec(A: torch.Tensor, v: torch.Tensor, *,
+           trans: bool = False) -> torch.Tensor:
+    """``A @ v``; A (m, n), v (n,) -> (m,) fp32.  ``trans=True``:
+    ``A^T @ v``, v (m,) -> (n,)."""
+    _vector_operands("matvec", A, v)
+    m, n = A.shape
+    if v.ndim != 1 or v.shape[0] != (m if trans else n):
+        raise ValueError(f"matvec: A {tuple(A.shape)} (trans={trans}) and "
+                         f"v {tuple(v.shape)} do not conform")
+    if A.device.type == "cpu":
+        return _ref.matvec_ref(A, v, trans)
+    if A.numel() == 0:
+        return torch.zeros((n if trans else m,), dtype=torch.float32,
+                           device=A.device)
+    A, v = _fp32_on_card(A, v)
+    y = _dm.matvec_cuda(A, v, trans)
+    launches["matvec"] += 1
+    return y
+
+
+def deflate_rmatvec(A: torch.Tensor, U: torch.Tensor, Xv: torch.Tensor,
+                    SVtv: torch.Tensor, *, trans: bool = False):
+    """The fused Alg-4 reverse sweep, one read of ``A``:
+    ``(A^T (Xv - U @ SVtv), U^T Xv)`` for A (m, n), U (m, k), Xv (m,),
+    SVtv (k,) -> ((n,), (k,)) fp32.  ``trans=True`` is the same function
+    of ``A^T``: U (n, k), Xv (n,) -> ``(A (Xv - U @ SVtv), U^T Xv)``,
+    ((m,), (k,))."""
+    _vector_operands("deflate_rmatvec", A, U, Xv, SVtv)
+    m, n = A.shape
+    side = n if trans else m
+    if (U.ndim != 2 or U.shape[0] != side or Xv.shape != (side,)
+            or SVtv.shape != (U.shape[1],)):
+        raise ValueError(
+            f"deflate_rmatvec: A {tuple(A.shape)} (trans={trans}), U "
+            f"{tuple(U.shape)}, Xv {tuple(Xv.shape)}, SVtv "
+            f"{tuple(SVtv.shape)} do not conform")
+    if A.device.type == "cpu":
+        return _ref.deflate_rmatvec_ref(A, U, Xv, SVtv, trans)
+    k = U.shape[1]
+    if k > _dm.K_MAX:
+        raise ValueError(f"deflate_rmatvec on the card takes k <= "
+                         f"{_dm.K_MAX} columns of U, got {k}")
+    if A.numel() == 0:
+        return (torch.zeros((m if trans else n,), dtype=torch.float32,
+                            device=A.device),
+                _ref.deflate_rmatvec_ref(A, U, Xv, SVtv, trans)[1])
+    A, U, Xv, SVtv = _fp32_on_card(A, U, Xv, SVtv)
+    out = _dm.deflate_rmatvec_cuda(A, U, Xv, SVtv, trans)
+    launches["deflate_rmatvec"] += 1
+    return out
+
+
+def gram(A: torch.Tensor, *, symmetric: bool = True,
+         trans: bool = False) -> torch.Tensor:
+    """``A^T A`` (``A A^T`` with ``trans``), fp32 out, from fp32 or bf16
+    ``A``.  ``symmetric=True`` is the reduced-task schedule (upper-
+    triangle tiles, mirrored); ``False`` computes every tile.  Both give
+    the full product; the plain version has no tiles and ignores it."""
+    _vector_operands("gram", A)
+    if A.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gram reads float32 or bfloat16, got {A.dtype}")
+    if A.device.type == "cpu":
+        return _ref.gram_ref(A, trans)
+    m, n = A.shape
+    N = m if trans else n
+    if A.numel() == 0:
+        return torch.zeros((N, N), dtype=torch.float32, device=A.device)
+    if not A.is_contiguous():
+        raise ValueError("the CUDA gram kernel reads A row-major: pass a "
+                         "contiguous A (for A A^T use trans=True)")
+    B = _gram.gram_cuda(A, symmetric=symmetric, trans=trans)
+    launches["gram"] += 1
+    return B
+
+
 block_matvec_ref = _ref.block_matvec_ref
 block_rmatvec_ref = _ref.block_rmatvec_ref
 block_gram_chain_ref = _ref.block_gram_chain_ref
+matvec_ref = _ref.matvec_ref
+deflate_rmatvec_ref = _ref.deflate_rmatvec_ref
+gram_ref = _ref.gram_ref

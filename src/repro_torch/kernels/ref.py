@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the block-sweep kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 The counterparts of the JAX package's ``repro/kernels/ref.py`` oracles
 for the kernels this port has.  They are what ``kernels/ops.py`` runs
@@ -11,6 +11,10 @@ of two bf16 tensors would return bf16, so the bf16-rounded operands are
 upcast to fp32 before the product (exact: a product of two bf16 values
 fits in fp32), which is the JAX package's
 ``preferred_element_type=float32``.
+
+``trans=True`` on the deflation kernels' versions applies the same
+function to ``A^T`` without forming it (the wide inputs' left-side
+power step), as the kernels' ``trans`` forms do.
 """
 from __future__ import annotations
 
@@ -47,3 +51,28 @@ def block_gram_chain_ref(A: torch.Tensor, Q: torch.Tensor, dtype=None,
     if trans:
         return block_matvec_ref(A, block_rmatvec_ref(A, Q, dtype), dtype)
     return block_rmatvec_ref(A, block_matvec_ref(A, Q, dtype), dtype)
+
+
+def matvec_ref(A: torch.Tensor, v: torch.Tensor,
+               trans: bool = False) -> torch.Tensor:
+    """``y = A @ v`` (``A^T @ v`` with ``trans``) in fp32."""
+    A32 = A.to(torch.float32)
+    return (A32.mT if trans else A32) @ v.to(torch.float32)
+
+
+def deflate_rmatvec_ref(A: torch.Tensor, U: torch.Tensor, Xv: torch.Tensor,
+                        SVtv: torch.Tensor, trans: bool = False):
+    """Fused Alg-4 reverse sweep: ``t13 = A^T (Xv - U @ SVtv)`` and
+    ``utxv = U^T Xv``; with ``trans`` the same for ``A^T``, i.e.
+    ``A (x - V @ c)`` and ``V^T x`` with ``V (n, k)``, ``x (n,)``."""
+    A32 = A.to(torch.float32)
+    U32 = U.to(torch.float32)
+    Xv32 = Xv.to(torch.float32)
+    corr = Xv32 - U32 @ SVtv.to(torch.float32)
+    return (A32 if trans else A32.mT) @ corr, U32.mT @ Xv32
+
+
+def gram_ref(A: torch.Tensor, trans: bool = False) -> torch.Tensor:
+    """``B = A^T A`` (``A A^T`` with ``trans``) in fp32."""
+    A32 = A.to(torch.float32)
+    return A32 @ A32.mT if trans else A32.mT @ A32

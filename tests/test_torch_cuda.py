@@ -9,7 +9,8 @@ also runs on a GPU machine without JAX:
 Limits: the same (bf16-rounded) operands summed in fp32 in another
 order, 1e-5 relative Frobenius; the bf16 chain, whose fp32 intermediate
 is rounded to bf16 where kernel and plain version can land on
-neighbouring bf16 values, 1e-3.
+neighbouring bf16 values, 1e-3.  The deflation kernels (``matvec``,
+``deflate_rmatvec``, ``gram``) at ragged shapes: 1e-5.
 """
 import pytest
 import torch
@@ -52,8 +53,8 @@ def test_kernels_match_plain_versions(card, m, n, k, dtype):
         torch.cuda.synchronize()
         assert got.dtype == torch.float32 and got.shape == want.shape
         assert _rel(got, want) <= tol
-    assert ops.launches == {"block_matvec": 3, "block_rmatvec": 3,
-                            "block_gram_chain": 2}
+    assert {n: c for n, c in ops.launches.items() if c} == {
+        "block_matvec": 3, "block_rmatvec": 3, "block_gram_chain": 2}
 
 
 def test_kernels_are_deterministic(card):
@@ -67,3 +68,62 @@ def test_non_contiguous_operand_is_refused(card):
     A = torch.randn((64, 32), device=card)
     with pytest.raises(ValueError):
         ops.block_matvec(A.mT, torch.randn((64, 3), device=card))
+
+
+@pytest.mark.parametrize("m,n", [(1000, 300), (4097, 515), (257, 4100),
+                                 (40000, 96), (33, 1)])
+def test_deflation_kernels_match_plain_versions(card, m, n):
+    g = torch.Generator(device=card).manual_seed(m + n)
+    A = torch.randn((m, n), generator=g, device=card)
+    k = 5
+    v, u = torch.randn(n, generator=g, device=card), \
+        torch.randn(m, generator=g, device=card)
+    U, V = torch.randn((m, k), generator=g, device=card), \
+        torch.randn((n, k), generator=g, device=card)
+    c = torch.randn(k, generator=g, device=card)
+    ops.reset_launches()
+    pairs = [(ops.matvec(A, v), ref.matvec_ref(A, v)),
+             (ops.matvec(A, u, trans=True), ref.matvec_ref(A, u, True))]
+    for got, want in zip(ops.deflate_rmatvec(A, U, u, c),
+                         ref.deflate_rmatvec_ref(A, U, u, c)):
+        pairs.append((got, want))
+    for got, want in zip(ops.deflate_rmatvec(A, V, v, c, trans=True),
+                         ref.deflate_rmatvec_ref(A, V, v, c, True)):
+        pairs.append((got, want))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert _rel(got, want) <= 1e-5
+    assert ops.launches["matvec"] == 2 and ops.launches["deflate_rmatvec"] == 2
+
+
+@pytest.mark.parametrize("m,n", [(1000, 300), (300, 1000), (4097, 130),
+                                 (129, 129), (5, 3)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gram_kernel_matches_plain_version(card, m, n, dtype):
+    g = torch.Generator(device=card).manual_seed(m * n)
+    A = torch.randn((m, n), generator=g, device=card).to(getattr(torch, dtype))
+    ops.reset_launches()
+    for trans in (False, True):
+        want = ref.gram_ref(A, trans)
+        for symmetric in (True, False):
+            got = ops.gram(A, symmetric=symmetric, trans=trans)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float32 and got.shape == want.shape
+            assert _rel(got, want) <= 1e-5
+            assert torch.equal(got, got.mT)        # a tile and its mirror
+    assert ops.launches["gram"] == 4
+
+
+def test_deflation_kernels_are_deterministic(card):
+    g = torch.Generator(device=card).manual_seed(1)
+    A = torch.randn((40000, 700), generator=g, device=card)
+    U = torch.randn((40000, 6), generator=g, device=card)
+    x = torch.randn(40000, generator=g, device=card)
+    c = torch.randn(6, generator=g, device=card)
+    for a, b in zip(ops.deflate_rmatvec(A, U, x, c),
+                    ops.deflate_rmatvec(A, U, x, c)):
+        assert torch.equal(a, b)
+    assert torch.equal(ops.matvec(A, x, trans=True),
+                       ops.matvec(A, x, trans=True))
+    assert torch.equal(ops.gram(A[:3000]), ops.gram(A[:3000]))

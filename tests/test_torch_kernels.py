@@ -70,8 +70,9 @@ def test_plain_versions_match_jax_kernels(name, dtype, m, n, k):
     rtol, atol = TOLS[(dtype, name)]
     for want in (kernel, oracle):
         np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=atol)
-    assert ops.launches == {"block_matvec": 0, "block_rmatvec": 0,
-                            "block_gram_chain": 0}
+    assert set(ops.launches) >= {"block_matvec", "block_rmatvec",
+                                 "block_gram_chain"}
+    assert not any(ops.launches.values())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

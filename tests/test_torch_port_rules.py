@@ -55,7 +55,9 @@ def test_port_imports_with_jax_unavailable():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
             "import repro_torch, repro_torch.kernels.build, "
-            "repro_torch.kernels.block_matvec; print('ok')")
+            "repro_torch.kernels.block_matvec, "
+            "repro_torch.kernels.deflate_matvec, repro_torch.kernels.gram, "
+            "repro_torch.core.partition; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120,
                          env={"PYTHONPATH": str(ROOT / "src"),
@@ -93,5 +95,6 @@ def test_kernel_build_directory_is_ignored_by_git():
     ignored = (ROOT / ".gitignore").read_text().split()
     rel = build.BUILD_DIR.relative_to(ROOT).as_posix() + "/"
     assert rel in ignored
-    assert build.CSRC.joinpath("block_matvec.cu").exists()
+    for name in ("block_matvec", "deflate_matvec", "gram"):
+        assert build.CSRC.joinpath(f"{name}.cu").exists()
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

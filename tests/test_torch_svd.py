@@ -249,8 +249,6 @@ def test_solver_state_tree_is_the_jax_tree():
     lambda A: repro_torch.svd(A.numpy(), K, device="cpu"),
     lambda A: repro_torch.svd("A.npy", K, device="cpu"),
     lambda A: repro_torch.svd(A, K, device="cpu", mesh=object()),
-    lambda A: repro_torch.svd(A, K, device="cpu", method="gram"),
-    lambda A: repro_torch.svd(A, K, device="cpu", method="gramfree"),
     lambda A: repro_torch.svd(A, K, device="cpu", checkpoint_dir="ckpt"),
 ])
 def test_unported_inputs_raise_not_implemented(call):

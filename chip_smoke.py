@@ -37,6 +37,41 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernels).
 6. determinism: two block solves and two gram-free solves of a
    16384 x 4096 matrix, each pair bitwise equal.
+7. the LM serving path: the ``local_attention`` kernel (causal
+   sliding-window attention, GQA, soft-cap) against its plain version at
+   ragged shapes (fp32 and bf16, every head dim of its template) and at
+   the path's shapes (gemma2-9b prefill: B = 2, H = 16, Hkv = 8,
+   S = 8192, D = 256, bf16, soft-cap 50, window 4096 and window S; the
+   plain version two heads at a time).  Each output element is held to
+   its own limit (``attn_share``): fp32 within 1e-4, the JAX package's
+   limit for its kernel; bf16 within the kernel's one rounding of its
+   fp32 output to bf16, 2^-8 |o| of that element, plus 1e-5 for the
+   fp32 sums' order.  At the path's shapes the same check must reject
+   the kernel run with its window one key tile (64) short.  Then
+   gemma2-9b at full width (42 layers, bf16, weights from seed 0)
+   through ``repro_torch.launch.serve``'s functions: a prefill of 2
+   prompts of 8192 tokens (twice the window, so the local mask and the
+   local ring buffer both bite) with 42 kernel launches, checked, and
+   32 greedy decode steps with none; prefill seconds, decode tokens/s,
+   peak memory.  Consistency: the decode step's logits at position 8192
+   against the last logits of a prefill over the 8193 tokens, relative
+   Frobenius error at most ``TOL_CONSISTENCY``.  The two paths cannot
+   agree bit for bit: the prefill runs the kernel on a ragged S with
+   fp32 probabilities, the decode the plain cache path with bf16
+   probabilities, and cuBLAS rounds the bf16 products of 8193 rows and
+   of one row in other orders, compounded over 42 layers.  The limit,
+   5e-2, is set from readings of this script, between the sound
+   decode's (2.07e-2) and decodes with a fault planted in a copy of
+   the cache (``planted_decode_faults``): the position off by one reads
+   1.67e-1 and an empty cache 1.41, and these (``FAULTS_SEEN``) must
+   read above the limit or the run fails.  One skipped cache slot reads
+   2.34e-2, inside the bf16 noise at random weights: this check cannot
+   see it (the kernel check and the CPU decode parity tests can).
+   Determinism: two prefills give bitwise-equal logits.  Times of the
+   kernel per layer kind beside its bound, its plain version and
+   ``scaled_dot_product_attention`` with a band mask (a yardstick only,
+   timed without the soft-cap on both sides: no single PyTorch call
+   soft-caps).
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches in the
 solve of its path, and its times), the ``nvidia-smi`` name and power
@@ -60,6 +95,15 @@ RERUN = (16384, 4096)
 K_GRAMFREE, K_GRAM, K_WIDE = 16, 8, 4  # ranks of the deflation solves
 N_GRAM = 8192                          # columns of the gram path's A
 TOL_DEFLATION = 2e-3                   # sigma rtol, tests/test_tsvd.py:20
+LM_ARCH, LM_SEED = "gemma2-9b", 0
+LM_BATCH, LM_PROMPT, LM_TOKENS = 2, 8192, 32   # prompts, tokens, decode steps
+TOL_ATTN_FP32 = 1e-4                   # tests/test_kernels.py:208
+ATOL_ATTN_BF16 = 1e-5                  # 10x the fp32 kernel-vs-plain errors
+# decode vs prefill, from readings on an H100: sound 2.07e-2; planted
+# faults: position off by one 1.67e-1, cache empty 1.41, one skipped slot
+# 2.34e-2 (within noise at random weights, so not claimed)
+TOL_CONSISTENCY = 5e-2
+FAULTS_SEEN = ("position off by one", "cache empty")
 SLAB = 16384                           # rows per chunk of the plain versions
 # Limits of kernel vs plain: the same (bf16-rounded) operands summed in
 # fp32 in another order.  The bf16 chain rounds its fp32 intermediate to
@@ -86,13 +130,15 @@ REPLACES = {"block_matvec": f"{TPU_KERNEL}:81",
             "block_gram_chain": f"{TPU_KERNEL}:146",
             "matvec": "src/repro/kernels/deflate_matvec.py:55",
             "deflate_rmatvec": "src/repro/kernels/deflate_matvec.py:127",
-            "gram": "src/repro/kernels/gram.py:84"}
+            "gram": "src/repro/kernels/gram.py:84",
+            "local_attention": "src/repro/kernels/local_attn.py:104"}
 SOURCES = {"block_matvec": "src/repro_torch/csrc/block_matvec.cu",
            "block_rmatvec": "src/repro_torch/csrc/block_matvec.cu",
            "block_gram_chain": "src/repro_torch/csrc/block_matvec.cu",
            "matvec": "src/repro_torch/csrc/deflate_matvec.cu",
            "deflate_rmatvec": "src/repro_torch/csrc/deflate_matvec.cu",
-           "gram": "src/repro_torch/csrc/gram.cu"}
+           "gram": "src/repro_torch/csrc/gram.cu",
+           "local_attention": "src/repro_torch/csrc/local_attn.cu"}
 LIBRARY = {"matvec": "torch.mv(A, v)",
            "deflate_rmatvec": "torch.mv(A.mT, Xv - U @ SVtv) + U.mT @ Xv "
                               "(two calls)",
@@ -329,6 +375,329 @@ def deflation_solve(torch, repro_torch, ops, X, k, method, label, s,
               f"the per-step sync, the small products and host work")
     return counts
 
+# ---------------------------------------------------------------------------
+# phase 7: the LM serving path (gemma2-9b) and its local_attention kernel
+# ---------------------------------------------------------------------------
+
+def attn_share(got, want, dtype: str) -> float:
+    """The worst |kernel - plain| of ``local_attention`` as a share of its
+    limit, element by element: fp32 1e-4 (the JAX package's,
+    ``tests/test_kernels.py:208``); bf16 the kernel's one rounding of
+    its fp32 output to bf16, at most half a bf16 step, 2^-8 |o|, of
+    that element, plus ``ATOL_ATTN_BF16`` for fp32 sums in another
+    order.  Each element is held to its own size: most rows average
+    thousands of keys and are small, so a limit from the largest output
+    would pass a wrong key tile there."""
+    err = (got.float() - want).abs()
+    if dtype == "float32":
+        return float(err.max()) / TOL_ATTN_FP32
+    return float((err / (2.0 ** -8 * want.abs() + ATOL_ATTN_BF16)).max())
+
+
+def attn_inputs(torch, g, dev, B, H, Hkv, S, D, dtype):
+    """q (B, H, S, D), k, v (B, Hkv, S, D): views of (B, S, H, D) memory,
+    as the model passes its projections."""
+    return [torch.randn((B, S, h, D), generator=g, device=dev)
+            .to(dtype).transpose(1, 2) for h in (H, Hkv, Hkv)]
+
+
+def plain_attention(ref, q, k, v, window, softcap, each=None):
+    """The plain version two query heads (one K/V head group slice) at a
+    time, so its (S, S) scores stay a few GB; ``each(h0, out)`` sees every
+    chunk."""
+    H, Hkv = q.shape[1], k.shape[1]
+    group = H // Hkv
+    step = max(2, group)
+    for h0 in range(0, H, step):
+        out = ref.local_attention_ref(
+            q[:, h0:h0 + step], k[:, h0 // group:(h0 + step - 1) // group + 1],
+            v[:, h0 // group:(h0 + step - 1) // group + 1], window=window,
+            softcap=softcap)
+        if each is not None:
+            each(h0, out)
+        del out
+
+
+def attn_readings(torch, ref, outs, q, k, v, window, softcap) -> tuple:
+    """Each output of ``outs`` against the plain version, chunked: (max
+    |out - plain| of the first, and each one's worst share of the
+    bf16 per-element limit)."""
+    mae, shares = 0.0, [0.0] * len(outs)
+
+    def each(h0, want):
+        nonlocal mae
+        for i, out in enumerate(outs):
+            got = out[:, h0:h0 + want.shape[1]]
+            if i == 0:
+                mae = max(mae, float((got.float() - want).abs().max()))
+            shares[i] = max(shares[i], attn_share(got, want, "bfloat16"))
+    plain_attention(ref, q, k, v, window, softcap, each)
+    return mae, shares
+
+
+def attn_bound(B, H, Hkv, S, D, window) -> tuple:
+    """Least time on an H100 SXM: 4 D flop per live (query, key) pair over
+    the bf16 tensor-core peak, against q, k, v read once and o written
+    once (bf16) over the memory rate."""
+    w = min(window, S)
+    pairs = B * H * (w * (w + 1) // 2 + (S - w) * w)
+    nbytes = 2 * B * S * D * (2 * H + 2 * Hkv)
+    return pick(nbytes / PEAK_BYTES * 1e3,
+                pairs * 4 * D / PEAK_OPS["bfloat16"] * 1e3)
+
+
+def attention_ragged(torch, ops, ref, la, g, dev) -> float:
+    """``local_attention`` against its plain version at ragged shapes,
+    fp32 and bf16, every head dim of the template; the worst error as a
+    share of its limit."""
+    worst = 0.0
+    for D in la.HEAD_DIMS:
+        for (B, H, Hkv, S, window, softcap) in [(2, 4, 2, 333, 64, 50.0),
+                                                (1, 6, 3, 130, 200, None),
+                                                (3, 2, 1, 65, 1, 30.0)]:
+            for sd in ("float32", "bfloat16"):
+                q, k, v = attn_inputs(torch, g, dev, B, H, Hkv, S, D,
+                                      getattr(torch, sd))
+                got = ops.local_attention(q, k, v, window=window,
+                                          softcap=softcap)
+                want = ref.local_attention_ref(q, k, v, window=window,
+                                               softcap=softcap)
+                torch.cuda.synchronize()
+                e = float((got.float() - want).abs().max())
+                share = attn_share(got, want, sd)
+                label = (f"local_attention {sd} B={B} H={H} Hkv={Hkv} S={S} "
+                         f"D={D} window={window} softcap={softcap}")
+                print(f"  {label}: max abs err {e:.2e}, {share:.2f} of the "
+                      f"per-element limit")
+                if not (got.dtype == q.dtype and got.shape == q.shape
+                        and bool(torch.isfinite(got).all()) and share <= 1):
+                    fail(f"{label}: {share} of the per-element limit")
+                worst = max(worst, share)
+    return worst
+
+
+def attention_path_table(torch, ops, ref, la, g, dev, cfg, S) -> dict:
+    """The kernel at the path's shapes, one row per layer kind: checked
+    against the plain version, then timed beside its bound, the plain
+    version and ``scaled_dot_product_attention`` (band mask; both
+    without the soft-cap, since no single PyTorch call soft-caps)."""
+    import torch.nn.functional as F
+    B, H, Hkv, D = LM_BATCH, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.resolved_head_dim
+    q, k, v = attn_inputs(torch, g, dev, B, H, Hkv, S, D, torch.bfloat16)
+    rows = {}
+    for kind, window in (("local", cfg.window), ("attn", S)):
+        cap = cfg.attn_softcap
+        got = ops.local_attention(q, k, v, window=window, softcap=cap)
+        # a planted fault the limit must reject: one key tile short
+        short_w = max(1, window - la.BK)
+        short = ops.local_attention(q, k, v, window=short_w, softcap=cap)
+        torch.cuda.synchronize()
+        mae, (share, fault) = attn_readings(torch, ref, [got, short], q, k, v,
+                                            window, cap)
+        label = (f"local_attention bf16 {kind} B={B} H={H} Hkv={Hkv} S={S} "
+                 f"D={D} window={window} softcap={cap}")
+        if not (bool(torch.isfinite(got).all()) and share <= 1):
+            fail(f"{label}: {share} of the per-element limit")
+        if fault <= 1:
+            fail(f"{label}: window {short_w} reads {fault} of the per-element "
+                 f"limit; the check cannot see a missing key tile")
+        del got, short
+        pos = torch.arange(S, device=dev)
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                                 > pos[:, None] - window)
+        kr = k.repeat_interleave(H // Hkv, dim=1).contiguous()
+        vr = v.repeat_interleave(H // Hkv, dim=1).contiguous()
+        qc = q.contiguous()
+        row = {"max_abs_err": mae, "share_of_limit": share,
+               "tile_short_share": fault,
+               "ms": time_ms(torch, lambda: ops.local_attention(
+                   q, k, v, window=window, softcap=cap), 3),
+               "plain_ms": time_ms(torch, lambda: plain_attention(
+                   ref, q, k, v, window, cap), 1),
+               "nocap_ms": time_ms(torch, lambda: ops.local_attention(
+                   q, k, v, window=window, softcap=None), 3),
+               "library_ms": time_ms(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       qc, kr, vr, attn_mask=band), 3)}
+        row["bound_ms"], row["bound_by"] = attn_bound(B, H, Hkv, S, D, window)
+        rows[kind] = row
+        del kr, vr, qc, band
+        print(f"  {label}: max abs err {mae:.2e}, {share:.2f} of the "
+              f"per-element limit (window {short_w}, a key tile short: "
+              f"{fault:.1f} of it), kernel "
+              f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
+              f"{row['bound_ms']:.3f} ms ({row['bound_by']}); without the "
+              f"soft-cap: kernel {row['nocap_ms']:.3f} ms, "
+              f"scaled_dot_product_attention {row['library_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def profile_window(torch, fn) -> tuple:
+    """``fn()`` under ``torch.profiler``: (its result, wall seconds under
+    the profiler, device-busy seconds, device activities, busy seconds
+    by activity name).  Busy time is the sum of the device activities'
+    spans (one stream, so they do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: dict = {}
+    n = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e6
+    return out, wall, sum(by_name.values()), n, by_name
+
+
+def planted_decode_faults(torch, T, model, cache, nxt, S) -> dict:
+    """The logits of the decode at position ``S`` with a fault planted in
+    a copy of ``cache``: the readings that set ``TOL_CONSISTENCY``."""
+    out = {}
+    for name in ("position off by one", "the last prompt position's slot "
+                 "skipped", "local window one key short", "cache empty"):
+        bad = [{n: t.clone() for n, t in c.items()} for c in cache]
+        pos = S
+        for c, kind in zip(bad, model.cfg.blocks):
+            Lc = c["pos"].shape[0]
+            if name == "position off by one":
+                pos = S + 1
+            elif name.startswith("the last"):
+                c["pos"][(S - 1) % Lc] = -1
+            elif name.startswith("local") and kind == "local":
+                c["pos"][(S - model.cfg.window + 1) % Lc] = -1
+            elif name == "cache empty":
+                c["pos"].fill_(-1)
+        out[name] = T.decode_step(model, bad, nxt, pos)[0]
+        del bad
+    return out
+
+
+def lm_serving(torch, ops, ref, la, g, dev) -> tuple:
+    """Phase 7; returns (the kernel's JSON row, its launches per prefill)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    worst = attention_ragged(torch, ops, ref, la, g, dev)
+    print(f"local_attention at ragged shapes: all within limits (worst "
+          f"{worst:.2f} of limit)")
+    cfg = get_config(LM_ARCH)
+    S, steps = LM_PROMPT, LM_TOKENS
+    rows = attention_path_table(torch, ops, ref, la, g, dev, cfg, S)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = serve.build(LM_ARCH, device=dev, seed=LM_SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"{cfg.name}: {cfg.num_layers} layers ({cfg.blocks.count('local')} "
+          f"local, window {cfg.window}), {n_params / 1e9:.3f} B parameters "
+          f"({w_bytes / 1e9:.2f} GB {cfg.dtype}) drawn on the card from seed "
+          f"{LM_SEED} in {time.perf_counter() - t0:.1f} s")
+    prompt = serve.make_prompt(cfg, LM_BATCH, S, seed=LM_SEED, device=dev)
+
+    ops.reset_launches()
+    logits, cache, t_pre = serve.serve_prefill(model, prompt, S + steps)
+    pre_counts = {n: c for n, c in ops.launches.items() if c}
+    ops.reset_launches()
+    tokens, last, t_dec = serve.serve_decode(model, cache, logits, S, steps)
+    dec_counts = {n: c for n, c in ops.launches.items() if c}
+    peak = torch.cuda.max_memory_allocated()
+    cache_bytes = sum(c[n].numel() * c[n].element_size() for c in cache
+                      for n in ("k", "v"))
+    print(f"serve {cfg.name} batch {LM_BATCH}: prefill {S} tokens "
+          f"{t_pre:.3f} s ({LM_BATCH * S / t_pre:.0f} tokens/s), "
+          f"local_attention launches {pre_counts}; {steps} greedy decode "
+          f"steps {t_dec:.3f} s ({steps * LM_BATCH / t_dec:.1f} tokens/s, "
+          f"{1e3 * t_dec / steps:.2f} ms a step; weight-read bound "
+          f"{w_bytes / PEAK_BYTES * 1e3:.2f} ms), launches {dec_counts}; KV "
+          f"caches {cache_bytes / 1e9:.2f} GB; peak device memory "
+          f"{peak / 2**30:.1f} GiB")
+    print(f"  seq0: {tokens[0, :16].tolist()}")
+    if pre_counts != {"local_attention": cfg.num_layers}:
+        fail(f"prefill launches {pre_counts}, want one local_attention a "
+             f"layer ({cfg.num_layers})")
+    if dec_counts:
+        fail(f"decode launched kernels {dec_counts}; it runs the plain "
+             f"cache path")
+    if not (tokens.shape == (LM_BATCH, steps)
+            and int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab_size
+            and bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(last).all())
+            and logits.shape == (LM_BATCH, cfg.vocab_size)):
+        fail("serve: non-finite logits or tokens out of range")
+    del cache, last
+
+    # determinism, then decode at position S against a prefill over S + 1
+    again, cache, t_again = serve.serve_prefill(model, prompt, S + 3)
+    same = torch.equal(again, logits)
+    print(f"rerun prefill: {t_again:.3f} s, logits bitwise equal: {same}")
+    if not same:
+        fail("two prefills of the same prompt differ")
+    nxt = torch.argmax(again, dim=-1)[:, None]
+    faulty = planted_decode_faults(torch, T, model, cache, nxt, S)
+    dec, _ = T.decode_step(model, cache, nxt, S)
+    # where the device time goes: two more decode steps, then the prefill
+    # over S + 1 tokens that the decode is checked against
+    _, w2, busy2, n2, _ = profile_window(torch, lambda: [
+        T.decode_step(model, cache, nxt, S + i) for i in (1, 2)])
+    del cache
+    full, w1, busy1, n1, names = profile_window(
+        torch, lambda: T.prefill(model, torch.cat([prompt, nxt], dim=1),
+                                 None)[0])
+    if n1 and n2:
+        attn = sum(t for name, t in names.items() if "local_attn" in name)
+        step = t_dec / steps
+        print(f"profile of the prefill over {S + 1} tokens: {w1:.3f} s under "
+              f"the profiler, device busy {busy1:.3f} s ({100 * busy1 / w1:.1f}"
+              f" %), {n1} device activities; local_attention kernels "
+              f"{attn:.3f} s ({100 * attn / busy1:.1f} % of busy); the rest "
+              f"by time: " + ", ".join(
+                  f"{name[:40]} {t:.3f} s" for name, t in sorted(
+                      names.items(), key=lambda x: -x[1])[1:5]))
+        print(f"profile of two decode steps: device busy {1e3 * busy2 / 2:.2f}"
+              f" ms a step against {1e3 * step:.2f} ms a step unprofiled "
+              f"(device idle share {100 * (1 - busy2 / 2 / step):.1f} %), "
+              f"{n2 / 2:.0f} device activities a step")
+    else:
+        print("profiles: not measured (the profiler saw no device activity)")
+    e = rel_err(torch, dec, full)
+    print(f"decode at position {S} vs prefill over {S + 1} tokens: rel err "
+          f"{e:.2e} (limit {TOL_CONSISTENCY:.0e}), max abs "
+          f"{float((dec - full).abs().max()):.3e} of max |logit| "
+          f"{float(full.abs().max()):.2f}")
+    readings = {name: rel_err(torch, f, full) for name, f in faulty.items()}
+    for name, r in readings.items():
+        print(f"  planted decode fault, {name}: rel err {r:.2e}")
+    if not (bool(torch.isfinite(dec).all()) and e <= TOL_CONSISTENCY):
+        fail(f"decode vs prefill logits: rel err {e} > {TOL_CONSISTENCY}")
+    unseen = [n for n in FAULTS_SEEN if readings[n] <= TOL_CONSISTENCY]
+    if unseen:
+        fail(f"planted decode faults {unseen} read within the limit "
+             f"{TOL_CONSISTENCY}: the check cannot see them")
+    del model, full, dec, faulty
+    torch.cuda.empty_cache()
+
+    n_local = cfg.blocks.count("local")
+    n_global = cfg.num_layers - n_local
+    mean = lambda key: (n_local * rows["local"][key]
+                        + n_global * rows["attn"][key]) / cfg.num_layers
+    row = {key: mean(key) for key in ("ms", "plain_ms", "bound_ms",
+                                      "library_ms", "nocap_ms")}
+    row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    row["bound_by"] = rows["local"]["bound_by"]
+    print(json.dumps({"local_attention_by_layer_kind": rows}))
+    return row, pre_counts["local_attention"]
+
 
 def main() -> int:
     import torch
@@ -342,7 +711,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, src)
     import repro_torch
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import build, local_attn, ops, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -560,6 +929,13 @@ def main() -> int:
               f"U, S, V bitwise equal: {same}")
         if not same:
             fail(f"two solves with the same seed differ ({kw})")
+
+    del Ar
+    torch.cuda.empty_cache()
+
+    # -- 7. the LM serving path ------------------------------------------
+    dtable["local_attention"], path_counts["local_attention"] = lm_serving(
+        torch, ops, ref, local_attn, g, dev)
 
     rows = {name: table[(name, "float32")]
             for name in ("block_matvec", "block_rmatvec", "block_gram_chain")}

@@ -8,13 +8,21 @@ A-sized sweeps run on the ``block_matvec``/``block_rmatvec`` kernels of
 ``csrc/block_matvec.cu``, and the rank-one deflation engines
 (``method="gramfree"`` on the ``matvec``/``deflate_rmatvec`` kernels of
 ``csrc/deflate_matvec.cu``, ``method="gram"`` on the ``gram`` kernel of
-``csrc/gram.cu``).
+``csrc/gram.cu``).  On the LM side, serving (``repro_torch.models``,
+``repro_torch.configs``, ``python -m repro_torch.launch.serve``): a
+batched prefill whose attention runs on the ``local_attention`` kernel
+of ``csrc/local_attn.cu`` (causal sliding-window attention with GQA and
+logit soft-capping), then greedy or sampled decode, for the text
+architectures built of attention blocks and a dense MLP (gemma2-9b
+among them).
 
     import torch, repro_torch
     res = repro_torch.svd(A, 32)                      # A on the card
     res = repro_torch.svd(A, 16, method="gramfree")   # Alg 1 around Alg 4
     res = repro_torch.svd(A, 8, method="gram")        # Alg 1 around Alg 2/3
     res = repro_torch.svd(A, 8, device="cpu")         # plain PyTorch, CPU
+
+    python -m repro_torch.launch.serve --arch gemma2-9b   # LM serving
 
 Entry points run on the card unless the caller asks for the CPU: with
 no ``device`` and no visible CUDA device they raise.

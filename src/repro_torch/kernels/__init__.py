@@ -10,8 +10,12 @@
                          ``A^T (Xv - U c)``, ``U^T Xv`` (same source)
 * ``gram``             — ``A^T A``, reduced-task schedule (CUDA C++,
                          ``csrc/gram.cu``)
+* ``local_attention``  — causal sliding-window attention with GQA and
+                         logit soft-capping, the LM prefill's attention
+                         (CUDA C++, ``csrc/local_attn.cu``)
 
-The last three take ``trans=True`` for the same function of ``A^T``.
+``matvec``, ``deflate_rmatvec`` and ``gram`` take ``trans=True`` for the
+same function of ``A^T``.
 
 Each kernel has a plain PyTorch version in ``ref.py``; ``ops.py`` holds
 the public wrappers (CPU tensors -> plain version, CUDA tensors -> the
@@ -31,6 +35,8 @@ from repro_torch.kernels.ops import (  # noqa: F401
     matvec_ref,
     deflate_rmatvec_ref,
     gram_ref,
+    local_attention,
+    local_attention_ref,
     launches,
     reset_launches,
 )

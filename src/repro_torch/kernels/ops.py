@@ -4,13 +4,15 @@ The block sweeps ``block_matvec`` (``A @ Q``), ``block_rmatvec``
 (``A^T @ Y``) and their composition ``block_gram_chain``
 (``A^T (A Q)``); the deflation engines' ``matvec`` (``A @ v``),
 ``deflate_rmatvec`` (the fused Alg-4 reverse sweep) and ``gram``
-(``A^T A``), each with ``trans=True`` for the same function of ``A^T``.
-Each checks its operands, then:
+(``A^T A``), each with ``trans=True`` for the same function of ``A^T``;
+and the LM prefill's ``local_attention`` (causal sliding-window
+attention with GQA and soft-capping).  Each checks its operands, then:
 
 * for tensors on the CPU, run the plain PyTorch version
   (``kernels/ref.py``) — the caller asked for the CPU;
-* for CUDA tensors, launch the Hopper kernel (``kernels/block_matvec.py``)
-  or raise.  There is no fallback from the card to anything else.
+* for CUDA tensors, launch the Hopper kernel (``kernels/block_matvec.py``,
+  ``deflate_matvec.py``, ``gram.py``, ``local_attn.py``) or raise.
+  There is no fallback from the card to anything else.
 
 ``dtype`` is the sweep dtype of the precision policy (``None`` = A's own
 dtype): both operands are cast to it and the sums are fp32, so the
@@ -19,7 +21,8 @@ once itself (``DenseOperator`` does), which makes the cast here a no-op.
 
 ``matvec`` and ``deflate_rmatvec`` read fp32 (the deflation engines are
 the fp32 oracle); an operand of another dtype is cast first.  ``gram``
-reads fp32 or bf16, like ``block_matvec``.
+reads fp32 or bf16, like ``block_matvec``.  ``local_attention`` reads
+fp32 or bf16 and returns q's dtype, as the JAX kernel does.
 
 ``launches`` counts, per kernel, the launches these wrappers made on the
 card; the CPU path never touches it.  A wrapper counts one per call,
@@ -39,11 +42,13 @@ from repro_torch.core.precision import resolve_sweep_dtype
 from repro_torch.kernels import block_matvec as _bm
 from repro_torch.kernels import deflate_matvec as _dm
 from repro_torch.kernels import gram as _gram
+from repro_torch.kernels import local_attn as _la
 from repro_torch.kernels import ref as _ref
 
 #: launches made on the card since the last ``reset_launches()``
 launches = {"block_matvec": 0, "block_rmatvec": 0, "block_gram_chain": 0,
-            "matvec": 0, "deflate_rmatvec": 0, "gram": 0}
+            "matvec": 0, "deflate_rmatvec": 0, "gram": 0,
+            "local_attention": 0}
 
 
 def reset_launches() -> None:
@@ -238,9 +243,65 @@ def gram(A: torch.Tensor, *, symmetric: bool = True,
     return B
 
 
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int, softcap: float | None = None
+                    ) -> torch.Tensor:
+    """Causal sliding-window attention: query ``i`` attends to keys
+    ``i - window < j <= i`` (``window >= S`` is plain causal attention),
+    logits ``tanh(s / softcap) * softcap`` when ``softcap`` is given.
+    q (B, H, S, D), k/v (B, Hkv, S, D) with ``Hkv`` dividing ``H`` (head
+    ``h`` reads K/V head ``h // (H // Hkv)``) -> (B, H, S, D) in q's
+    dtype.  On the card D is one of ``local_attn.HEAD_DIMS``; any strides
+    along B, H and S are read in place, and an operand whose base or
+    strides are not 16-byte aligned is refused, on both devices."""
+    for x in (q, k, v):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"local_attention takes torch tensors, got "
+                            f"{type(x).__name__}")
+        if x.device != q.device or x.dtype != q.dtype:
+            raise ValueError(f"local_attention: q, k and v must share one "
+                             f"device and dtype, got {q.device}/{q.dtype} "
+                             f"and {x.device}/{x.dtype}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"local_attention reads float32 or bfloat16, got "
+                         f"{q.dtype}")
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4:
+        raise ValueError(f"local_attention takes q (B, H, S, D) and k, v "
+                         f"(B, Hkv, S, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    if (k.shape[0], k.shape[2], k.shape[3]) != (B, S, D) or Hkv == 0 \
+            or H % Hkv:
+        raise ValueError(f"local_attention: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)} do not conform")
+    if window < 1 or (softcap is not None and not softcap > 0):
+        raise ValueError(f"local_attention needs window >= 1 and softcap > 0 "
+                         f"or None, got {window}, {softcap}")
+    if q.numel() and not all(_la.readable(x) for x in (q, k, v)):
+        raise ValueError("local_attention reads q, k and v in place: unit "
+                         "stride along D, base and other strides 16-byte "
+                         "aligned (pass a contiguous copy)")
+    if q.device.type == "cpu":
+        return _ref.local_attention_ref(q, k, v, window=window,
+                                        softcap=softcap).to(q.dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"local_attention runs on 'cpu' (plain PyTorch) or "
+                         f"'cuda' (the Hopper kernel), got {q.device}")
+    if D not in _la.HEAD_DIMS:
+        raise ValueError(f"local_attention on the card takes a head dim in "
+                         f"{_la.HEAD_DIMS}, got {D}")
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    out = _la.local_attention_cuda(q, k, v, window, softcap)
+    launches["local_attention"] += 1
+    return out
+
+
 block_matvec_ref = _ref.block_matvec_ref
 block_rmatvec_ref = _ref.block_rmatvec_ref
 block_gram_chain_ref = _ref.block_gram_chain_ref
 matvec_ref = _ref.matvec_ref
 deflate_rmatvec_ref = _ref.deflate_rmatvec_ref
 gram_ref = _ref.gram_ref
+local_attention_ref = _ref.local_attention_ref

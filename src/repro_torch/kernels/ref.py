@@ -15,8 +15,14 @@ fits in fp32), which is the JAX package's
 ``trans=True`` on the deflation kernels' versions applies the same
 function to ``A^T`` without forming it (the wide inputs' left-side
 power step), as the kernels' ``trans`` forms do.
+
+``local_attention_ref`` is the JAX oracle's math for the LM prefill
+attention: K/V repeated to every query head, the full (S, S) scores, the
+causal window mask, a softmax, all in fp32.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -76,3 +82,24 @@ def gram_ref(A: torch.Tensor, trans: bool = False) -> torch.Tensor:
     """``B = A^T A`` (``A A^T`` with ``trans``) in fp32."""
     A32 = A.to(torch.float32)
     return A32 @ A32.mT if trans else A32.mT @ A32
+
+
+def local_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, window: int,
+                        softcap: float | None = None) -> torch.Tensor:
+    """Causal sliding-window attention, fp32 out: query ``i`` attends to
+    keys ``i - window < j <= i``.  q (B, H, S, D), k/v (B, Hkv, S, D);
+    GQA by repeating each K/V head ``H // Hkv`` times."""
+    B, H, S, D = q.shape
+    rep = H // k.shape[1]
+    k = k.to(torch.float32).repeat_interleave(rep, dim=1)
+    v = v.to(torch.float32).repeat_interleave(rep, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), k) * (
+        1.0 / math.sqrt(D))
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
+    pos = torch.arange(S, device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    logits = torch.where(mask, logits, -1e30)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1), v)

@@ -1,0 +1,129 @@
+"""Serving launcher: batched prefill + decode loop (the PyTorch port).
+
+    python -m repro_torch.launch.serve --arch gemma2-9b      # one card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
+        --smoke --device cpu --batch 2 --prompt-len 16 --tokens 8
+
+The port of the JAX package's ``repro/launch/serve.py``, with the same
+arguments plus ``--device``: random weights from seed 0, as there
+(nothing is downloaded), a random prompt batch, one batched prefill (its
+attention on the hand-written ``local_attention`` kernel), then
+``--tokens`` decode steps, greedy at ``--temperature 0`` (the default).
+It runs on the card unless ``--device cpu`` is given, and raises where
+no card is visible and no device was asked for.  Temperature sampling
+draws from a ``torch.Generator``, so its tokens cannot match the JAX
+package's ``jax.random``; greedy decoding is the path the two share.
+
+The phases are functions (``build``, ``make_prompt``, ``serve_prefill``,
+``serve_decode``) so that a caller can time and count them apart, as
+``chip_smoke.py`` does.  Only the text family with attention blocks is
+ported (``models/transformer.py`` names what is not).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import get_config, list_archs, smoke_config
+from repro_torch.core.operator import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def build(arch: str, *, smoke: bool = False, device=None,
+          seed: int = 0) -> T.Transformer:
+    """The model of ``arch`` (its smoke reduction with ``smoke``) with
+    random weights from ``seed``, on ``device`` (``None``: the card)."""
+    cfg = get_config(arch)
+    if smoke:
+        cfg = smoke_config(cfg)
+    return T.init_model(cfg, seed=seed, device=resolve_device(device))
+
+
+def make_prompt(cfg: ModelConfig, batch: int, prompt_len: int, *,
+                seed: int = 0, device=None) -> torch.Tensor:
+    """Uniform random token ids (batch, prompt_len) from ``seed``."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g,
+                         device=dev)
+
+
+def serve_prefill(model: T.Transformer, prompt: torch.Tensor, max_seq: int):
+    """Fresh caches for ``max_seq`` positions, then the prompt's prefill.
+    Returns (last logits (B, V), cache, seconds to the device's end)."""
+    dev = prompt.device
+    cache = T.init_cache(model.cfg, prompt.shape[0], max_seq, dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = T.prefill(model, prompt, cache)
+    _sync(dev)
+    return logits, cache, time.perf_counter() - t0
+
+
+def serve_decode(model: T.Transformer, cache: list, logits: torch.Tensor,
+                 start: int, n_tokens: int, *, temperature: float = 0.0,
+                 generator: torch.Generator | None = None):
+    """``n_tokens`` decode steps from position ``start``: pick each next
+    token from ``logits`` (argmax, or a sample at ``temperature``) and
+    run it.  Returns (tokens (B, n_tokens), the last step's logits,
+    seconds to the device's end)."""
+    dev = logits.device
+    out = []
+    _sync(dev)
+    t0 = time.perf_counter()
+    for i in range(n_tokens):
+        if temperature > 0:
+            probs = torch.softmax(logits / temperature, dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        else:
+            nxt = torch.argmax(logits, dim=-1)
+        out.append(nxt)
+        logits, cache = T.decode_step(model, cache, nxt[:, None], start + i)
+    _sync(dev)
+    tokens = (torch.stack(out, dim=1) if out else
+              torch.empty((logits.shape[0], 0), dtype=torch.long, device=dev))
+    return tokens, logits, time.perf_counter() - t0
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--tokens", type=int, default=64)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default=None,
+                    help="'cuda' (the default; needs a card) or 'cpu'")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    model = build(args.arch, smoke=args.smoke, device=dev)
+    cfg = model.cfg
+    B, P = args.batch, args.prompt_len
+    prompt = make_prompt(cfg, B, P, device=dev)
+    logits, cache, t_pre = serve_prefill(model, prompt, P + args.tokens)
+    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+             else "cpu")
+    print(f"{cfg.name} on {where}: prefill({P} tok x{B}): {t_pre:.3f}s")
+    gen = (torch.Generator(device=dev).manual_seed(0)
+           if args.temperature > 0 else None)
+    tokens, _, t_dec = serve_decode(model, cache, logits, P, args.tokens,
+                                    temperature=args.temperature,
+                                    generator=gen)
+    print(f"decode {args.tokens} steps x{B}: {t_dec:.3f}s "
+          f"({args.tokens * B / max(t_dec, 1e-9):.1f} tok/s)")
+    print("seq0:", tokens[0, :20].tolist())
+    return {"tokens": tokens, "prefill_s": t_pre, "decode_s": t_dec}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,200 @@
+"""Shared transformer layers: RMSNorm, RoPE, GQA attention (global/local).
+
+The port of the JAX package's ``repro/models/layers.py``.  Each layer is
+an ``nn.Module`` holding its parameters under the JAX package's names,
+and the math is a plain function on tensors (``apply_rmsnorm``,
+``apply_rope``, ``apply_attention``, ``project_kv``).  One device, so
+the JAX package's sharding constraints have no counterpart: they never
+changed the math.
+
+Attention has two paths, as in the JAX package:
+
+* prefill (``kv is None``): K/V come from ``x`` and stay at ``Hkv``
+  heads; the scores, mask, softmax and V product are one call of the
+  hand-written ``local_attention`` kernel (``kernels/ops.py``) on
+  ``(B, H, S, D)`` views of the ``(B, S, H, D)`` projections, with the
+  layer's window for ``local`` layers and ``S`` (plain causal attention)
+  for global ones.  No ``(B, H, S, S)`` score tensor exists.
+* decode (``kv`` given): one query step against the ring-buffer cache,
+  in plain PyTorch, rounded as the JAX package rounds: operands in the
+  model dtype, the query pre-scaled in it, products summed in fp32 (the
+  operands are widened to fp32 first: a product of two bf16 values is
+  exact in fp32, which is the JAX package's
+  ``preferred_element_type=float32``), an fp32 softmax, probabilities
+  cast to V's dtype before the fp32-summed V product.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+
+
+def param(shape, dtype, device) -> nn.Parameter:
+    """An uninitialised inference parameter (``init_model`` fills it)."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+def apply_rmsnorm(scale: torch.Tensor, x: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    # gemma-style (1 + scale) so zero-init is identity
+    return (y * (1.0 + scale)).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, eps: float, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = param((d,), torch.float32, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_rmsnorm(self.scale, x, self.eps)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, D) with even D; positions: (B, S) integer."""
+    D = x.shape[-1]
+    half = D // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    angle = positions[..., None].to(torch.float32) * freq  # (B, S, half)
+    cos = torch.cos(angle)[:, :, None, :]
+    sin = torch.sin(angle)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (global causal or sliding-window local, GQA, qk-norm, softcap)
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    """wq (D, H, Dh), wk/wv (D, Hkv, Dh), wo (H, Dh, D); q_norm/k_norm
+    (Dh,) with ``qk_norm``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        D = cfg.d_model
+        H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        dt = getattr(torch, cfg.dtype)
+        self.wq = param((D, H, Dh), dt, device)
+        self.wk = param((D, Hkv, Dh), dt, device)
+        self.wv = param((D, Hkv, Dh), dt, device)
+        self.wo = param((H, Dh, D), dt, device)
+        if cfg.qk_norm:
+            self.q_norm = param((Dh,), torch.float32, device)
+            self.k_norm = param((Dh,), torch.float32, device)
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)`` as one matmul."""
+    D, Hn, Dh = w.shape
+    return (x @ w.reshape(D, Hn * Dh)).view(*x.shape[:-1], Hn, Dh)
+
+
+def project_kv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor):
+    """K/V projection (+rope, +k-norm): (B, S, Hkv, Dh) each."""
+    k = _project(x, p.wk)
+    v = _project(x, p.wv)
+    if cfg.qk_norm:
+        k = apply_rmsnorm(p.k_norm, k, cfg.norm_eps)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return k, v
+
+
+def _project_q(p: Attention, cfg: ModelConfig, x, positions):
+    q = _project(x, p.wq)
+    if cfg.qk_norm:
+        q = apply_rmsnorm(p.q_norm, q, cfg.norm_eps)
+    return apply_rope(q, positions, cfg.rope_theta)
+
+
+def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd", out, wo)``."""
+    H, Dh, D = p.wo.shape
+    return out.reshape(*out.shape[:2], H * Dh) @ p.wo.reshape(H * Dh, D)
+
+
+def prefill_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                      positions: torch.Tensor, *, local: bool):
+    """Attention over the prompt itself on the ``local_attention``
+    kernel; returns ``(y, k, v)``, the roped K/V ``(B, S, Hkv, Dh)``
+    being what the cache stores (``project_kv``'s values, computed
+    once)."""
+    S = x.shape[1]
+    q = _project_q(p, cfg, x, positions)
+    k, v = project_kv(p, cfg, x, positions)
+    out = ops.local_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        window=cfg.window if local else max(S, 1),
+        softcap=cfg.attn_softcap)
+    return _out_proj(p, out.transpose(1, 2)), k, v
+
+
+def apply_attention(
+    p: Attention,
+    cfg: ModelConfig,
+    x: torch.Tensor,                    # (B, S, D)
+    positions: torch.Tensor,            # (B, S)
+    *,
+    local: bool,
+    kv: tuple[torch.Tensor, torch.Tensor] | None = None,  # (B, T, Hkv, Dh)
+    kv_positions: torch.Tensor | None = None,             # (B, T)
+    kv_mask: torch.Tensor | None = None,                  # (B, T) validity
+) -> torch.Tensor:
+    """Causal (optionally windowed) GQA attention.
+
+    Training/prefill: ``kv`` is None — K/V come from ``x`` (the kernel).
+    Decode: the caller passes the cache as ``kv`` (+ positions/mask),
+    ``x`` is the single-step query.
+    """
+    if kv is None:
+        return prefill_attention(p, cfg, x, positions, local=local)[0]
+    B, S, _ = x.shape
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    G = H // Hkv
+    T = kv[0].shape[1]
+    q = _project_q(p, cfg, x, positions)
+    q = q * torch.tensor(1.0 / math.sqrt(Dh), dtype=q.dtype)
+    # head h reads K/V head h // G: group the query heads by their K/V head
+    qg = q.view(B, S, Hkv, G, Dh).permute(0, 2, 3, 1, 4).reshape(
+        B, Hkv, G * S, Dh)
+    k = kv[0].permute(0, 2, 3, 1)                           # (B, Hkv, Dh, T)
+    v = kv[1].permute(0, 2, 1, 3)                           # (B, Hkv, T, Dh)
+    s = torch.matmul(qg.to(torch.float32), k.to(torch.float32))
+    s = s.view(B, H, S, T)
+    if cfg.attn_softcap is not None:
+        s = torch.tanh(s / cfg.attn_softcap) * cfg.attn_softcap
+    qp = positions[:, None, :, None]
+    kp = kv_positions[:, None, None, :]
+    m = kp <= qp
+    if local:
+        m = m & (kp > qp - cfg.window)
+    if kv_mask is not None:
+        m = m & kv_mask[:, None, None, :]
+    s = torch.where(m, s, -1e30)
+    probs = torch.softmax(s, dim=-1).to(v.dtype)          # fp32 softmax
+    o = torch.matmul(probs.view(B, Hkv, G * S, T).to(torch.float32),
+                     v.to(torch.float32))
+    out = o.view(B, Hkv, G, S, Dh).permute(0, 3, 1, 2, 4).reshape(
+        B, S, H, Dh).to(x.dtype)
+    return _out_proj(p, out)

@@ -10,7 +10,11 @@ Limits: the same (bf16-rounded) operands summed in fp32 in another
 order, 1e-5 relative Frobenius; the bf16 chain, whose fp32 intermediate
 is rounded to bf16 where kernel and plain version can land on
 neighbouring bf16 values, 1e-3.  The deflation kernels (``matvec``,
-``deflate_rmatvec``, ``gram``) at ragged shapes: 1e-5.
+``deflate_rmatvec``, ``gram``) at ragged shapes: 1e-5.  ``local_attention``
+against its plain version on the same inputs: max |kernel - plain| 1e-4 in
+fp32 (the JAX package's limit for its kernel, ``tests/test_kernels.py:208``);
+in bf16 the kernel also rounds its output to bf16, at most half a bf16
+step, 2^-8 |o|, so 1e-4 + 2^-8 max |plain|.
 """
 import pytest
 import torch
@@ -127,3 +131,52 @@ def test_deflation_kernels_are_deterministic(card):
     assert torch.equal(ops.matvec(A, x, trans=True),
                        ops.matvec(A, x, trans=True))
     assert torch.equal(ops.gram(A[:3000]), ops.gram(A[:3000]))
+
+
+def _attn_within(got, want, dtype):
+    """Each output element against the plain version: fp32 within 1e-4
+    (tests/test_kernels.py:208); bf16 within its own rounding to bf16,
+    2^-8 |want|, plus 1e-5 for the fp32 sums' order."""
+    err = (got.float() - want).abs()
+    if dtype == "float32":
+        return bool((err <= 1e-4).all())
+    return bool((err <= 2.0 ** -8 * want.abs() + 1e-5).all())
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,window,softcap", [
+    (1, 4, 4, 128, 64, 64, None), (2, 4, 2, 100, 16, 48, None),
+    (1, 8, 1, 257, 32, 300, 50.0), (2, 2, 1, 77, 128, 16, 30.0),
+    (1, 4, 2, 200, 256, 64, 50.0), (1, 2, 2, 1, 64, 4, None)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_local_attention_kernel_matches_plain_version(
+        card, B, H, Hkv, S, D, window, softcap, dtype):
+    g = torch.Generator(device=card).manual_seed(B * H * S * D)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, H, S, D), generator=g, device=card).to(dt)
+    k = torch.randn((B, Hkv, S, D), generator=g, device=card).to(dt)
+    v = torch.randn((B, Hkv, S, D), generator=g, device=card).to(dt)
+    ops.reset_launches()
+    got = ops.local_attention(q, k, v, window=window, softcap=softcap)
+    want = ref.local_attention_ref(q, k, v, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (B, H, S, D)
+    assert _attn_within(got, want, dtype)
+    assert ops.launches["local_attention"] == 1
+
+
+def test_local_attention_reads_strided_views_and_reruns_bitwise(card):
+    g = torch.Generator(device=card).manual_seed(7)
+    q, k, v = (torch.randn((2, 300, h, 256), generator=g, device=card)
+               .to(torch.bfloat16).transpose(1, 2) for h in (4, 2, 2))
+    got = ops.local_attention(q, k, v, window=128, softcap=50.0)
+    again = ops.local_attention(q, k, v, window=128, softcap=50.0)
+    want = ref.local_attention_ref(q, k, v, window=128, softcap=50.0)
+    assert torch.equal(got, again)
+    assert got.transpose(1, 2).is_contiguous()      # (B, S, H, D) memory
+    assert _attn_within(got, want, "bfloat16")
+
+
+def test_local_attention_refuses_an_untemplated_head_dim(card):
+    q = torch.randn((1, 2, 8, 48), device=card)
+    with pytest.raises(ValueError):
+        ops.local_attention(q, q, q, window=4)

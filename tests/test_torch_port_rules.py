@@ -3,7 +3,8 @@
 * No module of ``src/repro_torch`` and not ``chip_smoke.py`` imports JAX
   or the JAX package ``repro`` (the port runs where JAX is absent).
 * Entry points run on the card unless the caller asks for the CPU:
-  without a CUDA device and without ``device=`` they raise.
+  without a CUDA device and without ``device=`` (``--device`` for
+  ``python -m repro_torch.launch.serve``) they raise.
 * The CUDA kernels build into a directory git ignores.
 """
 import ast
@@ -57,7 +58,13 @@ def test_port_imports_with_jax_unavailable():
             "import repro_torch, repro_torch.kernels.build, "
             "repro_torch.kernels.block_matvec, "
             "repro_torch.kernels.deflate_matvec, repro_torch.kernels.gram, "
-            "repro_torch.core.partition; print('ok')")
+            "repro_torch.kernels.local_attn, repro_torch.core.partition, "
+            "repro_torch.configs, repro_torch.models.config, "
+            "repro_torch.models.layers, repro_torch.models.mlp, "
+            "repro_torch.models.transformer, repro_torch.models.convert, "
+            "repro_torch.launch.serve; "
+            "import repro_torch.configs as c; "
+            "[c.get_config(a) for a in c.list_archs()]; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120,
                          env={"PYTHONPATH": str(ROOT / "src"),
@@ -86,6 +93,23 @@ def test_dense_operator_without_device_raises_when_no_card():
         resolve_device(None)
 
 
+def test_serve_without_device_raises_when_no_card():
+    _no_card()
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    argv = ["--arch", "gemma2-9b", "--smoke", "--batch", "1",
+            "--prompt-len", "4", "--tokens", "1"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(argv)
+    cfg = smoke_config(get_config("gemma2-9b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_cache(cfg, 1, 8)
+    assert serve.main(argv + ["--device", "cpu"])["tokens"].shape == (1, 1)
+
+
 def test_devices_other_than_cpu_and_cuda_are_refused():
     with pytest.raises(ValueError):
         resolve_device("meta")
@@ -95,6 +119,6 @@ def test_kernel_build_directory_is_ignored_by_git():
     ignored = (ROOT / ".gitignore").read_text().split()
     rel = build.BUILD_DIR.relative_to(ROOT).as_posix() + "/"
     assert rel in ignored
-    for name in ("block_matvec", "deflate_matvec", "gram"):
+    for name in ("block_matvec", "deflate_matvec", "gram", "local_attn"):
         assert build.CSRC.joinpath(f"{name}.cu").exists()
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

@@ -7,7 +7,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; build the CUDA kernels of ``src/repro_torch/csrc`` and
-   print the build time and each kernel's registers/spills.
+   print the build time and each kernel's registers/spills; for every
+   ``local_attention`` instance its registers, spills, dynamic shared
+   memory and tensor-core instructions (``HGMMA``/``HMMA`` in the
+   library's SASS, ``cuobjdump -sass``).  Fails unless the bf16
+   D = 256 instance (the path's) has tensor-core instructions and
+   spills nothing.
 2. every kernel on the card against its plain PyTorch version
    (``repro_torch/kernels/ref.py``): ``block_matvec``, ``block_rmatvec``
    and ``block_gram_chain`` (both orientations), fp32 and bf16, at
@@ -37,8 +42,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernels).
 6. determinism: two block solves and two gram-free solves of a
    16384 x 4096 matrix, each pair bitwise equal.
-7. the LM serving path: the ``local_attention`` kernel (causal
-   sliding-window attention, GQA, soft-cap) against its plain version at
+7. the LM serving path: the ``local_attention`` kernels (causal
+   sliding-window attention, GQA, soft-cap; bf16 at D >= 64 on the
+   tensor cores, the rest by FFMA) against their plain version at
    ragged shapes (fp32 and bf16, every head dim of its template) and at
    the path's shapes (gemma2-9b prefill: B = 2, H = 16, Hkv = 8,
    S = 8192, D = 256, bf16, soft-cap 50, window 4096 and window S; the
@@ -71,7 +77,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel per layer kind beside its bound, its plain version and
    ``scaled_dot_product_attention`` with a band mask (a yardstick only,
    timed without the soft-cap on both sides: no single PyTorch call
-   soft-caps).
+   soft-caps), and on the global layer also with ``is_causal=True`` and
+   no mask tensor (the flash backend, the fastest single call for causal
+   attention; ``library_causal_ms``).
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches in the
 solve of its path, and its times), the ``nvidia-smi`` name and power
@@ -379,6 +387,54 @@ def deflation_solve(torch, repro_torch, ops, X, k, method, label, s,
 # phase 7: the LM serving path (gemma2-9b) and its local_attention kernel
 # ---------------------------------------------------------------------------
 
+def attention_instances(build, la, log: str) -> None:
+    """Each ``local_attn`` instance's registers, spills and dynamic shared
+    memory (``nvcc -Xptxas=-v``) and its tensor-core instructions (SASS of
+    the built library); fail unless the bf16 D = 256 instance, the LM
+    path's, has tensor-core instructions and spills nothing."""
+    import re
+    insts, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "spill stores" in line:
+            insts[name] = {"spill": int(line.split()[4])}
+        elif name in insts and "Used" in line and "registers" in line:
+            insts[name]["regs"] = int(line.split("Used ")[1].split()[0])
+        if "C7512" in line:              # wgmma serialized by ptxas
+            print(f"  {line.strip()}")
+    sass = subprocess.run(
+        [build.cuda_tool("cuobjdump"), "-sass",
+         str(build.library_path("local_attn"))], capture_output=True,
+        text=True, check=True).stdout
+    mma, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            mma[fn] = 0
+        elif fn is not None and ("HGMMA" in line or "HMMA" in line):
+            mma[fn] += 1
+    path = None
+    for mangled, info in insts.items():
+        m = re.search(r"local_attn_(wgmma|ffma)I(f|13__nv_bfloat16)?Li(\d+)E",
+                      mangled)
+        if m is None:
+            continue
+        route, D = m.group(1), int(m.group(3))
+        dtype = "fp32" if m.group(2) == "f" else "bf16"
+        n_mma = mma.get(mangled, 0)
+        print(f"  local_attn {route:5s} {dtype} D={D:3d}: {info['regs']} "
+              f"registers, {info['spill']} bytes spilled, "
+              f"{la.smem_bytes(route, D)} bytes of dynamic shared memory, "
+              f"{n_mma} tensor-core instructions (HGMMA/HMMA)")
+        if route == "wgmma" and D == 256:
+            path = (n_mma, info["spill"])
+    if path is None or path[0] == 0 or path[1] != 0:
+        fail(f"local_attn bf16 D=256 instance (tensor-core instructions, "
+             f"bytes spilled): {path}; want tensor-core instructions and no "
+             f"spills")
+
+
 def attn_share(got, want, dtype: str) -> float:
     """The worst |kernel - plain| of ``local_attention`` as a share of its
     limit, element by element: fp32 1e-4 (the JAX package's,
@@ -454,7 +510,8 @@ def attention_ragged(torch, ops, ref, la, g, dev) -> float:
     for D in la.HEAD_DIMS:
         for (B, H, Hkv, S, window, softcap) in [(2, 4, 2, 333, 64, 50.0),
                                                 (1, 6, 3, 130, 200, None),
-                                                (3, 2, 1, 65, 1, 30.0)]:
+                                                (3, 2, 1, 65, 1, 30.0),
+                                                (1, 8, 1, 129, 1000, 50.0)]:
             for sd in ("float32", "bfloat16"):
                 q, k, v = attn_inputs(torch, g, dev, B, H, Hkv, S, D,
                                       getattr(torch, sd))
@@ -465,8 +522,9 @@ def attention_ragged(torch, ops, ref, la, g, dev) -> float:
                 torch.cuda.synchronize()
                 e = float((got.float() - want).abs().max())
                 share = attn_share(got, want, sd)
-                label = (f"local_attention {sd} B={B} H={H} Hkv={Hkv} S={S} "
-                         f"D={D} window={window} softcap={softcap}")
+                label = (f"local_attention {sd} ({la.route(q.dtype, D)}) B={B} "
+                         f"H={H} Hkv={Hkv} S={S} D={D} window={window} "
+                         f"softcap={softcap}")
                 print(f"  {label}: max abs err {e:.2e}, {share:.2f} of the "
                       f"per-element limit")
                 if not (got.dtype == q.dtype and got.shape == q.shape
@@ -480,7 +538,9 @@ def attention_path_table(torch, ops, ref, la, g, dev, cfg, S) -> dict:
     """The kernel at the path's shapes, one row per layer kind: checked
     against the plain version, then timed beside its bound, the plain
     version and ``scaled_dot_product_attention`` (band mask; both
-    without the soft-cap, since no single PyTorch call soft-caps)."""
+    without the soft-cap, since no single PyTorch call soft-caps), and on
+    the global layer also ``is_causal=True`` with no mask tensor
+    (``library_causal_ms``: the flash backend; no call takes a window)."""
     import torch.nn.functional as F
     B, H, Hkv, D = LM_BATCH, cfg.num_heads, cfg.num_kv_heads, \
         cfg.resolved_head_dim
@@ -512,14 +572,18 @@ def attention_path_table(torch, ops, ref, la, g, dev, cfg, S) -> dict:
         row = {"max_abs_err": mae, "share_of_limit": share,
                "tile_short_share": fault,
                "ms": time_ms(torch, lambda: ops.local_attention(
-                   q, k, v, window=window, softcap=cap), 3),
+                   q, k, v, window=window, softcap=cap), 10),
                "plain_ms": time_ms(torch, lambda: plain_attention(
                    ref, q, k, v, window, cap), 1),
                "nocap_ms": time_ms(torch, lambda: ops.local_attention(
-                   q, k, v, window=window, softcap=None), 3),
+                   q, k, v, window=window, softcap=None), 10),
                "library_ms": time_ms(
                    torch, lambda: F.scaled_dot_product_attention(
                        qc, kr, vr, attn_mask=band), 3)}
+        if kind == "attn":
+            row["library_causal_ms"] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qc, kr, vr, is_causal=True), 10)
         row["bound_ms"], row["bound_by"] = attn_bound(B, H, Hkv, S, D, window)
         rows[kind] = row
         del kr, vr, qc, band
@@ -529,7 +593,10 @@ def attention_path_table(torch, ops, ref, la, g, dev, cfg, S) -> dict:
               f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
               f"{row['bound_ms']:.3f} ms ({row['bound_by']}); without the "
               f"soft-cap: kernel {row['nocap_ms']:.3f} ms, "
-              f"scaled_dot_product_attention {row['library_ms']:.3f} ms")
+              f"scaled_dot_product_attention {row['library_ms']:.3f} ms "
+              f"(band mask)" + (
+                  f", {row['library_causal_ms']:.3f} ms (is_causal=True)"
+                  if "library_causal_ms" in row else ""))
     torch.cuda.empty_cache()
     return rows
 
@@ -663,7 +730,8 @@ def lm_serving(torch, ops, ref, la, g, dev) -> tuple:
               f"{attn:.3f} s ({100 * attn / busy1:.1f} % of busy); the rest "
               f"by time: " + ", ".join(
                   f"{name[:40]} {t:.3f} s" for name, t in sorted(
-                      names.items(), key=lambda x: -x[1])[1:5]))
+                      ((n, t) for n, t in names.items()
+                       if "local_attn" not in n), key=lambda x: -x[1])[:4]))
         print(f"profile of two decode steps: device busy {1e3 * busy2 / 2:.2f}"
               f" ms a step against {1e3 * step:.2f} ms a step unprofiled "
               f"(device idle share {100 * (1 - busy2 / 2 / step):.1f} %), "
@@ -695,6 +763,7 @@ def lm_serving(torch, ops, ref, la, g, dev) -> tuple:
                                       "library_ms", "nocap_ms")}
     row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
     row["bound_by"] = rows["local"]["bound_by"]
+    row["library_causal_ms"] = rows["attn"]["library_causal_ms"]
     print(json.dumps({"local_attention_by_layer_kind": rows}))
     return row, pre_counts["local_attention"]
 
@@ -737,6 +806,8 @@ def main() -> int:
         print(f"  {name}: {len(regs)} kernels, registers <= {max(regs)}, "
               f"{sum(b > 0 for b in spills)} with spills (<= "
               f"{max(spills)} bytes stored)")
+    attention_instances(build, local_attn, logs.get("local_attn") or (
+        build.BUILD_DIR / "local_attn.log").read_text())
 
     # -- 2a. kernels vs plain at ragged shapes -----------------------------
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -945,7 +1016,9 @@ def main() -> int:
         "replaces": REPLACES[name], "launches": path_counts[name],
         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        **({"library_causal_ms": row["library_causal_ms"]}
+           if "library_causal_ms" in row else {})}
         for name, row in rows.items()]
     print(json.dumps({"kernels_bfloat16": [
         {"name": name, **table[(name, "bfloat16")]}

@@ -14,50 +14,88 @@
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/local_attn.py:
 // local_attention (pallas_call at :104), and computes what its body computes
-// (:27-76): scale 1/sqrt(D) on the fp32 score, the soft-cap after the scale,
-// mask kpos <= qpos and kpos > qpos - window with -1e30, running max,
-// denominator and accumulator in fp32, output acc / max(l, 1e-30) in q's type.
-// Keys outside a row's window take p = 0 exactly (the TPU kernel reaches the
-// same value through exp(-1e30 - m)).
+// (:27-76): the score in fp32 from q and k widened to fp32, scale 1/sqrt(D),
+// the soft-cap after the scale, mask kpos <= qpos and kpos > qpos - window,
+// running max, denominator and accumulator in fp32, fp32 probabilities times
+// v widened to fp32, output acc / max(l, 1e-30) in q's type.  Keys outside a
+// row's window take p = 0 exactly (the TPU kernel reaches the same value
+// through exp(-1e30 - m)).
 //
 // Bound on an H100 SXM: 4 D flop per live (query, key) pair on 2 B S D
 // (H + Hkv) bytes, i.e. hundreds of flop a byte at D = 256 and window 4096:
 // the arithmetic bounds it (0.83 ms a local layer of gemma2-9b at B = 2,
-// S = 8192 on the bf16 tensor cores; the bytes take ~0.12 ms).  This first
-// version does every product as an fp32 FFMA (67 TFLOP/s, never TF32), so its
-// own ceiling is about 15x that bound.  What the design does:
-//   * One block of 256 threads per (64-row query tile, head, batch) owns its
-//     output rows and loops over the key tiles inside the block, visiting only
-//     the live ones, from max(0, q_lo - window + 1) to q_hi: O(S w) work, no
-//     atomics, no cross-block sum, so reruns are bitwise equal.  The heaviest
-//     query tiles (the last ones under a causal mask) are launched first.
-//   * GQA by index: the block of head h reads K/V head h / group; nothing is
-//     repeated in memory.
-//   * Q, K and V tiles are staged into shared memory as fp32 (bf16 widened on
-//     the way, 16-byte global loads).  Thread (ty, tx) of the 16 x 16 grid
-//     owns query rows 4 ty .. 4 ty + 3 and keys tx + 16 c (c < 4) of the score
-//     tile: 64 FFMA per 8 float4 shared-memory loads; the row stride D + 4
-//     keeps a quarter-warp's key rows on distinct banks.  Row max and row sum
-//     of the online softmax are butterfly shuffles over the 16 lanes of a row
-//     (every lane ends with the same bits).  P goes to shared memory
-//     transposed, and each thread accumulates its 4 rows x D/16 output columns
-//     (4-wide chunks 64 columns apart) in registers.
-//   * D is a template parameter, D in {16, 32, 64, 128, 256}; at D = 256 the
-//     tiles take 216,064 bytes of dynamic shared memory (one block per SM),
-//     granted by cudaFuncSetAttribute before the launch.
-//   * Ragged S: rows and keys at or past S are staged as zeros, masked, and
-//     never written; nothing is padded in memory.
+// S = 8192 on the bf16 tensor cores; the bytes take ~0.12 ms).  Beside it,
+// not a bound: one exp a live pair on the special-function unit (~4e12 a
+// second), and the soft-cap's polynomial on the FMA pipes.
 //
-// Later work (not here): mma.sync / wgmma on bf16 with fp32 sums, TMA staging
-// of the next key tile while the current one is summed, two blocks per SM.
+// Two routes, one C entry point each; the caller (kernels/local_attn.py,
+// route()) picks one and neither stands in for the other:
+//
+// * repro_local_attention_wgmma: bf16 at D in {64, 128, 256}, the head dims
+//   of the configured models, on the tensor cores.
+//   - Block: 128 query rows of one (head, batch), as two consumer warpgroups
+//     of 64 rows, plus one producer warpgroup; 384 threads.  setmaxnreg
+//     moves registers to the consumers: 24 a producer thread, 240 a
+//     consumer thread (O 64 x D fp32 = D / 2 a thread, S 32, P 32), so the
+//     bf16 D = 256 instance spills nothing.  Key tile 64.
+//   - One producer thread stages Q once and then K and V tiles through TMA
+//     (cp.async.bulk.tensor, one CUtensorMap per operand over the view's
+//     (D, S, H, B) strides, boxes of 64 x 64 with the 128-byte swizzle that
+//     wgmma reads) into a ring of two stages, completed on mbarriers; the
+//     consumers release a stage on its "empty" mbarrier, so the next tile is
+//     in flight while the current one is summed.  Rows past S arrive as the
+//     tensor map's zero fill: nothing is padded in memory.
+//   - S = Q K^T by wgmma (m64n64k16, both operands from shared memory, fp32
+//     accumulators in registers).  A product of two bf16 values is exact in
+//     fp32, so this is the TPU kernel's fp32 score up to the order of the sum.
+//   - Softmax in registers: scale and log2(e) folded into one multiply,
+//     ex2.approx; the soft-cap by an odd polynomial of tanh for |s / cap| <
+//     1/8 (the warp takes the exact-division path 1 - 2 / (e^2y + 1) only
+//     when one of its scores is larger), so no tanh.approx (2^-11).  Row max
+//     by a 4-lane butterfly (equal bits in every lane), row sums per thread
+//     and summed over the 4 lanes once at the end.
+//   - P V by wgmma with P from registers (m64nDk16, V from shared memory,
+//     MN-major): the fp32 probabilities are split as P_hi = bf16(P) and
+//     P_lo = bf16(P - P_hi), and both products are summed into the same fp32
+//     accumulator, so P keeps ~16 bits (2^-17 relative, against 2^-9 for one
+//     bf16 P, which the kernel-vs-plain limits would not hold).  That costs
+//     1.5x the tensor work of one bf16 P V; the bound above stays the
+//     algorithm's 4 D flop a pair.
+//   - A consumer skips (but still releases) a key tile that holds no live
+//     pair of its 64 rows, masks only the tiles that cross the diagonal or
+//     the window's lower edge, and rescales O only when a row's max moved.
+//   - The two consumers interleave on their own: while one waits for its
+//     products, the other runs its softmax.  An explicit turn order (named
+//     barriers) and a software pipeline inside a warpgroup (the next
+//     scores issued before this tile's softmax) both measured slower on an
+//     H100 and are not used; the pipeline also spilled at D = 256.
+// * repro_local_attention: fp32 at every D, and bf16 at D in {16, 32}, by
+//   FFMA (67 TFLOP/s, never TF32).  One block of 256 threads per 64-row query
+//   tile; Q, K and V tiles widened to fp32 in shared memory (216,064 bytes at
+//   D = 256); thread (ty, tx) of a 16 x 16 grid owns 4 query rows and 4 keys
+//   of the score tile, row statistics by 16-lane butterflies, P through shared
+//   memory transposed.
+//
+// Kept by both: one block owns its output rows and loops over the live key
+// tiles only, max(0, q_lo - window + 1) to q_hi, for O(S w) work; no atomics
+// and no cross-block sum, so reruns are bitwise equal; the heaviest query
+// tiles (the last ones under a causal mask) are launched first; GQA by index
+// (the block of head h reads K/V head h / group, nothing repeated in memory).
 //
 // C interface (bound with ctypes; every pointer and the stream as void*):
 //   int repro_local_attention(q, k, v, o, B, H, Hkv, S, D, strides[12],
 //                             window, scale, softcap, is_bf16, stream)
-// strides: (b, h, s) of q, k, v, o in elements.  Returns cudaGetLastError()
-// after the launch (0 on success), or cudaErrorInvalidValue for a D outside
-// the template; allocates nothing.
+//   int repro_local_attention_wgmma(q, k, v, o, B, H, Hkv, S, D, strides[12],
+//                                   window, scale, softcap, stream)
+//   long long repro_local_attention_smem(wgmma, D)
+// strides: (b, h, s) of q, k, v, o in elements.  The launchers return
+// cudaGetLastError() after the launch (0 on success), cudaErrorInvalidValue
+// for a (dtype, D) outside their route or views a tensor map cannot
+// describe, or cudaErrorNotSupported without libcuda's tensor-map
+// encoder; they allocate nothing.  _smem gives the
+// dynamic shared memory of an instance, in bytes.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -66,16 +104,19 @@
 
 namespace {
 
-constexpr int NT = 256;      // threads per block, 16 x 16
-constexpr int BQ = 64;       // query rows per block: 16 ty x 4
-constexpr int BK = 64;       // keys per tile: 16 tx x 4
-constexpr int PAD = 4;       // row pad of the Q and K tiles (floats)
-constexpr int PT = BQ + 4;   // row stride of the transposed P tile
 constexpr float NEG = -1e30f;
 
 struct Strides {
   long long b, h, s;
 };
+
+namespace ffma {
+
+constexpr int NT = 256;      // threads per block, 16 x 16
+constexpr int BQ = 64;       // query rows per block: 16 ty x 4
+constexpr int BK = 64;       // keys per tile: 16 tx x 4
+constexpr int PAD = 4;       // row pad of the Q and K tiles (floats)
+constexpr int PT = BQ + 4;   // row stride of the transposed P tile
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -132,7 +173,7 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT, 1)
-    local_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+    local_attn_ffma(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o, Strides sq,
                       Strides sk, Strides sv, Strides so, int S, int group,
                       int window, float scale, float softcap) {
@@ -286,7 +327,7 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int Hkv, int S, const long long* st, int window, float scale,
            float softcap, cudaStream_t stream) {
-  auto kern = local_attn_kernel<T, D>;
+  auto kern = local_attn_ffma<T, D>;
   constexpr size_t bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -302,29 +343,616 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace ffma
+
+namespace tc {
+
+constexpr int NCONS = 2;               // consumer warpgroups, 64 rows each
+constexpr int NT = 128 * (NCONS + 1);  // + one producer warpgroup
+constexpr int PRODUCER_REGS = 24;      // setmaxnreg: 128 x 24 + 256 x 240
+constexpr int CONSUMER_REGS = 240;     //   <= 65,536 registers of the SM
+constexpr int BQ = 64 * NCONS;         // query rows per block
+constexpr int BK = 64;                 // keys per tile
+constexpr int STAGES = 2;              // K/V ring
+constexpr int BOX = 64 * 64 * 2;       // one TMA box: 64 rows x 64 bf16
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Dynamic shared memory, from a 1024-byte aligned base (the 128-byte
+// swizzle repeats every 8 rows): Q [NCONS][D / 64][64][64], K and V
+// [STAGES][D / 64][64][64] each, then the mbarriers.
+template <int D>
+struct Smem {
+  static constexpr int NCH = D / 64;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + NCONS * NCH * BOX;
+  static constexpr int V = K + STAGES * NCH * BOX;
+  static constexpr int BAR = V + STAGES * NCH * BOX;
+  // full_q, full_k[STAGES], full_v[STAGES], empty[STAGES]
+  static constexpr int BYTES = BAR + 8 * (1 + 3 * STAGES) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(
+          bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
+      : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One 64 x 64 box at (d0, row, head, batch) of the tensor map into shared
+// memory; completes `bytes` on the barrier.  Rows past S arrive as zeros.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
+                                        uint32_t bar, int d0, int row,
+                                        int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(row),
+      "r"(head), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle.  K-major operands (Q,
+// K): 8-row groups `sbo` = 1024 bytes apart, the leading offset unused.
+// MN-major V: 64-column blocks `lbo` = 64 rows x 128 bytes apart, 8-key
+// groups `sbo` = 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pin registers that an asynchronous wgmma reads or writes to this point of
+// the program, so the compiler neither reads them early nor reuses them.
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// tanh(y) for |y| < 1/8: y + y^3 (c1 + y^2 (c2 + y^2 (c3 + y^2 c4))), the
+// Taylor series; the next term is below 1e-11 relative there.
+__device__ __forceinline__ float tanh_small(float y) {
+  const float y2 = y * y;
+  float p = fmaf(y2, 62.0f / 2835.0f, -17.0f / 315.0f);
+  p = fmaf(y2, p, 2.0f / 15.0f);
+  p = fmaf(y2, p, -1.0f / 3.0f);
+  return fmaf(y * y2, p, y);
+}
+// tanh(y) for any y: 1 - 2 / (e^2|y| + 1) with an IEEE division, signed.
+__device__ __forceinline__ float tanh_any(float y) {
+  if (fabsf(y) < 0.125f) return tanh_small(y);
+  const float e = exp2f(2.0f * LOG2E * fabsf(y));
+  return copysignf(1.0f - 2.0f / (e + 1.0f), y);
+}
+
+// D (64 x 64, fp32) += A (64 x 16, smem) * B (64 x 16, smem), both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, registers) * B (16 x 128, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 256, fp32) += A (64 x 16, registers) * B (16 x 256, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 64)
+    wgmma_rs_n64(o, a, db);
+  else if constexpr (D == 128)
+    wgmma_rs_n128(o, a, db);
+  else
+    wgmma_rs_n256(o, a, db);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+    local_attn_wgmma(const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv,
+                     __nv_bfloat16* __restrict__ o, Strides so, int S, int H,
+                     int B, int group, int window, float scale,
+                     float softcap) {
+  using L = Smem<D>;
+  constexpr int NCH = L::NCH;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full_q = base + L::BAR;
+  const uint32_t full_k = full_q + 8, full_v = full_k + 8 * STAGES;
+  const uint32_t empty = full_v + 8 * STAGES;
+
+  // heaviest query tiles first: the tile index varies slowest
+  const int per = H * B, nqt = gridDim.x / per;
+  const int qt = nqt - 1 - static_cast<int>(blockIdx.x) / per;
+  const int h = static_cast<int>(blockIdx.x) % per % H;
+  const int b = static_cast<int>(blockIdx.x) % per / H;
+  const int hk = h / group;
+  const int q_lo = qt * BQ;
+  const int t_first = max(0, q_lo - window + 1) / BK;
+  const int t_last = (min(q_lo + BQ, S) - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * NCONS);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * NCONS) {          // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x != 128 * NCONS) return;   // one thread issues the TMA
+    mbar_expect_tx(full_q, NCONS * NCH * BOX);
+    for (int c = 0; c < NCONS; ++c)
+      for (int ch = 0; ch < NCH; ++ch)
+        tma_box(base + L::Q + (c * NCH + ch) * BOX, &mq, full_q, 64 * ch,
+                q_lo + 64 * c, h, b);
+    for (int t = t_first, i = 0; t <= t_last; ++t, ++i) {
+      const int s = i % STAGES;
+      if (i >= STAGES) mbar_wait(empty + 8 * s, ((i / STAGES) - 1) & 1);
+      mbar_expect_tx(full_k + 8 * s, NCH * BOX);
+      for (int ch = 0; ch < NCH; ++ch)
+        tma_box(base + L::K + (s * NCH + ch) * BOX, &mk, full_k + 8 * s,
+                64 * ch, t * BK, hk, b);
+      mbar_expect_tx(full_v + 8 * s, NCH * BOX);
+      for (int ch = 0; ch < NCH; ++ch)
+        tma_box(base + L::V + (s * NCH + ch) * BOX, &mv, full_v + 8 * s,
+                64 * ch, t * BK, hk, b);
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows r_lo .. r_lo + 63 of the block
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32;
+  const int lane = threadIdx.x % 32;
+  const int r_lo = q_lo + 64 * wg;
+  const int r_hi = min(r_lo + 63, S - 1);
+  const int row0 = r_lo + 16 * warp + lane / 4;   // and row0 + 8
+  const int col = 2 * (lane % 4);                 // and col + 1, + 8 n
+  const uint32_t q_base = base + L::Q + wg * NCH * BOX;
+  const bool capped = softcap > 0.0f;
+  const float k_plain = scale * LOG2E;            // s -> log2-scaled logit
+  const float k_in = scale / softcap, k_out = softcap * LOG2E;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};
+
+  mbar_wait(full_q, 0);
+  for (int t = t_first, i = 0; t <= t_last; ++t, ++i) {
+    const int s = i % STAGES;
+    const uint32_t par = (i / STAGES) & 1;
+    const int k0 = t * BK;
+    // a live pair of these rows in this tile: keys r_lo - w + 1 .. r_hi
+    const bool active = r_lo < S && k0 <= r_hi && k0 + BK - 1 > r_lo - window;
+    const bool masked = k0 + BK - 1 > r_lo || k0 < r_hi - window + 1;
+    uint32_t p_hi[4][4], p_lo[4][4];
+
+    mbar_wait(full_k + 8 * s, par);
+    if (active) {
+      float sc[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) sc[j] = 0.0f;
+      const uint32_t k_base = base + L::K + s * NCH * BOX;
+      hold(sc);
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t off = (ks / 4) * BOX + (ks % 4) * 32;
+        wgmma_ss_n64(sc, desc(q_base + off, 16, 1024),
+                     desc(k_base + off, 16, 1024), ks > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      hold(sc);
+
+      // log2-scaled logits: sc[4n + e] is row row0 + 8 (e / 2), key
+      // k0 + 8 n + col + e % 2
+      if (!capped) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) sc[j] *= k_plain;
+      } else {
+        float big = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) big = fmaxf(big, fabsf(sc[j]));
+        if (__any_sync(0xffffffffu, big * k_in >= 0.125f)) {
+#pragma unroll
+          for (int j = 0; j < 32; ++j) sc[j] = tanh_any(sc[j] * k_in) * k_out;
+        } else {
+#pragma unroll
+          for (int j = 0; j < 32; ++j)
+            sc[j] = tanh_small(sc[j] * k_in) * k_out;
+        }
+      }
+      if (masked) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const int qi = row0 + 8 * ((j % 4) / 2);
+          const int kj = k0 + 8 * (j / 4) + col + j % 2;
+          if (!(kj <= qi && kj > qi - window)) sc[j] = NEG;
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = NEG;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);
+        alpha[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+      }
+      float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int r = (j % 4) / 2;
+        float p = ex2(sc[j] - m[r]);
+        if (masked && sc[j] == NEG) p = 0.0f;       // masked keys: exactly 0
+        sc[j] = p;
+        rs[r] += p;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+      // P as the A operand of m64nDk16: key step kk takes pairs 4 kk .. +3
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(sc[2 * j],
+                                                        sc[2 * j + 1]);
+        const float2 hf = __bfloat1622float2(hi);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(sc[2 * j] - hf.x,
+                                                        sc[2 * j + 1] - hf.y);
+        p_hi[j / 4][j % 4] = *reinterpret_cast<const uint32_t*>(&hi);
+        p_lo[j / 4][j % 4] = *reinterpret_cast<const uint32_t*>(&lo);
+      }
+      // once a row's max has settled, alpha is 1: skip the D / 2 products
+      if (!__all_sync(0xffffffffu, alpha[0] == 1.0f && alpha[1] == 1.0f)) {
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[4 * n] *= alpha[0];
+          acc[4 * n + 1] *= alpha[0];
+          acc[4 * n + 2] *= alpha[1];
+          acc[4 * n + 3] *= alpha[1];
+        }
+      }
+    }
+
+    mbar_wait(full_v + 8 * s, par);
+    if (active) {
+      const uint32_t v_base = base + L::V + s * NCH * BOX;
+      hold(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_pv<D>(acc, p_hi[kk], desc(v_base + kk * 2048, 64 * 128, 1024));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_pv<D>(acc, p_lo[kk], desc(v_base + kk * 2048, 64 * 128, 1024));
+      wg_commit();
+      wg_wait_all();
+      hold(acc);
+      hold(p_hi);
+      hold(p_lo);
+    }
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+
+  __nv_bfloat16* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int qi = row0 + 8 * r;
+    if (qi >= S) continue;
+    const float inv = 1.0f / fmaxf(lr, 1e-30f);
+    __nv_bfloat16* orow = ob + static_cast<long long>(qi) * so.s + col;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(
+          acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
+  }
+}
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime: no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The (D, S, heads, B) view at `ptr` with element strides `st`, in boxes of
+// 64 x 64 with the 128-byte swizzle.  A dimension of size 1 takes any
+// stride; TMA wants a multiple of 16 bytes there too.
+cudaError_t encode(CUtensorMap* map, const void* ptr, int D, int S, int heads,
+                   int B, const long long* st) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  const long long el[3] = {st[2], st[1], st[0]};   // s, h, b
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i)
+    strides[i] = dims[i + 1] == 1 ? 16 : static_cast<cuuint64_t>(el[i]) * 2;
+  const cuuint32_t box[4] = {64, BK, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+           int Hkv, int S, const long long* st, int window, float scale,
+           float softcap, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = encode(&mq, q, D, S, H, B, st);
+  if (err == cudaSuccess) err = encode(&mk, k, D, S, Hkv, B, st + 3);
+  if (err == cudaSuccess) err = encode(&mv, v, D, S, Hkv, B, st + 6);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kern = local_attn_wgmma<D>;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (S + BQ - 1) / BQ * H * B;
+  kern<<<blocks, NT, Smem<D>::BYTES, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o),
+      Strides{st[9], st[10], st[11]}, S, H, B, H / Hkv, window, scale,
+      softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int Hkv, int S, int D, const long long* st, int window,
-             float scale, float softcap, cudaStream_t s) {
+int dispatch_ffma(const void* q, const void* k, const void* v, void* o, int B,
+                  int H, int Hkv, int S, int D, const long long* st,
+                  int window, float scale, float softcap, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, o, B, H, Hkv, S, st, window, scale,
-                           softcap, s);
+      return ffma::launch<T, 16>(q, k, v, o, B, H, Hkv, S, st, window, scale,
+                                 softcap, s);
     case 32:
-      return launch<T, 32>(q, k, v, o, B, H, Hkv, S, st, window, scale,
-                           softcap, s);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, H, Hkv, S, st, window, scale,
-                           softcap, s);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, H, Hkv, S, st, window, scale,
-                            softcap, s);
-    case 256:
-      return launch<T, 256>(q, k, v, o, B, H, Hkv, S, st, window, scale,
-                            softcap, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return ffma::launch<T, 32>(q, k, v, o, B, H, Hkv, S, st, window, scale,
+                                 softcap, s);
   }
+  if constexpr (sizeof(T) == 4) {       // bf16 at these D is the wgmma route
+    switch (D) {
+      case 64:
+        return ffma::launch<T, 64>(q, k, v, o, B, H, Hkv, S, st, window,
+                                   scale, softcap, s);
+      case 128:
+        return ffma::launch<T, 128>(q, k, v, o, B, H, Hkv, S, st, window,
+                                    scale, softcap, s);
+      case 256:
+        return ffma::launch<T, 256>(q, k, v, o, B, H, Hkv, S, st, window,
+                                    scale, softcap, s);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -340,9 +968,47 @@ extern "C" int repro_local_attention(const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int w = static_cast<int>(window < S ? window : S);
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, (int)B, (int)H, (int)Hkv,
-                                   (int)S, (int)D, strides, w, scale, softcap,
-                                   s);
-  return dispatch<float>(q, k, v, o, (int)B, (int)H, (int)Hkv, (int)S, (int)D,
-                         strides, w, scale, softcap, s);
+    return dispatch_ffma<__nv_bfloat16>(q, k, v, o, (int)B, (int)H, (int)Hkv,
+                                        (int)S, (int)D, strides, w, scale,
+                                        softcap, s);
+  return dispatch_ffma<float>(q, k, v, o, (int)B, (int)H, (int)Hkv, (int)S,
+                              (int)D, strides, w, scale, softcap, s);
+}
+
+extern "C" int repro_local_attention_wgmma(
+    const void* q, const void* k, const void* v, void* o, long long B,
+    long long H, long long Hkv, long long S, long long D,
+    const long long* strides, long long window, float scale, float softcap,
+    void* stream) {
+  cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int w = static_cast<int>(window < S ? window : S);
+  switch (D) {
+    case 64:
+      return tc::launch<64>(q, k, v, o, (int)B, (int)H, (int)Hkv, (int)S,
+                            strides, w, scale, softcap, s);
+    case 128:
+      return tc::launch<128>(q, k, v, o, (int)B, (int)H, (int)Hkv, (int)S,
+                             strides, w, scale, softcap, s);
+    case 256:
+      return tc::launch<256>(q, k, v, o, (int)B, (int)H, (int)Hkv, (int)S,
+                             strides, w, scale, softcap, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" long long repro_local_attention_smem(int wgmma, long long D) {
+  if (wgmma)
+    return D == 64 ? tc::Smem<64>::BYTES
+           : D == 128 ? tc::Smem<128>::BYTES
+           : D == 256 ? tc::Smem<256>::BYTES : 0;
+  // the FFMA tiles are fp32 whatever the input type
+  switch (D) {
+    case 16: return static_cast<long long>(ffma::smem_bytes<16>());
+    case 32: return static_cast<long long>(ffma::smem_bytes<32>());
+    case 64: return static_cast<long long>(ffma::smem_bytes<64>());
+    case 128: return static_cast<long long>(ffma::smem_bytes<128>());
+    case 256: return static_cast<long long>(ffma::smem_bytes<256>());
+  }
+  return 0;
 }

@@ -82,6 +82,16 @@ def build_all(names=None) -> dict[str, str]:
     return logs
 
 
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is built."""
+    return _target(name)
+
+
+def cuda_tool(name: str) -> str:
+    """A program of the CUDA toolkit beside ``nvcc`` (``cuobjdump``)."""
+    return os.path.join(os.path.dirname(_nvcc()), name)
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     with _LOCK:

@@ -1,4 +1,4 @@
-"""Hopper kernel of causal sliding-window attention (LM prefill).
+"""Hopper kernels of causal sliding-window attention (LM prefill).
 
 Binding of ``csrc/local_attn.cu`` (CUDA C++ for ``sm_90a``, built by
 ``kernels/build.py`` at first use and called through ``ctypes``).  It
@@ -7,17 +7,29 @@ replaces the Pallas TPU kernel of the JAX package's
 line 104): causal attention over the keys ``q - window < kv <= q``, GQA
 by head index (``h -> h // (H // Hkv)``), optional logit soft-capping,
 online softmax in fp32.  The source's header says what bounds it on an
-H100 and what the design does about it.
+H100 and what each design does about it.
 
-``local_attention_cuda`` takes CUDA tensors that ``kernels/ops.py`` has
-already checked, in the layout ``(B, H, S, D)`` with any strides along
-``B``, ``H`` and ``S`` that ``readable`` accepts (unit stride along
-``D``, 16-byte alignment).  It allocates the
-output with ``torch.empty`` in the memory order ``(B, S, H, D)`` and
-returns it as a ``(B, H, S, D)`` view, so the model's next product reads
-``(B, S, H * D)`` without a copy; it launches on the current stream and
-raises if the launch was refused.  Call it through ``ops``, which keeps
-the launch counts.
+Two routes, one C entry point each, chosen here by ``route(dtype, D)``:
+
+* ``"wgmma"``: bf16 at a head dim in ``WGMMA_HEAD_DIMS`` (those of the
+  configured models).  128 query rows a block as two warpgroups of 64,
+  scores and P·V on the bf16 tensor cores (``wgmma``) with fp32 sums and
+  the fp32 probabilities split into two bf16 terms, K/V tiles of 64 keys
+  staged by TMA into a two-stage ring by a producer warpgroup.  TMA reads
+  the operands through tensor maps, so every stride along B, H and S of a
+  dimension longer than 1 must be nonzero (``tma_describable``).
+* ``"ffma"``: fp32 at every head dim of ``HEAD_DIMS``, and bf16 at the
+  small ones: 64 query rows a block, fp32 tiles in shared memory, FFMA.
+
+A launch that the card refuses raises; neither route stands in for the
+other.  ``local_attention_cuda`` takes CUDA tensors that
+``kernels/ops.py`` has already checked, in the layout ``(B, H, S, D)``
+with any strides along ``B``, ``H`` and ``S`` that ``readable`` accepts
+(unit stride along ``D``, 16-byte alignment).  It allocates the output
+with ``torch.empty`` in the memory order ``(B, S, H, D)`` and returns it
+as a ``(B, H, S, D)`` view, so the model's next product reads
+``(B, S, H * D)`` without a copy; it launches on the current stream.
+Call it through ``ops``, which keeps the launch counts.
 """
 from __future__ import annotations
 
@@ -28,27 +40,45 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 128, 256)   # template instances (csrc: dispatch)
-BQ = BK = 64                         # query rows / keys per tile (csrc)
+HEAD_DIMS = (16, 32, 64, 128, 256)   # every head dim a route takes
+WGMMA_HEAD_DIMS = (64, 128, 256)     # bf16 on the tensor cores (csrc: tc)
+BK = 64                              # keys per tile, both routes (csrc)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _STRIDES = _I64 * 12
 
 
+def route(dtype: torch.dtype, D: int) -> str:
+    """The kernel that takes (dtype, D): ``"wgmma"`` or ``"ffma"``."""
+    return ("wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS
+            else "ffma")
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.library("local_attn")
     if not getattr(lib, "_repro_bound", False):
-        lib.repro_local_attention.argtypes = [
-            _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _STRIDES, _I64,
-            ctypes.c_float, ctypes.c_float, ctypes.c_int, _P]
-        lib.repro_local_attention.restype = ctypes.c_int
+        common = [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _STRIDES,
+                  _I64, ctypes.c_float, ctypes.c_float]
+        lib.repro_local_attention.argtypes = common + [ctypes.c_int, _P]
+        lib.repro_local_attention_wgmma.argtypes = common + [_P]
+        lib.repro_local_attention_smem.argtypes = [ctypes.c_int, _I64]
+        for fn in (lib.repro_local_attention,
+                   lib.repro_local_attention_wgmma):
+            fn.restype = ctypes.c_int
+        lib.repro_local_attention_smem.restype = _I64
         lib._repro_bound = True
     return lib
 
 
+def smem_bytes(route_name: str, D: int) -> int:
+    """Dynamic shared memory of one block of a route's instance."""
+    return int(_lib().repro_local_attention_smem(int(route_name == "wgmma"),
+                                                 D))
+
+
 def readable(t: torch.Tensor) -> bool:
-    """Whether the kernel's 16-byte loads read ``t`` in place: unit
+    """Whether the kernels' 16-byte loads read ``t`` in place: unit
     stride along D, every other stride and the base 16-byte aligned.
     The model's views always are."""
     per16 = 16 // t.element_size()
@@ -56,23 +86,34 @@ def readable(t: torch.Tensor) -> bool:
             and all(s % per16 == 0 for s in t.stride()[:3]))
 
 
+def tma_describable(t: torch.Tensor) -> bool:
+    """Whether a TMA tensor map describes ``t`` (on top of ``readable``):
+    no zero stride along a dimension longer than 1 (a broadcast view)."""
+    return all(s > 0 for n, s in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
 def local_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          window: int, softcap: float | None) -> torch.Tensor:
     """Attention on the card; q (B, H, S, D), k/v (B, Hkv, S, D), one
     dtype (fp32 or bf16), D in ``HEAD_DIMS`` -> (B, H, S, D) in q's
-    dtype."""
+    dtype, by the kernel of ``route(q.dtype, D)``."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device
                     ).transpose(1, 2)
     strides = _STRIDES(*(s for t in (q, k, v, o) for s in t.stride()[:3]))
-    with torch.cuda.device(q.device):
-        err = _lib().repro_local_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
             Hkv, S, D, strides, window, 1.0 / math.sqrt(D),
-            float(softcap or 0.0), int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            float(softcap or 0.0))
+    which = route(q.dtype, D)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if which == "wgmma":
+            err = _lib().repro_local_attention_wgmma(*args, stream)
+        else:
+            err = _lib().repro_local_attention(
+                *args, int(q.dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(
-            f"local_attention kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"local_attention kernel launch failed ({which} "
+                           f"route): CUDA error {err}")
     return o

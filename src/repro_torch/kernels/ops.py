@@ -251,9 +251,12 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     logits ``tanh(s / softcap) * softcap`` when ``softcap`` is given.
     q (B, H, S, D), k/v (B, Hkv, S, D) with ``Hkv`` dividing ``H`` (head
     ``h`` reads K/V head ``h // (H // Hkv)``) -> (B, H, S, D) in q's
-    dtype.  On the card D is one of ``local_attn.HEAD_DIMS``; any strides
-    along B, H and S are read in place, and an operand whose base or
-    strides are not 16-byte aligned is refused, on both devices."""
+    dtype.  On the card D is one of ``local_attn.HEAD_DIMS`` and
+    ``local_attn.route`` picks the kernel (bf16 at D >= 64 on the tensor
+    cores, the rest by FFMA); any strides along B, H and S are read in
+    place, and an operand whose base or strides are not 16-byte aligned
+    is refused, on both devices (on the tensor-core route, also a zero
+    stride: a broadcast view)."""
     for x in (q, k, v):
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"local_attention takes torch tensors, got "
@@ -293,6 +296,11 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{_la.HEAD_DIMS}, got {D}")
     if q.numel() == 0:
         return torch.empty_like(q)
+    if _la.route(q.dtype, D) == "wgmma" and not all(
+            _la.tma_describable(x) for x in (q, k, v)):
+        raise ValueError("local_attention on the tensor cores reads q, k "
+                         "and v through TMA tensor maps, which take no zero "
+                         "stride (pass a contiguous copy)")
     out = _la.local_attention_cuda(q, k, v, window, softcap)
     launches["local_attention"] += 1
     return out

@@ -13,8 +13,10 @@ neighbouring bf16 values, 1e-3.  The deflation kernels (``matvec``,
 ``deflate_rmatvec``, ``gram``) at ragged shapes: 1e-5.  ``local_attention``
 against its plain version on the same inputs: max |kernel - plain| 1e-4 in
 fp32 (the JAX package's limit for its kernel, ``tests/test_kernels.py:208``);
-in bf16 the kernel also rounds its output to bf16, at most half a bf16
-step, 2^-8 |o|, so 1e-4 + 2^-8 max |plain|.
+in bf16 each element within the kernel's one rounding of its output to
+bf16, 2^-8 |plain| of that element, plus 1e-5 for the fp32 sums' order
+(``_attn_within``).  bf16 at D >= 64 runs the tensor-core kernel
+(``local_attn.route``), the rest the FFMA one.
 """
 import pytest
 import torch
@@ -180,3 +182,56 @@ def test_local_attention_refuses_an_untemplated_head_dim(card):
     q = torch.randn((1, 2, 8, 48), device=card)
     with pytest.raises(ValueError):
         ops.local_attention(q, q, q, window=4)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("S,window", [
+    (1, 4),          # one row
+    (129, 17),       # window below one key tile
+    (129, 100),      # window between one and two tiles
+    (333, 64),       # window of exactly one tile, ragged S
+    (333, 1000),     # window >= S: causal attention
+])
+@pytest.mark.parametrize("group,softcap", [(1, None), (2, 50.0), (8, 30.0),
+                                           (2, None)])
+def test_tensor_core_route_matches_plain_version(card, D, S, window, group,
+                                                 softcap):
+    from repro_torch.kernels import local_attn
+    assert local_attn.route(torch.bfloat16, D) == "wgmma"
+    Hkv = 2
+    g = torch.Generator(device=card).manual_seed(D + S + window + group)
+    q, k, v = (torch.randn((2, S, h, D), generator=g, device=card)
+               .to(torch.bfloat16).transpose(1, 2)
+               for h in (Hkv * group, Hkv, Hkv))
+    ops.reset_launches()
+    got = ops.local_attention(q, k, v, window=window, softcap=softcap)
+    want = ref.local_attention_ref(q, k, v, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    assert _attn_within(got, want, "bfloat16")
+    assert ops.launches["local_attention"] == 1
+
+
+def test_tensor_core_route_reruns_bitwise_on_strided_views(card):
+    """D = 256, GQA group 8, ragged S: two runs on (B, S, H, D) views
+    (every stride along B, H and S differs from a contiguous tensor's)
+    give the same bits."""
+    g = torch.Generator(device=card).manual_seed(11)
+    base = [torch.randn((2, 333, h + 1, 256), generator=g, device=card)
+            .to(torch.bfloat16) for h in (8, 1, 1)]
+    q, k, v = (x[:, :, :-1].transpose(1, 2) for x in base)
+    runs = [ops.local_attention(q, k, v, window=200, softcap=50.0)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    want = ref.local_attention_ref(q, k, v, window=200, softcap=50.0)
+    assert _attn_within(runs[0], want, "bfloat16")
+
+
+def test_tensor_core_route_refuses_a_broadcast_view(card):
+    q = torch.randn((1, 4, 64, 64), device=card).to(torch.bfloat16)
+    k = torch.randn((1, 1, 64, 64), device=card).to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        ops.local_attention(q, k.expand(1, 2, 64, 64), k.expand(1, 2, 64, 64),
+                            window=8)

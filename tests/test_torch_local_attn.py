@@ -124,3 +124,27 @@ def test_kernel_template_covers_every_configured_head_dim():
     dims |= {smoke_config(get_config(a)).resolved_head_dim
              for a in list_archs()}
     assert dims <= set(local_attn.HEAD_DIMS)
+
+
+def test_route_puts_bf16_at_configured_head_dims_on_the_tensor_cores():
+    """bf16 at every configured head dim >= 64 takes the wgmma kernel;
+    fp32 at every head dim, and bf16 at D in {16, 32}, the FFMA one."""
+    from repro_torch.configs import get_config, list_archs
+    dims = {get_config(a).resolved_head_dim for a in list_archs()
+            if set(get_config(a).blocks) <= {"attn", "local"}}
+    assert dims and all(d >= 64 for d in dims)
+    for D in dims:
+        assert local_attn.route(torch.bfloat16, D) == "wgmma"
+    for D in local_attn.HEAD_DIMS:
+        assert local_attn.route(torch.float32, D) == "ffma"
+    for D in (16, 32):
+        assert local_attn.route(torch.bfloat16, D) == "ffma"
+    assert set(local_attn.WGMMA_HEAD_DIMS) <= set(local_attn.HEAD_DIMS)
+
+
+def test_tma_describable_refuses_broadcast_views_only():
+    k = torch.zeros((2, 1, 40, 64), dtype=torch.bfloat16)
+    assert local_attn.tma_describable(k)                  # size-1 head dim
+    assert not local_attn.tma_describable(k.expand(2, 4, 40, 64))
+    q = torch.zeros((2, 40, 4, 64), dtype=torch.bfloat16).transpose(1, 2)
+    assert local_attn.tma_describable(q)                  # the model's view

@@ -8,24 +8,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; build the CUDA kernels of ``src/repro_torch/csrc`` and
    print the build time and each kernel's registers/spills; for every
-   ``local_attention`` instance its registers, spills, dynamic shared
-   memory and tensor-core instructions (``HGMMA``/``HMMA`` in the
-   library's SASS, ``cuobjdump -sass``).  Fails unless the bf16
-   D = 256 instance (the path's) has tensor-core instructions and
-   spills nothing.
+   ``local_attention`` instance and every tensor-core instance of the
+   block sweeps (``block_matvec_tc``) its registers, spills (and for
+   attention its dynamic shared memory) and tensor-core instructions
+   (``HGMMA``/``HMMA`` in the library's SASS, ``cuobjdump -sass``).
+   Fails unless the path's instances (attention bf16 D = 256; the
+   sweeps' ``matvec_tc<32>`` and ``rmatvec_tc``, k = 32) have
+   tensor-core instructions and spill nothing.
 2. every kernel on the card against its plain PyTorch version
    (``repro_torch/kernels/ref.py``): ``block_matvec``, ``block_rmatvec``
    and ``block_gram_chain`` (both orientations), fp32 and bf16, at
-   ragged shapes and at the main path's 262144 x 32768, k = 32, with the
-   relative Frobenius error and its limit; kernel, plain, library
+   ragged shapes, each with the route that ran it (``wgmma``: bf16 on
+   the tensor cores; ``ffma``; read from the route launch counts), and
+   at the main path's 262144 x 32768, k = 32, with the relative
+   Frobenius error and its limit; kernel, plain, library
    (``torch.matmul``, a yardstick only) and bound times at that shape.
+   Then a planted fault the limit must reject: the tensor-core sweeps
+   built with ``-DREPRO_TC_SUMS_ONLY`` (their fp32 sums left in the
+   tensor cores' accumulators for the whole reduction, not promoted to
+   rounded adds every 64-deep stage), against the real ones, on a
+   65536 x 32768 |N(0, 1)| ``A`` with skinny operands uniform in [0, 1)
+   (every partial sum grows, as a truncating accumulator likes least).
 3. the main path: ``repro_torch.svd(A, 32)`` with the default config on
    a 262144 x 32768 fp32 ``A`` (32 GiB, the paper's per-node shard)
    built on the card with singular values ``100 * 0.9**i`` (i < 64) plus
    noise far below them; sigma checked to rtol 1e-4, launch counts
-   checked against the pass accounting.  Then ``sweep_dtype="bfloat16"``
-   (eps 1e-4, rtol 1e-2) on the same ``A``, and a contiguous wide input
-   (the operator's transposed path).
+   (by route: FFMA) checked against the pass accounting.  Then this
+   slice's path, ``sweep_dtype="bfloat16"`` (eps 1e-4, rtol 1e-2) on the
+   same ``A``, its chains on the tensor-core route (the extraction reads
+   ``A`` in fp32: FFMA), and a profile of it (device busy share, time by
+   kernel); and a contiguous wide input (the operator's transposed path).
 4. the deflation kernels (``matvec``, ``deflate_rmatvec``, ``gram``,
    both layouts; ``gram`` symmetric and full, fp32 and bf16) against
    their plain versions at ragged shapes (relative Frobenius error, limit
@@ -40,8 +52,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    a 262144 x 8192 ``A`` (launches ``gram`` k, ``matvec`` k; passes 3k),
    and both methods at k = 4 on the contiguous wide input (the ``trans``
    kernels).
-6. determinism: two block solves and two gram-free solves of a
-   16384 x 4096 matrix, each pair bitwise equal.
+6. determinism: two block solves (fp32 sweeps, and bf16 on the tensor
+   cores) and two gram-free solves of a 16384 x 4096 matrix, each pair
+   bitwise equal.
 7. the LM serving path: the ``local_attention`` kernels (causal
    sliding-window attention, GQA, soft-cap; bf16 at D >= 64 on the
    tensor cores, the rest by FFMA) against their plain version at
@@ -82,8 +95,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    attention; ``library_causal_ms``).
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches in the
-solve of its path, and its times), the ``nvidia-smi`` name and power
-limit line again, and last ``{"ok": true, "device": {...}}``.  Exits 2
+solve of its path, and its times; the block sweeps once for the main
+path's fp32 FFMA kernels and once, as ``<name>/wgmma``, for the bf16
+solve's tensor-core kernels), the ``nvidia-smi`` name and power limit
+line again, and last ``{"ok": true, "device": {...}}``.  Exits 2
 without a CUDA device or without ``src/repro_torch`` beside this script.
 """
 from __future__ import annotations
@@ -140,6 +155,7 @@ REPLACES = {"block_matvec": f"{TPU_KERNEL}:81",
             "deflate_rmatvec": "src/repro/kernels/deflate_matvec.py:127",
             "gram": "src/repro/kernels/gram.py:84",
             "local_attention": "src/repro/kernels/local_attn.py:104"}
+TC_SOURCE = "src/repro_torch/csrc/block_matvec_tc.cu"
 SOURCES = {"block_matvec": "src/repro_torch/csrc/block_matvec.cu",
            "block_rmatvec": "src/repro_torch/csrc/block_matvec.cu",
            "block_gram_chain": "src/repro_torch/csrc/block_matvec.cu",
@@ -387,25 +403,24 @@ def deflation_solve(torch, repro_torch, ops, X, k, method, label, s,
 # phase 7: the LM serving path (gemma2-9b) and its local_attention kernel
 # ---------------------------------------------------------------------------
 
-def attention_instances(build, la, log: str) -> None:
-    """Each ``local_attn`` instance's registers, spills and dynamic shared
-    memory (``nvcc -Xptxas=-v``) and its tensor-core instructions (SASS of
-    the built library); fail unless the bf16 D = 256 instance, the LM
-    path's, has tensor-core instructions and spills nothing."""
-    import re
-    insts, name = {}, None
+def instances(build, name: str, log: str) -> tuple:
+    """Each kernel of library ``name``: registers and spills from its
+    ``nvcc -Xptxas=-v`` log, and tensor-core instructions (``HGMMA`` or
+    ``HMMA``) from the SASS of the built library; (info by mangled name,
+    count by mangled name).  Prints ptxas's "wgmma serialized" notes."""
+    insts, fn = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            name = line.split("'")[1]
-        elif name and "spill stores" in line:
-            insts[name] = {"spill": int(line.split()[4])}
-        elif name in insts and "Used" in line and "registers" in line:
-            insts[name]["regs"] = int(line.split("Used ")[1].split()[0])
+            fn = line.split("'")[1]
+        elif fn and "spill stores" in line:
+            insts[fn] = {"spill": int(line.split()[4])}
+        elif fn in insts and "Used" in line and "registers" in line:
+            insts[fn]["regs"] = int(line.split("Used ")[1].split()[0])
         if "C7512" in line:              # wgmma serialized by ptxas
             print(f"  {line.strip()}")
     sass = subprocess.run(
         [build.cuda_tool("cuobjdump"), "-sass",
-         str(build.library_path("local_attn"))], capture_output=True,
+         str(build.library_path(name))], capture_output=True,
         text=True, check=True).stdout
     mma, fn = {}, None
     for line in sass.splitlines():
@@ -414,6 +429,41 @@ def attention_instances(build, la, log: str) -> None:
             mma[fn] = 0
         elif fn is not None and ("HGMMA" in line or "HMMA" in line):
             mma[fn] += 1
+    return insts, mma
+
+
+def sweep_instances(build, log: str) -> None:
+    """Each tensor-core instance of the block sweeps
+    (``block_matvec_tc``): registers, spills, HGMMA count; fail unless
+    the path's (``matvec_tc<32>``, ``rmatvec_tc``: k = 32) have HGMMA
+    and spill nothing."""
+    import re
+    insts, mma = instances(build, "block_matvec_tc", log)
+    path = {}
+    for mangled, info in insts.items():
+        m = re.search(r"\d(r?matvec)_tc(?:ILi(\d+)E)?", mangled)
+        if m is None:
+            continue
+        label = m.group(1) + (f"_tc<{m.group(2)}>" if m.group(2) else "_tc")
+        n_mma = mma.get(mangled, 0)
+        print(f"  block_matvec_tc {label:14s} bf16: {info['regs']} registers, "
+              f"{info['spill']} bytes spilled, {n_mma} tensor-core "
+              f"instructions (HGMMA)")
+        if label in ("matvec_tc<32>", "rmatvec_tc"):
+            path[label] = (n_mma, info["spill"])
+    if sorted(path) != ["matvec_tc<32>", "rmatvec_tc"] or any(
+            n == 0 or sp != 0 for n, sp in path.values()):
+        fail(f"block_matvec_tc path instances (HGMMA, bytes spilled): {path}; "
+             f"want tensor-core instructions and no spills")
+
+
+def attention_instances(build, la, log: str) -> None:
+    """Each ``local_attn`` instance's registers, spills and dynamic shared
+    memory (``nvcc -Xptxas=-v``) and its tensor-core instructions (SASS of
+    the built library); fail unless the bf16 D = 256 instance, the LM
+    path's, has tensor-core instructions and spills nothing."""
+    import re
+    insts, mma = instances(build, "local_attn", log)
     path = None
     for mangled, info in insts.items():
         m = re.search(r"local_attn_(wgmma|ffma)I(f|13__nv_bfloat16)?Li(\d+)E",
@@ -433,6 +483,65 @@ def attention_instances(build, la, log: str) -> None:
         fail(f"local_attn bf16 D=256 instance (tensor-core instructions, "
              f"bytes spilled): {path}; want tensor-core instructions and no "
              f"spills")
+
+
+def build_tc_sums_only(build) -> tuple:
+    """Start ``nvcc`` on ``csrc/block_matvec_tc.cu`` with
+    ``-DREPRO_TC_SUMS_ONLY`` (the planted fault of phase 2b) beside the
+    real build; returns (the process, the library it writes)."""
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = build.BUILD_DIR / "block_matvec_tc-tc_sums_only.so"
+    proc = subprocess.Popen(
+        [build.cuda_tool("nvcc"), *build.NVCC_FLAGS, "-DREPRO_TC_SUMS_ONLY",
+         "-o", str(out), str(build.CSRC / "block_matvec_tc.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def tc_sums_fault(torch, bm, ref, lib_path, g, dev) -> dict:
+    """The tensor-core sweeps and the same sweeps with their sums left in
+    the tensor cores (the library at ``lib_path``), each against the
+    plain version on a 65536 x 32768 |N(0, 1)| bf16 ``A`` with skinny
+    operands uniform in [0, 1); fail unless the real sweeps are within
+    the limit and the planted fault is outside it.  Returns the errors."""
+    import ctypes
+    m = 65536
+    A = torch.empty((m, N), dtype=torch.bfloat16, device=dev)
+    for r in range(0, m, SLAB):
+        A[r:r + SLAB] = torch.randn((SLAB, N), generator=g, device=dev).abs_()
+    Q = torch.rand((N, K), generator=g, device=dev).to(torch.bfloat16)
+    Y = torch.rand((m, K), generator=g, device=dev).to(torch.bfloat16)
+    want = {"block_matvec": plain_matvec(torch, ref, A, Q, "bfloat16"),
+            "block_rmatvec": plain_rmatvec(torch, ref, A, Y, "bfloat16")}
+
+    def run():
+        return {"block_matvec": bm.block_matvec_cuda(A, Q, "wgmma"),
+                "block_rmatvec": bm.block_rmatvec_cuda(A, Y, "wgmma")}
+    real = run()
+    library = bm.build.library
+    fault = ctypes.CDLL(str(lib_path))
+    bm.build.library = lambda name: (fault if name == "block_matvec_tc"
+                                     else library(name))
+    try:
+        planted = run()
+    finally:
+        bm.build.library = library
+    torch.cuda.synchronize()
+    tol = TOL["bfloat16"]
+    errs = {}
+    for name in want:
+        errs[name] = (rel_err(torch, real[name], want[name]),
+                      rel_err(torch, planted[name], want[name]))
+        print(f"  {name:16s} bf16 (wgmma) {m}x{N} k={K}, |A|, skinny in "
+              f"[0, 1): rel err {errs[name][0]:.2e}; with the sums left in "
+              f"the tensor cores {errs[name][1]:.2e} (limit {tol:.0e})")
+        if not errs[name][0] <= tol:
+            fail(f"{name} bf16 on |A|: rel err {errs[name][0]} > {tol}")
+        if not errs[name][1] > tol:
+            fail(f"{name} with its sums left in the tensor cores reads "
+                 f"{errs[name][1]}, within the limit {tol}: the check cannot "
+                 f"see it")
+    return errs
 
 
 def attn_share(got, want, dtype: str) -> float:
@@ -779,8 +888,11 @@ def main() -> int:
               "(src/repro_torch not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, src)
+    import importlib
+
     import repro_torch
     from repro_torch.kernels import build, local_attn, ops, ref
+    bm = importlib.import_module("repro_torch.kernels.block_matvec")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -795,9 +907,14 @@ def main() -> int:
 
     # -- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
+    planted_build, planted_lib = build_tc_sums_only(build)
     logs = build.build_all()
+    planted_log = planted_build.communicate()[0]
+    if planted_build.returncode != 0:
+        fail(f"nvcc -DREPRO_TC_SUMS_ONLY failed:\n{planted_log}")
     print(f"build: {time.perf_counter() - t0:.1f} s "
-          f"({', '.join(logs) or 'up to date'})")
+          f"({', '.join(logs) or 'up to date'}; and block_matvec_tc with "
+          f"-DREPRO_TC_SUMS_ONLY, the planted fault of phase 2b)")
     for name, log in logs.items():       # nvcc -Xptxas=-v, per kernel
         regs = [int(l.split("Used ")[1].split()[0])
                 for l in log.splitlines() if "registers" in l]
@@ -808,11 +925,18 @@ def main() -> int:
               f"{max(spills)} bytes stored)")
     attention_instances(build, local_attn, logs.get("local_attn") or (
         build.BUILD_DIR / "local_attn.log").read_text())
+    sweep_instances(build, logs.get("block_matvec_tc") or (
+        build.BUILD_DIR / "block_matvec_tc.log").read_text())
 
     # -- 2a. kernels vs plain at ragged shapes -----------------------------
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    # n in {300, 515, 4100} has rows a tensor map cannot describe: bf16
+    # there stays FFMA; (5000, 1000, 7) is ragged in m (not whole 256-row
+    # blocks), n (not whole 64-column stages) and k (not a multiple of 8)
+    # on the tensor-core route
     shapes = [(1000, 300, 7), (4097, 515, 40), (2048, 1024, 130),
-              (3000, 200, 1), (257, 4100, 32), (40000, 96, 33)]
+              (3000, 200, 1), (257, 4100, 32), (40000, 96, 33),
+              (5000, 1000, 7)]
     worst = 0.0
     for (m, n, k) in shapes:
         A = torch.randn((m, n), generator=g, device=dev)
@@ -820,6 +944,8 @@ def main() -> int:
         Ym = torch.randn((m, k), generator=g, device=dev)
         for sd in ("float32", "bfloat16"):
             As = A.to(getattr(torch, sd))
+            route = bm.route(As, k)
+            ops.reset_launches()
             cases = [
                 ("block_matvec", ops.block_matvec(As, Qn),
                  ref.block_matvec_ref(As, Qn, sd), TOL[sd]),
@@ -834,14 +960,18 @@ def main() -> int:
                  TOL_CHAIN_BF16 if sd == "bfloat16" else TOL[sd]),
             ]
             torch.cuda.synchronize()
+            ran = {n_: c for n_, c in ops.route_launches.items() if c}
+            if ran != {f"block_matvec/{route}": 3,
+                       f"block_rmatvec/{route}": 3}:
+                fail(f"{sd} {(m, n, k)}: route {route}, launches {ran}")
             for name, got, want, tol in cases:
                 if got.dtype != torch.float32 or got.shape != want.shape:
                     fail(f"{name} {sd} {(m, n, k)}: got {got.dtype} "
                          f"{tuple(got.shape)}")
                 e = rel_err(torch, got, want)
                 worst = max(worst, e / tol)
-                print(f"  {name:24s} {sd:8s} m={m} n={n} k={k}: rel err "
-                      f"{e:.2e} (limit {tol:.0e})")
+                print(f"  {name:24s} {sd:8s} ({route}) m={m} n={n} k={k}: "
+                      f"rel err {e:.2e} (limit {tol:.0e})")
                 if not e <= tol:
                     fail(f"{name} {sd} {(m, n, k)}: rel err {e} > {tol}")
     print(f"ragged shapes: all within limits (worst {worst:.2f} of limit)")
@@ -893,14 +1023,18 @@ def main() -> int:
                 "library_ms": time_ms(torch, lib, 3),
             }
             row["bound_ms"], row["bound_by"] = bound(name, M, N, K, sd)
+            row["route"] = bm.route(As, K)
             table[(name, sd)] = row
-            print(f"  {name:16s} {sd:8s} {M}x{N} k={K}: rel err {e:.2e} "
+            print(f"  {name:16s} {sd:8s} ({row['route']}) {M}x{N} k={K}: "
+                  f"rel err {e:.2e} "
                   f"(limit {tol:.0e}), kernel {row['ms']:.2f} ms, plain "
                   f"{row['plain_ms']:.2f} ms, torch.matmul "
                   f"{row['library_ms']:.2f} ms, bound "
                   f"{row['bound_ms']:.2f} ms ({row['bound_by']})")
             del got, want
         del As, Qs, Ys
+    torch.cuda.empty_cache()
+    tc_sums_fault(torch, bm, ref, planted_lib, g, dev)
     torch.cuda.empty_cache()
 
     # -- 4. the gram-free kernels at the gram-free path's shape -------------
@@ -924,18 +1058,20 @@ def main() -> int:
     del v, Xv, Ud, c
 
     # -- 3. the main path (block) -----------------------------------------
-    def solve(X, label, expect_trans=False, rtol=1e-4, **kw):
+    def solve(X, label, expect_trans=False, rtol=1e-4, route="ffma", **kw):
         ops.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         res = repro_torch.svd(X, K, **kw)
         counts = {n: c for n, c in ops.launches.items() if c}
+        routes = {n: c for n, c in ops.route_launches.items() if c}
         it = int(res.iters[0])
         err = float((res.S.double().cpu() / s[:K].double().cpu() - 1)
                     .abs().max())
         print(f"{label}: iters {it}, passes_over_A {res.passes_over_A}, "
               f"bytes_per_pass {res.bytes_per_pass}, bytes_moved "
               f"{res.bytes_moved}, converged {res.converged}, wall_time_s "
-              f"{res.wall_time_s:.3f}, launches {counts}, max sigma rel "
+              f"{res.wall_time_s:.3f}, launches {counts} (by route "
+              f"{routes}), max sigma rel "
               f"err {err:.2e} (limit {rtol:.0e}), peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
         want = {"block_gram_chain": it,
@@ -944,17 +1080,46 @@ def main() -> int:
         if counts != want:
             fail(f"{label}: launches {counts}, pass accounting implies "
                  f"{want}")
+        # the chains run on `route`; the extraction reads A in fp32 (FFMA)
+        want_routes = {f"{n}/{route}": it
+                       for n in ("block_matvec", "block_rmatvec")}
+        last = "block_rmatvec/ffma" if expect_trans else "block_matvec/ffma"
+        want_routes[last] = want_routes.get(last, 0) + 1
+        if routes != want_routes:
+            fail(f"{label}: launches by route {routes}, want {want_routes}")
         if res.passes_over_A != 2 * it + 1 or res.backend != "dense":
             fail(f"{label}: passes {res.passes_over_A} for {it} iters")
         if not (res.converged and err <= rtol
                 and bool(torch.isfinite(res.U).all())
                 and bool(torch.isfinite(res.V).all())):
             fail(f"{label}: not converged to the prescribed sigma")
-        return res, counts
+        return res, counts, routes
 
-    _, main_counts = solve(A, f"main path svd(A, {K}) fp32")
-    solve(A, f"svd(A, {K}) bf16 sweeps", rtol=1e-2,
-          sweep_dtype="bfloat16", eps=1e-4)
+    _, main_counts, _ = solve(A, f"main path svd(A, {K}) fp32")
+    bf16_kw = {"sweep_dtype": "bfloat16", "eps": 1e-4}
+    _, bf16_counts, bf16_routes = solve(A, f"svd(A, {K}) bf16 sweeps",
+                                        rtol=1e-2, route="wgmma", **bf16_kw)
+    # where the bf16 solve's device time goes (another solve, profiled)
+    res, wall, busy, n_act, names = profile_window(
+        torch, lambda: repro_torch.svd(A, K, **bf16_kw))
+    if n_act:
+        keys = (("block_matvec", "::matvec_tc"),
+                ("block_rmatvec", "::rmatvec_tc"), ("slab sum", "sum_slabs"))
+        sweeps = {lab: sum(t for n_, t in names.items() if key in n_)
+                  for lab, key in keys}
+        rest = sorted(((n_, t) for n_, t in names.items() if not any(
+            key in n_ for _, key in keys)), key=lambda x: -x[1])
+        print(f"profile of the bf16 solve ({int(res.iters[0])} iters): "
+              f"{wall:.3f} s under the profiler, device busy {busy:.3f} s "
+              f"({100 * busy / wall:.1f} %, idle {100 * (1 - busy / wall):.1f}"
+              f" %), {n_act} device activities; " + ", ".join(
+                  f"{lab} {t:.4f} s" for lab, t in sweeps.items())
+              + "; the rest by time: " + ", ".join(
+                  f"{n_[:48]} {t:.4f} s" for n_, t in rest[:6]))
+    else:
+        print("profile of the bf16 solve: not measured (the profiler saw no "
+              "device activity)")
+    del res
 
     # -- 5. the deflation paths ------------------------------------------
     path_counts = {n: main_counts[n] for n in main_counts}
@@ -991,13 +1156,13 @@ def main() -> int:
 
     # -- 6. determinism --------------------------------------------------
     Ar, _ = spectral_matrix(torch, *RERUN, SEED + 3, dev)
-    for kw in ({}, {"method": "gramfree"}):
-        k = K_GRAMFREE if kw else K
+    for kw in ({}, {"method": "gramfree"}, bf16_kw):
+        k = K_GRAMFREE if "method" in kw else K
         r1, r2 = repro_torch.svd(Ar, k, **kw), repro_torch.svd(Ar, k, **kw)
         same = all(torch.equal(a, b) for a, b in zip(r1[:3], r2[:3]))
         print(f"rerun {RERUN[0]}x{RERUN[1]} svd(A, {k}"
-              f"{', method=' + repr(kw['method']) if kw else ''}): "
-              f"U, S, V bitwise equal: {same}")
+              + "".join(f", {key}={val!r}" for key, val in kw.items())
+              + f"): U, S, V bitwise equal: {same}")
         if not same:
             fail(f"two solves with the same seed differ ({kw})")
 
@@ -1008,9 +1173,16 @@ def main() -> int:
     dtable["local_attention"], path_counts["local_attention"] = lm_serving(
         torch, ops, ref, local_attn, g, dev)
 
-    rows = {name: table[(name, "float32")]
-            for name in ("block_matvec", "block_rmatvec", "block_gram_chain")}
+    sweeps = ("block_matvec", "block_rmatvec", "block_gram_chain")
+    rows = {name: table[(name, "float32")] for name in sweeps}
     rows.update(dtable)
+    # this slice's path: the bf16 solve's chains, on the tensor cores
+    for name in sweeps:
+        rows[f"{name}/wgmma"] = table[(name, "bfloat16")]
+        path_counts[f"{name}/wgmma"] = bf16_routes.get(
+            f"{name}/wgmma", bf16_counts[name])
+        SOURCES[f"{name}/wgmma"] = TC_SOURCE
+        REPLACES[f"{name}/wgmma"] = REPLACES[name]
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": path_counts[name],

@@ -8,6 +8,11 @@
 // The fused chain Z = A^T (A Q) of that file (block_gram_chain, :146) is the
 // composition of the two, done by the wrapper in kernels/ops.py.
 //
+// This file is the FFMA route: every fp32 sweep, and the bf16 sweeps that
+// kernels/block_matvec.py::route does not send to the tensor-core kernels of
+// block_matvec_tc.cu (an A whose base is not 16-byte aligned or whose n is
+// not a multiple of 8, which a TMA tensor map cannot describe).
+//
 // Types: A and the skinny operand are both fp32 or both bf16.  bf16 values
 // are widened to fp32 when they are staged into shared memory, every product
 // is an fp32 FFMA (never TF32), and the sums are fp32; the output is fp32.
@@ -19,7 +24,8 @@
 // reads 34.4 GB of A (10.3 ms) and does 2*m*n*k = 5.5e11 flop (8.2 ms of
 // FFMA).  Both sweeps are bound by the bytes of A, the FFMA rate close behind;
 // in bf16 the bytes halve (5.1 ms) and the FFMA work (8.2 ms) becomes the
-// limit of this design.  What the design does about it:
+// limit of this design (hence the bf16 tensor-core route).  What the design
+// does about it:
 //   * A is read from device memory exactly once per k tile of up to 64
 //     columns, so for k <= 64 each sweep moves A once; the skinny operand
 //     and the output are k/n and k/m of A's bytes.
@@ -36,12 +42,10 @@
 //   * The reduction of block_rmatvec runs over the long m axis.  It is split
 //     into slabs of at most 16384 rows (and enough slabs to fill the card when
 //     n is small); each slab writes fp32 partials and a second launch sums
-//     the slabs in order.  No atomics: the summation order is fixed, so every
-//     rerun is bitwise equal.  The slab bound also caps each thread's
-//     sequential fp32 sum, which keeps the rounding error near 2e-6 relative.
-//
-// Later work (not here): wgmma/mma.sync for bf16, TMA staging, and a fused
-// single-read chain.
+//     the slabs in order (slab_sum.cuh).  No atomics: the summation order is
+//     fixed, so every rerun is bitwise equal.  The slab bound also caps each
+//     thread's sequential fp32 sum, which keeps the rounding error near 2e-6
+//     relative.
 //
 // C interface (bound with ctypes; every pointer and the stream as void*):
 //   int repro_block_matvec(A, Q, Y, m, n, k, is_bf16, stream)
@@ -57,6 +61,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "slab_sum.cuh"
 
 namespace {
 
@@ -349,19 +355,6 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   }
 }
 
-// Z[e] = sum over slabs s = 0, 1, ... of P[s][e], in that order.
-__global__ void sum_slabs_kernel(const float* __restrict__ P,
-                                 float* __restrict__ Z, int64_t count,
-                                 int slabs) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       e < count; e += stride) {
-    float s = 0.0f;
-    for (int z = 0; z < slabs; ++z) s += P[z * count + e];
-    Z[e] = s;
-  }
-}
-
 template <typename T, int TK>
 void launch_matvec(const void* A, const void* Q, void* Y, int m, int n, int k,
                    bool vec, cudaStream_t s) {
@@ -464,13 +457,8 @@ extern "C" int repro_block_rmatvec(const void* A, const void* Y, void* Z,
   else
     rmatvec_typed<float>(A, Y, out, (int)m, (int)n, (int)k, (int)slab_rows,
                          slabs, s);
-  if (slabs > 1) {
-    const int64_t count = n * k;
-    const int64_t want = (count + NT - 1) / NT;
-    const int blocks = (int)(want < 4096 ? want : 4096);
-    sum_slabs_kernel<<<blocks, NT, 0, s>>>(static_cast<const float*>(partial),
-                                           static_cast<float*>(Z), count,
-                                           slabs);
-  }
+  if (slabs > 1)
+    repro_slab_sum::sum_slabs(static_cast<const float*>(partial),
+                              static_cast<float*>(Z), n * k, slabs, s);
   return static_cast<int>(cudaGetLastError());
 }

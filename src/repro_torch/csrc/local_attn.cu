@@ -94,6 +94,9 @@
 // describe, or cudaErrorNotSupported without libcuda's tensor-map
 // encoder; they allocate nothing.  _smem gives the
 // dynamic shared memory of an instance, in bytes.
+//
+// The mbarrier, TMA, wgmma-descriptor and tensor-map helpers are shared with
+// the block sweeps' tensor-core kernels in hopper.cuh.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -101,6 +104,8 @@
 
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -347,6 +352,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 
 namespace tc {
 
+using namespace repro_hopper;
+
 constexpr int NCONS = 2;               // consumer warpgroups, 64 rows each
 constexpr int NT = 128 * (NCONS + 1);  // + one producer warpgroup
 constexpr int PRODUCER_REGS = 24;      // setmaxnreg: 128 x 24 + 256 x 240
@@ -371,95 +378,6 @@ struct Smem {
   static constexpr int BYTES = BAR + 8 * (1 + 3 * STAGES) + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "{\n.reg .b64 state;\n"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(
-          bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 state;\n"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
-      : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One 64 x 64 box at (d0, row, head, batch) of the tensor map into shared
-// memory; completes `bytes` on the barrier.  Rows past S arrive as zeros.
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
-                                        uint32_t bar, int d0, int row,
-                                        int head, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::
-          "r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(row),
-      "r"(head), "r"(batch)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle.  K-major operands (Q,
-// K): 8-row groups `sbo` = 1024 bytes apart, the leading offset unused.
-// MN-major V: 64-column blocks `lbo` = 64 rows x 128 bytes apart, 8-key
-// groups `sbo` = 1024 bytes apart.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Pin registers that an asynchronous wgmma reads or writes to this point of
-// the program, so the compiler neither reads them early nor reuses them.
-template <int N>
-__device__ __forceinline__ void hold(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -480,29 +398,6 @@ __device__ __forceinline__ float tanh_any(float y) {
   if (fabsf(y) < 0.125f) return tanh_small(y);
   const float e = exp2f(2.0f * LOG2E * fabsf(y));
   return copysignf(1.0f - 2.0f / (e + 1.0f), y);
-}
-
-// D (64 x 64, fp32) += A (64 x 16, smem) * B (64 x 16, smem), both K-major.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // D (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major).
@@ -670,7 +565,7 @@ __global__ void __launch_bounds__(NT, 1)
       mbar_init(full_v + 8 * s, 1);
       mbar_init(empty + 8 * s, 4 * NCONS);   // lane 0 of each consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -680,18 +575,18 @@ __global__ void __launch_bounds__(NT, 1)
     mbar_expect_tx(full_q, NCONS * NCH * BOX);
     for (int c = 0; c < NCONS; ++c)
       for (int ch = 0; ch < NCH; ++ch)
-        tma_box(base + L::Q + (c * NCH + ch) * BOX, &mq, full_q, 64 * ch,
+        tma_load_4d(base + L::Q + (c * NCH + ch) * BOX, &mq, full_q, 64 * ch,
                 q_lo + 64 * c, h, b);
     for (int t = t_first, i = 0; t <= t_last; ++t, ++i) {
       const int s = i % STAGES;
       if (i >= STAGES) mbar_wait(empty + 8 * s, ((i / STAGES) - 1) & 1);
       mbar_expect_tx(full_k + 8 * s, NCH * BOX);
       for (int ch = 0; ch < NCH; ++ch)
-        tma_box(base + L::K + (s * NCH + ch) * BOX, &mk, full_k + 8 * s,
+        tma_load_4d(base + L::K + (s * NCH + ch) * BOX, &mk, full_k + 8 * s,
                 64 * ch, t * BK, hk, b);
       mbar_expect_tx(full_v + 8 * s, NCH * BOX);
       for (int ch = 0; ch < NCH; ++ch)
-        tma_box(base + L::V + (s * NCH + ch) * BOX, &mv, full_v + 8 * s,
+        tma_load_4d(base + L::V + (s * NCH + ch) * BOX, &mv, full_v + 8 * s,
                 64 * ch, t * BK, hk, b);
     }
     return;
@@ -736,8 +631,8 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
         const uint32_t off = (ks / 4) * BOX + (ks % 4) * 32;
-        wgmma_ss_n64(sc, desc(q_base + off, 16, 1024),
-                     desc(k_base + off, 16, 1024), ks > 0);
+        wgmma_ss<64, 0>(sc, desc(q_base + off, 16, 1024),
+                        desc(k_base + off, 16, 1024), ks > 0);
       }
       wg_commit();
       wg_wait_all();
@@ -851,32 +746,6 @@ __global__ void __launch_bounds__(NT, 1)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(
           acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
   }
-}
-
-// cuTensorMapEncodeTiled of libcuda, found through the runtime: no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // The (D, S, heads, B) view at `ptr` with element strides `st`, in boxes of

@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels of the port, with their plain versions.
 
-* ``block_matvec``     — multi-vector ``A @ Q`` sweep (CUDA C++,
-                         ``csrc/block_matvec.cu``)
+* ``block_matvec``     — multi-vector ``A @ Q`` sweep (CUDA C++: bf16
+                         on the tensor cores, ``csrc/block_matvec_tc.cu``;
+                         fp32 by FFMA, ``csrc/block_matvec.cu``)
 * ``block_rmatvec``    — multi-vector ``A^T @ Y`` sweep, reduction over
-                         the long m axis in ordered slabs (same source)
+                         the long m axis in ordered slabs (same sources)
 * ``block_gram_chain`` — their composition ``A^T (A Q)``
 * ``matvec``           — ``A @ v`` (CUDA C++, ``csrc/deflate_matvec.cu``)
 * ``deflate_rmatvec``  — the fused Alg-4 reverse sweep
@@ -38,5 +39,6 @@ from repro_torch.kernels.ops import (  # noqa: F401
     local_attention,
     local_attention_ref,
     launches,
+    route_launches,
     reset_launches,
 )

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes``.  No
 PyTorch headers are involved, so a build takes seconds.  The libraries
 go to ``repro_torch/_build/`` (ignored by git), named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged
-one is reused.  ``build_all()`` starts one ``nvcc`` per source, all at
-once, and waits for them together.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused.
+``build_all()`` starts one ``nvcc`` per source, all at once, and waits
+for them together.
 
 Nothing here runs when the module is imported: the CPU tests import
 every module on machines that have no CUDA toolkit, so ``nvcc`` is
@@ -45,9 +46,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{tag[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # any of them may be included
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict[str, str]:

@@ -27,7 +27,9 @@ fp32 or bf16 and returns q's dtype, as the JAX kernel does.
 ``launches`` counts, per kernel, the launches these wrappers made on the
 card; the CPU path never touches it.  A wrapper counts one per call,
 whatever the layout (``trans``), although a split reduction adds a
-second (summing) launch on the card.
+second (summing) launch on the card.  ``route_launches`` splits the
+block sweeps' counts by the route that ran (``block_matvec.route``:
+bf16 on the tensor cores, ``"wgmma"``, or ``"ffma"``).
 
 The JAX package's TPU-only wrapper logic has no counterpart here: the
 kernels mask ragged edges themselves, so there is no lane padding of k,
@@ -51,9 +53,16 @@ launches = {"block_matvec": 0, "block_rmatvec": 0, "block_gram_chain": 0,
             "local_attention": 0}
 
 
+#: the block sweeps' launches by route, since the last ``reset_launches()``
+route_launches = {f"{name}/{which}": 0
+                  for name in ("block_matvec", "block_rmatvec")
+                  for which in ("wgmma", "ffma")}
+
+
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, route_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _sweep_dtype(A, X, dtype, what: str) -> torch.dtype:
@@ -99,8 +108,10 @@ def block_matvec(A: torch.Tensor, Q: torch.Tensor, *,
         return torch.zeros((A.shape[0], Q.shape[1]), dtype=torch.float32,
                            device=A.device)
     A, Q = _on_card(A, Q, sd)
-    Y = _bm.block_matvec_cuda(A, Q)
+    which = _bm.route(A, Q.shape[1])
+    Y = _bm.block_matvec_cuda(A, Q, which)
     launches["block_matvec"] += 1
+    route_launches[f"block_matvec/{which}"] += 1
     return Y
 
 
@@ -117,8 +128,10 @@ def block_rmatvec(A: torch.Tensor, Y: torch.Tensor, *,
         return torch.zeros((A.shape[1], Y.shape[1]), dtype=torch.float32,
                            device=A.device)
     A, Y = _on_card(A, Y, sd)
-    Z = _bm.block_rmatvec_cuda(A, Y)
+    which = _bm.route(A, Y.shape[1])
+    Z = _bm.block_rmatvec_cuda(A, Y, which)
     launches["block_rmatvec"] += 1
+    route_launches[f"block_rmatvec/{which}"] += 1
     return Z
 
 

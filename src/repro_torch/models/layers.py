@@ -30,13 +30,19 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.core.operator import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
 
 def param(shape, dtype, device) -> nn.Parameter:
-    """An uninitialised inference parameter (``init_model`` fills it)."""
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+    """An uninitialised inference parameter (``init_model`` fills it).
+    ``device=None`` is the card, as at every entry point of the port: the
+    modules built from these (``RMSNorm``, ``Attention``, ``MLP``,
+    ``Layer``, ``Transformer``) raise without one unless the caller asks
+    for the CPU."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype,
+                                    device=resolve_device(device)),
                         requires_grad=False)
 
 

@@ -16,12 +16,19 @@ fp32 (the JAX package's limit for its kernel, ``tests/test_kernels.py:208``);
 in bf16 each element within the kernel's one rounding of its output to
 bf16, 2^-8 |plain| of that element, plus 1e-5 for the fp32 sums' order
 (``_attn_within``).  bf16 at D >= 64 runs the tensor-core kernel
-(``local_attn.route``), the rest the FFMA one.
+(``local_attn.route``), the rest the FFMA one.  The block sweeps run
+bf16 on the tensor cores where a TMA tensor map describes A
+(``block_matvec.route``), the rest by FFMA; both are held to the same
+limits.
 """
+import importlib
+
 import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+
+bm = importlib.import_module("repro_torch.kernels.block_matvec")
 
 pytestmark = pytest.mark.cuda
 
@@ -74,6 +81,62 @@ def test_non_contiguous_operand_is_refused(card):
     A = torch.randn((64, 32), device=card)
     with pytest.raises(ValueError):
         ops.block_matvec(A.mT, torch.randn((64, 3), device=card))
+
+
+@pytest.mark.parametrize("m,n,k", [
+    (5000, 1000, 7),     # ragged m, n and k (not a multiple of 8)
+    (1000, 1024, 1),     # the narrowest k
+    (4097, 200, 40),     # one stage, partly past n; k between widths
+    (2048, 1024, 130),   # k > 64: three tiles of k
+    (257, 4104, 64),     # one row block, partly past m
+    (40000, 96, 33),     # several slabs of the reduction
+    (33000, 4096, 32),   # the path's k, slabs ragged in m
+])
+def test_tensor_core_sweeps_match_plain_versions(card, m, n, k):
+    g = torch.Generator(device=card).manual_seed(m + n + k)
+    A = torch.randn((m, n), generator=g, device=card).to(torch.bfloat16)
+    Q = torch.randn((n, k), generator=g, device=card)
+    Y = torch.randn((m, k), generator=g, device=card)
+    assert bm.route(A, k) == "wgmma"
+    ops.reset_launches()
+    for got, want, tol in (
+            (ops.block_matvec(A, Q), ref.block_matvec_ref(A, Q, "bfloat16"),
+             1e-5),
+            (ops.block_rmatvec(A, Y), ref.block_rmatvec_ref(A, Y, "bfloat16"),
+             1e-5),
+            (ops.block_gram_chain(A, Q),
+             ref.block_gram_chain_ref(A, Q, "bfloat16"), 1e-3),
+            (ops.block_gram_chain(A, Y, trans=True),
+             ref.block_gram_chain_ref(A, Y, "bfloat16", trans=True), 1e-3)):
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert bool(torch.isfinite(got).all()) and _rel(got, want) <= tol
+    assert {n_: c for n_, c in ops.route_launches.items() if c} == {
+        "block_matvec/wgmma": 3, "block_rmatvec/wgmma": 3}
+
+
+def test_tensor_core_rmatvec_reruns_bitwise(card):
+    g = torch.Generator(device=card).manual_seed(3)
+    A = torch.randn((40000, 704), generator=g, device=card).to(torch.bfloat16)
+    Y = torch.randn((40000, 40), generator=g, device=card)
+    assert bm.route(A, 40) == "wgmma"
+    assert torch.equal(ops.block_rmatvec(A, Y), ops.block_rmatvec(A, Y))
+
+
+def test_misaligned_bf16_runs_the_ffma_route(card):
+    """A bf16 A 2 bytes off a 16-byte boundary has no tensor map: FFMA."""
+    m, n, k = 3000, 1024, 9
+    g = torch.Generator(device=card).manual_seed(5)
+    flat = torch.randn(m * n + 1, generator=g, device=card).to(torch.bfloat16)
+    A = flat[1:].view(m, n)
+    Q = torch.randn((n, k), generator=g, device=card)
+    assert A.is_contiguous() and bm.route(A, k) == "ffma"
+    ops.reset_launches()
+    got = ops.block_matvec(A, Q)
+    torch.cuda.synchronize()
+    assert _rel(got, ref.block_matvec_ref(A, Q, "bfloat16")) <= 1e-5
+    assert {n_: c for n_, c in ops.route_launches.items() if c} == {
+        "block_matvec/ffma": 1}
 
 
 @pytest.mark.parametrize("m,n", [(1000, 300), (4097, 515), (257, 4100),

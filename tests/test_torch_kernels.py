@@ -23,7 +23,7 @@ import torch
 
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, ops
 
 # the package re-exports the wrapper function under the module's name
 cuda_kernels = importlib.import_module("repro_torch.kernels.block_matvec")
@@ -73,6 +73,7 @@ def test_plain_versions_match_jax_kernels(name, dtype, m, n, k):
     assert set(ops.launches) >= {"block_matvec", "block_rmatvec",
                                  "block_gram_chain"}
     assert not any(ops.launches.values())
+    assert not any(ops.route_launches.values())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -121,18 +122,77 @@ def test_wrappers_check_operands(call, exc):
     assert sum(ops.launches.values()) == 0
 
 
-@pytest.mark.parametrize("m,n,k,slabs", [
-    (262144, 32768, 32, 16),     # the main path: slabs of 16384 rows
-    (262144, 32768, 130, 16),
-    (1000, 300, 7, 1),           # one slab: the kernel writes Z directly
-    (4097, 515, 40, 5),          # few column strips: split to fill the card
-    (16384, 4096, 40, 16),
-    (37, 17, 5, 1),
+def _slab_case(m, n, k, slabs, step=None):
+    """A case of ``test_rmatvec_slab_split``: the FFMA route's cases keep
+    their ids; the tensor-core route's (``step`` = ``TC_BK``) say so."""
+    if step is None:
+        return pytest.param(m, n, k, slabs, cuda_kernels.BK,
+                            id=f"{m}-{n}-{k}-{slabs}")
+    return pytest.param(m, n, k, slabs, step, id=f"wgmma-{m}-{n}-{k}-{slabs}")
+
+
+@pytest.mark.parametrize("m,n,k,slabs,step", [
+    _slab_case(262144, 32768, 32, 16),   # the main path: 16384-row slabs
+    _slab_case(262144, 32768, 130, 16),
+    _slab_case(1000, 300, 7, 1),         # one slab: the kernel writes Z
+    _slab_case(4097, 515, 40, 5),        # few column strips: fill the card
+    _slab_case(16384, 4096, 40, 16),
+    _slab_case(37, 17, 5, 1),
+    # the tensor-core route: slabs of whole 64-row stages
+    _slab_case(262144, 32768, 32, 16, cuda_kernels.TC_BK),
+    _slab_case(8192, 131072, 32, 1, cuda_kernels.TC_BK),   # the wide input
+    _slab_case(5000, 1000, 7, 5, cuda_kernels.TC_BK),
+    _slab_case(4097, 200, 40, 5, cuda_kernels.TC_BK),
+    _slab_case(16384, 4096, 32, 16, cuda_kernels.TC_BK),
+    _slab_case(37, 16, 5, 1, cuda_kernels.TC_BK),
 ])
-def test_rmatvec_slab_split(m, n, k, slabs):
+def test_rmatvec_slab_split(m, n, k, slabs, step):
     """The split of block_rmatvec's reduction depends on the shape only:
-    slabs of a multiple of the stage depth, at most SLAB_MAX_ROWS rows."""
-    rows = cuda_kernels.rmatvec_slab_rows(m, n, k)
-    assert rows % cuda_kernels.BK == 0
-    assert rows <= max(cuda_kernels.SLAB_MAX_ROWS, cuda_kernels.BK)
+    slabs of a multiple of the route's stage depth, at most
+    SLAB_MAX_ROWS rows."""
+    rows = cuda_kernels.rmatvec_slab_rows(m, n, k, step)
+    assert rows % step == 0
+    assert rows <= max(cuda_kernels.SLAB_MAX_ROWS, step)
     assert -(-m // rows) == slabs
+
+
+def _meta(m, n, dtype=torch.bfloat16, offset=0):
+    """An (m, n) operand that only says its dtype, shape and alignment."""
+    flat = torch.empty(m * n + offset, dtype=dtype, device="meta")
+    return flat[offset:].view(m, n)
+
+
+@pytest.mark.parametrize("A,k,want", [
+    (_meta(262144, 32768), 32, "wgmma"),          # the main path's A
+    (_meta(8192, 131072), 32, "wgmma"),           # the wide input
+    (_meta(262144, 32768, torch.float32), 32, "ffma"),   # fp32: never TF32
+    (_meta(4097, 515), 40, "ffma"),               # n % 8 != 0: no tensor map
+    (_meta(1000, 300), 7, "ffma"),
+    (_meta(5000, 1000, offset=1), 7, "ffma"),     # base 2 bytes off 16
+    (_meta(5000, 1000, offset=8), 7, "wgmma"),    # base 16 bytes on
+    (_meta(5000, 1000), 7, "wgmma"),              # k % 8 != 0 is read as Y^T
+    (_meta(3000, 200), 1, "wgmma"),               # the narrowest k
+    (_meta(2048, 1024), 130, "wgmma"),            # k > 64: tiles of 64
+], ids=["main", "wide", "fp32", "n515", "n300", "misaligned", "offset16",
+        "k7", "k1", "k130"])
+def test_route(A, k, want):
+    """The sweeps' route depends on dtype, shape and alignment alone."""
+    assert cuda_kernels.route(A, k) == want
+
+
+def test_build_target_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A library is named by its source, every csrc/*.cuh and the flags:
+    an edited header gives a new name (a rebuild), an unchanged tree the
+    same one (a reuse)."""
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = build.library_path("k")
+    assert second != first and second.parent == first.parent
+    (tmp_path / "g.cuh").write_text("// another header\n")
+    assert build.library_path("k") not in (first, second)
+    (tmp_path / "g.cuh").unlink()
+    assert build.library_path("k") == second

@@ -38,6 +38,8 @@ from repro import configs as jax_configs
 from repro.models import transformer as JT
 from repro_torch import configs
 from repro_torch.launch import serve
+from repro_torch.models import layers as L
+from repro_torch.models import mlp as M
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import from_jax_params, jax_layers
 
@@ -191,6 +193,26 @@ def test_init_model_is_seeded():
         assert torch.equal(x, y), name
     assert float(a.layers[0].norm1.scale.abs().max()) == 0.0
     assert abs(float(a.layers[0].mix.wq.std()) - pc.d_model ** -0.5) < 0.02
+
+
+@pytest.mark.parametrize("build", [
+    lambda cfg, **kw: T.Transformer(cfg, **kw),
+    lambda cfg, **kw: T.Layer(cfg, "local", **kw),
+    lambda cfg, **kw: L.Attention(cfg, **kw),
+    lambda cfg, **kw: M.MLP(cfg, **kw),
+    lambda cfg, **kw: L.RMSNorm(cfg.d_model, cfg.norm_eps, **kw),
+], ids=["Transformer", "Layer", "Attention", "MLP", "RMSNorm"])
+def test_constructors_build_on_the_card_by_default(build):
+    """``device=None`` is the card, as for ``init_model``: without one a
+    bare constructor raises instead of building on the CPU."""
+    cfg = configs.smoke_config(configs.get_config("gemma2-9b"))
+    if torch.cuda.is_available():
+        assert all(p.is_cuda for p in build(cfg).parameters())
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build(cfg)
+    params = list(build(cfg, device="cpu").parameters())
+    assert params and all(p.device.type == "cpu" for p in params)
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-1.6b",

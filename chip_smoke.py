@@ -9,35 +9,46 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    versions; build the CUDA kernels of ``src/repro_torch/csrc`` and
    print the build time and each kernel's registers/spills; for every
    ``local_attention`` instance and every tensor-core instance of the
-   block sweeps (``block_matvec_tc``) its registers, spills (and for
-   attention its dynamic shared memory) and tensor-core instructions
-   (``HGMMA``/``HMMA`` in the library's SASS, ``cuobjdump -sass``).
-   Fails unless the path's instances (attention bf16 D = 256; the
-   sweeps' ``matvec_tc<32>`` and ``rmatvec_tc``, k = 32) have
-   tensor-core instructions and spill nothing.
+   block sweeps (``block_matvec_tc``: bf16; ``block_matvec_tf32``: fp32
+   as 3xTF32) its registers, spills (and for attention its dynamic
+   shared memory) and tensor-core instructions (``HGMMA``/``HMMA`` in
+   the library's SASS, ``cuobjdump -sass``).  Fails unless the path's
+   instances (attention bf16 D = 256; the sweeps' ``matvec_tc<32>``,
+   ``rmatvec_tc``, ``matvec_tf32<32>`` and ``rmatvec_tf32<32>``, k = 32)
+   have tensor-core instructions and spill nothing.  Beside the real
+   build, three planted faults for phase 2b: ``block_matvec_tc.cu`` with
+   ``-DREPRO_TC_SUMS_ONLY``, ``block_matvec_tf32.cu`` with
+   ``-DREPRO_TF32_ONLY`` and with ``-DREPRO_TC_SUMS_ONLY``.
 2. every kernel on the card against its plain PyTorch version
    (``repro_torch/kernels/ref.py``): ``block_matvec``, ``block_rmatvec``
    and ``block_gram_chain`` (both orientations), fp32 and bf16, at
-   ragged shapes, each with the route that ran it (``wgmma``: bf16 on
-   the tensor cores; ``ffma``; read from the route launch counts), and
-   at the main path's 262144 x 32768, k = 32, with the relative
-   Frobenius error and its limit; kernel, plain, library
-   (``torch.matmul``, a yardstick only) and bound times at that shape.
-   Then a planted fault the limit must reject: the tensor-core sweeps
-   built with ``-DREPRO_TC_SUMS_ONLY`` (their fp32 sums left in the
-   tensor cores' accumulators for the whole reduction, not promoted to
-   rounded adds every 64-deep stage), against the real ones, on a
-   65536 x 32768 |N(0, 1)| ``A`` with skinny operands uniform in [0, 1)
-   (every partial sum grows, as a truncating accumulator likes least).
+   ragged shapes, each with the route that ran it (``tf32x3``: fp32 on
+   the tensor cores; ``wgmma``: bf16 on them; ``ffma``; read from the
+   route launch counts), and at the main path's 262144 x 32768, k = 32,
+   with the relative Frobenius error and its limit; kernel, plain,
+   library (``torch.matmul``, a yardstick only) and bound (by route)
+   times at that shape (the FFMA kernels' on the odd-width input of phase
+   3, the shape of their path, after its solve).  Then
+   the planted faults the limit must reject, against the real sweeps, on
+   a 65536 x 32768 |N(0, 1)| ``A`` (bf16 for ``block_matvec_tc``, fp32
+   for ``block_matvec_tf32``) with skinny operands uniform in [0, 1)
+   (every partial sum grows, as a truncating accumulator likes least)
+   and, in fp32, on a signed N(0, 1) input (the sums cancel, so the
+   products' rounding is not averaged away): the sums left in the tensor
+   cores' accumulators for the whole reduction, not promoted to rounded
+   adds every stage; and plain TF32, the ``hi hi`` term of 3xTF32 alone.
+   Each must read above the limit on at least one input.
 3. the main path: ``repro_torch.svd(A, 32)`` with the default config on
    a 262144 x 32768 fp32 ``A`` (32 GiB, the paper's per-node shard)
    built on the card with singular values ``100 * 0.9**i`` (i < 64) plus
    noise far below them; sigma checked to rtol 1e-4, launch counts
-   (by route: FFMA) checked against the pass accounting.  Then this
-   slice's path, ``sweep_dtype="bfloat16"`` (eps 1e-4, rtol 1e-2) on the
-   same ``A``, its chains on the tensor-core route (the extraction reads
-   ``A`` in fp32: FFMA), and a profile of it (device busy share, time by
-   kernel); and a contiguous wide input (the operator's transposed path).
+   (by route: ``tf32x3``, chains and extraction) checked against the
+   pass accounting, and a profile of it (device busy share, time by
+   kernel).  Then ``sweep_dtype="bfloat16"`` (eps 1e-4, rtol 1e-2) on the
+   same ``A``, its chains on the ``wgmma`` route (the extraction reads
+   ``A`` in fp32: ``tf32x3``), and its profile; an fp32 input of odd
+   width (65536 x 8190, rows no tensor map describes: ``ffma`` end to
+   end); and a contiguous wide input (the operator's transposed path).
 4. the deflation kernels (``matvec``, ``deflate_rmatvec``, ``gram``,
    both layouts; ``gram`` symmetric and full, fp32 and bf16) against
    their plain versions at ragged shapes (relative Frobenius error, limit
@@ -52,9 +63,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    a 262144 x 8192 ``A`` (launches ``gram`` k, ``matvec`` k; passes 3k),
    and both methods at k = 4 on the contiguous wide input (the ``trans``
    kernels).
-6. determinism: two block solves (fp32 sweeps, and bf16 on the tensor
-   cores) and two gram-free solves of a 16384 x 4096 matrix, each pair
-   bitwise equal.
+6. determinism: two block solves (fp32 on ``tf32x3``, and bf16 on
+   ``wgmma``) and two gram-free solves of a 16384 x 4096 matrix, each
+   pair bitwise equal.
 7. the LM serving path: the ``local_attention`` kernels (causal
    sliding-window attention, GQA, soft-cap; bf16 at D >= 64 on the
    tensor cores, the rest by FFMA) against their plain version at
@@ -85,7 +96,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    1.67e-1 and an empty cache 1.41, and these (``FAULTS_SEEN``) must
    read above the limit or the run fails.  One skipped cache slot reads
    2.34e-2, inside the bf16 noise at random weights: this check cannot
-   see it (the kernel check and the CPU decode parity tests can).
+   see it.  A second check can (``smoke_cache_check``): the fp32 smoke
+   config of gemma2-9b (2 layers, window 8) served on the card and on
+   the CPU from the same seed-0 weights, a prefill of 12 tokens and 12
+   decode steps (the local ring buffer wraps), every step's logits and
+   every cache tensor within ``TOL_CACHE`` relative and the slots'
+   positions equal; the same serve on the card with the last prompt
+   position's slot skipped must read above ``TOL_CACHE``.
    Determinism: two prefills give bitwise-equal logits.  Times of the
    kernel per layer kind beside its bound, its plain version and
    ``scaled_dot_product_attention`` with a band mask (a yardstick only,
@@ -95,10 +112,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    attention; ``library_causal_ms``).
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches in the
-solve of its path, and its times; the block sweeps once for the main
-path's fp32 FFMA kernels and once, as ``<name>/wgmma``, for the bf16
-solve's tensor-core kernels), the ``nvidia-smi`` name and power limit
-line again, and last ``{"ok": true, "device": {...}}``.  Exits 2
+solve of its path, and its times; the block sweeps once for the FFMA
+kernels, launches and times from the odd-width input, as ``<name>/tf32x3`` for
+the main path's fp32 solve and as ``<name>/wgmma`` for the bf16 solve's
+chains), the ``nvidia-smi`` name and power limit line again, and last
+``{"ok": true, "device": {...}}``.  Exits 2
 without a CUDA device or without ``src/repro_torch`` beside this script.
 """
 from __future__ import annotations
@@ -127,6 +145,14 @@ ATOL_ATTN_BF16 = 1e-5                  # 10x the fp32 kernel-vs-plain errors
 # 2.34e-2 (within noise at random weights, so not claimed)
 TOL_CONSISTENCY = 5e-2
 FAULTS_SEEN = ("position off by one", "cache empty")
+# the fp32 smoke config of gemma2-9b served on the card and on the CPU from
+# the same seed-0 weights: a prefill of CACHE_PROMPT tokens and CACHE_STEPS
+# decode steps, which wrap the local layers' ring of `window` (8) slots
+# one and a half times; every step's logits and every cache tensor
+# compared.  Readings on an H100: sound 5.24e-7 (fp32 sums in other
+# orders), the last prompt position's slot skipped 2.33e-1
+CACHE_PROMPT, CACHE_STEPS = 12, 12
+TOL_CACHE = 1e-4
 SLAB = 16384                           # rows per chunk of the plain versions
 # Limits of kernel vs plain: the same (bf16-rounded) operands summed in
 # fp32 in another order.  The bf16 chain rounds its fp32 intermediate to
@@ -144,9 +170,10 @@ def gram_tol(r: int) -> float:
     blocks and rounds less; 4 sqrt(r) 2^-24, and at least the 1e-5 of
     the other kernels (1.2e-4 at r = 262144)."""
     return max(1e-5, 4 * r ** 0.5 * 2.0 ** -24)
-# H100 SXM data sheet: HBM3 rate, fp32 (non-tensor) and bf16 dense peaks
+# H100 SXM data sheet: HBM3 rate, fp32 (non-tensor), tf32 and bf16 dense
+# peaks
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS = {"float32": 67e12, "tfloat32": 495e12, "bfloat16": 989e12}
 TPU_KERNEL = "src/repro/kernels/block_matvec.py"
 REPLACES = {"block_matvec": f"{TPU_KERNEL}:81",
             "block_rmatvec": f"{TPU_KERNEL}:127",
@@ -156,6 +183,8 @@ REPLACES = {"block_matvec": f"{TPU_KERNEL}:81",
             "gram": "src/repro/kernels/gram.py:84",
             "local_attention": "src/repro/kernels/local_attn.py:104"}
 TC_SOURCE = "src/repro_torch/csrc/block_matvec_tc.cu"
+TF32_SOURCE = "src/repro_torch/csrc/block_matvec_tf32.cu"
+ODD = (65536, 8190)                    # fp32 rows no tensor map describes
 SOURCES = {"block_matvec": "src/repro_torch/csrc/block_matvec.cu",
            "block_rmatvec": "src/repro_torch/csrc/block_matvec.cu",
            "block_gram_chain": "src/repro_torch/csrc/block_matvec.cu",
@@ -214,17 +243,22 @@ def deflation_bound(name: str, m: int, n: int, k: int = 0) -> tuple:
     return pick(nbytes / PEAK_BYTES * 1e3, flop / PEAK_OPS["float32"] * 1e3)
 
 
-def bound(name: str, m: int, n: int, k: int, dtype: str) -> tuple:
-    """Least time for the function on an H100 SXM: A and the skinny
-    input read once in ``dtype``, the fp32 output written once, over the
-    memory rate; 2*m*n*k flop per product over the peak for ``dtype``.
-    The chain's bound counts A once: a one-read fusion is possible."""
+def bound(name: str, m: int, n: int, k: int, dtype: str,
+          route: str = "ffma") -> tuple:
+    """Least time for the function on an H100 SXM by ``route``: A and the
+    skinny input read once in ``dtype``, the fp32 output written once,
+    over the memory rate; 2*m*n*k flop per product over the peak for
+    ``dtype`` (fp32 by FFMA; on the ``tf32x3`` route three TF32 products
+    at the TF32 peak).  The chain's bound counts A once: a one-read fusion
+    is possible."""
     isz = 2 if dtype == "bfloat16" else 4
     skinny_in, out, products = {"block_matvec": (n, m, 1),
                                 "block_rmatvec": (m, n, 1),
                                 "block_gram_chain": (n, n, 2)}[name]
     nbytes = m * n * isz + skinny_in * k * isz + out * k * 4
     t_bytes = nbytes / PEAK_BYTES * 1e3
+    if route == "tf32x3":
+        products, dtype = 3 * products, "tfloat32"
     t_ops = products * 2 * m * n * k / PEAK_OPS[dtype] * 1e3
     return pick(t_bytes, t_ops)
 
@@ -253,6 +287,61 @@ def plain_chain(torch, ref, A, X, sd, trans=False):
                                                          sd), sd)
     return plain_rmatvec(torch, ref, A, plain_matvec(torch, ref, A, X, sd),
                          sd)
+
+
+def sweep_rows(torch, ops, ref, bm, A, Q, Ym, sd) -> dict:
+    """The block sweeps of ``ops`` on ``A`` (fp32, taken in ``sd``) with
+    k = Q.shape[1], each against its plain version (fail beyond its
+    limit), with kernel, plain, ``torch.matmul`` (a yardstick only) and
+    bound times and the route that ran it; one row a sweep.  Launches
+    here are comparisons: the caller reads the path's counts before."""
+    m, n = A.shape
+    k = Q.shape[1]
+    As = A if sd == "float32" else A.to(torch.bfloat16)
+    Qs, Ys = Q.to(As.dtype), Ym.to(As.dtype)
+    fns = {
+        "block_matvec": (
+            lambda: ops.block_matvec(As, Q),
+            lambda: plain_matvec(torch, ref, As, Q, sd),
+            lambda: torch.matmul(As, Qs)),
+        "block_rmatvec": (
+            lambda: ops.block_rmatvec(As, Ym),
+            lambda: plain_rmatvec(torch, ref, As, Ym, sd),
+            lambda: torch.matmul(As.mT, Ys)),
+        "block_gram_chain": (
+            lambda: ops.block_gram_chain(As, Q),
+            lambda: plain_chain(torch, ref, As, Q, sd),
+            lambda: torch.linalg.multi_dot([As.mT, As, Qs])),
+    }
+    rows = {}
+    for name, (kern, plain, lib) in fns.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        e = rel_err(torch, got, want)
+        tol = TOL_CHAIN_BF16 if (sd == "bfloat16" and
+                                 name == "block_gram_chain") else TOL[sd]
+        if not (bool(torch.isfinite(got).all()) and e <= tol):
+            fail(f"{name} {sd} at {(m, n, k)}: rel err {e} > {tol}")
+        row = {
+            "shape": [m, n, k],
+            "max_abs_err": float((got - want).abs().max()),
+            "rel_err": e, "limit": tol,
+            "ms": time_ms(torch, kern, 5),
+            "plain_ms": time_ms(torch, plain, 2),
+            "library_ms": time_ms(torch, lib, 3),
+        }
+        row["route"] = bm.route(As, k)
+        row["bound_ms"], row["bound_by"] = bound(name, m, n, k, sd,
+                                                 row["route"])
+        rows[name] = row
+        print(f"  {name:16s} {sd:8s} ({row['route']}) {m}x{n} k={k}: "
+              f"rel err {e:.2e} "
+              f"(limit {tol:.0e}), kernel {row['ms']:.2f} ms, plain "
+              f"{row['plain_ms']:.2f} ms, torch.matmul "
+              f"{row['library_ms']:.2f} ms, bound "
+              f"{row['bound_ms']:.2f} ms ({row['bound_by']})")
+        del got, want
+    return rows
 
 
 def rel_err(torch, got, want) -> float:
@@ -297,8 +386,10 @@ def deflation_ragged(torch, ops, ref, g, dev) -> float:
     limit."""
     worst = 0.0
     rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    # k = 1030: U^T Xv summed in two column chunks of U
     for (m, n, k) in [(1000, 300, 7), (4097, 515, 1), (257, 4100, 16),
-                      (40000, 96, 3), (33, 1, 2), (3000, 2051, 5)]:
+                      (40000, 96, 3), (33, 1, 2), (3000, 2051, 5),
+                      (3000, 2051, 1030)]:
         A = rnd(m, n)
         v, u, c = rnd(n), rnd(m), rnd(k)
         U, V = rnd(m, k), rnd(n, k)
@@ -432,29 +523,32 @@ def instances(build, name: str, log: str) -> tuple:
     return insts, mma
 
 
-def sweep_instances(build, log: str) -> None:
-    """Each tensor-core instance of the block sweeps
-    (``block_matvec_tc``): registers, spills, HGMMA count; fail unless
-    the path's (``matvec_tc<32>``, ``rmatvec_tc``: k = 32) have HGMMA
-    and spill nothing."""
+def sweep_instances(build, name: str, log: str, tag: str, dtype: str,
+                    want: tuple) -> None:
+    """Each tensor-core instance of the block sweeps of library ``name``
+    (``block_matvec_tc``: kernels ``matvec_tc<N>``, ``rmatvec_tc``;
+    ``block_matvec_tf32``: ``matvec_tf32<N>``, ``rmatvec_tf32<N>``, ``tag``
+    the suffix): registers, spills, HGMMA count; fail unless the path's
+    (``want``, k = 32) have HGMMA and spill nothing."""
     import re
-    insts, mma = instances(build, "block_matvec_tc", log)
+    insts, mma = instances(build, name, log)
     path = {}
     for mangled, info in insts.items():
-        m = re.search(r"\d(r?matvec)_tc(?:ILi(\d+)E)?", mangled)
+        m = re.search(rf"\d(r?matvec)_{tag}(?:ILi(\d+)E)?", mangled)
         if m is None:
             continue
-        label = m.group(1) + (f"_tc<{m.group(2)}>" if m.group(2) else "_tc")
+        label = m.group(1) + f"_{tag}" + (f"<{m.group(2)}>" if m.group(2)
+                                          else "")
         n_mma = mma.get(mangled, 0)
-        print(f"  block_matvec_tc {label:14s} bf16: {info['regs']} registers, "
+        print(f"  {name} {label:16s} {dtype}: {info['regs']} registers, "
               f"{info['spill']} bytes spilled, {n_mma} tensor-core "
               f"instructions (HGMMA)")
-        if label in ("matvec_tc<32>", "rmatvec_tc"):
+        if label in want:
             path[label] = (n_mma, info["spill"])
-    if sorted(path) != ["matvec_tc<32>", "rmatvec_tc"] or any(
+    if sorted(path) != sorted(want) or any(
             n == 0 or sp != 0 for n, sp in path.values()):
-        fail(f"block_matvec_tc path instances (HGMMA, bytes spilled): {path}; "
-             f"want tensor-core instructions and no spills")
+        fail(f"{name} path instances (HGMMA, bytes spilled): {path}; want "
+             f"tensor-core instructions and no spills")
 
 
 def attention_instances(build, la, log: str) -> None:
@@ -485,62 +579,92 @@ def attention_instances(build, la, log: str) -> None:
              f"spills")
 
 
-def build_tc_sums_only(build) -> tuple:
-    """Start ``nvcc`` on ``csrc/block_matvec_tc.cu`` with
-    ``-DREPRO_TC_SUMS_ONLY`` (the planted fault of phase 2b) beside the
-    real build; returns (the process, the library it writes)."""
+# the planted faults of phase 2b: (library, its -D flag)
+PLANTED = (("block_matvec_tc", "REPRO_TC_SUMS_ONLY"),
+           ("block_matvec_tf32", "REPRO_TF32_ONLY"),
+           ("block_matvec_tf32", "REPRO_TC_SUMS_ONLY"))
+
+
+def build_planted(build, name: str, flag: str) -> tuple:
+    """Start ``nvcc`` on ``csrc/<name>.cu`` with ``-D<flag>`` (a planted
+    fault of phase 2b) beside the real build; returns (the process, the
+    library it writes)."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = build.BUILD_DIR / "block_matvec_tc-tc_sums_only.so"
+    out = build.BUILD_DIR / f"{name}-{flag.lower()}.so"
     proc = subprocess.Popen(
-        [build.cuda_tool("nvcc"), *build.NVCC_FLAGS, "-DREPRO_TC_SUMS_ONLY",
-         "-o", str(out), str(build.CSRC / "block_matvec_tc.cu")],
+        [build.cuda_tool("nvcc"), *build.NVCC_FLAGS, f"-D{flag}",
+         "-o", str(out), str(build.CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, out
 
 
-def tc_sums_fault(torch, bm, ref, lib_path, g, dev) -> dict:
-    """The tensor-core sweeps and the same sweeps with their sums left in
-    the tensor cores (the library at ``lib_path``), each against the
-    plain version on a 65536 x 32768 |N(0, 1)| bf16 ``A`` with skinny
-    operands uniform in [0, 1); fail unless the real sweeps are within
-    the limit and the planted fault is outside it.  Returns the errors."""
+FAULT_LABELS = {"REPRO_TC_SUMS_ONLY": "the sums left in the tensor cores",
+                "REPRO_TF32_ONLY": "plain TF32 (the hi hi term alone)"}
+
+
+def planted_faults(torch, bm, ref, planted, sd, g, dev, inputs) -> dict:
+    """The tensor-core sweeps of dtype ``sd`` (bf16: ``wgmma``; fp32:
+    ``tf32x3``) and the same sweeps from each planted-fault library of
+    ``planted`` ({(library, flag): path}), against the plain version on
+    65536 x 32768 inputs: ``"abs"``, an |N(0, 1)| ``A`` with skinny
+    operands uniform in [0, 1) (every partial sum grows, as a truncating
+    accumulator likes least), and ``"signed"``, N(0, 1) ``A`` and skinny
+    operands (the sums cancel, so a rounding error of each product is
+    not averaged away against a growing sum).  Fail unless the real
+    sweeps are within the limit on every input and every planted fault
+    reads outside it on at least one.  Returns the errors by input."""
     import ctypes
     m = 65536
-    A = torch.empty((m, N), dtype=torch.bfloat16, device=dev)
-    for r in range(0, m, SLAB):
-        A[r:r + SLAB] = torch.randn((SLAB, N), generator=g, device=dev).abs_()
-    Q = torch.rand((N, K), generator=g, device=dev).to(torch.bfloat16)
-    Y = torch.rand((m, K), generator=g, device=dev).to(torch.bfloat16)
-    want = {"block_matvec": plain_matvec(torch, ref, A, Q, "bfloat16"),
-            "block_rmatvec": plain_rmatvec(torch, ref, A, Y, "bfloat16")}
-
-    def run():
-        return {"block_matvec": bm.block_matvec_cuda(A, Q, "wgmma"),
-                "block_rmatvec": bm.block_rmatvec_cuda(A, Y, "wgmma")}
-    real = run()
-    library = bm.build.library
-    fault = ctypes.CDLL(str(lib_path))
-    bm.build.library = lambda name: (fault if name == "block_matvec_tc"
-                                     else library(name))
-    try:
-        planted = run()
-    finally:
-        bm.build.library = library
-    torch.cuda.synchronize()
-    tol = TOL["bfloat16"]
+    dt = getattr(torch, sd)
+    tol = TOL[sd]
     errs = {}
-    for name in want:
-        errs[name] = (rel_err(torch, real[name], want[name]),
-                      rel_err(torch, planted[name], want[name]))
-        print(f"  {name:16s} bf16 (wgmma) {m}x{N} k={K}, |A|, skinny in "
-              f"[0, 1): rel err {errs[name][0]:.2e}; with the sums left in "
-              f"the tensor cores {errs[name][1]:.2e} (limit {tol:.0e})")
-        if not errs[name][0] <= tol:
-            fail(f"{name} bf16 on |A|: rel err {errs[name][0]} > {tol}")
-        if not errs[name][1] > tol:
-            fail(f"{name} with its sums left in the tensor cores reads "
-                 f"{errs[name][1]}, within the limit {tol}: the check cannot "
-                 f"see it")
+    for kind in inputs:
+        A = torch.empty((m, N), dtype=dt, device=dev)
+        for r in range(0, m, SLAB):
+            x = torch.randn((SLAB, N), generator=g, device=dev)
+            A[r:r + SLAB] = x.abs_() if kind == "abs" else x
+            del x
+        draw = torch.rand if kind == "abs" else torch.randn
+        Q = draw((N, K), generator=g, device=dev).to(dt)
+        Y = draw((m, K), generator=g, device=dev).to(dt)
+        which = bm.route(A, K)
+        want = {"block_matvec": plain_matvec(torch, ref, A, Q, sd),
+                "block_rmatvec": plain_rmatvec(torch, ref, A, Y, sd)}
+
+        def run():
+            return {"block_matvec": bm.block_matvec_cuda(A, Q, which),
+                    "block_rmatvec": bm.block_rmatvec_cuda(A, Y, which)}
+        runs = {"real": run()}
+        library = bm.build.library
+        for (lib, flag), path in planted.items():
+            fault = ctypes.CDLL(str(path))
+            bm.build.library = lambda name: (fault if name == lib
+                                             else library(name))
+            try:
+                runs[flag] = run()
+            finally:
+                bm.build.library = library
+        torch.cuda.synchronize()
+        for name in want:
+            e = errs[(kind, name)] = {
+                key: rel_err(torch, out[name], want[name])
+                for key, out in runs.items()}
+            print(f"  {name:16s} {sd} ({which}) {m}x{N} k={K}, {kind} "
+                  f"input: rel err {e['real']:.2e}" + "".join(
+                      f"; with {FAULT_LABELS[flag]} {e[flag]:.2e}"
+                      for flag in runs if flag != "real")
+                  + f" (limit {tol:.0e})")
+            if not e["real"] <= tol:
+                fail(f"{name} {sd} on the {kind} input: rel err "
+                     f"{e['real']} > {tol}")
+        del A, Q, Y, want, runs
+        torch.cuda.empty_cache()
+    for _, flag in planted:
+        for name in ("block_matvec", "block_rmatvec"):
+            if not any(errs[(kind, name)][flag] > tol for kind in inputs):
+                fail(f"{name} {sd} with {FAULT_LABELS[flag]} reads within "
+                     f"the limit {tol} on every input: the check cannot "
+                     f"see it")
     return errs
 
 
@@ -756,12 +880,90 @@ def planted_decode_faults(torch, T, model, cache, nxt, S) -> dict:
     return out
 
 
+def smoke_serve(torch, T, serve, model, dev, tokens, plant=False) -> tuple:
+    """The fp32 smoke model on ``dev``: a prefill of the prompt
+    ``tokens[:, :CACHE_PROMPT]``, then ``CACHE_STEPS`` decode steps fed
+    the next columns of ``tokens``; with ``plant``, the slot of the last
+    prompt position is marked empty in every layer's cache after the
+    prefill (a skipped cache slot).  Returns (each step's logits on the
+    CPU, the final cache on the CPU)."""
+    logits, cache, _ = serve.serve_prefill(
+        model, tokens[:, :CACHE_PROMPT].to(dev), CACHE_PROMPT + CACHE_STEPS)
+    if plant:
+        for c in cache:
+            c["pos"][(CACHE_PROMPT - 1) % c["pos"].shape[0]] = -1
+    out = [logits.cpu()]
+    for i in range(CACHE_STEPS):
+        pos = CACHE_PROMPT + i
+        logits, cache = T.decode_step(model, cache,
+                                      tokens[:, pos:pos + 1].to(dev), pos)
+        out.append(logits.cpu())
+    return out, [{n: t.cpu() for n, t in c.items()} for c in cache]
+
+
+def cache_reading(torch, got, want) -> tuple:
+    """The worst relative Frobenius error over every step's logits and
+    every float cache tensor of ``got`` against ``want``, and whether
+    their integer cache tensors (the slots' positions) are equal."""
+    (lg, cg), (lw, cw) = got, want
+    errs = [rel_err(torch, a, b) for a, b in zip(lg, lw)]
+    same = True
+    for a, b in zip(cg, cw):
+        for name in b:
+            if b[name].is_floating_point():
+                errs.append(rel_err(torch, a[name], b[name]))
+            else:
+                same = same and torch.equal(a[name], b[name])
+    return max(errs), same
+
+
+def smoke_cache_check(torch, T, serve, dev) -> dict:
+    """The fp32 smoke config of gemma2-9b served on the card and on the
+    CPU with the same seed-0 weights (drawn on the CPU, copied to the
+    card); fail unless every step's logits and every cache tensor agree
+    within ``TOL_CACHE`` and the slots hold the same positions, and
+    unless the card's serve with a skipped cache slot reads above
+    ``TOL_CACHE``.  Returns the readings."""
+    import copy
+    cpu = torch.device("cpu")
+    model = serve.build(LM_ARCH, smoke=True, device=cpu, seed=LM_SEED)
+    cfg = model.cfg
+    prompt = serve.make_prompt(cfg, LM_BATCH, CACHE_PROMPT, seed=LM_SEED,
+                               device=cpu)
+    # the decode feeds the CPU's greedy tokens on both devices
+    logits, cache, _ = serve.serve_prefill(model, prompt,
+                                           CACHE_PROMPT + CACHE_STEPS)
+    fed, _, _ = serve.serve_decode(model, cache, logits, CACHE_PROMPT,
+                                   CACHE_STEPS)
+    tokens = torch.cat([prompt, fed], dim=1)
+    want = smoke_serve(torch, T, serve, model, cpu, tokens)
+    card = copy.deepcopy(model).to(dev)
+    sound, same = cache_reading(
+        torch, smoke_serve(torch, T, serve, card, dev, tokens), want)
+    fault, _ = cache_reading(
+        torch, smoke_serve(torch, T, serve, card, dev, tokens, plant=True),
+        want)
+    print(f"{cfg.name} fp32 (window {cfg.window}), card vs CPU, prefill "
+          f"{CACHE_PROMPT} tokens + {CACHE_STEPS} decode steps: worst rel "
+          f"err over the logits and cache tensors {sound:.2e} (limit "
+          f"{TOL_CACHE:.0e}), slot positions equal: {same}; with the last "
+          f"prompt position's slot skipped {fault:.2e}")
+    if not (same and sound <= TOL_CACHE):
+        fail(f"smoke serve card vs CPU: rel err {sound} (limit {TOL_CACHE}), "
+             f"positions equal {same}")
+    if not fault > TOL_CACHE:
+        fail(f"a skipped cache slot reads {fault}, within the limit "
+             f"{TOL_CACHE}: the check cannot see it")
+    return {"sound": sound, "skipped_slot": fault}
+
+
 def lm_serving(torch, ops, ref, la, g, dev) -> tuple:
     """Phase 7; returns (the kernel's JSON row, its launches per prefill)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
 
+    smoke_cache_check(torch, T, serve, dev)
     worst = attention_ragged(torch, ops, ref, la, g, dev)
     print(f"local_attention at ragged shapes: all within limits (worst "
           f"{worst:.2f} of limit)")
@@ -902,19 +1104,24 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}")
-    print("TF32 is off for matmul and cuDNN: the plain fp32 versions are "
-          "full fp32, like the kernels' FFMA")
+    print("TF32 is off for matmul and cuDNN: the plain fp32 versions and "
+          "the library yardsticks are full fp32 (the kernels' fp32 is FFMA or "
+          "3xTF32, never plain TF32)")
 
     # -- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    planted_build, planted_lib = build_tc_sums_only(build)
+    planted_builds = {key: build_planted(build, *key) for key in PLANTED}
     logs = build.build_all()
-    planted_log = planted_build.communicate()[0]
-    if planted_build.returncode != 0:
-        fail(f"nvcc -DREPRO_TC_SUMS_ONLY failed:\n{planted_log}")
+    planted = {}
+    for (name, flag), (proc, path) in planted_builds.items():
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            fail(f"nvcc {name}.cu -D{flag} failed:\n{out}")
+        planted[(name, flag)] = path
     print(f"build: {time.perf_counter() - t0:.1f} s "
-          f"({', '.join(logs) or 'up to date'}; and block_matvec_tc with "
-          f"-DREPRO_TC_SUMS_ONLY, the planted fault of phase 2b)")
+          f"({', '.join(logs) or 'up to date'}; and the planted faults of "
+          f"phase 2b: " + ", ".join(f"{name} -D{flag}"
+                                    for name, flag in PLANTED) + ")")
     for name, log in logs.items():       # nvcc -Xptxas=-v, per kernel
         regs = [int(l.split("Used ")[1].split()[0])
                 for l in log.splitlines() if "registers" in l]
@@ -925,18 +1132,23 @@ def main() -> int:
               f"{max(spills)} bytes stored)")
     attention_instances(build, local_attn, logs.get("local_attn") or (
         build.BUILD_DIR / "local_attn.log").read_text())
-    sweep_instances(build, logs.get("block_matvec_tc") or (
-        build.BUILD_DIR / "block_matvec_tc.log").read_text())
+    for name, tag, sd, want in (
+            ("block_matvec_tc", "tc", "bf16", ("matvec_tc<32>", "rmatvec_tc")),
+            ("block_matvec_tf32", "tf32", "fp32",
+             ("matvec_tf32<32>", "rmatvec_tf32<32>"))):
+        sweep_instances(build, name, logs.get(name) or (
+            build.BUILD_DIR / f"{name}.log").read_text(), tag, sd, want)
 
     # -- 2a. kernels vs plain at ragged shapes -----------------------------
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    # n in {300, 515, 4100} has rows a tensor map cannot describe: bf16
-    # there stays FFMA; (5000, 1000, 7) is ragged in m (not whole 256-row
-    # blocks), n (not whole 64-column stages) and k (not a multiple of 8)
-    # on the tensor-core route
+    # n in {300, 515, 4100, 2052} has bf16 rows a tensor map cannot
+    # describe (n % 8 != 0): bf16 there stays FFMA; fp32 rows only where
+    # n % 4 != 0 (515).  (5000, 1000, 7) and (3001, 2052, 45) are ragged in
+    # m (not whole 256-row blocks), n (not whole stages: 64 bf16, 32 fp32)
+    # and k (not a multiple of 8) on the tensor-core routes
     shapes = [(1000, 300, 7), (4097, 515, 40), (2048, 1024, 130),
               (3000, 200, 1), (257, 4100, 32), (40000, 96, 33),
-              (5000, 1000, 7)]
+              (5000, 1000, 7), (3001, 2052, 45)]
     worst = 0.0
     for (m, n, k) in shapes:
         A = torch.randn((m, n), generator=g, device=dev)
@@ -989,53 +1201,17 @@ def main() -> int:
     # -- 2b. kernels at the main path's shape --------------------------------
     Q = torch.linalg.qr(torch.randn((N, K), generator=g, device=dev)).Q
     Ym = torch.randn((M, K), generator=g, device=dev)
-    table = {}
-    for sd in ("float32", "bfloat16"):
-        As = A if sd == "float32" else A.to(torch.bfloat16)
-        Qs, Ys = Q.to(As.dtype), Ym.to(As.dtype)
-        fns = {
-            "block_matvec": (
-                lambda: ops.block_matvec(As, Q),
-                lambda: plain_matvec(torch, ref, As, Q, sd),
-                lambda: torch.matmul(As, Qs)),
-            "block_rmatvec": (
-                lambda: ops.block_rmatvec(As, Ym),
-                lambda: plain_rmatvec(torch, ref, As, Ym, sd),
-                lambda: torch.matmul(As.mT, Ys)),
-            "block_gram_chain": (
-                lambda: ops.block_gram_chain(As, Q),
-                lambda: plain_chain(torch, ref, As, Q, sd),
-                lambda: torch.linalg.multi_dot([As.mT, As, Qs])),
-        }
-        for name, (kern, plain, lib) in fns.items():
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            e = rel_err(torch, got, want)
-            tol = TOL_CHAIN_BF16 if (sd == "bfloat16" and
-                                     name == "block_gram_chain") else TOL[sd]
-            if not (bool(torch.isfinite(got).all()) and e <= tol):
-                fail(f"{name} {sd} at {(M, N, K)}: rel err {e} > {tol}")
-            row = {
-                "max_abs_err": float((got - want).abs().max()),
-                "rel_err": e, "limit": tol,
-                "ms": time_ms(torch, kern, 5),
-                "plain_ms": time_ms(torch, plain, 2),
-                "library_ms": time_ms(torch, lib, 3),
-            }
-            row["bound_ms"], row["bound_by"] = bound(name, M, N, K, sd)
-            row["route"] = bm.route(As, K)
-            table[(name, sd)] = row
-            print(f"  {name:16s} {sd:8s} ({row['route']}) {M}x{N} k={K}: "
-                  f"rel err {e:.2e} "
-                  f"(limit {tol:.0e}), kernel {row['ms']:.2f} ms, plain "
-                  f"{row['plain_ms']:.2f} ms, torch.matmul "
-                  f"{row['library_ms']:.2f} ms, bound "
-                  f"{row['bound_ms']:.2f} ms ({row['bound_by']})")
-            del got, want
-        del As, Qs, Ys
+    table = {(name, sd): row for sd in ("float32", "bfloat16")
+             for name, row in sweep_rows(torch, ops, ref, bm, A, Q, Ym,
+                                         sd).items()}
+    del Q, Ym
     torch.cuda.empty_cache()
-    tc_sums_fault(torch, bm, ref, planted_lib, g, dev)
-    torch.cuda.empty_cache()
+    for sd, lib, inputs in (("bfloat16", "block_matvec_tc", ("abs",)),
+                            ("float32", "block_matvec_tf32",
+                             ("abs", "signed"))):
+        planted_faults(torch, bm, ref, {
+            key: path for key, path in planted.items() if key[0] == lib},
+            sd, g, dev, inputs)
 
     # -- 4. the gram-free kernels at the gram-free path's shape -------------
     v = torch.randn(N, generator=g, device=dev)
@@ -1058,7 +1234,8 @@ def main() -> int:
     del v, Xv, Ud, c
 
     # -- 3. the main path (block) -----------------------------------------
-    def solve(X, label, expect_trans=False, rtol=1e-4, route="ffma", **kw):
+    def solve(X, label, expect_trans=False, rtol=1e-4, route="tf32x3",
+              **kw):
         ops.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         res = repro_torch.svd(X, K, **kw)
@@ -1080,10 +1257,11 @@ def main() -> int:
         if counts != want:
             fail(f"{label}: launches {counts}, pass accounting implies "
                  f"{want}")
-        # the chains run on `route`; the extraction reads A in fp32 (FFMA)
+        # the chains run on `route`; the extraction reads the fp32 A
         want_routes = {f"{n}/{route}": it
                        for n in ("block_matvec", "block_rmatvec")}
-        last = "block_rmatvec/ffma" if expect_trans else "block_matvec/ffma"
+        last = (f"{'block_rmatvec' if expect_trans else 'block_matvec'}/"
+                f"{bm.route(X, K)}")
         want_routes[last] = want_routes.get(last, 0) + 1
         if routes != want_routes:
             fail(f"{label}: launches by route {routes}, want {want_routes}")
@@ -1095,39 +1273,44 @@ def main() -> int:
             fail(f"{label}: not converged to the prescribed sigma")
         return res, counts, routes
 
-    _, main_counts, _ = solve(A, f"main path svd(A, {K}) fp32")
-    bf16_kw = {"sweep_dtype": "bfloat16", "eps": 1e-4}
-    _, bf16_counts, bf16_routes = solve(A, f"svd(A, {K}) bf16 sweeps",
-                                        rtol=1e-2, route="wgmma", **bf16_kw)
-    # where the bf16 solve's device time goes (another solve, profiled)
-    res, wall, busy, n_act, names = profile_window(
-        torch, lambda: repro_torch.svd(A, K, **bf16_kw))
-    if n_act:
-        keys = (("block_matvec", "::matvec_tc"),
-                ("block_rmatvec", "::rmatvec_tc"), ("slab sum", "sum_slabs"))
+    def profile_solve(label, **kw):
+        """Where a solve's device time goes (another solve, profiled)."""
+        res, wall, busy, n_act, names = profile_window(
+            torch, lambda: repro_torch.svd(A, K, **kw))
+        if not n_act:
+            print(f"profile of the {label} solve: not measured (the profiler "
+                  f"saw no device activity)")
+            return
+        keys = (("matvec_tf32", "::matvec_tf32"),
+                ("rmatvec_tf32", "::rmatvec_tf32"),
+                ("matvec_tc", "::matvec_tc"), ("rmatvec_tc", "::rmatvec_tc"),
+                ("split_transpose", "split_transpose"),
+                ("slab sum", "sum_slabs"))
         sweeps = {lab: sum(t for n_, t in names.items() if key in n_)
                   for lab, key in keys}
         rest = sorted(((n_, t) for n_, t in names.items() if not any(
             key in n_ for _, key in keys)), key=lambda x: -x[1])
-        print(f"profile of the bf16 solve ({int(res.iters[0])} iters): "
+        print(f"profile of the {label} solve ({int(res.iters[0])} iters): "
               f"{wall:.3f} s under the profiler, device busy {busy:.3f} s "
               f"({100 * busy / wall:.1f} %, idle {100 * (1 - busy / wall):.1f}"
               f" %), {n_act} device activities; " + ", ".join(
-                  f"{lab} {t:.4f} s" for lab, t in sweeps.items())
+                  f"{lab} {t:.4f} s" for lab, t in sweeps.items() if t)
               + "; the rest by time: " + ", ".join(
                   f"{n_[:48]} {t:.4f} s" for n_, t in rest[:6]))
-    else:
-        print("profile of the bf16 solve: not measured (the profiler saw no "
-              "device activity)")
-    del res
+
+    _, main_counts, main_routes = solve(A, f"main path svd(A, {K}) fp32")
+    profile_solve("fp32")
+    bf16_kw = {"sweep_dtype": "bfloat16", "eps": 1e-4}
+    _, bf16_counts, bf16_routes = solve(A, f"svd(A, {K}) bf16 sweeps",
+                                        rtol=1e-2, route="wgmma", **bf16_kw)
+    profile_solve("bf16", **bf16_kw)
 
     # -- 5. the deflation paths ------------------------------------------
-    path_counts = {n: main_counts[n] for n in main_counts}
     counts = deflation_solve(
         torch, repro_torch, ops, A, K_GRAMFREE, "gramfree",
         f"gram-free path svd(A, {K_GRAMFREE}, method='gramfree') "
         f"{M}x{N}", s, table=dtable)
-    path_counts.update(counts)
+    path_counts = dict(counts)
     del A
     torch.cuda.empty_cache()
 
@@ -1145,6 +1328,21 @@ def main() -> int:
     del Ag
     torch.cuda.empty_cache()
 
+    # rows of 4 * 8190 bytes: no tensor map, the FFMA route end to end
+    Ao, _ = spectral_matrix(torch, *ODD, SEED + 5, dev)
+    _, odd_counts, _ = solve(Ao, f"odd width {ODD[0]}x{ODD[1]} svd(A, {K}) "
+                             f"fp32", route="ffma")
+    # the FFMA sweeps on the operands of their path, after its counts
+    go = torch.Generator(device=dev).manual_seed(SEED + 6)
+    Qo = torch.linalg.qr(torch.randn((ODD[1], K), generator=go,
+                                     device=dev)).Q
+    Yo = torch.randn((ODD[0], K), generator=go, device=dev)
+    for name, row in sweep_rows(torch, ops, ref, bm, Ao, Qo, Yo,
+                                "float32").items():
+        if row["route"] != "ffma":
+            fail(f"{name} at {ODD}: route {row['route']}, not ffma")
+        table[(name, "ffma")] = row
+    del Ao, Qo, Yo
     Aw, _ = spectral_matrix(torch, *WIDE, SEED + 2, dev)
     solve(Aw, f"wide {WIDE[0]}x{WIDE[1]} svd(A, {K}) fp32",
           expect_trans=True)
@@ -1158,11 +1356,17 @@ def main() -> int:
     Ar, _ = spectral_matrix(torch, *RERUN, SEED + 3, dev)
     for kw in ({}, {"method": "gramfree"}, bf16_kw):
         k = K_GRAMFREE if "method" in kw else K
+        ops.reset_launches()
         r1, r2 = repro_torch.svd(Ar, k, **kw), repro_torch.svd(Ar, k, **kw)
+        routes = sorted({n_.split("/")[1]
+                         for n_, c in ops.route_launches.items() if c})
         same = all(torch.equal(a, b) for a, b in zip(r1[:3], r2[:3]))
         print(f"rerun {RERUN[0]}x{RERUN[1]} svd(A, {k}"
               + "".join(f", {key}={val!r}" for key, val in kw.items())
-              + f"): U, S, V bitwise equal: {same}")
+              + f"): routes {routes}, U, S, V bitwise equal: {same}")
+        if "method" not in kw and "tf32x3" not in routes:
+            fail(f"the block rerun pair ({kw}) ran routes {routes}, not the "
+                 f"fp32 operand's tf32x3")
         if not same:
             fail(f"two solves with the same seed differ ({kw})")
 
@@ -1174,15 +1378,21 @@ def main() -> int:
         torch, ops, ref, local_attn, g, dev)
 
     sweeps = ("block_matvec", "block_rmatvec", "block_gram_chain")
-    rows = {name: table[(name, "float32")] for name in sweeps}
-    rows.update(dtable)
-    # this slice's path: the bf16 solve's chains, on the tensor cores
+    # the FFMA sweeps (launches: the odd-width solve, their path)
+    rows = {name: table[(name, "ffma")] for name in sweeps}
     for name in sweeps:
-        rows[f"{name}/wgmma"] = table[(name, "bfloat16")]
-        path_counts[f"{name}/wgmma"] = bf16_routes.get(
-            f"{name}/wgmma", bf16_counts[name])
-        SOURCES[f"{name}/wgmma"] = TC_SOURCE
-        REPLACES[f"{name}/wgmma"] = REPLACES[name]
+        path_counts[name] = odd_counts[name]
+    rows.update(dtable)
+    # the fp32 solve's sweeps (3xTF32) and the bf16 solve's chains (wgmma)
+    for name in sweeps:
+        for which, sd, counts, routes, source in (
+                ("tf32x3", "float32", main_counts, main_routes, TF32_SOURCE),
+                ("wgmma", "bfloat16", bf16_counts, bf16_routes, TC_SOURCE)):
+            rows[f"{name}/{which}"] = table[(name, sd)]
+            path_counts[f"{name}/{which}"] = routes.get(f"{name}/{which}",
+                                                        counts[name])
+            SOURCES[f"{name}/{which}"] = source
+            REPLACES[f"{name}/{which}"] = REPLACES[name]
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": path_counts[name],
@@ -1192,9 +1402,10 @@ def main() -> int:
         **({"library_causal_ms": row["library_causal_ms"]}
            if "library_causal_ms" in row else {})}
         for name, row in rows.items()]
-    print(json.dumps({"kernels_bfloat16": [
-        {"name": name, **table[(name, "bfloat16")]}
-        for name in ("block_matvec", "block_rmatvec", "block_gram_chain")]}))
+    print(json.dumps({"block_sweeps_by_route": [
+        {"name": name, "dtype": "bfloat16" if key == "bfloat16" else
+         "float32", **table[(name, key)]}
+        for key in ("float32", "bfloat16", "ffma") for name in sweeps]}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

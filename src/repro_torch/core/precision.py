@@ -10,9 +10,12 @@ ONE knob, as in the JAX package's ``repro/core/precision.py``:
   operands upcast to fp32, so partial sums never round to bf16.
 * QR, Rayleigh–Ritz and every factor stay fp32.
 
-``sweep_dtype="float32"`` is the default; its sweeps run on FFMA, never
-TF32, so fp32 stays bit-stable from run to run.  bf16 sweeps pair with
-a looser ``eps`` (~1e-4).  Pass accounting is dtype-independent; bf16
+``sweep_dtype="float32"`` is the default; its sweeps run on the tensor
+cores as 3xTF32 (each operand split into TF32 halves, three products,
+fp32 sums) where a TMA tensor map describes ``A``, else on FFMA, never
+plain TF32, and in a fixed order, so fp32 stays within 1e-5 of full
+fp32 and bit-stable from run to run.  bf16 sweeps pair with a looser
+``eps`` (~1e-4).  Pass accounting is dtype-independent; bf16
 changes the bytes per pass, never the number of passes.
 """
 from __future__ import annotations

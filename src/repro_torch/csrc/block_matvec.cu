@@ -8,10 +8,11 @@
 // The fused chain Z = A^T (A Q) of that file (block_gram_chain, :146) is the
 // composition of the two, done by the wrapper in kernels/ops.py.
 //
-// This file is the FFMA route: every fp32 sweep, and the bf16 sweeps that
-// kernels/block_matvec.py::route does not send to the tensor-core kernels of
-// block_matvec_tc.cu (an A whose base is not 16-byte aligned or whose n is
-// not a multiple of 8, which a TMA tensor map cannot describe).
+// This file is the FFMA route: the sweeps that kernels/block_matvec.py::route
+// does not send to the tensor-core kernels (block_matvec_tf32.cu for fp32,
+// block_matvec_tc.cu for bf16): an A whose base is not 16-byte aligned or
+// whose rows are not a multiple of 16 bytes, which a TMA tensor map cannot
+// describe.
 //
 // Types: A and the skinny operand are both fp32 or both bf16.  bf16 values
 // are widened to fp32 when they are staged into shared memory, every product
@@ -20,8 +21,7 @@
 // from the plain version (kernels/ref.py) only in the order of the sums.
 //
 // Bound on an H100 SXM (80 GB HBM3 at 3.35 TB/s, 67 TFLOP/s fp32 outside the
-// tensor cores): at the main path's 262144 x 32768 with k = 32 one fp32 sweep
-// reads 34.4 GB of A (10.3 ms) and does 2*m*n*k = 5.5e11 flop (8.2 ms of
+// tensor cores): at 262144 x 32768 with k = 32 one fp32 sweep reads 34.4 GB of A (10.3 ms) and does 2*m*n*k = 5.5e11 flop (8.2 ms of
 // FFMA).  Both sweeps are bound by the bytes of A, the FFMA rate close behind;
 // in bf16 the bytes halve (5.1 ms) and the FFMA work (8.2 ms) becomes the
 // limit of this design (hence the bf16 tensor-core route).  What the design
@@ -29,11 +29,11 @@
 //   * A is read from device memory exactly once per k tile of up to 64
 //     columns, so for k <= 64 each sweep moves A once; the skinny operand
 //     and the output are k/n and k/m of A's bytes.
-//   * Global loads are coalesced along A's rows (the contiguous axis), 16
-//     bytes per thread where A is aligned and its rows are whole vectors (the
-//     main path; one element per load otherwise), and are issued into
-//     registers one stage ahead; two shared-memory stages with one barrier
-//     each keep the next tile's bytes in flight while the FFMAs run.
+//   * Global loads are coalesced along A's rows (the contiguous axis), one
+//     element per load (the rows this route takes need not be whole 16-byte
+//     vectors), and are issued into registers one stage ahead; two
+//     shared-memory stages with one barrier each keep the next tile's bytes
+//     in flight while the FFMAs run.
 //   * Each thread keeps an 8 x TK block of sums in registers and reads its 8
 //     A values (and 4 skinny values at a time when TK is a multiple of 4) as
 //     float4 loads from shared memory, so the inner loop is mostly FFMA.  The
@@ -60,8 +60,6 @@
 
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "slab_sum.cuh"
 
 namespace {
@@ -75,37 +73,10 @@ constexpr int BK = 16;        // reduction depth of one shared-memory stage
 constexpr int XPAD = 4;       // keeps float4 alignment, spreads stores over banks
 constexpr int MIN_BLOCKS = 2; // resident blocks per SM the register budget keeps
 
-// 16-byte vectors of A for the aligned path: 4 fp32 or 8 bf16 values.
-template <typename T>
-struct Vec;
-template <>
-struct Vec<float> {
-  using type = float4;
-  static constexpr int N = 4;
-};
-template <>
-struct Vec<__nv_bfloat16> {
-  using type = uint4;
-  static constexpr int N = 8;
-};
-
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ void widen(const float4& v, float (&o)[4]) {
-  o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
-}
-// bf16 is the upper half of an fp32: element 2i is the low half-word.
-__device__ __forceinline__ void widen(const uint4& v, float (&o)[8]) {
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    o[2 * i] = __uint_as_float(w[i] << 16);
-    o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
 template <typename T>
 __device__ __forceinline__ T zero();
 template <>
@@ -113,12 +84,6 @@ __device__ __forceinline__ float zero<float>() { return 0.0f; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
   return __float2bfloat16(0.0f);
-}
-template <typename V>
-__device__ __forceinline__ V zero_vec() {
-  V v;
-  v.x = v.y = v.z = v.w = 0;
-  return v;
 }
 
 // acc[i][c] += xs[j][ty*TM + i] * ws[j][tx*TK + c] over one stage.
@@ -185,17 +150,13 @@ struct SkinnyStage {
 };
 
 // Y[row0:row0+BM, col0:col0+KT] = A[rows, :] @ Q[:, cols]; the n loop runs
-// inside the block (on the TPU it was the sequential grid axis).  VEC: A is
-// 16-byte aligned and n is a multiple of the vector width, so A is read in
-// 16-byte vectors; otherwise one element per load.
-template <typename T, int TK, bool VEC>
+// inside the block (on the TPU it was the sequential grid axis).
+template <typename T, int TK>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     matvec_kernel(const T* __restrict__ A, const T* __restrict__ Q,
                   float* __restrict__ Y, int m, int n, int k) {
   constexpr int KT = TX * TK, XS = BM + XPAD;
-  constexpr int VN = VEC ? Vec<T>::N : 1;
-  constexpr int PER = BM * BK / VN / NT;     // A loads per thread per stage
-  using L = typename std::conditional<VEC, typename Vec<T>::type, T>::type;
+  constexpr int PER = BM * BK / NT;          // A loads per thread per stage
   __shared__ __align__(16) float xs[2][BK * XS];  // xs[j][r] = A[r][j]
   __shared__ __align__(16) float ws[2][BK * KT];  // ws[j][c] = Q[j][c]
 
@@ -204,7 +165,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * BM;
   const int col0 = blockIdx.y * KT;
 
-  L a_pre[PER];
+  T a_pre[PER];
   SkinnyStage<T, TK> w;
   float acc[TM][TK];
 #pragma unroll
@@ -216,14 +177,9 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 #pragma unroll
     for (int p = 0; p < PER; ++p) {
       const int e = tid + p * NT;
-      const int64_t r = row0 + e / (BK / VN);
-      const int j = j0 + (e % (BK / VN)) * VN;
-      if constexpr (VEC)
-        a_pre[p] = (r < m && j < n)
-                       ? *reinterpret_cast<const L*>(A + r * n + j)
-                       : zero_vec<L>();
-      else
-        a_pre[p] = (r < m && j < n) ? A[r * n + j] : zero<T>();
+      const int64_t r = row0 + e / BK;
+      const int j = j0 + e % BK;
+      a_pre[p] = (r < m && j < n) ? A[r * n + j] : zero<T>();
     }
     w.fetch(Q, k, col0, j0, n, tid);
   };
@@ -231,15 +187,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 #pragma unroll
     for (int p = 0; p < PER; ++p) {
       const int e = tid + p * NT;
-      const int r = e / (BK / VN), j = (e % (BK / VN)) * VN;
-      if constexpr (VEC) {
-        float v[VN];
-        widen(a_pre[p], v);
-#pragma unroll
-        for (int q = 0; q < VN; ++q) xs[b][(j + q) * XS + r] = v[q];
-      } else {
-        xs[b][j * XS + r] = widen(a_pre[p]);
-      }
+      xs[b][e % BK * XS + e / BK] = widen(a_pre[p]);
     }
     w.stash(ws[b], tid);
   };
@@ -271,15 +219,13 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 
 // out[c0:c0+BM, col0:col0+KT] = A[slab, cols]^T @ Y[slab, :], where the slab
 // is rows [z*slab_rows, min(m, (z+1)*slab_rows)) and out = Z + z*n*k.
-template <typename T, int TK, bool VEC>
+template <typename T, int TK>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     rmatvec_kernel(const T* __restrict__ A, const T* __restrict__ Y,
                    float* __restrict__ Z, int m, int n, int k,
                    int slab_rows) {
   constexpr int KT = TX * TK, XS = BM + XPAD;
-  constexpr int VN = VEC ? Vec<T>::N : 1;
-  constexpr int PER = BM * BK / VN / NT;
-  using L = typename std::conditional<VEC, typename Vec<T>::type, T>::type;
+  constexpr int PER = BM * BK / NT;
   __shared__ __align__(16) float xs[2][BK * XS];  // xs[i][c] = A[i][c]
   __shared__ __align__(16) float ws[2][BK * KT];  // ws[i][c] = Y[i][c]
 
@@ -290,7 +236,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   const int r_begin = blockIdx.z * slab_rows;
   const int r_end = min(m, r_begin + slab_rows);
 
-  L a_pre[PER];
+  T a_pre[PER];
   SkinnyStage<T, TK> w;
   float acc[TM][TK];
 #pragma unroll
@@ -302,13 +248,9 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 #pragma unroll
     for (int p = 0; p < PER; ++p) {
       const int e = tid + p * NT;
-      const int r = i0 + e / (BM / VN), c = c0 + (e % (BM / VN)) * VN;
-      const T* src = A + static_cast<int64_t>(r) * n + c;
-      if constexpr (VEC)
-        a_pre[p] = (r < r_end && c < n) ? *reinterpret_cast<const L*>(src)
-                                        : zero_vec<L>();
-      else
-        a_pre[p] = (r < r_end && c < n) ? *src : zero<T>();
+      const int r = i0 + e / BM, c = c0 + e % BM;
+      a_pre[p] = (r < r_end && c < n) ? A[static_cast<int64_t>(r) * n + c]
+                                      : zero<T>();
     }
     w.fetch(Y, k, col0, i0, r_end, tid);
   };
@@ -316,17 +258,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 #pragma unroll
     for (int p = 0; p < PER; ++p) {
       const int e = tid + p * NT;
-      const int i = e / (BM / VN), c = (e % (BM / VN)) * VN;
-      if constexpr (VEC) {
-        float v[VN];
-        widen(a_pre[p], v);
-#pragma unroll
-        for (int q = 0; q < VN; q += 4)
-          *reinterpret_cast<float4*>(&xs[b][i * XS + c + q]) =
-              make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
-      } else {
-        xs[b][i * XS + c] = widen(a_pre[p]);
-      }
+      xs[b][e / BM * XS + e % BM] = widen(a_pre[p]);
     }
     w.stash(ws[b], tid);
   };
@@ -357,39 +289,24 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 
 template <typename T, int TK>
 void launch_matvec(const void* A, const void* Q, void* Y, int m, int n, int k,
-                   bool vec, cudaStream_t s) {
+                   cudaStream_t s) {
   constexpr int KT = TX * TK;
   const dim3 grid((m + BM - 1) / BM, (k + KT - 1) / KT);
   const T* a = static_cast<const T*>(A);
   const T* q = static_cast<const T*>(Q);
   float* y = static_cast<float*>(Y);
-  if (vec)
-    matvec_kernel<T, TK, true><<<grid, NT, 0, s>>>(a, q, y, m, n, k);
-  else
-    matvec_kernel<T, TK, false><<<grid, NT, 0, s>>>(a, q, y, m, n, k);
+  matvec_kernel<T, TK><<<grid, NT, 0, s>>>(a, q, y, m, n, k);
 }
 
 template <typename T, int TK>
 void launch_rmatvec(const void* A, const void* Y, void* Z, int m, int n,
-                    int k, int slab_rows, int slabs, bool vec,
-                    cudaStream_t s) {
+                    int k, int slab_rows, int slabs, cudaStream_t s) {
   constexpr int KT = TX * TK;
   const dim3 grid((n + BM - 1) / BM, (k + KT - 1) / KT, slabs);
   const T* a = static_cast<const T*>(A);
   const T* y = static_cast<const T*>(Y);
   float* z = static_cast<float*>(Z);
-  if (vec)
-    rmatvec_kernel<T, TK, true>
-        <<<grid, NT, 0, s>>>(a, y, z, m, n, k, slab_rows);
-  else
-    rmatvec_kernel<T, TK, false>
-        <<<grid, NT, 0, s>>>(a, y, z, m, n, k, slab_rows);
-}
-
-// The 16-byte path needs an aligned A whose rows are whole vectors.
-template <typename T>
-bool vector_ok(const void* A, int n) {
-  return reinterpret_cast<uintptr_t>(A) % 16 == 0 && n % Vec<T>::N == 0;
+  rmatvec_kernel<T, TK><<<grid, NT, 0, s>>>(a, y, z, m, n, k, slab_rows);
 }
 
 // The k tile: k rounded up to a multiple of TX, at most 64 columns.
@@ -413,8 +330,7 @@ inline int tile_k(int k) {
 template <typename T>
 void matvec_typed(const void* A, const void* Q, void* Y, int m, int n, int k,
                   cudaStream_t s) {
-  const bool vec = vector_ok<T>(A, n);
-#define REPRO_CALL(TK) launch_matvec<T, TK>(A, Q, Y, m, n, k, vec, s)
+#define REPRO_CALL(TK) launch_matvec<T, TK>(A, Q, Y, m, n, k, s)
   REPRO_TK_SWITCH(tile_k(k), REPRO_CALL)
 #undef REPRO_CALL
 }
@@ -422,9 +338,8 @@ void matvec_typed(const void* A, const void* Q, void* Y, int m, int n, int k,
 template <typename T>
 void rmatvec_typed(const void* A, const void* Y, void* Z, int m, int n, int k,
                    int slab_rows, int slabs, cudaStream_t s) {
-  const bool vec = vector_ok<T>(A, n);
 #define REPRO_CALL(TK) \
-  launch_rmatvec<T, TK>(A, Y, Z, m, n, k, slab_rows, slabs, vec, s)
+  launch_rmatvec<T, TK>(A, Y, Z, m, n, k, slab_rows, slabs, s)
   REPRO_TK_SWITCH(tile_k(k), REPRO_CALL)
 #undef REPRO_CALL
 }

@@ -7,8 +7,9 @@
 // block_matvec (pallas_call at :81) and block_rmatvec (pallas_call at :127),
 // for bf16 operands; the chain Z = A^T (A Q) of that file (block_gram_chain,
 // :146) is the composition of the two, done by the wrapper in kernels/ops.py.
-// fp32 sweeps, and bf16 ones whose A a TMA tensor map cannot describe, run
-// the FFMA kernels of block_matvec.cu (kernels/block_matvec.py::route).
+// fp32 sweeps run block_matvec_tf32.cu (3xTF32) or, like bf16 ones whose A
+// a TMA tensor map cannot describe, the FFMA kernels of block_matvec.cu
+// (kernels/block_matvec.py::route).
 //
 // Bound on an H100 SXM at the main path's 262144 x 32768, k = 32: one sweep
 // reads 17.2 GB of bf16 A, 5.13 ms at 3.35 TB/s; its 2 m n k = 5.5e11 flop
@@ -142,27 +143,6 @@ struct RmatvecSmem {
   static constexpr int BYTES = BAR + 16 * STAGES + 1024;
 };
 
-__device__ __forceinline__ void init_barriers(uint32_t full, uint32_t empty) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 4 * NCONS);   // lane 0 of each consumer warp
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-}
-
-// The producer's turn for stage i: wait until the consumers released the
-// slot's previous tile, then announce `bytes` on its full barrier.
-__device__ __forceinline__ uint32_t claim(uint32_t full, uint32_t empty, int i,
-                                          uint32_t bytes) {
-  const int s = i % STAGES;
-  if (i >= STAGES) mbar_wait(empty + 8 * s, ((i / STAGES) - 1) & 1);
-  mbar_expect_tx(full + 8 * s, bytes);
-  return full + 8 * s;
-}
-
 template <int R>
 __device__ __forceinline__ void add_into(float (&sum)[R],
                                          const float (&d)[R]) {
@@ -187,7 +167,7 @@ __global__ void __launch_bounds__(NT, 1)
   const int row_jobs = (m + BM - 1) / BM;
   const int jobs = row_jobs * ((k + N - 1) / N);
   const int stages = (n + BK - 1) / BK;
-  init_barriers(full, empty);
+  init_barriers<STAGES, 4 * NCONS>(full, empty);
 
   if (threadIdx.x >= 128 * NCONS) {          // the producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
@@ -197,7 +177,8 @@ __global__ void __launch_bounds__(NT, 1)
       const int row0 = job % row_jobs * BM, col0 = job / row_jobs * N;
       for (int st = 0; st < stages; ++st, ++i) {
         const int s = i % STAGES;
-        const uint32_t bar = claim(full, empty, i, L::A_STAGE + L::Q_STAGE);
+        const uint32_t bar =
+            claim<STAGES>(full, empty, i, L::A_STAGE + L::Q_STAGE);
         tma_load_2d(base + L::A + s * L::A_STAGE, &ma, bar, st * BK, row0);
         tma_load_2d(base + L::Q + s * L::Q_STAGE, &mq, bar, st * BK, col0);
       }
@@ -280,7 +261,7 @@ __global__ void __launch_bounds__(NT, 1)
   const int r_begin = static_cast<int>(blockIdx.z) * slab_rows;
   const int r_end = min(m, r_begin + slab_rows);
   const int tiles = (r_end - r_begin + BK - 1) / BK;
-  init_barriers(full, empty);
+  init_barriers<STAGES, 4 * NCONS>(full, empty);
 
   if (threadIdx.x >= 128 * NCONS) {          // the producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
@@ -288,7 +269,8 @@ __global__ void __launch_bounds__(NT, 1)
     for (int i = 0; i < tiles; ++i) {
       const int s = i % STAGES;
       const int i0 = r_begin + i * BK;
-      const uint32_t bar = claim(full, empty, i, L::A_STAGE + L::Y_STAGE);
+      const uint32_t bar =
+          claim<STAGES>(full, empty, i, L::A_STAGE + L::Y_STAGE);
       for (int b = 0; b < BN / 64; ++b)
         tma_load_2d(base + L::A + s * L::A_STAGE + b * TILE, &ma, bar,
                     c0 + 64 * b, i0);
@@ -338,15 +320,6 @@ __global__ void __launch_bounds__(NT, 1)
       if (q < k && c < n)
         out[static_cast<int64_t>(c) * k + q] = sum[4 * j + e];
     }
-}
-
-// Blocks of a persistent launch: one a streaming multiprocessor, at most
-// one a job.
-inline int resident_blocks(long long jobs) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return static_cast<int>(jobs < sms ? jobs : sms);
 }
 
 template <int N>

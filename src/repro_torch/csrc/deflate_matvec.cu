@@ -37,9 +37,11 @@
 //   * deflate_rmatvec fuses the deflation correction as the TPU kernel did:
 //     per chunk of 64 rows the block forms corr = Xv - U c in shared memory
 //     (k FMAs a row) and then sweeps A against it, so A is read once.  The
-//     blocks of the first column tile also sum U^T Xv over their slab (the
-//     Pallas kernel's j == 0 guard), summed over slabs in the same fixed
-//     order.
+//     blocks of column tile j also sum U^T Xv over their slab for U's
+//     columns [KC j, KC (j + 1)), KC = 1024 (the Pallas kernel's j == 0
+//     guard, for any k): where k needs more such chunks than n has column
+//     tiles, the grid gets extra tiles past n that read U alone.  Each
+//     chunk's sums meet over slabs in the same fixed order as t13's.
 //   * The trans deflate corrects the n-side vector: a small launch forms
 //     corr = x - V c and per-block partials of V^T x (a fixed shuffle tree),
 //     a second sums the partials in block order, and the row-dot kernel
@@ -55,7 +57,7 @@
 //   deflate_rmatvec:        partial (slabs, n) and upartial (slabs, k),
 //                           unused with one slab;
 //   deflate_rmatvec trans:  partial (n,) for corr, upartial (ceil(n/256), k).
-// k is at most 1024 (UQ * NT).
+// Any k: U^T Xv is summed in column chunks of KC = UQ * NT.
 
 #include <cuda_runtime.h>
 
@@ -69,7 +71,8 @@ constexpr int RB = 8;              // rows per block in the row dots
 constexpr int CW = 4;              // columns per thread in the column sweeps
 constexpr int BC = NT * CW;        // columns per block in the column sweeps
 constexpr int CHUNK = 64;          // rows whose weights are staged at a time
-constexpr int UQ = 4;              // U^T Xv sums per thread: k <= UQ * NT
+constexpr int UQ = 4;              // U^T Xv sums per thread of a chunk
+constexpr int KC = UQ * NT;        // columns of U a column tile sums U^T Xv
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -137,7 +140,8 @@ __global__ void __launch_bounds__(NT)
 
 // out[z*n + c] = sum over the rows r of slab z = blockIdx.y, in order, of
 // w[r] * A[r][c], with w = x (plain) or w = x - U @ cv (DEFLATE).  DEFLATE
-// blocks of the first column tile also write pu[z*k + q] = sum_r U[r][q] x[r].
+// blocks of column tile j also write pu[z*k + q] = sum_r U[r][q] x[r] for
+// q in [KC j, KC (j + 1)); tiles past n (c0 >= n) do only that.
 template <bool VEC, bool DEFLATE>
 __global__ void __launch_bounds__(NT)
     colsweep_kernel(const float* __restrict__ A, const float* __restrict__ x,
@@ -150,7 +154,8 @@ __global__ void __launch_bounds__(NT)
   const int c0 = blockIdx.x * BC + tid * CW;
   const int r_begin = blockIdx.y * slab_rows;
   const int r_end = min(m, r_begin + slab_rows);
-  const bool first_tile = DEFLATE && blockIdx.x == 0;
+  const int q0 = blockIdx.x * KC;            // this tile's chunk of U^T Xv
+  const bool u_chunk = DEFLATE && q0 < k;
   float acc[CW] = {0.0f, 0.0f, 0.0f, 0.0f};
   float uacc[UQ] = {0.0f, 0.0f, 0.0f, 0.0f};
 
@@ -171,10 +176,10 @@ __global__ void __launch_bounds__(NT)
       ws[tid] = w;
     }
     __syncthreads();
-    if (first_tile) {
+    if (u_chunk) {
 #pragma unroll
       for (int u = 0; u < UQ; ++u) {
-        const int q = tid + u * NT;
+        const int q = q0 + tid + u * NT;
         if (q < k)
           for (int i = 0; i < rows; ++i)
             uacc[u] = fmaf(U[static_cast<int64_t>(r0 + i) * k + q], xs[i],
@@ -213,10 +218,10 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
   for (int q = 0; q < CW; ++q)
     if (c0 + q < n) o[c0 + q] = acc[q];
-  if (first_tile) {
+  if (u_chunk) {
 #pragma unroll
     for (int u = 0; u < UQ; ++u) {
-      const int q = tid + u * NT;
+      const int q = q0 + tid + u * NT;
       if (q < k) pu[static_cast<int64_t>(blockIdx.y) * k + q] = uacc[u];
     }
   }
@@ -291,7 +296,9 @@ template <bool DEFLATE>
 void colsweep(const float* A, const float* x, const float* U,
               const float* cv, float* out, float* pu, int m, int n, int k,
               int slab_rows, int slabs, cudaStream_t s) {
-  const dim3 grid((n + BC - 1) / BC, slabs);
+  const int tiles = (n + BC - 1) / BC;
+  const int chunks = DEFLATE ? (k + KC - 1) / KC : 0;   // of U^T Xv
+  const dim3 grid(tiles > chunks ? tiles : chunks, slabs);
   if (aligned16(A) && n % 4 == 0)
     colsweep_kernel<true, DEFLATE>
         <<<grid, NT, 0, s>>>(A, x, U, cv, out, pu, m, n, k, slab_rows);

@@ -1,13 +1,18 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (local_attn.cu, block_matvec_tc.cu): mbarriers, TMA tile loads through
-// tensor maps, wgmma shared-memory descriptors and the wgmma forms with both
-// operands in shared memory, and the lookup of libcuda's tensor-map encoder
-// through the runtime (no -lcuda at link time).
+// (local_attn.cu, block_matvec_tc.cu, block_matvec_tf32.cu): mbarriers, TMA
+// tile loads through tensor maps, the stage ring a TMA producer fills for
+// consumer warps, wgmma shared-memory descriptors, the bf16 wgmma forms with
+// both operands in shared memory, the tf32 forms with A in registers
+// (ldmatrix, the tf32 rounding), and the lookup of libcuda's tensor-map
+// encoder through the runtime (no -lcuda at link time).
 //
-// Layouts (bf16, 128-byte swizzle, as TMA writes a box of 64 columns):
+// Layouts (128-byte swizzle, as TMA writes a box of 128-byte rows: 64 bf16
+// or 32 fp32 columns):
 // * K-major operand (the reduction axis contiguous): rows of 128 bytes,
 //   8-row groups 1024 bytes apart; desc(addr + 32 * s, 16, 1024) is the
-//   operand of the s-th 16-deep step of a 64-deep box.
+//   operand of the s-th 32-byte step of a box (16 deep in bf16, 8 in tf32).
+//   Within each 8-row group, the 16-byte chunk c of row r lies at chunk
+//   c ^ (r % 8).
 // * MN-major operand (the output axis contiguous, B only): boxes of 64
 //   output columns x R reduction rows, `lbo` = R * 128 bytes between the
 //   boxes, 8-row groups `sbo` = 1024 bytes apart; the s-th 16-deep step
@@ -239,6 +244,144 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
     wgmma_ss_n128<TRANS_B>(d, da, db, scale_d);
 }
 
+// D (64 x 16, fp32) += A (64 x 8, tf32, registers) * B (8 x 16, tf32, smem,
+// K-major).
+__device__ __forceinline__ void wgmma_rs_tf32_n16(float (&d)[8],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32, fp32) += A (64 x 8, tf32, registers) * B (8 x 32, tf32, smem,
+// K-major).
+__device__ __forceinline__ void wgmma_rs_tf32_n32(float (&d)[16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) += A (64 x 8, tf32, registers) * B (8 x 64, tf32, smem,
+// K-major).
+__device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x N) += A (64 x 8, tf32 in registers) * B (8 x N), N in {16, 32, 64}.
+// A's registers, as mma.m16n8k8's per warp (warp w: rows 16 w .. + 15):
+// a[0] (row lane / 4, column lane % 4), a[1] row + 8, a[2] column + 4,
+// a[3] both.  tf32 has no transposed forms: B is K-major, A in registers.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 64, "wgmma width");
+  if constexpr (N == 16)
+    wgmma_rs_tf32_n16(d, a, db, scale_d);
+  else if constexpr (N == 32)
+    wgmma_rs_tf32_n32(d, a, db, scale_d);
+  else
+    wgmma_rs_tf32_n64(d, a, db, scale_d);
+}
+
+// x rounded to tf32, to nearest with ties away from zero (the low 13 bits
+// zero).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// Four 8 x 8 b16 matrices from shared memory (lane j gives the address of
+// row j % 8 of matrix j / 8): of 16-byte rows of 4 fp32, lane l receives
+// element l % 4 of row l / 4 of each, the tf32 A fragment's layout.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
+  uint32_t r;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(r) : "r"(addr) : "memory");
+  return r;
+}
+
+// The ring of shared-memory stages that one TMA producer thread fills for
+// the consumer warps: full[s] completes when stage s's bytes have landed,
+// empty[s] when lane 0 of each of the CONSUMER_WARPS consumer warps has
+// released it.  Barriers are 8 bytes apart from `full` and `empty`.
+template <int STAGES, int CONSUMER_WARPS>
+__device__ __forceinline__ void init_barriers(uint32_t full, uint32_t empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// The producer's turn for stage i: wait until the consumers released the
+// slot's previous tile, then announce `bytes` on its full barrier.
+template <int STAGES>
+__device__ __forceinline__ uint32_t claim(uint32_t full, uint32_t empty, int i,
+                                          uint32_t bytes) {
+  const int s = i % STAGES;
+  if (i >= STAGES) mbar_wait(empty + 8 * s, ((i / STAGES) - 1) & 1);
+  mbar_expect_tx(full + 8 * s, bytes);
+  return full + 8 * s;
+}
+
+// Blocks of a persistent launch: one a streaming multiprocessor, at most
+// one a job.
+inline int resident_blocks(long long jobs) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return static_cast<int>(jobs < sms ? jobs : sms);
+}
+
 // cuTensorMapEncodeTiled of libcuda, found through the runtime: no -lcuda.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
@@ -265,21 +408,27 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A row-major bf16 matrix of `rows` x `cols` at `ptr`, rows `ld` elements
-// apart, in boxes of 64 columns (128 bytes) x `box_rows` rows with the
-// 128-byte swizzle.  TMA wants the base and `ld * 2` to be multiples of 16
-// bytes; cudaErrorInvalidValue where the encoder refuses the map,
+// A row-major matrix of `rows` x `cols` at `ptr`, bf16 (`elem` = 2) or
+// fp32 (`elem` = 4), rows `ld` elements apart, in boxes of 128 bytes of
+// columns (64 bf16, 32 fp32) x `box_rows` rows with the 128-byte swizzle.
+// TMA wants the base and `ld * elem` to be multiples of 16 bytes;
+// cudaErrorInvalidValue where the encoder refuses the map,
 // cudaErrorNotSupported without the encoder.
 inline cudaError_t encode_2d(CUtensorMap* map, const void* ptr, long long rows,
-                             long long cols, long long ld, int box_rows) {
+                             long long cols, long long ld, int box_rows,
+                             int elem = 2) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+  return fn(map,
+            elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            2, const_cast<void*>(ptr),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS

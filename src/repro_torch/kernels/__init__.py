@@ -1,8 +1,11 @@
 """Hand-written Hopper kernels of the port, with their plain versions.
 
-* ``block_matvec``     — multi-vector ``A @ Q`` sweep (CUDA C++: bf16
-                         on the tensor cores, ``csrc/block_matvec_tc.cu``;
-                         fp32 by FFMA, ``csrc/block_matvec.cu``)
+* ``block_matvec``     — multi-vector ``A @ Q`` sweep (CUDA C++ on the
+                         tensor cores: fp32 as 3xTF32,
+                         ``csrc/block_matvec_tf32.cu``, bf16,
+                         ``csrc/block_matvec_tc.cu``; the operands no TMA
+                         tensor map describes by FFMA,
+                         ``csrc/block_matvec.cu``)
 * ``block_rmatvec``    — multi-vector ``A^T @ Y`` sweep, reduction over
                          the long m axis in ordered slabs (same sources)
 * ``block_gram_chain`` — their composition ``A^T (A Q)``

@@ -1,29 +1,34 @@
 """Hopper kernels of the block power step: ``A @ Q`` and ``A^T @ Y``.
 
-Bindings of ``csrc/block_matvec_tc.cu`` and ``csrc/block_matvec.cu``
-(CUDA C++ for ``sm_90a``, built by ``kernels/build.py`` at first use and
-called through ``ctypes``).  They replace the Pallas TPU kernels of the
-JAX package's ``repro/kernels/block_matvec.py``: ``block_matvec``
+Bindings of ``csrc/block_matvec_tf32.cu``, ``csrc/block_matvec_tc.cu``
+and ``csrc/block_matvec.cu`` (CUDA C++ for ``sm_90a``, built by
+``kernels/build.py`` at first use and called through ``ctypes``).  They
+replace the Pallas TPU kernels of the JAX package's ``repro/kernels/block_matvec.py``: ``block_matvec``
 (``pallas_call`` at line 81) and ``block_rmatvec`` (``pallas_call`` at
 line 127).  The sources' headers say what bounds them on an H100 and
 what each design does about it.
 
-Two routes, chosen by ``route(A, k)`` from dtype, shape and alignment:
+Three routes, chosen by ``route(A, k)`` from dtype, shape and alignment:
 
+* ``"tf32x3"`` (``block_matvec_tf32.cu``): fp32 where a TMA tensor map
+  describes ``A`` (16-byte-aligned base, ``n % 4 == 0``), any k.  The
+  tensor cores as 3xTF32 (never plain TF32): each operand split into a
+  TF32 ``hi`` and ``lo``, three products, fp32 sums promoted every
+  32-deep stage.  ``block_rmatvec`` splits m into slabs of whole 32-row
+  stages.
 * ``"wgmma"`` (``block_matvec_tc.cu``): bf16 where a TMA tensor map
   describes ``A`` (16-byte-aligned base, ``n % 8 == 0``), any k.  A
-  ring of TMA-filled shared-memory stages, wgmma with fp32 sums.  The
-  skinny operand is handed over transposed (``Q^T``, ``Y^T``: k rows),
-  which any k can be read as; ``block_rmatvec`` splits m into slabs of
-  whole 64-row stages.
-* ``"ffma"`` (``block_matvec.cu``): fp32 (never TF32), and every other
-  bf16 operand.
+  ring of TMA-filled shared-memory stages, wgmma with fp32 sums;
+  ``block_rmatvec`` splits m into slabs of whole 64-row stages.
+* ``"ffma"`` (``block_matvec.cu``): every other fp32 or bf16 operand.
 
-A launch that the card refuses raises; neither route stands in for the
-other.  These functions take CUDA tensors that ``kernels/ops.py`` has
-already checked (device, dtype, shape, contiguity); they allocate the
-fp32 output and any scratch with ``torch.empty``, launch on the current
-stream, and raise if the launch was refused.  Call them through
+On both tensor-core routes the skinny operand is read transposed
+(``Q^T``, ``Y^T``: k rows), which any k can be read as.  A launch that
+the card refuses raises; no route stands in for another.  These
+functions take CUDA tensors that ``kernels/ops.py`` has already checked
+(device, dtype, shape, contiguity); they allocate the fp32 output and
+any scratch with ``torch.empty``, launch on the current stream, and
+raise if the launch was refused.  Call them through
 ``ops``, which also keeps the launch counts.
 """
 from __future__ import annotations
@@ -49,17 +54,25 @@ BM = 256        # output rows per thread block (csrc: TY * TM; the
 BK = 16         # reduction depth per shared-memory stage (csrc: BK)
 KT_MAX = 64     # widest k tile (csrc: TX * 8; block_matvec_tc.cu: KT)
 TC_BK = 64      # rows of a tensor-core stage (block_matvec_tc.cu: BK)
+TF32_BK = 32    # rows of a 3xTF32 stage (block_matvec_tf32.cu: BK)
+#: rows of block_rmatvec's slabs are a multiple of the route's stage depth
+STEP = {"ffma": BK, "wgmma": TC_BK, "tf32x3": TF32_BK}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 
 
 def route(A: torch.Tensor, k: int) -> str:
-    """The kernel that takes ``A`` (m, n) with k skinny columns:
-    ``"wgmma"`` for bf16 that a TMA tensor map can describe (base 16-byte
-    aligned, rows of ``2 n`` bytes a multiple of 16), else ``"ffma"``."""
-    return ("wgmma" if A.dtype == torch.bfloat16 and A.shape[1] % 8 == 0
-            and A.data_ptr() % 16 == 0 and k >= 1 else "ffma")
+    """The kernel that takes ``A`` (m, n) with k skinny columns where a
+    TMA tensor map can describe it (base 16-byte aligned, rows a multiple
+    of 16 bytes): ``"tf32x3"`` for fp32, ``"wgmma"`` for bf16; else
+    ``"ffma"``."""
+    mapped = A.data_ptr() % 16 == 0 and k >= 1
+    if A.dtype == torch.float32 and A.shape[1] % 4 == 0 and mapped:
+        return "tf32x3"
+    if A.dtype == torch.bfloat16 and A.shape[1] % 8 == 0 and mapped:
+        return "wgmma"
+    return "ffma"
 
 
 def _lib() -> ctypes.CDLL:
@@ -89,6 +102,20 @@ def _lib_tc() -> ctypes.CDLL:
     return lib
 
 
+def _lib_tf32() -> ctypes.CDLL:
+    lib = build.library("block_matvec_tf32")
+    if not getattr(lib, "_repro_bound", False):
+        lib.repro_block_matvec_tf32x3.argtypes = [_P, _P, _P, _P, _I64, _I64,
+                                                  _I64, _P]
+        lib.repro_block_rmatvec_tf32x3.argtypes = [_P, _P, _P, _P, _P, _I64,
+                                                   _I64, _I64, _I64, _I64, _P]
+        for fn in (lib.repro_block_matvec_tf32x3,
+                   lib.repro_block_rmatvec_tf32x3):
+            fn.restype = ctypes.c_int
+        lib._repro_bound = True
+    return lib
+
+
 def _check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
@@ -102,8 +129,8 @@ def rmatvec_slab_rows(m: int, n: int, k: int, step: int = BK) -> int:
     """Rows per slab of ``block_rmatvec``'s split reduction over m: at
     most ``SLAB_MAX_ROWS``, and few enough rows that the launch has about
     ``FILL_BLOCKS`` blocks when n is small.  A multiple of the route's
-    stage depth ``step`` (``BK``; ``TC_BK`` on the tensor cores, whose
-    stages must not reach into the next slab)."""
+    stage depth ``step`` (``STEP`` by route: the tensor cores' stages
+    must not reach into the next slab)."""
     blocks = math.ceil(n / BM) * math.ceil(k / KT_MAX)
     slabs = max(math.ceil(m / SLAB_MAX_ROWS),
                 min(math.ceil(FILL_BLOCKS / blocks),
@@ -120,7 +147,14 @@ def block_matvec_cuda(A: torch.Tensor, Q: torch.Tensor,
     k = Q.shape[1]
     Y = torch.empty((m, k), dtype=torch.float32, device=A.device)
     with torch.cuda.device(A.device):
-        if which == "wgmma":
+        if which == "tf32x3":
+            # Q^T's tf32 halves (2, k, n), written by the library
+            split = torch.empty((2, k, n), dtype=torch.float32,
+                                device=A.device)
+            err = _lib_tf32().repro_block_matvec_tf32x3(
+                A.data_ptr(), Q.data_ptr(), split.data_ptr(), Y.data_ptr(),
+                m, n, k, _stream(A))
+        elif which == "wgmma":
             Qt = Q.mT.contiguous()          # (k, n): K-major TMA boxes
             err = _lib_tc().repro_block_matvec_wgmma(
                 A.data_ptr(), Qt.data_ptr(), Y.data_ptr(), m, n, k,
@@ -141,15 +175,23 @@ def block_rmatvec_cuda(A: torch.Tensor, Y: torch.Tensor,
     a second launch sums in order."""
     m, n = A.shape
     k = Y.shape[1]
-    tc = which == "wgmma"
-    rows = rmatvec_slab_rows(m, n, k, TC_BK if tc else BK)
+    rows = rmatvec_slab_rows(m, n, k, STEP[which])
     slabs = math.ceil(m / rows)
     Z = torch.empty((n, k), dtype=torch.float32, device=A.device)
     partial = (torch.empty((slabs, n, k), dtype=torch.float32,
                            device=A.device) if slabs > 1 else None)
     part = None if partial is None else partial.data_ptr()
     with torch.cuda.device(A.device):
-        if tc:
+        if which == "tf32x3":
+            # Y^T's tf32 halves (2, k, m) with rows padded to 16 bytes,
+            # written by the library
+            ld = -(-m // 4) * 4
+            split = torch.empty((2, k, ld), dtype=torch.float32,
+                                device=A.device)
+            err = _lib_tf32().repro_block_rmatvec_tf32x3(
+                A.data_ptr(), Y.data_ptr(), split.data_ptr(), Z.data_ptr(),
+                part, m, n, k, ld, rows, _stream(A))
+        elif which == "wgmma":
             # Y^T (k, m) with rows padded to 16 bytes: K-major TMA boxes
             ld = -(-m // 8) * 8
             Yt = torch.empty((k, ld), dtype=Y.dtype, device=Y.device)

@@ -28,7 +28,6 @@ from repro_torch.kernels.block_matvec import FILL_BLOCKS, SLAB_MAX_ROWS
 BC = 1024       # columns per block of the column sweeps (csrc: NT * CW)
 CHUNK = 64      # rows whose weights a column sweep stages at a time
 NT = 256        # threads per block (csrc: NT)
-K_MAX = 1024    # widest U the fused sweep sums U^T Xv for (csrc: UQ * NT)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong

@@ -27,9 +27,11 @@ fp32 or bf16 and returns q's dtype, as the JAX kernel does.
 ``launches`` counts, per kernel, the launches these wrappers made on the
 card; the CPU path never touches it.  A wrapper counts one per call,
 whatever the layout (``trans``), although a split reduction adds a
-second (summing) launch on the card.  ``route_launches`` splits the
-block sweeps' counts by the route that ran (``block_matvec.route``:
-bf16 on the tensor cores, ``"wgmma"``, or ``"ffma"``).
+second (summing) launch on the card, and a 3xTF32 sweep a first one
+that splits its skinny operand.  ``route_launches`` splits the block
+sweeps' counts by the route that ran (``block_matvec.route``: fp32 on
+the tensor cores as 3xTF32, ``"tf32x3"``; bf16 on them, ``"wgmma"``;
+or ``"ffma"``).
 
 The JAX package's TPU-only wrapper logic has no counterpart here: the
 kernels mask ragged edges themselves, so there is no lane padding of k,
@@ -56,7 +58,7 @@ launches = {"block_matvec": 0, "block_rmatvec": 0, "block_gram_chain": 0,
 #: the block sweeps' launches by route, since the last ``reset_launches()``
 route_launches = {f"{name}/{which}": 0
                   for name in ("block_matvec", "block_rmatvec")
-                  for which in ("wgmma", "ffma")}
+                  for which in ("tf32x3", "wgmma", "ffma")}
 
 
 def reset_launches() -> None:
@@ -219,10 +221,6 @@ def deflate_rmatvec(A: torch.Tensor, U: torch.Tensor, Xv: torch.Tensor,
             f"{tuple(SVtv.shape)} do not conform")
     if A.device.type == "cpu":
         return _ref.deflate_rmatvec_ref(A, U, Xv, SVtv, trans)
-    k = U.shape[1]
-    if k > _dm.K_MAX:
-        raise ValueError(f"deflate_rmatvec on the card takes k <= "
-                         f"{_dm.K_MAX} columns of U, got {k}")
     if A.numel() == 0:
         return (torch.zeros((m if trans else n,), dtype=torch.float32,
                             device=A.device),

@@ -16,10 +16,10 @@ fp32 (the JAX package's limit for its kernel, ``tests/test_kernels.py:208``);
 in bf16 each element within the kernel's one rounding of its output to
 bf16, 2^-8 |plain| of that element, plus 1e-5 for the fp32 sums' order
 (``_attn_within``).  bf16 at D >= 64 runs the tensor-core kernel
-(``local_attn.route``), the rest the FFMA one.  The block sweeps run
-bf16 on the tensor cores where a TMA tensor map describes A
-(``block_matvec.route``), the rest by FFMA; both are held to the same
-limits.
+(``local_attn.route``), the rest the FFMA one.  The block sweeps run on
+the tensor cores where a TMA tensor map describes A
+(``block_matvec.route``: fp32 as 3xTF32, bf16 by wgmma), the rest by
+FFMA; all three routes are held to the same limits.
 """
 import importlib
 
@@ -123,6 +123,62 @@ def test_tensor_core_rmatvec_reruns_bitwise(card):
     assert torch.equal(ops.block_rmatvec(A, Y), ops.block_rmatvec(A, Y))
 
 
+@pytest.mark.parametrize("m,n,k", [
+    (5000, 1000, 7),     # ragged m, n (not whole 32-column stages) and k
+    (3001, 2052, 45),    # the same, k between widths
+    (1000, 300, 1),      # the narrowest k
+    (4097, 516, 40),     # n a multiple of 4, not of 8
+    (2048, 1024, 130),   # k > 64: three tiles of k
+    (257, 4100, 64),     # one row block, partly past m
+    (40000, 96, 33),     # several slabs of the reduction
+    (33000, 4096, 32),   # the path's k, slabs ragged in m
+])
+def test_tf32x3_sweeps_match_plain_versions(card, m, n, k):
+    g = torch.Generator(device=card).manual_seed(m + n + k)
+    A = torch.randn((m, n), generator=g, device=card)
+    Q = torch.randn((n, k), generator=g, device=card)
+    Y = torch.randn((m, k), generator=g, device=card)
+    assert bm.route(A, k) == "tf32x3"
+    ops.reset_launches()
+    for got, want in (
+            (ops.block_matvec(A, Q), ref.block_matvec_ref(A, Q, "float32")),
+            (ops.block_rmatvec(A, Y), ref.block_rmatvec_ref(A, Y, "float32")),
+            (ops.block_gram_chain(A, Q),
+             ref.block_gram_chain_ref(A, Q, "float32")),
+            (ops.block_gram_chain(A, Y, trans=True),
+             ref.block_gram_chain_ref(A, Y, "float32", trans=True))):
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert bool(torch.isfinite(got).all()) and _rel(got, want) <= 1e-5
+    assert {n_: c for n_, c in ops.route_launches.items() if c} == {
+        "block_matvec/tf32x3": 3, "block_rmatvec/tf32x3": 3}
+
+
+def test_tf32x3_rmatvec_reruns_bitwise(card):
+    g = torch.Generator(device=card).manual_seed(4)
+    A = torch.randn((40000, 708), generator=g, device=card)
+    Y = torch.randn((40000, 40), generator=g, device=card)
+    assert bm.route(A, 40) == "tf32x3"
+    assert -(-40000 // bm.rmatvec_slab_rows(40000, 708, 40, bm.TF32_BK)) > 1
+    assert torch.equal(ops.block_rmatvec(A, Y), ops.block_rmatvec(A, Y))
+
+
+def test_misaligned_fp32_runs_the_ffma_route(card):
+    """An fp32 A 4 bytes off a 16-byte boundary has no tensor map: FFMA."""
+    m, n, k = 3000, 1024, 9
+    g = torch.Generator(device=card).manual_seed(6)
+    flat = torch.randn(m * n + 1, generator=g, device=card)
+    A = flat[1:].view(m, n)
+    Y = torch.randn((m, k), generator=g, device=card)
+    assert A.is_contiguous() and bm.route(A, k) == "ffma"
+    ops.reset_launches()
+    got = ops.block_rmatvec(A, Y)
+    torch.cuda.synchronize()
+    assert _rel(got, ref.block_rmatvec_ref(A, Y, "float32")) <= 1e-5
+    assert {n_: c for n_, c in ops.route_launches.items() if c} == {
+        "block_rmatvec/ffma": 1}
+
+
 def test_misaligned_bf16_runs_the_ffma_route(card):
     """A bf16 A 2 bytes off a 16-byte boundary has no tensor map: FFMA."""
     m, n, k = 3000, 1024, 9
@@ -182,6 +238,44 @@ def test_gram_kernel_matches_plain_version(card, m, n, dtype):
             assert _rel(got, want) <= 1e-5
             assert torch.equal(got, got.mT)        # a tile and its mirror
     assert ops.launches["gram"] == 4
+
+
+@pytest.mark.parametrize("k", [1030, 2100])
+@pytest.mark.parametrize("trans", [False, True])
+def test_deflate_rmatvec_takes_any_width(card, k, trans):
+    """U wider than one 1024-column chunk of U^T Xv sums."""
+    m, n = 3000, 2051
+    g = torch.Generator(device=card).manual_seed(k + trans)
+    A = torch.randn((m, n), generator=g, device=card)
+    side = n if trans else m
+    U = torch.randn((side, k), generator=g, device=card)
+    x = torch.randn(side, generator=g, device=card)
+    c = torch.randn(k, generator=g, device=card)
+    ops.reset_launches()
+    got = ops.deflate_rmatvec(A, U, x, c, trans=trans)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref.deflate_rmatvec_ref(A, U, x, c, trans)):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert _rel(a, b) <= 1e-5
+    assert ops.launches["deflate_rmatvec"] == 1
+
+
+def test_gramfree_svd_wider_than_1024(card):
+    """svd(A, k > 1024, method="gramfree") runs on the card, its launches
+    equal to the pass accounting."""
+    import repro_torch
+    g = torch.Generator(device=card).manual_seed(7)
+    A = torch.randn((2048, 1100), generator=g, device=card)
+    k = 1030
+    ops.reset_launches()
+    res = repro_torch.svd(A, k, method="gramfree", force_iters=True,
+                          max_iters=1)
+    iters = sum(int(i) for i in res.iters)
+    assert iters == k
+    assert {n: c for n, c in ops.launches.items() if c} == {
+        "matvec": iters + k, "deflate_rmatvec": iters}
+    assert res.passes_over_A == 3 * iters + k
+    assert bool(torch.isfinite(res.S).all()) and res.S.shape == (k,)
 
 
 def test_deflation_kernels_are_deterministic(card):

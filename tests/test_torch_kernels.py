@@ -122,13 +122,12 @@ def test_wrappers_check_operands(call, exc):
     assert sum(ops.launches.values()) == 0
 
 
-def _slab_case(m, n, k, slabs, step=None):
-    """A case of ``test_rmatvec_slab_split``: the FFMA route's cases keep
-    their ids; the tensor-core route's (``step`` = ``TC_BK``) say so."""
-    if step is None:
-        return pytest.param(m, n, k, slabs, cuda_kernels.BK,
-                            id=f"{m}-{n}-{k}-{slabs}")
-    return pytest.param(m, n, k, slabs, step, id=f"wgmma-{m}-{n}-{k}-{slabs}")
+def _slab_case(m, n, k, slabs, which="ffma"):
+    """A case of ``test_rmatvec_slab_split`` on route ``which``: the FFMA
+    route's cases keep their ids; the tensor-core routes' say which."""
+    step = cuda_kernels.STEP[which]
+    label = "" if which == "ffma" else f"{which}-"
+    return pytest.param(m, n, k, slabs, step, id=f"{label}{m}-{n}-{k}-{slabs}")
 
 
 @pytest.mark.parametrize("m,n,k,slabs,step", [
@@ -138,13 +137,21 @@ def _slab_case(m, n, k, slabs, step=None):
     _slab_case(4097, 515, 40, 5),        # few column strips: fill the card
     _slab_case(16384, 4096, 40, 16),
     _slab_case(37, 17, 5, 1),
-    # the tensor-core route: slabs of whole 64-row stages
-    _slab_case(262144, 32768, 32, 16, cuda_kernels.TC_BK),
-    _slab_case(8192, 131072, 32, 1, cuda_kernels.TC_BK),   # the wide input
-    _slab_case(5000, 1000, 7, 5, cuda_kernels.TC_BK),
-    _slab_case(4097, 200, 40, 5, cuda_kernels.TC_BK),
-    _slab_case(16384, 4096, 32, 16, cuda_kernels.TC_BK),
-    _slab_case(37, 16, 5, 1, cuda_kernels.TC_BK),
+    # the bf16 tensor-core route: slabs of whole 64-row stages
+    _slab_case(262144, 32768, 32, 16, "wgmma"),
+    _slab_case(8192, 131072, 32, 1, "wgmma"),   # the wide input
+    _slab_case(5000, 1000, 7, 5, "wgmma"),
+    _slab_case(4097, 200, 40, 5, "wgmma"),
+    _slab_case(16384, 4096, 32, 16, "wgmma"),
+    _slab_case(37, 16, 5, 1, "wgmma"),
+    # the fp32 tensor-core route (3xTF32): slabs of whole 32-row stages
+    _slab_case(262144, 32768, 32, 16, "tf32x3"),
+    _slab_case(8192, 131072, 32, 1, "tf32x3"),
+    _slab_case(5000, 1000, 7, 5, "tf32x3"),
+    _slab_case(4097, 200, 40, 5, "tf32x3"),
+    _slab_case(3001, 2052, 45, 3, "tf32x3"),
+    _slab_case(40000, 96, 33, 40, "tf32x3"),
+    _slab_case(37, 16, 5, 1, "tf32x3"),
 ])
 def test_rmatvec_slab_split(m, n, k, slabs, step):
     """The split of block_rmatvec's reduction depends on the shape only:
@@ -165,7 +172,7 @@ def _meta(m, n, dtype=torch.bfloat16, offset=0):
 @pytest.mark.parametrize("A,k,want", [
     (_meta(262144, 32768), 32, "wgmma"),          # the main path's A
     (_meta(8192, 131072), 32, "wgmma"),           # the wide input
-    (_meta(262144, 32768, torch.float32), 32, "ffma"),   # fp32: never TF32
+    (_meta(262144, 32768, torch.float32), 32, "tf32x3"),  # fp32: 3xTF32
     (_meta(4097, 515), 40, "ffma"),               # n % 8 != 0: no tensor map
     (_meta(1000, 300), 7, "ffma"),
     (_meta(5000, 1000, offset=1), 7, "ffma"),     # base 2 bytes off 16
@@ -173,8 +180,11 @@ def _meta(m, n, dtype=torch.bfloat16, offset=0):
     (_meta(5000, 1000), 7, "wgmma"),              # k % 8 != 0 is read as Y^T
     (_meta(3000, 200), 1, "wgmma"),               # the narrowest k
     (_meta(2048, 1024), 130, "wgmma"),            # k > 64: tiles of 64
+    (_meta(4097, 515, torch.float32), 40, "ffma"),   # fp32 n % 4 != 0
+    (_meta(5000, 1000, torch.float32, offset=1), 7, "ffma"),  # 4 bytes off
+    (_meta(8192, 131072, torch.float32), 32, "tf32x3"),   # the wide input
 ], ids=["main", "wide", "fp32", "n515", "n300", "misaligned", "offset16",
-        "k7", "k1", "k130"])
+        "k7", "k1", "k130", "fp32-n515", "fp32-misaligned", "fp32-wide"])
 def test_route(A, k, want):
     """The sweeps' route depends on dtype, shape and alignment alone."""
     assert cuda_kernels.route(A, k) == want

@@ -14,30 +14,42 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    shared memory) and tensor-core instructions (``HGMMA``/``HMMA`` in
    the library's SASS, ``cuobjdump -sass``).  Fails unless the path's
    instances (attention bf16 D = 256; the sweeps' ``matvec_tc<32>``,
-   ``rmatvec_tc``, ``matvec_tf32<32>`` and ``rmatvec_tf32<32>``, k = 32)
+   ``rmatvec_tc``, and ``matvec_tf32<32,CP>`` and ``rmatvec_tf32<32,CP>``
+   for CP = 0, 1, 2: A by TMA, by cp.async of 4 and of 8 bytes; k = 32)
    have tensor-core instructions and spill nothing.  Beside the real
-   build, three planted faults for phase 2b: ``block_matvec_tc.cu`` with
+   build, four planted faults for phase 2b: ``block_matvec_tc.cu`` with
    ``-DREPRO_TC_SUMS_ONLY``, ``block_matvec_tf32.cu`` with
-   ``-DREPRO_TF32_ONLY`` and with ``-DREPRO_TC_SUMS_ONLY``.
+   ``-DREPRO_TF32_ONLY``, with ``-DREPRO_TC_SUMS_ONLY`` and with
+   ``-DREPRO_NO_ZFILL``.
 2. every kernel on the card against its plain PyTorch version
    (``repro_torch/kernels/ref.py``): ``block_matvec``, ``block_rmatvec``
    and ``block_gram_chain`` (both orientations), fp32 and bf16, at
    ragged shapes, each with the route that ran it (``tf32x3``: fp32 on
-   the tensor cores; ``wgmma``: bf16 on them; ``ffma``; read from the
-   route launch counts), and at the main path's 262144 x 32768, k = 32,
-   with the relative Frobenius error and its limit; kernel, plain,
-   library (``torch.matmul``, a yardstick only) and bound (by route)
-   times at that shape (the FFMA kernels' on the odd-width input of phase
-   3, the shape of their path, after its solve).  Then
-   the planted faults the limit must reject, against the real sweeps, on
-   a 65536 x 32768 |N(0, 1)| ``A`` (bf16 for ``block_matvec_tc``, fp32
-   for ``block_matvec_tf32``) with skinny operands uniform in [0, 1)
-   (every partial sum grows, as a truncating accumulator likes least)
-   and, in fp32, on a signed N(0, 1) input (the sums cancel, so the
-   products' rounding is not averaged away): the sums left in the tensor
-   cores' accumulators for the whole reduction, not promoted to rounded
-   adds every stage; and plain TF32, the ``hi hi`` term of 3xTF32 alone.
-   Each must read above the limit on at least one input.
+   the tensor cores, A by TMA; ``tf32x3_cpasync``: the same where no
+   tensor map describes A, A by cp.async; ``wgmma``: bf16 on them;
+   ``ffma``: bf16 no tensor map describes; read from the route launch
+   counts); the same on views of padded rows whose padding is NaN
+   (``padded_views``: a kernel that reads past a row returns NaN), the
+   bf16 ones as ``DenseOperator`` pads its copy; and at the main path's
+   262144 x 32768, k = 32, with the relative Frobenius error and its
+   limit; kernel, plain, library (``torch.matmul``, a yardstick only)
+   and bound (by route) times at that shape (the ``tf32x3_cpasync`` and
+   FFMA kernels' on the odd-width inputs of phase 3, after their
+   solves).  Then the planted faults the limit must reject, against the
+   real sweeps, on a 65536 x 32768 |N(0, 1)| ``A`` (bf16 for
+   ``block_matvec_tc``, fp32 for ``block_matvec_tf32``) with skinny
+   operands uniform in [0, 1) (every partial sum grows, as a truncating
+   accumulator likes least) and, in fp32, on a signed N(0, 1) input (the
+   sums cancel, so the products' rounding is not averaged away): the
+   sums left in the tensor cores' accumulators for the whole reduction,
+   not promoted to rounded adds every stage; and plain TF32, the
+   ``hi hi`` term of 3xTF32 alone.  Each must read above the limit on at
+   least one input.  The same three fp32 faults and the edge columns
+   copied from past the row (``-DREPRO_NO_ZFILL``) on the cp.async
+   route: 65536 x 32765 views of rows 32767 apart, padding NaN; the
+   last fault must read outside the limit in ``block_matvec`` (in
+   ``block_rmatvec`` the columns past n feed only output rows that are
+   never stored).
 3. the main path: ``repro_torch.svd(A, 32)`` with the default config on
    a 262144 x 32768 fp32 ``A`` (32 GiB, the paper's per-node shard)
    built on the card with singular values ``100 * 0.9**i`` (i < 64) plus
@@ -47,8 +59,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel).  Then ``sweep_dtype="bfloat16"`` (eps 1e-4, rtol 1e-2) on the
    same ``A``, its chains on the ``wgmma`` route (the extraction reads
    ``A`` in fp32: ``tf32x3``), and its profile; an fp32 input of odd
-   width (65536 x 8190, rows no tensor map describes: ``ffma`` end to
-   end); and a contiguous wide input (the operator's transposed path).
+   width (65536 x 8190, rows no tensor map describes:
+   ``tf32x3_cpasync`` end to end), with the sweeps timed there in fp32
+   and, on the FFMA kernels' remaining path, in bf16 handed to ``ops``
+   directly (one chain, launches counted); the paper's shard one column
+   short (262144 x 32767, after the main ``A`` is freed): the fp32 solve
+   (``tf32x3_cpasync``) and the bf16 one (chains on ``wgmma``, reading
+   the operator's copy padded to 32768 columns; the extraction on
+   ``tf32x3_cpasync``), each with its profile, no ``ffma`` launch, and
+   the fp32 sweeps timed at that shape; and a contiguous wide input (the
+   operator's transposed path).
 4. the deflation kernels (``matvec``, ``deflate_rmatvec``, ``gram``,
    both layouts; ``gram`` symmetric and full, fp32 and bf16) against
    their plain versions at ragged shapes (relative Frobenius error, limit
@@ -64,7 +84,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and both methods at k = 4 on the contiguous wide input (the ``trans``
    kernels).
 6. determinism: two block solves (fp32 on ``tf32x3``, and bf16 on
-   ``wgmma``) and two gram-free solves of a 16384 x 4096 matrix, each
+   ``wgmma``) and two gram-free solves of a 16384 x 4096 matrix, and two
+   fp32 block solves of a 16384 x 4095 one (``tf32x3_cpasync``), each
    pair bitwise equal.
 7. the LM serving path: the ``local_attention`` kernels (causal
    sliding-window attention, GQA, soft-cap; bf16 at D >= 64 on the
@@ -112,11 +133,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    attention; ``library_causal_ms``).
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches in the
-solve of its path, and its times; the block sweeps once for the FFMA
-kernels, launches and times from the odd-width input, as ``<name>/tf32x3`` for
-the main path's fp32 solve and as ``<name>/wgmma`` for the bf16 solve's
-chains), the ``nvidia-smi`` name and power limit line again, and last
-``{"ok": true, "device": {...}}``.  Exits 2
+run of its path, and its times; the block sweeps once for the FFMA
+kernels, launches from the bf16 odd-width chain handed to ``ops`` and
+times at 65536 x 8190, as ``<name>/tf32x3`` for the main path's fp32
+solve, as ``<name>/wgmma`` for the bf16 solve's chains and as
+``<name>/tf32x3_cpasync`` for the odd-width shard's fp32 solve, timed at
+262144 x 32767), the ``nvidia-smi`` name and power limit line again,
+and last ``{"ok": true, "device": {...}}``.  Exits 2
 without a CUDA device or without ``src/repro_torch`` beside this script.
 """
 from __future__ import annotations
@@ -184,7 +207,9 @@ REPLACES = {"block_matvec": f"{TPU_KERNEL}:81",
             "local_attention": "src/repro/kernels/local_attn.py:104"}
 TC_SOURCE = "src/repro_torch/csrc/block_matvec_tc.cu"
 TF32_SOURCE = "src/repro_torch/csrc/block_matvec_tf32.cu"
-ODD = (65536, 8190)                    # fp32 rows no tensor map describes
+ODD = (65536, 8190)                    # rows no tensor map describes
+ODD_SHARD = (M, N - 1)                 # the paper's shard one column short
+RERUN_ODD = (RERUN[0], RERUN[1] - 1)
 SOURCES = {"block_matvec": "src/repro_torch/csrc/block_matvec.cu",
            "block_rmatvec": "src/repro_torch/csrc/block_matvec.cu",
            "block_gram_chain": "src/repro_torch/csrc/block_matvec.cu",
@@ -227,19 +252,29 @@ def pick(t_bytes: float, t_ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def gram_flop(m: int, n: int) -> int:
+    """The symmetric schedule's m*n*(n+1) flop of ``gram``: each of the
+    n(n+1)/2 distinct entries is a length-m dot product."""
+    return m * n * (n + 1)
+
+
 def deflation_bound(name: str, m: int, n: int, k: int = 0) -> tuple:
     """Least time on an H100 SXM for the fp32 deflation kernels: each
     input read once and each output written once over the memory rate,
-    the flop over the fp32 (non-tensor) peak.  ``gram`` counts the
-    symmetric schedule's m*n*(n+1) flop (each of the n(n+1)/2 distinct
-    entries is a length-m dot product)."""
+    the flop over the fastest fp32-accurate rate: ``matvec`` and
+    ``deflate_rmatvec`` at the fp32 (non-tensor) peak (a matrix-vector
+    product gains nothing from the tensor cores), ``gram`` as 3xTF32,
+    three TF32 products at the TF32 peak (its FFMA figure, at the fp32
+    peak, is printed beside it)."""
     if name == "matvec":
         nbytes, flop = 4 * (m * n + n + m), 2 * m * n
     elif name == "deflate_rmatvec":
         nbytes = 4 * (m * n + m * k + m + k + n + k)
         flop = 2 * m * n + 4 * m * k
     else:
-        nbytes, flop = 4 * (m * n + n * n), m * n * (n + 1)
+        nbytes = 4 * (m * n + n * n)
+        return pick(nbytes / PEAK_BYTES * 1e3,
+                    3 * gram_flop(m, n) / PEAK_OPS["tfloat32"] * 1e3)
     return pick(nbytes / PEAK_BYTES * 1e3, flop / PEAK_OPS["float32"] * 1e3)
 
 
@@ -248,8 +283,9 @@ def bound(name: str, m: int, n: int, k: int, dtype: str,
     """Least time for the function on an H100 SXM by ``route``: A and the
     skinny input read once in ``dtype``, the fp32 output written once,
     over the memory rate; 2*m*n*k flop per product over the peak for
-    ``dtype`` (fp32 by FFMA; on the ``tf32x3`` route three TF32 products
-    at the TF32 peak).  The chain's bound counts A once: a one-read fusion
+    ``dtype`` (bf16 by FFMA or on the bf16 tensor cores; on the
+    ``tf32x3`` and ``tf32x3_cpasync`` routes three TF32 products at the
+    TF32 peak).  The chain's bound counts A once: a one-read fusion
     is possible."""
     isz = 2 if dtype == "bfloat16" else 4
     skinny_in, out, products = {"block_matvec": (n, m, 1),
@@ -257,7 +293,7 @@ def bound(name: str, m: int, n: int, k: int, dtype: str,
                                 "block_gram_chain": (n, n, 2)}[name]
     nbytes = m * n * isz + skinny_in * k * isz + out * k * 4
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    if route == "tf32x3":
+    if route.startswith("tf32x3"):
         products, dtype = 3 * products, "tfloat32"
     t_ops = products * 2 * m * n * k / PEAK_OPS[dtype] * 1e3
     return pick(t_bytes, t_ops)
@@ -378,6 +414,56 @@ def check(torch, label: str, got, want, tol: float) -> float:
     if not (bool(torch.isfinite(got).all()) and e <= tol):
         fail(f"{label}: rel err {e} > {tol}")
     return e
+
+
+def padded_views(torch, ops, ref, bm, g, dev) -> float:
+    """The block sweeps on (m, n) views of rows ``ld`` apart, at a base
+    ``offset`` elements into an allocation of one row more, every element
+    outside the view NaN (a kernel that reads past a row's n-th element
+    returns NaN): fp32 on both 3xTF32 routes (cp.async of 4 and of 8
+    bytes), bf16 as ``DenseOperator`` copies it (rows padded to whole 16
+    bytes: ``wgmma``) and at a base a tensor map cannot take (``ffma``);
+    each against its plain version and on the route it should take.
+    Returns the worst error as a share of its limit."""
+    worst = 0.0
+    for (m, n, k, ld, offset, sd, route) in [
+            (3001, 1021, 32, 1024, 1, "float32", "tf32x3_cpasync"),
+            (3001, 1021, 40, 1026, 2, "float32", "tf32x3_cpasync"),
+            (3001, 1021, 7, 1027, 3, "float32", "tf32x3_cpasync"),
+            (3001, 1021, 32, 1024, 0, "float32", "tf32x3"),
+            (4097, 515, 40, 520, 0, "bfloat16", "wgmma"),
+            (4097, 515, 40, 520, 1, "bfloat16", "ffma")]:
+        dt = getattr(torch, sd)
+        flat = torch.full((offset + (m + 1) * ld,), float("nan"), dtype=dt,
+                          device=dev)
+        A = flat[offset:offset + m * ld].view(m, ld)[:, :n]
+        A.copy_(torch.randn((m, n), generator=g, device=dev))
+        Q = torch.randn((n, k), generator=g, device=dev)
+        Y = torch.randn((m, k), generator=g, device=dev)
+        if bm.route(A, k) != route:
+            fail(f"{sd} view {(m, n)} rows {ld} apart at offset {offset}: "
+                 f"route {bm.route(A, k)}, want {route}")
+        ops.reset_launches()
+        chain_tol = TOL_CHAIN_BF16 if sd == "bfloat16" else TOL[sd]
+        cases = [("block_matvec", ops.block_matvec(A, Q),
+                  ref.block_matvec_ref(A, Q, sd), TOL[sd]),
+                 ("block_rmatvec", ops.block_rmatvec(A, Y),
+                  ref.block_rmatvec_ref(A, Y, sd), TOL[sd]),
+                 ("block_gram_chain", ops.block_gram_chain(A, Q),
+                  ref.block_gram_chain_ref(A, Q, sd), chain_tol)]
+        torch.cuda.synchronize()
+        ran = {n_: c for n_, c in ops.route_launches.items() if c}
+        if ran != {f"block_matvec/{route}": 2, f"block_rmatvec/{route}": 2}:
+            fail(f"{sd} view {(m, n)}: route {route}, launches {ran}")
+        for name, got, want, tol in cases:
+            e = check(torch, f"{name} {sd} view {(m, n, k)} rows {ld} apart "
+                      f"at offset {offset}", got, want, tol)
+            worst = max(worst, e / tol)
+            print(f"  {name:16s} {sd:8s} ({route}) view m={m} n={n} k={k} "
+                  f"rows {ld} apart, offset {offset}: rel err {e:.2e} "
+                  f"(limit {tol:.0e})")
+        del flat, A
+    return worst
 
 
 def deflation_ragged(torch, ops, ref, g, dev) -> float:
@@ -507,8 +593,8 @@ def instances(build, name: str, log: str) -> tuple:
             insts[fn] = {"spill": int(line.split()[4])}
         elif fn in insts and "Used" in line and "registers" in line:
             insts[fn]["regs"] = int(line.split("Used ")[1].split()[0])
-        if "C7512" in line:              # wgmma serialized by ptxas
-            print(f"  {line.strip()}")
+        if "C7512" in line or "setmaxnreg" in line:   # wgmma serialized,
+            print(f"  {line.strip()}")                   # setmaxnreg ignored
     sass = subprocess.run(
         [build.cuda_tool("cuobjdump"), "-sass",
          str(build.library_path(name))], capture_output=True,
@@ -527,18 +613,20 @@ def sweep_instances(build, name: str, log: str, tag: str, dtype: str,
                     want: tuple) -> None:
     """Each tensor-core instance of the block sweeps of library ``name``
     (``block_matvec_tc``: kernels ``matvec_tc<N>``, ``rmatvec_tc``;
-    ``block_matvec_tf32``: ``matvec_tf32<N>``, ``rmatvec_tf32<N>``, ``tag``
-    the suffix): registers, spills, HGMMA count; fail unless the path's
+    ``block_matvec_tf32``: ``matvec_tf32<N,CP>``, ``rmatvec_tf32<N,CP>``,
+    CP = 0 the TMA producer, 1 or 2 the cp.async one; ``tag`` the
+    suffix): registers, spills, HGMMA count; fail unless the path's
     (``want``, k = 32) have HGMMA and spill nothing."""
     import re
     insts, mma = instances(build, name, log)
     path = {}
     for mangled, info in insts.items():
-        m = re.search(rf"\d(r?matvec)_{tag}(?:ILi(\d+)E)?", mangled)
+        m = re.search(rf"\d(r?matvec)_{tag}(?:ILi(\d+)E(?:Li(\d+)E)?)?",
+                      mangled)
         if m is None:
             continue
-        label = m.group(1) + f"_{tag}" + (f"<{m.group(2)}>" if m.group(2)
-                                          else "")
+        args = ",".join(a for a in m.group(2, 3) if a)
+        label = m.group(1) + f"_{tag}" + (f"<{args}>" if args else "")
         n_mma = mma.get(mangled, 0)
         print(f"  {name} {label:16s} {dtype}: {info['regs']} registers, "
               f"{info['spill']} bytes spilled, {n_mma} tensor-core "
@@ -582,7 +670,8 @@ def attention_instances(build, la, log: str) -> None:
 # the planted faults of phase 2b: (library, its -D flag)
 PLANTED = (("block_matvec_tc", "REPRO_TC_SUMS_ONLY"),
            ("block_matvec_tf32", "REPRO_TF32_ONLY"),
-           ("block_matvec_tf32", "REPRO_TC_SUMS_ONLY"))
+           ("block_matvec_tf32", "REPRO_TC_SUMS_ONLY"),
+           ("block_matvec_tf32", "REPRO_NO_ZFILL"))
 
 
 def build_planted(build, name: str, flag: str) -> tuple:
@@ -599,33 +688,46 @@ def build_planted(build, name: str, flag: str) -> tuple:
 
 
 FAULT_LABELS = {"REPRO_TC_SUMS_ONLY": "the sums left in the tensor cores",
-                "REPRO_TF32_ONLY": "plain TF32 (the hi hi term alone)"}
+                "REPRO_TF32_ONLY": "plain TF32 (the hi hi term alone)",
+                "REPRO_NO_ZFILL": "the columns past n copied, not zero-filled"}
 
 
-def planted_faults(torch, bm, ref, planted, sd, g, dev, inputs) -> dict:
-    """The tensor-core sweeps of dtype ``sd`` (bf16: ``wgmma``; fp32:
-    ``tf32x3``) and the same sweeps from each planted-fault library of
-    ``planted`` ({(library, flag): path}), against the plain version on
-    65536 x 32768 inputs: ``"abs"``, an |N(0, 1)| ``A`` with skinny
-    operands uniform in [0, 1) (every partial sum grows, as a truncating
+def outside(e: float, tol: float) -> bool:
+    """A reading outside the limit: above it, or not a number at all."""
+    return not e <= tol
+
+
+def planted_faults(torch, bm, ref, planted, sd, g, dev, inputs, width=N,
+                   ld=None, seen=None) -> dict:
+    """The sweeps of dtype ``sd`` on the route ``A`` takes (bf16:
+    ``wgmma``; fp32: ``tf32x3``, or ``tf32x3_cpasync`` where no tensor
+    map describes ``A``) and the same sweeps from each planted-fault
+    library of ``planted`` ({(library, flag): path}), against the plain
+    version on 65536 x ``width`` inputs, rows ``ld`` apart (default
+    ``width``) in an allocation of one row more, every element outside
+    the view NaN: ``"abs"``, an |N(0, 1)| ``A`` with skinny operands
+    uniform in [0, 1) (every partial sum grows, as a truncating
     accumulator likes least), and ``"signed"``, N(0, 1) ``A`` and skinny
     operands (the sums cancel, so a rounding error of each product is
     not averaged away against a growing sum).  Fail unless the real
     sweeps are within the limit on every input and every planted fault
-    reads outside it on at least one.  Returns the errors by input."""
+    reads outside it on at least one, in each sweep of ``seen[flag]``
+    (default both).  Returns the errors by input."""
     import ctypes
     m = 65536
+    ld = width if ld is None else ld
     dt = getattr(torch, sd)
     tol = TOL[sd]
     errs = {}
     for kind in inputs:
-        A = torch.empty((m, N), dtype=dt, device=dev)
+        flat = torch.full(((m + 1) * ld,), float("nan"), dtype=dt, device=dev)
+        A = flat[:m * ld].view(m, ld)[:, :width]
         for r in range(0, m, SLAB):
-            x = torch.randn((SLAB, N), generator=g, device=dev)
+            x = torch.randn((SLAB, width), generator=g, device=dev)
             A[r:r + SLAB] = x.abs_() if kind == "abs" else x
             del x
         draw = torch.rand if kind == "abs" else torch.randn
-        Q = draw((N, K), generator=g, device=dev).to(dt)
+        Q = draw((width, K), generator=g, device=dev).to(dt)
         Y = draw((m, K), generator=g, device=dev).to(dt)
         which = bm.route(A, K)
         want = {"block_matvec": plain_matvec(torch, ref, A, Q, sd),
@@ -649,19 +751,22 @@ def planted_faults(torch, bm, ref, planted, sd, g, dev, inputs) -> dict:
             e = errs[(kind, name)] = {
                 key: rel_err(torch, out[name], want[name])
                 for key, out in runs.items()}
-            print(f"  {name:16s} {sd} ({which}) {m}x{N} k={K}, {kind} "
+            print(f"  {name:16s} {sd} ({which}) {m}x{width} (rows {ld} "
+                  f"apart) k={K}, {kind} "
                   f"input: rel err {e['real']:.2e}" + "".join(
                       f"; with {FAULT_LABELS[flag]} {e[flag]:.2e}"
                       for flag in runs if flag != "real")
                   + f" (limit {tol:.0e})")
-            if not e["real"] <= tol:
+            if outside(e["real"], tol):
                 fail(f"{name} {sd} on the {kind} input: rel err "
                      f"{e['real']} > {tol}")
-        del A, Q, Y, want, runs
+        del A, flat, Q, Y, want, runs
         torch.cuda.empty_cache()
     for _, flag in planted:
-        for name in ("block_matvec", "block_rmatvec"):
-            if not any(errs[(kind, name)][flag] > tol for kind in inputs):
+        for name in (seen or {}).get(flag, ("block_matvec",
+                                            "block_rmatvec")):
+            if not any(outside(errs[(kind, name)][flag], tol)
+                       for kind in inputs):
                 fail(f"{name} {sd} with {FAULT_LABELS[flag]} reads within "
                      f"the limit {tol} on every input: the check cannot "
                      f"see it")
@@ -834,11 +939,12 @@ def attention_path_table(torch, ops, ref, la, g, dev, cfg, S) -> dict:
     return rows
 
 
-def profile_window(torch, fn) -> tuple:
+def profile_window(torch, fn, calls=None) -> tuple:
     """``fn()`` under ``torch.profiler``: (its result, wall seconds under
     the profiler, device-busy seconds, device activities, busy seconds
-    by activity name).  Busy time is the sum of the device activities'
-    spans (one stream, so they do not overlap)."""
+    by activity name); ``calls``, a dict, receives the activities by
+    name.  Busy time is the sum of the device activities' spans (one
+    stream, so they do not overlap)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -854,6 +960,8 @@ def profile_window(torch, fn) -> tuple:
             n += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e6
+            if calls is not None:
+                calls[e.name] = calls.get(e.name, 0) + 1
     return out, wall, sum(by_name.values()), n, by_name
 
 
@@ -1132,23 +1240,28 @@ def main() -> int:
               f"{max(spills)} bytes stored)")
     attention_instances(build, local_attn, logs.get("local_attn") or (
         build.BUILD_DIR / "local_attn.log").read_text())
+    # fp32 on the paths: TMA (CP 0) at the main path's width, cp.async of
+    # 4 bytes (CP 1) at 32767 columns, of 8 (CP 2) at 8190
     for name, tag, sd, want in (
             ("block_matvec_tc", "tc", "bf16", ("matvec_tc<32>", "rmatvec_tc")),
             ("block_matvec_tf32", "tf32", "fp32",
-             ("matvec_tf32<32>", "rmatvec_tf32<32>"))):
+             tuple(f"{kern}_tf32<32,{cp}>" for cp in (0, 1, 2)
+                   for kern in ("matvec", "rmatvec")))):
         sweep_instances(build, name, logs.get(name) or (
             build.BUILD_DIR / f"{name}.log").read_text(), tag, sd, want)
 
     # -- 2a. kernels vs plain at ragged shapes -----------------------------
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    # n in {300, 515, 4100, 2052} has bf16 rows a tensor map cannot
-    # describe (n % 8 != 0): bf16 there stays FFMA; fp32 rows only where
-    # n % 4 != 0 (515).  (5000, 1000, 7) and (3001, 2052, 45) are ragged in
-    # m (not whole 256-row blocks), n (not whole stages: 64 bf16, 32 fp32)
-    # and k (not a multiple of 8) on the tensor-core routes
+    # n in {300, 515, 4100, 2052, 1001, 2054} has bf16 rows a tensor map
+    # cannot describe (n % 8 != 0): contiguous bf16 there is FFMA; fp32
+    # rows where n % 4 != 0 (515, 1001, 2054) run tf32x3_cpasync (cp.async
+    # of 4 bytes, of 8 at 2054).  (5000, 1000, 7) and (3001, 2052, 45) are
+    # ragged in m (not whole 256-row blocks), n (not whole stages: 64 bf16,
+    # 32 fp32) and k (not a multiple of 8) on the tensor-core routes
     shapes = [(1000, 300, 7), (4097, 515, 40), (2048, 1024, 130),
               (3000, 200, 1), (257, 4100, 32), (40000, 96, 33),
-              (5000, 1000, 7), (3001, 2052, 45)]
+              (5000, 1000, 7), (3001, 2052, 45), (5001, 1001, 7),
+              (3001, 2054, 130)]
     worst = 0.0
     for (m, n, k) in shapes:
         A = torch.randn((m, n), generator=g, device=dev)
@@ -1187,6 +1300,9 @@ def main() -> int:
                 if not e <= tol:
                     fail(f"{name} {sd} {(m, n, k)}: rel err {e} > {tol}")
     print(f"ragged shapes: all within limits (worst {worst:.2f} of limit)")
+    worst = padded_views(torch, ops, ref, bm, g, dev)
+    print(f"views of padded rows: all within limits (worst {worst:.2f} of "
+          f"limit)")
     worst = deflation_ragged(torch, ops, ref, g, dev)
     print(f"deflation kernels at ragged shapes: all within limits (worst "
           f"{worst:.2f} of limit)")
@@ -1210,8 +1326,17 @@ def main() -> int:
                             ("float32", "block_matvec_tf32",
                              ("abs", "signed"))):
         planted_faults(torch, bm, ref, {
-            key: path for key, path in planted.items() if key[0] == lib},
-            sd, g, dev, inputs)
+            key: path for key, path in planted.items() if key[0] == lib
+            and key[1] != "REPRO_NO_ZFILL"}, sd, g, dev, inputs)
+    # the cp.async route: rows 32767 floats apart (no tensor map), 32765 of
+    # them read; the columns past n are NaN, so a copy that reads them
+    # shows in A Q.  In A^T Y they feed only output rows past n, which are
+    # never stored: no reading of A^T Y can see that fault
+    planted_faults(torch, bm, ref, {
+        key: path for key, path in planted.items()
+        if key[0] == "block_matvec_tf32"}, "float32", g, dev,
+        ("abs", "signed"), width=N - 3, ld=N - 1,
+        seen={"REPRO_NO_ZFILL": ("block_matvec",)})
 
     # -- 4. the gram-free kernels at the gram-free path's shape -------------
     v = torch.randn(N, generator=g, device=dev)
@@ -1273,28 +1398,48 @@ def main() -> int:
             fail(f"{label}: not converged to the prescribed sigma")
         return res, counts, routes
 
-    def profile_solve(label, **kw):
-        """Where a solve's device time goes (another solve, profiled)."""
+    def profile_solve(label, X=None, **kw):
+        """Where a solve's device time goes (another solve of ``X``,
+        default the main path's ``A``, profiled): busy and idle share, the
+        sweep kernels' seconds, launches and ms a launch (the TMA and
+        cp.async instances of the 3xTF32 kernels apart), the rest by
+        time."""
+        X = A if X is None else X
+        calls: dict = {}
         res, wall, busy, n_act, names = profile_window(
-            torch, lambda: repro_torch.svd(A, K, **kw))
+            torch, lambda: repro_torch.svd(X, K, **kw), calls)
         if not n_act:
             print(f"profile of the {label} solve: not measured (the profiler "
                   f"saw no device activity)")
             return
-        keys = (("matvec_tf32", "::matvec_tf32"),
-                ("rmatvec_tf32", "::rmatvec_tf32"),
-                ("matvec_tc", "::matvec_tc"), ("rmatvec_tc", "::rmatvec_tc"),
-                ("split_transpose", "split_transpose"),
-                ("slab sum", "sum_slabs"))
-        sweeps = {lab: sum(t for n_, t in names.items() if key in n_)
-                  for lab, key in keys}
+        # demangled template arguments: <N, 0> TMA, <N, 1|2> cp.async
+        keys = (("matvec_tf32", "::matvec_tf32<", ", 0>"),
+                ("rmatvec_tf32", "::rmatvec_tf32<", ", 0>"),
+                ("matvec_tf32 cp.async", "::matvec_tf32<", None),
+                ("rmatvec_tf32 cp.async", "::rmatvec_tf32<", None),
+                ("matvec_tc", "::matvec_tc", ""),
+                ("rmatvec_tc", "::rmatvec_tc", ""),
+                ("FFMA", "matvec_kernel<", ""),
+                ("split_transpose", "split_transpose", ""),
+                ("slab sum", "sum_slabs", ""))
+
+        def of(key, tail, n_):
+            if key not in n_:
+                return False
+            args = n_.split(key, 1)[1].split(">")[0] + ">"
+            return (tail in args) if tail is not None else \
+                not args.endswith(", 0>")
+        sweeps = {lab: (sum(t for n_, t in names.items() if of(key, tail, n_)),
+                        sum(c for n_, c in calls.items() if of(key, tail, n_)))
+                  for lab, key, tail in keys}
         rest = sorted(((n_, t) for n_, t in names.items() if not any(
-            key in n_ for _, key in keys)), key=lambda x: -x[1])
+            of(key, tail, n_) for _, key, tail in keys)), key=lambda x: -x[1])
         print(f"profile of the {label} solve ({int(res.iters[0])} iters): "
               f"{wall:.3f} s under the profiler, device busy {busy:.3f} s "
               f"({100 * busy / wall:.1f} %, idle {100 * (1 - busy / wall):.1f}"
               f" %), {n_act} device activities; " + ", ".join(
-                  f"{lab} {t:.4f} s" for lab, t in sweeps.items() if t)
+                  f"{lab} {t:.4f} s ({c} launches, {1e3 * t / c:.3f} ms each)"
+                  for lab, (t, c) in sweeps.items() if c)
               + "; the rest by time: " + ", ".join(
                   f"{n_[:48]} {t:.4f} s" for n_, t in rest[:6]))
 
@@ -1320,6 +1465,8 @@ def main() -> int:
         torch, "gram", lambda: ops.gram(Ag), lambda: ref.gram_ref(Ag),
         lambda: torch.mm(Ag.mT, Ag), 2, gram_tol(M),
         deflation_bound("gram", M, N_GRAM))
+    print(f"  gram's bound by FFMA alone (the fp32 peak, no tensor cores): "
+          f"{gram_flop(M, N_GRAM) / PEAK_OPS['float32'] * 1e3:.2f} ms")
     counts = deflation_solve(
         torch, repro_torch, ops, Ag, K_GRAM, "gram",
         f"gram path svd(A, {K_GRAM}, method='gram') {M}x{N_GRAM}", s,
@@ -1328,21 +1475,67 @@ def main() -> int:
     del Ag
     torch.cuda.empty_cache()
 
-    # rows of 4 * 8190 bytes: no tensor map, the FFMA route end to end
+    # rows of 4 * 8190 bytes: no tensor map; fp32 runs 3xTF32 with A copied
+    # by cp.async (8 bytes a copy: the rows start 8-byte aligned)
     Ao, _ = spectral_matrix(torch, *ODD, SEED + 5, dev)
-    _, odd_counts, _ = solve(Ao, f"odd width {ODD[0]}x{ODD[1]} svd(A, {K}) "
-                             f"fp32", route="ffma")
-    # the FFMA sweeps on the operands of their path, after its counts
+    solve(Ao, f"odd width {ODD[0]}x{ODD[1]} svd(A, {K}) fp32",
+          route="tf32x3_cpasync")
     go = torch.Generator(device=dev).manual_seed(SEED + 6)
     Qo = torch.linalg.qr(torch.randn((ODD[1], K), generator=go,
                                      device=dev)).Q
     Yo = torch.randn((ODD[0], K), generator=go, device=dev)
     for name, row in sweep_rows(torch, ops, ref, bm, Ao, Qo, Yo,
                                 "float32").items():
+        if row["route"] != "tf32x3_cpasync":
+            fail(f"{name} at {ODD}: route {row['route']}, not tf32x3_cpasync")
+        table[(name, "tf32x3_cpasync", ODD)] = row
+    # the FFMA kernels' remaining path: a bf16 A of rows no tensor map
+    # describes, handed to ops directly (the solver pads its own bf16 copy)
+    Ab = Ao.to(torch.bfloat16)
+    ops.reset_launches()
+    ops.block_gram_chain(Ab, Qo)
+    torch.cuda.synchronize()
+    ffma_counts = {n_: c for n_, c in ops.launches.items() if c}
+    ffma_routes = {n_: c for n_, c in ops.route_launches.items() if c}
+    print(f"bf16 {ODD[0]}x{ODD[1]} (rows of {2 * ODD[1]} bytes) through "
+          f"ops.block_gram_chain: launches {ffma_counts} (by route "
+          f"{ffma_routes})")
+    if ffma_routes != {"block_matvec/ffma": 1, "block_rmatvec/ffma": 1}:
+        fail(f"bf16 {ODD}: launches by route {ffma_routes}, want ffma")
+    del Ab
+    for name, row in sweep_rows(torch, ops, ref, bm, Ao, Qo, Yo,
+                                "bfloat16").items():
         if row["route"] != "ffma":
-            fail(f"{name} at {ODD}: route {row['route']}, not ffma")
+            fail(f"{name} bf16 at {ODD}: route {row['route']}, not ffma")
         table[(name, "ffma")] = row
     del Ao, Qo, Yo
+    torch.cuda.empty_cache()
+
+    # the paper's shard one column short: no fp32 tensor map (4-byte
+    # copies, rows 4 * 32767 bytes apart); the bf16 copy padded to 32768
+    t0 = time.perf_counter()
+    As, _ = spectral_matrix(torch, *ODD_SHARD, SEED + 7, dev)
+    torch.cuda.synchronize()
+    print(f"A {ODD_SHARD[0]}x{ODD_SHARD[1]} fp32 "
+          f"({As.numel() * 4 / 1e9:.1f} GB) built on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    _, odd_counts, odd_routes = solve(
+        As, f"odd-width shard svd(A, {K}) fp32", route="tf32x3_cpasync")
+    profile_solve("odd-width fp32", As)
+    _, odd16_counts, odd16_routes = solve(
+        As, f"odd-width shard svd(A, {K}) bf16 sweeps", rtol=1e-2,
+        route="wgmma", **bf16_kw)
+    profile_solve("odd-width bf16", As, **bf16_kw)
+    Qs = torch.linalg.qr(torch.randn((ODD_SHARD[1], K), generator=go,
+                                     device=dev)).Q
+    Ys = torch.randn((ODD_SHARD[0], K), generator=go, device=dev)
+    for name, row in sweep_rows(torch, ops, ref, bm, As, Qs, Ys,
+                                "float32").items():
+        if row["route"] != "tf32x3_cpasync":
+            fail(f"{name} at {ODD_SHARD}: route {row['route']}")
+        table[(name, "tf32x3_cpasync")] = row
+    del As, Qs, Ys
+    torch.cuda.empty_cache()
     Aw, _ = spectral_matrix(torch, *WIDE, SEED + 2, dev)
     solve(Aw, f"wide {WIDE[0]}x{WIDE[1]} svd(A, {K}) fp32",
           expect_trans=True)
@@ -1354,23 +1547,27 @@ def main() -> int:
 
     # -- 6. determinism --------------------------------------------------
     Ar, _ = spectral_matrix(torch, *RERUN, SEED + 3, dev)
-    for kw in ({}, {"method": "gramfree"}, bf16_kw):
+    Aro, _ = spectral_matrix(torch, *RERUN_ODD, SEED + 8, dev)
+    for X, kw, fp32_route in ((Ar, {}, "tf32x3"),
+                              (Ar, {"method": "gramfree"}, None),
+                              (Ar, bf16_kw, "tf32x3"),
+                              (Aro, {}, "tf32x3_cpasync")):
         k = K_GRAMFREE if "method" in kw else K
         ops.reset_launches()
-        r1, r2 = repro_torch.svd(Ar, k, **kw), repro_torch.svd(Ar, k, **kw)
+        r1, r2 = repro_torch.svd(X, k, **kw), repro_torch.svd(X, k, **kw)
         routes = sorted({n_.split("/")[1]
                          for n_, c in ops.route_launches.items() if c})
         same = all(torch.equal(a, b) for a, b in zip(r1[:3], r2[:3]))
-        print(f"rerun {RERUN[0]}x{RERUN[1]} svd(A, {k}"
+        print(f"rerun {X.shape[0]}x{X.shape[1]} svd(A, {k}"
               + "".join(f", {key}={val!r}" for key, val in kw.items())
               + f"): routes {routes}, U, S, V bitwise equal: {same}")
-        if "method" not in kw and "tf32x3" not in routes:
+        if fp32_route is not None and fp32_route not in routes:
             fail(f"the block rerun pair ({kw}) ran routes {routes}, not the "
-                 f"fp32 operand's tf32x3")
+                 f"fp32 operand's {fp32_route}")
         if not same:
             fail(f"two solves with the same seed differ ({kw})")
 
-    del Ar
+    del Ar, Aro
     torch.cuda.empty_cache()
 
     # -- 7. the LM serving path ------------------------------------------
@@ -1378,21 +1575,27 @@ def main() -> int:
         torch, ops, ref, local_attn, g, dev)
 
     sweeps = ("block_matvec", "block_rmatvec", "block_gram_chain")
-    # the FFMA sweeps (launches: the odd-width solve, their path)
+    # the FFMA sweeps (launches: the bf16 odd-width chain through ops, their
+    # path)
     rows = {name: table[(name, "ffma")] for name in sweeps}
     for name in sweeps:
-        path_counts[name] = odd_counts[name]
+        path_counts[name] = ffma_counts[name]
     rows.update(dtable)
-    # the fp32 solve's sweeps (3xTF32) and the bf16 solve's chains (wgmma)
+    # the fp32 solve's sweeps (3xTF32), the bf16 solve's chains (wgmma) and
+    # the odd-width shard's fp32 solve (3xTF32, A by cp.async)
     for name in sweeps:
-        for which, sd, counts, routes, source in (
+        for which, key, counts, routes, source in (
                 ("tf32x3", "float32", main_counts, main_routes, TF32_SOURCE),
-                ("wgmma", "bfloat16", bf16_counts, bf16_routes, TC_SOURCE)):
-            rows[f"{name}/{which}"] = table[(name, sd)]
+                ("wgmma", "bfloat16", bf16_counts, bf16_routes, TC_SOURCE),
+                ("tf32x3_cpasync", "tf32x3_cpasync", odd_counts, odd_routes,
+                 TF32_SOURCE)):
+            rows[f"{name}/{which}"] = table[(name, key)]
             path_counts[f"{name}/{which}"] = routes.get(f"{name}/{which}",
                                                         counts[name])
             SOURCES[f"{name}/{which}"] = source
             REPLACES[f"{name}/{which}"] = REPLACES[name]
+    print(f"odd-width shard bf16 solve: launches {odd16_counts}, by route "
+          f"{odd16_routes}")
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": path_counts[name],
@@ -1403,9 +1606,12 @@ def main() -> int:
            if "library_causal_ms" in row else {})}
         for name, row in rows.items()]
     print(json.dumps({"block_sweeps_by_route": [
-        {"name": name, "dtype": "bfloat16" if key == "bfloat16" else
-         "float32", **table[(name, key)]}
-        for key in ("float32", "bfloat16", "ffma") for name in sweeps]}))
+        {"name": name, "dtype": "float32" if key[0] in (
+            "float32", "tf32x3_cpasync") else "bfloat16",
+         **table[(name, *key)]}
+        for key in (("float32",), ("bfloat16",), ("tf32x3_cpasync",),
+                    ("tf32x3_cpasync", ODD), ("ffma",))
+        for name in sweeps]}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ it slice by slice with PyTorch around hand-written CUDA kernels, and
 never imports JAX or ``repro``.  Ported so far, on a ``torch.Tensor``
 resident on one device: the dense block t-SVD (``svd(A, k)``), whose two
 A-sized sweeps run on the ``block_matvec``/``block_rmatvec`` kernels of
-``csrc/block_matvec.cu``, and the rank-one deflation engines
+``csrc/block_matvec_tf32.cu`` (fp32, 3xTF32) and
+``csrc/block_matvec_tc.cu`` (bf16), and the rank-one deflation engines
 (``method="gramfree"`` on the ``matvec``/``deflate_rmatvec`` kernels of
 ``csrc/deflate_matvec.cu``, ``method="gram"`` on the ``gram`` kernel of
 ``csrc/gram.cu``).  On the LM side, serving (``repro_torch.models``,

@@ -255,6 +255,21 @@ class LinearOperator:
 # DenseOperator — a tensor resident on one device
 # ---------------------------------------------------------------------------
 
+def sweep_copy(A: torch.Tensor, sd: torch.dtype) -> torch.Tensor:
+    """``A`` (m, n) in the sweep dtype ``sd``: ``A`` itself where the
+    dtype is already ``sd``; else a copy whose rows are padded to whole
+    16 bytes, as an (m, n) view of the (m, ld) allocation, so that a TMA
+    tensor map describes it whatever n is."""
+    if A.dtype == sd:
+        return A
+    m, n = A.shape
+    per = 16 // sd.itemsize                # elements in 16 bytes
+    ld = -(-n // per) * per
+    out = torch.empty((m, ld), dtype=sd, device=A.device)[:, :n]
+    out.copy_(A)
+    return out
+
+
 class DenseOperator(LinearOperator):
     """An in-memory ``(M, N)`` tensor behind the protocol.
 
@@ -269,7 +284,10 @@ class DenseOperator(LinearOperator):
 
     The sweeps of ``gram_chain`` and ``range_sketch`` read ``A`` at
     ``sweep_dtype`` (cast once, here: the bf16 copy holds half of A's
-    bytes beside it); ``matmat``/``rmatmat``/``extract`` stay fp32.
+    bytes beside it); ``matmat``/``rmatmat``/``extract`` stay fp32.  The
+    bf16 copy is an ``(m, n)`` view of rows padded to whole 16 bytes
+    (``sweep_copy``), so that the tensor cores' kernel reads it at any
+    width; the padding is never read.  The fp32 ``A`` is never copied.
     """
 
     backend = "dense"
@@ -288,7 +306,7 @@ class DenseOperator(LinearOperator):
         self._A = X.mT if self._trans else X.contiguous()
         sd = resolve_sweep_dtype(sweep_dtype)
         self.sweep_dtype = dtype_name(sd)
-        self._As = self._A.to(sd)              # no copy for fp32 sweeps
+        self._As = sweep_copy(self._A, sd)     # no copy for fp32 sweeps
 
     @property
     def shape(self):

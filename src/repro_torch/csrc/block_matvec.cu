@@ -1,31 +1,33 @@
-// Multi-vector sweeps of the block power step, written for Hopper (sm_90a).
+// The bf16 block sweeps on FFMA, for the operands that no tensor map
+// describes, written for Hopper (sm_90a).
 //
-//   block_matvec   Y = A @ Q      A (m, n) row-major, Q (n, k), Y (m, k)
-//   block_rmatvec  Z = A^T @ Y    A (m, n) row-major, Y (m, k), Z (n, k)
+//   block_matvec   Y = A @ Q      A (m, n) bf16, rows lda apart, Q (n, k),
+//                                 Y (m, k)
+//   block_rmatvec  Z = A^T @ Y    A (m, n) bf16, rows lda apart, Y (m, k),
+//                                 Z (n, k)
 //
 // Replace the Pallas TPU kernels of src/repro/kernels/block_matvec.py:
 // block_matvec (pallas_call at :81) and block_rmatvec (pallas_call at :127).
 // The fused chain Z = A^T (A Q) of that file (block_gram_chain, :146) is the
 // composition of the two, done by the wrapper in kernels/ops.py.
 //
-// This file is the FFMA route: the sweeps that kernels/block_matvec.py::route
-// does not send to the tensor-core kernels (block_matvec_tf32.cu for fp32,
-// block_matvec_tc.cu for bf16): an A whose base is not 16-byte aligned or
-// whose rows are not a multiple of 16 bytes, which a TMA tensor map cannot
-// describe.
+// This file is the "ffma" route of kernels/block_matvec.py::route: a bf16 A
+// handed to kernels/ops.py directly whose base is not 16-byte aligned or
+// whose rows (lda) are not a multiple of 16 bytes, which a TMA tensor map
+// cannot describe.  Every other bf16 A, the solver's own copy included
+// (core/operator.py::DenseOperator pads its rows to whole 16 bytes), runs
+// the tensor cores (block_matvec_tc.cu), and every fp32 A runs 3xTF32
+// (block_matvec_tf32.cu, by TMA or by cp.async).
 //
-// Types: A and the skinny operand are both fp32 or both bf16.  bf16 values
-// are widened to fp32 when they are staged into shared memory, every product
-// is an fp32 FFMA (never TF32), and the sums are fp32; the output is fp32.
-// The product of two bf16 values is exact in fp32, so the bf16 path differs
-// from the plain version (kernels/ref.py) only in the order of the sums.
+// Types: A and the skinny operand are bf16, widened to fp32 when they are
+// staged into shared memory; every product is an fp32 FFMA (exact for two
+// bf16 values) and the sums are fp32, so the output differs from the plain
+// version (kernels/ref.py) only in the order of the sums.
 //
 // Bound on an H100 SXM (80 GB HBM3 at 3.35 TB/s, 67 TFLOP/s fp32 outside the
-// tensor cores): at 262144 x 32768 with k = 32 one fp32 sweep reads 34.4 GB of A (10.3 ms) and does 2*m*n*k = 5.5e11 flop (8.2 ms of
-// FFMA).  Both sweeps are bound by the bytes of A, the FFMA rate close behind;
-// in bf16 the bytes halve (5.1 ms) and the FFMA work (8.2 ms) becomes the
-// limit of this design (hence the bf16 tensor-core route).  What the design
-// does about it:
+// tensor cores): at 65536 x 8190 with k = 32 one sweep reads 1.07 GB of A
+// (0.32 ms) and does 2*m*n*k = 3.4e10 flop (0.51 ms of FFMA), so it is bound
+// by its FFMA work.  What the design does about it:
 //   * A is read from device memory exactly once per k tile of up to 64
 //     columns, so for k <= 64 each sweep moves A once; the skinny operand
 //     and the output are k/n and k/m of A's bytes.
@@ -43,17 +45,16 @@
 //     into slabs of at most 16384 rows (and enough slabs to fill the card when
 //     n is small); each slab writes fp32 partials and a second launch sums
 //     the slabs in order (slab_sum.cuh).  No atomics: the summation order is
-//     fixed, so every rerun is bitwise equal.  The slab bound also caps each
-//     thread's sequential fp32 sum, which keeps the rounding error near 2e-6
-//     relative.
+//     fixed, so every rerun is bitwise equal.
 //
 // C interface (bound with ctypes; every pointer and the stream as void*):
-//   int repro_block_matvec(A, Q, Y, m, n, k, is_bf16, stream)
-//   int repro_block_rmatvec(A, Y, Z, partial, m, n, k, slab_rows, is_bf16,
+//   int repro_block_matvec(A, lda, Q, Y, m, n, k, stream)
+//   int repro_block_rmatvec(A, lda, Y, Z, partial, m, n, k, slab_rows,
 //                           stream)
-// Both return cudaGetLastError() after their launches (0 on success).  They
-// allocate nothing: `partial` is (ceil(m / slab_rows), n, k) fp32 scratch
-// from the caller, unused (may be null) when there is a single slab.
+// Both return cudaGetLastError() after their launches (0 on success), or
+// cudaErrorInvalidValue for an lda below n.  They allocate nothing:
+// `partial` is (ceil(m / slab_rows), n, k) fp32 scratch from the caller,
+// unused (may be null) when there is a single slab.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,18 +74,10 @@ constexpr int BK = 16;        // reduction depth of one shared-memory stage
 constexpr int XPAD = 4;       // keeps float4 alignment, spreads stores over banks
 constexpr int MIN_BLOCKS = 2; // resident blocks per SM the register budget keeps
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T zero();
-template <>
-__device__ __forceinline__ float zero<float>() { return 0.0f; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16(0.0f);
-}
+using T = __nv_bfloat16;
+
+__device__ __forceinline__ float widen(T x) { return __bfloat162float(x); }
+__device__ __forceinline__ T zero() { return __float2bfloat16(0.0f); }
 
 // acc[i][c] += xs[j][ty*TM + i] * ws[j][tx*TK + c] over one stage.
 template <int TK>
@@ -122,7 +115,7 @@ __device__ __forceinline__ void stage_fma(const float* xs, const float* ws,
 
 // The skinny operand's stage: ws[j][c] = W[r0 + j][col0 + c] for rows
 // below r_end (zero elsewhere), staged through registers.
-template <typename T, int TK>
+template <int TK>
 struct SkinnyStage {
   static constexpr int KT = TX * TK;
   static constexpr int PER = (BK * KT + NT - 1) / NT;
@@ -137,7 +130,7 @@ struct SkinnyStage {
       const int r = r0 + e / KT, c = col0 + e % KT;
       pre[p] = (e < BK * KT && r < r_end && c < k)
                    ? W[static_cast<int64_t>(r) * k + c]
-                   : zero<T>();
+                   : zero();
     }
   }
   __device__ __forceinline__ void stash(float* ws, int tid) const {
@@ -151,10 +144,11 @@ struct SkinnyStage {
 
 // Y[row0:row0+BM, col0:col0+KT] = A[rows, :] @ Q[:, cols]; the n loop runs
 // inside the block (on the TPU it was the sequential grid axis).
-template <typename T, int TK>
+template <int TK>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
-    matvec_kernel(const T* __restrict__ A, const T* __restrict__ Q,
-                  float* __restrict__ Y, int m, int n, int k) {
+    matvec_kernel(const T* __restrict__ A, int64_t lda,
+                  const T* __restrict__ Q, float* __restrict__ Y, int m, int n,
+                  int k) {
   constexpr int KT = TX * TK, XS = BM + XPAD;
   constexpr int PER = BM * BK / NT;          // A loads per thread per stage
   __shared__ __align__(16) float xs[2][BK * XS];  // xs[j][r] = A[r][j]
@@ -166,7 +160,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   const int col0 = blockIdx.y * KT;
 
   T a_pre[PER];
-  SkinnyStage<T, TK> w;
+  SkinnyStage<TK> w;
   float acc[TM][TK];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
@@ -179,7 +173,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
       const int e = tid + p * NT;
       const int64_t r = row0 + e / BK;
       const int j = j0 + e % BK;
-      a_pre[p] = (r < m && j < n) ? A[r * n + j] : zero<T>();
+      a_pre[p] = (r < m && j < n) ? A[r * lda + j] : zero();
     }
     w.fetch(Q, k, col0, j0, n, tid);
   };
@@ -219,11 +213,11 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 
 // out[c0:c0+BM, col0:col0+KT] = A[slab, cols]^T @ Y[slab, :], where the slab
 // is rows [z*slab_rows, min(m, (z+1)*slab_rows)) and out = Z + z*n*k.
-template <typename T, int TK>
+template <int TK>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
-    rmatvec_kernel(const T* __restrict__ A, const T* __restrict__ Y,
-                   float* __restrict__ Z, int m, int n, int k,
-                   int slab_rows) {
+    rmatvec_kernel(const T* __restrict__ A, int64_t lda,
+                   const T* __restrict__ Y, float* __restrict__ Z, int m,
+                   int n, int k, int slab_rows) {
   constexpr int KT = TX * TK, XS = BM + XPAD;
   constexpr int PER = BM * BK / NT;
   __shared__ __align__(16) float xs[2][BK * XS];  // xs[i][c] = A[i][c]
@@ -237,7 +231,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   const int r_end = min(m, r_begin + slab_rows);
 
   T a_pre[PER];
-  SkinnyStage<T, TK> w;
+  SkinnyStage<TK> w;
   float acc[TM][TK];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
@@ -249,8 +243,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     for (int p = 0; p < PER; ++p) {
       const int e = tid + p * NT;
       const int r = i0 + e / BM, c = c0 + e % BM;
-      a_pre[p] = (r < r_end && c < n) ? A[static_cast<int64_t>(r) * n + c]
-                                      : zero<T>();
+      a_pre[p] = (r < r_end && c < n) ? A[r * lda + c] : zero();
     }
     w.fetch(Y, k, col0, i0, r_end, tid);
   };
@@ -287,26 +280,24 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   }
 }
 
-template <typename T, int TK>
-void launch_matvec(const void* A, const void* Q, void* Y, int m, int n, int k,
-                   cudaStream_t s) {
+template <int TK>
+void launch_matvec(const void* A, int64_t lda, const void* Q, void* Y, int m,
+                   int n, int k, cudaStream_t s) {
   constexpr int KT = TX * TK;
   const dim3 grid((m + BM - 1) / BM, (k + KT - 1) / KT);
-  const T* a = static_cast<const T*>(A);
-  const T* q = static_cast<const T*>(Q);
-  float* y = static_cast<float*>(Y);
-  matvec_kernel<T, TK><<<grid, NT, 0, s>>>(a, q, y, m, n, k);
+  matvec_kernel<TK><<<grid, NT, 0, s>>>(static_cast<const T*>(A), lda,
+                                        static_cast<const T*>(Q),
+                                        static_cast<float*>(Y), m, n, k);
 }
 
-template <typename T, int TK>
-void launch_rmatvec(const void* A, const void* Y, void* Z, int m, int n,
-                    int k, int slab_rows, int slabs, cudaStream_t s) {
+template <int TK>
+void launch_rmatvec(const void* A, int64_t lda, const void* Y, void* Z, int m,
+                    int n, int k, int slab_rows, int slabs, cudaStream_t s) {
   constexpr int KT = TX * TK;
   const dim3 grid((n + BM - 1) / BM, (k + KT - 1) / KT, slabs);
-  const T* a = static_cast<const T*>(A);
-  const T* y = static_cast<const T*>(Y);
-  float* z = static_cast<float*>(Z);
-  rmatvec_kernel<T, TK><<<grid, NT, 0, s>>>(a, y, z, m, n, k, slab_rows);
+  rmatvec_kernel<TK><<<grid, NT, 0, s>>>(
+      static_cast<const T*>(A), lda, static_cast<const T*>(Y),
+      static_cast<float*>(Z), m, n, k, slab_rows);
 }
 
 // The k tile: k rounded up to a multiple of TX, at most 64 columns.
@@ -327,51 +318,35 @@ inline int tile_k(int k) {
     default: CALL(8); break;      \
   }
 
-template <typename T>
-void matvec_typed(const void* A, const void* Q, void* Y, int m, int n, int k,
-                  cudaStream_t s) {
-#define REPRO_CALL(TK) launch_matvec<T, TK>(A, Q, Y, m, n, k, s)
-  REPRO_TK_SWITCH(tile_k(k), REPRO_CALL)
-#undef REPRO_CALL
-}
-
-template <typename T>
-void rmatvec_typed(const void* A, const void* Y, void* Z, int m, int n, int k,
-                   int slab_rows, int slabs, cudaStream_t s) {
-#define REPRO_CALL(TK) \
-  launch_rmatvec<T, TK>(A, Y, Z, m, n, k, slab_rows, slabs, s)
-  REPRO_TK_SWITCH(tile_k(k), REPRO_CALL)
-#undef REPRO_CALL
-}
-
 }  // namespace
 
-extern "C" int repro_block_matvec(const void* A, const void* Q, void* Y,
-                                  long long m, long long n, long long k,
-                                  int is_bf16, void* stream) {
+extern "C" int repro_block_matvec(const void* A, long long lda, const void* Q,
+                                  void* Y, long long m, long long n,
+                                  long long k, void* stream) {
   cudaGetLastError();  // report this call's launch, not an older error
+  if (lda < n) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    matvec_typed<__nv_bfloat16>(A, Q, Y, (int)m, (int)n, (int)k, s);
-  else
-    matvec_typed<float>(A, Q, Y, (int)m, (int)n, (int)k, s);
+  const int mi = (int)m, ni = (int)n, ki = (int)k;
+#define REPRO_CALL(TK) launch_matvec<TK>(A, lda, Q, Y, mi, ni, ki, s)
+  REPRO_TK_SWITCH(tile_k(ki), REPRO_CALL)
+#undef REPRO_CALL
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int repro_block_rmatvec(const void* A, const void* Y, void* Z,
-                                   void* partial, long long m, long long n,
-                                   long long k, long long slab_rows,
-                                   int is_bf16, void* stream) {
+extern "C" int repro_block_rmatvec(const void* A, long long lda, const void* Y,
+                                   void* Z, void* partial, long long m,
+                                   long long n, long long k,
+                                   long long slab_rows, void* stream) {
   cudaGetLastError();
+  if (lda < n) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int slabs = (int)((m + slab_rows - 1) / slab_rows);
   void* out = slabs > 1 ? partial : Z;
-  if (is_bf16)
-    rmatvec_typed<__nv_bfloat16>(A, Y, out, (int)m, (int)n, (int)k,
-                                 (int)slab_rows, slabs, s);
-  else
-    rmatvec_typed<float>(A, Y, out, (int)m, (int)n, (int)k, (int)slab_rows,
-                         slabs, s);
+  const int mi = (int)m, ni = (int)n, ki = (int)k, rows = (int)slab_rows;
+#define REPRO_CALL(TK) \
+  launch_rmatvec<TK>(A, lda, Y, out, mi, ni, ki, rows, slabs, s)
+  REPRO_TK_SWITCH(tile_k(ki), REPRO_CALL)
+#undef REPRO_CALL
   if (slabs > 1)
     repro_slab_sum::sum_slabs(static_cast<const float*>(partial),
                               static_cast<float*>(Z), n * k, slabs, s);

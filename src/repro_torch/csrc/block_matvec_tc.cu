@@ -1,15 +1,20 @@
 // The bf16 block sweeps on Hopper's tensor cores (sm_90a: TMA + wgmma).
 //
-//   block_matvec   Y = A @ Q      A (m, n) bf16 row-major, Q (n, k), Y (m, k)
-//   block_rmatvec  Z = A^T @ Y    A (m, n) bf16 row-major, Y (m, k), Z (n, k)
+//   block_matvec   Y = A @ Q      A (m, n) bf16, rows lda apart, Q (n, k),
+//                                 Y (m, k)
+//   block_rmatvec  Z = A^T @ Y    A (m, n) bf16, rows lda apart, Y (m, k),
+//                                 Z (n, k)
 //
 // Replace the Pallas TPU kernels of src/repro/kernels/block_matvec.py:
 // block_matvec (pallas_call at :81) and block_rmatvec (pallas_call at :127),
 // for bf16 operands; the chain Z = A^T (A Q) of that file (block_gram_chain,
 // :146) is the composition of the two, done by the wrapper in kernels/ops.py.
-// fp32 sweeps run block_matvec_tf32.cu (3xTF32) or, like bf16 ones whose A
-// a TMA tensor map cannot describe, the FFMA kernels of block_matvec.cu
-// (kernels/block_matvec.py::route).
+// fp32 sweeps run block_matvec_tf32.cu (3xTF32); bf16 ones whose A a TMA
+// tensor map cannot describe run the FFMA kernels of block_matvec.cu
+// (kernels/block_matvec.py::route).  The solver's own bf16 copy of A
+// (core/operator.py::DenseOperator) has rows of whole 16 bytes (lda a
+// multiple of 8, the columns from n to lda never read: the tensor map ends
+// at n), so it runs here whatever the width of A.
 //
 // Bound on an H100 SXM at the main path's 262144 x 32768, k = 32: one sweep
 // reads 17.2 GB of bf16 A, 5.13 ms at 3.35 TB/s; its 2 m n k = 5.5e11 flop
@@ -49,7 +54,7 @@
 //     16384 rows; each slab writes fp32 partials and a second launch sums
 //     them in order (slab_sum.cuh): no atomics, bitwise reruns.  Y^T is
 //     re-read k / 256 of A's bytes through L2.
-//   * The skinny operand is read transposed (Q^T, Y^T: k rows of 2 n or
+//   * The skinny operand is read transposed (Q^T, Y^T: k rows of 2 n_pad or
 //     2 m_pad bytes, written by the wrapper, a copy of k / m or k / n of A's
 //     bytes), because a row of k bf16 values is a TMA box only when k is a
 //     multiple of 8: the K-major box of the transposed operand takes every k,
@@ -68,13 +73,14 @@
 //     bitwise equal.
 //
 // Requirements (checked by the wrapper's route; encode_2d refuses the rest):
-// A's base and its row stride 2 n bytes multiples of 16 (n % 8 == 0); the
-// transposed skinny operand likewise (its row stride is rounded up).
+// A's base and its row stride 2 lda bytes multiples of 16 (lda % 8 == 0,
+// lda >= n); the transposed skinny operand likewise (its row stride is
+// rounded up).
 //
 // C interface (bound with ctypes; every pointer and the stream as void*):
-//   int repro_block_matvec_wgmma(A, Qt, Y, m, n, k, stream)
-//       Qt: Q^T, (k, n) row-major bf16
-//   int repro_block_rmatvec_wgmma(A, Yt, Z, partial, m, n, k, ld_y,
+//   int repro_block_matvec_wgmma(A, lda, Qt, ld_q, Y, m, n, k, stream)
+//       Qt: Q^T, (k, n) bf16 with rows ld_q >= n elements apart
+//   int repro_block_rmatvec_wgmma(A, lda, Yt, Z, partial, m, n, k, ld_y,
 //                                 slab_rows, stream)
 //       Yt: Y^T, (k, m) bf16 with rows ld_y >= m elements apart
 // Both return cudaGetLastError() after their launches (0 on success),
@@ -323,11 +329,13 @@ __global__ void __launch_bounds__(NT, 1)
 }
 
 template <int N>
-int launch_matvec(const void* A, const void* Qt, void* Y, int m, int n, int k,
+int launch_matvec(const void* A, long long lda, const void* Qt,
+                  long long ld_q, void* Y, int m, int n, int k,
                   cudaStream_t s) {
   CUtensorMap ma, mq;
-  cudaError_t err = encode_2d(&ma, A, m, n, n, BM);
-  if (err == cudaSuccess) err = encode_2d(&mq, Qt, k, n, n, N);
+  cudaError_t err = lda < n || ld_q < n ? cudaErrorInvalidValue
+                                        : encode_2d(&ma, A, m, n, lda, BM);
+  if (err == cudaSuccess) err = encode_2d(&mq, Qt, k, n, ld_q, N);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto kern = matvec_tc<N>;
   constexpr int bytes = MatvecSmem<N>::BYTES;
@@ -343,28 +351,31 @@ int launch_matvec(const void* A, const void* Qt, void* Y, int m, int n, int k,
 
 }  // namespace
 
-extern "C" int repro_block_matvec_wgmma(const void* A, const void* Qt, void* Y,
-                                        long long m, long long n, long long k,
-                                        void* stream) {
+extern "C" int repro_block_matvec_wgmma(const void* A, long long lda,
+                                        const void* Qt, long long ld_q,
+                                        void* Y, long long m, long long n,
+                                        long long k, void* stream) {
   cudaGetLastError();  // report this call's launch, not an older error
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 16) return launch_matvec<16>(A, Qt, Y, (int)m, (int)n, (int)k, s);
-  if (k <= 32) return launch_matvec<32>(A, Qt, Y, (int)m, (int)n, (int)k, s);
-  return launch_matvec<64>(A, Qt, Y, (int)m, (int)n, (int)k, s);
+  const int mi = (int)m, ni = (int)n, ki = (int)k;
+  if (k <= 16) return launch_matvec<16>(A, lda, Qt, ld_q, Y, mi, ni, ki, s);
+  if (k <= 32) return launch_matvec<32>(A, lda, Qt, ld_q, Y, mi, ni, ki, s);
+  return launch_matvec<64>(A, lda, Qt, ld_q, Y, mi, ni, ki, s);
 }
 
-extern "C" int repro_block_rmatvec_wgmma(const void* A, const void* Yt,
-                                         void* Z, void* partial, long long m,
+extern "C" int repro_block_rmatvec_wgmma(const void* A, long long lda,
+                                         const void* Yt, void* Z,
+                                         void* partial, long long m,
                                          long long n, long long k,
                                          long long ld_y, long long slab_rows,
                                          void* stream) {
   cudaGetLastError();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (slab_rows <= 0 || slab_rows % BK != 0)
+  if (slab_rows <= 0 || slab_rows % BK != 0 || lda < n)
     return static_cast<int>(cudaErrorInvalidValue);
   const int slabs = (int)((m + slab_rows - 1) / slab_rows);
   CUtensorMap ma, my;
-  cudaError_t err = encode_2d(&ma, A, m, n, n, BK);
+  cudaError_t err = encode_2d(&ma, A, m, n, lda, BK);
   if (err == cudaSuccess) err = encode_2d(&my, Yt, k, m, ld_y, KT);
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int bytes = RmatvecSmem::BYTES;

@@ -1,15 +1,19 @@
-// The fp32 block sweeps on Hopper's tensor cores as 3xTF32 (sm_90a: TMA +
-// wgmma with A in registers).
+// The fp32 block sweeps on Hopper's tensor cores as 3xTF32 (sm_90a: wgmma
+// with A in registers; A staged by TMA or by cp.async).
 //
-//   block_matvec   Y = A @ Q      A (m, n) fp32 row-major, Q (n, k), Y (m, k)
-//   block_rmatvec  Z = A^T @ Y    A (m, n) fp32 row-major, Y (m, k), Z (n, k)
+//   block_matvec   Y = A @ Q      A (m, n) fp32, rows lda apart, Q (n, k),
+//                                 Y (m, k)
+//   block_rmatvec  Z = A^T @ Y    A (m, n) fp32, rows lda apart, Y (m, k),
+//                                 Z (n, k)
 //
 // Replace the Pallas TPU kernels of src/repro/kernels/block_matvec.py:
 // block_matvec (pallas_call at :81) and block_rmatvec (pallas_call at :127),
-// for fp32 operands that a TMA tensor map describes; the chain Z = A^T (A Q)
-// of that file (block_gram_chain, :146) is the composition of the two, done
-// by the wrapper in kernels/ops.py.  Every other fp32 operand runs the FFMA
-// kernels of block_matvec.cu (kernels/block_matvec.py::route).
+// for every fp32 operand; the chain Z = A^T (A Q) of that file
+// (block_gram_chain, :146) is the composition of the two, done by the
+// wrapper in kernels/ops.py.  Two routes (kernels/block_matvec.py::route):
+// "tf32x3", where a TMA tensor map describes A (base and row stride 4 lda
+// bytes multiples of 16), and "tf32x3_cpasync" for every other fp32 A (any
+// width, any 4-byte-aligned base), whose rows the producer copies itself.
 //
 // Bound on an H100 SXM at the main path's 262144 x 32768, k = 32: one sweep
 // reads 34.4 GB of fp32 A, 10.26 ms at 3.35 TB/s.  Its 2 m n k = 5.5e11 flop
@@ -28,23 +32,43 @@
 //   * wgmma's tf32 forms read both shared-memory operands K-major only (the
 //     transposed forms are f16/bf16's), so A is the A operand from
 //     registers in both kernels, read by the consumer threads out of the
-//     TMA-filled, swizzled stage, and the skinny operand is the K-major B
-//     operand: Q^T (k, n) or Y^T (k, m), k rows of the reduction axis.
-//     block_matvec's fragment is a tile of A (ldmatrix: each 16-byte row of
-//     an 8 x 8 b16 matrix is 4 fp32, lane l receiving element l % 4 of row
-//     l / 4, the fragment's layout; the swizzle makes it conflict-free).
+//     swizzled stage, and the skinny operand is the K-major B operand: Q^T
+//     (k, n) or Y^T (k, m), k rows of the reduction axis.  block_matvec's
+//     fragment is a tile of A (ldmatrix: each 16-byte row of an 8 x 8 b16
+//     matrix is 4 fp32, lane l receiving element l % 4 of row l / 4, the
+//     fragment's layout; the swizzle makes it conflict-free).
 //     block_rmatvec's is a tile of A^T, read element by element out of the
 //     row-major stage; its 64 output rows are a permutation of 64 columns
 //     of A (bits 2 and 4 of the column swapped with bits 4 and 3 of the
 //     output row, see rmatvec_col), chosen with the swizzle's XOR so that
 //     the 32 lanes of each read hit 32 banks.
-//   * Warp-specialised blocks of 384 threads: one producer thread issues the
-//     TMA loads (128-byte swizzle; elements past the edges arrive as zeros,
-//     nothing is padded in memory) into a ring of STAGES = 4 stages of 32
-//     KiB of A (32 fp32 deep) and the two halves of the skinny operand's
-//     tile, each completing on its "full" mbarrier; two consumer warpgroups
-//     split A, issue wgmma and release the stage on its "empty" mbarrier.
-//     setmaxnreg gives the consumers 240 registers, the producer 24.
+//   * Warp-specialised blocks of 384 threads: a producer warpgroup fills a
+//     ring of STAGES = 4 stages of 32 KiB of A (32 fp32 deep) and the two
+//     halves of the skinny operand's tile, each completing on its "full"
+//     mbarrier; two consumer warpgroups split A, issue wgmma and release
+//     the stage on its "empty" mbarrier.  The stage is laid out as TMA's
+//     128-byte swizzle writes it (16-byte chunk c of row r at chunk
+//     c ^ (r % 8)), whichever producer fills it, so the consumers are one
+//     code for both routes.  Elements past the edges arrive as zeros and
+//     nothing is padded in memory.  The producer, the template parameter
+//     CP of both kernels:
+//       - CP = 0 ("tf32x3"): one thread issues TMA loads of A's boxes and of
+//         the skinny operand's halves; setmaxnreg gives the producer
+//         warpgroup 24 registers, the consumers 240.
+//       - CP = 1 or 2 ("tf32x3_cpasync"): the skinny operand's halves still
+//         arrive by TMA (one thread; the library writes them with rows of
+//         whole 16 bytes), but A, whose rows no tensor map describes, is
+//         copied by all 128 producer threads with cp.async of CP fp32 (8
+//         bytes where lda is even and the base 8-byte aligned, else 4),
+//         each granule written to its swizzled place; coalesced along A's
+//         rows, 32 consecutive fp32 a warp.  Columns past n and rows past
+//         the edge arrive as zeros through cp.async's src-size (a row is
+//         never read past its n-th element), and each thread's copies
+//         complete on the stage's full barrier through
+//         cp.async.mbarrier.arrive.noinc (129 arrivals: the 128 copying
+//         threads and the TMA thread's byte count).  The producer needs
+//         registers for the addresses: 56 a thread, the consumers 224
+//         (128 x 56 + 256 x 224 = the block's 384 x 168).
 //   * block_matvec: a job is BM = 256 rows of A (two m64 tiles a consumer),
 //     N = k rounded up to 16, 32 or 64 (wider k in tiles of 64 columns,
 //     which re-read A); the grid is persistent, one block an SM taking every
@@ -59,33 +83,35 @@
 //     does, so each stage (32 deep) starts its wgmma sums from zero and the
 //     consumer adds them into a second set of fp32 registers with ordinary
 //     (rounded) adds: the error is that of an fp32 sum of n / 32 (or slab /
-//     32) terms, as in the FFMA kernels.  Every rerun adds in the same order.
+//     32) terms.  Every rerun adds in the same order.
 //   * Shared-memory reads per 8-deep step: B's hi half twice, its lo half
 //     once, and A once more from the stage into registers; at the path's
 //     shape ~2.5 bytes of shared memory a byte of A, hidden under the
 //     device-memory stream.
 //
-// Requirements (checked by the wrapper's route; encode_2d refuses the rest):
-// A's base and its row stride 4 n bytes multiples of 16 (n % 4 == 0); the
-// transposed skinny operand likewise (its row stride is rounded up).
-//
 // Planted faults, built by chip_smoke.py beside the real library to show
 // that the kernel-vs-plain limit rejects them: -DREPRO_TF32_ONLY (the hi hi
-// term alone: plain TF32) and -DREPRO_TC_SUMS_ONLY (the sums left in the
-// tensor cores' accumulators for the whole reduction).
+// term alone: plain TF32), -DREPRO_TC_SUMS_ONLY (the sums left in the
+// tensor cores' accumulators for the whole reduction), both on both routes,
+// and -DREPRO_NO_ZFILL (the cp.async route copies the columns past n from
+// past the end of the row instead of zero-filling them).
 //
-// C interface (bound with ctypes; every pointer and the stream as void*):
-//   int repro_block_matvec_tf32x3(A, Q, split, Y, m, n, k, stream)
-//   int repro_block_rmatvec_tf32x3(A, Y, split, Z, partial, m, n, k, ld,
-//                                  slab_rows, stream)
+// C interface (bound with ctypes; every pointer and the stream as void*;
+// the same arguments for both routes):
+//   int repro_block_matvec_tf32x3{,_cpasync}(A, lda, Q, split, Y, m, n, k,
+//                                            ld, stream)
+//   int repro_block_rmatvec_tf32x3{,_cpasync}(A, lda, Y, split, Z, partial,
+//                                             m, n, k, ld, slab_rows, stream)
 // Both return cudaGetLastError() after their launches (0 on success),
-// cudaErrorInvalidValue for operands a tensor map cannot describe or a slab
-// that is not whole stages, or cudaErrorNotSupported without libcuda's
+// cudaErrorInvalidValue for operands the route cannot read (on "tf32x3" A
+// that no tensor map describes; on either, a base not 4-byte aligned, an
+// lda below n, a `split` row stride ld that is not a multiple of 4 or a
+// slab that is not whole stages), or cudaErrorNotSupported without libcuda's
 // tensor-map encoder.  They allocate nothing.  Scratch from the caller,
 // fp32: `split` (2, k, ld) for the skinny operand's transposed halves, ld
-// = n for block_matvec and m rounded up to a multiple of 4 for
-// block_rmatvec; `partial` (ceil(m / slab_rows), n, k), unused (may be
-// null) when there is a single slab.
+// >= n (block_matvec) or m (block_rmatvec) rounded up to a multiple of 4;
+// `partial` (ceil(m / slab_rows), n, k), unused (may be null) when there is
+// a single slab.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -101,8 +127,6 @@ using namespace repro_hopper;
 
 constexpr int NCONS = 2;               // consumer warpgroups
 constexpr int NT = 128 * (NCONS + 1);  // + one producer warpgroup
-constexpr int PRODUCER_REGS = 24;      // setmaxnreg: 128 x 24 + 256 x 240
-constexpr int CONSUMER_REGS = 240;     //   <= 65,536 registers of the SM
 constexpr int BK = 32;                 // reduction depth of a stage (128 B)
 constexpr int KS = BK / 8;             // wgmma k8 steps a stage
 constexpr int STAGES = 4;              // ring of shared-memory stages
@@ -120,6 +144,22 @@ constexpr bool SPLIT = false;
 #else
 constexpr bool SPLIT = true;
 #endif
+#ifdef REPRO_NO_ZFILL
+constexpr bool ZFILL = false;
+#else
+constexpr bool ZFILL = true;
+#endif
+
+// The producer of A: CP = 0, TMA from one thread; CP = 1 or 2, cp.async of
+// CP fp32 from each of the producer warpgroup's 128 threads.  setmaxnreg:
+// 128 x PRODUCER_REGS + 256 x CONSUMER_REGS <= 384 x 168, the registers
+// __launch_bounds__(384, 1) gives the block.
+template <int CP>
+struct Producer {
+  static constexpr int PRODUCER_REGS = CP ? 56 : 24;
+  static constexpr int CONSUMER_REGS = CP ? 224 : 240;
+  static constexpr int FULL_ARRIVALS = CP ? 128 + 1 : 1;
+};
 
 // Dynamic shared memory of both kernels, from a 1024-byte aligned base:
 // A [STAGES][32 KiB], the skinny operand's hi [STAGES][N rows][128 B] and
@@ -189,46 +229,128 @@ __device__ __forceinline__ void zero(float (&r)[2][N / 2]) {
     for (int i = 0; i < N / 2; ++i) r[t][i] = 0.0f;
 }
 
+// The producer thread t's (0 .. 127) share of a stage of A by cp.async:
+// rows r0 .. r0 + R - 1 and columns c0 .. c0 + 32 BOXES - 1 of A (rows lda
+// apart), as BOXES boxes of R rows x 32 fp32, box b the columns
+// c0 + 32 b .., each row of 128 bytes in the 128-byte swizzle (16-byte
+// chunk c of row r at chunk c ^ (r % 8)), exactly as TMA writes the box.
+// Rows from r_end and columns from n arrive as zeros and are not read.
+// A thread keeps its columns (consecutive threads on consecutive copies of
+// a row: coalesced) and steps down the rows by a fixed stride; its rows
+// fall on 8 swizzle patterns, whose destinations it computes once, so a
+// stage with no row past the edge costs a copy and a pointer step a copy.
+// UNROLL: the rows' loop unrolled whole, else in groups of 8 (block_rmatvec
+// and block_matvec respectively: the faster of the two for each kernel in
+// development runs on an H100, PERF.md section 6).
+template <int CP, int R, int BOXES, bool UNROLL>
+__device__ __forceinline__ void copy_stage(uint32_t dst,
+                                           const float* __restrict__ A,
+                                           long long lda, int r0, int r_end,
+                                           int c0, int n, int t) {
+  constexpr int UPR = 32 * BOXES / CP;       // copies in a row of the stage
+  constexpr int TPR = UPR < 128 ? UPR : 128; // threads on one row
+  constexpr int RPP = 128 / TPR;             // rows a pass of the 128 threads
+  constexpr int P = R / RPP;                 // copies a thread a column
+  static_assert(P % 8 == 0, "rows in whole swizzle patterns");
+  const int rt = TPR == 128 ? 0 : t / TPR;   // the thread's first row
+  const bool whole = r0 + R <= r_end;        // no row past the edge
+#pragma unroll 1
+  for (int cs = 0; cs < UPR / TPR; ++cs) {   // the thread's columns, in turn
+    const int c = (t % TPR + cs * TPR) * CP, j = c % 32;
+    const int left = ZFILL ? max(0, min(CP, n - c0 - c)) : CP;
+    uint32_t d[8];                           // rows rt + q RPP, q < 8
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int r = rt + q * RPP;
+      d[q] = dst + (c / 32) * R * 128 + r * 128 +
+             (((j >> 2) ^ (r & 7)) << 4) + 4 * (j & 3);
+    }
+    // a column past n reads nothing: the source stays at A's base
+    const float* src = left > 0 ? A + (r0 + rt) * lda + c0 + c : A;
+    const long long step = left > 0 ? RPP * lda : 0;
+    // 8 rows a group, one of each swizzle pattern
+    auto group = [&](int p) {
+      const uint32_t off = p * RPP * 128;
+      if (whole) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q, src += step)
+          cp_async<4 * CP>(d[q] + off, src, 4 * left);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 8; ++q, src += step) {
+          const int bytes = r0 + rt + (p + q) * RPP < r_end ? 4 * left : 0;
+          cp_async<4 * CP>(d[q] + off, bytes > 0 ? src : A, bytes);
+        }
+      }
+    };
+    if constexpr (UNROLL) {
+#pragma unroll
+      for (int p = 0; p < P; p += 8) group(p);
+    } else {
+#pragma unroll 1
+      for (int p = 0; p < P; p += 8) group(p);
+    }
+  }
+}
+
 // Y[row0 : row0 + BM, col0 : col0 + N] = A[rows, :] @ Q[:, cols] for each
 // job (row0, col0) of the block.  Persistent: a block takes jobs
 // blockIdx.x, + gridDim.x, ..., and the ring runs on from one job into the
 // next, so the next job's loads are in flight while this one's sums are
 // stored.
-template <int N>
+template <int N, int CP>
 __global__ void __launch_bounds__(NT, 1)
     matvec_tf32(const __grid_constant__ CUtensorMap ma,
+                const float* __restrict__ A, long long lda,
                 const __grid_constant__ CUtensorMap mqh,
                 const __grid_constant__ CUtensorMap mql,
                 float* __restrict__ Y, int m, int n, int k) {
   using L = Smem<N>;
+  using P = Producer<CP>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t full = base + L::BAR, empty = full + 8 * STAGES;
   const int row_jobs = (m + BM - 1) / BM;
   const int jobs = row_jobs * ((k + N - 1) / N);
   const int stages = (n + BK - 1) / BK;
-  init_barriers<STAGES, 4 * NCONS>(full, empty);
+  init_barriers<STAGES, 4 * NCONS, P::FULL_ARRIVALS>(full, empty);
 
   if (threadIdx.x >= 128 * NCONS) {          // the producer warpgroup
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (threadIdx.x != 128 * NCONS) return;   // one thread issues the TMA
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        P::PRODUCER_REGS));
+    const int t = threadIdx.x - 128 * NCONS;
+    if (CP == 0 && t != 0) return;            // one thread issues the TMA
     int i = 0;
     for (int job = blockIdx.x; job < jobs; job += gridDim.x) {
       const int row0 = job % row_jobs * BM, col0 = job / row_jobs * N;
       for (int st = 0; st < stages; ++st, ++i) {
         const int s = i % STAGES;
-        const uint32_t bar =
-            claim<STAGES>(full, empty, i, L::A_STAGE + 2 * L::B_STAGE);
-        tma_load_2d(base + L::A + s * L::A_STAGE, &ma, bar, st * BK, row0);
-        tma_load_2d(base + L::BH + s * L::B_STAGE, &mqh, bar, st * BK, col0);
-        tma_load_2d(base + L::BL + s * L::B_STAGE, &mql, bar, st * BK, col0);
+        const uint32_t bar = full + 8 * s;
+        if constexpr (CP == 0) {
+          claim<STAGES>(full, empty, i, L::A_STAGE + 2 * L::B_STAGE);
+          tma_load_2d(base + L::A + s * L::A_STAGE, &ma, bar, st * BK, row0);
+        } else {
+          if (i >= STAGES) mbar_wait(empty + 8 * s, ((i / STAGES) - 1) & 1);
+          if (t == 0) mbar_expect_tx(bar, 2 * L::B_STAGE);
+        }
+        if (t == 0) {
+          tma_load_2d(base + L::BH + s * L::B_STAGE, &mqh, bar, st * BK, col0);
+          tma_load_2d(base + L::BL + s * L::B_STAGE, &mql, bar, st * BK, col0);
+        }
+        if constexpr (CP != 0) {
+          copy_stage<CP, BM, 1, false>(base + L::A + s * L::A_STAGE, A, lda,
+                                       row0, m, st * BK, n, t);
+          cp_async_arrive(bar);
+        }
       }
     }
+    if constexpr (CP != 0) cp_async_wait_all();
     return;
   }
 
   // a consumer warpgroup: rows row0 + 128 wg .. + 127, two m64 tiles
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      P::CONSUMER_REGS));
   const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32;
   const int lane = threadIdx.x % 32;
   // ldmatrix: lane j addresses row j % 8 of matrix j / 8, which is rows
@@ -302,13 +424,15 @@ __device__ __forceinline__ int rmatvec_col(int i) {
 // out[c, q0 : q0 + N] = (A[slab, c]^T Y[slab, q0 : q0 + N]) for the block's
 // BN columns c of A, the slab being rows [z slab_rows, min(m, (z + 1)
 // slab_rows)) and out = Z + z n k.
-template <int N>
+template <int N, int CP>
 __global__ void __launch_bounds__(NT, 1)
     rmatvec_tf32(const __grid_constant__ CUtensorMap ma,
+                 const float* __restrict__ A, long long lda,
                  const __grid_constant__ CUtensorMap myh,
                  const __grid_constant__ CUtensorMap myl,
                  float* __restrict__ Z, int m, int n, int k, int slab_rows) {
   using L = Smem<N>;
+  using P = Producer<CP>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t full = base + L::BAR, empty = full + 8 * STAGES;
@@ -317,28 +441,44 @@ __global__ void __launch_bounds__(NT, 1)
   const int r_begin = static_cast<int>(blockIdx.z) * slab_rows;
   const int r_end = min(m, r_begin + slab_rows);
   const int tiles = (r_end - r_begin + BK - 1) / BK;
-  init_barriers<STAGES, 4 * NCONS>(full, empty);
+  init_barriers<STAGES, 4 * NCONS, P::FULL_ARRIVALS>(full, empty);
 
   if (threadIdx.x >= 128 * NCONS) {          // the producer warpgroup
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (threadIdx.x != 128 * NCONS) return;
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        P::PRODUCER_REGS));
+    const int t = threadIdx.x - 128 * NCONS;
+    if (CP == 0 && t != 0) return;            // one thread issues the TMA
     for (int i = 0; i < tiles; ++i) {
       const int s = i % STAGES;
       const int i0 = r_begin + i * BK;
-      const uint32_t bar =
-          claim<STAGES>(full, empty, i, L::A_STAGE + 2 * L::B_STAGE);
-      for (int b = 0; b < BN / 32; ++b)
-        tma_load_2d(base + L::A + s * L::A_STAGE + b * BOX, &ma, bar,
-                    c0 + 32 * b, i0);
-      tma_load_2d(base + L::BH + s * L::B_STAGE, &myh, bar, i0, q0);
-      tma_load_2d(base + L::BL + s * L::B_STAGE, &myl, bar, i0, q0);
+      const uint32_t bar = full + 8 * s;
+      if constexpr (CP == 0) {
+        claim<STAGES>(full, empty, i, L::A_STAGE + 2 * L::B_STAGE);
+        for (int b = 0; b < BN / 32; ++b)
+          tma_load_2d(base + L::A + s * L::A_STAGE + b * BOX, &ma, bar,
+                      c0 + 32 * b, i0);
+      } else {
+        if (i >= STAGES) mbar_wait(empty + 8 * s, ((i / STAGES) - 1) & 1);
+        if (t == 0) mbar_expect_tx(bar, 2 * L::B_STAGE);
+      }
+      if (t == 0) {
+        tma_load_2d(base + L::BH + s * L::B_STAGE, &myh, bar, i0, q0);
+        tma_load_2d(base + L::BL + s * L::B_STAGE, &myl, bar, i0, q0);
+      }
+      if constexpr (CP != 0) {
+        copy_stage<CP, BK, BN / 32, true>(base + L::A + s * L::A_STAGE, A,
+                                          lda, i0, r_end, c0, n, t);
+        cp_async_arrive(bar);
+      }
     }
+    if constexpr (CP != 0) cp_async_wait_all();
     return;
   }
 
   // a consumer warpgroup: columns c0 + 128 wg .. + 127 of A, two m64 tiles
   // of two boxes each; warp w of a tile reads box w / 2, rows 16 (w % 2) ..
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      P::CONSUMER_REGS));
   const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32;
   const int lane = threadIdx.x % 32;
   // fragment register e: output row 16 (warp % 2) + lane / 4 + 8 (e % 2) of
@@ -442,15 +582,25 @@ inline void split_skinny(const void* X, void* split, int rows, int k,
                                        hi + k * ld, rows, k, ld);
 }
 
-template <int N>
-int launch_matvec(const void* A, const void* Qh, const void* Ql, void* Y,
-                  int m, int n, int k, cudaStream_t s) {
-  CUtensorMap ma, mqh, mql;
-  cudaError_t err = encode_2d(&ma, A, m, n, n, BM, 4);
-  if (err == cudaSuccess) err = encode_2d(&mqh, Qh, k, n, n, N, 4);
-  if (err == cudaSuccess) err = encode_2d(&mql, Ql, k, n, n, N, 4);
+// A's tensor map for the TMA producer (CP = 0), boxes of `box_rows` rows;
+// the cp.async producer reads A through its pointer and leaves the map zero.
+template <int CP>
+cudaError_t a_map(CUtensorMap* map, const void* A, int m, int n, long long lda,
+                  int box_rows) {
+  if (CP != 0) return cudaSuccess;
+  return encode_2d(map, A, m, n, lda, box_rows, 4);
+}
+
+template <int N, int CP>
+int launch_matvec(const void* A, long long lda, const void* Qh,
+                  const void* Ql, long long ld, void* Y, int m, int n, int k,
+                  cudaStream_t s) {
+  CUtensorMap ma{}, mqh, mql;
+  cudaError_t err = a_map<CP>(&ma, A, m, n, lda, BM);
+  if (err == cudaSuccess) err = encode_2d(&mqh, Qh, k, n, ld, N, 4);
+  if (err == cudaSuccess) err = encode_2d(&mql, Ql, k, n, ld, N, 4);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto kern = matvec_tf32<N>;
+  auto kern = matvec_tf32<N, CP>;
   constexpr int bytes = Smem<N>::BYTES;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
@@ -458,55 +608,91 @@ int launch_matvec(const void* A, const void* Qh, const void* Ql, void* Y,
   const long long jobs = (m + BM - 1) / BM * static_cast<long long>(
                                                    (k + N - 1) / N);
   kern<<<resident_blocks(jobs), NT, bytes, s>>>(
-      ma, mqh, mql, static_cast<float*>(Y), m, n, k);
+      ma, static_cast<const float*>(A), lda, mqh, mql, static_cast<float*>(Y),
+      m, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int N>
-int launch_rmatvec(const void* A, const void* Yh, const void* Yl, float* out,
-                   int m, int n, int k, long long ld_y, int slab_rows,
-                   int slabs, cudaStream_t s) {
-  CUtensorMap ma, myh, myl;
-  cudaError_t err = encode_2d(&ma, A, m, n, n, BK, 4);
+template <int N, int CP>
+int launch_rmatvec(const void* A, long long lda, const void* Yh,
+                   const void* Yl, float* out, int m, int n, int k,
+                   long long ld_y, int slab_rows, int slabs, cudaStream_t s) {
+  CUtensorMap ma{}, myh, myl;
+  cudaError_t err = a_map<CP>(&ma, A, m, n, lda, BK);
   if (err == cudaSuccess) err = encode_2d(&myh, Yh, k, m, ld_y, N, 4);
   if (err == cudaSuccess) err = encode_2d(&myl, Yl, k, m, ld_y, N, 4);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto kern = rmatvec_tf32<N>;
+  auto kern = rmatvec_tf32<N, CP>;
   constexpr int bytes = Smem<N>::BYTES;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((unsigned)((n + BN - 1) / BN), (unsigned)((k + N - 1) / N),
                   (unsigned)slabs);
-  kern<<<grid, NT, bytes, s>>>(ma, myh, myl, out, m, n, k, slab_rows);
+  kern<<<grid, NT, bytes, s>>>(ma, static_cast<const float*>(A), lda, myh, myl,
+                               out, m, n, k, slab_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int repro_block_matvec_tf32x3(const void* A, const void* Q,
-                                         void* split, void* Y, long long m,
-                                         long long n, long long k,
-                                         void* stream) {
-  cudaGetLastError();  // report this call's launches, not an older error
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int mi = (int)m, ni = (int)n, ki = (int)k;
-  split_skinny(Q, split, ni, ki, n, s);
-  const float* hi = static_cast<const float*>(split);
-  const float* lo = hi + k * n;
-  if (k <= 16) return launch_matvec<16>(A, hi, lo, Y, mi, ni, ki, s);
-  if (k <= 32) return launch_matvec<32>(A, hi, lo, Y, mi, ni, ki, s);
-  return launch_matvec<64>(A, hi, lo, Y, mi, ni, ki, s);
+// The producer that reads A on a route: "tf32x3" (cpasync false) TMA;
+// "tf32x3_cpasync" cp.async of 2 fp32 where every row starts 8-byte aligned
+// (lda even, base 8-byte aligned), else of 1.  -1 where the route cannot
+// read A.
+inline int producer(const void* A, long long lda, long long n, bool cpasync) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(A);
+  if (a % 4 != 0 || lda < n) return -1;
+  if (!cpasync) return a % 16 == 0 && lda % 4 == 0 ? 0 : -1;
+  return a % 8 == 0 && lda % 2 == 0 ? 2 : 1;
 }
 
-extern "C" int repro_block_rmatvec_tf32x3(const void* A, const void* Y,
-                                          void* split, void* Z, void* partial,
-                                          long long m, long long n,
-                                          long long k, long long ld,
-                                          long long slab_rows, void* stream) {
+template <int CP>
+int matvec_k(const void* A, long long lda, const float* hi, const float* lo,
+             long long ld, void* Y, int m, int n, int k, cudaStream_t s) {
+  if (k <= 16) return launch_matvec<16, CP>(A, lda, hi, lo, ld, Y, m, n, k, s);
+  if (k <= 32) return launch_matvec<32, CP>(A, lda, hi, lo, ld, Y, m, n, k, s);
+  return launch_matvec<64, CP>(A, lda, hi, lo, ld, Y, m, n, k, s);
+}
+
+template <int CP>
+int rmatvec_k(const void* A, long long lda, const float* hi, const float* lo,
+              float* out, int m, int n, int k, long long ld, int rows,
+              int slabs, cudaStream_t s) {
+  if (k <= 16)
+    return launch_rmatvec<16, CP>(A, lda, hi, lo, out, m, n, k, ld, rows,
+                                  slabs, s);
+  if (k <= 32)
+    return launch_rmatvec<32, CP>(A, lda, hi, lo, out, m, n, k, ld, rows,
+                                  slabs, s);
+  return launch_rmatvec<64, CP>(A, lda, hi, lo, out, m, n, k, ld, rows, slabs,
+                                s);
+}
+
+int matvec_entry(bool cpasync, const void* A, long long lda, const void* Q,
+                 void* split, void* Y, long long m, long long n, long long k,
+                 long long ld, void* stream) {
+  cudaGetLastError();  // report this call's launches, not an older error
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int cp = producer(A, lda, n, cpasync);
+  if (cp < 0 || ld < n || ld % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int mi = (int)m, ni = (int)n, ki = (int)k;
+  split_skinny(Q, split, ni, ki, ld, s);
+  const float* hi = static_cast<const float*>(split);
+  const float* lo = hi + k * ld;
+  if (cp == 0) return matvec_k<0>(A, lda, hi, lo, ld, Y, mi, ni, ki, s);
+  if (cp == 1) return matvec_k<1>(A, lda, hi, lo, ld, Y, mi, ni, ki, s);
+  return matvec_k<2>(A, lda, hi, lo, ld, Y, mi, ni, ki, s);
+}
+
+int rmatvec_entry(bool cpasync, const void* A, long long lda, const void* Y,
+                  void* split, void* Z, void* partial, long long m,
+                  long long n, long long k, long long ld, long long slab_rows,
+                  void* stream) {
   cudaGetLastError();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (slab_rows <= 0 || slab_rows % BK != 0)
+  const int cp = producer(A, lda, n, cpasync);
+  if (cp < 0 || ld < m || ld % 4 != 0 || slab_rows <= 0 ||
+      slab_rows % BK != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int slabs = (int)((m + slab_rows - 1) / slab_rows);
   float* out = static_cast<float*>(slabs > 1 ? partial : Z);
@@ -515,15 +701,50 @@ extern "C" int repro_block_rmatvec_tf32x3(const void* A, const void* Y,
   const float* hi = static_cast<const float*>(split);
   const float* lo = hi + k * ld;
   int err;
-  if (k <= 16)
-    err = launch_rmatvec<16>(A, hi, lo, out, mi, ni, ki, ld, rows, slabs, s);
-  else if (k <= 32)
-    err = launch_rmatvec<32>(A, hi, lo, out, mi, ni, ki, ld, rows, slabs, s);
+  if (cp == 0)
+    err = rmatvec_k<0>(A, lda, hi, lo, out, mi, ni, ki, ld, rows, slabs, s);
+  else if (cp == 1)
+    err = rmatvec_k<1>(A, lda, hi, lo, out, mi, ni, ki, ld, rows, slabs, s);
   else
-    err = launch_rmatvec<64>(A, hi, lo, out, mi, ni, ki, ld, rows, slabs, s);
+    err = rmatvec_k<2>(A, lda, hi, lo, out, mi, ni, ki, ld, rows, slabs, s);
   if (err != 0) return err;
   if (slabs > 1)
     repro_slab_sum::sum_slabs(static_cast<const float*>(partial),
                               static_cast<float*>(Z), n * k, slabs, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int repro_block_matvec_tf32x3(const void* A, long long lda,
+                                         const void* Q, void* split, void* Y,
+                                         long long m, long long n, long long k,
+                                         long long ld, void* stream) {
+  return matvec_entry(false, A, lda, Q, split, Y, m, n, k, ld, stream);
+}
+
+extern "C" int repro_block_matvec_tf32x3_cpasync(const void* A, long long lda,
+                                                 const void* Q, void* split,
+                                                 void* Y, long long m,
+                                                 long long n, long long k,
+                                                 long long ld, void* stream) {
+  return matvec_entry(true, A, lda, Q, split, Y, m, n, k, ld, stream);
+}
+
+extern "C" int repro_block_rmatvec_tf32x3(const void* A, long long lda,
+                                          const void* Y, void* split, void* Z,
+                                          void* partial, long long m,
+                                          long long n, long long k,
+                                          long long ld, long long slab_rows,
+                                          void* stream) {
+  return rmatvec_entry(false, A, lda, Y, split, Z, partial, m, n, k, ld,
+                       slab_rows, stream);
+}
+
+extern "C" int repro_block_rmatvec_tf32x3_cpasync(
+    const void* A, long long lda, const void* Y, void* split, void* Z,
+    void* partial, long long m, long long n, long long k, long long ld,
+    long long slab_rows, void* stream) {
+  return rmatvec_entry(true, A, lda, Y, split, Z, partial, m, n, k, ld,
+                       slab_rows, stream);
 }

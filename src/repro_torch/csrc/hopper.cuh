@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
 // (local_attn.cu, block_matvec_tc.cu, block_matvec_tf32.cu): mbarriers, TMA
-// tile loads through tensor maps, the stage ring a TMA producer fills for
+// tile loads through tensor maps, cp.async copies that complete on an
+// mbarrier, the stage ring a producer fills for
 // consumer warps, wgmma shared-memory descriptors, the bf16 wgmma forms with
 // both operands in shared memory, the tf32 forms with A in registers
 // (ldmatrix, the tf32 rounding), and the lookup of libcuda's tensor-map
@@ -346,15 +347,41 @@ __device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
   return r;
 }
 
-// The ring of shared-memory stages that one TMA producer thread fills for
-// the consumer warps: full[s] completes when stage s's bytes have landed,
+// CP bytes (4 or 8) from global into shared memory by cp.async (LDGSTS;
+// `dst` and `src` aligned to CP); the bytes past `src_bytes` (0 .. CP) are
+// not read and arrive as zeros.  L2 fetches 256 bytes around a miss, as the
+// tensor maps of encode_2d ask (CU_TENSOR_MAP_L2_PROMOTION_L2_256B).
+template <int CP>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int src_bytes) {
+  asm volatile("cp.async.ca.shared.global.L2::256B [%0], [%1], %2, %3;\n" ::
+                   "r"(dst),
+               "l"(src), "n"(CP), "r"(src_bytes)
+               : "memory");
+}
+
+// One arrival on the barrier once every cp.async this thread issued before
+// has landed; .noinc: the barrier's expected count includes the arrival.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The ring of shared-memory stages that a producer fills for the consumer
+// warps: full[s] completes when stage s's bytes have landed (FULL_ARRIVALS
+// arrivals: 1 for a single TMA thread, which also announces the bytes),
 // empty[s] when lane 0 of each of the CONSUMER_WARPS consumer warps has
 // released it.  Barriers are 8 bytes apart from `full` and `empty`.
-template <int STAGES, int CONSUMER_WARPS>
+template <int STAGES, int CONSUMER_WARPS, int FULL_ARRIVALS = 1>
 __device__ __forceinline__ void init_barriers(uint32_t full, uint32_t empty) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + 8 * s, 1);
+      mbar_init(full + 8 * s, FULL_ARRIVALS);
       mbar_init(empty + 8 * s, CONSUMER_WARPS);
     }
     mbar_init_fence();

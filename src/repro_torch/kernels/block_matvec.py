@@ -8,25 +8,34 @@ replace the Pallas TPU kernels of the JAX package's ``repro/kernels/block_matvec
 line 127).  The sources' headers say what bounds them on an H100 and
 what each design does about it.
 
-Three routes, chosen by ``route(A, k)`` from dtype, shape and alignment:
+Every kernel reads ``A`` (m, n) row-major with rows ``lda`` elements
+apart (``row_stride``: ``lda >= n``, unit column stride), so a view of
+wider rows is read in place.  Four routes, chosen by ``route(A, k)``
+from dtype, row stride and alignment:
 
 * ``"tf32x3"`` (``block_matvec_tf32.cu``): fp32 where a TMA tensor map
-  describes ``A`` (16-byte-aligned base, ``n % 4 == 0``), any k.  The
+  describes ``A`` (16-byte-aligned base, ``lda % 4 == 0``), any k.  The
   tensor cores as 3xTF32 (never plain TF32): each operand split into a
   TF32 ``hi`` and ``lo``, three products, fp32 sums promoted every
   32-deep stage.  ``block_rmatvec`` splits m into slabs of whole 32-row
   stages.
+* ``"tf32x3_cpasync"`` (the same file): every other fp32 ``A`` (any
+  width, a base 4 or 8 bytes off 16).  The same kernels, their stage
+  ring filled by ``cp.async`` copies of 4 or 8 bytes from the producer
+  warpgroup in place of TMA; edges zero-filled, never read.
 * ``"wgmma"`` (``block_matvec_tc.cu``): bf16 where a TMA tensor map
-  describes ``A`` (16-byte-aligned base, ``n % 8 == 0``), any k.  A
-  ring of TMA-filled shared-memory stages, wgmma with fp32 sums;
-  ``block_rmatvec`` splits m into slabs of whole 64-row stages.
-* ``"ffma"`` (``block_matvec.cu``): every other fp32 or bf16 operand.
+  describes ``A`` (16-byte-aligned base, ``lda % 8 == 0``; the solver's
+  own bf16 copy, whose rows ``DenseOperator`` pads to whole 16 bytes),
+  any k.  A ring of TMA-filled shared-memory stages, wgmma with fp32
+  sums; ``block_rmatvec`` splits m into slabs of whole 64-row stages.
+* ``"ffma"`` (``block_matvec.cu``): a bf16 ``A`` handed to ``ops``
+  directly whose rows no tensor map describes.
 
-On both tensor-core routes the skinny operand is read transposed
+On the tensor-core routes the skinny operand is read transposed
 (``Q^T``, ``Y^T``: k rows), which any k can be read as.  A launch that
 the card refuses raises; no route stands in for another.  These
 functions take CUDA tensors that ``kernels/ops.py`` has already checked
-(device, dtype, shape, contiguity); they allocate the fp32 output and
+(device, dtype, shape, layout); they allocate the fp32 output and
 any scratch with ``torch.empty``, launch on the current stream, and
 raise if the launch was refused.  Call them through
 ``ops``, which also keeps the launch counts.
@@ -56,21 +65,37 @@ KT_MAX = 64     # widest k tile (csrc: TX * 8; block_matvec_tc.cu: KT)
 TC_BK = 64      # rows of a tensor-core stage (block_matvec_tc.cu: BK)
 TF32_BK = 32    # rows of a 3xTF32 stage (block_matvec_tf32.cu: BK)
 #: rows of block_rmatvec's slabs are a multiple of the route's stage depth
-STEP = {"ffma": BK, "wgmma": TC_BK, "tf32x3": TF32_BK}
+STEP = {"ffma": BK, "wgmma": TC_BK, "tf32x3": TF32_BK,
+        "tf32x3_cpasync": TF32_BK}
+#: every route, in the order of ``ops.route_launches``
+ROUTES = ("tf32x3", "tf32x3_cpasync", "wgmma", "ffma")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 
 
+def row_stride(A: torch.Tensor) -> int | None:
+    """The distance ``lda`` between the rows of a 2-D ``A`` as the kernels
+    read it: ``A`` row-major with unit column stride and ``lda >= n``;
+    ``None`` for any other layout (a transposed view, a column step)."""
+    m, n = A.shape
+    if n > 1 and A.stride(1) != 1:
+        return None
+    lda = A.stride(0) if m > 1 else n
+    return lda if lda >= n else None
+
+
 def route(A: torch.Tensor, k: int) -> str:
-    """The kernel that takes ``A`` (m, n) with k skinny columns where a
-    TMA tensor map can describe it (base 16-byte aligned, rows a multiple
-    of 16 bytes): ``"tf32x3"`` for fp32, ``"wgmma"`` for bf16; else
-    ``"ffma"``."""
-    mapped = A.data_ptr() % 16 == 0 and k >= 1
-    if A.dtype == torch.float32 and A.shape[1] % 4 == 0 and mapped:
-        return "tf32x3"
-    if A.dtype == torch.bfloat16 and A.shape[1] % 8 == 0 and mapped:
+    """The kernel that takes ``A`` (m, n), rows ``row_stride(A)`` apart,
+    with k skinny columns.  fp32: ``"tf32x3"`` where a TMA tensor map
+    describes it (base 16-byte aligned, rows a multiple of 16 bytes),
+    else ``"tf32x3_cpasync"``; bf16: ``"wgmma"`` where a map describes
+    it, else ``"ffma"``."""
+    lda = row_stride(A)
+    mapped = A.data_ptr() % 16 == 0 and k >= 1 and lda is not None
+    if A.dtype == torch.float32:
+        return "tf32x3" if mapped and lda % 4 == 0 else "tf32x3_cpasync"
+    if A.dtype == torch.bfloat16 and mapped and lda % 8 == 0:
         return "wgmma"
     return "ffma"
 
@@ -78,12 +103,12 @@ def route(A: torch.Tensor, k: int) -> str:
 def _lib() -> ctypes.CDLL:
     lib = build.library("block_matvec")
     if not getattr(lib, "_repro_bound", False):
-        lib.repro_block_matvec.argtypes = [_P, _P, _P, _I64, _I64, _I64,
-                                           ctypes.c_int, _P]
-        lib.repro_block_matvec.restype = ctypes.c_int
-        lib.repro_block_rmatvec.argtypes = [_P, _P, _P, _P, _I64, _I64, _I64,
-                                            _I64, ctypes.c_int, _P]
-        lib.repro_block_rmatvec.restype = ctypes.c_int
+        lib.repro_block_matvec.argtypes = [_P, _I64, _P, _P, _I64, _I64,
+                                           _I64, _P]
+        lib.repro_block_rmatvec.argtypes = [_P, _I64, _P, _P, _P, _I64, _I64,
+                                            _I64, _I64, _P]
+        for fn in (lib.repro_block_matvec, lib.repro_block_rmatvec):
+            fn.restype = ctypes.c_int
         lib._repro_bound = True
     return lib
 
@@ -91,10 +116,10 @@ def _lib() -> ctypes.CDLL:
 def _lib_tc() -> ctypes.CDLL:
     lib = build.library("block_matvec_tc")
     if not getattr(lib, "_repro_bound", False):
-        lib.repro_block_matvec_wgmma.argtypes = [_P, _P, _P, _I64, _I64,
-                                                 _I64, _P]
-        lib.repro_block_rmatvec_wgmma.argtypes = [_P, _P, _P, _P, _I64, _I64,
-                                                  _I64, _I64, _I64, _P]
+        lib.repro_block_matvec_wgmma.argtypes = [_P, _I64, _P, _I64, _P,
+                                                 _I64, _I64, _I64, _P]
+        lib.repro_block_rmatvec_wgmma.argtypes = [_P, _I64, _P, _P, _P, _I64,
+                                                  _I64, _I64, _I64, _I64, _P]
         for fn in (lib.repro_block_matvec_wgmma,
                    lib.repro_block_rmatvec_wgmma):
             fn.restype = ctypes.c_int
@@ -105,13 +130,13 @@ def _lib_tc() -> ctypes.CDLL:
 def _lib_tf32() -> ctypes.CDLL:
     lib = build.library("block_matvec_tf32")
     if not getattr(lib, "_repro_bound", False):
-        lib.repro_block_matvec_tf32x3.argtypes = [_P, _P, _P, _P, _I64, _I64,
-                                                  _I64, _P]
-        lib.repro_block_rmatvec_tf32x3.argtypes = [_P, _P, _P, _P, _P, _I64,
-                                                   _I64, _I64, _I64, _I64, _P]
-        for fn in (lib.repro_block_matvec_tf32x3,
-                   lib.repro_block_rmatvec_tf32x3):
-            fn.restype = ctypes.c_int
+        for which in ("tf32x3", "tf32x3_cpasync"):
+            mv = getattr(lib, f"repro_block_matvec_{which}")
+            rmv = getattr(lib, f"repro_block_rmatvec_{which}")
+            mv.argtypes = [_P, _I64, _P, _P, _P, _I64, _I64, _I64, _I64, _P]
+            rmv.argtypes = [_P, _I64, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                            _I64, _P]
+            mv.restype = rmv.restype = ctypes.c_int
         lib._repro_bound = True
     return lib
 
@@ -139,30 +164,48 @@ def rmatvec_slab_rows(m: int, n: int, k: int, step: int = BK) -> int:
     return max(step, -(-rows // step) * step)
 
 
+def _tf32_split(k: int, rows: int, device) -> tuple:
+    """Scratch for the skinny operand's transposed tf32 halves, (2, k, ld)
+    with ``ld`` = ``rows`` rounded up to whole 16-byte rows (a tensor map's
+    stride), written by the library; and ``ld``."""
+    ld = -(-rows // 4) * 4
+    return torch.empty((2, k, ld), dtype=torch.float32, device=device), ld
+
+
+def _transposed(X: torch.Tensor) -> tuple:
+    """The bf16 skinny operand X (rows, k) as X^T (k, rows) with rows
+    padded to whole 16 bytes (a tensor map's stride), and that stride."""
+    rows, k = X.shape
+    ld = -(-rows // 8) * 8
+    Xt = torch.empty((k, ld), dtype=X.dtype, device=X.device)
+    Xt[:, :rows].copy_(X.mT)
+    return Xt, ld
+
+
 def block_matvec_cuda(A: torch.Tensor, Q: torch.Tensor,
                       which: str) -> torch.Tensor:
     """``Y = A @ Q`` on the card by the kernel of route ``which``; A (m, n)
-    and Q (n, k) contiguous, both fp32 or both bf16; Y (m, k) fp32."""
+    with rows ``row_stride(A)`` apart and Q (n, k) contiguous, both fp32
+    or both bf16; Y (m, k) fp32."""
     m, n = A.shape
     k = Q.shape[1]
+    lda = row_stride(A)
     Y = torch.empty((m, k), dtype=torch.float32, device=A.device)
     with torch.cuda.device(A.device):
-        if which == "tf32x3":
-            # Q^T's tf32 halves (2, k, n), written by the library
-            split = torch.empty((2, k, n), dtype=torch.float32,
-                                device=A.device)
-            err = _lib_tf32().repro_block_matvec_tf32x3(
-                A.data_ptr(), Q.data_ptr(), split.data_ptr(), Y.data_ptr(),
-                m, n, k, _stream(A))
+        if which in ("tf32x3", "tf32x3_cpasync"):
+            split, ld = _tf32_split(k, n, A.device)
+            err = getattr(_lib_tf32(), f"repro_block_matvec_{which}")(
+                A.data_ptr(), lda, Q.data_ptr(), split.data_ptr(),
+                Y.data_ptr(), m, n, k, ld, _stream(A))
         elif which == "wgmma":
-            Qt = Q.mT.contiguous()          # (k, n): K-major TMA boxes
+            Qt, ld = _transposed(Q)         # (k, n): K-major TMA boxes
             err = _lib_tc().repro_block_matvec_wgmma(
-                A.data_ptr(), Qt.data_ptr(), Y.data_ptr(), m, n, k,
+                A.data_ptr(), lda, Qt.data_ptr(), ld, Y.data_ptr(), m, n, k,
                 _stream(A))
         else:
             err = _lib().repro_block_matvec(
-                A.data_ptr(), Q.data_ptr(), Y.data_ptr(), m, n, k,
-                int(A.dtype == torch.bfloat16), _stream(A))
+                A.data_ptr(), lda, Q.data_ptr(), Y.data_ptr(), m, n, k,
+                _stream(A))
     _check(err, f"block_matvec ({which} route)")
     return Y
 
@@ -170,11 +213,12 @@ def block_matvec_cuda(A: torch.Tensor, Q: torch.Tensor,
 def block_rmatvec_cuda(A: torch.Tensor, Y: torch.Tensor,
                        which: str) -> torch.Tensor:
     """``Z = A^T @ Y`` on the card by the kernel of route ``which``; A
-    (m, n) and Y (m, k) contiguous, both fp32 or both bf16; Z (n, k)
-    fp32.  The reduction over m is split into slabs whose fp32 partials
-    a second launch sums in order."""
+    (m, n) with rows ``row_stride(A)`` apart and Y (m, k) contiguous,
+    both fp32 or both bf16; Z (n, k) fp32.  The reduction over m is split
+    into slabs whose fp32 partials a second launch sums in order."""
     m, n = A.shape
     k = Y.shape[1]
+    lda = row_stride(A)
     rows = rmatvec_slab_rows(m, n, k, STEP[which])
     slabs = math.ceil(m / rows)
     Z = torch.empty((n, k), dtype=torch.float32, device=A.device)
@@ -182,26 +226,19 @@ def block_rmatvec_cuda(A: torch.Tensor, Y: torch.Tensor,
                            device=A.device) if slabs > 1 else None)
     part = None if partial is None else partial.data_ptr()
     with torch.cuda.device(A.device):
-        if which == "tf32x3":
-            # Y^T's tf32 halves (2, k, m) with rows padded to 16 bytes,
-            # written by the library
-            ld = -(-m // 4) * 4
-            split = torch.empty((2, k, ld), dtype=torch.float32,
-                                device=A.device)
-            err = _lib_tf32().repro_block_rmatvec_tf32x3(
-                A.data_ptr(), Y.data_ptr(), split.data_ptr(), Z.data_ptr(),
-                part, m, n, k, ld, rows, _stream(A))
+        if which in ("tf32x3", "tf32x3_cpasync"):
+            split, ld = _tf32_split(k, m, A.device)
+            err = getattr(_lib_tf32(), f"repro_block_rmatvec_{which}")(
+                A.data_ptr(), lda, Y.data_ptr(), split.data_ptr(),
+                Z.data_ptr(), part, m, n, k, ld, rows, _stream(A))
         elif which == "wgmma":
-            # Y^T (k, m) with rows padded to 16 bytes: K-major TMA boxes
-            ld = -(-m // 8) * 8
-            Yt = torch.empty((k, ld), dtype=Y.dtype, device=Y.device)
-            Yt[:, :m].copy_(Y.mT)
+            Yt, ld = _transposed(Y)         # (k, m): K-major TMA boxes
             err = _lib_tc().repro_block_rmatvec_wgmma(
-                A.data_ptr(), Yt.data_ptr(), Z.data_ptr(), part, m, n, k, ld,
-                rows, _stream(A))
+                A.data_ptr(), lda, Yt.data_ptr(), Z.data_ptr(), part, m, n,
+                k, ld, rows, _stream(A))
         else:
             err = _lib().repro_block_rmatvec(
-                A.data_ptr(), Y.data_ptr(), Z.data_ptr(), part, m, n, k,
-                rows, int(A.dtype == torch.bfloat16), _stream(A))
+                A.data_ptr(), lda, Y.data_ptr(), Z.data_ptr(), part, m, n, k,
+                rows, _stream(A))
     _check(err, f"block_rmatvec ({which} route)")
     return Z

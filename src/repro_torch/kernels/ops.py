@@ -30,8 +30,14 @@ whatever the layout (``trans``), although a split reduction adds a
 second (summing) launch on the card, and a 3xTF32 sweep a first one
 that splits its skinny operand.  ``route_launches`` splits the block
 sweeps' counts by the route that ran (``block_matvec.route``: fp32 on
-the tensor cores as 3xTF32, ``"tf32x3"``; bf16 on them, ``"wgmma"``;
-or ``"ffma"``).
+the tensor cores as 3xTF32, ``"tf32x3"`` where a TMA tensor map
+describes ``A``, else ``"tf32x3_cpasync"``; bf16 on them, ``"wgmma"``;
+or a bf16 ``A`` no tensor map describes, ``"ffma"``).
+
+The block sweeps read ``A`` in place where it is row-major with unit
+column stride (``block_matvec.row_stride``): contiguous, or a view of
+wider rows such as ``DenseOperator``'s bf16 copy, whose rows are
+padded to whole 16 bytes.
 
 The JAX package's TPU-only wrapper logic has no counterpart here: the
 kernels mask ragged edges themselves, so there is no lane padding of k,
@@ -58,7 +64,7 @@ launches = {"block_matvec": 0, "block_rmatvec": 0, "block_gram_chain": 0,
 #: the block sweeps' launches by route, since the last ``reset_launches()``
 route_launches = {f"{name}/{which}": 0
                   for name in ("block_matvec", "block_rmatvec")
-                  for which in ("tf32x3", "wgmma", "ffma")}
+                  for which in _bm.ROUTES}
 
 
 def reset_launches() -> None:
@@ -89,11 +95,14 @@ def _sweep_dtype(A, X, dtype, what: str) -> torch.dtype:
 
 
 def _on_card(A: torch.Tensor, X: torch.Tensor, sd: torch.dtype):
-    """Operands as the kernel reads them: contiguous, in ``sd``.  A
-    non-contiguous ``A`` is refused rather than copied."""
-    if not A.is_contiguous():
-        raise ValueError("the CUDA sweep kernels read A row-major: pass a "
-                         "contiguous A (for A^T use the other sweep)")
+    """Operands as the kernel reads them, in ``sd``: ``A`` row-major with
+    unit column stride and rows at least n apart (contiguous, or a view
+    of wider rows), ``X`` contiguous.  Any other ``A`` is refused rather
+    than copied."""
+    if _bm.row_stride(A) is None:
+        raise ValueError("the CUDA sweep kernels read A row-major with unit "
+                         "column stride: pass a contiguous A or a view of "
+                         "wider rows (for A^T use the other sweep)")
     return A.to(sd), X.to(sd).contiguous()
 
 

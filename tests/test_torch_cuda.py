@@ -16,10 +16,11 @@ fp32 (the JAX package's limit for its kernel, ``tests/test_kernels.py:208``);
 in bf16 each element within the kernel's one rounding of its output to
 bf16, 2^-8 |plain| of that element, plus 1e-5 for the fp32 sums' order
 (``_attn_within``).  bf16 at D >= 64 runs the tensor-core kernel
-(``local_attn.route``), the rest the FFMA one.  The block sweeps run on
-the tensor cores where a TMA tensor map describes A
-(``block_matvec.route``: fp32 as 3xTF32, bf16 by wgmma), the rest by
-FFMA; all three routes are held to the same limits.
+(``local_attn.route``), the rest the FFMA one.  The block sweeps
+(``block_matvec.route``): every fp32 A on the tensor cores as 3xTF32,
+staged by TMA where a tensor map describes A and by cp.async elsewhere;
+bf16 by wgmma where a map describes A (the solver's padded copy
+included), else by FFMA; all four routes are held to the same limits.
 """
 import importlib
 
@@ -163,20 +164,169 @@ def test_tf32x3_rmatvec_reruns_bitwise(card):
     assert torch.equal(ops.block_rmatvec(A, Y), ops.block_rmatvec(A, Y))
 
 
-def test_misaligned_fp32_runs_the_ffma_route(card):
-    """An fp32 A 4 bytes off a 16-byte boundary has no tensor map: FFMA."""
+def test_misaligned_fp32_runs_the_cpasync_route(card):
+    """An fp32 A 4 bytes off a 16-byte boundary has no tensor map: 3xTF32
+    with A copied by cp.async."""
     m, n, k = 3000, 1024, 9
     g = torch.Generator(device=card).manual_seed(6)
     flat = torch.randn(m * n + 1, generator=g, device=card)
     A = flat[1:].view(m, n)
     Y = torch.randn((m, k), generator=g, device=card)
-    assert A.is_contiguous() and bm.route(A, k) == "ffma"
+    assert A.is_contiguous() and bm.route(A, k) == "tf32x3_cpasync"
     ops.reset_launches()
     got = ops.block_rmatvec(A, Y)
     torch.cuda.synchronize()
     assert _rel(got, ref.block_rmatvec_ref(A, Y, "float32")) <= 1e-5
     assert {n_: c for n_, c in ops.route_launches.items() if c} == {
-        "block_rmatvec/ffma": 1}
+        "block_rmatvec/tf32x3_cpasync": 1}
+
+
+def _padded_view(g, card, m, n, ld, offset=0):
+    """An fp32 (m, n) view of rows ``ld`` apart starting ``offset``
+    elements into an allocation of m + 1 rows, every element outside the
+    view NaN: a kernel that reads past a row's n-th element (or past the
+    last row) reads NaN and returns it."""
+    flat = torch.full((offset + (m + 1) * ld,), float("nan"), device=card)
+    view = flat[offset:offset + m * ld].view(m, ld)[:, :n]
+    view.copy_(torch.randn((m, n), generator=g, device=card))
+    return view
+
+
+def _sweeps_within(A, Q, Y, sd, route, chain_tol=1e-5):
+    """Every block sweep of ``ops`` on A within its limit of the plain
+    version, each launch on ``route``."""
+    ops.reset_launches()
+    for got, want, tol in (
+            (ops.block_matvec(A, Q), ref.block_matvec_ref(A, Q, sd), 1e-5),
+            (ops.block_rmatvec(A, Y), ref.block_rmatvec_ref(A, Y, sd), 1e-5),
+            (ops.block_gram_chain(A, Q), ref.block_gram_chain_ref(A, Q, sd),
+             chain_tol),
+            (ops.block_gram_chain(A, Y, trans=True),
+             ref.block_gram_chain_ref(A, Y, sd, trans=True), chain_tol)):
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert bool(torch.isfinite(got).all()) and _rel(got, want) <= tol
+    assert {n_: c for n_, c in ops.route_launches.items() if c} == {
+        f"block_matvec/{route}": 3, f"block_rmatvec/{route}": 3}
+
+
+@pytest.mark.parametrize("m,n,k", [
+    (5000, 1001, 7),     # n % 4 == 1, ragged m (not whole 256-row blocks)
+    (3001, 2054, 45),    # n % 4 == 2 (8-byte copies), k between widths
+    (1000, 515, 1),      # n % 4 == 3, the narrowest k
+    (4097, 515, 40),     # k between widths, m not a multiple of 32
+    (2049, 1027, 130),   # k > 64: three tiles of k
+    (257, 4097, 64),     # one row block, partly past m
+    (40001, 97, 33),     # several slabs, the last ragged; one stage deep
+    (33000, 4095, 32),   # the path's k, slabs ragged in m
+    (1000, 3, 32),       # fewer columns than one copy unit of a warp
+])
+def test_cpasync_sweeps_match_plain_versions(card, m, n, k):
+    g = torch.Generator(device=card).manual_seed(m + n + k)
+    A = torch.randn((m, n), generator=g, device=card)
+    Q = torch.randn((n, k), generator=g, device=card)
+    Y = torch.randn((m, k), generator=g, device=card)
+    assert bm.route(A, k) == "tf32x3_cpasync"
+    _sweeps_within(A, Q, Y, "float32", "tf32x3_cpasync")
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("ld", [1024, 1026, 1027])
+def test_cpasync_reads_only_the_view(card, offset, ld):
+    """A base 1-3 floats off 16 bytes and rows of every parity, the
+    elements past each row's n-th and past the last row NaN: the cp.async
+    route zero-fills the edges and reads nothing outside the view."""
+    m, n, k = 3001, 1021, 32
+    g = torch.Generator(device=card).manual_seed(offset * ld)
+    A = _padded_view(g, card, m, n, ld, offset)
+    Q = torch.randn((n, k), generator=g, device=card)
+    Y = torch.randn((m, k), generator=g, device=card)
+    assert bm.route(A, k) == "tf32x3_cpasync" and bm.row_stride(A) == ld
+    _sweeps_within(A, Q, Y, "float32", "tf32x3_cpasync")
+
+
+@pytest.mark.parametrize("dtype,ld,offset,route", [
+    ("float32", 1024, 0, "tf32x3"),      # rows of whole 16 bytes: TMA
+    ("bfloat16", 1024, 0, "wgmma"),
+    ("bfloat16", 1027, 0, "ffma"),       # bf16 rows no tensor map takes
+    ("bfloat16", 1024, 1, "ffma"),       # a base 2 bytes off 16
+])
+def test_views_of_wider_rows_are_read_in_place(card, dtype, ld, offset,
+                                               route):
+    """The other routes read a view of wider rows in place, never the
+    NaN padding past a row."""
+    m, n, k = 3001, 1021, 32
+    g = torch.Generator(device=card).manual_seed(ld + offset)
+    flat = torch.full((offset + (m + 1) * ld,), float("nan"), device=card)
+    flat = flat.to(getattr(torch, dtype))
+    A = flat[offset:offset + m * ld].view(m, ld)[:, :n]
+    A.copy_(torch.randn((m, n), generator=g, device=card))
+    Q = torch.randn((n, k), generator=g, device=card)
+    Y = torch.randn((m, k), generator=g, device=card)
+    assert bm.route(A, k) == route and bm.row_stride(A) == ld
+    _sweeps_within(A, Q, Y, dtype, route,
+                   chain_tol=1e-3 if dtype == "bfloat16" else 1e-5)
+
+
+@pytest.mark.parametrize("k", [1, 7, 32, 40, 130])
+def test_cpasync_takes_any_k(card, k):
+    m, n = 4099, 2047
+    g = torch.Generator(device=card).manual_seed(k)
+    A = torch.randn((m, n), generator=g, device=card)
+    Q = torch.randn((n, k), generator=g, device=card)
+    Y = torch.randn((m, k), generator=g, device=card)
+    _sweeps_within(A, Q, Y, "float32", "tf32x3_cpasync")
+
+
+@pytest.mark.parametrize("n", [709, 710])
+def test_cpasync_rmatvec_reruns_bitwise(card, n):
+    """4- and 8-byte copies; several slabs summed in order."""
+    g = torch.Generator(device=card).manual_seed(n)
+    A = torch.randn((40000, n), generator=g, device=card)
+    Y = torch.randn((40000, 40), generator=g, device=card)
+    assert bm.route(A, 40) == "tf32x3_cpasync"
+    assert -(-40000 // bm.rmatvec_slab_rows(40000, n, 40, bm.TF32_BK)) > 1
+    assert torch.equal(ops.block_rmatvec(A, Y), ops.block_rmatvec(A, Y))
+
+
+@pytest.mark.parametrize("m,n,k", [(5000, 1001, 7), (4097, 515, 40),
+                                   (33000, 4095, 32)])
+def test_padded_bf16_copy_runs_the_tensor_cores(card, m, n, k):
+    """The operator's bf16 copy of an odd-width A (rows padded to whole 16
+    bytes, the padding NaN here) on wgmma, within the limits."""
+    from repro_torch.core.operator import sweep_copy
+    g = torch.Generator(device=card).manual_seed(m + n + k)
+    A = torch.randn((m, n), generator=g, device=card)
+    As = sweep_copy(A, torch.bfloat16)
+    As.as_strided((m, As.stride(0)), (As.stride(0), 1))[:, n:].fill_(
+        float("nan"))
+    assert As.stride(0) % 8 == 0 and bm.route(As, k) == "wgmma"
+    Q = torch.randn((n, k), generator=g, device=card)
+    Y = torch.randn((m, k), generator=g, device=card)
+    _sweeps_within(As, Q, Y, "bfloat16", "wgmma", chain_tol=1e-3)
+
+
+@pytest.mark.parametrize("sweep_dtype", ["float32", "bfloat16"])
+def test_odd_width_svd_runs_no_ffma(card, sweep_dtype):
+    """svd(A, 32) at an odd width: the fp32 sweeps on the cp.async route,
+    the bf16 chains on wgmma (the padded copy), no FFMA launch, launches
+    equal to the pass accounting."""
+    import repro_torch
+    g = torch.Generator(device=card).manual_seed(8)
+    A = torch.randn((4099, 1001), generator=g, device=card)
+    ops.reset_launches()
+    res = repro_torch.svd(A, 32, sweep_dtype=sweep_dtype, force_iters=True,
+                          max_iters=3)
+    it = int(res.iters[0])
+    assert it == 3 and res.passes_over_A == 2 * it + 1
+    assert {n: c for n, c in ops.launches.items() if c} == {
+        "block_gram_chain": it, "block_matvec": it + 1, "block_rmatvec": it}
+    chains = "wgmma" if sweep_dtype == "bfloat16" else "tf32x3_cpasync"
+    want = {f"block_matvec/{chains}": it, f"block_rmatvec/{chains}": it}
+    want["block_matvec/tf32x3_cpasync"] = want.get(
+        "block_matvec/tf32x3_cpasync", 0) + 1      # the fp32 extraction
+    assert {n: c for n, c in ops.route_launches.items() if c} == want
+    assert bool(torch.isfinite(res.S).all()) and res.S.shape == (32,)
 
 
 def test_misaligned_bf16_runs_the_ffma_route(card):

@@ -21,8 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.operator import DenseOperator as JaxDense
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
+from repro_torch.core.operator import DenseOperator
 from repro_torch.kernels import build, ops
 
 # the package re-exports the wrapper function under the module's name
@@ -152,6 +154,12 @@ def _slab_case(m, n, k, slabs, which="ffma"):
     _slab_case(3001, 2052, 45, 3, "tf32x3"),
     _slab_case(40000, 96, 33, 40, "tf32x3"),
     _slab_case(37, 16, 5, 1, "tf32x3"),
+    # the fp32 cp.async route: the same 32-row stages, any width
+    _slab_case(262144, 32767, 32, 16, "tf32x3_cpasync"),  # odd-width shard
+    _slab_case(65536, 8190, 32, 8, "tf32x3_cpasync"),
+    _slab_case(4097, 515, 40, 5, "tf32x3_cpasync"),
+    _slab_case(40000, 97, 33, 40, "tf32x3_cpasync"),
+    _slab_case(37, 17, 5, 1, "tf32x3_cpasync"),
 ])
 def test_rmatvec_slab_split(m, n, k, slabs, step):
     """The split of block_rmatvec's reduction depends on the shape only:
@@ -163,10 +171,12 @@ def test_rmatvec_slab_split(m, n, k, slabs, step):
     assert -(-m // rows) == slabs
 
 
-def _meta(m, n, dtype=torch.bfloat16, offset=0):
-    """An (m, n) operand that only says its dtype, shape and alignment."""
-    flat = torch.empty(m * n + offset, dtype=dtype, device="meta")
-    return flat[offset:].view(m, n)
+def _meta(m, n, dtype=torch.bfloat16, offset=0, ld=None):
+    """An (m, n) operand that only says its dtype, shape, row stride
+    (``ld``, default n) and alignment."""
+    ld = n if ld is None else ld
+    flat = torch.empty(m * ld + offset, dtype=dtype, device="meta")
+    return flat[offset:].as_strided((m, n), (ld, 1))
 
 
 @pytest.mark.parametrize("A,k,want", [
@@ -180,14 +190,63 @@ def _meta(m, n, dtype=torch.bfloat16, offset=0):
     (_meta(5000, 1000), 7, "wgmma"),              # k % 8 != 0 is read as Y^T
     (_meta(3000, 200), 1, "wgmma"),               # the narrowest k
     (_meta(2048, 1024), 130, "wgmma"),            # k > 64: tiles of 64
-    (_meta(4097, 515, torch.float32), 40, "ffma"),   # fp32 n % 4 != 0
-    (_meta(5000, 1000, torch.float32, offset=1), 7, "ffma"),  # 4 bytes off
+    # fp32 rows no tensor map describes: 3xTF32 all the same, by cp.async
+    (_meta(4097, 515, torch.float32), 40, "tf32x3_cpasync"),   # n % 4 == 3
+    (_meta(5000, 1000, torch.float32, offset=1), 7,
+     "tf32x3_cpasync"),                                        # 4 bytes off
     (_meta(8192, 131072, torch.float32), 32, "tf32x3"),   # the wide input
+    (_meta(3000, 513, torch.float32), 32, "tf32x3_cpasync"),   # n % 4 == 1
+    (_meta(3000, 514, torch.float32), 32, "tf32x3_cpasync"),   # n % 4 == 2
+    (_meta(3000, 515, torch.float32), 32, "tf32x3_cpasync"),   # n % 4 == 3
+    (_meta(262144, 32767, torch.float32), 32, "tf32x3_cpasync"),
+    (_meta(5000, 1000, torch.float32, offset=2), 7,
+     "tf32x3_cpasync"),                                        # 8 bytes off
+    (_meta(5000, 515, torch.float32, ld=516), 7, "tf32x3"),   # padded rows
+    # bf16 rows padded to whole 16 bytes (the solver's copy): wgmma
+    (_meta(4097, 515, ld=520), 40, "wgmma"),
+    (_meta(4097, 515, ld=520, offset=1), 40, "ffma"),         # 2 bytes off
+    (_meta(4097, 515, ld=517), 40, "ffma"),       # rows not whole 16 bytes
 ], ids=["main", "wide", "fp32", "n515", "n300", "misaligned", "offset16",
-        "k7", "k1", "k130", "fp32-n515", "fp32-misaligned", "fp32-wide"])
+        "k7", "k1", "k130", "fp32-n515", "fp32-misaligned", "fp32-wide",
+        "fp32-n513", "fp32-n514", "fp32-n515-ragged", "fp32-odd-shard",
+        "fp32-offset8", "fp32-padded", "padded-n515", "padded-misaligned",
+        "padded-odd"])
 def test_route(A, k, want):
-    """The sweeps' route depends on dtype, shape and alignment alone."""
+    """The sweeps' route depends on dtype, row stride and alignment alone;
+    no fp32 operand runs FFMA."""
     assert cuda_kernels.route(A, k) == want
+
+
+@pytest.mark.parametrize("A,want", [
+    (_meta(30, 7), 7),                        # contiguous
+    (_meta(30, 7, ld=8), 8),                  # a view of wider rows
+    (_meta(1, 7, ld=3).as_strided((1, 7), (3, 1)), 7),   # one row
+    (_meta(7, 30).mT, None),                  # a transposed view
+    (_meta(30, 14)[:, ::2], None),            # a column step
+])
+def test_row_stride(A, want):
+    """The row stride the kernels read A with, or None where they cannot
+    read it in place."""
+    assert cuda_kernels.row_stride(A) == want
+
+
+@pytest.mark.parametrize("m,n", [(96, 43), (43, 96), (300, 200), (5, 1)])
+def test_bf16_sweep_copy_has_rows_of_whole_16_bytes(m, n):
+    """The operator's bf16 copy: A's values, rows padded to whole 16 bytes
+    (a tensor map describes it, so the tensor cores read it); the pass
+    accounting and the fingerprint stay the JAX package's."""
+    A = _inputs(m, n, 1)[0]
+    op = DenseOperator(torch.from_numpy(A), device="cpu",
+                       sweep_dtype="bfloat16")
+    As = op._As
+    assert As.shape == (m, n) and As.stride(0) % 8 == 0
+    assert cuda_kernels.row_stride(As) == As.stride(0)
+    assert torch.equal(As, torch.from_numpy(A).to(torch.bfloat16))
+    ref = JaxDense(jnp.asarray(A), sweep_dtype="bfloat16")
+    assert op.bytes_per_pass == ref.bytes_per_pass == m * n * 2
+    assert op.fingerprint == ref.fingerprint
+    fp32 = DenseOperator(torch.from_numpy(A), device="cpu")
+    assert fp32._As is fp32._A                # the fp32 A is never copied
 
 
 def test_build_target_follows_the_shared_headers(tmp_path, monkeypatch):

@@ -61,13 +61,22 @@ def _assert_same_subspaces(jres, tres):
 
 
 CASES = [(orient, sd, q) for orient in ("tall", "wide")
-         for sd in ("float32", "bfloat16") for q in (0, 1)]
+         for sd in ("float32", "bfloat16") for q in (0, 1)] + [
+    # odd width (96 x 43): the bf16 copy's rows are padded to 16 bytes
+    ("odd", sd, 0) for sd in ("float32", "bfloat16")]
+
+
+def _oriented(orient):
+    """The case's matrix: 96 x 40, its transpose, or 96 x 43."""
+    if orient == "odd":
+        return _matrix(n=43)
+    A = _matrix()
+    return A if orient == "tall" else np.ascontiguousarray(A.T)
 
 
 @pytest.mark.parametrize("orient,sweep_dtype,warmup_q", CASES)
 def test_svd_matches_jax(orient, sweep_dtype, warmup_q):
-    A = _matrix()
-    A = A if orient == "tall" else np.ascontiguousarray(A.T)
+    A = _oriented(orient)
     eps, rtol = (1e-6, 2e-4) if sweep_dtype == "float32" else (1e-4, 1e-2)
     jres, tres = _solve_both(A, sweep_dtype=sweep_dtype, eps=eps,
                              warmup_q=warmup_q)
@@ -81,8 +90,7 @@ def test_svd_matches_jax(orient, sweep_dtype, warmup_q):
 
 @pytest.mark.parametrize("orient,sweep_dtype,warmup_q", CASES)
 def test_accounting_equal_under_force_iters(orient, sweep_dtype, warmup_q):
-    A = _matrix()
-    A = A if orient == "tall" else np.ascontiguousarray(A.T)
+    A = _oriented(orient)
     jres, tres = _solve_both(A, sweep_dtype=sweep_dtype, warmup_q=warmup_q,
                              force_iters=True, max_iters=4)
     np.testing.assert_array_equal(tres.iters, np.asarray(jres.iters))

@@ -15,12 +15,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the library's SASS, ``cuobjdump -sass``).  Fails unless the path's
    instances (attention bf16 D = 256; the sweeps' ``matvec_tc<32>``,
    ``rmatvec_tc``, and ``matvec_tf32<32,CP>`` and ``rmatvec_tf32<32,CP>``
-   for CP = 0, 1, 2: A by TMA, by cp.async of 4 and of 8 bytes; k = 32)
-   have tensor-core instructions and spill nothing.  Beside the real
-   build, four planted faults for phase 2b: ``block_matvec_tc.cu`` with
-   ``-DREPRO_TC_SUMS_ONLY``, ``block_matvec_tf32.cu`` with
-   ``-DREPRO_TF32_ONLY``, with ``-DREPRO_TC_SUMS_ONLY`` and with
-   ``-DREPRO_NO_ZFILL``.
+   for CP = 0, 1, 2: A by TMA, by cp.async of 4 and of 8 bytes; k = 32;
+   and every instance of ``gram_tf32<TRANS,CP>``, ``A^T A`` and
+   ``A A^T`` for CP = 0, 1, 2) have tensor-core instructions and spill
+   nothing.  Beside the real build, six planted faults for phase 2b:
+   ``block_matvec_tc.cu`` with ``-DREPRO_TC_SUMS_ONLY``,
+   ``block_matvec_tf32.cu`` with ``-DREPRO_TF32_ONLY``, with
+   ``-DREPRO_TC_SUMS_ONLY`` and with ``-DREPRO_NO_ZFILL``, and
+   ``gram_tf32.cu`` with ``-DREPRO_TF32_ONLY`` and with
+   ``-DREPRO_TC_SUMS_ONLY``.
 2. every kernel on the card against its plain PyTorch version
    (``repro_torch/kernels/ref.py``): ``block_matvec``, ``block_rmatvec``
    and ``block_gram_chain`` (both orientations), fp32 and bf16, at
@@ -49,7 +52,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    route: 65536 x 32765 views of rows 32767 apart, padding NaN; the
    last fault must read outside the limit in ``block_matvec`` (in
    ``block_rmatvec`` the columns past n feed only output rows that are
-   never stored).
+   never stored).  And ``gram`` (``tf32x3``) with its two planted faults
+   on 65536 x 2048 inputs (the gram path's aspect), |N(0, 1)| and signed
+   N(0, 1): the real kernel within both of phase 4's gram readings on
+   both, each fault outside the off-diagonal one on at least one.
 3. the main path: ``repro_torch.svd(A, 32)`` with the default config on
    a 262144 x 32768 fp32 ``A`` (32 GiB, the paper's per-node shard)
    built on the card with singular values ``100 * 0.9**i`` (i < 64) plus
@@ -70,23 +76,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the fp32 sweeps timed at that shape; and a contiguous wide input (the
    operator's transposed path).
 4. the deflation kernels (``matvec``, ``deflate_rmatvec``, ``gram``,
-   both layouts; ``gram`` symmetric and full, fp32 and bf16) against
-   their plain versions at ragged shapes (relative Frobenius error, limit
+   both layouts; ``gram`` symmetric and full, fp32 on its route --
+   ``tf32x3`` where a tensor map describes A, else ``tf32x3_cpasync`` --
+   and bf16 on ``ffma``, read from the route launch counts, B exactly
+   symmetric; also on views whose row padding is NaN) against their
+   plain versions at ragged shapes (relative Frobenius error, limit
    1e-5; ``gram`` 4 sqrt(r) 2^-24 for a reduction of length r, at least
-   1e-5, see ``gram_tol``), and at the deflation paths' shapes with
-   kernel, plain, bound and library (a yardstick only) times.
+   1e-5, see ``gram_tol``, and a second reading over the off-diagonal
+   entries alone, ``gram_offdiag_err``, limit ``TOL_GRAM_OFFDIAG``: the
+   whole product's error is the diagonal's, which plain TF32 leaves
+   within ``gram_tol``), and at the deflation paths' shapes with kernel,
+   plain, bound and library (a yardstick only) times; ``gram`` in bf16
+   (``ffma``, no solve runs it) once through ``ops`` at the gram path's
+   shape.
 5. the gram-free path: ``repro_torch.svd(A, 16, method="gramfree")`` on
    the same 262144 x 32768 ``A``; sigma within rtol 2e-3 of the
    prescribed spectrum (the JAX package's deflation tolerance), launches
    ``matvec`` sum(iters) + k and ``deflate_rmatvec`` sum(iters), passes
    3 sum(iters) + k.  Then the gram path: ``svd(A, 8, method="gram")`` on
-   a 262144 x 8192 ``A`` (launches ``gram`` k, ``matvec`` k; passes 3k),
-   and both methods at k = 4 on the contiguous wide input (the ``trans``
-   kernels).
+   a 262144 x 8192 ``A`` (launches ``gram`` k, all on ``tf32x3``,
+   ``matvec`` k; passes 3k); the same one column short (262144 x 8191,
+   rows no tensor map describes: all on ``tf32x3_cpasync``, the kernel
+   timed there); and both methods at k = 4 on the contiguous wide input
+   (the ``trans`` kernels).
 6. determinism: two block solves (fp32 on ``tf32x3``, and bf16 on
    ``wgmma``) and two gram-free solves of a 16384 x 4096 matrix, and two
    fp32 block solves of a 16384 x 4095 one (``tf32x3_cpasync``), each
-   pair bitwise equal.
+   pair bitwise equal; and ``gram`` twice on each, both layouts.
 7. the LM serving path: the ``local_attention`` kernels (causal
    sliding-window attention, GQA, soft-cap; bf16 at D >= 64 on the
    tensor cores, the rest by FFMA) against their plain version at
@@ -138,9 +154,13 @@ kernels, launches from the bf16 odd-width chain handed to ``ops`` and
 times at 65536 x 8190, as ``<name>/tf32x3`` for the main path's fp32
 solve, as ``<name>/wgmma`` for the bf16 solve's chains and as
 ``<name>/tf32x3_cpasync`` for the odd-width shard's fp32 solve, timed at
-262144 x 32767), the ``nvidia-smi`` name and power limit line again,
-and last ``{"ok": true, "device": {...}}``.  Exits 2
-without a CUDA device or without ``src/repro_torch`` beside this script.
+262144 x 32767; ``gram`` for the gram solve's 3xTF32 kernel and
+``gram/ffma`` for the bf16 one, launched once through ``ops``, both
+timed at 262144 x 8192, and ``gram/tf32x3_cpasync`` for the odd-width
+gram solve's, timed at 262144 x 8191), the ``nvidia-smi`` name and
+power limit line again, and last ``{"ok": true, "device": {...}}``.
+Exits 2 without a CUDA device or without ``src/repro_torch`` beside this
+script.
 """
 from __future__ import annotations
 
@@ -186,13 +206,36 @@ TOL_CHAIN_BF16 = 1e-3
 
 
 def gram_tol(r: int) -> float:
-    """Limit of the gram kernel against its plain version for a reduction
-    of length ``r``: the kernel sums each entry in one fixed sequence (no
-    split of the reduction, so no atomics), which rounds to about
-    sqrt(r) * 2^-24 relative, where the plain version (cuBLAS) sums in
-    blocks and rounds less; 4 sqrt(r) 2^-24, and at least the 1e-5 of
-    the other kernels (1.2e-4 at r = 262144)."""
+    """Limit of the gram kernels against their plain version for a
+    reduction of length ``r``: each entry is summed in one fixed sequence
+    (no split of the reduction, so no atomics), which rounds to about
+    sqrt(r) * 2^-24 relative (the FFMA kernel's sum of r terms; the
+    3xTF32 kernel's of r / 32 stage sums), where the plain version
+    (cuBLAS) sums in blocks and rounds less; 4 sqrt(r) 2^-24, and at least
+    the 1e-5 of the other kernels (1.2e-4 at r = 262144)."""
     return max(1e-5, 4 * r ** 0.5 * 2.0 ** -24)
+
+
+# gram_tol cannot see plain TF32: on signed data at the gram path's aspect
+# (m / n = 32) plain TF32 reads 5.12e-5 over the whole product, inside
+# gram_tol (6.1e-5 at m = 65536), but 2.94e-4 over the off-diagonal
+# entries, whose sums cancel (readings on an H100, 65536 x 2048).  Limit of
+# that second reading (gram_offdiag_err), set between the sound kernels'
+# (3xTF32 <= 2.8e-6, bf16 by FFMA 8.1e-6, both at 262144 x 8192) and the
+# planted faults' (plain TF32 2.94e-4, unpromoted sums 4.6e-4).
+TOL_GRAM_OFFDIAG = 4e-5
+GRAM_FAULT = (65536, 2048)             # planted gram faults, the path's aspect
+
+
+def gram_offdiag_err(torch, got, want) -> float:
+    """The relative Frobenius error of ``got`` against ``want`` over the
+    entries off the main diagonal alone (of a product or of a slice of
+    its rows); 0 where there are none."""
+    d, w = got - want, want.clone()
+    d.diagonal().zero_()
+    w.diagonal().zero_()
+    den = float(torch.linalg.norm(w))
+    return float(torch.linalg.norm(d)) / den if den > 0 else 0.0
 # H100 SXM data sheet: HBM3 rate, fp32 (non-tensor), tf32 and bf16 dense
 # peaks
 PEAK_BYTES = 3.35e12
@@ -215,12 +258,16 @@ SOURCES = {"block_matvec": "src/repro_torch/csrc/block_matvec.cu",
            "block_gram_chain": "src/repro_torch/csrc/block_matvec.cu",
            "matvec": "src/repro_torch/csrc/deflate_matvec.cu",
            "deflate_rmatvec": "src/repro_torch/csrc/deflate_matvec.cu",
-           "gram": "src/repro_torch/csrc/gram.cu",
+           "gram": "src/repro_torch/csrc/gram_tf32.cu",
+           "gram/tf32x3_cpasync": "src/repro_torch/csrc/gram_tf32.cu",
+           "gram/ffma": "src/repro_torch/csrc/gram.cu",
            "local_attention": "src/repro_torch/csrc/local_attn.cu"}
 LIBRARY = {"matvec": "torch.mv(A, v)",
            "deflate_rmatvec": "torch.mv(A.mT, Xv - U @ SVtv) + U.mT @ Xv "
                               "(two calls)",
-           "gram": "torch.mm(A.mT, A) (TF32 off)"}
+           "gram": "torch.mm(A.mT, A) (TF32 off)",
+           "gram/tf32x3_cpasync": "torch.mm(A.mT, A) (TF32 off)",
+           "gram/ffma": "none (bf16 in, fp32 out)"}
 
 
 def fail(msg: str) -> None:
@@ -259,22 +306,27 @@ def gram_flop(m: int, n: int) -> int:
 
 
 def deflation_bound(name: str, m: int, n: int, k: int = 0) -> tuple:
-    """Least time on an H100 SXM for the fp32 deflation kernels: each
-    input read once and each output written once over the memory rate,
-    the flop over the fastest fp32-accurate rate: ``matvec`` and
+    """Least time on an H100 SXM for the deflation kernels: each input
+    read once and each output written once over the memory rate, the flop
+    over the fastest rate that keeps the result: ``matvec`` and
     ``deflate_rmatvec`` at the fp32 (non-tensor) peak (a matrix-vector
-    product gains nothing from the tensor cores), ``gram`` as 3xTF32,
-    three TF32 products at the TF32 peak (its FFMA figure, at the fp32
-    peak, is printed beside it)."""
+    product gains nothing from the tensor cores), fp32 ``gram`` as
+    3xTF32, three TF32 products at the TF32 peak (its FFMA figure, at the
+    fp32 peak, is printed beside it), bf16 ``gram`` (``gram/ffma``) at the
+    bf16 peak (its products are exact in fp32)."""
     if name == "matvec":
         nbytes, flop = 4 * (m * n + n + m), 2 * m * n
     elif name == "deflate_rmatvec":
         nbytes = 4 * (m * n + m * k + m + k + n + k)
         flop = 2 * m * n + 4 * m * k
-    else:
+    elif name == "gram":
         nbytes = 4 * (m * n + n * n)
         return pick(nbytes / PEAK_BYTES * 1e3,
                     3 * gram_flop(m, n) / PEAK_OPS["tfloat32"] * 1e3)
+    else:       # gram/ffma: bf16 products are exact, fp32 sums (bf16 cores)
+        nbytes = 2 * m * n + 4 * n * n
+        return pick(nbytes / PEAK_BYTES * 1e3,
+                    gram_flop(m, n) / PEAK_OPS["bfloat16"] * 1e3)
     return pick(nbytes / PEAK_BYTES * 1e3, flop / PEAK_OPS["float32"] * 1e3)
 
 
@@ -466,10 +518,49 @@ def padded_views(torch, ops, ref, bm, g, dev) -> float:
     return worst
 
 
-def deflation_ragged(torch, ops, ref, g, dev) -> float:
-    """The deflation kernels against their plain versions at ragged
-    shapes, both layouts; returns the worst error as a share of its
+def gram_readings(torch, ops, ref, gm, As, label: str) -> float:
+    """``gram`` of ``As`` (fp32 or bf16, contiguous or a view of wider
+    rows), both layouts, symmetric and full, against its plain version:
+    the route that ran (from the route launch counts) is
+    ``gram.route``'s, B is exactly symmetric, the whole product within
+    ``gram_tol`` and its off-diagonal entries within
+    ``TOL_GRAM_OFFDIAG``.  Returns the worst reading as a share of its
     limit."""
+    worst = 0.0
+    m, n = As.shape
+    which = gm.route(As)
+    sd = str(As.dtype).split(".")[1]
+    for trans in (False, True):
+        want = ref.gram_ref(As, trans)
+        tol = gram_tol(n if trans else m)
+        for sym in (True, False):
+            ops.reset_launches()
+            got = ops.gram(As, symmetric=sym, trans=trans)
+            torch.cuda.synchronize()
+            ran = {n_: c for n_, c in ops.route_launches.items() if c}
+            lab = (f"gram[{sd},{'sym' if sym else 'full'}"
+                   f"{',trans' if trans else ''}] ({which}) {label}")
+            if ran != {f"gram/{which}": 1}:
+                fail(f"{lab}: launches by route {ran}")
+            if not torch.equal(got, got.mT):
+                fail(f"{lab}: B is not symmetric")
+            e = check(torch, lab, got, want, tol)
+            od = gram_offdiag_err(torch, got, want)
+            print(f"  {lab}: rel err {e:.2e} (limit {tol:.1e}), off the "
+                  f"diagonal {od:.2e} (limit {TOL_GRAM_OFFDIAG:.0e})")
+            if outside(od, TOL_GRAM_OFFDIAG):
+                fail(f"{lab}: off-diagonal rel err {od} > "
+                     f"{TOL_GRAM_OFFDIAG}")
+            worst = max(worst, e / tol, od / TOL_GRAM_OFFDIAG)
+            del got
+    return worst
+
+
+def deflation_ragged(torch, ops, ref, gm, g, dev) -> float:
+    """The deflation kernels against their plain versions at ragged
+    shapes, both layouts, and ``gram`` also on views whose row padding
+    is NaN (a kernel that reads past a row's n-th element returns NaN);
+    returns the worst error as a share of its limit."""
     worst = 0.0
     rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
     # k = 1030: U^T Xv summed in two column chunks of U
@@ -490,29 +581,44 @@ def deflation_ragged(torch, ops, ref, g, dev) -> float:
                  ref.deflate_rmatvec_ref(A, V, v, c, True))):
             cases += [(lab + ".t13", got[0], want[0], 1e-5),
                       (lab + ".utx", got[1], want[1], 1e-5)]
-        for sd in ("float32", "bfloat16"):
-            As = A.to(getattr(torch, sd))
-            for trans in (False, True):
-                want = ref.gram_ref(As, trans)
-                for sym in (True, False):
-                    got = ops.gram(As, symmetric=sym, trans=trans)
-                    cases.append((f"gram[{sd},{'sym' if sym else 'full'}"
-                                  f"{',trans' if trans else ''}]", got, want,
-                                  gram_tol(n if trans else m)))
-                    if not torch.equal(got, got.mT):
-                        fail(f"gram {sd} {(m, n)}: B is not symmetric")
         torch.cuda.synchronize()
         for lab, got, want, tol in cases:
             e = check(torch, f"{lab} m={m} n={n} k={k}", got, want, tol)
             worst = max(worst, e / tol)
             print(f"  {lab:30s} m={m} n={n} k={k}: rel err {e:.2e} "
                   f"(limit {tol:.1e})")
+        del cases
+        if k != 1030:                 # gram does not depend on k
+            for sd in ("float32", "bfloat16"):
+                worst = max(worst, gram_readings(
+                    torch, ops, ref, gm, A.to(getattr(torch, sd)),
+                    f"m={m} n={n}"))
+    # views of rows ld apart at a base `offset` elements into an allocation
+    # of one row more, NaN outside the view: cp.async of 4 and 8 bytes,
+    # TMA, and the bf16 kernel's element and 8-byte loads
+    for (m, n, ld, offset, sd) in [(3001, 1021, 1024, 1, "float32"),
+                                   (3001, 1021, 1026, 2, "float32"),
+                                   (3001, 1021, 1024, 0, "float32"),
+                                   (3001, 1021, 1024, 1, "bfloat16"),
+                                   (3001, 1024, 1032, 0, "bfloat16")]:
+        flat = torch.full((offset + (m + 1) * ld,), float("nan"),
+                          dtype=getattr(torch, sd), device=dev)
+        A = flat[offset:offset + m * ld].view(m, ld)[:, :n]
+        A.copy_(rnd(m, n))
+        worst = max(worst, gram_readings(
+            torch, ops, ref, gm, A,
+            f"view m={m} n={n} rows {ld} apart at offset {offset}"))
+        del flat, A
     return worst
 
 
-def time_kernel(torch, name, kern, plain, lib, reps, tol, bnd) -> dict:
+def time_kernel(torch, name, kern, plain, lib, reps, tol, bnd,
+                offdiag=False) -> dict:
     """Check the kernel at a path shape and time it, its plain version
-    and its library yardstick (``reps`` runs each, CUDA events)."""
+    and its library yardstick (``reps`` runs each, CUDA events; ``lib``
+    None where no one PyTorch call computes the function).  ``offdiag``:
+    ``gram``'s second reading, its off-diagonal entries within
+    ``TOL_GRAM_OFFDIAG``."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
     if isinstance(got, tuple):
@@ -522,44 +628,59 @@ def time_kernel(torch, name, kern, plain, lib, reps, tol, bnd) -> dict:
     else:
         e = check(torch, name, got, want, tol)
         mae = float((got - want).abs().max())
+    row = {"max_abs_err": mae, "rel_err": e, "limit": tol}
+    if offdiag:
+        row["offdiag_err"] = gram_offdiag_err(torch, got, want)
+        if outside(row["offdiag_err"], TOL_GRAM_OFFDIAG):
+            fail(f"{name}: off-diagonal rel err {row['offdiag_err']} > "
+                 f"{TOL_GRAM_OFFDIAG}")
     del got, want
-    row = {"max_abs_err": mae, "rel_err": e, "limit": tol,
-           "ms": time_ms(torch, kern, reps),
-           "plain_ms": time_ms(torch, plain, reps),
-           "library_ms": time_ms(torch, lib, reps)}
+    row.update(ms=time_ms(torch, kern, reps),
+               plain_ms=time_ms(torch, plain, reps),
+               library_ms=None if lib is None else time_ms(torch, lib, reps))
     row["bound_ms"], row["bound_by"] = bnd
-    print(f"  {name:16s} fp32: rel err {e:.2e} (limit {tol:.0e}), kernel "
-          f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
-          f"{row['library_ms']:.3f} ms ({LIBRARY[name]}), bound "
-          f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
+    print(f"  {name:16s}: rel err {e:.2e} (limit {tol:.0e})" + (
+              f", off the diagonal {row['offdiag_err']:.2e} (limit "
+              f"{TOL_GRAM_OFFDIAG:.0e})" if offdiag else "")
+          + f", kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+          f"library " + ("-" if lib is None else
+                         f"{row['library_ms']:.3f} ms")
+          + f" ({LIBRARY[name]}), bound {row['bound_ms']:.3f} ms "
+          f"({row['bound_by']})")
     return row
 
 
 def deflation_solve(torch, repro_torch, ops, X, k, method, label, s,
-                    table=None):
+                    table=None, gram_route="tf32x3"):
     """One deflation solve through ``repro_torch.svd``, held to the
-    prescribed spectrum and to the pass accounting; returns the launch
-    counts of its run."""
+    prescribed spectrum, to the pass accounting and (``method="gram"``)
+    to ``gram_route``, the route of the engine's residual (a fresh
+    contiguous fp32 copy of ``X``'s shape); returns the launch counts of
+    its run."""
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     res = repro_torch.svd(X, k, method=method)
     counts = {n: c for n, c in ops.launches.items() if c}
+    routes = {n: c for n, c in ops.route_launches.items() if c}
     it = [int(i) for i in res.iters]
     err = float((res.S.double().cpu() / s[:k].double().cpu() - 1)
                 .abs().max())
     print(f"{label}: iters per rank {it} (sum {sum(it)}), passes_over_A "
           f"{res.passes_over_A}, bytes_per_pass {res.bytes_per_pass}, "
           f"converged {res.converged}, wall_time_s {res.wall_time_s:.3f}, "
-          f"launches {counts}, max sigma rel err {err:.2e} (limit "
-          f"{TOL_DEFLATION:.0e}), peak device memory "
+          f"launches {counts} (by route {routes}), max sigma rel err "
+          f"{err:.2e} (limit {TOL_DEFLATION:.0e}), peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     if method == "gramfree":
         want = {"matvec": sum(it) + k, "deflate_rmatvec": sum(it)}
-        passes = 3 * sum(it) + k
+        passes, want_routes = 3 * sum(it) + k, {}
     else:
         want, passes = {"gram": k, "matvec": k}, 3 * k
+        want_routes = {f"gram/{gram_route}": k}
     if counts != want:
         fail(f"{label}: launches {counts}, pass accounting implies {want}")
+    if routes != want_routes:
+        fail(f"{label}: launches by route {routes}, want {want_routes}")
     if res.passes_over_A != passes or res.backend != "dense" \
             or res.bytes_moved is not None:
         fail(f"{label}: passes {res.passes_over_A} (want {passes}), "
@@ -611,21 +732,22 @@ def instances(build, name: str, log: str) -> tuple:
 
 def sweep_instances(build, name: str, log: str, tag: str, dtype: str,
                     want: tuple) -> None:
-    """Each tensor-core instance of the block sweeps of library ``name``
-    (``block_matvec_tc``: kernels ``matvec_tc<N>``, ``rmatvec_tc``;
-    ``block_matvec_tf32``: ``matvec_tf32<N,CP>``, ``rmatvec_tf32<N,CP>``,
-    CP = 0 the TMA producer, 1 or 2 the cp.async one; ``tag`` the
-    suffix): registers, spills, HGMMA count; fail unless the path's
-    (``want``, k = 32) have HGMMA and spill nothing."""
+    """Each tensor-core instance of the block sweeps and ``gram`` of
+    library ``name`` (``block_matvec_tc``: kernels ``matvec_tc<N>``,
+    ``rmatvec_tc``; ``block_matvec_tf32``: ``matvec_tf32<N,CP>``,
+    ``rmatvec_tf32<N,CP>``; ``gram_tf32``: ``gram_tf32<TRANS,CP>``; CP = 0
+    the TMA producer, 1 or 2 the cp.async one; ``tag`` the suffix):
+    registers, spills, HGMMA count; fail unless the path's (``want``)
+    have HGMMA and spill nothing."""
     import re
     insts, mma = instances(build, name, log)
     path = {}
     for mangled, info in insts.items():
-        m = re.search(rf"\d(r?matvec)_{tag}(?:ILi(\d+)E(?:Li(\d+)E)?)?",
+        m = re.search(rf"\d(r?matvec|gram)_{tag}(?:I((?:L[ib]\d+E)+))?",
                       mangled)
         if m is None:
             continue
-        args = ",".join(a for a in m.group(2, 3) if a)
+        args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2) or ""))
         label = m.group(1) + f"_{tag}" + (f"<{args}>" if args else "")
         n_mma = mma.get(mangled, 0)
         print(f"  {name} {label:16s} {dtype}: {info['regs']} registers, "
@@ -671,7 +793,9 @@ def attention_instances(build, la, log: str) -> None:
 PLANTED = (("block_matvec_tc", "REPRO_TC_SUMS_ONLY"),
            ("block_matvec_tf32", "REPRO_TF32_ONLY"),
            ("block_matvec_tf32", "REPRO_TC_SUMS_ONLY"),
-           ("block_matvec_tf32", "REPRO_NO_ZFILL"))
+           ("block_matvec_tf32", "REPRO_NO_ZFILL"),
+           ("gram_tf32", "REPRO_TF32_ONLY"),
+           ("gram_tf32", "REPRO_TC_SUMS_ONLY"))
 
 
 def build_planted(build, name: str, flag: str) -> tuple:
@@ -713,7 +837,6 @@ def planted_faults(torch, bm, ref, planted, sd, g, dev, inputs, width=N,
     sweeps are within the limit on every input and every planted fault
     reads outside it on at least one, in each sweep of ``seen[flag]``
     (default both).  Returns the errors by input."""
-    import ctypes
     m = 65536
     ld = width if ld is None else ld
     dt = getattr(torch, sd)
@@ -737,15 +860,8 @@ def planted_faults(torch, bm, ref, planted, sd, g, dev, inputs, width=N,
             return {"block_matvec": bm.block_matvec_cuda(A, Q, which),
                     "block_rmatvec": bm.block_rmatvec_cuda(A, Y, which)}
         runs = {"real": run()}
-        library = bm.build.library
         for (lib, flag), path in planted.items():
-            fault = ctypes.CDLL(str(path))
-            bm.build.library = lambda name: (fault if name == lib
-                                             else library(name))
-            try:
-                runs[flag] = run()
-            finally:
-                bm.build.library = library
+            runs[flag] = planted_run(bm, lib, path, run)
         torch.cuda.synchronize()
         for name in want:
             e = errs[(kind, name)] = {
@@ -771,6 +887,69 @@ def planted_faults(torch, bm, ref, planted, sd, g, dev, inputs, width=N,
                      f"the limit {tol} on every input: the check cannot "
                      f"see it")
     return errs
+
+
+def planted_run(kernels, lib: str, path, fn):
+    """``fn()`` with library ``lib`` taken from the planted-fault build at
+    ``path`` in place of the real one (``kernels``: the binding module,
+    whose ``build.library`` loads the libraries)."""
+    import ctypes
+    fault = ctypes.CDLL(str(path))
+    library = kernels.build.library
+    kernels.build.library = lambda name: (fault if name == lib
+                                          else library(name))
+    try:
+        return fn()
+    finally:
+        kernels.build.library = library
+
+
+def gram_planted_faults(torch, gm, ref, planted, g, dev) -> dict:
+    """``gram`` on the route ``A`` takes (fp32, contiguous: ``tf32x3``) and
+    from each planted-fault library of ``planted`` ({(library, flag):
+    path}) against the plain version on ``GRAM_FAULT`` inputs of the gram
+    path's aspect: ``"abs"``, |N(0, 1)| (every sum grows, as a truncating
+    accumulator likes least), and ``"signed"``, N(0, 1) (the off-diagonal
+    sums cancel, so a rounding error of each product is not averaged
+    away).  Both of phase 4's readings: the whole product against
+    ``gram_tol``, its off-diagonal entries against ``TOL_GRAM_OFFDIAG``.
+    Fail unless the real kernel is within both on every input and every
+    planted fault reads outside the off-diagonal limit on at least one.
+    Returns the readings by input."""
+    m, n = GRAM_FAULT
+    tol = gram_tol(m)
+    readings = {}
+    for kind in ("abs", "signed"):
+        A = torch.randn((m, n), generator=g, device=dev)
+        if kind == "abs":
+            A.abs_()
+        which = gm.route(A)
+        want = ref.gram_ref(A)
+        runs = {"real": gm.gram_cuda(A, which)}
+        for (lib, flag), path in planted.items():
+            runs[flag] = planted_run(gm, lib, path,
+                                     lambda: gm.gram_cuda(A, which))
+        torch.cuda.synchronize()
+        r = readings[kind] = {
+            key: (rel_err(torch, B, want), gram_offdiag_err(torch, B, want))
+            for key, B in runs.items()}
+        print(f"  gram fp32 ({which}) {m}x{n}, {kind} input: rel err "
+              f"{r['real'][0]:.2e} (limit {tol:.1e}), off the diagonal "
+              f"{r['real'][1]:.2e} (limit {TOL_GRAM_OFFDIAG:.0e})" + "".join(
+                  f"; with {FAULT_LABELS[flag]} {r[flag][0]:.2e}, off the "
+                  f"diagonal {r[flag][1]:.2e}"
+                  for flag in r if flag != "real"))
+        if outside(r["real"][0], tol) or outside(r["real"][1],
+                                                 TOL_GRAM_OFFDIAG):
+            fail(f"gram fp32 on the {kind} input: readings {r['real']}")
+        del A, want, runs
+    for _, flag in planted:
+        if not any(outside(readings[kind][flag][1], TOL_GRAM_OFFDIAG)
+                   for kind in readings):
+            fail(f"gram with {FAULT_LABELS[flag]} reads within the "
+                 f"off-diagonal limit {TOL_GRAM_OFFDIAG} on every input: the "
+                 f"check cannot see it")
+    return readings
 
 
 def attn_share(got, want, dtype: str) -> float:
@@ -1203,6 +1382,7 @@ def main() -> int:
     import repro_torch
     from repro_torch.kernels import build, local_attn, ops, ref
     bm = importlib.import_module("repro_torch.kernels.block_matvec")
+    gm = importlib.import_module("repro_torch.kernels.gram")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1241,12 +1421,17 @@ def main() -> int:
     attention_instances(build, local_attn, logs.get("local_attn") or (
         build.BUILD_DIR / "local_attn.log").read_text())
     # fp32 on the paths: TMA (CP 0) at the main path's width, cp.async of
-    # 4 bytes (CP 1) at 32767 columns, of 8 (CP 2) at 8190
+    # 4 bytes (CP 1) at 32767 columns, of 8 (CP 2) at 8190; gram every
+    # instance (A^T A on the gram path, A A^T on the wide input, cp.async
+    # at ragged widths)
     for name, tag, sd, want in (
             ("block_matvec_tc", "tc", "bf16", ("matvec_tc<32>", "rmatvec_tc")),
             ("block_matvec_tf32", "tf32", "fp32",
              tuple(f"{kern}_tf32<32,{cp}>" for cp in (0, 1, 2)
-                   for kern in ("matvec", "rmatvec")))):
+                   for kern in ("matvec", "rmatvec"))),
+            ("gram_tf32", "tf32", "fp32",
+             tuple(f"gram_tf32<{trans},{cp}>" for trans in (0, 1)
+                   for cp in (0, 1, 2)))):
         sweep_instances(build, name, logs.get(name) or (
             build.BUILD_DIR / f"{name}.log").read_text(), tag, sd, want)
 
@@ -1303,7 +1488,7 @@ def main() -> int:
     worst = padded_views(torch, ops, ref, bm, g, dev)
     print(f"views of padded rows: all within limits (worst {worst:.2f} of "
           f"limit)")
-    worst = deflation_ragged(torch, ops, ref, g, dev)
+    worst = deflation_ragged(torch, ops, ref, gm, g, dev)
     print(f"deflation kernels at ragged shapes: all within limits (worst "
           f"{worst:.2f} of limit)")
 
@@ -1337,6 +1522,9 @@ def main() -> int:
         if key[0] == "block_matvec_tf32"}, "float32", g, dev,
         ("abs", "signed"), width=N - 3, ld=N - 1,
         seen={"REPRO_NO_ZFILL": ("block_matvec",)})
+    gram_planted_faults(torch, gm, ref, {
+        key: path for key, path in planted.items() if key[0] == "gram_tf32"},
+        g, dev)
 
     # -- 4. the gram-free kernels at the gram-free path's shape -------------
     v = torch.randn(N, generator=g, device=dev)
@@ -1461,18 +1649,72 @@ def main() -> int:
 
     Ag, _ = spectral_matrix(torch, M, N_GRAM, SEED + 4, dev)
     torch.cuda.synchronize()
+    ops.reset_launches()
     dtable["gram"] = time_kernel(
         torch, "gram", lambda: ops.gram(Ag), lambda: ref.gram_ref(Ag),
         lambda: torch.mm(Ag.mT, Ag), 2, gram_tol(M),
-        deflation_bound("gram", M, N_GRAM))
+        deflation_bound("gram", M, N_GRAM), offdiag=True)
+    ran = {n_: c for n_, c in ops.route_launches.items() if c}
     print(f"  gram's bound by FFMA alone (the fp32 peak, no tensor cores): "
-          f"{gram_flop(M, N_GRAM) / PEAK_OPS['float32'] * 1e3:.2f} ms")
+          f"{gram_flop(M, N_GRAM) / PEAK_OPS['float32'] * 1e3:.2f} ms; "
+          f"launches by route {ran}")
+    if set(ran) != {"gram/tf32x3"}:
+        fail(f"gram at {(M, N_GRAM)}: launches by route {ran}")
+    # where its time goes: the planted-fault builds at the same shape;
+    # plain TF32 keeps all of the staging and a third of the products
+    for (lib, flag), path in planted.items():
+        if lib == "gram_tf32":
+            dtable["gram"][f"ms_{flag.lower()}"] = planted_run(
+                gm, lib, path, lambda: time_ms(
+                    torch, lambda: gm.gram_cuda(Ag, "tf32x3"), 2))
+    print(f"  gram with plain TF32 (a third of the products, all of the "
+          f"staging): {dtable['gram']['ms_repro_tf32_only']:.3f} ms; with "
+          f"the sums left in the tensor cores: "
+          f"{dtable['gram']['ms_repro_tc_sums_only']:.3f} ms; the kernel "
+          f"{dtable['gram']['ms']:.3f} ms")
+    # bf16 gram (FFMA), which no solve runs: once through ops, then timed
+    Agb = Ag.to(torch.bfloat16)
+    ops.reset_launches()
+    ops.gram(Agb)
+    torch.cuda.synchronize()
+    gram_ffma = {n_: c for n_, c in ops.route_launches.items() if c}
+    if gram_ffma != {"gram/ffma": 1}:
+        fail(f"bf16 gram: launches by route {gram_ffma}, want ffma")
+    dtable["gram/ffma"] = time_kernel(
+        torch, "gram/ffma", lambda: ops.gram(Agb), lambda: ref.gram_ref(Agb),
+        None, 2, gram_tol(M), deflation_bound("gram/ffma", M, N_GRAM),
+        offdiag=True)
+    del Agb
     counts = deflation_solve(
         torch, repro_torch, ops, Ag, K_GRAM, "gram",
         f"gram path svd(A, {K_GRAM}, method='gram') {M}x{N_GRAM}", s,
         table=dtable)
     path_counts["gram"] = counts["gram"]
+    path_counts["gram/ffma"] = gram_ffma["gram/ffma"]
     del Ag
+    torch.cuda.empty_cache()
+    # the gram path one column short: rows of 4 * 8191 bytes, which no
+    # tensor map describes, nor the engine's residual of the same rows
+    Ago, _ = spectral_matrix(torch, M, N_GRAM - 1, SEED + 9, dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    dtable["gram/tf32x3_cpasync"] = time_kernel(
+        torch, "gram/tf32x3_cpasync", lambda: ops.gram(Ago),
+        lambda: ref.gram_ref(Ago), lambda: torch.mm(Ago.mT, Ago), 2,
+        gram_tol(M), deflation_bound("gram", M, N_GRAM - 1), offdiag=True)
+    ran = {n_: c for n_, c in ops.route_launches.items() if c}
+    if set(ran) != {"gram/tf32x3_cpasync"}:
+        fail(f"gram at {(M, N_GRAM - 1)}: launches by route {ran}")
+    counts = deflation_solve(
+        torch, repro_torch, ops, Ago, K_GRAM, "gram",
+        f"odd-width gram path svd(A, {K_GRAM}, method='gram') "
+        f"{M}x{N_GRAM - 1}", s, table={
+            "gram": dtable["gram/tf32x3_cpasync"], "matvec": dtable["matvec"]},
+        gram_route="tf32x3_cpasync")
+    path_counts["gram/tf32x3_cpasync"] = counts["gram"]
+    for key in ("gram/ffma", "gram/tf32x3_cpasync"):
+        REPLACES[key] = REPLACES["gram"]
+    del Ago
     torch.cuda.empty_cache()
 
     # rows of 4 * 8190 bytes: no tensor map; fp32 runs 3xTF32 with A copied
@@ -1566,6 +1808,15 @@ def main() -> int:
                  f"fp32 operand's {fp32_route}")
         if not same:
             fail(f"two solves with the same seed differ ({kw})")
+    for X in (Ar, Aro):                  # gram on tf32x3, tf32x3_cpasync
+        for trans in (False, True):
+            same = torch.equal(ops.gram(X, trans=trans),
+                               ops.gram(X, trans=trans))
+            print(f"rerun gram {X.shape[0]}x{X.shape[1]} ({gm.route(X)}, "
+                  f"trans={trans}): bitwise equal: {same}")
+            if not same:
+                fail(f"two gram runs of {tuple(X.shape)} (trans={trans}) "
+                     f"differ")
 
     del Ar, Aro
     torch.cuda.empty_cache()

@@ -9,7 +9,7 @@ A-sized sweeps run on the ``block_matvec``/``block_rmatvec`` kernels of
 ``csrc/block_matvec_tc.cu`` (bf16), and the rank-one deflation engines
 (``method="gramfree"`` on the ``matvec``/``deflate_rmatvec`` kernels of
 ``csrc/deflate_matvec.cu``, ``method="gram"`` on the ``gram`` kernel of
-``csrc/gram.cu``).  On the LM side, serving (``repro_torch.models``,
+``csrc/gram_tf32.cu``, 3xTF32).  On the LM side, serving (``repro_torch.models``,
 ``repro_torch.configs``, ``python -m repro_torch.launch.serve``): a
 batched prefill whose attention runs on the ``local_attention`` kernel
 of ``csrc/local_attn.cu`` (causal sliding-window attention with GQA and

@@ -14,7 +14,7 @@ Python, same names and results).  The paper uses two 1-D partitions of
 This module only does the shape bookkeeping (padding to divisibility,
 batch boundaries for the out-of-core path, the reduced-task list of the
 symmetric Gram).  ``symmetric_tasks`` is also the order in which the
-``gram`` kernel (``csrc/gram.cu``) enumerates its output tiles.
+``gram`` kernels (``csrc/gram_tasks.cuh``) enumerate their output tiles.
 """
 from __future__ import annotations
 

@@ -175,17 +175,6 @@ struct Smem {
   static constexpr int BYTES = BAR + 16 * STAGES + 1024;
 };
 
-// The fragment x split into its tf32 halves.
-__device__ __forceinline__ void split(const uint32_t (&x)[4], uint32_t (&hi)[4],
-                                      uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float v = __uint_as_float(x[e]);
-    hi[e] = tf32_rna(v);
-    lo[e] = tf32_rna(v - __uint_as_float(hi[e]));
-  }
-}
-
 // One stage's products of a consumer's two m64 tiles, their sums restarted
 // (`restart`): acc[t] = sum over the stage's k8 steps s of
 // A_t,s (B_hi + B_lo) as a_lo b_hi + a_hi b_lo, then a_hi b_hi.
@@ -227,70 +216,6 @@ __device__ __forceinline__ void zero(float (&r)[2][N / 2]) {
   for (int t = 0; t < 2; ++t)
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) r[t][i] = 0.0f;
-}
-
-// The producer thread t's (0 .. 127) share of a stage of A by cp.async:
-// rows r0 .. r0 + R - 1 and columns c0 .. c0 + 32 BOXES - 1 of A (rows lda
-// apart), as BOXES boxes of R rows x 32 fp32, box b the columns
-// c0 + 32 b .., each row of 128 bytes in the 128-byte swizzle (16-byte
-// chunk c of row r at chunk c ^ (r % 8)), exactly as TMA writes the box.
-// Rows from r_end and columns from n arrive as zeros and are not read.
-// A thread keeps its columns (consecutive threads on consecutive copies of
-// a row: coalesced) and steps down the rows by a fixed stride; its rows
-// fall on 8 swizzle patterns, whose destinations it computes once, so a
-// stage with no row past the edge costs a copy and a pointer step a copy.
-// UNROLL: the rows' loop unrolled whole, else in groups of 8 (block_rmatvec
-// and block_matvec respectively: the faster of the two for each kernel in
-// development runs on an H100, PERF.md section 6).
-template <int CP, int R, int BOXES, bool UNROLL>
-__device__ __forceinline__ void copy_stage(uint32_t dst,
-                                           const float* __restrict__ A,
-                                           long long lda, int r0, int r_end,
-                                           int c0, int n, int t) {
-  constexpr int UPR = 32 * BOXES / CP;       // copies in a row of the stage
-  constexpr int TPR = UPR < 128 ? UPR : 128; // threads on one row
-  constexpr int RPP = 128 / TPR;             // rows a pass of the 128 threads
-  constexpr int P = R / RPP;                 // copies a thread a column
-  static_assert(P % 8 == 0, "rows in whole swizzle patterns");
-  const int rt = TPR == 128 ? 0 : t / TPR;   // the thread's first row
-  const bool whole = r0 + R <= r_end;        // no row past the edge
-#pragma unroll 1
-  for (int cs = 0; cs < UPR / TPR; ++cs) {   // the thread's columns, in turn
-    const int c = (t % TPR + cs * TPR) * CP, j = c % 32;
-    const int left = ZFILL ? max(0, min(CP, n - c0 - c)) : CP;
-    uint32_t d[8];                           // rows rt + q RPP, q < 8
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int r = rt + q * RPP;
-      d[q] = dst + (c / 32) * R * 128 + r * 128 +
-             (((j >> 2) ^ (r & 7)) << 4) + 4 * (j & 3);
-    }
-    // a column past n reads nothing: the source stays at A's base
-    const float* src = left > 0 ? A + (r0 + rt) * lda + c0 + c : A;
-    const long long step = left > 0 ? RPP * lda : 0;
-    // 8 rows a group, one of each swizzle pattern
-    auto group = [&](int p) {
-      const uint32_t off = p * RPP * 128;
-      if (whole) {
-#pragma unroll
-        for (int q = 0; q < 8; ++q, src += step)
-          cp_async<4 * CP>(d[q] + off, src, 4 * left);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 8; ++q, src += step) {
-          const int bytes = r0 + rt + (p + q) * RPP < r_end ? 4 * left : 0;
-          cp_async<4 * CP>(d[q] + off, bytes > 0 ? src : A, bytes);
-        }
-      }
-    };
-    if constexpr (UNROLL) {
-#pragma unroll
-      for (int p = 0; p < P; p += 8) group(p);
-    } else {
-#pragma unroll 1
-      for (int p = 0; p < P; p += 8) group(p);
-    }
-  }
 }
 
 // Y[row0 : row0 + BM, col0 : col0 + N] = A[rows, :] @ Q[:, cols] for each
@@ -338,8 +263,9 @@ __global__ void __launch_bounds__(NT, 1)
           tma_load_2d(base + L::BL + s * L::B_STAGE, &mql, bar, st * BK, col0);
         }
         if constexpr (CP != 0) {
-          copy_stage<CP, BM, 1, false>(base + L::A + s * L::A_STAGE, A, lda,
-                                       row0, m, st * BK, n, t);
+          // the rows' loop in groups of 8 (unrolled whole it spills here)
+          copy_stage<CP, BM, 1, false, ZFILL>(base + L::A + s * L::A_STAGE,
+                                              A, lda, row0, m, st * BK, n, t);
           cp_async_arrive(bar);
         }
       }
@@ -411,16 +337,6 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-// The column of A, within its 32-column box, that output row i (0 .. 31)
-// of an m64 tile's box-half stands for: bits 0-1 of i stay, bit 2 of i
-// becomes bit 4, bit 3 becomes bit 2 and bit 4 becomes bit 3.  A warp's
-// reads of A^T's fragment (8 rows of output, lane / 4, by 4 reduction rows,
-// lane % 4) then fall on 32 distinct banks of the swizzled stage.
-__device__ __forceinline__ int rmatvec_col(int i) {
-  return (i & 3) | ((i >> 2 & 1) << 4) | ((i >> 3 & 1) << 2) |
-         ((i >> 4 & 1) << 3);
-}
-
 // out[c, q0 : q0 + N] = (A[slab, c]^T Y[slab, q0 : q0 + N]) for the block's
 // BN columns c of A, the slab being rows [z slab_rows, min(m, (z + 1)
 // slab_rows)) and out = Z + z n k.
@@ -466,8 +382,9 @@ __global__ void __launch_bounds__(NT, 1)
         tma_load_2d(base + L::BL + s * L::B_STAGE, &myl, bar, i0, q0);
       }
       if constexpr (CP != 0) {
-        copy_stage<CP, BK, BN / 32, true>(base + L::A + s * L::A_STAGE, A,
-                                          lda, i0, r_end, c0, n, t);
+        // the rows' loop unrolled whole (faster here, PERF.md section 6)
+        copy_stage<CP, BK, BN / 32, true, ZFILL>(base + L::A + s * L::A_STAGE,
+                                                 A, lda, i0, r_end, c0, n, t);
         cp_async_arrive(bar);
       }
     }
@@ -634,17 +551,6 @@ int launch_rmatvec(const void* A, long long lda, const void* Yh,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The producer that reads A on a route: "tf32x3" (cpasync false) TMA;
-// "tf32x3_cpasync" cp.async of 2 fp32 where every row starts 8-byte aligned
-// (lda even, base 8-byte aligned), else of 1.  -1 where the route cannot
-// read A.
-inline int producer(const void* A, long long lda, long long n, bool cpasync) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(A);
-  if (a % 4 != 0 || lda < n) return -1;
-  if (!cpasync) return a % 16 == 0 && lda % 4 == 0 ? 0 : -1;
-  return a % 8 == 0 && lda % 2 == 0 ? 2 : 1;
-}
-
 template <int CP>
 int matvec_k(const void* A, long long lda, const float* hi, const float* lo,
              long long ld, void* Y, int m, int n, int k, cudaStream_t s) {
@@ -672,7 +578,7 @@ int matvec_entry(bool cpasync, const void* A, long long lda, const void* Q,
                  long long ld, void* stream) {
   cudaGetLastError();  // report this call's launches, not an older error
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int cp = producer(A, lda, n, cpasync);
+  const int cp = fp32_producer(A, lda, n, cpasync);
   if (cp < 0 || ld < n || ld % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int mi = (int)m, ni = (int)n, ki = (int)k;
@@ -690,7 +596,7 @@ int rmatvec_entry(bool cpasync, const void* A, long long lda, const void* Y,
                   void* stream) {
   cudaGetLastError();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int cp = producer(A, lda, n, cpasync);
+  const int cp = fp32_producer(A, lda, n, cpasync);
   if (cp < 0 || ld < m || ld % 4 != 0 || slab_rows <= 0 ||
       slab_rows % BK != 0)
     return static_cast<int>(cudaErrorInvalidValue);

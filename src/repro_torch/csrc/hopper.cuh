@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (local_attn.cu, block_matvec_tc.cu, block_matvec_tf32.cu): mbarriers, TMA
-// tile loads through tensor maps, cp.async copies that complete on an
-// mbarrier, the stage ring a producer fills for
-// consumer warps, wgmma shared-memory descriptors, the bf16 wgmma forms with
-// both operands in shared memory, the tf32 forms with A in registers
-// (ldmatrix, the tf32 rounding), and the lookup of libcuda's tensor-map
-// encoder through the runtime (no -lcuda at link time).
+// (local_attn.cu, block_matvec_tc.cu, block_matvec_tf32.cu, gram_tf32.cu):
+// mbarriers, TMA tile loads through tensor maps, cp.async copies that
+// complete on an mbarrier (and the cp.async producer of an fp32 stage), the
+// stage ring a producer fills for consumer warps, wgmma shared-memory
+// descriptors, the bf16 wgmma forms with both operands in shared memory, the
+// tf32 forms with A in registers (ldmatrix, the tf32 rounding and 3xTF32
+// split), and the lookup of libcuda's tensor-map encoder through the runtime
+// (no -lcuda at link time).
 //
 // Layouts (128-byte swizzle, as TMA writes a box of 128-byte rows: 64 bf16
 // or 32 fp32 columns):
@@ -305,21 +306,60 @@ __device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// D (64 x N) += A (64 x 8, tf32 in registers) * B (8 x N), N in {16, 32, 64}.
-// A's registers, as mma.m16n8k8's per warp (warp w: rows 16 w .. + 15):
-// a[0] (row lane / 4, column lane % 4), a[1] row + 8, a[2] column + 4,
+// D (64 x 128, fp32) += A (64 x 8, tf32, registers) * B (8 x 128, tf32,
+// smem, K-major).
+__device__ __forceinline__ void wgmma_rs_tf32_n128(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D (64 x N) += A (64 x 8, tf32 in registers) * B (8 x N), N in {16, 32, 64,
+// 128}.  A's registers, as mma.m16n8k8's per warp (warp w: rows 16 w ..
+// + 15): a[0] (row lane / 4, column lane % 4), a[1] row + 8, a[2] column + 4,
 // a[3] both.  tf32 has no transposed forms: B is K-major, A in registers.
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2],
                                               const uint32_t (&a)[4],
                                               uint64_t db, int scale_d) {
-  static_assert(N == 16 || N == 32 || N == 64, "wgmma width");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma width");
   if constexpr (N == 16)
     wgmma_rs_tf32_n16(d, a, db, scale_d);
   else if constexpr (N == 32)
     wgmma_rs_tf32_n32(d, a, db, scale_d);
-  else
+  else if constexpr (N == 64)
     wgmma_rs_tf32_n64(d, a, db, scale_d);
+  else
+    wgmma_rs_tf32_n128(d, a, db, scale_d);
 }
 
 // x rounded to tf32, to nearest with ties away from zero (the low 13 bits
@@ -328,6 +368,36 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
+}
+
+// The fragment x split into its tf32 halves for 3xTF32: hi = tf32(x), lo =
+// tf32(x - hi).
+__device__ __forceinline__ void split(const uint32_t (&x)[4], uint32_t (&hi)[4],
+                                      uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float v = __uint_as_float(x[e]);
+    hi[e] = tf32_rna(v);
+    lo[e] = tf32_rna(v - __uint_as_float(hi[e]));
+  }
+}
+
+// The column of A, within its 32-column box, that output row i (0 .. 31)
+// of an m64 tile's box-half stands for, where the tf32 A operand is a tile
+// of A^T read element by element out of a row-major stage of A: bits 0-1
+// of i stay, bit 2 of i becomes bit 4, bit 3 becomes bit 2 and bit 4
+// becomes bit 3.  A warp's reads of A^T's fragment (8 rows of output,
+// lane / 4, by 4 reduction rows, lane % 4) then fall on 32 distinct banks
+// of the swizzled stage.
+__device__ __forceinline__ int rmatvec_col(int i) {
+  return (i & 3) | ((i >> 2 & 1) << 4) | ((i >> 3 & 1) << 2) |
+         ((i >> 4 & 1) << 3);
+}
+
+// Order this thread's shared-memory stores before later reads by the async
+// proxy (wgmma, TMA) that another thread's barrier wait lets through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Four 8 x 8 b16 matrices from shared memory (lane j gives the address of
@@ -370,6 +440,82 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The producer thread t's (0 .. 127) share of a stage of A by cp.async:
+// rows r0 .. r0 + R - 1 and columns c0 .. c0 + 32 BOXES - 1 of fp32 A (rows
+// lda apart), as BOXES boxes of R rows x 32 fp32, box b the columns
+// c0 + 32 b .., each row of 128 bytes in the 128-byte swizzle (16-byte
+// chunk c of row r at chunk c ^ (r % 8)), exactly as TMA writes the box.
+// Copies of CP fp32 (1 or 2).  Rows from r_end and columns from n arrive as
+// zeros and are not read (ZFILL = false, a planted fault: the columns past
+// n are copied from past the end of the row).  A thread keeps its columns
+// (consecutive threads on consecutive copies of a row: coalesced) and steps
+// down the rows by a fixed stride; its rows fall on 8 swizzle patterns,
+// whose destinations it computes once, so a stage with no row past the
+// edge costs a copy and a pointer step a copy.  UNROLL: the rows' loop
+// unrolled whole, else in groups of 8.
+template <int CP, int R, int BOXES, bool UNROLL, bool ZFILL = true>
+__device__ __forceinline__ void copy_stage(uint32_t dst,
+                                           const float* __restrict__ A,
+                                           long long lda, int r0, int r_end,
+                                           int c0, int n, int t) {
+  constexpr int UPR = 32 * BOXES / CP;       // copies in a row of the stage
+  constexpr int TPR = UPR < 128 ? UPR : 128; // threads on one row
+  constexpr int RPP = 128 / TPR;             // rows a pass of the 128 threads
+  constexpr int P = R / RPP;                 // copies a thread a column
+  static_assert(P % 8 == 0, "rows in whole swizzle patterns");
+  const int rt = TPR == 128 ? 0 : t / TPR;   // the thread's first row
+  const bool whole = r0 + R <= r_end;        // no row past the edge
+#pragma unroll 1
+  for (int cs = 0; cs < UPR / TPR; ++cs) {   // the thread's columns, in turn
+    const int c = (t % TPR + cs * TPR) * CP, j = c % 32;
+    const int left = ZFILL ? max(0, min(CP, n - c0 - c)) : CP;
+    uint32_t d[8];                           // rows rt + q RPP, q < 8
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int r = rt + q * RPP;
+      d[q] = dst + (c / 32) * R * 128 + r * 128 +
+             (((j >> 2) ^ (r & 7)) << 4) + 4 * (j & 3);
+    }
+    // a column past n reads nothing: the source stays at A's base
+    const float* src = left > 0 ? A + (r0 + rt) * lda + c0 + c : A;
+    const long long step = left > 0 ? RPP * lda : 0;
+    // 8 rows a group, one of each swizzle pattern
+    auto group = [&](int p) {
+      const uint32_t off = p * RPP * 128;
+      if (whole) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q, src += step)
+          cp_async<4 * CP>(d[q] + off, src, 4 * left);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 8; ++q, src += step) {
+          const int bytes = r0 + rt + (p + q) * RPP < r_end ? 4 * left : 0;
+          cp_async<4 * CP>(d[q] + off, bytes > 0 ? src : A, bytes);
+        }
+      }
+    };
+    if constexpr (UNROLL) {
+#pragma unroll
+      for (int p = 0; p < P; p += 8) group(p);
+    } else {
+#pragma unroll 1
+      for (int p = 0; p < P; p += 8) group(p);
+    }
+  }
+}
+
+// The producer that reads an fp32 A (m, n), rows lda apart, on a 3xTF32
+// route: "tf32x3" (cpasync false) TMA, 0; "tf32x3_cpasync" cp.async of 2
+// fp32 where every row starts 8-byte aligned (lda even, base 8-byte
+// aligned), else of 1.  -1 where the route cannot read A.
+inline int fp32_producer(const void* A, long long lda, long long n,
+                         bool cpasync) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(A);
+  if (a % 4 != 0 || lda < n) return -1;
+  if (!cpasync) return a % 16 == 0 && lda % 4 == 0 ? 0 : -1;
+  return a % 8 == 0 && lda % 2 == 0 ? 2 : 1;
 }
 
 // The ring of shared-memory stages that a producer fills for the consumer

@@ -1,19 +1,38 @@
-"""Hopper kernel of the Gram product ``B = A^T A`` (``method="gram"``).
+"""Hopper kernels of the Gram product ``B = A^T A`` (``method="gram"``).
 
-Binding of ``csrc/gram.cu`` (CUDA C++ for ``sm_90a``, built by
-``kernels/build.py`` at first use and called through ``ctypes``).  It
-replaces the Pallas TPU kernel of the JAX package's
-``repro/kernels/gram.py``: ``gram`` (``pallas_call`` at line 84), with
-its reduced-task schedule: the grid enumerates only the upper-triangle
-tiles, in the order of ``core/partition.py::symmetric_tasks``, and each
-block writes its tile and its mirror.  ``trans=True`` gives ``A A^T``
-for wide inputs.  The source's header says what bounds it on an H100 and
-what the design does about it.
+Bindings of ``csrc/gram_tf32.cu`` and ``csrc/gram.cu`` (CUDA C++ for
+``sm_90a``, built by ``kernels/build.py`` at first use and called
+through ``ctypes``).  They replace the Pallas TPU kernel of the JAX
+package's ``repro/kernels/gram.py``: ``gram`` (``pallas_call`` at line
+84), with its reduced-task schedule: the grid enumerates only the
+upper-triangle tiles, in the order of
+``core/partition.py::symmetric_tasks``, and each block writes its tile
+and its mirror, so ``B`` is exactly symmetric.  ``trans=True`` gives
+``A A^T`` for wide inputs.  The sources' headers say what bounds them on
+an H100 and what each design does about it.
 
-``gram_cuda`` takes a contiguous fp32 or bf16 CUDA tensor that
-``kernels/ops.py`` has already checked, allocates the fp32 output with
-``torch.empty``, launches on the current stream, and raises if the
-launch was refused.  Call it through ``ops``, which keeps the launch
+Every kernel reads ``A`` (m, n) row-major with rows ``lda`` elements
+apart (``block_matvec.row_stride``), so a view of wider rows is read in
+place.  Three routes, chosen by ``route(A)`` from dtype, row stride and
+alignment, the same for both orientations:
+
+* ``"tf32x3"`` (``gram_tf32.cu``): fp32 where a TMA tensor map describes
+  ``A`` (16-byte-aligned base, ``lda % 4 == 0``).  The tensor cores as
+  3xTF32 (never plain TF32): each operand split into a TF32 ``hi`` and
+  ``lo``, three products, fp32 sums promoted every 32-deep stage; no
+  scratch.
+* ``"tf32x3_cpasync"`` (the same file): every other fp32 ``A`` (any
+  width, a base 4 or 8 bytes off 16).  The same kernel, the stage of its
+  register operand copied by ``cp.async`` of 4 or 8 bytes in place of
+  TMA; edges zero-filled, never read.
+* ``"ffma"`` (``gram.cu``): bf16, whose products are exact in fp32, by
+  FFMA with one sequential fp32 sum an entry.  No solve runs it: the
+  deflation engines sweep fp32.
+
+A launch that the card refuses raises; no route stands in for another.
+``gram_cuda`` takes a CUDA tensor that ``kernels/ops.py`` has already
+checked, allocates the fp32 output with ``torch.empty``, and launches on
+the current stream.  Call it through ``ops``, which keeps the launch
 counts.
 """
 from __future__ import annotations
@@ -23,34 +42,58 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.block_matvec import row_stride
 
-BN = 128        # output tile edge (csrc: BN)
+#: every route, in the order of ``ops.route_launches``
+ROUTES = ("tf32x3", "tf32x3_cpasync", "ffma")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
+_ARGS = [_P, _I64, _P, _I64, _I64, ctypes.c_int, ctypes.c_int, _P]
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.library("gram")
+def route(A: torch.Tensor) -> str:
+    """The kernel that takes ``A`` (m, n), rows ``row_stride(A)`` apart, in
+    either orientation.  fp32: ``"tf32x3"`` where a TMA tensor map
+    describes it (base 16-byte aligned, rows a multiple of 16 bytes
+    apart), else ``"tf32x3_cpasync"``; bf16: ``"ffma"``."""
+    if A.dtype != torch.float32:
+        return "ffma"
+    lda = row_stride(A)
+    mapped = lda is not None and lda % 4 == 0 and A.data_ptr() % 16 == 0
+    return "tf32x3" if mapped else "tf32x3_cpasync"
+
+
+def _bind(name: str, entries) -> ctypes.CDLL:
+    lib = build.library(name)
     if not getattr(lib, "_repro_bound", False):
-        lib.repro_gram.argtypes = [_P, _P, _I64, _I64, ctypes.c_int,
-                                   ctypes.c_int, ctypes.c_int, _P]
-        lib.repro_gram.restype = ctypes.c_int
+        for entry in entries:
+            fn = getattr(lib, entry)
+            fn.argtypes = _ARGS
+            fn.restype = ctypes.c_int
         lib._repro_bound = True
     return lib
 
 
-def gram_cuda(A: torch.Tensor, *, symmetric: bool = True,
+def gram_cuda(A: torch.Tensor, which: str, *, symmetric: bool = True,
               trans: bool = False) -> torch.Tensor:
-    """``A^T A`` (or ``A A^T`` with ``trans``) on the card, fp32 out."""
+    """``A^T A`` (or ``A A^T`` with ``trans``) on the card by the kernel of
+    route ``which``, fp32 out; A (m, n) fp32 or bf16 with rows
+    ``row_stride(A)`` apart."""
     m, n = A.shape
     N = m if trans else n
     B = torch.empty((N, N), dtype=torch.float32, device=A.device)
+    if which == "ffma":
+        fn = _bind("gram", ("repro_gram",)).repro_gram
+    else:
+        fn = getattr(_bind("gram_tf32", ("repro_gram_tf32x3",
+                                         "repro_gram_tf32x3_cpasync")),
+                     f"repro_gram_{which}")
+    stream = torch.cuda.current_stream(A.device).cuda_stream
     with torch.cuda.device(A.device):
-        err = _lib().repro_gram(
-            A.data_ptr(), B.data_ptr(), m, n, int(trans), int(symmetric),
-            int(A.dtype == torch.bfloat16),
-            torch.cuda.current_stream(A.device).cuda_stream)
+        err = fn(A.data_ptr(), row_stride(A), B.data_ptr(), m, n, int(trans),
+                 int(symmetric), stream)
     if err != 0:
-        raise RuntimeError(f"gram kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"gram kernel launch failed ({which} route): CUDA "
+                           f"error {err}")
     return B

@@ -32,11 +32,13 @@ that splits its skinny operand.  ``route_launches`` splits the block
 sweeps' counts by the route that ran (``block_matvec.route``: fp32 on
 the tensor cores as 3xTF32, ``"tf32x3"`` where a TMA tensor map
 describes ``A``, else ``"tf32x3_cpasync"``; bf16 on them, ``"wgmma"``;
-or a bf16 ``A`` no tensor map describes, ``"ffma"``).
+or a bf16 ``A`` no tensor map describes, ``"ffma"``), and ``gram``'s
+(``gram.route``: fp32 on ``"tf32x3"`` or ``"tf32x3_cpasync"`` by the
+same rule, bf16 ``"ffma"``).
 
-The block sweeps read ``A`` in place where it is row-major with unit
-column stride (``block_matvec.row_stride``): contiguous, or a view of
-wider rows such as ``DenseOperator``'s bf16 copy, whose rows are
+The block sweeps and ``gram`` read ``A`` in place where it is row-major
+with unit column stride (``block_matvec.row_stride``): contiguous, or a
+view of wider rows such as ``DenseOperator``'s bf16 copy, whose rows are
 padded to whole 16 bytes.
 
 The JAX package's TPU-only wrapper logic has no counterpart here: the
@@ -61,10 +63,12 @@ launches = {"block_matvec": 0, "block_rmatvec": 0, "block_gram_chain": 0,
             "local_attention": 0}
 
 
-#: the block sweeps' launches by route, since the last ``reset_launches()``
-route_launches = {f"{name}/{which}": 0
-                  for name in ("block_matvec", "block_rmatvec")
-                  for which in _bm.ROUTES}
+#: the block sweeps' and ``gram``'s launches by route, since the last
+#: ``reset_launches()``
+route_launches = {**{f"{name}/{which}": 0
+                     for name in ("block_matvec", "block_rmatvec")
+                     for which in _bm.ROUTES},
+                  **{f"gram/{which}": 0 for which in _gram.ROUTES}}
 
 
 def reset_launches() -> None:
@@ -245,7 +249,10 @@ def gram(A: torch.Tensor, *, symmetric: bool = True,
     """``A^T A`` (``A A^T`` with ``trans``), fp32 out, from fp32 or bf16
     ``A``.  ``symmetric=True`` is the reduced-task schedule (upper-
     triangle tiles, mirrored); ``False`` computes every tile.  Both give
-    the full product; the plain version has no tiles and ignores it."""
+    the full product, exactly symmetric; the plain version has no tiles
+    and ignores it.  On the card ``gram.route`` picks the kernel (fp32 as
+    3xTF32 on the tensor cores, bf16 by FFMA), which reads ``A`` in place
+    where it is row-major with unit column stride (``row_stride``)."""
     _vector_operands("gram", A)
     if A.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gram reads float32 or bfloat16, got {A.dtype}")
@@ -255,11 +262,14 @@ def gram(A: torch.Tensor, *, symmetric: bool = True,
     N = m if trans else n
     if A.numel() == 0:
         return torch.zeros((N, N), dtype=torch.float32, device=A.device)
-    if not A.is_contiguous():
-        raise ValueError("the CUDA gram kernel reads A row-major: pass a "
-                         "contiguous A (for A A^T use trans=True)")
-    B = _gram.gram_cuda(A, symmetric=symmetric, trans=trans)
+    if _bm.row_stride(A) is None:
+        raise ValueError("the CUDA gram kernels read A row-major with unit "
+                         "column stride: pass a contiguous A or a view of "
+                         "wider rows (for A A^T use trans=True)")
+    which = _gram.route(A)
+    B = _gram.gram_cuda(A, which, symmetric=symmetric, trans=trans)
     launches["gram"] += 1
+    route_launches[f"gram/{which}"] += 1
     return B
 
 

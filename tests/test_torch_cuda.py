@@ -21,6 +21,9 @@ bf16, 2^-8 |plain| of that element, plus 1e-5 for the fp32 sums' order
 staged by TMA where a tensor map describes A and by cp.async elsewhere;
 bf16 by wgmma where a map describes A (the solver's padded copy
 included), else by FFMA; all four routes are held to the same limits.
+``gram`` (``gram.route``): fp32 as 3xTF32 by TMA or cp.async, bf16 by
+FFMA, B exactly symmetric, and its off-diagonal entries also read alone
+(limit 4e-5, ``chip_smoke.py``'s ``TOL_GRAM_OFFDIAG``).
 """
 import importlib
 
@@ -388,6 +391,91 @@ def test_gram_kernel_matches_plain_version(card, m, n, dtype):
             assert _rel(got, want) <= 1e-5
             assert torch.equal(got, got.mT)        # a tile and its mirror
     assert ops.launches["gram"] == 4
+
+
+def _offdiag(got, want):
+    """chip_smoke.py's second gram reading: the relative Frobenius error
+    over the entries off the main diagonal (0 where there are none)."""
+    d, w = got - want, want.clone()
+    d.diagonal().zero_()
+    w.diagonal().zero_()
+    den = float(torch.linalg.norm(w))
+    return float(torch.linalg.norm(d)) / den if den > 0 else 0.0
+
+
+@pytest.mark.parametrize("m,n,ld,offset,route", [
+    (3000, 2052, 2052, 0, "tf32x3"),            # ragged tiles, A by TMA
+    (3000, 2051, 2051, 0, "tf32x3_cpasync"),    # rows of 4 * 2051 bytes
+    (3001, 1021, 1026, 2, "tf32x3_cpasync"),    # cp.async of 8 bytes
+    (3001, 1021, 1024, 1, "tf32x3_cpasync"),    # a base 4 bytes off 16
+    (3001, 1021, 1024, 0, "tf32x3"),            # padded rows, by TMA
+    (257, 4100, 4100, 0, "tf32x3"),             # A A^T's reduction long
+    (33, 1, 1, 0, "tf32x3_cpasync"),            # one column
+])
+def test_gram_routes_match_plain_version(card, m, n, ld, offset, route):
+    """fp32 gram on each 3xTF32 route, both layouts, symmetric and full,
+    on views whose padding is NaN (a read past a row shows): the route
+    that ran, B exactly symmetric, the whole product within 1e-5, its
+    off-diagonal entries within chip_smoke.py's 4e-5, reruns bitwise."""
+    import importlib
+    gm = importlib.import_module("repro_torch.kernels.gram")
+    g = torch.Generator(device=card).manual_seed(m + n + ld)
+    flat = torch.full((offset + (m + 1) * ld,), float("nan"), device=card)
+    A = flat[offset:offset + m * ld].view(m, ld)[:, :n]
+    A.copy_(torch.randn((m, n), generator=g, device=card))
+    assert gm.route(A) == route
+    for trans in (False, True):
+        want = ref.gram_ref(A, trans)
+        for symmetric in (True, False):
+            ops.reset_launches()
+            got = ops.gram(A, symmetric=symmetric, trans=trans)
+            torch.cuda.synchronize()
+            assert {n_: c for n_, c in ops.route_launches.items() if c} == {
+                f"gram/{route}": 1}
+            assert got.dtype == torch.float32 and got.shape == want.shape
+            assert torch.equal(got, got.mT)
+            assert _rel(got, want) <= 1e-5
+            assert _offdiag(got, want) <= 4e-5
+            assert torch.equal(got, ops.gram(A, symmetric=symmetric,
+                                             trans=trans))
+
+
+@pytest.mark.parametrize("ld", [1021, 1032])
+def test_bf16_gram_runs_the_ffma_route(card, ld):
+    """bf16 on FFMA, read in place from a view of wider rows (element and
+    8-byte loads), both layouts."""
+    n = 1021 if ld == 1021 else 1024
+    g = torch.Generator(device=card).manual_seed(ld)
+    flat = torch.full((3002 * ld,), float("nan"), dtype=torch.bfloat16,
+                      device=card)
+    A = flat[:3001 * ld].view(3001, ld)[:, :n]
+    A.copy_(torch.randn((3001, n), generator=g, device=card))
+    ops.reset_launches()
+    for trans in (False, True):
+        got = ops.gram(A, trans=trans)
+        torch.cuda.synchronize()
+        want = ref.gram_ref(A, trans)
+        assert torch.equal(got, got.mT)
+        assert _rel(got, want) <= 1e-5 and _offdiag(got, want) <= 4e-5
+    assert {n_: c for n_, c in ops.route_launches.items() if c} == {
+        "gram/ffma": 2}
+
+
+@pytest.mark.parametrize("n,route", [(300, "tf32x3"),
+                                     (301, "tf32x3_cpasync")])
+def test_gram_svd_runs_3xtf32(card, n, route):
+    """svd(A, k, method="gram") launches gram k times on a 3xTF32 route
+    (the residual's rows decide which) and never FFMA."""
+    import repro_torch
+    g = torch.Generator(device=card).manual_seed(n)
+    A = torch.randn((4096, n), generator=g, device=card)
+    ops.reset_launches()
+    res = repro_torch.svd(A, 4, method="gram")
+    assert {n_: c for n_, c in ops.route_launches.items() if c} == {
+        f"gram/{route}": 4}
+    assert {n_: c for n_, c in ops.launches.items() if c} == {
+        "gram": 4, "matvec": 4}
+    assert res.passes_over_A == 12 and bool(torch.isfinite(res.S).all())
 
 
 @pytest.mark.parametrize("k", [1030, 2100])

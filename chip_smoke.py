@@ -17,13 +17,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``rmatvec_tc``, and ``matvec_tf32<32,CP>`` and ``rmatvec_tf32<32,CP>``
    for CP = 0, 1, 2: A by TMA, by cp.async of 4 and of 8 bytes; k = 32;
    and every instance of ``gram_tf32<TRANS,CP>``, ``A^T A`` and
-   ``A A^T`` for CP = 0, 1, 2) have tensor-core instructions and spill
-   nothing.  Beside the real build, six planted faults for phase 2b:
-   ``block_matvec_tc.cu`` with ``-DREPRO_TC_SUMS_ONLY``,
-   ``block_matvec_tf32.cu`` with ``-DREPRO_TF32_ONLY``, with
-   ``-DREPRO_TC_SUMS_ONLY`` and with ``-DREPRO_NO_ZFILL``, and
-   ``gram_tf32.cu`` with ``-DREPRO_TF32_ONLY`` and with
-   ``-DREPRO_TC_SUMS_ONLY``.
+   ``A A^T`` for CP = 0, 1, 2, and of ``gram_bf16<TRANS,LD>``, LD = 0
+   by TMA and 1 by the producer's own copies) have tensor-core
+   instructions and spill nothing.  Beside the real build, seven planted
+   faults for phase 2b: ``block_matvec_tc.cu`` with
+   ``-DREPRO_TC_SUMS_ONLY``, ``block_matvec_tf32.cu`` with
+   ``-DREPRO_TF32_ONLY``, with ``-DREPRO_TC_SUMS_ONLY`` and with
+   ``-DREPRO_NO_ZFILL``, ``gram_tf32.cu`` with ``-DREPRO_TF32_ONLY`` and
+   with ``-DREPRO_TC_SUMS_ONLY``, and ``gram_bf16.cu`` with
+   ``-DREPRO_TC_SUMS_ONLY``; and, for timing alone, ``gram_bf16.cu`` with
+   ``-DREPRO_STAGING_ONLY`` (no products).
 2. every kernel on the card against its plain PyTorch version
    (``repro_torch/kernels/ref.py``): ``block_matvec``, ``block_rmatvec``
    and ``block_gram_chain`` (both orientations), fp32 and bf16, at
@@ -52,10 +55,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    route: 65536 x 32765 views of rows 32767 apart, padding NaN; the
    last fault must read outside the limit in ``block_matvec`` (in
    ``block_rmatvec`` the columns past n feed only output rows that are
-   never stored).  And ``gram`` (``tf32x3``) with its two planted faults
-   on 65536 x 2048 inputs (the gram path's aspect), |N(0, 1)| and signed
-   N(0, 1): the real kernel within both of phase 4's gram readings on
-   both, each fault outside the off-diagonal one on at least one.
+   never stored).  And ``gram`` (fp32 on ``tf32x3`` with its two planted
+   faults, bf16 on ``wgmma`` with its one) on 65536 x 2048 inputs (the
+   gram path's aspect), |N(0, 1)| and signed N(0, 1): the real kernel
+   within both of phase 4's gram readings on both, each fault outside the
+   off-diagonal one on at least one.
 3. the main path: ``repro_torch.svd(A, 32)`` with the default config on
    a 262144 x 32768 fp32 ``A`` (32 GiB, the paper's per-node shard)
    built on the card with singular values ``100 * 0.9**i`` (i < 64) plus
@@ -76,10 +80,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the fp32 sweeps timed at that shape; and a contiguous wide input (the
    operator's transposed path).
 4. the deflation kernels (``matvec``, ``deflate_rmatvec``, ``gram``,
-   both layouts; ``gram`` symmetric and full, fp32 on its route --
-   ``tf32x3`` where a tensor map describes A, else ``tf32x3_cpasync`` --
-   and bf16 on ``ffma``, read from the route launch counts, B exactly
-   symmetric; also on views whose row padding is NaN) against their
+   both layouts; ``gram`` symmetric and full on its route -- where a
+   tensor map describes A fp32 ``tf32x3`` and bf16 ``wgmma``, else
+   ``tf32x3_cpasync`` and ``wgmma_ld`` -- read from the route launch
+   counts, B exactly symmetric; also on views whose row padding is NaN,
+   bf16 ones with an odd row stride, an even one not a multiple of 8
+   and a base 2 bytes off) against their
    plain versions at ragged shapes (relative Frobenius error, limit
    1e-5; ``gram`` 4 sqrt(r) 2^-24 for a reduction of length r, at least
    1e-5, see ``gram_tol``, and a second reading over the off-diagonal
@@ -87,8 +93,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    whole product's error is the diagonal's, which plain TF32 leaves
    within ``gram_tol``), and at the deflation paths' shapes with kernel,
    plain, bound and library (a yardstick only) times; ``gram`` in bf16
-   (``ffma``, no solve runs it) once through ``ops`` at the gram path's
-   shape.
+   (no solve runs it) once through ``ops`` at the gram path's shape
+   (``wgmma``), one column short (``wgmma_ld``) and, as ``A A^T``, on the
+   wide input (``wgmma``), each timed beside
+   ``torch.mm(..., out_dtype=torch.float32)``.
 5. the gram-free path: ``repro_torch.svd(A, 16, method="gramfree")`` on
    the same 262144 x 32768 ``A``; sigma within rtol 2e-3 of the
    prescribed spectrum (the JAX package's deflation tolerance), launches
@@ -102,7 +110,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 6. determinism: two block solves (fp32 on ``tf32x3``, and bf16 on
    ``wgmma``) and two gram-free solves of a 16384 x 4096 matrix, and two
    fp32 block solves of a 16384 x 4095 one (``tf32x3_cpasync``), each
-   pair bitwise equal; and ``gram`` twice on each, both layouts.
+   pair bitwise equal; and ``gram`` twice on each, both layouts, in fp32
+   and in bf16 (``wgmma``, ``wgmma_ld``).
 7. the LM serving path: the ``local_attention`` kernels (causal
    sliding-window attention, GQA, soft-cap; bf16 at D >= 64 on the
    tensor cores, the rest by FFMA) against their plain version at
@@ -155,9 +164,11 @@ times at 65536 x 8190, as ``<name>/tf32x3`` for the main path's fp32
 solve, as ``<name>/wgmma`` for the bf16 solve's chains and as
 ``<name>/tf32x3_cpasync`` for the odd-width shard's fp32 solve, timed at
 262144 x 32767; ``gram`` for the gram solve's 3xTF32 kernel and
-``gram/ffma`` for the bf16 one, launched once through ``ops``, both
-timed at 262144 x 8192, and ``gram/tf32x3_cpasync`` for the odd-width
-gram solve's, timed at 262144 x 8191), the ``nvidia-smi`` name and
+``gram/wgmma`` for the bf16 one, launched once through ``ops``, both
+timed at 262144 x 8192, ``gram/tf32x3_cpasync`` for the odd-width gram
+solve's and ``gram/wgmma_ld`` for bf16 of those rows, timed at 262144 x
+8191, and ``gram/wgmma[trans]``, bf16 ``A A^T`` of the wide input), the
+``nvidia-smi`` name and
 power limit line again, and last ``{"ok": true, "device": {...}}``.
 Exits 2 without a CUDA device or without ``src/repro_torch`` beside this
 script.
@@ -209,10 +220,11 @@ def gram_tol(r: int) -> float:
     """Limit of the gram kernels against their plain version for a
     reduction of length ``r``: each entry is summed in one fixed sequence
     (no split of the reduction, so no atomics), which rounds to about
-    sqrt(r) * 2^-24 relative (the FFMA kernel's sum of r terms; the
-    3xTF32 kernel's of r / 32 stage sums), where the plain version
-    (cuBLAS) sums in blocks and rounds less; 4 sqrt(r) 2^-24, and at least
-    the 1e-5 of the other kernels (1.2e-4 at r = 262144)."""
+    sqrt(r) * 2^-24 relative (a sequential fp32 sum of r terms; the
+    3xTF32 kernel's of r / 32 stage sums, the bf16 one's of r / 256),
+    where the plain version (cuBLAS) rounds at least as much; 4 sqrt(r)
+    2^-24, and at least the 1e-5 of the other kernels (1.2e-4 at r =
+    262144)."""
     return max(1e-5, 4 * r ** 0.5 * 2.0 ** -24)
 
 
@@ -221,8 +233,9 @@ def gram_tol(r: int) -> float:
 # gram_tol (6.1e-5 at m = 65536), but 2.94e-4 over the off-diagonal
 # entries, whose sums cancel (readings on an H100, 65536 x 2048).  Limit of
 # that second reading (gram_offdiag_err), set between the sound kernels'
-# (3xTF32 <= 2.8e-6, bf16 by FFMA 8.1e-6, both at 262144 x 8192) and the
-# planted faults' (plain TF32 2.94e-4, unpromoted sums 4.6e-4).
+# (3xTF32 <= 2.8e-6, bf16 on wgmma 2.6e-6, both at 262144 x 8192) and the
+# planted faults' (plain TF32 2.94e-4; unpromoted sums 4.6e-4 in 3xTF32,
+# 7.6e-5 and 3.9e-4 on signed and |N(0, 1)| data in bf16).
 TOL_GRAM_OFFDIAG = 4e-5
 GRAM_FAULT = (65536, 2048)             # planted gram faults, the path's aspect
 
@@ -260,14 +273,34 @@ SOURCES = {"block_matvec": "src/repro_torch/csrc/block_matvec.cu",
            "deflate_rmatvec": "src/repro_torch/csrc/deflate_matvec.cu",
            "gram": "src/repro_torch/csrc/gram_tf32.cu",
            "gram/tf32x3_cpasync": "src/repro_torch/csrc/gram_tf32.cu",
-           "gram/ffma": "src/repro_torch/csrc/gram.cu",
+           "gram/wgmma": "src/repro_torch/csrc/gram_bf16.cu",
+           "gram/wgmma_ld": "src/repro_torch/csrc/gram_bf16.cu",
+           "gram/wgmma[trans]": "src/repro_torch/csrc/gram_bf16.cu",
            "local_attention": "src/repro_torch/csrc/local_attn.cu"}
 LIBRARY = {"matvec": "torch.mv(A, v)",
            "deflate_rmatvec": "torch.mv(A.mT, Xv - U @ SVtv) + U.mT @ Xv "
                               "(two calls)",
            "gram": "torch.mm(A.mT, A) (TF32 off)",
-           "gram/tf32x3_cpasync": "torch.mm(A.mT, A) (TF32 off)",
-           "gram/ffma": "none (bf16 in, fp32 out)"}
+           "gram/tf32x3_cpasync": "torch.mm(A.mT, A) (TF32 off)"}
+# bf16 gram's library call: torch.mm with out_dtype=torch.float32 (bf16 in,
+# fp32 sums and out: the same function), set by bf16_mm where the card's
+# torch takes out_dtype; else the bf16-out torch.mm, a time yardstick only
+BF16_GRAM = ("gram/wgmma", "gram/wgmma_ld", "gram/wgmma[trans]")
+
+
+def bf16_mm(torch, dev):
+    """``torch.mm`` of bf16 operands with fp32 sums and output where this
+    torch takes ``out_dtype`` (``aten::mm.dtype``), else bf16 out; and
+    the label that says which."""
+    x = torch.ones((16, 16), dtype=torch.bfloat16, device=dev)
+    try:
+        torch.mm(x, x, out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError):
+        return (lambda a, b: torch.mm(a, b),
+                "torch.mm in bf16 out: this torch has no out_dtype; a time "
+                "yardstick only")
+    return (lambda a, b: torch.mm(a, b, out_dtype=torch.float32),
+            "torch.mm(..., out_dtype=torch.float32)")
 
 
 def fail(msg: str) -> None:
@@ -312,8 +345,9 @@ def deflation_bound(name: str, m: int, n: int, k: int = 0) -> tuple:
     ``deflate_rmatvec`` at the fp32 (non-tensor) peak (a matrix-vector
     product gains nothing from the tensor cores), fp32 ``gram`` as
     3xTF32, three TF32 products at the TF32 peak (its FFMA figure, at the
-    fp32 peak, is printed beside it), bf16 ``gram`` (``gram/ffma``) at the
-    bf16 peak (its products are exact in fp32)."""
+    fp32 peak, is printed beside it), bf16 ``gram`` (``gram/wgmma``,
+    ``gram/wgmma_ld``) at the bf16 peak (its products are exact in
+    fp32)."""
     if name == "matvec":
         nbytes, flop = 4 * (m * n + n + m), 2 * m * n
     elif name == "deflate_rmatvec":
@@ -323,7 +357,7 @@ def deflation_bound(name: str, m: int, n: int, k: int = 0) -> tuple:
         nbytes = 4 * (m * n + n * n)
         return pick(nbytes / PEAK_BYTES * 1e3,
                     3 * gram_flop(m, n) / PEAK_OPS["tfloat32"] * 1e3)
-    else:       # gram/ffma: bf16 products are exact, fp32 sums (bf16 cores)
+    else:       # bf16 gram: products exact in fp32, fp32 sums (bf16 cores)
         nbytes = 2 * m * n + 4 * n * n
         return pick(nbytes / PEAK_BYTES * 1e3,
                     gram_flop(m, n) / PEAK_OPS["bfloat16"] * 1e3)
@@ -594,12 +628,16 @@ def deflation_ragged(torch, ops, ref, gm, g, dev) -> float:
                     torch, ops, ref, gm, A.to(getattr(torch, sd)),
                     f"m={m} n={n}"))
     # views of rows ld apart at a base `offset` elements into an allocation
-    # of one row more, NaN outside the view: cp.async of 4 and 8 bytes,
-    # TMA, and the bf16 kernel's element and 8-byte loads
+    # of one row more, NaN outside the view: fp32 cp.async of 4 and 8
+    # bytes and TMA; bf16 "wgmma_ld" with a base 2 bytes off (every row by
+    # registers), an odd lda (every other row), an even lda not a multiple
+    # of 8 (cp.async of 4 and 8 bytes), and "wgmma" (TMA)
     for (m, n, ld, offset, sd) in [(3001, 1021, 1024, 1, "float32"),
                                    (3001, 1021, 1026, 2, "float32"),
                                    (3001, 1021, 1024, 0, "float32"),
                                    (3001, 1021, 1024, 1, "bfloat16"),
+                                   (3001, 1021, 1023, 0, "bfloat16"),
+                                   (3001, 1021, 1026, 0, "bfloat16"),
                                    (3001, 1024, 1032, 0, "bfloat16")]:
         flat = torch.full((offset + (m + 1) * ld,), float("nan"),
                           dtype=getattr(torch, sd), device=dev)
@@ -648,6 +686,55 @@ def time_kernel(torch, name, kern, plain, lib, reps, tol, bnd,
           + f" ({LIBRARY[name]}), bound {row['bound_ms']:.3f} ms "
           f"({row['bound_by']})")
     return row
+
+
+def float64_reading(torch, ops, ref, Xb, rows=256) -> dict:
+    """Rows [0, rows) of ``Xb^T Xb`` in float64 against the kernel's and
+    the plain version's (cuBLAS fp32): which of the two sums rounds
+    more, since both are held to each other."""
+    X64 = Xb.double()
+    exact = X64[:, :rows].mT @ X64
+    del X64
+    got = ops.gram(Xb)[:rows].double()
+    X32 = Xb.float()
+    plain = (X32[:, :rows].mT @ X32).double()
+    del X32
+    err = {lab: float(torch.linalg.norm(B - exact) / torch.linalg.norm(exact))
+           for lab, B in (("kernel", got), ("plain", plain))}
+    print(f"  bf16 gram rows 0..{rows - 1} against a float64 product: "
+          f"kernel {err['kernel']:.2e}, plain version (cuBLAS fp32) "
+          f"{err['plain']:.2e}")
+    return err
+
+
+def bf16_gram_row(torch, ops, ref, X, name, mm, trans=False) -> tuple:
+    """bf16 ``gram`` of ``X`` cast to bf16 (``A^T A``; ``A A^T`` with
+    ``trans``): once through ``ops`` with the launch counts set to 0 just
+    before and read just after (one launch, on the route ``name`` names,
+    B exactly symmetric), then checked against its plain version and
+    timed beside it and ``mm``'s library call.  Returns (the row, the
+    launches, the bf16 copy)."""
+    Xb = X.to(torch.bfloat16)
+    m, n = Xb.shape
+    which = name.split("/")[1].split("[")[0]
+    ops.reset_launches()
+    B = ops.gram(Xb, trans=trans)
+    torch.cuda.synchronize()
+    ran = {n_: c for n_, c in ops.route_launches.items() if c}
+    print(f"  bf16 gram {m}x{n}{' (A A^T)' if trans else ''} through ops: "
+          f"launches by route {ran}")
+    if ran != {f"gram/{which}": 1} or not torch.equal(B, B.mT):
+        fail(f"bf16 gram of {m}x{n} (trans={trans}): launches by route "
+             f"{ran}, want {which}; B exactly symmetric "
+             f"{torch.equal(B, B.mT)}")
+    del B
+    r, edge = (n, m) if trans else (m, n)
+    row = time_kernel(
+        torch, name, lambda: ops.gram(Xb, trans=trans),
+        lambda: ref.gram_ref(Xb, trans),
+        (lambda: mm(Xb, Xb.mT)) if trans else (lambda: mm(Xb.mT, Xb)), 2,
+        gram_tol(r), deflation_bound(name, r, edge), offdiag=True)
+    return row, ran[f"gram/{which}"], Xb
 
 
 def deflation_solve(torch, repro_torch, ops, X, k, method, label, s,
@@ -795,7 +882,11 @@ PLANTED = (("block_matvec_tc", "REPRO_TC_SUMS_ONLY"),
            ("block_matvec_tf32", "REPRO_TC_SUMS_ONLY"),
            ("block_matvec_tf32", "REPRO_NO_ZFILL"),
            ("gram_tf32", "REPRO_TF32_ONLY"),
-           ("gram_tf32", "REPRO_TC_SUMS_ONLY"))
+           ("gram_tf32", "REPRO_TC_SUMS_ONLY"),
+           ("gram_bf16", "REPRO_TC_SUMS_ONLY"))
+# builds for timing alone, beside the planted faults: bf16 gram's staging
+# with no products (phase 5: where the kernel's time goes)
+TIMING = (("gram_bf16", "REPRO_STAGING_ONLY"),)
 
 
 def build_planted(build, name: str, flag: str) -> tuple:
@@ -904,11 +995,12 @@ def planted_run(kernels, lib: str, path, fn):
         kernels.build.library = library
 
 
-def gram_planted_faults(torch, gm, ref, planted, g, dev) -> dict:
-    """``gram`` on the route ``A`` takes (fp32, contiguous: ``tf32x3``) and
-    from each planted-fault library of ``planted`` ({(library, flag):
-    path}) against the plain version on ``GRAM_FAULT`` inputs of the gram
-    path's aspect: ``"abs"``, |N(0, 1)| (every sum grows, as a truncating
+def gram_planted_faults(torch, gm, ref, planted, g, dev,
+                        sd="float32") -> dict:
+    """``gram`` of dtype ``sd`` on the route ``A`` takes (contiguous: fp32
+    ``tf32x3``, bf16 ``wgmma``) and from each planted-fault library of
+    ``planted`` ({(library, flag): path}) against the plain version on
+    ``GRAM_FAULT`` inputs of the gram path's aspect: ``"abs"``, |N(0, 1)| (every sum grows, as a truncating
     accumulator likes least), and ``"signed"``, N(0, 1) (the off-diagonal
     sums cancel, so a rounding error of each product is not averaged
     away).  Both of phase 4's readings: the whole product against
@@ -923,6 +1015,7 @@ def gram_planted_faults(torch, gm, ref, planted, g, dev) -> dict:
         A = torch.randn((m, n), generator=g, device=dev)
         if kind == "abs":
             A.abs_()
+        A = A.to(getattr(torch, sd))
         which = gm.route(A)
         want = ref.gram_ref(A)
         runs = {"real": gm.gram_cuda(A, which)}
@@ -933,7 +1026,7 @@ def gram_planted_faults(torch, gm, ref, planted, g, dev) -> dict:
         r = readings[kind] = {
             key: (rel_err(torch, B, want), gram_offdiag_err(torch, B, want))
             for key, B in runs.items()}
-        print(f"  gram fp32 ({which}) {m}x{n}, {kind} input: rel err "
+        print(f"  gram {sd} ({which}) {m}x{n}, {kind} input: rel err "
               f"{r['real'][0]:.2e} (limit {tol:.1e}), off the diagonal "
               f"{r['real'][1]:.2e} (limit {TOL_GRAM_OFFDIAG:.0e})" + "".join(
                   f"; with {FAULT_LABELS[flag]} {r[flag][0]:.2e}, off the "
@@ -941,12 +1034,12 @@ def gram_planted_faults(torch, gm, ref, planted, g, dev) -> dict:
                   for flag in r if flag != "real"))
         if outside(r["real"][0], tol) or outside(r["real"][1],
                                                  TOL_GRAM_OFFDIAG):
-            fail(f"gram fp32 on the {kind} input: readings {r['real']}")
+            fail(f"gram {sd} on the {kind} input: readings {r['real']}")
         del A, want, runs
     for _, flag in planted:
         if not any(outside(readings[kind][flag][1], TOL_GRAM_OFFDIAG)
                    for kind in readings):
-            fail(f"gram with {FAULT_LABELS[flag]} reads within the "
+            fail(f"gram {sd} with {FAULT_LABELS[flag]} reads within the "
                  f"off-diagonal limit {TOL_GRAM_OFFDIAG} on every input: the "
                  f"check cannot see it")
     return readings
@@ -1398,7 +1491,8 @@ def main() -> int:
 
     # -- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    planted_builds = {key: build_planted(build, *key) for key in PLANTED}
+    planted_builds = {key: build_planted(build, *key)
+                      for key in PLANTED + TIMING}
     logs = build.build_all()
     planted = {}
     for (name, flag), (proc, path) in planted_builds.items():
@@ -1409,7 +1503,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'up to date'}; and the planted faults of "
           f"phase 2b: " + ", ".join(f"{name} -D{flag}"
-                                    for name, flag in PLANTED) + ")")
+                                    for name, flag in PLANTED)
+          + "; for timing: " + ", ".join(f"{name} -D{flag}"
+                                         for name, flag in TIMING) + ")")
     for name, log in logs.items():       # nvcc -Xptxas=-v, per kernel
         regs = [int(l.split("Used ")[1].split()[0])
                 for l in log.splitlines() if "registers" in l]
@@ -1423,7 +1519,8 @@ def main() -> int:
     # fp32 on the paths: TMA (CP 0) at the main path's width, cp.async of
     # 4 bytes (CP 1) at 32767 columns, of 8 (CP 2) at 8190; gram every
     # instance (A^T A on the gram path, A A^T on the wide input, cp.async
-    # at ragged widths)
+    # at ragged widths; bf16 by TMA multicast, LD 0, and by the producer's
+    # copies, LD 1)
     for name, tag, sd, want in (
             ("block_matvec_tc", "tc", "bf16", ("matvec_tc<32>", "rmatvec_tc")),
             ("block_matvec_tf32", "tf32", "fp32",
@@ -1431,7 +1528,10 @@ def main() -> int:
                    for kern in ("matvec", "rmatvec"))),
             ("gram_tf32", "tf32", "fp32",
              tuple(f"gram_tf32<{trans},{cp}>" for trans in (0, 1)
-                   for cp in (0, 1, 2)))):
+                   for cp in (0, 1, 2))),
+            ("gram_bf16", "bf16", "bf16",
+             tuple(f"gram_bf16<{trans},{ld}>" for trans in (0, 1)
+                   for ld in (0, 1)))):
         sweep_instances(build, name, logs.get(name) or (
             build.BUILD_DIR / f"{name}.log").read_text(), tag, sd, want)
 
@@ -1522,9 +1622,10 @@ def main() -> int:
         if key[0] == "block_matvec_tf32"}, "float32", g, dev,
         ("abs", "signed"), width=N - 3, ld=N - 1,
         seen={"REPRO_NO_ZFILL": ("block_matvec",)})
-    gram_planted_faults(torch, gm, ref, {
-        key: path for key, path in planted.items() if key[0] == "gram_tf32"},
-        g, dev)
+    for lib, sd in (("gram_tf32", "float32"), ("gram_bf16", "bfloat16")):
+        gram_planted_faults(torch, gm, ref, {
+            key: path for key, path in planted.items()
+            if key[0] == lib and key in PLANTED}, g, dev, sd)
 
     # -- 4. the gram-free kernels at the gram-free path's shape -------------
     v = torch.randn(N, generator=g, device=dev)
@@ -1663,7 +1764,7 @@ def main() -> int:
     # where its time goes: the planted-fault builds at the same shape;
     # plain TF32 keeps all of the staging and a third of the products
     for (lib, flag), path in planted.items():
-        if lib == "gram_tf32":
+        if lib == "gram_tf32" and (lib, flag) in PLANTED:
             dtable["gram"][f"ms_{flag.lower()}"] = planted_run(
                 gm, lib, path, lambda: time_ms(
                     torch, lambda: gm.gram_cuda(Ag, "tf32x3"), 2))
@@ -1672,25 +1773,33 @@ def main() -> int:
           f"the sums left in the tensor cores: "
           f"{dtable['gram']['ms_repro_tc_sums_only']:.3f} ms; the kernel "
           f"{dtable['gram']['ms']:.3f} ms")
-    # bf16 gram (FFMA), which no solve runs: once through ops, then timed
-    Agb = Ag.to(torch.bfloat16)
-    ops.reset_launches()
-    ops.gram(Agb)
-    torch.cuda.synchronize()
-    gram_ffma = {n_: c for n_, c in ops.route_launches.items() if c}
-    if gram_ffma != {"gram/ffma": 1}:
-        fail(f"bf16 gram: launches by route {gram_ffma}, want ffma")
-    dtable["gram/ffma"] = time_kernel(
-        torch, "gram/ffma", lambda: ops.gram(Agb), lambda: ref.gram_ref(Agb),
-        None, 2, gram_tol(M), deflation_bound("gram/ffma", M, N_GRAM),
-        offdiag=True)
+    # bf16 gram (no solve runs it: the deflation engines are fp32) on the
+    # bf16 tensor cores, A by TMA multicast: once through ops, then timed
+    # beside torch.mm with fp32 out; where its time goes, from its builds
+    # with the sums left in the tensor cores (no promotion adds) and with
+    # no products at all (the staging alone)
+    mm, LIBRARY["gram/wgmma"] = bf16_mm(torch, dev)
+    LIBRARY["gram/wgmma_ld"] = LIBRARY["gram/wgmma[trans]"] = \
+        LIBRARY["gram/wgmma"]
+    dtable["gram/wgmma"], path_counts["gram/wgmma"], Agb = bf16_gram_row(
+        torch, ops, ref, Ag, "gram/wgmma", mm)
+    for (lib, flag), path in planted.items():
+        if lib == "gram_bf16":
+            dtable["gram/wgmma"][f"ms_{flag.lower()}"] = planted_run(
+                gm, lib, path, lambda: time_ms(
+                    torch, lambda: gm.gram_cuda(Agb, "wgmma"), 2))
+    dtable["gram/wgmma"]["float64"] = float64_reading(torch, ops, ref, Agb)
+    print(f"  bf16 gram with the sums left in the tensor cores: "
+          f"{dtable['gram/wgmma']['ms_repro_tc_sums_only']:.3f} ms; its "
+          f"staging alone (no products): "
+          f"{dtable['gram/wgmma']['ms_repro_staging_only']:.3f} ms; the "
+          f"kernel {dtable['gram/wgmma']['ms']:.3f} ms")
     del Agb
     counts = deflation_solve(
         torch, repro_torch, ops, Ag, K_GRAM, "gram",
         f"gram path svd(A, {K_GRAM}, method='gram') {M}x{N_GRAM}", s,
         table=dtable)
     path_counts["gram"] = counts["gram"]
-    path_counts["gram/ffma"] = gram_ffma["gram/ffma"]
     del Ag
     torch.cuda.empty_cache()
     # the gram path one column short: rows of 4 * 8191 bytes, which no
@@ -1712,9 +1821,13 @@ def main() -> int:
             "gram": dtable["gram/tf32x3_cpasync"], "matvec": dtable["matvec"]},
         gram_route="tf32x3_cpasync")
     path_counts["gram/tf32x3_cpasync"] = counts["gram"]
-    for key in ("gram/ffma", "gram/tf32x3_cpasync"):
+    # bf16 of the same rows: odd lda, every other row 2 bytes off a 4-byte
+    # boundary (no tensor map: the producer's own copies)
+    dtable["gram/wgmma_ld"], path_counts["gram/wgmma_ld"], Agob = \
+        bf16_gram_row(torch, ops, ref, Ago, "gram/wgmma_ld", mm)
+    for key in ("gram/tf32x3_cpasync", *BF16_GRAM):
         REPLACES[key] = REPLACES["gram"]
-    del Ago
+    del Ago, Agob
     torch.cuda.empty_cache()
 
     # rows of 4 * 8190 bytes: no tensor map; fp32 runs 3xTF32 with A copied
@@ -1785,7 +1898,11 @@ def main() -> int:
         deflation_solve(torch, repro_torch, ops, Aw, K_WIDE, method,
                         f"wide {WIDE[0]}x{WIDE[1]} svd(A, {K_WIDE}, "
                         f"method={method!r})", s)
-    del Aw
+    # A A^T of the wide input in bf16 (the kernel's K-major layout)
+    dtable["gram/wgmma[trans]"], path_counts["gram/wgmma[trans]"], Awb = \
+        bf16_gram_row(torch, ops, ref, Aw, "gram/wgmma[trans]", mm,
+                      trans=True)
+    del Aw, Awb
 
     # -- 6. determinism --------------------------------------------------
     Ar, _ = spectral_matrix(torch, *RERUN, SEED + 3, dev)
@@ -1808,7 +1925,8 @@ def main() -> int:
                  f"fp32 operand's {fp32_route}")
         if not same:
             fail(f"two solves with the same seed differ ({kw})")
-    for X in (Ar, Aro):                  # gram on tf32x3, tf32x3_cpasync
+    # gram on tf32x3, tf32x3_cpasync, wgmma, wgmma_ld
+    for X in (Ar, Aro, Ar.to(torch.bfloat16), Aro.to(torch.bfloat16)):
         for trans in (False, True):
             same = torch.equal(ops.gram(X, trans=trans),
                                ops.gram(X, trans=trans))

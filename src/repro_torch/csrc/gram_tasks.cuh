@@ -1,5 +1,6 @@
-// The output tiles of the Gram product, shared by its kernels (gram.cu:
-// bf16 by FFMA; gram_tf32.cu: fp32 as 3xTF32): the reduced-task schedule of
+// The output tiles of the Gram product, shared by its kernels (gram_tf32.cu:
+// fp32 as 3xTF32; gram_bf16.cu: bf16, in 2 x 2 groups of tiles): the
+// reduced-task schedule of
 // the paper's Alg 3 (Fig 2c) enumerates the upper-triangle tiles only, in
 // the order of core/partition.py::symmetric_tasks; the full schedule every
 // tile.

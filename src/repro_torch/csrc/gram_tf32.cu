@@ -9,7 +9,7 @@
 // for every fp32 operand.  Two routes (kernels/gram.py::route): "tf32x3",
 // where a TMA tensor map describes A (base and row stride 4 lda bytes
 // multiples of 16), and "tf32x3_cpasync" for every other fp32 A (any width,
-// any 4-byte-aligned base).  bf16 stays on gram.cu (FFMA).
+// any 4-byte-aligned base).  bf16 runs gram_bf16.cu (bf16 tensor cores).
 //
 // Bound on an H100 SXM at the gram path's 262144 x 8192: the symmetric
 // schedule's m n (n + 1) = 1.76e13 flop, as three TF32 products at 495

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (local_attn.cu, block_matvec_tc.cu, block_matvec_tf32.cu, gram_tf32.cu):
-// mbarriers, TMA tile loads through tensor maps, cp.async copies that
-// complete on an mbarrier (and the cp.async producer of an fp32 stage), the
+// (local_attn.cu, block_matvec_tc.cu, block_matvec_tf32.cu, gram_tf32.cu,
+// gram_bf16.cu): mbarriers, TMA tile loads through tensor maps (multicast
+// to the blocks of a cluster, with remote barrier arrivals and the
+// cluster's barrier), cp.async copies that complete on an mbarrier (and
+// the cp.async producer of an fp32 stage), the
 // stage ring a producer fills for consumer warps, wgmma shared-memory
 // descriptors, the bf16 wgmma forms with both operands in shared memory, the
 // tf32 forms with A in registers (ldmatrix, the tf32 rounding and 3xTF32
@@ -15,7 +17,7 @@
 //   operand of the s-th 32-byte step of a box (16 deep in bf16, 8 in tf32).
 //   Within each 8-row group, the 16-byte chunk c of row r lies at chunk
 //   c ^ (r % 8).
-// * MN-major operand (the output axis contiguous, B only): boxes of 64
+// * MN-major operand (the output axis contiguous; A too in bf16): boxes of 64
 //   output columns x R reduction rows, `lbo` = R * 128 bytes between the
 //   boxes, 8-row groups `sbo` = 1024 bytes apart; the s-th 16-deep step
 //   starts 16 rows (2048 bytes) further.
@@ -102,6 +104,42 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// The same 2-D box, written at the same shared-memory offset `dst` in every
+// block of the cluster whose rank is set in `mask`, each completing its
+// bytes on the barrier at offset `bar` of its own shared memory.
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
+                                                      const CUtensorMap* map,
+                                                      uint32_t bar, int c0,
+                                                      int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "h"(mask)
+      : "memory");
+}
+
+// One arrival on the barrier at offset `bar` of the shared memory of the
+// cluster's block `rank` (this block's own included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+
+// Every thread of every block of the cluster arrives, then waits for the
+// others: barriers initialised before any block touches another's, and no
+// block gone while another may still arrive on its barriers.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
 // wgmma shared-memory descriptor, 128-byte swizzle (see the layouts above).
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
                                          uint32_t sbo) {
@@ -135,8 +173,8 @@ __device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
 }
 
 // D (64 x 16, fp32) += A (64 x 16) * B (16 x 16), both from shared memory;
-// A K-major, B K-major (TRANS_B = 0) or MN-major (TRANS_B = 1).
-template <int TRANS_B>
+// A K-major (TRANS_A = 0) or MN-major (TRANS_A = 1), B likewise by TRANS_B.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
                                               uint64_t db, int scale_d) {
   asm volatile(
@@ -144,15 +182,16 @@ __device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
       "setp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "%8, %9, p, 1, 1, 0, %11;\n}\n"
+      "%8, %9, p, 1, 1, %12, %11;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B),
+        "n"(TRANS_A));
 }
 
 // D (64 x 32, fp32) += A (64 x 16) * B (16 x 32), both from shared memory;
-// A K-major, B K-major (TRANS_B = 0) or MN-major (TRANS_B = 1).
-template <int TRANS_B>
+// A K-major (TRANS_A = 0) or MN-major (TRANS_A = 1), B likewise by TRANS_B.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
                                               uint64_t db, int scale_d) {
   asm volatile(
@@ -161,17 +200,18 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7,"
       "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, %19;\n}\n"
+      "%16, %17, p, 1, 1, %20, %19;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B),
+        "n"(TRANS_A));
 }
 
 // D (64 x 64, fp32) += A (64 x 16) * B (16 x 64), both from shared memory;
-// A K-major, B K-major (TRANS_B = 0) or MN-major (TRANS_B = 1).
-template <int TRANS_B>
+// A K-major (TRANS_A = 0) or MN-major (TRANS_A = 1), B likewise by TRANS_B.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                               uint64_t db, int scale_d) {
   asm volatile(
@@ -182,7 +222,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -191,12 +231,13 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B),
+        "n"(TRANS_A));
 }
 
 // D (64 x 128, fp32) += A (64 x 16) * B (16 x 128), both from shared memory;
-// A K-major, B K-major (TRANS_B = 0) or MN-major (TRANS_B = 1).
-template <int TRANS_B>
+// A K-major (TRANS_A = 0) or MN-major (TRANS_A = 1), B likewise by TRANS_B.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                               uint64_t db, int scale_d) {
   asm volatile(
@@ -211,7 +252,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      "%64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -228,22 +269,25 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B),
+        "n"(TRANS_A));
 }
 
-// D (64 x N) += A (64 x 16) * B (16 x N), N in {16, 32, 64, 128}.
-template <int N, int TRANS_B>
+// D (64 x N) += A (64 x 16) * B (16 x N), N in {16, 32, 64, 128}; A
+// MN-major (the output rows contiguous) with TRANS_A = 1, as B with
+// TRANS_B = 1 (bf16 only: tf32 has no transposed forms).
+template <int N, int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
   static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma width");
   if constexpr (N == 16)
-    wgmma_ss_n16<TRANS_B>(d, da, db, scale_d);
+    wgmma_ss_n16<TRANS_B, TRANS_A>(d, da, db, scale_d);
   else if constexpr (N == 32)
-    wgmma_ss_n32<TRANS_B>(d, da, db, scale_d);
+    wgmma_ss_n32<TRANS_B, TRANS_A>(d, da, db, scale_d);
   else if constexpr (N == 64)
-    wgmma_ss_n64<TRANS_B>(d, da, db, scale_d);
+    wgmma_ss_n64<TRANS_B, TRANS_A>(d, da, db, scale_d);
   else
-    wgmma_ss_n128<TRANS_B>(d, da, db, scale_d);
+    wgmma_ss_n128<TRANS_B, TRANS_A>(d, da, db, scale_d);
 }
 
 // D (64 x 16, fp32) += A (64 x 8, tf32, registers) * B (8 x 16, tf32, smem,

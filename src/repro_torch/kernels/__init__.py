@@ -13,10 +13,10 @@
 * ``matvec``           — ``A @ v`` (CUDA C++, ``csrc/deflate_matvec.cu``)
 * ``deflate_rmatvec``  — the fused Alg-4 reverse sweep
                          ``A^T (Xv - U c)``, ``U^T Xv`` (same source)
-* ``gram``             — ``A^T A``, reduced-task schedule (CUDA C++:
-                         fp32 as 3xTF32 on the tensor cores,
-                         ``csrc/gram_tf32.cu``; bf16 by FFMA,
-                         ``csrc/gram.cu``)
+* ``gram``             — ``A^T A``, reduced-task schedule (CUDA C++ on
+                         the tensor cores: fp32 as 3xTF32,
+                         ``csrc/gram_tf32.cu``; bf16,
+                         ``csrc/gram_bf16.cu``)
 * ``local_attention``  — causal sliding-window attention with GQA and
                          logit soft-capping, the LM prefill's attention
                          (CUDA C++, ``csrc/local_attn.cu``)

@@ -1,7 +1,7 @@
 """Hopper kernels of the Gram product ``B = A^T A`` (``method="gram"``).
 
-Bindings of ``csrc/gram_tf32.cu`` and ``csrc/gram.cu`` (CUDA C++ for
-``sm_90a``, built by ``kernels/build.py`` at first use and called
+Bindings of ``csrc/gram_tf32.cu`` and ``csrc/gram_bf16.cu`` (CUDA C++
+for ``sm_90a``, built by ``kernels/build.py`` at first use and called
 through ``ctypes``).  They replace the Pallas TPU kernel of the JAX
 package's ``repro/kernels/gram.py``: ``gram`` (``pallas_call`` at line
 84), with its reduced-task schedule: the grid enumerates only the
@@ -13,7 +13,7 @@ an H100 and what each design does about it.
 
 Every kernel reads ``A`` (m, n) row-major with rows ``lda`` elements
 apart (``block_matvec.row_stride``), so a view of wider rows is read in
-place.  Three routes, chosen by ``route(A)`` from dtype, row stride and
+place.  Four routes, chosen by ``route(A)`` from dtype, row stride and
 alignment, the same for both orientations:
 
 * ``"tf32x3"`` (``gram_tf32.cu``): fp32 where a TMA tensor map describes
@@ -25,9 +25,24 @@ alignment, the same for both orientations:
   width, a base 4 or 8 bytes off 16).  The same kernel, the stage of its
   register operand copied by ``cp.async`` of 4 or 8 bytes in place of
   TMA; edges zero-filled, never read.
-* ``"ffma"`` (``gram.cu``): bf16, whose products are exact in fp32, by
-  FFMA with one sequential fp32 sum an entry.  No solve runs it: the
-  deflation engines sweep fp32.
+* ``"wgmma"`` (``gram_bf16.cu``): bf16 where a TMA tensor map describes
+  ``A`` (16-byte-aligned base, ``lda % 8 == 0``).  The bf16 tensor
+  cores, both operands from shared memory (``A^T A``'s both MN-major,
+  through wgmma's transpose bits), the wgmma sums added into rounded
+  fp32 sums every 256 rows.  At the gram path's 262144 x 8192 the bound
+  is 17.79 ms (m n (n + 1) flop at 989 TFLOP/s), but 128 x 128 tiles
+  pull 283 GB of ``A`` through L2 a launch; four blocks of a 2 x 2
+  cluster of tiles share each 64-column box by TMA multicast, 142 GB.
+  The kernel is held by that staging, and 128 x 128 tiles read 160
+  bytes of shared memory a tensor-core clock against the SM's 128, so
+  it cannot pass ~80 % of the bound either.
+* ``"wgmma_ld"`` (the same file): every other bf16 ``A`` (any
+  ``lda >= n``, any 2-byte-aligned base).  The same kernel without
+  clusters, each 16-byte chunk of a stage copied by ``cp.async`` of 16,
+  8 or 4 bytes as its address allows, or, where a row starts 2 bytes off
+  a 4-byte boundary (every other row of an odd ``lda``), by 4-byte loads
+  into registers shifted by a byte permute; edges zero-filled, never
+  read.
 
 A launch that the card refuses raises; no route stands in for another.
 ``gram_cuda`` takes a CUDA tensor that ``kernels/ops.py`` has already
@@ -45,7 +60,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.block_matvec import row_stride
 
 #: every route, in the order of ``ops.route_launches``
-ROUTES = ("tf32x3", "tf32x3_cpasync", "ffma")
+ROUTES = ("tf32x3", "tf32x3_cpasync", "wgmma", "wgmma_ld")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -54,14 +69,16 @@ _ARGS = [_P, _I64, _P, _I64, _I64, ctypes.c_int, ctypes.c_int, _P]
 
 def route(A: torch.Tensor) -> str:
     """The kernel that takes ``A`` (m, n), rows ``row_stride(A)`` apart, in
-    either orientation.  fp32: ``"tf32x3"`` where a TMA tensor map
-    describes it (base 16-byte aligned, rows a multiple of 16 bytes
-    apart), else ``"tf32x3_cpasync"``; bf16: ``"ffma"``."""
-    if A.dtype != torch.float32:
-        return "ffma"
+    either orientation: where a TMA tensor map describes it (base 16-byte
+    aligned, rows a multiple of 16 bytes apart) ``"tf32x3"`` for fp32 and
+    ``"wgmma"`` for bf16, else ``"tf32x3_cpasync"`` and ``"wgmma_ld"``."""
     lda = row_stride(A)
-    mapped = lda is not None and lda % 4 == 0 and A.data_ptr() % 16 == 0
-    return "tf32x3" if mapped else "tf32x3_cpasync"
+    fp32 = A.dtype == torch.float32
+    mapped = (lda is not None and lda % (4 if fp32 else 8) == 0
+              and A.data_ptr() % 16 == 0)
+    if fp32:
+        return "tf32x3" if mapped else "tf32x3_cpasync"
+    return "wgmma" if mapped else "wgmma_ld"
 
 
 def _bind(name: str, entries) -> ctypes.CDLL:
@@ -83,12 +100,12 @@ def gram_cuda(A: torch.Tensor, which: str, *, symmetric: bool = True,
     m, n = A.shape
     N = m if trans else n
     B = torch.empty((N, N), dtype=torch.float32, device=A.device)
-    if which == "ffma":
-        fn = _bind("gram", ("repro_gram",)).repro_gram
+    if which.startswith("wgmma"):
+        lib = _bind("gram_bf16", ("repro_gram_wgmma", "repro_gram_wgmma_ld"))
     else:
-        fn = getattr(_bind("gram_tf32", ("repro_gram_tf32x3",
-                                         "repro_gram_tf32x3_cpasync")),
-                     f"repro_gram_{which}")
+        lib = _bind("gram_tf32", ("repro_gram_tf32x3",
+                                  "repro_gram_tf32x3_cpasync"))
+    fn = getattr(lib, f"repro_gram_{which}")
     stream = torch.cuda.current_stream(A.device).cuda_stream
     with torch.cuda.device(A.device):
         err = fn(A.data_ptr(), row_stride(A), B.data_ptr(), m, n, int(trans),

@@ -34,7 +34,7 @@ the tensor cores as 3xTF32, ``"tf32x3"`` where a TMA tensor map
 describes ``A``, else ``"tf32x3_cpasync"``; bf16 on them, ``"wgmma"``;
 or a bf16 ``A`` no tensor map describes, ``"ffma"``), and ``gram``'s
 (``gram.route``: fp32 on ``"tf32x3"`` or ``"tf32x3_cpasync"`` by the
-same rule, bf16 ``"ffma"``).
+same rule, bf16 on ``"wgmma"`` or ``"wgmma_ld"`` by it).
 
 The block sweeps and ``gram`` read ``A`` in place where it is row-major
 with unit column stride (``block_matvec.row_stride``): contiguous, or a
@@ -251,8 +251,9 @@ def gram(A: torch.Tensor, *, symmetric: bool = True,
     triangle tiles, mirrored); ``False`` computes every tile.  Both give
     the full product, exactly symmetric; the plain version has no tiles
     and ignores it.  On the card ``gram.route`` picks the kernel (fp32 as
-    3xTF32 on the tensor cores, bf16 by FFMA), which reads ``A`` in place
-    where it is row-major with unit column stride (``row_stride``)."""
+    3xTF32 on the tensor cores, bf16 on their bf16 form), which reads
+    ``A`` in place where it is row-major with unit column stride
+    (``row_stride``)."""
     _vector_operands("gram", A)
     if A.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gram reads float32 or bfloat16, got {A.dtype}")

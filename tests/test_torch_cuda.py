@@ -21,9 +21,10 @@ bf16, 2^-8 |plain| of that element, plus 1e-5 for the fp32 sums' order
 staged by TMA where a tensor map describes A and by cp.async elsewhere;
 bf16 by wgmma where a map describes A (the solver's padded copy
 included), else by FFMA; all four routes are held to the same limits.
-``gram`` (``gram.route``): fp32 as 3xTF32 by TMA or cp.async, bf16 by
-FFMA, B exactly symmetric, and its off-diagonal entries also read alone
-(limit 4e-5, ``chip_smoke.py``'s ``TOL_GRAM_OFFDIAG``).
+``gram`` (``gram.route``): fp32 as 3xTF32 and bf16 by wgmma, each by
+TMA where a tensor map describes A and by the producer's own copies
+elsewhere, B exactly symmetric, and its off-diagonal entries also read
+alone (limit 4e-5, ``chip_smoke.py``'s ``TOL_GRAM_OFFDIAG``).
 """
 import importlib
 
@@ -440,25 +441,43 @@ def test_gram_routes_match_plain_version(card, m, n, ld, offset, route):
                                              trans=trans))
 
 
-@pytest.mark.parametrize("ld", [1021, 1032])
-def test_bf16_gram_runs_the_ffma_route(card, ld):
-    """bf16 on FFMA, read in place from a view of wider rows (element and
-    8-byte loads), both layouts."""
-    n = 1021 if ld == 1021 else 1024
-    g = torch.Generator(device=card).manual_seed(ld)
-    flat = torch.full((3002 * ld,), float("nan"), dtype=torch.bfloat16,
-                      device=card)
-    A = flat[:3001 * ld].view(3001, ld)[:, :n]
-    A.copy_(torch.randn((3001, n), generator=g, device=card))
-    ops.reset_launches()
+@pytest.mark.parametrize("m,n,ld,offset,route", [
+    (3001, 1024, 1024, 0, "wgmma"),             # a tensor map describes A
+    (3001, 1024, 1032, 0, "wgmma"),             # padded rows, by TMA
+    (3001, 1021, 1021, 0, "wgmma_ld"),          # odd lda: every other row
+    (3001, 1021, 1023, 0, "wgmma_ld"),          #   2 bytes off 4
+    (3001, 1021, 1022, 0, "wgmma_ld"),          # even lda, not a multiple of 8
+    (3001, 1021, 1024, 1, "wgmma_ld"),          # a base 2 bytes off 16
+    (257, 4100, 4100, 0, "wgmma_ld"),           # A A^T's reduction long
+    (256, 4096, 4096, 0, "wgmma"),
+])
+def test_bf16_gram_runs_the_tensor_cores(card, m, n, ld, offset, route):
+    """bf16 gram on each tensor-core route, read in place from views whose
+    padding is NaN (a read past a row shows), both layouts, symmetric and
+    full: the route that ran, B exactly symmetric, the whole product
+    within 1e-5, its off-diagonal entries within chip_smoke.py's 4e-5,
+    reruns bitwise."""
+    gm = importlib.import_module("repro_torch.kernels.gram")
+    g = torch.Generator(device=card).manual_seed(m + n + ld + offset)
+    flat = torch.full((offset + (m + 1) * ld,), float("nan"),
+                      dtype=torch.bfloat16, device=card)
+    A = flat[offset:offset + m * ld].view(m, ld)[:, :n]
+    A.copy_(torch.randn((m, n), generator=g, device=card))
+    assert gm.route(A) == route
     for trans in (False, True):
-        got = ops.gram(A, trans=trans)
-        torch.cuda.synchronize()
         want = ref.gram_ref(A, trans)
-        assert torch.equal(got, got.mT)
-        assert _rel(got, want) <= 1e-5 and _offdiag(got, want) <= 4e-5
-    assert {n_: c for n_, c in ops.route_launches.items() if c} == {
-        "gram/ffma": 2}
+        for symmetric in (True, False):
+            ops.reset_launches()
+            got = ops.gram(A, symmetric=symmetric, trans=trans)
+            torch.cuda.synchronize()
+            assert {n_: c for n_, c in ops.route_launches.items() if c} == {
+                f"gram/{route}": 1}
+            assert got.dtype == torch.float32 and got.shape == want.shape
+            assert torch.equal(got, got.mT)
+            assert _rel(got, want) <= 1e-5
+            assert _offdiag(got, want) <= 4e-5
+            assert torch.equal(got, ops.gram(A, symmetric=symmetric,
+                                             trans=trans))
 
 
 @pytest.mark.parametrize("n,route", [(300, "tf32x3"),

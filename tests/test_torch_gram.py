@@ -1,9 +1,10 @@
 """The port's ``gram`` kernels: their route, and the check that holds them.
 
 ``kernels/gram.py::route`` picks the kernel from dtype, row stride and
-alignment alone (no card needed): every fp32 ``A`` runs 3xTF32 on the
-tensor cores, by TMA where a tensor map describes it, else by cp.async;
-bf16 runs FFMA.
+alignment alone (no card needed): every ``A`` runs on the tensor cores,
+fp32 as 3xTF32 and bf16 on their bf16 form, by TMA where a tensor map
+describes it (``"tf32x3"``, ``"wgmma"``), else by the producer's own
+copies (``"tf32x3_cpasync"``, ``"wgmma_ld"``).
 
 ``chip_smoke.py`` holds the card's ``gram`` to two readings: the
 relative Frobenius error of the whole product against ``gram_tol`` and
@@ -53,14 +54,19 @@ def _meta(m, n, dtype=torch.float32, offset=0, ld=None):
     (_meta(5000, 1000, offset=4), "tf32x3"),           # base 16 bytes on
     (_meta(5000, 515, ld=516), "tf32x3"),         # rows padded to 16 bytes
     (_meta(5000, 515, ld=517), "tf32x3_cpasync"),  # rows not whole 16 bytes
-    (_meta(262144, 8192, torch.bfloat16), "ffma"),
-    (_meta(4097, 515, torch.bfloat16, ld=520), "ffma"),
+    (_meta(262144, 8192, torch.bfloat16), "wgmma"),
+    (_meta(4097, 515, torch.bfloat16, ld=520), "wgmma"),
+    (_meta(262144, 8190, torch.bfloat16), "wgmma_ld"),  # even, not 8k
+    (_meta(262144, 8191, torch.bfloat16), "wgmma_ld"),  # odd lda
+    (_meta(5000, 1024, torch.bfloat16, offset=1), "wgmma_ld"),  # 2 B off
+    (_meta(5000, 1024, torch.bfloat16, offset=8), "wgmma"),  # 16 B on
 ], ids=["path", "wide", "n515", "n514", "n2051", "n1", "offset4B",
         "offset8B", "offset16B", "padded", "padded-odd", "bf16",
-        "bf16-padded"])
+        "bf16-padded", "bf16-ld8190", "bf16-ld-odd", "bf16-offset2B",
+        "bf16-offset16B"])
 def test_route(A, want):
     """The route depends on dtype, row stride and alignment alone, the
-    same for A^T A and A A^T; no fp32 operand runs FFMA."""
+    same for A^T A and A A^T; no operand runs FFMA."""
     assert gram.route(A) == want
 
 
@@ -68,7 +74,7 @@ def test_every_route_is_counted():
     from repro_torch.kernels import ops
     assert {f"gram/{which}" for which in gram.ROUTES} <= set(
         ops.route_launches)
-    assert gram.ROUTES == ("tf32x3", "tf32x3_cpasync", "ffma")
+    assert gram.ROUTES == ("tf32x3", "tf32x3_cpasync", "wgmma", "wgmma_ld")
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:

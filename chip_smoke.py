@@ -13,35 +13,41 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    as 3xTF32) its registers, spills (and for attention its dynamic
    shared memory) and tensor-core instructions (``HGMMA``/``HMMA`` in
    the library's SASS, ``cuobjdump -sass``).  Fails unless the path's
-   instances (attention bf16 D = 256; the sweeps' ``matvec_tc<32>``,
-   ``rmatvec_tc``, and ``matvec_tf32<32,CP>`` and ``rmatvec_tf32<32,CP>``
-   for CP = 0, 1, 2: A by TMA, by cp.async of 4 and of 8 bytes; k = 32;
+   instances (attention bf16 D = 256; the sweeps' ``matvec_tc<32,LD>``
+   and ``rmatvec_tc<LD>`` for LD = 0, 8, 4, 2: A by TMA, by cp.async of
+   8 and of 4 bytes, and with register copies of rows 2 bytes off; and
+   ``matvec_tf32<32,CP>`` and ``rmatvec_tf32<32,CP>`` for CP = 0, 1, 2:
+   A by TMA, by cp.async of 4 and of 8 bytes; k = 32;
    and every instance of ``gram_tf32<TRANS,CP>``, ``A^T A`` and
    ``A A^T`` for CP = 0, 1, 2, and of ``gram_bf16<TRANS,LD>``, LD = 0
    by TMA and 1 by the producer's own copies) have tensor-core
-   instructions and spill nothing.  Beside the real build, seven planted
+   instructions and spill nothing.  Beside the real build, eight planted
    faults for phase 2b: ``block_matvec_tc.cu`` with
-   ``-DREPRO_TC_SUMS_ONLY``, ``block_matvec_tf32.cu`` with
+   ``-DREPRO_TC_SUMS_ONLY`` and with ``-DREPRO_NO_ZFILL``,
+   ``block_matvec_tf32.cu`` with
    ``-DREPRO_TF32_ONLY``, with ``-DREPRO_TC_SUMS_ONLY`` and with
    ``-DREPRO_NO_ZFILL``, ``gram_tf32.cu`` with ``-DREPRO_TF32_ONLY`` and
    with ``-DREPRO_TC_SUMS_ONLY``, and ``gram_bf16.cu`` with
-   ``-DREPRO_TC_SUMS_ONLY``; and, for timing alone, ``gram_bf16.cu`` with
-   ``-DREPRO_STAGING_ONLY`` (no products).
+   ``-DREPRO_TC_SUMS_ONLY``; and, for timing alone, ``gram_bf16.cu`` and
+   ``block_matvec_tc.cu`` with ``-DREPRO_STAGING_ONLY`` (no products).
 2. every kernel on the card against its plain PyTorch version
    (``repro_torch/kernels/ref.py``): ``block_matvec``, ``block_rmatvec``
    and ``block_gram_chain`` (both orientations), fp32 and bf16, at
    ragged shapes, each with the route that ran it (``tf32x3``: fp32 on
    the tensor cores, A by TMA; ``tf32x3_cpasync``: the same where no
-   tensor map describes A, A by cp.async; ``wgmma``: bf16 on them;
-   ``ffma``: bf16 no tensor map describes; read from the route launch
-   counts); the same on views of padded rows whose padding is NaN
-   (``padded_views``: a kernel that reads past a row returns NaN), the
-   bf16 ones as ``DenseOperator`` pads its copy; and at the main path's
-   262144 x 32768, k = 32, with the relative Frobenius error and its
-   limit; kernel, plain, library (``torch.matmul``, a yardstick only)
-   and bound (by route) times at that shape (the ``tf32x3_cpasync`` and
-   FFMA kernels' on the odd-width inputs of phase 3, after their
-   solves).  Then the planted faults the limit must reject, against the
+   tensor map describes A, A by cp.async; ``wgmma``: bf16 on them, A by
+   TMA; ``wgmma_ld``: bf16 no tensor map describes, A copied by the
+   kernel's producer; read from the route launch counts); the same on
+   views of padded rows whose padding is NaN (``padded_views``: a kernel
+   that reads past a row returns NaN), the bf16 ones as
+   ``DenseOperator`` pads its copy and on ``wgmma_ld`` (a base 2 bytes
+   off, an odd row stride, an odd n in rows of even stride); and at the
+   main path's 262144 x 32768, k = 32, with the relative Frobenius error
+   and its limit; kernel, plain, library (``torch.matmul``, a yardstick
+   only) and bound (by route) times at that shape (the
+   ``tf32x3_cpasync`` and ``wgmma_ld`` kernels' on the odd-width inputs
+   of phase 3, after their solves).  Then the planted faults the limit
+   must reject, against the
    real sweeps, on a 65536 x 32768 |N(0, 1)| ``A`` (bf16 for
    ``block_matvec_tc``, fp32 for ``block_matvec_tf32``) with skinny
    operands uniform in [0, 1) (every partial sum grows, as a truncating
@@ -55,7 +61,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    route: 65536 x 32765 views of rows 32767 apart, padding NaN; the
    last fault must read outside the limit in ``block_matvec`` (in
    ``block_rmatvec`` the columns past n feed only output rows that are
-   never stored).  And ``gram`` (fp32 on ``tf32x3`` with its two planted
+   never stored); the same for bf16 on ``wgmma_ld`` (rows 32767 apart:
+   every other row by registers) with its two faults, the sums left in
+   the tensor cores and the edge columns copied.  And ``gram`` (fp32 on
+   ``tf32x3`` with its two planted
    faults, bf16 on ``wgmma`` with its one) on 65536 x 2048 inputs (the
    gram path's aspect), |N(0, 1)| and signed N(0, 1): the real kernel
    within both of phase 4's gram readings on both, each fault outside the
@@ -71,13 +80,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``A`` in fp32: ``tf32x3``), and its profile; an fp32 input of odd
    width (65536 x 8190, rows no tensor map describes:
    ``tf32x3_cpasync`` end to end), with the sweeps timed there in fp32
-   and, on the FFMA kernels' remaining path, in bf16 handed to ``ops``
-   directly (one chain, launches counted); the paper's shard one column
-   short (262144 x 32767, after the main ``A`` is freed): the fp32 solve
-   (``tf32x3_cpasync``) and the bf16 one (chains on ``wgmma``, reading
-   the operator's copy padded to 32768 columns; the extraction on
-   ``tf32x3_cpasync``), each with its profile, no ``ffma`` launch, and
-   the fp32 sweeps timed at that shape; and a contiguous wide input (the
+   and, on ``wgmma_ld``'s path, in bf16 handed to ``ops`` directly (one
+   chain, launches counted; rows 4-byte aligned: cp.async of 4 bytes),
+   and the same at 65536 x 8191 (an odd row stride: every other row by
+   registers), each with its staging-only build's times; the paper's
+   shard one column short (262144 x 32767, after the main ``A`` is
+   freed): the fp32 solve (``tf32x3_cpasync``) and the bf16 one (chains
+   on ``wgmma``, reading the operator's copy padded to 32768 columns; the
+   extraction on ``tf32x3_cpasync``), each with its profile, and the
+   fp32 sweeps timed at that shape; and a contiguous wide input (the
    operator's transposed path).
 4. the deflation kernels (``matvec``, ``deflate_rmatvec``, ``gram``,
    both layouts; ``gram`` symmetric and full on its route -- where a
@@ -158,12 +169,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    attention; ``library_causal_ms``).
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches in the
-run of its path, and its times; the block sweeps once for the FFMA
-kernels, launches from the bf16 odd-width chain handed to ``ops`` and
-times at 65536 x 8190, as ``<name>/tf32x3`` for the main path's fp32
-solve, as ``<name>/wgmma`` for the bf16 solve's chains and as
-``<name>/tf32x3_cpasync`` for the odd-width shard's fp32 solve, timed at
-262144 x 32767; ``gram`` for the gram solve's 3xTF32 kernel and
+run of its path, and its times; the block sweeps as ``<name>/tf32x3``
+for the main path's fp32 solve, as ``<name>/wgmma`` for the bf16
+solve's chains, as ``<name>/tf32x3_cpasync`` for the odd-width shard's
+fp32 solve, timed at 262144 x 32767, and as ``<name>/wgmma_ld`` and
+``<name>/wgmma_ld[odd lda]`` for the bf16 chains handed to ``ops`` at
+65536 x 8190 and 65536 x 8191, launches from those chains; ``gram`` for the gram solve's 3xTF32 kernel and
 ``gram/wgmma`` for the bf16 one, launched once through ``ops``, both
 timed at 262144 x 8192, ``gram/tf32x3_cpasync`` for the odd-width gram
 solve's and ``gram/wgmma_ld`` for bf16 of those rows, timed at 262144 x
@@ -264,12 +275,10 @@ REPLACES = {"block_matvec": f"{TPU_KERNEL}:81",
 TC_SOURCE = "src/repro_torch/csrc/block_matvec_tc.cu"
 TF32_SOURCE = "src/repro_torch/csrc/block_matvec_tf32.cu"
 ODD = (65536, 8190)                    # rows no tensor map describes
+ODD_LDA = (65536, 8191)                # bf16: every other row 2 bytes off
 ODD_SHARD = (M, N - 1)                 # the paper's shard one column short
 RERUN_ODD = (RERUN[0], RERUN[1] - 1)
-SOURCES = {"block_matvec": "src/repro_torch/csrc/block_matvec.cu",
-           "block_rmatvec": "src/repro_torch/csrc/block_matvec.cu",
-           "block_gram_chain": "src/repro_torch/csrc/block_matvec.cu",
-           "matvec": "src/repro_torch/csrc/deflate_matvec.cu",
+SOURCES = {"matvec": "src/repro_torch/csrc/deflate_matvec.cu",
            "deflate_rmatvec": "src/repro_torch/csrc/deflate_matvec.cu",
            "gram": "src/repro_torch/csrc/gram_tf32.cu",
            "gram/tf32x3_cpasync": "src/repro_torch/csrc/gram_tf32.cu",
@@ -365,13 +374,12 @@ def deflation_bound(name: str, m: int, n: int, k: int = 0) -> tuple:
 
 
 def bound(name: str, m: int, n: int, k: int, dtype: str,
-          route: str = "ffma") -> tuple:
+          route: str) -> tuple:
     """Least time for the function on an H100 SXM by ``route``: A and the
     skinny input read once in ``dtype``, the fp32 output written once,
     over the memory rate; 2*m*n*k flop per product over the peak for
-    ``dtype`` (bf16 by FFMA or on the bf16 tensor cores; on the
-    ``tf32x3`` and ``tf32x3_cpasync`` routes three TF32 products at the
-    TF32 peak).  The chain's bound counts A once: a one-read fusion
+    ``dtype`` (bf16 on the bf16 tensor cores; on the ``tf32x3`` and
+    ``tf32x3_cpasync`` routes three TF32 products at the TF32 peak).  The chain's bound counts A once: a one-read fusion
     is possible."""
     isz = 2 if dtype == "bfloat16" else 4
     skinny_in, out, products = {"block_matvec": (n, m, 1),
@@ -466,6 +474,51 @@ def sweep_rows(torch, ops, ref, bm, A, Q, Ym, sd) -> dict:
     return rows
 
 
+def wgmma_ld_rows(torch, ops, ref, bm, planted, X, Q, Y, counts) -> dict:
+    """bf16 of ``X`` (fp32, m x n) handed to ``ops`` directly with rows no
+    tensor map describes, ``wgmma_ld``'s path: one chain through ``ops``,
+    whose launches (all on ``wgmma_ld``, or fail) go into ``counts`` by
+    (sweep, shape); then ``sweep_rows`` in bf16; then each sweep's kernel
+    timed beside its staging-only build (no products: what the copies of
+    A cost alone), both through ``block_matvec``'s binding.  Returns the
+    rows by sweep."""
+    m, n = X.shape
+    Ab = X.to(torch.bfloat16)
+    ops.reset_launches()
+    ops.block_gram_chain(Ab, Q)
+    torch.cuda.synchronize()
+    launched = {n_: c for n_, c in ops.launches.items() if c}
+    routes = {n_: c for n_, c in ops.route_launches.items() if c}
+    print(f"bf16 {m}x{n} (rows of {2 * n} bytes) through "
+          f"ops.block_gram_chain: launches {launched} (by route {routes})")
+    if routes != {"block_matvec/wgmma_ld": 1, "block_rmatvec/wgmma_ld": 1}:
+        fail(f"bf16 {(m, n)}: launches by route {routes}, want wgmma_ld")
+    for name, c in launched.items():
+        counts[(name, (m, n))] = c
+    rows = sweep_rows(torch, ops, ref, bm, X, Q, Y, "bfloat16")
+    for name, row in rows.items():
+        if row["route"] != "wgmma_ld":
+            fail(f"{name} bf16 at {(m, n)}: route {row['route']}, not "
+                 f"wgmma_ld")
+    Qb, Yb = Q.to(torch.bfloat16), Y.to(torch.bfloat16)
+    staging = planted[("block_matvec_tc", "REPRO_STAGING_ONLY")]
+    for name, fn in (
+            ("block_matvec",
+             lambda: bm.block_matvec_cuda(Ab, Qb, "wgmma_ld")),
+            ("block_rmatvec",
+             lambda: bm.block_rmatvec_cuda(Ab, Yb, "wgmma_ld"))):
+        row = rows[name]
+        row["ms_binding"] = time_ms(torch, fn, 5)
+        row["ms_staging_only"] = planted_run(
+            bm, "block_matvec_tc", staging, lambda: time_ms(torch, fn, 5))
+        print(f"  {name:16s} bf16 (wgmma_ld) {m}x{n}: the kernel through "
+              f"its binding {row['ms_binding']:.3f} ms, its staging alone "
+              f"(no products) {row['ms_staging_only']:.3f} ms, bound "
+              f"{row['bound_ms']:.3f} ms")
+    del Ab, Qb, Yb
+    return rows
+
+
 def rel_err(torch, got, want) -> float:
     return float(torch.linalg.norm(got - want) /
                  (torch.linalg.norm(want) + 1e-30))
@@ -508,8 +561,11 @@ def padded_views(torch, ops, ref, bm, g, dev) -> float:
     outside the view NaN (a kernel that reads past a row's n-th element
     returns NaN): fp32 on both 3xTF32 routes (cp.async of 4 and of 8
     bytes), bf16 as ``DenseOperator`` copies it (rows padded to whole 16
-    bytes: ``wgmma``) and at a base a tensor map cannot take (``ffma``);
-    each against its plain version and on the route it should take.
+    bytes: ``wgmma``) and on ``wgmma_ld`` at a base a tensor map cannot
+    take (2 bytes off: registers), an odd row stride (every other row by
+    registers) and an odd n in rows of even stride (4-byte copies, the
+    last word half inside the row); each against its plain version and
+    on the route it should take.
     Returns the worst error as a share of its limit."""
     worst = 0.0
     for (m, n, k, ld, offset, sd, route) in [
@@ -518,7 +574,9 @@ def padded_views(torch, ops, ref, bm, g, dev) -> float:
             (3001, 1021, 7, 1027, 3, "float32", "tf32x3_cpasync"),
             (3001, 1021, 32, 1024, 0, "float32", "tf32x3"),
             (4097, 515, 40, 520, 0, "bfloat16", "wgmma"),
-            (4097, 515, 40, 520, 1, "bfloat16", "ffma")]:
+            (4097, 515, 40, 520, 1, "bfloat16", "wgmma_ld"),
+            (4097, 515, 40, 517, 0, "bfloat16", "wgmma_ld"),
+            (4097, 515, 40, 518, 0, "bfloat16", "wgmma_ld")]:
         dt = getattr(torch, sd)
         flat = torch.full((offset + (m + 1) * ld,), float("nan"), dtype=dt,
                           device=dev)
@@ -820,10 +878,11 @@ def instances(build, name: str, log: str) -> tuple:
 def sweep_instances(build, name: str, log: str, tag: str, dtype: str,
                     want: tuple) -> None:
     """Each tensor-core instance of the block sweeps and ``gram`` of
-    library ``name`` (``block_matvec_tc``: kernels ``matvec_tc<N>``,
-    ``rmatvec_tc``; ``block_matvec_tf32``: ``matvec_tf32<N,CP>``,
-    ``rmatvec_tf32<N,CP>``; ``gram_tf32``: ``gram_tf32<TRANS,CP>``; CP = 0
-    the TMA producer, 1 or 2 the cp.async one; ``tag`` the suffix):
+    library ``name`` (``block_matvec_tc``: kernels ``matvec_tc<N,LD>``,
+    ``rmatvec_tc<LD>``, LD = 0 the TMA producer, else the copying one;
+    ``block_matvec_tf32``: ``matvec_tf32<N,CP>``, ``rmatvec_tf32<N,CP>``;
+    ``gram_tf32``: ``gram_tf32<TRANS,CP>``; CP = 0 the TMA producer, 1 or
+    2 the cp.async one; ``tag`` the suffix):
     registers, spills, HGMMA count; fail unless the path's (``want``)
     have HGMMA and spill nothing."""
     import re
@@ -878,15 +937,18 @@ def attention_instances(build, la, log: str) -> None:
 
 # the planted faults of phase 2b: (library, its -D flag)
 PLANTED = (("block_matvec_tc", "REPRO_TC_SUMS_ONLY"),
+           ("block_matvec_tc", "REPRO_NO_ZFILL"),
            ("block_matvec_tf32", "REPRO_TF32_ONLY"),
            ("block_matvec_tf32", "REPRO_TC_SUMS_ONLY"),
            ("block_matvec_tf32", "REPRO_NO_ZFILL"),
            ("gram_tf32", "REPRO_TF32_ONLY"),
            ("gram_tf32", "REPRO_TC_SUMS_ONLY"),
            ("gram_bf16", "REPRO_TC_SUMS_ONLY"))
-# builds for timing alone, beside the planted faults: bf16 gram's staging
-# with no products (phase 5: where the kernel's time goes)
-TIMING = (("gram_bf16", "REPRO_STAGING_ONLY"),)
+# builds for timing alone, beside the planted faults: the staging with no
+# products of bf16 gram (phase 5) and of the bf16 sweeps (phase 3, on
+# wgmma_ld): where the kernels' time goes
+TIMING = (("gram_bf16", "REPRO_STAGING_ONLY"),
+          ("block_matvec_tc", "REPRO_STAGING_ONLY"))
 
 
 def build_planted(build, name: str, flag: str) -> tuple:
@@ -915,12 +977,12 @@ def outside(e: float, tol: float) -> bool:
 def planted_faults(torch, bm, ref, planted, sd, g, dev, inputs, width=N,
                    ld=None, seen=None) -> dict:
     """The sweeps of dtype ``sd`` on the route ``A`` takes (bf16:
-    ``wgmma``; fp32: ``tf32x3``, or ``tf32x3_cpasync`` where no tensor
-    map describes ``A``) and the same sweeps from each planted-fault
-    library of ``planted`` ({(library, flag): path}), against the plain
-    version on 65536 x ``width`` inputs, rows ``ld`` apart (default
-    ``width``) in an allocation of one row more, every element outside
-    the view NaN: ``"abs"``, an |N(0, 1)| ``A`` with skinny operands
+    ``wgmma``, or ``wgmma_ld`` where no tensor map describes ``A``; fp32:
+    ``tf32x3``, or ``tf32x3_cpasync``) and the same sweeps from each
+    planted-fault library of ``planted`` ({(library, flag): path}),
+    against the plain version on 65536 x ``width`` inputs, rows ``ld``
+    apart (default ``width``) in an allocation of one row more, every
+    element outside the view NaN: ``"abs"``, an |N(0, 1)| ``A`` with skinny operands
     uniform in [0, 1) (every partial sum grows, as a truncating
     accumulator likes least), and ``"signed"``, N(0, 1) ``A`` and skinny
     operands (the sums cancel, so a rounding error of each product is
@@ -1517,12 +1579,16 @@ def main() -> int:
     attention_instances(build, local_attn, logs.get("local_attn") or (
         build.BUILD_DIR / "local_attn.log").read_text())
     # fp32 on the paths: TMA (CP 0) at the main path's width, cp.async of
-    # 4 bytes (CP 1) at 32767 columns, of 8 (CP 2) at 8190; gram every
-    # instance (A^T A on the gram path, A A^T on the wide input, cp.async
-    # at ragged widths; bf16 by TMA multicast, LD 0, and by the producer's
-    # copies, LD 1)
+    # 4 bytes (CP 1) at 32767 columns, of 8 (CP 2) at 8190; bf16 by TMA
+    # (LD 0) on the solver's copy, by cp.async of 4 bytes (LD 4) at 8190,
+    # with registers (LD 2) at 8191, of 8 bytes (LD 8) on padded views;
+    # gram every instance (A^T A on the gram path, A A^T on the wide
+    # input, cp.async at ragged widths; bf16 by TMA multicast, LD 0, and
+    # by the producer's copies, LD 1)
     for name, tag, sd, want in (
-            ("block_matvec_tc", "tc", "bf16", ("matvec_tc<32>", "rmatvec_tc")),
+            ("block_matvec_tc", "tc", "bf16",
+             tuple(kern for ld in (0, 8, 4, 2)
+                   for kern in (f"matvec_tc<32,{ld}>", f"rmatvec_tc<{ld}>"))),
             ("block_matvec_tf32", "tf32", "fp32",
              tuple(f"{kern}_tf32<32,{cp}>" for cp in (0, 1, 2)
                    for kern in ("matvec", "rmatvec"))),
@@ -1538,7 +1604,7 @@ def main() -> int:
     # -- 2a. kernels vs plain at ragged shapes -----------------------------
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     # n in {300, 515, 4100, 2052, 1001, 2054} has bf16 rows a tensor map
-    # cannot describe (n % 8 != 0): contiguous bf16 there is FFMA; fp32
+    # cannot describe (n % 8 != 0): contiguous bf16 there is wgmma_ld; fp32
     # rows where n % 4 != 0 (515, 1001, 2054) run tf32x3_cpasync (cp.async
     # of 4 bytes, of 8 at 2054).  (5000, 1000, 7) and (3001, 2052, 45) are
     # ragged in m (not whole 256-row blocks), n (not whole stages: 64 bf16,
@@ -1612,16 +1678,20 @@ def main() -> int:
                              ("abs", "signed"))):
         planted_faults(torch, bm, ref, {
             key: path for key, path in planted.items() if key[0] == lib
-            and key[1] != "REPRO_NO_ZFILL"}, sd, g, dev, inputs)
-    # the cp.async route: rows 32767 floats apart (no tensor map), 32765 of
-    # them read; the columns past n are NaN, so a copy that reads them
-    # shows in A Q.  In A^T Y they feed only output rows past n, which are
-    # never stored: no reading of A^T Y can see that fault
-    planted_faults(torch, bm, ref, {
-        key: path for key, path in planted.items()
-        if key[0] == "block_matvec_tf32"}, "float32", g, dev,
-        ("abs", "signed"), width=N - 3, ld=N - 1,
-        seen={"REPRO_NO_ZFILL": ("block_matvec",)})
+            and key in PLANTED and key[1] != "REPRO_NO_ZFILL"}, sd, g, dev,
+            inputs)
+    # the copying routes: rows 32767 elements apart (no tensor map; in
+    # bf16 an odd stride, every other row by registers), 32765 of them
+    # read; the columns past n are NaN, so a copy that reads them shows in
+    # A Q.  In A^T Y they feed only output rows past n, which are never
+    # stored: no reading of A^T Y can see that fault
+    for sd, lib, inputs in (("float32", "block_matvec_tf32",
+                             ("abs", "signed")),
+                            ("bfloat16", "block_matvec_tc", ("abs",))):
+        planted_faults(torch, bm, ref, {
+            key: path for key, path in planted.items()
+            if key[0] == lib and key in PLANTED}, sd, g, dev, inputs,
+            width=N - 3, ld=N - 1, seen={"REPRO_NO_ZFILL": ("block_matvec",)})
     for lib, sd in (("gram_tf32", "float32"), ("gram_bf16", "bfloat16")):
         gram_planted_faults(torch, gm, ref, {
             key: path for key, path in planted.items()
@@ -1708,7 +1778,6 @@ def main() -> int:
                 ("rmatvec_tf32 cp.async", "::rmatvec_tf32<", None),
                 ("matvec_tc", "::matvec_tc", ""),
                 ("rmatvec_tc", "::rmatvec_tc", ""),
-                ("FFMA", "matvec_kernel<", ""),
                 ("split_transpose", "split_transpose", ""),
                 ("slab sum", "sum_slabs", ""))
 
@@ -1844,26 +1913,25 @@ def main() -> int:
         if row["route"] != "tf32x3_cpasync":
             fail(f"{name} at {ODD}: route {row['route']}, not tf32x3_cpasync")
         table[(name, "tf32x3_cpasync", ODD)] = row
-    # the FFMA kernels' remaining path: a bf16 A of rows no tensor map
-    # describes, handed to ops directly (the solver pads its own bf16 copy)
-    Ab = Ao.to(torch.bfloat16)
-    ops.reset_launches()
-    ops.block_gram_chain(Ab, Qo)
-    torch.cuda.synchronize()
-    ffma_counts = {n_: c for n_, c in ops.launches.items() if c}
-    ffma_routes = {n_: c for n_, c in ops.route_launches.items() if c}
-    print(f"bf16 {ODD[0]}x{ODD[1]} (rows of {2 * ODD[1]} bytes) through "
-          f"ops.block_gram_chain: launches {ffma_counts} (by route "
-          f"{ffma_routes})")
-    if ffma_routes != {"block_matvec/ffma": 1, "block_rmatvec/ffma": 1}:
-        fail(f"bf16 {ODD}: launches by route {ffma_routes}, want ffma")
-    del Ab
-    for name, row in sweep_rows(torch, ops, ref, bm, Ao, Qo, Yo,
-                                "bfloat16").items():
-        if row["route"] != "ffma":
-            fail(f"{name} bf16 at {ODD}: route {row['route']}, not ffma")
-        table[(name, "ffma")] = row
+    # wgmma_ld's path: a bf16 A of rows no tensor map describes, handed to
+    # ops directly (the solver pads its own bf16 copy): rows of 16380
+    # bytes (4-byte aligned: cp.async of 4 bytes), then of 16382 (an odd
+    # stride: every other row 2 bytes off, copied through registers)
+    ld_counts = {}
+    for name, row in wgmma_ld_rows(torch, ops, ref, bm, planted, Ao, Qo, Yo,
+                                   ld_counts).items():
+        table[(name, "wgmma_ld", ODD)] = row
     del Ao, Qo, Yo
+    torch.cuda.empty_cache()
+    Al, _ = spectral_matrix(torch, *ODD_LDA, SEED + 10, dev)
+    gl = torch.Generator(device=dev).manual_seed(SEED + 11)
+    Ql = torch.linalg.qr(torch.randn((ODD_LDA[1], K), generator=gl,
+                                     device=dev)).Q
+    Yl = torch.randn((ODD_LDA[0], K), generator=gl, device=dev)
+    for name, row in wgmma_ld_rows(torch, ops, ref, bm, planted, Al, Ql, Yl,
+                                   ld_counts).items():
+        table[(name, "wgmma_ld", ODD_LDA)] = row
+    del Al, Ql, Yl
     torch.cuda.empty_cache()
 
     # the paper's shard one column short: no fp32 tensor map (4-byte
@@ -1944,12 +2012,7 @@ def main() -> int:
         torch, ops, ref, local_attn, g, dev)
 
     sweeps = ("block_matvec", "block_rmatvec", "block_gram_chain")
-    # the FFMA sweeps (launches: the bf16 odd-width chain through ops, their
-    # path)
-    rows = {name: table[(name, "ffma")] for name in sweeps}
-    for name in sweeps:
-        path_counts[name] = ffma_counts[name]
-    rows.update(dtable)
+    rows = dict(dtable)
     # the fp32 solve's sweeps (3xTF32), the bf16 solve's chains (wgmma) and
     # the odd-width shard's fp32 solve (3xTF32, A by cp.async)
     for name in sweeps:
@@ -1963,6 +2026,14 @@ def main() -> int:
                                                         counts[name])
             SOURCES[f"{name}/{which}"] = source
             REPLACES[f"{name}/{which}"] = REPLACES[name]
+        # bf16 handed to ops with rows no tensor map describes (launches:
+        # the chain through ops at each width, their path)
+        for label, shape in (("wgmma_ld", ODD), ("wgmma_ld[odd lda]", ODD_LDA)):
+            key = f"{name}/{label}"
+            rows[key] = table[(name, "wgmma_ld", shape)]
+            path_counts[key] = ld_counts[(name, shape)]
+            SOURCES[key] = TC_SOURCE
+            REPLACES[key] = REPLACES[name]
     print(f"odd-width shard bf16 solve: launches {odd16_counts}, by route "
           f"{odd16_routes}")
     kernels = [{
@@ -1979,7 +2050,8 @@ def main() -> int:
             "float32", "tf32x3_cpasync") else "bfloat16",
          **table[(name, *key)]}
         for key in (("float32",), ("bfloat16",), ("tf32x3_cpasync",),
-                    ("tf32x3_cpasync", ODD), ("ffma",))
+                    ("tf32x3_cpasync", ODD), ("wgmma_ld", ODD),
+                    ("wgmma_ld", ODD_LDA))
         for name in sweeps]}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -12,8 +12,8 @@ ONE knob, as in the JAX package's ``repro/core/precision.py``:
 
 ``sweep_dtype="float32"`` is the default; its sweeps run on the tensor
 cores as 3xTF32 (each operand split into TF32 halves, three products,
-fp32 sums) where a TMA tensor map describes ``A``, else on FFMA, never
-plain TF32, and in a fixed order, so fp32 stays within 1e-5 of full
+fp32 sums), ``A`` staged by TMA where a tensor map describes it, else by
+``cp.async``; never plain TF32, and in a fixed order, so fp32 stays within 1e-5 of full
 fp32 and bit-stable from run to run.  bf16 sweeps pair with a looser
 ``eps`` (~1e-4).  Pass accounting is dtype-independent; bf16
 changes the bytes per pass, never the number of passes.

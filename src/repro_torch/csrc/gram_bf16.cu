@@ -178,68 +178,6 @@ __device__ __forceinline__ bool group_of(int64_t g, int ng, bool symmetric,
   return gi < ng && gj < ng && !(symmetric && gi > gj);
 }
 
-__device__ __forceinline__ void sts_v4(uint32_t addr, uint32_t a, uint32_t b,
-                                       uint32_t c, uint32_t d) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-               "r"(a), "r"(b), "r"(c), "r"(d)
-               : "memory");
-}
-
-__device__ __forceinline__ uint32_t ldg_u32(const char* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-// One 16-byte chunk of a "wgmma_ld" stage: 8 bf16 of A from `src`, of
-// which the first v (1 .. 8) exist, into shared memory at `dst`, zeros
-// after them.  Where `src` is 4-byte aligned, cp.async of the widest size
-// its address allows (16, 8 or 4 bytes), the bytes past v arriving as
-// zeros; else (2 bytes off) the 4-byte words around it, w[k] holding
-// elements 2k - 1 and 2k, each loaded only where it holds an element that
-// exists, and stored by put_chunk once they have landed.
-__device__ __forceinline__ void load_words(const char* src, int v,
-                                           uint32_t (&w)[5]) {
-  const char* p = src - 2;                  // 4-byte aligned
-  w[0] = ldg_u32(p);
-  w[1] = v > 1 ? ldg_u32(p + 4) : 0u;
-  w[2] = v > 3 ? ldg_u32(p + 8) : 0u;
-  w[3] = v > 5 ? ldg_u32(p + 12) : 0u;
-  w[4] = v > 7 ? ldg_u32(p + 16) : 0u;
-}
-
-__device__ __forceinline__ void copy_chunk(uint32_t dst, const char* src,
-                                           int v, bool by16, bool by8) {
-  const int bytes = 2 * v;
-  if (by16) {
-    cp_async<16>(dst, src, bytes);
-  } else if (by8) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int b = min(8, max(0, bytes - 8 * h));
-      cp_async<8>(dst + 8 * h, b > 0 ? src + 8 * h : src, b);
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int b = min(4, max(0, bytes - 4 * q));
-      cp_async<4>(dst + 4 * q, b > 0 ? src + 4 * q : src, b);
-    }
-  }
-}
-
-// The register half of a chunk: elements 2k and 2k + 1 are the high half
-// of w[k] and the low half of w[k + 1]; those from v on are zero (all of
-// them where v == 0: a chunk past A's edge).
-__device__ __forceinline__ void put_chunk(uint32_t dst, int v,
-                                          const uint32_t (&w)[5]) {
-  uint32_t o[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const uint32_t x = __byte_perm(w[k], w[k + 1], 0x5432);
-    o[k] = 2 * k + 1 < v ? x : (2 * k < v ? x & 0xffffu : 0u);
-  }
-  sts_v4(dst, o[0], o[1], o[2], o[3]);
-}
-
 // Producer thread t's share of a "wgmma_ld" stage: 16 chunks u.  A^T A:
 // warp t / 32 takes the stage's rows 16 (t / 32) + d(u), the even ones
 // for u < 8 and the odd ones after (on an odd lda the rows of one of the

@@ -2,8 +2,9 @@
 // (local_attn.cu, block_matvec_tc.cu, block_matvec_tf32.cu, gram_tf32.cu,
 // gram_bf16.cu): mbarriers, TMA tile loads through tensor maps (multicast
 // to the blocks of a cluster, with remote barrier arrivals and the
-// cluster's barrier), cp.async copies that complete on an mbarrier (and
-// the cp.async producer of an fp32 stage), the
+// cluster's barrier), cp.async copies that complete on an mbarrier (the
+// cp.async producer of a stage, fp32 or bf16, and the register copies of
+// bf16 rows 2 bytes off a 4-byte boundary), the
 // stage ring a producer fills for consumer warps, wgmma shared-memory
 // descriptors, the bf16 wgmma forms with both operands in shared memory, the
 // tf32 forms with A in registers (ldmatrix, the tf32 rounding and 3xTF32
@@ -461,7 +462,7 @@ __device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
   return r;
 }
 
-// CP bytes (4 or 8) from global into shared memory by cp.async (LDGSTS;
+// CP bytes (4, 8 or 16) from global into shared memory by cp.async (LDGSTS;
 // `dst` and `src` aligned to CP); the bytes past `src_bytes` (0 .. CP) are
 // not read and arrive as zeros.  L2 fetches 256 bytes around a miss, as the
 // tensor maps of encode_2d ask (CU_TENSOR_MAP_L2_PROMOTION_L2_256B).
@@ -487,24 +488,31 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // The producer thread t's (0 .. 127) share of a stage of A by cp.async:
-// rows r0 .. r0 + R - 1 and columns c0 .. c0 + 32 BOXES - 1 of fp32 A (rows
-// lda apart), as BOXES boxes of R rows x 32 fp32, box b the columns
-// c0 + 32 b .., each row of 128 bytes in the 128-byte swizzle (16-byte
-// chunk c of row r at chunk c ^ (r % 8)), exactly as TMA writes the box.
-// Copies of CP fp32 (1 or 2).  Rows from r_end and columns from n arrive as
-// zeros and are not read (ZFILL = false, a planted fault: the columns past
-// n are copied from past the end of the row).  A thread keeps its columns
-// (consecutive threads on consecutive copies of a row: coalesced) and steps
-// down the rows by a fixed stride; its rows fall on 8 swizzle patterns,
-// whose destinations it computes once, so a stage with no row past the
-// edge costs a copy and a pointer step a copy.  UNROLL: the rows' loop
-// unrolled whole, else in groups of 8.
-template <int CP, int R, int BOXES, bool UNROLL, bool ZFILL = true>
+// rows r0 .. r0 + R - 1 and columns c0 .. c0 + W BOXES - 1 of A (elements
+// of type T, fp32 or bf16; rows lda apart), as BOXES boxes of R rows x W
+// elements, W = 128 bytes (32 fp32 or 64 bf16), box b the columns c0 + W b
+// .., each row of 128 bytes in the 128-byte swizzle (16-byte chunk c of
+// row r at chunk c ^ (r % 8)), exactly as TMA writes the box.  Copies of
+// CP elements (4 or 8 bytes).  Rows from r_end and columns from n arrive
+// as zeros and are not read, a copy that straddles n reading only its
+// elements inside (2 bytes of 4 where a bf16 row of odd n ends half way
+// into it); ZFILL = false, a planted fault: the columns past n are copied
+// from past the end of the row.  A thread keeps its columns (consecutive
+// threads on consecutive copies of a row: coalesced) and steps down the
+// rows by a fixed stride; its rows fall on 8 swizzle patterns, whose
+// destinations it computes once, so a stage with no row past the edge
+// costs a copy and a pointer step a copy.  UNROLL: the rows' loop unrolled
+// whole, else in groups of 8.
+template <int CP, int R, int BOXES, bool UNROLL, bool ZFILL = true,
+          typename T>
 __device__ __forceinline__ void copy_stage(uint32_t dst,
-                                           const float* __restrict__ A,
+                                           const T* __restrict__ A,
                                            long long lda, int r0, int r_end,
                                            int c0, int n, int t) {
-  constexpr int UPR = 32 * BOXES / CP;       // copies in a row of the stage
+  constexpr int E = sizeof(T);               // bytes an element
+  constexpr int W = 128 / E;                 // elements a row of a box
+  constexpr int S = E == 4 ? 2 : 3;          // log2 of elements a chunk
+  constexpr int UPR = W * BOXES / CP;        // copies in a row of the stage
   constexpr int TPR = UPR < 128 ? UPR : 128; // threads on one row
   constexpr int RPP = 128 / TPR;             // rows a pass of the 128 threads
   constexpr int P = R / RPP;                 // copies a thread a column
@@ -513,17 +521,17 @@ __device__ __forceinline__ void copy_stage(uint32_t dst,
   const bool whole = r0 + R <= r_end;        // no row past the edge
 #pragma unroll 1
   for (int cs = 0; cs < UPR / TPR; ++cs) {   // the thread's columns, in turn
-    const int c = (t % TPR + cs * TPR) * CP, j = c % 32;
+    const int c = (t % TPR + cs * TPR) * CP, j = c % W;
     const int left = ZFILL ? max(0, min(CP, n - c0 - c)) : CP;
     uint32_t d[8];                           // rows rt + q RPP, q < 8
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int r = rt + q * RPP;
-      d[q] = dst + (c / 32) * R * 128 + r * 128 +
-             (((j >> 2) ^ (r & 7)) << 4) + 4 * (j & 3);
+      d[q] = dst + (c / W) * R * 128 + r * 128 +
+             (((j >> S) ^ (r & 7)) << 4) + E * (j & ((1 << S) - 1));
     }
     // a column past n reads nothing: the source stays at A's base
-    const float* src = left > 0 ? A + (r0 + rt) * lda + c0 + c : A;
+    const T* src = left > 0 ? A + (r0 + rt) * lda + c0 + c : A;
     const long long step = left > 0 ? RPP * lda : 0;
     // 8 rows a group, one of each swizzle pattern
     auto group = [&](int p) {
@@ -531,12 +539,12 @@ __device__ __forceinline__ void copy_stage(uint32_t dst,
       if (whole) {
 #pragma unroll
         for (int q = 0; q < 8; ++q, src += step)
-          cp_async<4 * CP>(d[q] + off, src, 4 * left);
+          cp_async<E * CP>(d[q] + off, src, E * left);
       } else {
 #pragma unroll
         for (int q = 0; q < 8; ++q, src += step) {
-          const int bytes = r0 + rt + (p + q) * RPP < r_end ? 4 * left : 0;
-          cp_async<4 * CP>(d[q] + off, bytes > 0 ? src : A, bytes);
+          const int bytes = r0 + rt + (p + q) * RPP < r_end ? E * left : 0;
+          cp_async<E * CP>(d[q] + off, bytes > 0 ? src : A, bytes);
         }
       }
     };
@@ -548,6 +556,70 @@ __device__ __forceinline__ void copy_stage(uint32_t dst,
       for (int p = 0; p < P; p += 8) group(p);
     }
   }
+}
+
+__device__ __forceinline__ void sts_v4(uint32_t addr, uint32_t a, uint32_t b,
+                                       uint32_t c, uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t ldg_u32(const char* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+// One 16-byte chunk of a bf16 stage whose rows no tensor map describes
+// (gram_bf16.cu's "wgmma_ld", block_matvec_tc.cu's): 8 bf16 of A from
+// `src`, of which the first v (1 .. 8) exist, into shared memory at `dst`,
+// zeros after them.  Where `src` is 4-byte aligned, cp.async of the widest
+// size its address allows (16, 8 or 4 bytes), the bytes past v arriving as
+// zeros; else (2 bytes off) the 4-byte words around it, w[k] holding
+// elements 2k - 1 and 2k, each loaded only where it holds an element that
+// exists, and stored by put_chunk once they have landed.
+__device__ __forceinline__ void load_words(const char* src, int v,
+                                           uint32_t (&w)[5]) {
+  const char* p = src - 2;                  // 4-byte aligned
+  w[0] = ldg_u32(p);
+  w[1] = v > 1 ? ldg_u32(p + 4) : 0u;
+  w[2] = v > 3 ? ldg_u32(p + 8) : 0u;
+  w[3] = v > 5 ? ldg_u32(p + 12) : 0u;
+  w[4] = v > 7 ? ldg_u32(p + 16) : 0u;
+}
+
+__device__ __forceinline__ void copy_chunk(uint32_t dst, const char* src,
+                                           int v, bool by16, bool by8) {
+  const int bytes = 2 * v;
+  if (by16) {
+    cp_async<16>(dst, src, bytes);
+  } else if (by8) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int b = min(8, max(0, bytes - 8 * h));
+      cp_async<8>(dst + 8 * h, b > 0 ? src + 8 * h : src, b);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int b = min(4, max(0, bytes - 4 * q));
+      cp_async<4>(dst + 4 * q, b > 0 ? src + 4 * q : src, b);
+    }
+  }
+}
+
+// The register half of a chunk: elements 2k and 2k + 1 are the high half
+// of w[k] and the low half of w[k + 1]; those from v on are zero (all of
+// them where v == 0: a chunk past A's edge).  The caller orders the store
+// before the async proxy's reads with fence_proxy_async.
+__device__ __forceinline__ void put_chunk(uint32_t dst, int v,
+                                          const uint32_t (&w)[5]) {
+  uint32_t o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t x = __byte_perm(w[k], w[k + 1], 0x5432);
+    o[k] = 2 * k + 1 < v ? x : (2 * k < v ? x & 0xffffu : 0u);
+  }
+  sts_v4(dst, o[0], o[1], o[2], o[3]);
 }
 
 // The producer that reads an fp32 A (m, n), rows lda apart, on a 3xTF32

@@ -1,6 +1,6 @@
-// The second pass of block_rmatvec's split reduction, shared by both of its
-// routes (block_matvec.cu: FFMA; block_matvec_tc.cu: wgmma): each slab of
-// rows wrote fp32 partials of Z, and this sums them in slab order.  No
+// The second pass of block_rmatvec's split reduction, shared by its
+// kernels (block_matvec_tc.cu: bf16; block_matvec_tf32.cu: fp32): each slab
+// of rows wrote fp32 partials of Z, and this sums them in slab order.  No
 // atomics: the order is fixed, so every rerun is bitwise equal.
 
 #pragma once

@@ -2,11 +2,10 @@
 
 * ``block_matvec``     — multi-vector ``A @ Q`` sweep (CUDA C++ on the
                          tensor cores: fp32 as 3xTF32,
-                         ``csrc/block_matvec_tf32.cu``, A staged by TMA
-                         or, where no tensor map describes it, by
-                         cp.async; bf16, ``csrc/block_matvec_tc.cu``; a
-                         bf16 A no tensor map describes by FFMA,
-                         ``csrc/block_matvec.cu``)
+                         ``csrc/block_matvec_tf32.cu``; bf16,
+                         ``csrc/block_matvec_tc.cu``; each with A staged
+                         by TMA or, where no tensor map describes it, by
+                         the kernel's own copies)
 * ``block_rmatvec``    — multi-vector ``A^T @ Y`` sweep, reduction over
                          the long m axis in ordered slabs (same sources)
 * ``block_gram_chain`` — their composition ``A^T (A Q)``

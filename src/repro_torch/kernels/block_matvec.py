@@ -1,9 +1,9 @@
 """Hopper kernels of the block power step: ``A @ Q`` and ``A^T @ Y``.
 
-Bindings of ``csrc/block_matvec_tf32.cu``, ``csrc/block_matvec_tc.cu``
-and ``csrc/block_matvec.cu`` (CUDA C++ for ``sm_90a``, built by
-``kernels/build.py`` at first use and called through ``ctypes``).  They
-replace the Pallas TPU kernels of the JAX package's ``repro/kernels/block_matvec.py``: ``block_matvec``
+Bindings of ``csrc/block_matvec_tf32.cu`` and ``csrc/block_matvec_tc.cu``
+(CUDA C++ for ``sm_90a``, built by ``kernels/build.py`` at first use and
+called through ``ctypes``).  They replace the Pallas TPU kernels of the
+JAX package's ``repro/kernels/block_matvec.py``: ``block_matvec``
 (``pallas_call`` at line 81) and ``block_rmatvec`` (``pallas_call`` at
 line 127).  The sources' headers say what bounds them on an H100 and
 what each design does about it.
@@ -28,17 +28,22 @@ from dtype, row stride and alignment:
   own bf16 copy, whose rows ``DenseOperator`` pads to whole 16 bytes),
   any k.  A ring of TMA-filled shared-memory stages, wgmma with fp32
   sums; ``block_rmatvec`` splits m into slabs of whole 64-row stages.
-* ``"ffma"`` (``block_matvec.cu``): a bf16 ``A`` handed to ``ops``
-  directly whose rows no tensor map describes.
+* ``"wgmma_ld"`` (the same file): every other bf16 ``A`` (any
+  ``lda >= n``, any 2-byte-aligned base), which only a caller of ``ops``
+  hands in: the same kernels, their stage ring filled by the producer
+  warpgroup's own copies (``cp.async`` of 8 or 4 bytes where the rows
+  start so aligned; rows 2 bytes off a 4-byte boundary, as an odd
+  ``lda`` leaves every other one, by 4-byte loads shifted in registers);
+  edges zero-filled, never read.
 
-On the tensor-core routes the skinny operand is read transposed
-(``Q^T``, ``Y^T``: k rows), which any k can be read as.  A launch that
-the card refuses raises; no route stands in for another.  These
-functions take CUDA tensors that ``kernels/ops.py`` has already checked
-(device, dtype, shape, layout); they allocate the fp32 output and
-any scratch with ``torch.empty``, launch on the current stream, and
-raise if the launch was refused.  Call them through
-``ops``, which also keeps the launch counts.
+Every route runs on the tensor cores; the skinny operand is read
+transposed (``Q^T``, ``Y^T``: k rows), which any k can be read as.  A
+launch that the card refuses raises; no route stands in for another.
+These functions take CUDA tensors that ``kernels/ops.py`` has already
+checked (device, dtype, shape, layout); they allocate the fp32 output
+and any scratch with ``torch.empty``, launch on the current stream, and
+raise if the launch was refused.  Call them through ``ops``, which also
+keeps the launch counts.
 """
 from __future__ import annotations
 
@@ -58,17 +63,16 @@ SLAB_MAX_ROWS = 16384
 FILL_BLOCKS = 256
 #: rows of the reduction one slab holds at least
 SLAB_MIN_ROWS = 1024
-BM = 256        # output rows per thread block (csrc: TY * TM; the
-                # tensor-core kernels' BM and BN are 256 too)
-BK = 16         # reduction depth per shared-memory stage (csrc: BK)
-KT_MAX = 64     # widest k tile (csrc: TX * 8; block_matvec_tc.cu: KT)
-TC_BK = 64      # rows of a tensor-core stage (block_matvec_tc.cu: BK)
+BM = 256        # rows of A a block_matvec block, columns a block_rmatvec
+                # block (csrc: BM, BN)
+KT_MAX = 64     # widest k tile (block_matvec_tc.cu: KT)
+TC_BK = 64      # rows of a bf16 stage (block_matvec_tc.cu: BK)
 TF32_BK = 32    # rows of a 3xTF32 stage (block_matvec_tf32.cu: BK)
 #: rows of block_rmatvec's slabs are a multiple of the route's stage depth
-STEP = {"ffma": BK, "wgmma": TC_BK, "tf32x3": TF32_BK,
+STEP = {"wgmma": TC_BK, "wgmma_ld": TC_BK, "tf32x3": TF32_BK,
         "tf32x3_cpasync": TF32_BK}
 #: every route, in the order of ``ops.route_launches``
-ROUTES = ("tf32x3", "tf32x3_cpasync", "wgmma", "ffma")
+ROUTES = ("tf32x3", "tf32x3_cpasync", "wgmma", "wgmma_ld")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -90,39 +94,24 @@ def route(A: torch.Tensor, k: int) -> str:
     with k skinny columns.  fp32: ``"tf32x3"`` where a TMA tensor map
     describes it (base 16-byte aligned, rows a multiple of 16 bytes),
     else ``"tf32x3_cpasync"``; bf16: ``"wgmma"`` where a map describes
-    it, else ``"ffma"``."""
+    it, else ``"wgmma_ld"``."""
     lda = row_stride(A)
     mapped = A.data_ptr() % 16 == 0 and k >= 1 and lda is not None
     if A.dtype == torch.float32:
         return "tf32x3" if mapped and lda % 4 == 0 else "tf32x3_cpasync"
-    if A.dtype == torch.bfloat16 and mapped and lda % 8 == 0:
-        return "wgmma"
-    return "ffma"
-
-
-def _lib() -> ctypes.CDLL:
-    lib = build.library("block_matvec")
-    if not getattr(lib, "_repro_bound", False):
-        lib.repro_block_matvec.argtypes = [_P, _I64, _P, _P, _I64, _I64,
-                                           _I64, _P]
-        lib.repro_block_rmatvec.argtypes = [_P, _I64, _P, _P, _P, _I64, _I64,
-                                            _I64, _I64, _P]
-        for fn in (lib.repro_block_matvec, lib.repro_block_rmatvec):
-            fn.restype = ctypes.c_int
-        lib._repro_bound = True
-    return lib
+    return "wgmma" if mapped and lda % 8 == 0 else "wgmma_ld"
 
 
 def _lib_tc() -> ctypes.CDLL:
     lib = build.library("block_matvec_tc")
     if not getattr(lib, "_repro_bound", False):
-        lib.repro_block_matvec_wgmma.argtypes = [_P, _I64, _P, _I64, _P,
-                                                 _I64, _I64, _I64, _P]
-        lib.repro_block_rmatvec_wgmma.argtypes = [_P, _I64, _P, _P, _P, _I64,
-                                                  _I64, _I64, _I64, _I64, _P]
-        for fn in (lib.repro_block_matvec_wgmma,
-                   lib.repro_block_rmatvec_wgmma):
-            fn.restype = ctypes.c_int
+        for which in ("wgmma", "wgmma_ld"):
+            mv = getattr(lib, f"repro_block_matvec_{which}")
+            rmv = getattr(lib, f"repro_block_rmatvec_{which}")
+            mv.argtypes = [_P, _I64, _P, _I64, _P, _I64, _I64, _I64, _P]
+            rmv.argtypes = [_P, _I64, _P, _P, _P, _I64, _I64, _I64, _I64,
+                            _I64, _P]
+            mv.restype = rmv.restype = ctypes.c_int
         lib._repro_bound = True
     return lib
 
@@ -150,7 +139,7 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def rmatvec_slab_rows(m: int, n: int, k: int, step: int = BK) -> int:
+def rmatvec_slab_rows(m: int, n: int, k: int, step: int) -> int:
     """Rows per slab of ``block_rmatvec``'s split reduction over m: at
     most ``SLAB_MAX_ROWS``, and few enough rows that the launch has about
     ``FILL_BLOCKS`` blocks when n is small.  A multiple of the route's
@@ -197,14 +186,10 @@ def block_matvec_cuda(A: torch.Tensor, Q: torch.Tensor,
             err = getattr(_lib_tf32(), f"repro_block_matvec_{which}")(
                 A.data_ptr(), lda, Q.data_ptr(), split.data_ptr(),
                 Y.data_ptr(), m, n, k, ld, _stream(A))
-        elif which == "wgmma":
+        else:                               # wgmma, wgmma_ld
             Qt, ld = _transposed(Q)         # (k, n): K-major TMA boxes
-            err = _lib_tc().repro_block_matvec_wgmma(
+            err = getattr(_lib_tc(), f"repro_block_matvec_{which}")(
                 A.data_ptr(), lda, Qt.data_ptr(), ld, Y.data_ptr(), m, n, k,
-                _stream(A))
-        else:
-            err = _lib().repro_block_matvec(
-                A.data_ptr(), lda, Q.data_ptr(), Y.data_ptr(), m, n, k,
                 _stream(A))
     _check(err, f"block_matvec ({which} route)")
     return Y
@@ -231,14 +216,10 @@ def block_rmatvec_cuda(A: torch.Tensor, Y: torch.Tensor,
             err = getattr(_lib_tf32(), f"repro_block_rmatvec_{which}")(
                 A.data_ptr(), lda, Y.data_ptr(), split.data_ptr(),
                 Z.data_ptr(), part, m, n, k, ld, rows, _stream(A))
-        elif which == "wgmma":
+        else:                               # wgmma, wgmma_ld
             Yt, ld = _transposed(Y)         # (k, m): K-major TMA boxes
-            err = _lib_tc().repro_block_rmatvec_wgmma(
+            err = getattr(_lib_tc(), f"repro_block_rmatvec_{which}")(
                 A.data_ptr(), lda, Yt.data_ptr(), Z.data_ptr(), part, m, n,
                 k, ld, rows, _stream(A))
-        else:
-            err = _lib().repro_block_rmatvec(
-                A.data_ptr(), lda, Y.data_ptr(), Z.data_ptr(), part, m, n, k,
-                rows, _stream(A))
     _check(err, f"block_rmatvec ({which} route)")
     return Z

@@ -31,10 +31,11 @@ second (summing) launch on the card, and a 3xTF32 sweep a first one
 that splits its skinny operand.  ``route_launches`` splits the block
 sweeps' counts by the route that ran (``block_matvec.route``: fp32 on
 the tensor cores as 3xTF32, ``"tf32x3"`` where a TMA tensor map
-describes ``A``, else ``"tf32x3_cpasync"``; bf16 on them, ``"wgmma"``;
-or a bf16 ``A`` no tensor map describes, ``"ffma"``), and ``gram``'s
-(``gram.route``: fp32 on ``"tf32x3"`` or ``"tf32x3_cpasync"`` by the
-same rule, bf16 on ``"wgmma"`` or ``"wgmma_ld"`` by it).
+describes ``A``, else ``"tf32x3_cpasync"``; bf16 on them, ``"wgmma"``
+by the same rule, else ``"wgmma_ld"``, ``A`` copied by the kernel's own
+producer), and ``gram``'s (``gram.route``: fp32 on ``"tf32x3"`` or
+``"tf32x3_cpasync"`` by the same rule, bf16 on ``"wgmma"`` or
+``"wgmma_ld"`` by it).
 
 The block sweeps and ``gram`` read ``A`` in place where it is row-major
 with unit column stride (``block_matvec.row_stride``): contiguous, or a

@@ -19,8 +19,10 @@ bf16, 2^-8 |plain| of that element, plus 1e-5 for the fp32 sums' order
 (``local_attn.route``), the rest the FFMA one.  The block sweeps
 (``block_matvec.route``): every fp32 A on the tensor cores as 3xTF32,
 staged by TMA where a tensor map describes A and by cp.async elsewhere;
-bf16 by wgmma where a map describes A (the solver's padded copy
-included), else by FFMA; all four routes are held to the same limits.
+bf16 by wgmma, staged by TMA where a map describes A (the solver's
+padded copy included) and by the kernel's own copies elsewhere
+(``cp.async``, and registers for rows 2 bytes off a 4-byte boundary);
+all four routes are held to the same limits.
 ``gram`` (``gram.route``): fp32 as 3xTF32 and bf16 by wgmma, each by
 TMA where a tensor map describes A and by the producer's own copies
 elsewhere, B exactly symmetric, and its off-diagonal entries also read
@@ -252,8 +254,8 @@ def test_cpasync_reads_only_the_view(card, offset, ld):
 @pytest.mark.parametrize("dtype,ld,offset,route", [
     ("float32", 1024, 0, "tf32x3"),      # rows of whole 16 bytes: TMA
     ("bfloat16", 1024, 0, "wgmma"),
-    ("bfloat16", 1027, 0, "ffma"),       # bf16 rows no tensor map takes
-    ("bfloat16", 1024, 1, "ffma"),       # a base 2 bytes off 16
+    ("bfloat16", 1027, 0, "wgmma_ld"),   # bf16 rows no tensor map takes
+    ("bfloat16", 1024, 1, "wgmma_ld"),   # a base 2 bytes off 16
 ])
 def test_views_of_wider_rows_are_read_in_place(card, dtype, ld, offset,
                                                route):
@@ -333,20 +335,72 @@ def test_odd_width_svd_runs_no_ffma(card, sweep_dtype):
     assert bool(torch.isfinite(res.S).all()) and res.S.shape == (32,)
 
 
-def test_misaligned_bf16_runs_the_ffma_route(card):
-    """A bf16 A 2 bytes off a 16-byte boundary has no tensor map: FFMA."""
+def test_misaligned_bf16_runs_the_wgmma_ld_route(card):
+    """A bf16 A 2 bytes off a 16-byte boundary has no tensor map: the
+    tensor cores all the same, A copied by the kernel's producer."""
     m, n, k = 3000, 1024, 9
     g = torch.Generator(device=card).manual_seed(5)
     flat = torch.randn(m * n + 1, generator=g, device=card).to(torch.bfloat16)
     A = flat[1:].view(m, n)
     Q = torch.randn((n, k), generator=g, device=card)
-    assert A.is_contiguous() and bm.route(A, k) == "ffma"
+    assert A.is_contiguous() and bm.route(A, k) == "wgmma_ld"
     ops.reset_launches()
     got = ops.block_matvec(A, Q)
     torch.cuda.synchronize()
     assert _rel(got, ref.block_matvec_ref(A, Q, "bfloat16")) <= 1e-5
     assert {n_: c for n_, c in ops.route_launches.items() if c} == {
-        "block_matvec/ffma": 1}
+        "block_matvec/wgmma_ld": 1}
+
+
+def _bf16_view(g, card, m, n, ld, offset=0):
+    """A bf16 (m, n) view of rows ``ld`` apart starting ``offset``
+    elements into an allocation of m + 1 rows, every element outside the
+    view NaN."""
+    flat = torch.full((offset + (m + 1) * ld,), float("nan"), device=card,
+                      dtype=torch.bfloat16)
+    view = flat[offset:offset + m * ld].view(m, ld)[:, :n]
+    view.copy_(torch.randn((m, n), generator=g, device=card))
+    return view
+
+
+# (n, lda, base offset in elements) of bf16 rows no tensor map describes;
+# the comments say how the kernel's producer copies them
+@pytest.mark.parametrize("n,ld,offset", [
+    pytest.param(1021, 1021, 0, id="lda-n-odd"),     # every other row by
+                                                     # registers
+    pytest.param(1022, 1022, 0, id="lda-n-even"),    # cp.async of 4 bytes
+    pytest.param(1020, 1020, 0, id="lda-n-8bytes"),  # cp.async of 8 bytes
+    pytest.param(1021, 1027, 0, id="lda-wider-odd"),
+    pytest.param(1021, 1026, 0, id="lda-wider-even"),  # a word half in a row
+    pytest.param(1021, 1024, 1, id="base-2-bytes-off"),  # every row by
+                                                         # registers
+    pytest.param(1021, 1024, 2, id="base-4-bytes-off"),
+    pytest.param(1021, 1024, 4, id="base-8-bytes-off"),
+])
+@pytest.mark.parametrize("k", [1, 7, 32, 40, 130])
+def test_wgmma_ld_sweeps_match_plain_versions(card, n, ld, offset, k):
+    """Every layout of bf16 rows no tensor map describes, the padding past
+    each row and past the last row NaN: the sweeps on wgmma_ld within
+    their limits (the padding never read), at every k width."""
+    m = 3001
+    g = torch.Generator(device=card).manual_seed(n + ld + offset + k)
+    A = _bf16_view(g, card, m, n, ld, offset)
+    Q = torch.randn((n, k), generator=g, device=card)
+    Y = torch.randn((m, k), generator=g, device=card)
+    assert bm.route(A, k) == "wgmma_ld" and bm.row_stride(A) == ld
+    _sweeps_within(A, Q, Y, "bfloat16", "wgmma_ld", chain_tol=1e-3)
+
+
+@pytest.mark.parametrize("n", [709, 710, 708])
+def test_wgmma_ld_rmatvec_reruns_bitwise(card, n):
+    """Odd lda (registers), 4- and 8-byte copies; several slabs summed
+    in order."""
+    g = torch.Generator(device=card).manual_seed(n)
+    A = torch.randn((40000, n), generator=g, device=card).to(torch.bfloat16)
+    Y = torch.randn((40000, 40), generator=g, device=card)
+    assert bm.route(A, 40) == "wgmma_ld"
+    assert -(-40000 // bm.rmatvec_slab_rows(40000, n, 40, bm.TC_BK)) > 1
+    assert torch.equal(ops.block_rmatvec(A, Y), ops.block_rmatvec(A, Y))
 
 
 @pytest.mark.parametrize("m,n", [(1000, 300), (4097, 515), (257, 4100),

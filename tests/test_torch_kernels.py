@@ -124,22 +124,24 @@ def test_wrappers_check_operands(call, exc):
     assert sum(ops.launches.values()) == 0
 
 
-def _slab_case(m, n, k, slabs, which="ffma"):
-    """A case of ``test_rmatvec_slab_split`` on route ``which``: the FFMA
-    route's cases keep their ids; the tensor-core routes' say which."""
+def _slab_case(m, n, k, slabs, which="wgmma_ld"):
+    """A case of ``test_rmatvec_slab_split`` on route ``which``: the
+    ``wgmma_ld`` cases keep the ids the retired FFMA route's had; the
+    other routes' say which."""
     step = cuda_kernels.STEP[which]
-    label = "" if which == "ffma" else f"{which}-"
+    label = "" if which == "wgmma_ld" else f"{which}-"
     return pytest.param(m, n, k, slabs, step, id=f"{label}{m}-{n}-{k}-{slabs}")
 
 
 @pytest.mark.parametrize("m,n,k,slabs,step", [
+    # bf16 no tensor map describes (wgmma_ld): slabs of whole 64-row stages
     _slab_case(262144, 32768, 32, 16),   # the main path: 16384-row slabs
     _slab_case(262144, 32768, 130, 16),
     _slab_case(1000, 300, 7, 1),         # one slab: the kernel writes Z
     _slab_case(4097, 515, 40, 5),        # few column strips: fill the card
     _slab_case(16384, 4096, 40, 16),
     _slab_case(37, 17, 5, 1),
-    # the bf16 tensor-core route: slabs of whole 64-row stages
+    # bf16 a tensor map describes (wgmma): the same 64-row stages
     _slab_case(262144, 32768, 32, 16, "wgmma"),
     _slab_case(8192, 131072, 32, 1, "wgmma"),   # the wide input
     _slab_case(5000, 1000, 7, 5, "wgmma"),
@@ -183,9 +185,9 @@ def _meta(m, n, dtype=torch.bfloat16, offset=0, ld=None):
     (_meta(262144, 32768), 32, "wgmma"),          # the main path's A
     (_meta(8192, 131072), 32, "wgmma"),           # the wide input
     (_meta(262144, 32768, torch.float32), 32, "tf32x3"),  # fp32: 3xTF32
-    (_meta(4097, 515), 40, "ffma"),               # n % 8 != 0: no tensor map
-    (_meta(1000, 300), 7, "ffma"),
-    (_meta(5000, 1000, offset=1), 7, "ffma"),     # base 2 bytes off 16
+    (_meta(4097, 515), 40, "wgmma_ld"),           # n % 8 != 0: no tensor map
+    (_meta(1000, 300), 7, "wgmma_ld"),
+    (_meta(5000, 1000, offset=1), 7, "wgmma_ld"),  # base 2 bytes off 16
     (_meta(5000, 1000, offset=8), 7, "wgmma"),    # base 16 bytes on
     (_meta(5000, 1000), 7, "wgmma"),              # k % 8 != 0 is read as Y^T
     (_meta(3000, 200), 1, "wgmma"),               # the narrowest k
@@ -204,16 +206,25 @@ def _meta(m, n, dtype=torch.bfloat16, offset=0, ld=None):
     (_meta(5000, 515, torch.float32, ld=516), 7, "tf32x3"),   # padded rows
     # bf16 rows padded to whole 16 bytes (the solver's copy): wgmma
     (_meta(4097, 515, ld=520), 40, "wgmma"),
-    (_meta(4097, 515, ld=520, offset=1), 40, "ffma"),         # 2 bytes off
-    (_meta(4097, 515, ld=517), 40, "ffma"),       # rows not whole 16 bytes
+    (_meta(4097, 515, ld=520, offset=1), 40, "wgmma_ld"),     # 2 bytes off
+    (_meta(4097, 515, ld=517), 40, "wgmma_ld"),   # rows not whole 16 bytes
+    # bf16 rows no tensor map describes: the kernels' own copies, by
+    # cp.async of 8 bytes (lda % 4 == 0), of 4 (lda even) or in registers
+    (_meta(65536, 8188), 32, "wgmma_ld"),         # lda % 8 == 4: 8 bytes
+    (_meta(65536, 8190), 32, "wgmma_ld"),         # lda % 4 == 2: 4 bytes
+    (_meta(65536, 8191), 32, "wgmma_ld"),         # odd lda
+    (_meta(5000, 1000, offset=2), 7, "wgmma_ld"),  # base 4 bytes off 16
+    (_meta(5000, 1000, offset=3), 7, "wgmma_ld"),  # base 6 bytes off 16
+    (_meta(5000, 1000, offset=4), 7, "wgmma_ld"),  # base 8 bytes off 16
 ], ids=["main", "wide", "fp32", "n515", "n300", "misaligned", "offset16",
         "k7", "k1", "k130", "fp32-n515", "fp32-misaligned", "fp32-wide",
         "fp32-n513", "fp32-n514", "fp32-n515-ragged", "fp32-odd-shard",
         "fp32-offset8", "fp32-padded", "padded-n515", "padded-misaligned",
-        "padded-odd"])
+        "padded-odd", "lda-8-bytes", "lda-4-bytes", "lda-odd",
+        "offset4-bytes", "offset6-bytes", "offset8-bytes"])
 def test_route(A, k, want):
     """The sweeps' route depends on dtype, row stride and alignment alone;
-    no fp32 operand runs FFMA."""
+    every operand runs on the tensor cores."""
     assert cuda_kernels.route(A, k) == want
 
 

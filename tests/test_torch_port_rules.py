@@ -119,7 +119,7 @@ def test_kernel_build_directory_is_ignored_by_git():
     ignored = (ROOT / ".gitignore").read_text().split()
     rel = build.BUILD_DIR.relative_to(ROOT).as_posix() + "/"
     assert rel in ignored
-    for name in ("block_matvec", "deflate_matvec", "gram_bf16", "gram_tf32",
-                 "local_attn"):
+    for name in ("block_matvec_tc", "block_matvec_tf32", "deflate_matvec",
+                 "gram_bf16", "gram_tf32", "local_attn"):
         assert build.CSRC.joinpath(f"{name}.cu").exists()
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

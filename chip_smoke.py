@@ -106,8 +106,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain, bound and library (a yardstick only) times; ``gram`` in bf16
    (no solve runs it) once through ``ops`` at the gram path's shape
    (``wgmma``), one column short (``wgmma_ld``) and, as ``A A^T``, on the
-   wide input (``wgmma``), each timed beside
-   ``torch.mm(..., out_dtype=torch.float32)``.
+   wide input (``wgmma``) and on it one column short (8192 x 131071:
+   ``wgmma_ld``), each timed beside
+   ``torch.mm(..., out_dtype=torch.float32)``, the ``wgmma_ld`` ones also
+   beside their staging-only build; and, printed only (not a route), a
+   padded copy of the 262144 x 8191 bf16 ``A`` read by ``wgmma``.
 5. the gram-free path: ``repro_torch.svd(A, 16, method="gramfree")`` on
    the same 262144 x 32768 ``A``; sigma within rtol 2e-3 of the
    prescribed spectrum (the JAX package's deflation tolerance), launches
@@ -178,7 +181,8 @@ fp32 solve, timed at 262144 x 32767, and as ``<name>/wgmma_ld`` and
 ``gram/wgmma`` for the bf16 one, launched once through ``ops``, both
 timed at 262144 x 8192, ``gram/tf32x3_cpasync`` for the odd-width gram
 solve's and ``gram/wgmma_ld`` for bf16 of those rows, timed at 262144 x
-8191, and ``gram/wgmma[trans]``, bf16 ``A A^T`` of the wide input), the
+8191, ``gram/wgmma[trans]``, bf16 ``A A^T`` of the wide input, and
+``gram/wgmma_ld[trans]``, the same of the wide input one column short), the
 ``nvidia-smi`` name and
 power limit line again, and last ``{"ok": true, "device": {...}}``.
 Exits 2 without a CUDA device or without ``src/repro_torch`` beside this
@@ -285,6 +289,7 @@ SOURCES = {"matvec": "src/repro_torch/csrc/deflate_matvec.cu",
            "gram/wgmma": "src/repro_torch/csrc/gram_bf16.cu",
            "gram/wgmma_ld": "src/repro_torch/csrc/gram_bf16.cu",
            "gram/wgmma[trans]": "src/repro_torch/csrc/gram_bf16.cu",
+           "gram/wgmma_ld[trans]": "src/repro_torch/csrc/gram_bf16.cu",
            "local_attention": "src/repro_torch/csrc/local_attn.cu"}
 LIBRARY = {"matvec": "torch.mv(A, v)",
            "deflate_rmatvec": "torch.mv(A.mT, Xv - U @ SVtv) + U.mT @ Xv "
@@ -294,7 +299,8 @@ LIBRARY = {"matvec": "torch.mv(A, v)",
 # bf16 gram's library call: torch.mm with out_dtype=torch.float32 (bf16 in,
 # fp32 sums and out: the same function), set by bf16_mm where the card's
 # torch takes out_dtype; else the bf16-out torch.mm, a time yardstick only
-BF16_GRAM = ("gram/wgmma", "gram/wgmma_ld", "gram/wgmma[trans]")
+BF16_GRAM = ("gram/wgmma", "gram/wgmma_ld", "gram/wgmma[trans]",
+             "gram/wgmma_ld[trans]")
 
 
 def bf16_mm(torch, dev):
@@ -793,6 +799,43 @@ def bf16_gram_row(torch, ops, ref, X, name, mm, trans=False) -> tuple:
         (lambda: mm(Xb, Xb.mT)) if trans else (lambda: mm(Xb.mT, Xb)), 2,
         gram_tol(r), deflation_bound(name, r, edge), offdiag=True)
     return row, ran[f"gram/{which}"], Xb
+
+
+def staging_ld(torch, gm, planted, row, Xb, trans=False) -> None:
+    """bf16 ``gram`` of ``Xb`` on ``wgmma_ld`` from the build with no
+    products (``-DREPRO_STAGING_ONLY``: the copies, the pushes between the
+    cluster's blocks and the barriers alone), timed into ``row`` beside
+    the kernel's time."""
+    row["ms_repro_staging_only"] = planted_run(
+        gm, "gram_bf16", planted[("gram_bf16", "REPRO_STAGING_ONLY")],
+        lambda: time_ms(torch, lambda: gm.gram_cuda(Xb, "wgmma_ld",
+                                                    trans=trans), 2))
+    m, n = Xb.shape
+    print(f"  bf16 gram {m}x{n}{' (A A^T)' if trans else ''} on wgmma_ld: "
+          f"its staging alone (no products): "
+          f"{row['ms_repro_staging_only']:.3f} ms; the kernel "
+          f"{row['ms']:.3f} ms")
+
+
+def padded_yardstick(torch, ops, gm, Xb) -> None:
+    """Printed only, not a route: what ``Xb`` (bf16, rows no tensor map
+    describes) would cost copied into rows padded to a multiple of 8
+    elements and read by the ``wgmma`` route (TMA multicast), the copy
+    and the kernel timed apart and together."""
+    m, n = Xb.shape
+    P = torch.empty((m, (n + 7) // 8 * 8), dtype=torch.bfloat16,
+                    device=Xb.device)
+    view = P[:, :n]
+    view.copy_(Xb)
+    if gm.route(view) != "wgmma":
+        fail(f"padded copy of {m}x{n}: route {gm.route(view)}")
+    t_copy = time_ms(torch, lambda: view.copy_(Xb), 2)
+    t_gram = time_ms(torch, lambda: ops.gram(view), 2)
+    t_both = time_ms(torch, lambda: (view.copy_(Xb), ops.gram(view)), 2)
+    print(f"  yardstick (printed only, not a route): a padded copy of the "
+          f"{m}x{n} bf16 A ({t_copy:.3f} ms) read by wgmma "
+          f"({t_gram:.3f} ms): {t_both:.3f} ms together")
+    del P, view
 
 
 def deflation_solve(torch, repro_torch, ops, X, k, method, label, s,
@@ -1848,8 +1891,8 @@ def main() -> int:
     # with the sums left in the tensor cores (no promotion adds) and with
     # no products at all (the staging alone)
     mm, LIBRARY["gram/wgmma"] = bf16_mm(torch, dev)
-    LIBRARY["gram/wgmma_ld"] = LIBRARY["gram/wgmma[trans]"] = \
-        LIBRARY["gram/wgmma"]
+    for key in BF16_GRAM:
+        LIBRARY[key] = LIBRARY["gram/wgmma"]
     dtable["gram/wgmma"], path_counts["gram/wgmma"], Agb = bf16_gram_row(
         torch, ops, ref, Ag, "gram/wgmma", mm)
     for (lib, flag), path in planted.items():
@@ -1891,12 +1934,17 @@ def main() -> int:
         gram_route="tf32x3_cpasync")
     path_counts["gram/tf32x3_cpasync"] = counts["gram"]
     # bf16 of the same rows: odd lda, every other row 2 bytes off a 4-byte
-    # boundary (no tensor map: the producer's own copies)
+    # boundary (no tensor map: the producer's own copies, boxes pushed
+    # between the blocks of 2 x 2 clusters), with its staging alone
     dtable["gram/wgmma_ld"], path_counts["gram/wgmma_ld"], Agob = \
         bf16_gram_row(torch, ops, ref, Ago, "gram/wgmma_ld", mm)
+    del Ago
+    torch.cuda.empty_cache()
+    staging_ld(torch, gm, planted, dtable["gram/wgmma_ld"], Agob)
+    padded_yardstick(torch, ops, gm, Agob)
     for key in ("gram/tf32x3_cpasync", *BF16_GRAM):
         REPLACES[key] = REPLACES["gram"]
-    del Ago, Agob
+    del Agob
     torch.cuda.empty_cache()
 
     # rows of 4 * 8190 bytes: no tensor map; fp32 runs 3xTF32 with A copied
@@ -1966,11 +2014,20 @@ def main() -> int:
         deflation_solve(torch, repro_torch, ops, Aw, K_WIDE, method,
                         f"wide {WIDE[0]}x{WIDE[1]} svd(A, {K_WIDE}, "
                         f"method={method!r})", s)
-    # A A^T of the wide input in bf16 (the kernel's K-major layout)
+    # A A^T of the wide input in bf16 (the kernel's K-major layout), and of
+    # the wide input one column short (rows of 131071: wgmma_ld)
     dtable["gram/wgmma[trans]"], path_counts["gram/wgmma[trans]"], Awb = \
         bf16_gram_row(torch, ops, ref, Aw, "gram/wgmma[trans]", mm,
                       trans=True)
-    del Aw, Awb
+    del Awb
+    dtable["gram/wgmma_ld[trans]"], path_counts["gram/wgmma_ld[trans]"], \
+        Awb = bf16_gram_row(torch, ops, ref, Aw[:, :-1],
+                            "gram/wgmma_ld[trans]", mm, trans=True)
+    del Aw
+    torch.cuda.empty_cache()
+    staging_ld(torch, gm, planted, dtable["gram/wgmma_ld[trans]"], Awb,
+               trans=True)
+    del Awb
 
     # -- 6. determinism --------------------------------------------------
     Ar, _ = spectral_matrix(torch, *RERUN, SEED + 3, dev)

@@ -63,18 +63,36 @@
 //     each) and two consumer warpgroups, each a 64 x 128 half of the tile
 //     by wgmma m64n128k16.
 //   * "wgmma_ld": no tensor map (TMA needs 16-byte rows and boxes that
-//     start on 16 bytes), no cluster.  The producer warpgroup's 128 threads
-//     copy each 16-byte chunk of a stage into the same swizzled layout:
-//     cp.async of 16, 8 or 4 bytes as the chunk's row start allows; where a
-//     row starts 2 bytes off a 4-byte boundary (an odd lda leaves every
-//     other row so), five 4-byte loads into registers around it, a byte
-//     permute and a 16-byte store, then fence.proxy.async before the
-//     barrier arrival (and another by the consumers after it, for the
-//     cp.async data).  The loads are in flight four chunks at a time (A
-//     A^T: a row's eight, a thread taking whole rows, which keeps its
-//     registers to two row pointers).  Edges are zero-filled and never
-//     read.  This route is bound by its copies, not by L2 or the tensor
-//     cores (PERF.md section 6 says what was measured).
+//     start on 16 bytes), so no multicast, but the same 2 x 2 clusters and
+//     the same two boxes a block: the producer warpgroup's 128 threads
+//     assemble them (16 KiB a stage, eight 16-byte chunks a thread) in the
+//     swizzled layout, cp.async of 16, 8 or 4 bytes as the chunk's row
+//     start allows; where a row starts 2 bytes off a 4-byte boundary (an
+//     odd lda leaves every other row so), five 4-byte loads into registers
+//     around it, a byte permute and a 16-byte store.  Edges are
+//     zero-filled and never read.  A thread issues a stage's copies
+//     before it waits for the previous stage's (two stages of loads in
+//     flight); once they have landed and are fenced (cp.async and st.shared
+//     write through the generic proxy, the push and wgmma read through the
+//     async one), lane 0 of each producer warp pushes the warp's 2 KiB of
+//     each box to the partner that reads it (cp.async.bulk shared::cluster
+//     from shared::cta: the TMA unit's copy between two blocks' shared
+//     memory, completing on the partner's full barrier) and arrives on its
+//     own full barrier announcing the 4 KiB the partners' same warp pushes
+//     into it.  A box is refilled only after every block that reads it has
+//     released the slot, which its consumers do after the push has landed.
+//     The pushes also keep the empty barriers' phases apart: a partner's
+//     consumers release stage k only after this block's push of stage k,
+//     which follows this block's wait for stage k - STAGES (without them a
+//     partner's early release would count towards the wrong phase).  Of
+//     275 GB a launch at 262144 x 8191 without clusters this reads 142 GB
+//     from L2, half the copies a thread.  A warp's chunks of one copy lie
+//     on rows 8 apart, which share their alignment mod 16, so a warp takes
+//     one way of copying at a time.  A box that no block writing B reads
+//     (a diagonal tile's j box where its column partner is the lower tile,
+//     a box wholly past B's edge) is not copied: its entries feed only
+//     entries never written.  The route is held by those copies from L2,
+//     not by the pushes or the ring (PERF.md section 6).
 //   * The reduced-task schedule: the grid enumerates the upper-triangle
 //     groups of 2 x 2 tiles in the order of core/partition.py::
 //     symmetric_tasks (gram_tasks.cuh), super-block by super-block, and
@@ -82,10 +100,10 @@
 //     group, and a group below the diagonal computes its mirror's numbers
 //     (the same operands in the same roles) and writes them transposed.
 //     On a diagonal group the lower tile's block loads for the others and
-//     writes nothing (its mirror's block writes both places), and a
-//     diagonal tile keeps the entries with row <= column, each written to
-//     both places: B exactly symmetric.  No atomics, no split of the
-//     reduction: bitwise reruns.
+//     writes nothing (its mirror's block writes both places), as does a
+//     tile past B's edge, and a diagonal tile keeps the entries with row
+//     <= column, each written to both places: B exactly symmetric.  No
+//     atomics, no split of the reduction: bitwise reruns.
 //
 // Planted fault, built by chip_smoke.py beside the real library to show
 // that its checks reject it: -DREPRO_TC_SUMS_ONLY (the sums left in the
@@ -137,22 +155,26 @@ constexpr bool PROMOTE = true;
 
 // The producer: LD = false, TMA from one thread, multicast in a 2 x 2
 // cluster ("wgmma"); LD = true, the copies of its 128 threads, which need
-// registers for a batch of loads ("wgmma_ld").  setmaxnreg: 128 x
-// PRODUCER_REGS + 256 x CONSUMER_REGS <= 384 x 168, the registers
-// __launch_bounds__(384, 1) gives the block (more, and the consumers'
-// setmaxnreg.inc waits forever).
+// registers for their loads in flight, and one thread's pushes to the
+// partners ("wgmma_ld").  setmaxnreg: 128 x PRODUCER_REGS + 256 x
+// CONSUMER_REGS <= 384 x 168, the registers __launch_bounds__(384, 1) gives
+// the block (more, and the consumers' setmaxnreg.inc waits forever).
 template <bool LD>
 struct Producer {
   static constexpr int PRODUCER_REGS = LD ? 136 : 40;
   static constexpr int CONSUMER_REGS = LD ? 184 : 232;
-  // full: the TMA thread's one arrival (the bytes announced with it), or
-  // each copying thread's register stores and its cp.async arrival
-  static constexpr int FULL_ARRIVALS = LD ? 128 + 128 : 1;
-  // empty: each consumer warp of every block that writes into the slot
-  static constexpr int EMPTY_ARRIVALS = 4 * NCONS * (LD ? 1 : 3);
+  // full: the arrivals that announce the bytes the partners send: the TMA
+  // thread's one (the whole stage, multicast), or each copying warp's
+  // once its slices have landed (the two 2 KiB slices the partners' same
+  // warp pushes)
+  static constexpr int FULL_ARRIVALS = LD ? 4 : 1;
   static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 384 * 168,
                 "setmaxnreg beyond the block's registers");
 };
+// empty: each consumer warp of every block that writes into the slot (the
+// block itself and its row's and its column's partners)
+constexpr int EMPTY_ARRIVALS = 4 * NCONS * 3;
+constexpr int SLICE = 16 * 128;        // a producer warp's rows of a box
 
 // Dynamic shared memory, from a 1024-byte aligned base: STAGES slots of
 // [i panel: 2 boxes][j panel: 2 boxes], then full[STAGES], empty[STAGES].
@@ -178,66 +200,65 @@ __device__ __forceinline__ bool group_of(int64_t g, int ng, bool symmetric,
   return gi < ng && gj < ng && !(symmetric && gi > gj);
 }
 
-// Producer thread t's share of a "wgmma_ld" stage: 16 chunks u.  A^T A:
-// warp t / 32 takes the stage's rows 16 (t / 32) + d(u), the even ones
-// for u < 8 and the odd ones after (on an odd lda the rows of one of the
-// two halves are all copied by cp.async), lane l chunk l % 16 of panel
-// l / 16 (i: columns i0 .., j: j0 ..; box (l % 16) / 8).  A A^T: chunk
-// u % 8 of row t of panel u / 8 (i: rows i0 .., j: j0 ..).  All that does
-// not change from stage to stage is worked out once: a stage moves every
-// chunk's source by the same step (64 rows, or 128 bytes of a row), and
-// a row's alignment, so its way of copying, stays.
+// Producer thread t's share of a "wgmma_ld" stage: 8 chunks u of the
+// block's two boxes, the i box (at `box_i` in a slot, from c_i) for lanes
+// l < 16 of each warp, the j box (at `box_j`, from c_j) for the others.  A
+// box row is 64 elements of one of A's rows: A^T A's output columns c0 ..
+// of reduction row r0 + row, A A^T's reduction columns r0 .. of output row
+// c0 + row.  Warp w takes rows 16 w .. 16 w + 15 of each box, 2 KiB it
+// pushes to the partner itself; lane l the rows first + g(u), first = 16 w
+// + 8 (l / 8 % 2), the even ones for u < 4 and the odd ones after (on an
+// odd lda one of the two halves is all by cp.async), and chunk x = l % 8 of
+// each: 8 lanes a row's 128 bytes.  A warp's chunks of one u lie on rows 8
+// apart, which share their alignment mod 16 (2 * 8 * lda bytes apart), so
+// the warp takes one way of copying at a time.  All that does not change
+// from stage to stage is worked out once: a stage moves every chunk's
+// source by the same step (64 rows, or 128 bytes of a row), and a row's
+// alignment, so its way of copying, stays.  A thread whose box no writing
+// block reads (`skip`) copies nothing.
 template <bool TRANS>
 struct Share {
-  __device__ static constexpr int d(int u) { return 2 * (u % 8) + u / 8; }
+  __device__ static constexpr int g(int u) { return 2 * (u % 4) + u / 4; }
 
-  const char* src[2];        // the chunks' first source at stage 0 (A^T A:
-                             // src[0]; A A^T: a row of each panel)
+  const char* src;           // chunk 0's source at stage 0
   int64_t row_bytes, step;   // bytes between rows; a stage's step
-  uint32_t dst;              // the share's offset in a slot
-  int first, x, vcol;        // A^T A: its first row; chunk x; elements
+  uint32_t dst;              // the thread's first row's offset in a slot
+  int first, x, vcol;        // its first row of the box, chunk x, and
+                             // (A^T A) the elements of chunk x inside A
   uint32_t by_reg, cp16, cp8, read;  // bit u: how chunk u is copied
-  uint32_t skip;             // bit u: chunk u of a j panel a diagonal tile
-                             // does not read (its i panel serves)
+  bool skip;
 
   __device__ __forceinline__ Share(const uint16_t* A, long long lda, int m,
-                                   int n, int t, int i0, int j0, bool diag) {
+                                   int n, int t, int c_i, int c_j,
+                                   uint32_t box_i, uint32_t box_j,
+                                   bool want_i, bool want_j) {
+    const int l = t % 32, p = l / 16;
+    const int c0 = p ? c_j : c_i;
+    skip = !(p ? want_j : want_i);
+    x = l % 8;
+    first = 16 * (t / 32) + 8 * (l / 8 % 2);
     row_bytes = 2 * lda;
-    by_reg = cp16 = cp8 = read = 0;
     if constexpr (!TRANS) {
-      const int l = t % 32, p = l / 16;
-      x = l % 16;
-      first = 16 * (t / 32);
-      const int col = (p ? j0 : i0) + 8 * x;
-      vcol = min(8, max(0, n - col));
-      skip = diag && p == 1 ? 0xffffu : 0u;
-      src[0] = src[1] = reinterpret_cast<const char*>(A + col) +
-                        first * row_bytes;
+      vcol = skip ? 0 : min(8, max(0, n - c0 - 8 * x));
+      src = reinterpret_cast<const char*>(A + c0 + 8 * x) + first * row_bytes;
       step = BK * row_bytes;
-      dst = p * PANEL + (x / 8) * BOX + first * 128;
     } else {
-      x = 0;
-      first = t;
       vcol = 8;
-      skip = diag ? 0xff00u : 0u;
-      src[0] = reinterpret_cast<const char*>(A + static_cast<int64_t>(i0 + t) *
-                                                     lda);
-      src[1] = reinterpret_cast<const char*>(A + static_cast<int64_t>(j0 + t) *
-                                                     lda);
+      src = reinterpret_cast<const char*>(
+          A + static_cast<int64_t>(c0 + first) * lda + 8 * x);
       step = 2 * BK;
-      dst = t * 128;
     }
+    dst = (p ? box_j : box_i) + first * 128;
+    by_reg = cp16 = cp8 = read = 0;
 #pragma unroll
-    for (int u = 0; u < 16; ++u) {
-      const char* row_start =
-          TRANS ? src[u / 8] : src[0] + d(u) * row_bytes - 16 * x;
-      const int al = static_cast<int>(reinterpret_cast<uintptr_t>(row_start) &
-                                      15);
+    for (int u = 0; u < 8; ++u) {
+      const int al = static_cast<int>(
+          reinterpret_cast<uintptr_t>(src_of(u, 0)) & 15);
       by_reg |= static_cast<uint32_t>((al & 3) != 0) << u;
       cp16 |= static_cast<uint32_t>(al == 0) << u;
       cp8 |= static_cast<uint32_t>(al == 8) << u;
-      const bool in_a = TRANS ? (u < 8 ? i0 : j0) + t < m : vcol > 0;
-      read |= static_cast<uint32_t>(in_a && !(skip >> u & 1)) << u;
+      const bool in_a = TRANS ? c0 + first + g(u) < m : vcol > 0;
+      read |= static_cast<uint32_t>(in_a && !skip) << u;
     }
   }
 
@@ -245,31 +266,53 @@ struct Share {
   // slot, its source, and how many of its 8 elements exist (0: none,
   // stored as zeros)
   __device__ __forceinline__ uint32_t dst_of(int u) const {
-    if constexpr (!TRANS)
-      return dst + d(u) * 128 + (((x % 8) ^ (d(u) & 7)) << 4);
-    else
-      return dst + (u / 8) * PANEL + (((u % 8) ^ (first & 7)) << 4);
+    return dst + g(u) * 128 + ((x ^ g(u)) << 4);
   }
   __device__ __forceinline__ const char* src_of(int u, int st) const {
-    if constexpr (!TRANS)
-      return src[0] + st * step + d(u) * row_bytes;
-    else
-      return src[u / 8] + st * step + 16 * (u % 8);
+    return src + st * step + g(u) * row_bytes;
   }
   __device__ __forceinline__ int valid(int u, int r0, int m, int n) const {
     if (!(read >> u & 1)) return 0;
     if constexpr (!TRANS)
-      return r0 + first + d(u) < m ? vcol : 0;
+      return r0 + first + g(u) < m ? vcol : 0;
     else
-      return min(8, max(0, n - r0 - 8 * (u % 8)));
+      return min(8, max(0, n - r0 - 8 * x));
+  }
+
+  // stage st's copies into the slot at `slot`, all 8 chunks' loads in
+  // flight: cp.async straight into the slot, the register ones into w
+  __device__ __forceinline__ void load(uint32_t slot, int st, int m, int n,
+                                       uint32_t (&w)[8][5]) const {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int v = valid(u, st * BK, m, n);
+      if (v <= 0) continue;
+      if (by_reg >> u & 1)
+        load_words(src_of(u, st), v, w[u]);
+      else
+        copy_chunk(slot + dst_of(u), src_of(u, st), v, cp16 >> u & 1,
+                   cp8 >> u & 1);
+    }
+  }
+  // stage st's register chunks, and the zeros of the chunks past A's edge,
+  // stored once w has landed
+  __device__ __forceinline__ void put(uint32_t slot, int st, int m, int n,
+                                      const uint32_t (&w)[8][5]) const {
+    if (skip) return;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int v = valid(u, st * BK, m, n);
+      if (v > 0 && !(by_reg >> u & 1)) continue;
+      put_chunk(slot + dst_of(u), v, w[u]);      // zeros where v == 0
+    }
   }
 };
 
 // Tile task blockIdx.x of B: A^T A (TRANS = 0, the reduction over A's m
 // rows) or A A^T (TRANS = 1, over its n columns), B's edge N = n or m.
-// Block r = blockIdx.x % 4 of group task blockIdx.x / 4 (on "wgmma" a
-// cluster, r its rank) owns tile (2 gi + r / 2, 2 gj + r % 2) of the
-// group's upper pair (gi, gj).
+// Block r = blockIdx.x % 4 of group task blockIdx.x / 4 (a cluster, r its
+// rank) owns tile (2 gi + r / 2, 2 gj + r % 2) of the group's upper pair
+// (gi, gj).  Its row's partner is rank r ^ 1, its column's r ^ 2.
 template <bool TRANS, bool LD>
 __global__ void __launch_bounds__(NT, 1)
     gram_bf16(const __grid_constant__ CUtensorMap ma,
@@ -284,15 +327,11 @@ __global__ void __launch_bounds__(NT, 1)
   const int ti = 2 * min(gi, gj) + a, tj = 2 * max(gi, gj) + b;
   const int i0 = ti * BT, j0 = tj * BT;
   const bool diag = ti == tj;
-  // a diagonal group's lower tile is its upper one's mirror: on "wgmma" its
-  // block loads for the others and writes nothing; on "wgmma_ld", like a
-  // tile past B's edge, it has no work
-  if (LD && (ti > tj || j0 >= N)) return;
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t full = base + Smem::BAR, empty = full + 8 * STAGES;
   const int stages = (R + BK - 1) / BK;
-  init_barriers<STAGES, P::EMPTY_ARRIVALS, P::FULL_ARRIVALS>(full, empty);
-  if constexpr (!LD) cluster_sync();
+  init_barriers<STAGES, EMPTY_ARRIVALS, P::FULL_ARRIVALS>(full, empty);
+  cluster_sync();
 
   if (threadIdx.x >= 128 * NCONS) {          // the producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
@@ -322,44 +361,58 @@ __global__ void __launch_bounds__(NT, 1)
         load(slot + PANEL + a * BOX, bar, cj, r0, col_mask);
       }
     } else if constexpr (LD) {
-      const Share<TRANS> sh(A, lda, m, n, t, i0, j0, diag);
-      for (int st = 0; st < stages; ++st) {
-        const int s = st % STAGES;
-        if (st >= STAGES) mbar_wait(empty + 8 * s, ((st / STAGES) - 1) & 1);
-        const uint32_t slot = base + s * STAGE;
-        const int r0 = st * BK;
-        bool stored = false;
-        // chunks whose loads are in flight together (A A^T: a row)
-        constexpr int BATCH = TRANS ? 8 : 4;
+      // the boxes: box b of the row's i panel and box a of the column's j
+      // panel, copied where a block that writes B reads them (tile (ri, rj)
+      // writes where ri <= rj inside B; a diagonal tile reads its i panel
+      // for both sides)
+      const int c_i = i0 + 64 * b, c_j = j0 + 64 * a;
+      auto writes = [&](int ri, int rj) { return ri <= rj && rj * BT < N; };
+      const bool want_i = c_i < N && (writes(ti, tj) || writes(ti, tj ^ 1));
+      const bool want_j =
+          c_j < N && ((writes(ti, tj) && !diag) ||
+                      (writes(ti ^ 1, tj) && (ti ^ 1) != tj));
+      const Share<TRANS> sh(A, lda, m, n, t, c_i, c_j, b * BOX,
+                            PANEL + a * BOX, want_i, want_j);
+      // the warp's slices: its 16 rows of each box
+      const int warp = t / 32, lane = t % 32;
+      const uint32_t slice_i = b * BOX + warp * SLICE;
+      const uint32_t slice_j = PANEL + a * BOX + warp * SLICE;
+      // turn k: stage k's copies issued (a cp.async group; the register
+      // loads into w[k % 2]), so that two stages' loads are in flight (the
+      // register path's time follows its loads in flight); then stage
+      // k - 1's landed, its register chunks stored, fenced (written through
+      // the generic proxy, read by the async one) and, once the warp's
+      // lanes are all done, its slices pushed by lane 0 to the partners
+      // that read them, with one arrival on this block's full barrier for
+      // the slices the partners' same warp pushes into it
+      uint32_t w[2][8][5];
+      for (int st = 0; st <= stages; st += 2) {
 #pragma unroll
-        for (int half = 0; half < 16 / BATCH; ++half) {
-          uint32_t w[BATCH][5];
-#pragma unroll
-          for (int q = 0; q < BATCH; ++q) {
-            const int u = BATCH * half + q;
-            const int v = sh.valid(u, r0, m, n);
-            if (v <= 0) continue;
-            if (sh.by_reg >> u & 1)
-              load_words(sh.src_of(u, st), v, w[q]);
-            else
-              copy_chunk(slot + sh.dst_of(u), sh.src_of(u, st), v,
-                         sh.cp16 >> u & 1, sh.cp8 >> u & 1);
+        for (int h = 0; h < 2; ++h) {
+          const int k = st + h;
+          if (k < stages) {
+            const int s = k % STAGES;
+            // released by every block that writes into the slot: their
+            // consumers are done with it, and so with the pushes from it
+            if (k >= STAGES) mbar_wait(empty + 8 * s, ((k / STAGES) - 1) & 1);
+            sh.load(base + s * STAGE, k, m, n, w[h]);
           }
-#pragma unroll
-          for (int q = 0; q < BATCH; ++q) {
-            const int u = BATCH * half + q;
-            if (sh.skip >> u & 1) continue;
-            const int v = sh.valid(u, r0, m, n);
-            if (v > 0 && !(sh.by_reg >> u & 1)) continue;
-            put_chunk(slot + sh.dst_of(u), v, w[q]);   // zeros where v == 0
-            stored = true;
+          cp_async_commit();
+          if (k >= 1 && k <= stages) {
+            const int s = (k - 1) % STAGES;
+            const uint32_t slot = base + s * STAGE, bar = full + 8 * s;
+            cp_async_wait_group<1>();
+            sh.put(slot, k - 1, m, n, w[h ^ 1]);
+            fence_proxy_async();
+            __syncwarp();
+            if (lane == 0) {
+              push_to_cluster(slot + slice_i, bar, SLICE, r ^ 1);
+              push_to_cluster(slot + slice_j, bar, SLICE, r ^ 2);
+              mbar_expect_tx(bar, 2 * SLICE);
+            }
           }
         }
-        if (stored) fence_proxy_async();
-        mbar_arrive(full + 8 * s);
-        cp_async_arrive(full + 8 * s);
       }
-      cp_async_wait_all();
     }
   } else {
     // a consumer warpgroup: rows i0 + 64 wg .. + 63 of the tile
@@ -394,13 +447,9 @@ __global__ void __launch_bounds__(NT, 1)
       wg_commit();
       wg_wait_all();
       hold(acc);
-      // released to every block that writes into this slot: on "wgmma"
-      // lanes 0, 1, 2 to this block and its row's and its column's partners
-      if constexpr (!LD) {
-        if (lane < 3) mbar_arrive_cluster(empty + 8 * s, lane ? r ^ lane : r);
-      } else if (lane == 0) {
-        mbar_arrive(empty + 8 * s);
-      }
+      // released to every block that writes into this slot: lanes 0, 1, 2
+      // to this block and its row's and its column's partners
+      if (lane < 3) mbar_arrive_cluster(empty + 8 * s, lane ? r ^ lane : r);
       if (!PROMOTE || st % RESTART == RESTART - 1 || st == stages - 1) {
 #pragma unroll
         for (int i = 0; i < BT / 2; ++i)
@@ -412,8 +461,8 @@ __global__ void __launch_bounds__(NT, 1)
     // (B's row ri), column 8 j + 2 (lane % 4) + e (B's column cj).  Written
     // in place where the group task is the upper one, at the mirror where
     // it is the lower one, both under the reduced-task schedule; a diagonal
-    // tile keeps ri <= cj, and the lower tile of a diagonal group (on
-    // "wgmma" its block loaded for the others) writes nothing.
+    // tile keeps ri <= cj, and the lower tile of a diagonal group (its
+    // block loaded for the others) writes nothing.
     const bool up = symmetric || gi <= gj, down = symmetric || gi >= gj;
     if (ti <= tj) {
 #pragma unroll
@@ -433,13 +482,12 @@ __global__ void __launch_bounds__(NT, 1)
       }
     }
   }
-  if constexpr (!LD) cluster_sync();
+  cluster_sync();
 }
 
 template <bool TRANS, bool LD>
 int launch(const void* A, long long lda, void* B, int m, int n,
            int symmetric, cudaStream_t s) {
-  using P = Producer<LD>;
   CUtensorMap ma{};
   cudaError_t err = cudaSuccess;
   if (!LD) err = encode_2d(&ma, A, m, n, lda, 64, 2);
@@ -465,7 +513,7 @@ int launch(const void* A, long long lda, void* B, int m, int n,
   cluster[0].val.clusterDim.y = 1;
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
-  cfg.numAttrs = LD ? 0 : 1;
+  cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kern, ma, static_cast<const uint16_t*>(A),
                            lda, static_cast<float*>(B), m, n, ng, symmetric);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -2,9 +2,10 @@
 // (local_attn.cu, block_matvec_tc.cu, block_matvec_tf32.cu, gram_tf32.cu,
 // gram_bf16.cu): mbarriers, TMA tile loads through tensor maps (multicast
 // to the blocks of a cluster, with remote barrier arrivals and the
-// cluster's barrier), cp.async copies that complete on an mbarrier (the
-// cp.async producer of a stage, fp32 or bf16, and the register copies of
-// bf16 rows 2 bytes off a 4-byte boundary), the
+// cluster's barrier), bulk copies of a block's finished box into another
+// block's shared memory (distributed shared memory), cp.async copies that
+// complete on an mbarrier (the cp.async producer of a stage, fp32 or bf16,
+// and the register copies of bf16 rows 2 bytes off a 4-byte boundary), the
 // stage ring a producer fills for consumer warps, wgmma shared-memory
 // descriptors, the bf16 wgmma forms with both operands in shared memory, the
 // tf32 forms with A in registers (ldmatrix, the tf32 rounding and 3xTF32
@@ -118,6 +119,24 @@ __device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
       " [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "h"(mask)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of this block's shared memory at offset `src`
+// to the same offset in the shared memory of the cluster's block `rank`, by
+// the TMA unit: it reads through the async proxy, so the source's writes by
+// cp.async or st.shared are ordered before it by fence_proxy_async.
+// Completes its bytes on the barrier at offset `bar` of that block.
+__device__ __forceinline__ void push_to_cluster(uint32_t src, uint32_t bar,
+                                                uint32_t bytes,
+                                                uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 rdst, rbar;\n"
+      "mapa.shared::cluster.u32 rdst, %0, %3;\n"
+      "mapa.shared::cluster.u32 rbar, %1, %3;\n"
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [rdst], [%0], %2, [rbar];\n}\n" ::"r"(src),
+      "r"(bar), "r"(bytes), "r"(rank)
       : "memory");
 }
 
@@ -485,6 +504,17 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Close this thread's group of the cp.async issued since the last one.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's latest groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The producer thread t's (0 .. 127) share of a stage of A by cp.async:

@@ -37,12 +37,14 @@ alignment, the same for both orientations:
   bytes of shared memory a tensor-core clock against the SM's 128, so
   it cannot pass ~80 % of the bound either.
 * ``"wgmma_ld"`` (the same file): every other bf16 ``A`` (any
-  ``lda >= n``, any 2-byte-aligned base).  The same kernel without
-  clusters, each 16-byte chunk of a stage copied by ``cp.async`` of 16,
-  8 or 4 bytes as its address allows, or, where a row starts 2 bytes off
-  a 4-byte boundary (every other row of an odd ``lda``), by 4-byte loads
-  into registers shifted by a byte permute; edges zero-filled, never
-  read.
+  ``lda >= n``, any 2-byte-aligned base).  The same kernel and the same
+  2 x 2 clusters, each block assembling its two 64-column boxes itself
+  (each 16-byte chunk by ``cp.async`` of 16, 8 or 4 bytes as its address
+  allows, or, where a row starts 2 bytes off a 4-byte boundary, every
+  other row of an odd ``lda``, by 4-byte loads into registers shifted by
+  a byte permute; edges zero-filled, never read) and pushing each to the
+  partner that reads it through distributed shared memory (the TMA
+  unit's copy from one block's shared memory into another's).
 
 A launch that the card refuses raises; no route stands in for another.
 ``gram_cuda`` takes a CUDA tensor that ``kernels/ops.py`` has already

@@ -504,13 +504,22 @@ def test_gram_routes_match_plain_version(card, m, n, ld, offset, route):
     (3001, 1021, 1024, 1, "wgmma_ld"),          # a base 2 bytes off 16
     (257, 4100, 4100, 0, "wgmma_ld"),           # A A^T's reduction long
     (256, 4096, 4096, 0, "wgmma"),
+    # the 2 x 2 clusters' edges on wgmma_ld (each tile a cluster's block,
+    # boxes pushed to the partners)
+    (3001, 1150, 1151, 0, "wgmma_ld"),          # 9 tiles: a group half past
+    (3001, 50, 51, 0, "wgmma_ld"),              # n <= 64: one box
+    (2049, 2177, 2177, 0, "wgmma_ld"),          # more than one super-block
+    (1150, 3001, 3001, 0, "wgmma_ld"),          # A A^T: 9 tiles in m
 ])
 def test_bf16_gram_runs_the_tensor_cores(card, m, n, ld, offset, route):
     """bf16 gram on each tensor-core route, read in place from views whose
     padding is NaN (a read past a row shows), both layouts, symmetric and
     full: the route that ran, B exactly symmetric, the whole product
     within 1e-5, its off-diagonal entries within chip_smoke.py's 4e-5,
-    reruns bitwise."""
+    reruns bitwise.  On wgmma_ld also where the 2 x 2 clusters of tiles
+    meet B's edge: an odd tile count (a group half past the edge, in
+    either layout), a single box, and more groups than one 4 x 4
+    super-block."""
     gm = importlib.import_module("repro_torch.kernels.gram")
     g = torch.Generator(device=card).manual_seed(m + n + ld + offset)
     flat = torch.full((offset + (m + 1) * ld,), float("nan"),

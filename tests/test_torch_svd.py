@@ -343,3 +343,115 @@ def test_oom_demotion_carries_the_iterate_and_the_accounting():
     assert res.passes_over_A == clean.passes_over_A == 2 * 6 + 1
     assert res.bytes_moved == clean.bytes_moved
     np.testing.assert_allclose(res.S.numpy(), clean.S.numpy(), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# svd_update: the torch counterparts of tests/test_solver_state.py's warm
+# restarts, each seeded from an SVDResult of the CPU solve and held to the
+# JAX package's update of the same input (the host-blocked backend is not
+# ported)
+# ---------------------------------------------------------------------------
+
+def _full_spectrum(rng, m, n, top=5.0, bottom=1.0):
+    """Full-rank matrix with a gently decaying spectrum (as in
+    tests/test_solver_state.py): cold block iteration needs tens of
+    iterations at eps=1e-6."""
+    L = rng.standard_normal((m, n)).astype(np.float32)
+    U, _, Vt = np.linalg.svd(L, full_matrices=False)
+    return (U * np.linspace(top, bottom, n).astype(np.float32)) @ Vt
+
+
+def _prev_both(A, k, **kw):
+    """The previous block solve of ``A`` in both packages (the torch one
+    on the CPU)."""
+    kw = dict(method="block", warmup_q=1, **kw)
+    return (jcore.svd(jnp.asarray(A), k, **kw),
+            repro_torch.svd(torch.from_numpy(A), k, device="cpu", **kw))
+
+
+def _update_both(prevs, A, *args, **kw):
+    """``svd_update`` of ``A`` from each package's previous result."""
+    A = np.ascontiguousarray(A)
+    jprev, tprev = prevs
+    return (jcore.svd_update(jprev, jnp.asarray(A), *args, **kw),
+            repro_torch.svd_update(tprev, torch.from_numpy(A), *args,
+                                   device="cpu", **kw))
+
+
+def test_update_row_append_matches_jax():
+    """New rows arrive: the previous V still seeds the same width and the
+    update converges in O(1), to the new spectrum and to JAX's."""
+    rng = np.random.default_rng(11)
+    A = _full_spectrum(rng, 70, 20)
+    prevs = _prev_both(A, 4)
+    B = np.vstack([A, 0.05 * rng.standard_normal((6, 20)).astype(np.float32)])
+    jw, tw = _update_both(prevs, B)
+    assert tw.iters[0] <= 3 and tw.converged
+    assert tw.U.shape == (76, 4)
+    s_ref = np.linalg.svd(B, compute_uv=False)[:4]
+    np.testing.assert_allclose(_np(tw.S), s_ref, rtol=1e-3)
+    np.testing.assert_allclose(_np(tw.S), _np(jw.S), rtol=1e-3)
+
+
+def test_update_wide_matrix_orientation_matches_jax():
+    """A wide input is solved transposed: the previous U seeds the
+    solver's right side, and U and V come back in the input's
+    orientation."""
+    rng = np.random.default_rng(12)
+    A = np.ascontiguousarray(_full_spectrum(rng, 64, 20).T)    # (20, 64)
+    prevs = _prev_both(A, 4)
+    jw, tw = _update_both(prevs, A + 1e-4)
+    assert tw.iters[0] <= 3
+    assert tw.U.shape == (20, 4) and tw.V.shape == (64, 4)
+    np.testing.assert_allclose(_np(tw.S), _np(prevs[1].S), rtol=1e-3)
+    np.testing.assert_allclose(_np(tw.S), _np(jw.S), rtol=1e-3)
+
+
+@pytest.mark.parametrize("k", [8, 1])               # rank +4 and -3
+def test_update_rank_change_matches_jax(k):
+    """A grown rank appends seeded directions (the same in both packages);
+    a smaller one keeps the previous seed's leading directions."""
+    rng = np.random.default_rng(13)
+    A = _full_spectrum(rng, 80, 24)
+    prevs = _prev_both(A, 4)
+    jw, tw = _update_both(prevs, A, k)
+    assert _np(tw.S).shape == _np(jw.S).shape == (k,)
+    s_ref = np.linalg.svd(A, compute_uv=False)[:k]
+    np.testing.assert_allclose(_np(tw.S), s_ref, rtol=1e-3)
+    np.testing.assert_allclose(_np(tw.S), _np(jw.S), rtol=1e-3)
+
+
+def test_update_default_rank_is_previous_rank():
+    rng = np.random.default_rng(14)
+    A = _full_spectrum(rng, 50, 14)
+    jw, tw = _update_both(_prev_both(A, 3), A)
+    assert _np(tw.S).shape == _np(jw.S).shape == (3,)
+
+
+def test_update_rejects_bad_prev_and_bad_method():
+    """The same errors as the JAX package's."""
+    rng = np.random.default_rng(15)
+    A = _full_spectrum(rng, 40, 12)
+    jprev, tprev = _prev_both(A, 3)
+    for update, prev, X in (
+            (jcore.svd_update, jprev, jnp.asarray(A)),
+            (lambda *a, **kw: repro_torch.svd_update(*a, device="cpu", **kw),
+             tprev, torch.from_numpy(A))):
+        with pytest.raises(TypeError, match="SVDResult or"):
+            update(np.eye(3), X)
+        with pytest.raises(ValueError, match="method must be 'block'"):
+            update(prev, X, method="gram")
+
+
+def test_update_pass_accounting_stays_ground_truth():
+    """The warm path's reported passes are the operator's own counter, and
+    under a fixed iteration count the JAX package's."""
+    rng = np.random.default_rng(16)
+    A = _full_spectrum(rng, 60, 18)
+    jprev, tprev = _prev_both(A, 4)
+    kw = dict(force_iters=True, max_iters=3)
+    op = DenseOperator(torch.from_numpy(A + 1e-4), device="cpu")
+    warm = repro_torch.svd_update(tprev, op, **kw)
+    jw = jcore.svd_update(jprev, jnp.asarray(A + 1e-4), **kw)
+    assert warm.passes_over_A == op.passes == jw.passes_over_A
+    np.testing.assert_array_equal(warm.iters, np.asarray(jw.iters))

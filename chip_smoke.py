@@ -171,6 +171,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    no mask tensor (the flash backend, the fastest single call for causal
    attention; ``library_causal_ms``).
 
+8. the out-of-core tiers, on the kernels above: the host's memory,
+   locked-memory limit and temp disk; the host -> device rate of one
+   2 GiB block from pinned memory (the tiers' bound), from pageable
+   memory and through ``core/staging.py``'s ring (one run of bytes, and
+   the pitched copy into rows padded to 16 bytes).  The paper's shard
+   (262144 x 32768 fp32, phase 3's A) in host memory:
+   ``svd(CountingHostMatrix(A, 4), 32)`` in fp32 and bf16-staged, each
+   held to the prescribed sigma and the dense solve's (rtol 1e-4, 1e-2),
+   to passes = iters + 1, fetches = passes x 4, launches = 4 x passes by
+   route (chains on ``tf32x3`` / ``wgmma``, the extraction on
+   ``tf32x3``) and ``bytes_moved``; seconds a pass against
+   ``bytes_per_pass`` / the pinned rate, and a profile (device busy, copy
+   engine busy, kernel time, the share of it under a copy).  An input
+   larger than the card, 655360 x 32768 fp32 (85.9 GB), built row block
+   by row block into host memory: ``svd(A_numpy, 32)``, sigma to 1e-4,
+   peak device memory below A's bytes.  Gram-free at k = 2 on 262144 x
+   8192 host blocks (passes sum(2 it + 1), launches ``matvec`` 4 x
+   sum(it + 1), ``deflate_rmatvec`` 4 x sum(it)); the streamed Gram
+   against ``ops.gram`` of the whole A (phase 4's two readings); the
+   disk tier on that A staged in fp32 and bf16 (``svd(path, 8)``: one
+   file read with an unbounded host budget, one a pass with half the
+   file as budget and the cache never above it, bf16 halving disk and
+   H2D bytes; the files dropped from the page cache first); 65536 x
+   8191 fp32 host blocks and a bf16-staged copy on ``tf32x3`` and
+   ``wgmma`` (device rows padded), sigma equal to the dense solve's; and
+   the demotion ladder under ``FaultSpec("device_oom", at=3)``: dense ->
+   host-blocked and host-blocked -> memmap, sigma within 1e-4 of the
+   clean solve, and under ``force_iters`` the iterations conserved and
+   the passes each tier's count.  ``--only-out-of-core`` runs phases 1
+   and 8 alone.
+
 Prints a ``{"kernels": [...]}`` line (each kernel's launches in the
 run of its path, and its times; the block sweeps as ``<name>/tf32x3``
 for the main path's fp32 solve, as ``<name>/wgmma`` for the bf16
@@ -184,7 +215,8 @@ solve's and ``gram/wgmma_ld`` for bf16 of those rows, timed at 262144 x
 8191, ``gram/wgmma[trans]``, bf16 ``A A^T`` of the wide input, and
 ``gram/wgmma_ld[trans]``, the same of the wide input one column short), the
 ``nvidia-smi`` name and
-power limit line again, and last ``{"ok": true, "device": {...}}``.
+power limit line again, and last ``{"ok": true, "device": {...}}``;
+before them an ``{"out_of_core": {...}}`` line with phase 8's numbers.
 Exits 2 without a CUDA device or without ``src/repro_torch`` beside this
 script.
 """
@@ -1564,6 +1596,603 @@ def lm_serving(torch, ops, ref, la, g, dev) -> tuple:
     return row, pre_counts["local_attention"]
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the out-of-core tiers (host-blocked and disk) on the ported
+# kernels
+# ---------------------------------------------------------------------------
+
+OOC_ROWS = 655360                      # x N fp32: 80 GiB, more than the card
+OOC_BLOCKS = 4                         # SVDConfig's default n_blocks
+H2D_PROBE = 1 << 29                    # fp32 elements: the 2 GiB rate probe
+K_OOC_GRAMFREE, K_DISK = 2, 8
+DEMOTE = (65536, 8192)
+DEMOTE_ITERS = 10                      # force_iters of the demotion runs
+
+
+def host_limits() -> dict:
+    """What the host allows the out-of-core tiers: memory (``/proc/
+    meminfo``), the locked-memory limit (``ulimit -l``; page-locking by
+    the CUDA driver is not charged to it), the temp directory's disk."""
+    import resource
+    import shutil
+    import tempfile
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable", "Cached"):
+                mem[key] = int(val.split()[0]) * 1024
+    lock = resource.getrlimit(resource.RLIMIT_MEMLOCK)[0]
+    tmp = tempfile.gettempdir()
+    du = shutil.disk_usage(tmp)
+    return {"mem_total": mem["MemTotal"], "mem_available": mem["MemAvailable"],
+            "page_cache": mem["Cached"],
+            "memlock": None if lock == resource.RLIM_INFINITY else lock,
+            "tmp": tmp, "tmp_free": du.free, "cpus": os.cpu_count()}
+
+
+H2D_REPS = 5                           # timed copies of each probe
+
+
+def copy_rates(torch, fn, nbytes, timer="events") -> list:
+    """Bytes/s of each of ``H2D_REPS`` runs of the copy ``fn``, after one
+    warm-up: timed by CUDA events, or (``timer="host"``, for a pageable
+    copy, which the host stages itself) by the host clock around each
+    run and a sync."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(H2D_REPS):
+        if timer == "host":
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(nbytes / (time.perf_counter() - t0))
+            continue
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        out.append(nbytes / t0.elapsed_time(t1) * 1e3)
+    return out
+
+
+def h2d_rates(torch, staging, dev) -> dict:
+    """Bytes/s of 2 GiB host -> device copies, each timed alone: from
+    pinned memory (the best of them is the out-of-core tiers' bound, as
+    3.35 TB/s is the dense tier's: one copy's rate varies by ~10 % with
+    the host memory it reads), from pageable memory, and through
+    ``staging.H2DRing`` (rows of 32 KiB, one run of bytes; and rows of
+    8191 fp32 into device rows padded to 8192, the pitched copy)."""
+    n = H2D_PROBE
+    src, key = staging.pinned_empty((n,), torch.float32)
+    src.fill_(1.0)
+    dst = torch.empty((n,), device=dev)
+    runs = {"pinned": copy_rates(
+        torch, lambda: dst.copy_(src, non_blocking=True), n * 4)}
+    page = torch.ones((n,), dtype=torch.float32)
+    runs["pageable"] = copy_rates(torch, lambda: dst.copy_(page), n * 4,
+                                  timer="host")
+    del page, dst
+    rows = n // 8192
+    for label, width in (("ring", 8192), ("pitched", 8191)):
+        ring = staging.H2DRing(rows, width, torch.float32, dev)
+        view = src[:rows * width].view(rows, width)
+        got = ring.put(view)
+        torch.cuda.synchronize()
+        if not torch.equal(got, torch.ones_like(got)):
+            fail(f"H2DRing ({label}): the copied block differs")
+        runs[label] = copy_rates(torch, lambda: ring.put(view),
+                                 rows * width * 4)
+        ring.close()
+        del ring, got
+    torch.cuda.empty_cache()
+    staging.unregister(key)
+    rates = {label: max(r) for label, r in runs.items()}
+    rates.update({f"{label}_median": sorted(r)[len(r) // 2]
+                  for label, r in runs.items()})
+    return rates
+
+
+def _union(iv: list) -> list:
+    out: list = []
+    for a, b in sorted(iv):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _length(iv: list) -> float:
+    return sum(b - a for a, b in iv)
+
+
+def _overlap(x: list, y: list) -> float:
+    """Length of the intersection of two sorted disjoint interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(x) and j < len(y):
+        lo, hi = max(x[i][0], y[j][0]), min(x[i][1], y[j][1])
+        total += max(0.0, hi - lo)
+        if x[i][1] < y[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def copy_profile(torch, fn) -> tuple:
+    """``fn()`` under ``torch.profiler``: its result and where the device
+    time went with the copy engine in the picture: wall seconds, device
+    busy (any kernel or copy running), the copy engine busy (host ->
+    device copies), kernel time, and the share of kernel time that ran
+    while a copy did (hidden under it)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern, copy = [], []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            iv = (e.time_range.start / 1e6, e.time_range.end / 1e6)
+            (copy if "memcpy" in e.name.lower() else kern).append(iv)
+    ku, cu = _union(kern), _union(copy)
+    k_s = _length(ku)
+    return out, {"wall_s": wall, "busy_s": _length(_union(kern + copy)),
+                 "copy_s": _length(cu), "kernel_s": k_s, "copies": len(copy),
+                 "kernels": len(kern),
+                 "hidden": _overlap(ku, cu) / k_s if k_s else None}
+
+
+def hb_solve(torch, repro_torch, ops, X, label, s, dense, rate, *,
+             rtol=1e-4, chains="tf32x3", profile=False, **kw) -> dict:
+    """One block solve on the host-blocked tier, held to the prescribed
+    spectrum ``s`` and the dense solve's sigma ``dense`` (``rtol``), to
+    the pass accounting (passes = iters + 1; a ``CountingHostMatrix``'s
+    fetches = passes x n_blocks), to the launches (n_blocks x passes by
+    route: the chains on ``chains``, the fp32 extraction on ``tf32x3``)
+    and to ``bytes_moved``; seconds per pass against ``bytes_per_pass`` /
+    the pinned rate ``rate``.  ``profile``: a second solve under the
+    profiler.  Returns its numbers."""
+    nb = getattr(X, "n_blocks", OOC_BLOCKS)
+    ops.reset_launches()
+    res = repro_torch.svd(X, K, **kw)
+    counts = {n: c for n, c in ops.launches.items() if c}
+    routes = {n: c for n, c in ops.route_launches.items() if c}
+    it = int(res.iters[0])
+    p, bpp = res.passes_over_A, res.bytes_per_pass
+    err = float((res.S.double().cpu() / s[:K].double().cpu() - 1)
+                .abs().max())
+    err_dense = float((res.S.double() / dense.double() - 1).abs().max())
+    per_pass = res.wall_time_s / p
+    bound = bpp / rate
+    fetches = getattr(X, "fetches", None)
+    print(f"{label}: backend {res.backend}, iters {it}, passes_over_A {p}, "
+          f"fetches {fetches}, bytes_per_pass {bpp}, bytes_moved "
+          f"{res.bytes_moved}, converged {res.converged}, wall_time_s "
+          f"{res.wall_time_s:.3f}, {per_pass:.4f} s a pass against "
+          f"{bound:.4f} s at the pinned rate ({100 * bound / per_pass:.1f} "
+          f"%; {bpp / per_pass / 1e9:.2f} GB/s a pass), launches {counts} (by "
+          f"route {routes}), max sigma rel err {err:.2e} (against the dense "
+          f"solve {err_dense:.2e}; limit {rtol:.0e})")
+    want = {"block_gram_chain": nb * it, "block_matvec": nb * (it + 1),
+            "block_rmatvec": nb * it}
+    want_routes = {f"block_matvec/{chains}": nb * it,
+                   f"block_rmatvec/{chains}": nb * it}
+    want_routes["block_matvec/tf32x3"] = \
+        want_routes.get("block_matvec/tf32x3", 0) + nb
+    if res.backend != "hostblocked" or p != it + 1:
+        fail(f"{label}: backend {res.backend}, passes {p} for {it} iters")
+    if fetches is not None and fetches != p * nb:
+        fail(f"{label}: {fetches} fetches for {p} passes of {nb} blocks")
+    if counts != want or routes != want_routes:
+        fail(f"{label}: launches {counts} by route {routes}; n_blocks x "
+             f"passes implies {want} by route {want_routes}")
+    if res.bytes_moved != {"host": p * bpp, "device": p * bpp}:
+        fail(f"{label}: bytes_moved {res.bytes_moved}")
+    if not (res.converged and err <= rtol and err_dense <= rtol
+            and bool(torch.isfinite(res.U).all())
+            and bool(torch.isfinite(res.V).all())):
+        fail(f"{label}: not converged to the prescribed sigma")
+    row = {"iters": it, "passes": p, "bytes_per_pass": bpp,
+           "wall_s": res.wall_time_s, "s_per_pass": per_pass,
+           "bound_s_per_pass": bound, "launches": routes,
+           "sigma_err": err}
+    if profile:
+        _, prof = copy_profile(torch, lambda: repro_torch.svd(X, K, **kw))
+        w = prof["wall_s"]
+        print(f"  profile of a second {label} solve: {w:.3f} s, device busy "
+              f"{prof['busy_s']:.3f} s ({100 * prof['busy_s'] / w:.1f} %), "
+              f"copy engine busy {prof['copy_s']:.3f} s "
+              f"({100 * prof['copy_s'] / w:.1f} %; {prof['copies']} copies, "
+              + (f"{p * bpp / prof['copy_s'] / 1e9:.2f}" if prof["copy_s"]
+                 else "-") + " GB/s while copying), "
+              f"kernels {prof['kernel_s']:.3f} s in {prof['kernels']} "
+              f"activities, of which "
+              + ("-" if prof["hidden"] is None else
+                 f"{100 * prof['hidden']:.1f} %") + " ran under a copy")
+        row["profile"] = prof
+    return row
+
+
+def host_spectral(torch, H, seed, dev):
+    """``U diag(s) V^T + NOISE * G`` of the shape of the host array ``H``,
+    built on the card one 1 GiB row chunk at a time from a shared
+    orthonormal U (m x 64) and V, each chunk copied into ``H``; returns
+    the prescribed s."""
+    m, n = H.shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s = (100.0 * 0.9 ** torch.arange(N_SPECTRUM, dtype=torch.float64)
+         ).to(torch.float32).to(dev)
+    U = torch.linalg.qr(torch.randn(m, N_SPECTRUM, generator=g,
+                                    device=dev)).Q
+    V = torch.linalg.qr(torch.randn(n, N_SPECTRUM, generator=g,
+                                    device=dev)).Q
+    Ht = torch.from_numpy(H)
+    step = max(1, (1 << 28) // n)
+    chunk = torch.empty((step, n), device=dev)
+    for r in range(0, m, step):
+        rows = min(step, m - r)
+        blk = chunk[:rows]
+        torch.matmul(U[r:r + rows] * s, V.mT, out=blk)
+        blk.add_(torch.randn((rows, n), generator=g, device=dev),
+                 alpha=NOISE)
+        Ht[r:r + rows].copy_(blk)
+    return s
+
+
+def to_host(torch, A, out=None):
+    """A card tensor copied into a numpy array (``out`` when given)."""
+    import numpy as np
+    if out is None:
+        out = np.empty(tuple(A.shape), np.float32)
+    torch.from_numpy(out).copy_(A)
+    return out
+
+
+def drop_page_cache(path) -> None:
+    """Write ``path`` out and drop it from the OS page cache, so the next
+    read comes from the disk."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+
+
+def sigma_err(torch, got, want) -> float:
+    return float((got.double().cpu() / want.double().cpu() - 1).abs().max())
+
+
+def out_of_core(torch, repro_torch, ops, dev) -> dict:
+    """Phase 8: the host-blocked and disk tiers (see the module
+    docstring); returns its numbers for the JSON line."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core import (CountingHostMatrix, FaultPlan, FaultSpec,
+                                  HostBlockedMatrix, MemmapMatrix,
+                                  inject_faults, stage_to_disk, staging)
+    out: dict = {}
+    t_phase = time.perf_counter()
+    out["host"] = lim = host_limits()
+    print(f"host: {lim['mem_total'] / 2**30:.1f} GiB of memory "
+          f"({lim['mem_available'] / 2**30:.1f} available, page cache "
+          f"{lim['page_cache'] / 2**30:.1f}), locked-memory limit "
+          + ("unlimited" if lim["memlock"] is None else
+             f"{lim['memlock']} bytes")
+          + f", {lim['cpus']} CPUs, temp directory {lim['tmp']} with "
+          f"{lim['tmp_free'] / 2**30:.1f} GiB free")
+    if lim["mem_available"] < OOC_ROWS * N * 4 * 1.05:
+        fail(f"the host cannot hold the {OOC_ROWS}x{N} fp32 input "
+             f"({OOC_ROWS * N * 4 / 2**30:.0f} GiB) and its registration: "
+             f"{lim['mem_available'] / 2**30:.1f} GiB available")
+
+    # -- 8.1 the tier's bound -------------------------------------------
+    t0 = time.perf_counter()
+    out["h2d"] = rates = h2d_rates(torch, staging, dev)
+    pinned = rates["pinned"]
+    print(f"8.1 host -> device, 2 GiB, best (median) of {H2D_REPS}: "
+          + ", ".join(f"{lab} {rates[lab] / 1e9:.2f} "
+                      f"({rates[lab + '_median'] / 1e9:.2f}) GB/s"
+                      for lab in ("pinned", "pageable", "ring", "pitched"))
+          + f"; the best pinned rate is the out-of-core tiers' bound; the "
+          f"ring's copies are rows of 32 KiB (one run), the pitched ones "
+          f"rows of 8191 fp32 into rows of 8192; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 8.2 the paper's per-node shard in host memory --------------------
+    t0 = time.perf_counter()
+    H = np.empty((OOC_ROWS, N), np.float32)    # item 3's; item 2 its head
+    A, s = spectral_matrix(torch, M, N, SEED, dev)
+    dense32 = repro_torch.svd(A, K).S
+    dense16 = repro_torch.svd(A, K, sweep_dtype="bfloat16", eps=1e-4).S
+    Ah = H[:M]
+    t1 = time.perf_counter()
+    to_host(torch, A, Ah)
+    del A
+    torch.cuda.empty_cache()
+    print(f"8.2 A {M}x{N} fp32 built on the card (seed {SEED}, phase 3's), "
+          f"solved there for reference, copied into host memory in "
+          f"{time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    hb = CountingHostMatrix(Ah, OOC_BLOCKS)
+    print(f"  CountingHostMatrix(A, {OOC_BLOCKS}): {Ah.nbytes / 2**30:.0f} "
+          f"GiB page-locked in place in {time.perf_counter() - t1:.1f} s")
+    out["fp32"] = hb_solve(torch, repro_torch, ops, hb,
+                           f"svd(CountingHostMatrix(A, {OOC_BLOCKS}), {K}) "
+                           f"fp32", s, dense32, pinned, profile=True)
+    hb.close()
+    t1 = time.perf_counter()
+    hb = CountingHostMatrix(Ah, OOC_BLOCKS, stage_dtype="bfloat16")
+    print(f"  CountingHostMatrix(A, {OOC_BLOCKS}, stage_dtype='bfloat16'): "
+          f"staged into pinned bf16 blocks in {time.perf_counter() - t1:.1f}"
+          f" s")
+    out["bf16"] = hb_solve(torch, repro_torch, ops, hb,
+                           f"svd(CountingHostMatrix(A, {OOC_BLOCKS}, bf16), "
+                           f"{K}) bf16 sweeps", s, dense16, pinned, rtol=1e-2,
+                           chains="wgmma", profile=True,
+                           sweep_dtype="bfloat16", eps=1e-4)
+    hb.close()
+    del hb, Ah
+    print(f"  8.2: {time.perf_counter() - t0:.1f} s")
+
+    # -- 8.3 out of memory for real ----------------------------------------
+    t0 = time.perf_counter()
+    s3 = host_spectral(torch, H, SEED + 12, dev)
+    torch.cuda.synchronize()
+    print(f"8.3 A {OOC_ROWS}x{N} fp32 ({H.nbytes / 1e9:.1f} GB, more than "
+          f"the card's {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}"
+          f" GB) built row block by row block into host memory in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    keep = HostBlockedMatrix(H, OOC_BLOCKS)    # the registration, timed
+    print(f"  {H.nbytes / 2**30:.0f} GiB page-locked in place in "
+          f"{time.perf_counter() - t1:.1f} s (svd's own matrix below shares "
+          f"the registration)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["oom"] = hb_solve(torch, repro_torch, ops, H,
+                          f"svd(A {OOC_ROWS}x{N} numpy, {K}) fp32", s3,
+                          s3[:K], pinned)
+    peak = torch.cuda.max_memory_allocated()
+    blk = -(-OOC_ROWS // OOC_BLOCKS) * N * 4
+    out["oom"]["peak_device_bytes"] = peak
+    print(f"  peak device memory during the solve {peak / 1e9:.2f} GB, "
+          f"below A's {H.nbytes / 1e9:.1f} GB: two blocks are "
+          f"{2 * blk / 1e9:.2f} GB")
+    if not peak < H.nbytes:
+        fail(f"8.3: peak device memory {peak} is not below A's {H.nbytes}")
+    keep.close()
+    del keep, H
+    print(f"  8.3: {time.perf_counter() - t0:.1f} s")
+
+    # -- 8.4 gram-free on host blocks ----------------------------------------
+    t0 = time.perf_counter()
+    Ag, sg = spectral_matrix(torch, M, N_GRAM, SEED + 4, dev)
+    Agh = to_host(torch, Ag)
+    hb = CountingHostMatrix(Agh, OOC_BLOCKS)
+    ops.reset_launches()
+    res = repro_torch.svd(hb, K_OOC_GRAMFREE, method="gramfree")
+    counts = {n: c for n, c in ops.launches.items() if c}
+    it = [int(i) for i in res.iters]
+    p = res.passes_over_A
+    err = sigma_err(torch, res.S, sg[:K_OOC_GRAMFREE])
+    print(f"8.4 svd(CountingHostMatrix(A {M}x{N_GRAM}, {OOC_BLOCKS}), "
+          f"{K_OOC_GRAMFREE}, method='gramfree'): iters per rank {it}, "
+          f"passes_over_A {p}, fetches {hb.fetches}, wall_time_s "
+          f"{res.wall_time_s:.3f}, {res.wall_time_s / p:.4f} s a pass "
+          f"against {res.bytes_per_pass / pinned:.4f} at the pinned rate, "
+          f"launches {counts}, max sigma rel err {err:.2e} (limit "
+          f"{TOL_DEFLATION:.0e})")
+    want = {"matvec": OOC_BLOCKS * (sum(it) + len(it)),
+            "deflate_rmatvec": OOC_BLOCKS * sum(it)}
+    if (res.backend != "hostblocked" or p != sum(2 * i + 1 for i in it)
+            or hb.fetches != p * OOC_BLOCKS or counts != want
+            or res.bytes_moved is not None):
+        fail(f"8.4: backend {res.backend}, passes {p}, fetches {hb.fetches}, "
+             f"launches {counts} (want {want})")
+    if not (res.converged and err <= TOL_DEFLATION):
+        fail("8.4: not converged to the prescribed sigma")
+    out["gramfree"] = {"iters": it, "passes": p, "wall_s": res.wall_time_s,
+                       "launches": counts, "sigma_err": err}
+
+    # -- 8.5 the streamed Gram -------------------------------------------
+    ops.reset_launches()
+    t1 = time.perf_counter()
+    B = hb.gram()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    ran = {n: c for n, c in ops.route_launches.items() if c}
+    whole = ops.gram(Ag)
+    e = rel_err(torch, B, whole)
+    off = gram_offdiag_err(torch, B, whole)
+    print(f"8.5 HostBlockedMatrix(A, {OOC_BLOCKS}).gram() {M}x{N_GRAM}: "
+          f"{secs:.3f} s (one pass, {hb.bytes_per_pass / pinned:.3f} s at "
+          f"the pinned rate), launches by route {ran}; against ops.gram of "
+          f"the whole A on the card: rel err {e:.2e} (limit "
+          f"{gram_tol(M):.1e}), off the diagonal {off:.2e} (limit "
+          f"{TOL_GRAM_OFFDIAG:.0e}), exactly symmetric "
+          f"{bool(torch.equal(B, B.mT))}")
+    if (ran != {"gram/tf32x3": OOC_BLOCKS} or not e <= gram_tol(M)
+            or outside(off, TOL_GRAM_OFFDIAG) or not torch.equal(B, B.mT)):
+        fail("8.5: the streamed Gram")
+    out["gram"] = {"s": secs, "rel_err": e, "offdiag_err": off,
+                   "launches": ran}
+    hb.close()
+    del hb, B, whole, Ag
+    torch.cuda.empty_cache()
+    print(f"  8.4-8.5: {time.perf_counter() - t0:.1f} s")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        saved, tempfile.tempdir = tempfile.tempdir, tmp  # demotion spills
+        try:
+            out["disk"] = disk_tier(torch, repro_torch, stage_to_disk,
+                                    MemmapMatrix, Agh, sg, pinned, tmp)
+            del Agh
+            out["odd"] = odd_width(torch, repro_torch, ops, pinned, dev)
+            out["demote"] = demotion(torch, repro_torch, inject_faults,
+                                     FaultPlan, FaultSpec, dev)
+        finally:
+            tempfile.tempdir = saved
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 8: {out['seconds']:.1f} s")
+    return out
+
+
+def disk_tier(torch, repro_torch, stage_to_disk, MemmapMatrix, A, s,
+              pinned, tmp) -> dict:
+    """8.6: ``A`` staged to ``tmp`` in fp32 and bf16, then ``svd(path,
+    K_DISK)`` with an unbounded host budget (disk bytes = one file read)
+    and with half the file (disk bytes = passes x file bytes, the cache
+    never above the budget), bf16 halving disk and H2D bytes."""
+    t0 = time.perf_counter()
+    paths = {sd: stage_to_disk(A, os.path.join(tmp, f"A_{sd}.npy"), dtype=sd)
+             for sd in ("float32", "bfloat16")}
+    for p in paths.values():
+        drop_page_cache(p)
+    file_bytes = {sd: A.size * (4 if sd == "float32" else 2)
+                  for sd in paths}
+    print(f"8.6 A {A.shape[0]}x{A.shape[1]} staged to {tmp} in fp32 and bf16 "
+          f"({sum(file_bytes.values()) / 1e9:.1f} GB) in "
+          f"{time.perf_counter() - t0:.1f} s, then dropped from the page "
+          f"cache")
+    rows = {}
+    for label, sd, budget in (("fp32, unbounded host budget", "float32", 0),
+                              ("fp32, half the file", "float32",
+                               file_bytes["float32"] // 2),
+                              ("bf16, half the file", "bfloat16",
+                               file_bytes["bfloat16"] // 2)):
+        kw = {"sweep_dtype": sd, "eps": 1e-4} if sd == "bfloat16" else {}
+        rtol = 1e-2 if sd == "bfloat16" else 1e-4
+        drop_page_cache(paths[sd])
+        cached0 = host_limits()["page_cache"]
+        if budget == 0:
+            mm = None
+            res = repro_torch.svd(paths[sd], K_DISK, **kw)
+        else:
+            mm = MemmapMatrix(paths[sd], OOC_BLOCKS, stage_dtype=sd,
+                              host_budget_bytes=budget)
+            res = repro_torch.svd(mm, K_DISK, **kw)
+        cached = host_limits()["page_cache"] - cached0
+        p, moved = res.passes_over_A, res.bytes_moved
+        err = sigma_err(torch, res.S, s[:K_DISK])
+        peak = None if mm is None else mm.peak_host_bytes
+        print(f"  svd({'path' if mm is None else 'MemmapMatrix(path)'}, "
+              f"{K_DISK}) {label}: backend {res.backend}, iters "
+              f"{int(res.iters[0])}, passes {p}, bytes_moved {moved}, "
+              f"peak host cache {peak}, wall_time_s {res.wall_time_s:.3f}, "
+              f"{res.wall_time_s / p:.4f} s a pass ("
+              f"{res.bytes_per_pass / pinned:.4f} at the pinned rate), max "
+              f"sigma rel err {err:.2e} (limit {rtol:.0e}); the page cache "
+              f"grew by {cached / 1e9:.2f} GB: the first pass read the disk, "
+              + ("the cache held the rest" if budget == 0 else
+                 "later passes read the file again from the page cache"))
+        want_disk = file_bytes[sd] * (1 if budget == 0 else p)
+        if (res.backend != "memmap" or moved["disk"] != want_disk
+                or moved["host"] != p * res.bytes_per_pass
+                or moved["device"] != moved["host"]
+                or (peak is not None and not 0 < peak <= budget)):
+            fail(f"8.6 {label}: bytes_moved {moved} (disk should be "
+                 f"{want_disk}), peak host cache {peak} of {budget}")
+        if not (res.converged and err <= rtol):
+            fail(f"8.6 {label}: not converged to the prescribed sigma")
+        rows[label] = {"passes": p, "bytes_moved": moved,
+                       "wall_s": res.wall_time_s, "peak_host": peak,
+                       "page_cache_growth": cached}
+        del mm
+    f32, f16 = rows["fp32, half the file"], rows["bf16, half the file"]
+    if (f16["bytes_moved"]["disk"] * 2 * f32["passes"]
+            != f32["bytes_moved"]["disk"] * f16["passes"]
+            or f16["bytes_moved"]["host"] * 2 * f32["passes"]
+            != f32["bytes_moved"]["host"] * f16["passes"]):
+        fail("8.6: bf16 does not halve the disk and H2D bytes a pass")
+    print(f"  8.6: bf16 moves half the disk and H2D bytes a pass; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def odd_width(torch, repro_torch, ops, pinned, dev) -> dict:
+    """8.7: 65536 x 8191 fp32 in host memory, and a bf16-staged copy of
+    it: the blocks' device rows padded to 8192, so the chains run
+    ``tf32x3`` and ``wgmma`` (never a cp.async route), sigma equal to the
+    dense solve of the same input."""
+    from repro_torch.core import CountingHostMatrix
+    t0 = time.perf_counter()
+    A, s = spectral_matrix(torch, *ODD_LDA, SEED + 10, dev)
+    Ah = to_host(torch, A)
+    rows = {}
+    for sd, chains, rtol in (("float32", "tf32x3", 1e-4),
+                             ("bfloat16", "wgmma", 1e-2)):
+        kw = {"sweep_dtype": sd, "eps": 1e-4} if sd == "bfloat16" else {}
+        dense = repro_torch.svd(A, K, **kw).S
+        hb = CountingHostMatrix(Ah, OOC_BLOCKS, stage_dtype=sd)
+        rows[sd] = hb_solve(torch, repro_torch, ops, hb,
+                            f"8.7 odd width svd(CountingHostMatrix(A "
+                            f"{ODD_LDA[0]}x{ODD_LDA[1]}, {OOC_BLOCKS}, {sd}), "
+                            f"{K})", s, dense, pinned, rtol=rtol,
+                            chains=chains, **kw)
+        hb.close()
+    del A
+    torch.cuda.empty_cache()
+    print(f"  8.7: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def demotion(torch, repro_torch, inject_faults, FaultPlan, FaultSpec,
+             dev) -> dict:
+    """8.8: a device OOM (``FaultSpec("device_oom", at=3)``) on the dense
+    tier finishes on the host-blocked one, and on the host-blocked tier
+    on the disk tier, from the warm iterate, sigma within 1e-4 of the
+    clean solve; under ``force_iters`` the iterations are the clean
+    solve's and the passes each tier's count (dense 2 an iteration, the
+    streamed tiers 1)."""
+    t0 = time.perf_counter()
+    A, _ = spectral_matrix(torch, *DEMOTE, SEED + 13, dev)
+    Ah = A.cpu().numpy()
+    fault = lambda: inject_faults(FaultPlan(FaultSpec("device_oom", at=3)))
+    rows = {}
+    forced = {"force_iters": True, "max_iters": DEMOTE_ITERS}
+    for X, frm, to, tier_passes in ((A, "dense", "hostblocked", 2),
+                                    (Ah, "hostblocked", "memmap", 1)):
+        clean = repro_torch.svd(X, K)
+        with fault():
+            hit = repro_torch.svd(X, K)
+        clean_f = repro_torch.svd(X, K, **forced)
+        with fault():
+            hit_f = repro_torch.svd(X, K, **forced)
+        err = sigma_err(torch, hit.S, clean.S)
+        err_f = sigma_err(torch, hit_f.S, clean_f.S)
+        want_f = tier_passes * 3 + (DEMOTE_ITERS - 3) + 1
+        print(f"8.8 svd({frm} {DEMOTE[0]}x{DEMOTE[1]}, {K}) under a device "
+              f"OOM at step 3: finished on {hit.backend} (faults "
+              f"{hit.faults['counters']}), max sigma rel err against the "
+              f"clean solve {err:.2e}; force_iters {DEMOTE_ITERS}: backend "
+              f"{hit_f.backend}, iters {int(hit_f.iters[0])}, passes "
+              f"{hit_f.passes_over_A} (clean {clean_f.passes_over_A}, the "
+              f"tiers' count {want_f}), sigma {err_f:.2e}")
+        if (hit.backend != to or hit_f.backend != to or err > 1e-4
+                or err_f > 1e-4 or int(hit_f.iters[0]) != DEMOTE_ITERS
+                or hit_f.passes_over_A != want_f
+                or hit.faults["counters"].get("device_oom.demote") != 1):
+            fail(f"8.8: the demotion {frm} -> {to}")
+        rows[frm] = {"to": hit.backend, "sigma_err": err,
+                     "passes_forced": hit_f.passes_over_A,
+                     "clean_passes_forced": clean_f.passes_over_A}
+    del A
+    torch.cuda.empty_cache()
+    print(f"  8.8: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1616,6 +2245,9 @@ def main() -> int:
                 for l in log.splitlines() if "registers" in l]
         spills = [int(l.split()[4]) for l in log.splitlines()
                   if "spill stores" in l]
+        if not regs:                     # staging.cu: host functions only
+            print(f"  {name}: no kernels")
+            continue
         print(f"  {name}: {len(regs)} kernels, registers <= {max(regs)}, "
               f"{sum(b > 0 for b in spills)} with spills (<= "
               f"{max(spills)} bytes stored)")
@@ -1643,6 +2275,12 @@ def main() -> int:
                    for ld in (0, 1)))):
         sweep_instances(build, name, logs.get(name) or (
             build.BUILD_DIR / f"{name}.log").read_text(), tag, sd, want)
+
+    if sys.argv[1:] == ["--only-out-of-core"]:    # phase 1, then phase 8
+        print(json.dumps({"out_of_core": out_of_core(torch, repro_torch, ops,
+                                                     dev)}))
+        print(card_line())
+        return 0
 
     # -- 2a. kernels vs plain at ragged shapes -----------------------------
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -2067,6 +2705,10 @@ def main() -> int:
     # -- 7. the LM serving path ------------------------------------------
     dtable["local_attention"], path_counts["local_attention"] = lm_serving(
         torch, ops, ref, local_attn, g, dev)
+
+    # -- 8. the out-of-core tiers -----------------------------------------
+    print(json.dumps({"out_of_core": out_of_core(torch, repro_torch, ops,
+                                                 dev)}))
 
     sweeps = ("block_matvec", "block_rmatvec", "block_gram_chain")
     rows = dict(dtable)

@@ -3,9 +3,14 @@
 Mirrors the names of the JAX package's ``repro.core`` for what is
 ported: ``svd``/``svd_update``, the ``init_state``/``step``/``finalize``
 state machine, ``SVDConfig``/``SVDResult``/``SolverState``, the
-``LinearOperator`` protocol with ``DenseOperator``, the deflation
+``LinearOperator`` protocol with ``DenseOperator``, ``HostBlockedOperator``
+and ``MemmapOperator``, the out-of-core tiers (``HostBlockedMatrix``,
+``CountingHostMatrix``, ``MemmapMatrix``, ``stage_to_disk``,
+``open_matrix_memmap``, the blocked Gram helpers and the deprecated
+``oom_tsvd``), the batching plans of ``core/partition.py``, the deflation
 engines' power loops (``svd_1d``, ``power_iterate_gram``,
-``power_iterate_chain``), the shared numerical helpers, the typed errors and the fault-injection harness.
+``power_iterate_chain``), the shared numerical helpers, the typed errors
+and the fault-injection harness.
 """
 from repro_torch.core.config import (  # noqa: F401
     SolverState,
@@ -30,6 +35,29 @@ from repro_torch.core.tsvd import (  # noqa: F401
 from repro_torch.core.operator import (  # noqa: F401
     LinearOperator,
     DenseOperator,
+    HostBlockedOperator,
+    MemmapOperator,
+)
+from repro_torch.core.partition import (  # noqa: F401
+    BatchPlan,
+    Partition,
+    make_batch_plan,
+    make_partition,
+    symmetric_tasks,
+)
+from repro_torch.core.oom import (  # noqa: F401
+    CountingHostMatrix,
+    HostBlockedMatrix,
+    OOMResult,
+    blocked_deflated_matvec,
+    blocked_gram,
+    oom_tsvd,
+    tiled_gram,
+)
+from repro_torch.core.diskio import (  # noqa: F401
+    MemmapMatrix,
+    open_matrix_memmap,
+    stage_to_disk,
 )
 from repro_torch.core.errors import (  # noqa: F401
     CheckpointCorruptError,
@@ -65,6 +93,23 @@ __all__ = [
     "finalize",
     "LinearOperator",
     "DenseOperator",
+    "HostBlockedOperator",
+    "MemmapOperator",
+    "HostBlockedMatrix",
+    "CountingHostMatrix",
+    "MemmapMatrix",
+    "stage_to_disk",
+    "open_matrix_memmap",
+    "blocked_gram",
+    "tiled_gram",
+    "blocked_deflated_matvec",
+    "oom_tsvd",
+    "OOMResult",
+    "Partition",
+    "make_partition",
+    "BatchPlan",
+    "make_batch_plan",
+    "symmetric_tasks",
     "SWEEP_DTYPES",
     "resolve_sweep_dtype",
     "sweep_ops",

@@ -2,10 +2,13 @@
 
 ``LinearOperator`` is the surface the shared block driver
 (``core/svd.py``) needs, as in the JAX package's
-``repro/core/operator.py``; ``DenseOperator`` is its in-memory adapter
-for a tensor resident on one device.  The other adapters of the JAX
-package (sharded, host-blocked, memmap, sparse-stream) come with later
-slices of the port (ROADMAP.md, queue 1).
+``repro/core/operator.py``.  Its adapters here: ``DenseOperator`` for a
+tensor resident on one device, ``HostBlockedOperator`` for the row
+blocks of a host matrix streamed to the device (``core/oom.py``), and
+``MemmapOperator`` for a matrix on disk (``core/diskio.py``): the
+demotion ladder dense -> host-blocked -> memmap of the JAX package.
+The sharded and sparse-stream adapters come with later slices of the
+port (ROADMAP.md, queue 1).
 
 Every A-sized product of ``DenseOperator`` goes through the sweep
 wrappers of ``kernels/ops.py``: on the card those launch the Hopper
@@ -13,15 +16,20 @@ kernels, on the CPU (which the caller must ask for) their plain
 versions.  QR, the subspace gap and Rayleigh–Ritz stay ``torch.linalg``
 / small products, as they were XLA ops in the JAX package.
 
-Pass and byte accounting is the JAX package's: ``gram_chain`` costs
-``chain_passes = 2`` sweeps, ``range_sketch``, ``matmat``, ``rmatmat``
-and ``extract`` one each, ``bytes_per_pass = M * N * itemsize(sweep
-dtype)`` and ``bytes_moved = {"device": passes * bytes_per_pass}``.
-``lagged_sync``: CUDA launches are asynchronous, so the driver's lagged
-``.item()`` of the previous gap lands after the next step is queued.
+Pass and byte accounting is the JAX package's: on the dense tier
+``gram_chain`` costs ``chain_passes = 2`` sweeps, ``range_sketch``,
+``matmat``, ``rmatmat`` and ``extract`` one each, ``bytes_per_pass = M *
+N * itemsize(sweep dtype)`` and ``bytes_moved = {"device": passes *
+bytes_per_pass}``; on the streamed tiers a pass is one stream of the
+host blocks (the fused chain one, ``chain_passes = 1``) and
+``bytes_moved`` adds the host tier (and the disk tier's counters).
+``lagged_sync``: CUDA launches and the streamed tiers' copies are
+asynchronous, so the driver's lagged ``.item()`` of the previous gap
+lands after the next step is queued.
 """
 from __future__ import annotations
 
+import os
 import threading
 
 import numpy as np
@@ -29,6 +37,7 @@ import torch
 
 from repro_torch.core.errors import InputError
 from repro_torch.core.precision import dtype_name, resolve_sweep_dtype
+from repro_torch.core.staging import pitch
 from repro_torch.core.tsvd import (rayleigh_ritz_from_W, seeded_generator,
                                    warm_start_width)
 from repro_torch.kernels import ops
@@ -36,6 +45,8 @@ from repro_torch.kernels import ops
 __all__ = [
     "LinearOperator",
     "DenseOperator",
+    "HostBlockedOperator",
+    "MemmapOperator",
     "host_sync_scalar",
     "resolve_device",
     "warm_start_width",
@@ -62,9 +73,17 @@ def resolve_device(device=None) -> torch.device:
 def host_sync_scalar(x):
     """The ONE sanctioned device->host sync in the driver loop: blocks
     until ``x`` (a 0-d tensor, numpy scalar or python number) is ready
-    and returns it as a python scalar."""
+    and returns it as a python scalar.  A scalar from ``_gap`` on the
+    card was copied to pinned host memory when it was produced, so this
+    waits for the work that made it, not for the work the driver queued
+    after it (``x.item()`` would queue its copy behind that)."""
     if isinstance(x, (bool, int, float)):
         return x
+    staged = getattr(x, "_repro_host", None)
+    if staged is not None:
+        host, ready = staged
+        ready.synchronize()
+        return host.item()
     return x.item()
 
 
@@ -76,7 +95,18 @@ def _gap(Q: torch.Tensor, Qn: torch.Tensor) -> torch.Tensor:
     # sum of squared sines of the principal angles between span(Q) and
     # span(Qn): invariant to rotations within the subspace.  Returned
     # unsynced — a 0-d device tensor the driver floats one step late.
-    return Q.shape[1] - torch.sum((Q.mT @ Qn) ** 2)
+    g = Q.shape[1] - torch.sum((Q.mT @ Qn) ** 2)
+    if g.is_cuda:
+        # its copy to the host starts now, in stream order: the lagged
+        # read (host_sync_scalar) then waits for this step alone, while
+        # the next step's work, and the streamed tiers' copies of the next
+        # pass, are already queued behind it
+        host = torch.empty((), dtype=g.dtype, pin_memory=True)
+        host.copy_(g, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        g._repro_host = (host, ready)
+    return g
 
 
 # ---------------------------------------------------------------------------
@@ -226,8 +256,10 @@ class LinearOperator:
 
     def from_host(self, W):
         """A host fp32 array lifted into the operator's namespace (a
-        copy: host trees may hold read-only arrays)."""
-        return torch.tensor(np.asarray(W, np.float32))
+        copy: host trees may hold read-only arrays), on its ``device``
+        where it has one."""
+        return torch.tensor(np.asarray(W, np.float32),
+                            device=getattr(self, "device", None))
 
     @property
     def fingerprint(self) -> str:
@@ -263,9 +295,7 @@ def sweep_copy(A: torch.Tensor, sd: torch.dtype) -> torch.Tensor:
     if A.dtype == sd:
         return A
     m, n = A.shape
-    per = 16 // sd.itemsize                # elements in 16 bytes
-    ld = -(-n // per) * per
-    out = torch.empty((m, ld), dtype=sd, device=A.device)[:, :n]
+    out = torch.empty((m, pitch(n, sd)), dtype=sd, device=A.device)[:, :n]
     out.copy_(A)
     return out
 
@@ -348,10 +378,155 @@ class DenseOperator(LinearOperator):
         self._count(1)
         return rayleigh_ritz_from_W(self._fwd(self._A, Q), Q)
 
-    def from_host(self, W):
-        return torch.tensor(np.asarray(W, np.float32), device=self.device)
+    def demote(self, cfg):
+        """Device OOM: pull ``A`` back to the host and stream it block by
+        block (same math, same sweep dtype, an H2D copy per block in
+        place of a device-resident ``A``)."""
+        from repro_torch.core.oom import HostBlockedMatrix
+        A = self._A.cpu().numpy()
+        host = HostBlockedMatrix(A.T if self._trans else A, cfg.n_blocks,
+                                 stage_dtype=self.sweep_dtype,
+                                 device=self.device)
+        return HostBlockedOperator(host)
 
     @property
     def bytes_per_pass(self):
         m, n = self._shape
         return m * n * self._As.element_size()
+
+
+# ---------------------------------------------------------------------------
+# HostBlockedOperator — host-resident row blocks streamed H2D (degree-1)
+# ---------------------------------------------------------------------------
+
+class HostBlockedOperator(LinearOperator):
+    """Wraps a ``HostBlockedMatrix`` (or an instrumented subclass).
+
+    A "pass" is one full H2D stream of the host blocks — the paper's
+    dominant degree-1 cost.  The fused ``gram_chain`` copies each block
+    ONCE for both sweep halves (``chain_passes = 1``), and the sketch's
+    Omega row blocks are drawn one block at a time, never resident.
+    ``lagged_sync``: the driver syncs the convergence scalar one
+    iteration late, so the host never waits inside a pass and the copy
+    stream runs ahead.  The sweep dtype is the matrix's ``stage_dtype``
+    (bf16 staging halves every H2D copy; sums stay fp32).
+    """
+
+    backend = "hostblocked"
+    chain_passes = 1
+    lagged_sync = True
+
+    def __init__(self, host):
+        super().__init__()
+        self._host = host
+        self.device = host.device
+        self.sweep_dtype = dtype_name(host.stage_dtype)
+
+    @property
+    def host(self):
+        return self._host
+
+    @property
+    def shape(self):
+        return (self._host.m, self._host.n)
+
+    def matmat(self, Q):
+        self._count(1)
+        return self._host.matmat(Q)
+
+    def rmatmat(self, Y):
+        self._count(1)
+        return self._host.rmatmat(Y)
+
+    def gram_chain(self, Q):
+        self._count(self.chain_passes)
+        return self._host.gram_chain(Q)
+
+    def range_sketch(self, l, seed):
+        """``A^T Omega`` in one stream: each block's Omega rows drawn
+        from one seeded generator in block order and rounded to the
+        staged dtype."""
+        from repro_torch.core.oom import hostblock_sketch_step
+        self._count(self.sketch_passes)
+        host = self._host
+        g = seeded_generator(self.device, seed)
+        acc = torch.zeros((host.n, l), dtype=torch.float32,
+                          device=self.device)
+        for lo, hi, blk in host._sweep():     # one pass; Omega never whole
+            om = torch.randn((hi - lo, l), generator=g, device=self.device,
+                             dtype=torch.float32)
+            hostblock_sketch_step(acc, blk, om)
+        return acc
+
+    def random_block(self, k, seed):
+        return torch.randn((self._host.n, k), generator=seeded_generator(
+            self.device, seed), device=self.device, dtype=torch.float32)
+
+    def reset_counters(self):
+        self.reset_passes()
+        reset = getattr(self._host, "reset_counters", None)
+        if reset is not None:
+            reset()
+
+    def set_resilience(self, telemetry=None, retry_policy=None):
+        # the staging hops live on the matrix, so the retry loop's
+        # telemetry/policy must land there
+        super().set_resilience(telemetry, retry_policy)
+        self._host.telemetry = telemetry
+        self._host.retry_policy = retry_policy
+
+    def demote(self, cfg):
+        """Host pressure: spill the staged blocks to a temp ``.npy`` and
+        re-wrap them as the disk tier, with the same block plan (so the
+        streamed accumulation order, and with it the bits, is unchanged).
+        The host cache budget is ``cfg.host_budget_bytes`` when set, else
+        half the file.  The caller owns the temp file (``spill_path``)."""
+        import tempfile
+        from repro_torch.core.diskio import MemmapMatrix, write_npy
+        host = self._host
+        fd, path = tempfile.mkstemp(suffix=".npy", prefix="repro_demoted_")
+        os.close(fd)
+        write_npy(path, (host.m, host.n), host.stage_dtype,
+                  ((host.plan.bounds(b)[0], host.host_block(b))
+                   for b in range(host.n_blocks)))  # nothing A-sized
+        budget = cfg.host_budget_bytes or (
+            host.m * host.n * host.stage_dtype.itemsize) // 2
+        mm = MemmapMatrix(path, host.n_blocks, stage_dtype=host.stage_dtype,
+                          host_budget_bytes=budget, device=host.device)
+        op = MemmapOperator(mm)
+        op.spill_path = path
+        return op
+
+    @property
+    def bytes_per_pass(self):
+        return self._host.bytes_per_pass
+
+    @property
+    def bytes_moved(self):
+        # every pass crosses the host tier (the H2D copy of the staged
+        # blocks) and is then read once from device memory
+        moved = self.passes * self.bytes_per_pass
+        return {"host": moved, "device": moved}
+
+
+# ---------------------------------------------------------------------------
+# MemmapOperator — disk-resident row blocks staged disk->host->device
+# ---------------------------------------------------------------------------
+
+class MemmapOperator(HostBlockedOperator):
+    """Wraps a ``MemmapMatrix`` (``core/diskio.py``): the disk tier.
+
+    The host tier's streaming and pass semantics, plus the disk rung:
+    ``bytes_moved`` reports the matrix's ACTUAL tier counters, so a
+    host cache that holds every staged block shows one cold file read
+    and a capped budget one disk read per pass.
+    """
+
+    backend = "memmap"
+
+    def demote(self, cfg):
+        return None          # disk is the bottom of the ladder
+
+    @property
+    def bytes_moved(self):
+        return self._host.bytes_moved

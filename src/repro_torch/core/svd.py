@@ -26,20 +26,30 @@ and reports, as the JAX package does, per-rank ``iters``, the schedule's
 ``passes_over_A``, ``converged`` from ``_deflation_converged`` and no
 ``bytes_moved``.
 
+The out-of-core tiers, as in the JAX package: a numpy array or a
+``HostBlockedMatrix`` runs on the host-blocked tier (row blocks streamed
+host -> device over a copy stream, ``core/oom.py``), a ``.npy`` path, an
+``np.memmap`` or a ``MemmapMatrix`` on the disk tier
+(``core/diskio.py``); both take ``method="block"`` (the shared driver
+over ``HostBlockedOperator``/``MemmapOperator``) and ``"gramfree"``
+(``core/oom.py::_oom_deflation``).  A device OOM demotes dense ->
+host-blocked -> memmap with the warm iterate.
+
 Entry points run on the card: ``device=None`` means ``"cuda"`` and
 raises when no card is visible; the caller passes ``device="cpu"`` to
 run the plain PyTorch versions of the kernels on the CPU.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md queue-1 item: numpy inputs (the host-blocked tier), paths and
-``np.memmap`` (the disk tier), scipy sparse inputs, ``mesh=`` (the
-sharded backend), and ``checkpoint_dir`` (checkpoint/resume).
+ROADMAP.md queue-1 item: scipy sparse inputs and ``.npz``/``.mtx``
+paths (the sparse stream), ``mesh=`` (the sharded backend), and
+``checkpoint_dir`` (checkpoint/resume).
 """
 from __future__ import annotations
 
 import math
 import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -53,11 +63,35 @@ from repro_torch.core.faults import (FaultTelemetry, RetryPolicy, fault_hook,
 from repro_torch.core.operator import (DenseOperator, LinearOperator,
                                        host_sync_scalar, resolve_device,
                                        warm_start_width)
-from repro_torch.core.precision import resolve_sweep_dtype
+from repro_torch.core.precision import dtype_name, resolve_sweep_dtype
 from repro_torch.core.tsvd import _dense_deflation
 
 __all__ = ["svd", "svd_update", "init_state", "step", "finalize",
            "SolverState", "SVDConfig", "SVDResult"]
+
+
+# ---------------------------------------------------------------------------
+# Deprecation bookkeeping for the legacy entrypoint shims
+# ---------------------------------------------------------------------------
+
+_LEGACY_WARNED: set[str] = set()
+
+
+def warn_legacy(name: str) -> None:
+    """Emit the one-per-process DeprecationWarning for a legacy shim."""
+    if name in _LEGACY_WARNED:
+        return
+    _LEGACY_WARNED.add(name)
+    warnings.warn(
+        f"repro_torch.core.{name}() is deprecated; call "
+        f"repro_torch.core.svd(A, k, config=SVDConfig(...)) instead (the "
+        f"old keywords map 1:1 onto SVDConfig fields)",
+        DeprecationWarning, stacklevel=3)
+
+
+def _reset_legacy_warnings() -> None:
+    """Test hook: make every shim warn again."""
+    _LEGACY_WARNED.clear()
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -316,10 +350,9 @@ def _run_block(op: LinearOperator, k: int, cfg: SVDConfig, warm=None):
 
     A device OOM (``torch.cuda.OutOfMemoryError`` or an injected
     ``DeviceOOMFault``) asks ``op.demote(cfg)`` for the next-lower
-    memory tier and carries the warm iterate there.  ``DenseOperator``
-    has no lower tier in this port yet (the host-blocked tier is
-    ROADMAP.md, queue 1, item 4), so on it an OOM ends the solve with
-    ``FaultExhaustedError`` whose ``__cause__`` is the OOM.
+    memory tier (dense -> host-blocked -> memmap) and carries the warm
+    iterate there; on the disk tier, which has none, an OOM ends the
+    solve with ``FaultExhaustedError`` whose ``__cause__`` is the OOM.
     """
     telemetry = FaultTelemetry()
     policy = RetryPolicy(max_attempts=cfg.io_retries,
@@ -433,6 +466,120 @@ def _dense_svd(A: torch.Tensor, k: int, cfg: SVDConfig, device,
     return res._replace(bytes_per_pass=bpp)
 
 
+def _tall_host(A, k: int, source=None):
+    """The tall orientation of a host matrix (CSVD: a wide one is
+    row-blocked as its transposed view) and whether it was transposed."""
+    m, n = A.shape
+    _validate_problem((m, n), k, source=source)
+    transposed = m < n
+    return (A.T if transposed else A), transposed
+
+
+def _injected(host, sd, device):
+    """Check a pre-built (already tall) matrix against the config's
+    sweep dtype and the caller's device."""
+    if host.stage_dtype != sd:
+        raise ValueError(
+            f"injected operator staged as {dtype_name(host.stage_dtype)} "
+            f"but sweep_dtype={dtype_name(sd)!r}; build the operator with "
+            f"stage_dtype={dtype_name(sd)!r}")
+    if device is not None and resolve_device(device) != host.device:
+        raise ValueError(f"injected operator lives on {host.device}, not "
+                         f"on {device}; build it with device={device!r}")
+
+
+def _streamed_svd(host, op_cls, k: int, cfg: SVDConfig, transposed: bool,
+                  warm=None) -> SVDResult:
+    """The solve on a host-blocked or disk-tier matrix (tall): the block
+    driver over ``op_cls``, or the streamed deflation engine."""
+    from repro_torch.core.oom import _oom_deflation
+    _validate_problem((host.m, host.n), k)
+    if cfg.method == "block":
+        res = _run_block(op_cls(host), k, cfg,
+                         warm=_pick_seed(warm, transposed))
+        if transposed:
+            res = res._replace(U=res.V, V=res.U)
+        return res._replace(bytes_per_pass=host.bytes_per_pass)
+    if cfg.method != "gramfree":
+        where = ("disk tier" if op_cls.backend == "memmap"
+                 else "out-of-core backend")
+        raise ValueError(f"method='gram' is not available on the {where} "
+                         f"(the dense residual would defeat the "
+                         f"streaming); expected 'gramfree' | 'block'")
+    U, S, V, iters, passes = _oom_deflation(
+        host, k, eps=cfg.eps, max_iters=cfg.max_iters,
+        force_iters=cfg.force_iters, seed=cfg.seed)
+    if transposed:
+        U, V = V, U
+    # plain host matrices keep no tier counters; the disk tier's live on
+    # the matrix, so it reports the actual breakdown for both methods
+    return SVDResult(U, S, V, np.asarray(iters), passes,
+                     host.bytes_per_pass, _deflation_converged(iters, cfg),
+                     op_cls.backend,
+                     bytes_moved=host.bytes_moved
+                     if op_cls.backend == "memmap" else None)
+
+
+def _hostblocked_svd(A, k: int, cfg: SVDConfig, device,
+                     warm=None) -> SVDResult:
+    """Host-blocked tier: ``A`` is a numpy array (row blocks streamed
+    host -> device) or a pre-built ``HostBlockedMatrix``."""
+    from repro_torch.core.oom import HostBlockedMatrix
+    from repro_torch.core.operator import HostBlockedOperator
+    sd = resolve_sweep_dtype(cfg.sweep_dtype)
+    if isinstance(A, HostBlockedMatrix):
+        _injected(A, sd, device)
+        host, transposed = A, False        # injected ops are already tall
+    else:
+        tall, transposed = _tall_host(np.asarray(A), k)
+        host = HostBlockedMatrix(tall, cfg.n_blocks, stage_dtype=sd,
+                                 device=resolve_device(device))
+    return _streamed_svd(host, HostBlockedOperator, k, cfg, transposed,
+                         warm=warm)
+
+
+def _memmap_svd(A, k: int, cfg: SVDConfig, device, warm=None) -> SVDResult:
+    """Disk tier: ``A`` is a ``.npy`` path, an ``np.memmap`` or a
+    pre-built ``MemmapMatrix`` — blocks are staged disk -> host -> device
+    under ``cfg.host_budget_bytes`` of host cache."""
+    from repro_torch.core.diskio import MemmapMatrix, open_matrix_memmap
+    from repro_torch.core.operator import MemmapOperator
+    sd = resolve_sweep_dtype(cfg.sweep_dtype)
+    if isinstance(A, MemmapMatrix):
+        _injected(A, sd, device)
+        host, transposed = A, False        # injected ops are already tall
+    else:
+        source = getattr(A, "filename", None)
+        if isinstance(A, (str, os.PathLike)):
+            source = os.fspath(A)
+            A = open_matrix_memmap(A)
+        tall, transposed = _tall_host(A, k, source=source)
+        host = MemmapMatrix(tall, cfg.n_blocks, stage_dtype=sd,
+                            host_budget_bytes=cfg.host_budget_bytes,
+                            device=resolve_device(device))
+    return _streamed_svd(host, MemmapOperator, k, cfg, transposed,
+                         warm=warm)
+
+
+#: dataset-file suffixes svd() accepts as path inputs
+_PATH_SUFFIXES = (".npy", ".npz", ".mtx", ".mtx.gz")
+
+
+def _path_svd(path, k: int, cfg: SVDConfig, device, warm=None) -> SVDResult:
+    """Dispatch a dataset path: ``.npy`` -> the disk tier; scipy ``.npz``
+    and MatrixMarket ``.mtx`` load onto the sparse stream, which is not
+    ported yet."""
+    p = os.fspath(path)
+    low = p.lower()
+    if low.endswith(".npy"):
+        return _memmap_svd(p, k, cfg, device, warm=warm)
+    if low.endswith((".npz", ".mtx", ".mtx.gz")):
+        raise _not_ported("a sparse dataset path (.npz/.mtx, the sparse "
+                          "stream)", "7")
+    raise InputError(
+        f"svd() path input must end in one of {_PATH_SUFFIXES}, got {p!r}")
+
+
 def _operator_svd(op: LinearOperator, k: int, cfg: SVDConfig,
                   warm=None) -> SVDResult:
     if cfg.method != "block":
@@ -459,10 +606,16 @@ def svd(A, k: int, *, device=None, mesh=None, axes=("data",),
     * ``torch.Tensor``      -> dense solve on ``device`` (``None`` = the
       card; ``"cpu"`` runs the plain PyTorch versions): the block driver,
       or the deflation engine for ``method="gram"``/``"gramfree"``;
+    * ``np.ndarray`` / ``HostBlockedMatrix`` -> out-of-core: the array
+      stays in host memory, split into ``n_blocks`` row blocks streamed
+      to ``device`` one at a time over a copy stream;
+    * a ``.npy`` path, ``np.memmap`` / ``MemmapMatrix`` -> disk tier:
+      row blocks staged disk -> host -> device, the host cache capped at
+      ``host_budget_bytes``;
     * a ``LinearOperator``  -> the shared block driver on it;
-    * numpy arrays, paths, ``np.memmap``, scipy sparse inputs and
-      ``mesh=`` raise ``NotImplementedError`` naming the ROADMAP.md item
-      that ports them.
+    * scipy sparse inputs, ``.npz``/``.mtx`` paths and ``mesh=`` raise
+      ``NotImplementedError`` naming the ROADMAP.md item that ports
+      them.
 
     Solver knobs come from ``config`` and/or keyword ``overrides``, as in
     the JAX package's ``svd``.  Returns an ``SVDResult``.
@@ -490,17 +643,23 @@ def _dispatch(A, k: int, *, device=None, mesh=None, axes=("data",),
         return _operator_svd(A, k, cfg, warm=_warm)
     if isinstance(A, torch.Tensor):
         return _dense_svd(A, k, cfg, resolve_device(device), warm=_warm)
-    if isinstance(A, (str, os.PathLike, np.memmap)):
-        raise _not_ported("a dataset path or np.memmap (the disk tier)",
-                          "5")
-    if isinstance(A, np.ndarray):
-        raise _not_ported("a numpy array (the out-of-core host-blocked "
-                          "tier)", "4")
+    if isinstance(A, (str, os.PathLike)):
+        return _path_svd(A, k, cfg, device, warm=_warm)
     if _is_scipy_sparse(A):
         raise _not_ported("a scipy.sparse matrix (the sparse stream)", "7")
+    # np.memmap subclasses np.ndarray and MemmapMatrix subclasses
+    # HostBlockedMatrix: the disk-tier checks must come FIRST
+    from repro_torch.core.diskio import MemmapMatrix
+    from repro_torch.core.oom import HostBlockedMatrix
+    if isinstance(A, (np.memmap, MemmapMatrix)):
+        return _memmap_svd(A, k, cfg, device, warm=_warm)
+    if isinstance(A, (np.ndarray, HostBlockedMatrix)):
+        return _hostblocked_svd(A, k, cfg, device, warm=_warm)
     raise InputError(
         f"svd() cannot dispatch on input of type {type(A).__name__}: "
-        "expected a torch.Tensor (dense solve) or a LinearOperator")
+        "expected a torch.Tensor (dense solve), a numpy array or "
+        "HostBlockedMatrix (host-blocked tier), a .npy path, np.memmap or "
+        "MemmapMatrix (disk tier), or a LinearOperator")
 
 
 def svd_update(prev, A, k: int | None = None, *, device=None, mesh=None,

@@ -27,7 +27,14 @@ all four routes are held to the same limits.
 TMA where a tensor map describes A and by the producer's own copies
 elsewhere, B exactly symmetric, and its off-diagonal entries also read
 alone (limit 4e-5, ``chip_smoke.py``'s ``TOL_GRAM_OFFDIAG``).
+The out-of-core tiers (``core/staging.py``): every streamed op of a
+``HostBlockedMatrix`` against the plain versions on the same staged data
+and on the TMA routes at any width (the device rows padded), bitwise
+reruns, one registration for an array two matrices share, the disk tier
+on the card against the CPU, and the driver's lagged gap read waiting
+for its own step only.
 """
+import collections
 import importlib
 
 import pytest
@@ -712,3 +719,159 @@ def test_tensor_core_route_refuses_a_broadcast_view(card):
     with pytest.raises(ValueError):
         ops.local_attention(q, k.expand(1, 2, 64, 64), k.expand(1, 2, 64, 64),
                             window=8)
+
+
+# ---------------------------------------------------------------------------
+# The out-of-core tiers: host blocks over the copy stream (core/staging.py)
+# ---------------------------------------------------------------------------
+
+def _host(m, n, seed):
+    import numpy as np
+    return np.random.default_rng(seed).standard_normal((m, n)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("n", [300, 515, 1001, 1024])
+@pytest.mark.parametrize("stage_dtype", ["float32", "bfloat16"])
+def test_streamed_ops_match_the_plain_versions(card, n, stage_dtype):
+    """Every streamed op of a HostBlockedMatrix on the card against the
+    plain versions of the same kernels on the same (staged) data, summed
+    over the same blocks: within the kernels' limits.  The blocks' rows
+    are padded to 16 bytes, so every width runs the TMA routes."""
+    from repro_torch.core import HostBlockedMatrix
+    A = _host(5000, n, n)
+    hb = HostBlockedMatrix(A, 3, stage_dtype=stage_dtype)
+    sd = getattr(torch, stage_dtype)
+    As = torch.from_numpy(A).to(card).to(sd)
+    g = torch.Generator(device=card).manual_seed(n)
+    Q = torch.randn((n, 7), generator=g, device=card)
+    Y = torch.randn((5000, 7), generator=g, device=card)
+    v = torch.randn((n,), generator=g, device=card)
+    bounds = [hb.plan.bounds(b) for b in range(hb.n_blocks)]
+    ops.reset_launches()
+    got = {"gram_chain": hb.gram_chain(Q), "matmat": hb.matmat(Q),
+           "rmatmat": hb.rmatmat(Y), "gram": hb.gram(), "matvec": hb.matvec(v)}
+    torch.cuda.synchronize()
+    A32 = As.to(torch.float32)
+    want = {"gram_chain": sum(ref.block_gram_chain_ref(As[lo:hi], Q,
+                                                       stage_dtype)
+                              for lo, hi in bounds),
+            "matmat": A32 @ Q, "rmatmat": A32.mT @ Y, "gram": A32.mT @ A32,
+            "matvec": A32 @ v}
+    for name, tol in (("gram_chain", 1e-3 if stage_dtype == "bfloat16"
+                       else 1e-5), ("matmat", 1e-5), ("rmatmat", 1e-5),
+                      ("gram", 1e-5), ("matvec", 1e-5)):
+        assert got[name].device.type == "cuda", name
+        assert _rel(got[name], want[name]) <= tol, name
+    # three blocks: the chain's two sweeps and gram on the staged dtype's
+    # TMA route, matmat and rmatmat on fp32 rows (tf32x3)
+    tma = "tf32x3" if stage_dtype == "float32" else "wgmma"
+    want = collections.Counter({f"block_matvec/{tma}": 3,
+                                f"block_rmatvec/{tma}": 3, f"gram/{tma}": 3})
+    want.update({"block_matvec/tf32x3": 3, "block_rmatvec/tf32x3": 3})
+    assert {k: c for k, c in ops.route_launches.items() if c} == dict(want)
+    hb.close()
+
+
+def test_streamed_solves_rerun_bitwise(card):
+    import repro_torch
+    A = _host(6000, 700, 1)
+    runs = [repro_torch.svd(A, 8, n_blocks=3) for _ in range(2)]
+    for a, b in zip(runs[0][:3], runs[1][:3]):
+        assert torch.equal(a, b)
+    assert runs[0].backend == "hostblocked"
+    runs = [repro_torch.svd(A, 4, n_blocks=3, method="gramfree",
+                            max_iters=30) for _ in range(2)]
+    for a, b in zip(runs[0][:3], runs[1][:3]):
+        assert torch.equal(a, b)
+
+
+def test_an_array_shared_by_two_matrices_registers_once(card):
+    """Two matrices over one fp32 array page-lock it once; it is unlocked
+    when the last closes.  A range the caller locked is used as it is
+    and left locked."""
+    from repro_torch.core import HostBlockedMatrix, staging
+    A = _host(4000, 300, 2)
+    t = torch.from_numpy(A)
+    key = (t.data_ptr(), t.numel() * 4)
+    assert not t.is_pinned() and key not in staging._PINNED
+    h1 = HostBlockedMatrix(A, 2)
+    h2 = HostBlockedMatrix(A, 4)
+    assert t.is_pinned() and staging._PINNED[key] == [2, True]
+    h1.close()
+    assert t.is_pinned() and staging._PINNED[key] == [1, True]
+    Q = torch.randn((300, 3), device=card)
+    assert _rel(h2.matmat(Q), torch.from_numpy(A).to(card) @ Q) <= 1e-5
+    h2.close()
+    assert not t.is_pinned() and key not in staging._PINNED
+    lib = staging._lib()
+    assert lib.repro_host_register(key[0], key[1]) == 0   # the caller's
+    h3 = HostBlockedMatrix(A, 2)
+    assert staging._PINNED[key] == [1, False]
+    h3.close()
+    assert t.is_pinned() and key not in staging._PINNED
+    assert lib.repro_host_unregister(key[0]) == 0
+    assert not t.is_pinned()
+
+
+@pytest.mark.parametrize("sweep_dtype", ["float32", "bfloat16"])
+def test_odd_width_host_blocks_run_the_tma_routes(card, sweep_dtype):
+    """An odd-width host matrix: each block is copied into rows padded to
+    16 bytes, so the chains run tf32x3 (fp32) or wgmma (bf16) and the
+    extraction tf32x3, never a cp.async route; launches are n_blocks x
+    the pass accounting."""
+    import repro_torch
+    A = _host(4099, 1001, 3)
+    ops.reset_launches()
+    res = repro_torch.svd(A, 16, n_blocks=4, sweep_dtype=sweep_dtype,
+                          force_iters=True, max_iters=3)
+    assert res.backend == "hostblocked" and res.passes_over_A == 3 + 1
+    assert {n: c for n, c in ops.launches.items() if c} == {
+        "block_gram_chain": 4 * 3, "block_matvec": 4 * 4,
+        "block_rmatvec": 4 * 3}
+    chains = "wgmma" if sweep_dtype == "bfloat16" else "tf32x3"
+    want = {f"block_matvec/{chains}": 12, f"block_rmatvec/{chains}": 12}
+    want["block_matvec/tf32x3"] = want.get("block_matvec/tf32x3", 0) + 4
+    assert {n: c for n, c in ops.route_launches.items() if c} == want
+
+
+def test_disk_tier_on_the_card_matches_the_cpu(card, tmp_path):
+    """The disk tier on the card (pinned bounce buffers, the ring) and on
+    the CPU converge to the same sigma of a matrix with a prescribed
+    spectrum; a capped budget reads the file once a pass on both (the
+    two devices draw different random starts, so only converged results
+    compare)."""
+    import numpy as np
+    import repro_torch
+    from repro_torch.core import stage_to_disk
+    rng = np.random.default_rng(4)
+    U, _ = np.linalg.qr(rng.standard_normal((3000, 12)))
+    V, _ = np.linalg.qr(rng.standard_normal((200, 12)))
+    A = ((U * 10.0 * 0.5 ** np.arange(12)) @ V.T).astype(np.float32)
+    path = stage_to_disk(A, tmp_path / "A.npy")
+    kw = dict(n_blocks=3, host_budget_bytes=A.nbytes // 2)
+    gpu = repro_torch.svd(path, 4, **kw)
+    cpu = repro_torch.svd(path, 4, device="cpu", **kw)
+    assert gpu.backend == cpu.backend == "memmap"
+    assert gpu.converged and cpu.converged
+    for res in (gpu, cpu):
+        assert res.bytes_moved["disk"] == res.passes_over_A * A.nbytes
+    assert _rel(gpu.S.cpu(), cpu.S) <= 1e-5
+    assert _rel(gpu.S.cpu(), torch.tensor(10.0 * 0.5 ** np.arange(4),
+                                          dtype=torch.float32)) <= 1e-5
+
+
+def test_lagged_gap_read_waits_for_its_step_alone(card):
+    """The driver's lagged read of a gap returns once the step that made
+    it is done, though work queued after it (the next step, the next
+    pass's copies) still runs: ``.item()`` would wait for all of it."""
+    import time
+    from repro_torch.core.operator import _gap, host_sync_scalar
+    Q = torch.linalg.qr(torch.randn((1000, 8), device=card)).Q
+    g = _gap(Q, Q)
+    torch.cuda._sleep(3_000_000_000)          # ~1.5 s of queued work
+    t0 = time.perf_counter()
+    v = host_sync_scalar(g)
+    waited = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    assert abs(v) < 1e-4 and waited < 0.5

@@ -4,7 +4,9 @@
   or the JAX package ``repro`` (the port runs where JAX is absent).
 * Entry points run on the card unless the caller asks for the CPU:
   without a CUDA device and without ``device=`` (``--device`` for
-  ``python -m repro_torch.launch.serve``) they raise.
+  ``python -m repro_torch.launch.serve``) they raise; that holds for the
+  out-of-core tiers' inputs (numpy arrays, ``.npy`` paths, memmaps) and
+  matrices too.
 * The CUDA kernels build into a directory git ignores.
 """
 import ast
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.core import HostBlockedMatrix, MemmapMatrix
 from repro_torch.core.operator import DenseOperator, resolve_device
 from repro_torch.kernels import build
 
@@ -59,6 +62,8 @@ def test_port_imports_with_jax_unavailable():
             "repro_torch.kernels.block_matvec, "
             "repro_torch.kernels.deflate_matvec, repro_torch.kernels.gram, "
             "repro_torch.kernels.local_attn, repro_torch.core.partition, "
+            "repro_torch.core.staging, repro_torch.core.oom, "
+            "repro_torch.core.diskio, "
             "repro_torch.configs, repro_torch.models.config, "
             "repro_torch.models.layers, repro_torch.models.mlp, "
             "repro_torch.models.transformer, repro_torch.models.convert, "
@@ -93,6 +98,30 @@ def test_dense_operator_without_device_raises_when_no_card():
         resolve_device(None)
 
 
+def test_numpy_svd_without_device_raises_when_no_card(tmp_path):
+    """The out-of-core tiers run on the card too: a numpy array, a .npy
+    path or an np.memmap given no device raises; ``device="cpu"`` runs."""
+    _no_card()
+    A = np.eye(6, 4, dtype=np.float32)
+    path = str(tmp_path / "A.npy")
+    np.save(path, A)
+    for src in (A, path, np.load(path, mmap_mode="r")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            repro_torch.svd(src, 2)
+        assert repro_torch.svd(src, 2, device="cpu").S.shape == (2,)
+
+
+def test_host_blocked_matrix_without_device_raises_when_no_card(tmp_path):
+    _no_card()
+    A = np.ones((8, 3), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HostBlockedMatrix(A, 2)
+    np.save(tmp_path / "A.npy", A)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MemmapMatrix(str(tmp_path / "A.npy"), 2)
+    assert HostBlockedMatrix(A, 2, device="cpu").device.type == "cpu"
+
+
 def test_serve_without_device_raises_when_no_card():
     _no_card()
     from repro_torch.configs import get_config, smoke_config
@@ -120,6 +149,6 @@ def test_kernel_build_directory_is_ignored_by_git():
     rel = build.BUILD_DIR.relative_to(ROOT).as_posix() + "/"
     assert rel in ignored
     for name in ("block_matvec_tc", "block_matvec_tf32", "deflate_matvec",
-                 "gram_bf16", "gram_tf32", "local_attn"):
+                 "gram_bf16", "gram_tf32", "local_attn", "staging"):
         assert build.CSRC.joinpath(f"{name}.cu").exists()
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

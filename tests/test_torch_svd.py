@@ -16,6 +16,7 @@ accounting under ``force_iters`` is exactly equal.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.sparse
 import torch
 
 import repro.core as jcore
@@ -254,8 +255,9 @@ def test_solver_state_tree_is_the_jax_tree():
 
 
 @pytest.mark.parametrize("call", [
-    lambda A: repro_torch.svd(A.numpy(), K, device="cpu"),
-    lambda A: repro_torch.svd("A.npy", K, device="cpu"),
+    lambda A: repro_torch.svd(scipy.sparse.csr_matrix(A.numpy()), K,
+                              device="cpu"),
+    lambda A: repro_torch.svd("A.npz", K, device="cpu"),
     lambda A: repro_torch.svd(A, K, device="cpu", mesh=object()),
     lambda A: repro_torch.svd(A, K, device="cpu", checkpoint_dir="ckpt"),
 ])
@@ -286,17 +288,64 @@ def test_sweep_fault_rolls_back_like_jax():
         "sweep.injected": 1, "health.rollback": 1}
 
 
-def test_device_oom_without_lower_tier_is_fault_exhausted():
-    A = torch.from_numpy(_matrix())
+def test_device_oom_without_lower_tier_is_fault_exhausted(tmp_path):
+    """The disk tier is the bottom of the ladder: a device OOM there ends
+    the solve with the JAX package's error (tests/test_faults.py:290)."""
+    from repro_torch.core import stage_to_disk
+    p = stage_to_disk(_matrix(), tmp_path / "a.npy")
     with inject_faults(FaultPlan(FaultSpec("device_oom", at=2))):
-        with pytest.raises(errors.FaultExhaustedError) as e:
-            repro_torch.svd(A, K, device="cpu")
+        with pytest.raises(errors.FaultExhaustedError,
+                           match="no lower tier") as e:
+            repro_torch.svd(p, K, device="cpu")
     assert isinstance(e.value.__cause__, errors.DeviceOOMFault)
+    assert e.value.faults["counters"] == {"device_oom.injected": 1}
+    A = torch.from_numpy(_matrix())
     with inject_faults(FaultPlan(FaultSpec("device_oom", at=0))):
         with pytest.raises(errors.DeviceOOMFault):
             repro_torch.svd(A, K, device="cpu", demote_on_oom=False)
     assert errors.is_oom_error(torch.cuda.OutOfMemoryError("CUDA OOM"))
     assert not errors.is_oom_error(RuntimeError("other"))
+
+
+def test_oom_demotes_dense_to_hostblocked():
+    """A device OOM on the dense tier pulls A back to the host and
+    finishes on the host-blocked tier from the warm iterate, as the JAX
+    package does (tests/test_faults.py:255)."""
+    A = _matrix()
+    ref = repro_torch.svd(torch.from_numpy(A), K, device="cpu", seed=1)
+    with inject_faults(FaultPlan(FaultSpec("device_oom", at=3))):
+        res = repro_torch.svd(torch.from_numpy(A), K, device="cpu", seed=1)
+    with jax_inject(JaxPlan(JaxSpec("device_oom", at=3))):
+        jres = jcore.svd(jnp.asarray(A), K, seed=1)
+    assert res.backend == jres.backend == "hostblocked"
+    assert res.converged
+    np.testing.assert_allclose(_np(res.S), _np(ref.S), rtol=1e-4)
+    assert res.faults["counters"] == jres.faults["counters"] == {
+        "device_oom.injected": 1, "device_oom.demote": 1}
+    ev = [e for e in res.faults["events"] if e["action"] == "demote"]
+    assert ev[0]["frm"] == "dense" and ev[0]["to"] == "hostblocked"
+
+
+@pytest.mark.parametrize("orient", ["tall", "wide"])
+def test_oom_demotes_hostblocked_to_memmap_conserving_passes(orient):
+    """Under force_iters both streamed tiers cost one pass an iteration
+    plus the extraction: demotion loses and double-counts none, and the
+    spilled file keeps the block plan (tests/test_faults.py:270)."""
+    A = _matrix() if orient == "tall" else np.ascontiguousarray(_matrix().T)
+    iters = 10
+    kw = dict(seed=1, n_blocks=4, force_iters=True, max_iters=iters)
+    ref = repro_torch.svd(A, K, device="cpu", **kw)
+    with inject_faults(FaultPlan(FaultSpec("device_oom", at=4))):
+        res = repro_torch.svd(A, K, device="cpu", **kw)
+    with jax_inject(JaxPlan(JaxSpec("device_oom", at=4))):
+        jres = jcore.svd(A, K, **kw)
+    assert res.backend == jres.backend == "memmap"
+    assert ref.passes_over_A == iters + 1
+    assert res.passes_over_A == jres.passes_over_A == ref.passes_over_A
+    np.testing.assert_allclose(_np(res.S), _np(ref.S), rtol=1e-3)
+    ev = [e for e in res.faults["events"] if e["action"] == "demote"]
+    assert ev[0]["frm"] == "hostblocked" and ev[0]["to"] == "memmap"
+    assert ev[0]["it"] == 4
 
 
 @pytest.mark.parametrize("sweep_dtype", ["float32", "bfloat16"])

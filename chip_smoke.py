@@ -201,6 +201,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    clean solve, and under ``force_iters`` the iterations conserved and
    the passes each tier's count.  ``--only-out-of-core`` runs phases 1
    and 8 alone.
+9. the paper's sparse stream on the CSR kernels (``csr_sweep.cu``), and
+   resume.  The per-node share of the paper's 128 PB matrix,
+   ``SyntheticSparseMatrix(33554432, 33554432, 33, seed=0)``
+   (1,107,296,256 nonzeros, density 9.8e-7, 4.5 PB dense-equivalent):
+   the kernels on its first, a middle and a ragged last row block
+   (rows [m - 61437, m)), fp32 and bf16 values, k = 8, each held BITWISE
+   against ``np.add.at`` computed here (``A_b Q``; ``Z += A_b^T Y`` into
+   a nonzero Z, the untouched rows of Z still 0; the chain, y rounded to
+   bf16 under bf16) and rerun bitwise; timed on the first block beside
+   the plain version (``index_add_`` on the card), ``torch.sparse.mm``
+   (fp32; cuSPARSE) and the bound.  Then ``svd(sp, 8,
+   force_iters=True, max_iters=6)`` in fp32 and bf16 (the main path):
+   passes 7, launches 512 blocks x passes by kernel and dtype,
+   ``bytes_moved`` the JAX package's exactly, the factors finite and
+   orthonormal; seconds a pass beside the host's packing rate, the PCIe
+   bytes and rate, and (bf16, profiled) kernel time and device idle
+   share, against the pinned H2D rate of phase 8.1 (measured here under
+   ``--only-sparse``).  A known spectrum: a 4194304 x 4194304 scipy CSR,
+   ``SyntheticSparseMatrix(2^22, 2^22, 33, seed=1)`` scaled by 1e-6 plus
+   64 entries 100 * 0.9^i at distinct rows and columns from seed 0
+   (138 M nonzeros): ``svd(A, 32)`` sigma within rtol 1e-4, passes =
+   iters + 1; the same matrix through ``save_npz(compressed=False)`` and
+   ``svd(path, 32)``, sigma bitwise equal; the solve capped at 8
+   iterations with ``checkpoint_dir`` and resumed, U, S, V bitwise the
+   uncapped solve's with equal passes; gram-free at k = 2, sigma within
+   2e-3, passes = sum(2 it + 1).  The dense shard of phase 3 capped and
+   resumed the same way.  ``--only-sparse`` runs phases 1 and 9 alone.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches in the
 run of its path, and its times; the block sweeps as ``<name>/tf32x3``
@@ -216,7 +243,11 @@ solve's and ``gram/wgmma_ld`` for bf16 of those rows, timed at 262144 x
 ``gram/wgmma_ld[trans]``, the same of the wide input one column short), the
 ``nvidia-smi`` name and
 power limit line again, and last ``{"ok": true, "device": {...}}``;
-before them an ``{"out_of_core": {...}}`` line with phase 8's numbers.
+the CSR kernels as ``csr_matmat``, ``csr_rmatmat`` and
+``csr_gram_chain`` (fp32 values; launches from the fp32 paper-share
+solve) and the same with ``[bf16]`` (from the bf16 solve); before them an
+``{"out_of_core": {...}}`` line with phase 8's numbers and a
+``{"sparse": {...}}`` line with phase 9's.
 Exits 2 without a CUDA device or without ``src/repro_torch`` beside this
 script.
 """
@@ -1604,6 +1635,8 @@ def lm_serving(torch, ops, ref, la, g, dev) -> tuple:
 OOC_ROWS = 655360                      # x N fp32: 80 GiB, more than the card
 OOC_BLOCKS = 4                         # SVDConfig's default n_blocks
 H2D_PROBE = 1 << 29                    # fp32 elements: the 2 GiB rate probe
+PCIE_PEAK = 64e9                       # B/s host -> device: PCIe Gen5 x16, the
+                                       # data sheet's 128 GB/s both ways
 K_OOC_GRAMFREE, K_DISK = 2, 8
 DEMOTE = (65536, 8192)
 DEMOTE_ITERS = 10                      # force_iters of the demotion runs
@@ -1908,6 +1941,18 @@ def out_of_core(torch, repro_torch, ops, dev) -> dict:
           f"ring's copies are rows of 32 KiB (one run), the pitched ones "
           f"rows of 8191 fp32 into rows of 8192; "
           f"{time.perf_counter() - t0:.1f} s")
+    # staging.cu's row: the ring's copy against the link's bound and the
+    # plain version, one copy_ from pinned (itself the one PyTorch call)
+    nbytes = H2D_PROBE * 4
+    out["staging_row"] = row = {
+        "name": "repro_h2d_pitched (H2DRing)", "ms": nbytes / rates["ring"]
+        * 1e3, "plain_ms": nbytes / pinned * 1e3, "bound_ms": nbytes /
+        PCIE_PEAK * 1e3, "bound_by": "bytes", "library_ms": None}
+    print(f"  staging.cu row, 2 GiB: ring {row['ms']:.3f} ms, plain "
+          f"(copy_ from pinned) {row['plain_ms']:.3f} ms, bound "
+          f"{row['bound_ms']:.3f} ms (bytes at the link's "
+          f"{PCIE_PEAK / 1e9:.0f} GB/s); the ring at "
+          f"{row['bound_ms'] / row['ms']:.1%} of its bound")
 
     # -- 8.2 the paper's per-node shard in host memory --------------------
     t0 = time.perf_counter()
@@ -2193,6 +2238,478 @@ def demotion(torch, repro_torch, inject_faults, FaultPlan, FaultSpec,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the paper's sparse stream on the CSR kernels, and resume
+# ---------------------------------------------------------------------------
+
+SP_N = 33_554_432                      # the paper's per-node share, m = n
+SP_ROW = 33                            # nonzeros a row: density 9.8e-7
+SP_K, SP_ITERS = 8, 6
+SP_BLOCK = 1 << 16                     # SVDConfig's default block_rows
+SP_CHECK_K = 8                         # the kernels' checks at the path's k
+# the kernels' check blocks: the first, a middle one, and the ragged last
+# rows [m - (2^16 - 4099), m) of a blocking whose rows do not divide m
+SP_RAGGED = SP_BLOCK - 4099
+SPEC_N = 1 << 22                       # the known spectrum's matrix
+SPEC_SCALE = 1e-6
+K_SPEC, K_SPEC_GRAMFREE = 32, 2
+RESUME_CAP = 8                         # max_iters of the capped solves
+CSR_SOURCE = "src/repro_torch/csrc/csr_sweep.cu"
+HOST_SWEEP = "src/repro/core/sparse.py"  # the np.add.at it replaces
+CSR_REPLACES = {"csr_matmat": f"{HOST_SWEEP}:109",
+                "csr_rmatmat": f"{HOST_SWEEP}:120",
+                "csr_gram_chain": f"{HOST_SWEEP}:162"}
+CSR_LIBRARY = {"csr_matmat": "torch.sparse.mm(A_b, Q) (cuSPARSE, CSR)",
+               "csr_rmatmat": "torch.sparse.mm(A_b^T, Y) (cuSPARSE; A_b^T "
+                              "converted to CSR outside the timing)",
+               "csr_gram_chain": "the two calls above"}
+
+
+def _host_sweep(np, off, col, val, X, transpose, Z0=None, round_y=None):
+    """``np.add.at`` in stream order over one block: ``A_b X`` (rows, k),
+    or ``A_b^T X`` on the block's distinct columns (added to ``Z0`` there
+    when given); the JAX package's host sweep.  Returns (columns, sums)
+    for ``transpose``."""
+    rows = np.repeat(np.arange(len(off) - 1), np.diff(off))
+    if not transpose:
+        out = np.zeros((len(off) - 1, X.shape[1]), np.float32)
+        np.add.at(out, rows, val[:, None] * X[col])
+        return round_y(out) if round_y is not None else out
+    uniq, inv = np.unique(col, return_inverse=True)
+    out = np.zeros((uniq.size, X.shape[1]), np.float32) if Z0 is None \
+        else Z0.copy()
+    np.add.at(out, inv, val[:, None] * X[rows])
+    return uniq, out
+
+
+def csr_kernel_rows(torch, ops, ref, sp, dev) -> dict:
+    """The CSR kernels at the paper's per-node share, k = 8: on the first,
+    a middle and the ragged last row block, fp32 and bf16 values, each
+    held bitwise against ``np.add.at`` in this script (``A_b Q``; ``Z +=
+    A_b^T Y`` into a nonzero Z; the chain, y rounded to bf16 under bf16)
+    and rerun bitwise; timed on the first block beside the plain version
+    (``index_add_`` on the card), ``torch.sparse.mm`` (fp32) and the
+    bound.  Returns the rows of the kernels line by name."""
+    import numpy as np
+    from repro_torch.core.sparse import _bf16_bits
+    m, n, k = sp.m, sp.n, SP_CHECK_K
+    rng = np.random.default_rng(SEED + 20)
+    Q = rng.standard_normal((n, k)).astype(np.float32)
+    blocks = ((0, SP_BLOCK), (m // 2, min(m, m // 2 + SP_BLOCK)),
+              (m - SP_RAGGED, m))
+    rows = {}
+    for sd in (torch.float32, torch.bfloat16):
+        name_sd = "float32" if sd == torch.float32 else "bfloat16"
+
+        def rnd(x):
+            return x if sd == torch.float32 else (
+                _bf16_bits(x).astype(np.uint32) << 16).view(np.float32)
+        Qs = rnd(Q)
+        Qd = torch.from_numpy(Qs).to(dev)
+        for bi, (lo, hi) in enumerate(blocks):
+            off, col, val = sp._csr_block(lo, hi)
+            off32, col32, vals = off.astype(np.int32), col.astype(np.int32), \
+                rnd(val)
+            o, c = (torch.from_numpy(x).to(dev) for x in (off32, col32))
+            v = torch.from_numpy(vals).to(dev).to(sd)
+            Ys = rnd(rng.standard_normal((hi - lo, k)).astype(np.float32))
+            Yd = torch.from_numpy(Ys).to(dev)
+            uniq = np.unique(col32)
+            Z0 = rng.standard_normal((uniq.size, k)).astype(np.float32)
+            t0 = time.perf_counter()
+            want_y = _host_sweep(np, off32, col32, vals, Qs, False)
+            _, want_z = _host_sweep(np, off32, col32, vals, Ys, True, Z0)
+            y_r = _host_sweep(np, off32, col32, vals, Qs, False,
+                              round_y=None if sd == torch.float32 else rnd)
+            _, want_c = _host_sweep(np, off32, col32, vals, y_r, True, Z0)
+            t_np = time.perf_counter() - t0
+            ui = torch.from_numpy(uniq.astype(np.int64)).to(dev)
+            untouched = torch.ones((n,), dtype=torch.bool, device=dev)
+            untouched[ui] = False
+            outs = []
+            for _ in range(2):                    # the rerun must match
+                Z = torch.zeros((n, k), device=dev)
+                Z[ui] = torch.from_numpy(Z0).to(dev)
+                Zc = Z.clone()
+                y = ops.csr_matmat(o, c, v, Qd)
+                ops.csr_rmatmat(o, c, v, Yd, Z)
+                ops.csr_gram_chain(o, c, v, Qd, Zc,
+                                   round_y=sd == torch.bfloat16)
+                torch.cuda.synchronize()
+                outs.append((y.cpu().numpy(), Z[ui].cpu().numpy(),
+                             Zc[ui].cpu().numpy(),
+                             int(torch.count_nonzero(Z[untouched])),
+                             int(torch.count_nonzero(Zc[untouched]))))
+                del Z, Zc
+            (gy, gz, gc, rest_z, rest_c), again = outs
+            same = all(np.array_equal(a, b) for a, b in zip(outs[0][:3],
+                                                            again[:3]))
+            exact = {"csr_matmat": np.array_equal(gy, want_y),
+                     "csr_rmatmat": np.array_equal(gz, want_z),
+                     "csr_gram_chain": np.array_equal(gc, want_c)}
+            errs = {"csr_matmat": float(np.abs(gy - want_y).max()),
+                    "csr_rmatmat": float(np.abs(gz - want_z).max()),
+                    "csr_gram_chain": float(np.abs(gc - want_c).max())}
+            print(f"  csr block [{lo}, {hi}) {name_sd}: {col.size} "
+                  f"nonzeros, {uniq.size} columns; bitwise np.add.at "
+                  f"{exact} (max |diff| {errs}); untouched rows of Z stay "
+                  f"0: {rest_z == 0 and rest_c == 0}; rerun bitwise "
+                  f"{same}; the numpy oracle {t_np:.1f} s")
+            if not (all(exact.values()) and same and rest_z == 0
+                    and rest_c == 0):
+                fail(f"csr kernels on block [{lo}, {hi}) {name_sd}: "
+                     f"bitwise {exact}, rerun {same}, rest {rest_z}, "
+                     f"{rest_c}")
+            tag = "" if sd == torch.float32 else "[bf16]"
+            if bi:                        # the worst of the three blocks
+                for key, e in errs.items():
+                    row = rows[key + tag]
+                    row["max_abs_err"] = max(row["max_abs_err"], e)
+                continue
+            # timing on the first block: kernel, plain, library, bound
+            nnz, isz = col.size, vals.itemsize if sd == torch.float32 else 2
+            csr_bytes = 4 * (off.size + nnz) + isz * nnz
+            touched = uniq.size * k * 4
+            Zt = torch.zeros((n, k), device=dev)
+            lib = {}
+            if sd == torch.float32:
+                A = torch.sparse_csr_tensor(o, c, v, (hi - lo, n))
+                rowid = ref.csr_rows(o)
+                At = torch.sparse_coo_tensor(
+                    torch.stack([c.long(), rowid]), v,
+                    (n, hi - lo)).coalesce().to_sparse_csr()
+                lib = {"csr_matmat": lambda: torch.sparse.mm(A, Qd),
+                       "csr_rmatmat": lambda: torch.sparse.mm(At, Yd),
+                       "csr_gram_chain": lambda: torch.sparse.mm(
+                           At, torch.sparse.mm(A, Qd))}
+            fns = {
+                "csr_matmat": (lambda: ops.csr_matmat(o, c, v, Qd),
+                               lambda: ref.csr_matmat_ref(o, c, v, Qd),
+                               csr_bytes + touched + (hi - lo) * k * 4),
+                "csr_rmatmat": (lambda: ops.csr_rmatmat(o, c, v, Yd, Zt),
+                                lambda: ref.csr_rmatmat_ref(o, c, v, Yd, Zt),
+                                csr_bytes + (hi - lo) * k * 4 + 2 * touched),
+                "csr_gram_chain": (
+                    lambda: ops.csr_gram_chain(o, c, v, Qd, Zt,
+                                               round_y=sd == torch.bfloat16),
+                    lambda: ref.csr_gram_chain_ref(
+                        o, c, v, Qd, Zt, sd == torch.bfloat16),
+                    csr_bytes + touched + 2 * touched)}
+            for key, (kern, plain, nbytes) in fns.items():
+                flop = (4 if key == "csr_gram_chain" else 2) * nnz * k
+                row = {"max_abs_err": errs[key], "nnz": nnz,
+                       "columns": int(uniq.size), "dtype": name_sd,
+                       "ms": time_ms(torch, kern, 20),
+                       "plain_ms": time_ms(torch, plain, 3),
+                       "library_ms": time_ms(torch, lib[key], 20)
+                       if key in lib else None}
+                row["bound_ms"], row["bound_by"] = pick(
+                    nbytes / PEAK_BYTES * 1e3,
+                    flop / PEAK_OPS["float32"] * 1e3)
+                label = key + tag
+                rows[label] = row
+                print(f"  {label:22s}: block [{lo}, {hi}), k = {k}: kernel "
+                      f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+                      f"library " + ("-" if row["library_ms"] is None else
+                                     f"{row['library_ms']:.3f} ms ("
+                                     f"{CSR_LIBRARY[key]})")
+                      + f", bound {row['bound_ms']:.3f} ms "
+                      f"({row['bound_by']}: {nbytes} bytes)")
+            del Zt, lib
+            torch.cuda.empty_cache()
+    return rows
+
+
+def sparse_profile(torch, fn) -> tuple:
+    """``fn()`` under ``torch.profiler``: its result and wall seconds,
+    device busy (any kernel or copy), copy engine busy, the CSR kernels'
+    time (``csr_matmat``, ``csr_runs``, ``expand_rows``), the stable
+    sorts' and the rest's."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = {"copy": [], "csr": [], "sort": [], "other": []}
+    other: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        iv = (e.time_range.start / 1e6, e.time_range.end / 1e6)
+        name = e.name.lower()
+        key = ("copy" if "memcpy" in name else
+               "csr" if any(s in name for s in ("csr_matmat", "csr_runs",
+                                                "expand_rows")) else
+               "sort" if "sort" in name or "radix" in name else "other")
+        spans[key].append(iv)
+        if key == "other":
+            other[e.name] = other.get(e.name, 0.0) + iv[1] - iv[0]
+    allv = [iv for v in spans.values() for iv in v]
+    prof_row = {"wall_s": wall, "busy_s": _length(_union(allv)),
+                **{f"{k}_s": _length(_union(v)) for k, v in spans.items()},
+                "activities": len(allv)}
+    prof_row["idle"] = 1 - prof_row["busy_s"] / wall
+    prof_row["other_top"] = sorted(other.items(), key=lambda x: -x[1])[:5]
+    return out, prof_row
+
+
+def paper_share(torch, repro_torch, ops, sp, sd, rate, profile) -> dict:
+    """``svd(sp, 8, force_iters=True, max_iters=6)`` at ``sd``: passes
+    7, launches 512 x passes by kernel, ``bytes_moved`` exact; seconds a
+    pass split into the host's packing rate, H2D and kernels."""
+    nb = -(-sp.m // SP_BLOCK)
+    label = f"paper share svd(sp, {SP_K}) {sd}"
+    sp.reset_feed_stats()
+    ops.reset_launches()
+    kw = dict(force_iters=True, max_iters=SP_ITERS, sweep_dtype=sd)
+    if profile:
+        res, prof = sparse_profile(torch, lambda: repro_torch.svd(
+            sp, SP_K, **kw))
+    else:
+        res, prof = repro_torch.svd(sp, SP_K, **kw), None
+    counts = {n_: c for n_, c in ops.launches.items() if c}
+    routes = {n_: c for n_, c in ops.route_launches.items() if c}
+    st = sp.feed_stats()
+    p, bpp = res.passes_over_A, res.bytes_per_pass
+    isz = 4 if sd == "float32" else 2
+    want = {"csr_gram_chain": nb * SP_ITERS, "csr_matmat": nb * (SP_ITERS + 1),
+            "csr_rmatmat": nb * SP_ITERS}
+    tag = sd
+    want_routes = {f"csr_gram_chain/{tag}": nb * SP_ITERS,
+                   f"csr_rmatmat/{tag}": nb * SP_ITERS,
+                   f"csr_matmat/{tag}": nb * SP_ITERS}
+    want_routes["csr_matmat/float32"] = \
+        want_routes.get("csr_matmat/float32", 0) + nb     # the extraction
+    wall = res.wall_time_s
+    per_pass = wall / p
+    h2d_bound = st["pcie_bytes"] / p / rate
+    row = {"passes": p, "bytes_per_pass": bpp, "bytes_moved": res.bytes_moved,
+           "wall_s": wall, "s_per_pass": per_pass, "launches": routes,
+           "nnz_packed": st["nnz"], "pack_thread_s": st["pack_s"],
+           "wait_s": st["wait_s"], "pcie_bytes": st["pcie_bytes"],
+           "nnz_per_s": st["nnz"] / wall,
+           "nnz_per_thread_s": st["nnz"] / st["pack_s"],
+           "h2d_gb_s": st["pcie_bytes"] / wall / 1e9,
+           "h2d_bound_s_per_pass": h2d_bound}
+    S = res.S.cpu()
+    print(f"{label}: iters {int(res.iters[0])}, passes_over_A {p}, "
+          f"bytes_per_pass {bpp} ({sp.nnz} nonzeros x {isz}), bytes_moved "
+          f"{res.bytes_moved}, wall_time_s {wall:.3f}, {per_pass:.3f} s a "
+          f"pass; the host packed {st['nnz']} nonzeros at "
+          f"{row['nnz_per_s'] / 1e6:.1f} M/s ({row['nnz_per_thread_s'] / 1e6:.1f}"
+          f" M/s a thread over {st['pack_s']:.1f} thread-s; the launching "
+          f"thread waited {st['wait_s']:.1f} s for it), PCIe "
+          f"{st['pcie_bytes'] / p / 1e9:.2f} GB a pass ("
+          f"{row['h2d_gb_s']:.2f} GB/s over the solve; at the pinned rate "
+          f"{h2d_bound:.3f} s a pass), launches {counts} (by dtype {routes}), "
+          f"sigma {[round(float(x), 4) for x in S]}")
+    if prof is not None:
+        w = prof["wall_s"]
+        print(f"  profile: {w:.3f} s, device busy {prof['busy_s']:.3f} s "
+              f"(idle {100 * prof['idle']:.1f} %), copy engine "
+              f"{prof['copy_s']:.3f} s, CSR kernels {prof['csr_s']:.3f} s, "
+              f"stable sorts {prof['sort_s']:.3f} s, the rest "
+              f"{prof['other_s']:.3f} s (" + ", ".join(
+                  f"{n_[:40]} {t:.3f} s" for n_, t in prof["other_top"])
+              + f"); {prof['activities']} activities")
+        row["profile"] = prof
+    if counts != want or routes != want_routes:
+        fail(f"{label}: launches {counts} by dtype {routes}; {nb} blocks x "
+             f"passes implies {want} by dtype {want_routes}")
+    if p != SP_ITERS + 1 or bpp != sp.nnz * isz or \
+            res.bytes_moved != {"host": p * bpp} or \
+            res.backend != "sparsestream":
+        fail(f"{label}: passes {p}, bytes_per_pass {bpp}, bytes_moved "
+             f"{res.bytes_moved}, backend {res.backend}")
+    if st["nnz"] != p * sp.nnz:
+        fail(f"{label}: {st['nnz']} nonzeros packed for {p} passes")
+    U, V = res.U, res.V
+    eye = torch.eye(SP_K, device=U.device)
+    orth = max(float((U.mT @ U - eye).abs().max()),
+               float((V.mT @ V - eye).abs().max()))
+    if not (bool(torch.isfinite(U).all()) and bool(torch.isfinite(V).all())
+            and bool(torch.isfinite(S).all()) and bool((S > 0).all())
+            and bool((S[:-1] >= S[1:]).all()) and orth < 1e-3
+            and tuple(U.shape) == (sp.m, SP_K)
+            and tuple(V.shape) == (sp.n, SP_K)):
+        fail(f"{label}: factors not finite/orthonormal/sorted ({orth})")
+    return row
+
+
+def spectral_csr(np, scipy_sparse, repro_torch):
+    """The known spectrum as a scipy CSR: ``SyntheticSparseMatrix(2^22,
+    2^22, 33, seed=1)`` scaled by 1e-6, plus 64 entries 100 * 0.9^i at
+    distinct rows and columns from seed 0."""
+    base = repro_torch.SyntheticSparseMatrix(SPEC_N, SPEC_N, SP_ROW, seed=1)
+    off, cols, vals = base._csr_block(0, SPEC_N)
+    noise = scipy_sparse.csr_matrix(
+        ((vals * np.float32(SPEC_SCALE)), cols.astype(np.int32), off),
+        shape=(SPEC_N, SPEC_N))
+    del off, cols, vals
+    rng = np.random.default_rng(SEED)
+    r = rng.choice(SPEC_N, N_SPECTRUM, replace=False)
+    c = rng.choice(SPEC_N, N_SPECTRUM, replace=False)
+    s = (100.0 * 0.9 ** np.arange(N_SPECTRUM)).astype(np.float32)
+    spec = scipy_sparse.csr_matrix((s, (r, c)), shape=(SPEC_N, SPEC_N))
+    return (noise + spec).tocsr(), s
+
+
+def known_spectrum(torch, repro_torch, ops, dev, tmpdir) -> dict:
+    """The scipy CSR with a known spectrum: the block solve at k = 32,
+    the same matrix from a ``.npz`` path (bitwise), gram-free at k = 2,
+    and the block solve capped at 8 iterations with ``checkpoint_dir``
+    and resumed (bitwise, equal passes)."""
+    import numpy as np
+    import scipy.sparse as scipy_sparse
+    out = {}
+    t0 = time.perf_counter()
+    A, s = spectral_csr(np, scipy_sparse, repro_torch)
+    nb = -(-A.shape[0] // SP_BLOCK)
+    print(f"9.3 the known spectrum: {A.shape[0]}x{A.shape[1]} CSR, {A.nnz} "
+          f"nonzeros (density {A.nnz / A.shape[0] / A.shape[1]:.2e}), built "
+          f"on the host in {time.perf_counter() - t0:.1f} s")
+    ops.reset_launches()
+    res = repro_torch.svd(A, K_SPEC)
+    it = int(res.iters[0])
+    err = float(np.abs(res.S.cpu().numpy() / s[:K_SPEC] - 1).max())
+    counts = {n_: c for n_, c in ops.launches.items() if c}
+    print(f"  block svd(A, {K_SPEC}): backend {res.backend}, iters {it}, "
+          f"passes_over_A {res.passes_over_A}, bytes_moved {res.bytes_moved},"
+          f" converged {res.converged}, wall_time_s {res.wall_time_s:.3f} "
+          f"({res.wall_time_s / res.passes_over_A:.3f} s a pass), launches "
+          f"{counts}, max sigma rel err {err:.2e} (limit 1e-4)")
+    if not (res.converged and err <= 1e-4 and res.passes_over_A == it + 1
+            and res.backend == "scipysparse"
+            and counts == {"csr_gram_chain": nb * it,
+                           "csr_matmat": nb * (it + 1),
+                           "csr_rmatmat": nb * it}):
+        fail("the known spectrum's block solve")
+    out["block"] = {"iters": it, "passes": res.passes_over_A,
+                    "wall_s": res.wall_time_s, "sigma_err": err}
+    path = os.path.join(tmpdir, "A.npz")
+    t0 = time.perf_counter()
+    scipy_sparse.save_npz(path, A, compressed=False)
+    t_save = time.perf_counter() - t0
+    res_p = repro_torch.svd(path, K_SPEC)
+    same = torch.equal(res_p.S, res.S)
+    print(f"  svd('A.npz', {K_SPEC}) ({os.path.getsize(path) / 1e9:.2f} GB, "
+          f"saved in {t_save:.1f} s): iters {int(res_p.iters[0])}, "
+          f"wall_time_s {res_p.wall_time_s:.3f}, sigma bitwise equal to "
+          f"the in-memory solve: {same}")
+    os.remove(path)
+    if not same or res_p.passes_over_A != res.passes_over_A:
+        fail("svd of the .npz path differs from the in-memory solve")
+    ck = os.path.join(tmpdir, "ck")
+    capped = repro_torch.svd(A, K_SPEC, max_iters=RESUME_CAP,
+                             checkpoint_dir=ck)
+    resumed = repro_torch.svd(A, K_SPEC, checkpoint_dir=ck)
+    same = all(torch.equal(a, b) for a, b in zip(resumed[:3], res[:3]))
+    print(f"  resume: capped at {int(capped.iters[0])} iterations "
+          f"(converged {capped.converged}), resumed to "
+          f"{int(resumed.iters[0])}, passes {resumed.passes_over_A} "
+          f"(uncapped {res.passes_over_A}); U, S, V bitwise equal to the "
+          f"uncapped solve: {same}")
+    if capped.converged or not same or \
+            resumed.passes_over_A != res.passes_over_A:
+        fail("the resumed sparse solve differs from the uncapped one")
+    out["resume"] = {"capped_iters": int(capped.iters[0]),
+                     "passes": resumed.passes_over_A, "bitwise": same}
+    del res, res_p, capped, resumed
+    ops.reset_launches()
+    res = repro_torch.svd(A, K_SPEC_GRAMFREE, method="gramfree")
+    its = [int(x) for x in res.iters]
+    err = float(np.abs(res.S.cpu().numpy() / s[:K_SPEC_GRAMFREE] - 1).max())
+    counts = {n_: c for n_, c in ops.launches.items() if c}
+    want = {"csr_matmat": nb * sum(i + 1 for i in its),
+            "csr_rmatmat": nb * sum(its)}
+    print(f"  gram-free svd(A, {K_SPEC_GRAMFREE}): iters {its}, passes "
+          f"{res.passes_over_A}, wall_time_s {res.wall_time_s:.3f}, launches "
+          f"{counts} (want {want}), max sigma rel err {err:.2e} (limit "
+          f"{TOL_DEFLATION:.0e})")
+    if err > TOL_DEFLATION or res.passes_over_A != sum(2 * i + 1
+                                                      for i in its) \
+            or counts != want:
+        fail("the known spectrum's gram-free solve")
+    out["gramfree"] = {"iters": its, "passes": res.passes_over_A,
+                       "wall_s": res.wall_time_s, "sigma_err": err}
+    return out
+
+
+def dense_resume(torch, repro_torch, dev, tmpdir) -> dict:
+    """Phase 3's dense shard solved with ``checkpoint_dir`` capped at 8
+    iterations and resumed: U, S, V bitwise the uncapped solve's."""
+    A, s = spectral_matrix(torch, M, N, SEED, dev)
+    ref = repro_torch.svd(A, K)
+    ck = os.path.join(tmpdir, "ck_dense")
+    capped = repro_torch.svd(A, K, max_iters=RESUME_CAP, checkpoint_dir=ck)
+    resumed = repro_torch.svd(A, K, checkpoint_dir=ck)
+    same = all(torch.equal(a, b) for a, b in zip(resumed[:3], ref[:3]))
+    print(f"9.4 dense shard {M}x{N} resume: capped at "
+          f"{int(capped.iters[0])}, resumed to {int(resumed.iters[0])} "
+          f"iterations, passes {resumed.passes_over_A} (uncapped "
+          f"{ref.passes_over_A}), wall {capped.wall_time_s:.3f} + "
+          f"{resumed.wall_time_s:.3f} s (uncapped {ref.wall_time_s:.3f}); "
+          f"U, S, V bitwise equal: {same}")
+    if not same or resumed.passes_over_A != ref.passes_over_A or \
+            capped.converged:
+        fail("the resumed dense solve differs from the uncapped one")
+    return {"capped_iters": int(capped.iters[0]),
+            "iters": int(resumed.iters[0]), "passes": resumed.passes_over_A}
+
+
+def sparse_stream(torch, repro_torch, ops, ref, dev, rate=None) -> tuple:
+    """Phase 9 (see the module docstring): returns its numbers, the CSR
+    kernels' rows and their launches on the main path."""
+    import tempfile
+    from repro_torch.core import staging
+    t_phase = time.perf_counter()
+    out: dict = {}
+    if rate is None:
+        rate = h2d_rates(torch, staging, dev)["pinned"]
+    out["pinned_rate"] = rate
+    sp = repro_torch.SyntheticSparseMatrix(SP_N, SP_N, SP_ROW, seed=0)
+    print(f"9.1 the paper's per-node share: {sp.m}x{sp.n}, {sp.nnz} "
+          f"nonzeros (density {sp.density:.2e}, {sp.dense_bytes / 1e15:.1f}"
+          f" PB dense-equivalent; 32 of these are the paper's 128 PB), "
+          f"{-(-sp.m // SP_BLOCK)} row blocks of {SP_BLOCK}; pinned H2D "
+          f"{rate / 1e9:.2f} GB/s")
+    t0 = time.perf_counter()
+    rows = csr_kernel_rows(torch, ops, ref, sp, dev)
+    print(f"  the CSR kernels' checks: {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for sd, profile in (("float32", False), ("bfloat16", True)):
+        row = paper_share(torch, repro_torch, ops, sp, sd, rate, profile)
+        out[sd] = row
+        for key in CSR_REPLACES:
+            label = key if sd == "float32" else f"{key}[bf16]"
+            launches[label] = row["launches"].get(f"{key}/{sd}", 0)
+    sp.close()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        out["spectrum"] = known_spectrum(torch, repro_torch, ops, dev,
+                                         tmpdir)
+        torch.cuda.empty_cache()
+        out["dense_resume"] = dense_resume(torch, repro_torch, dev, tmpdir)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 9: {out['seconds']:.1f} s")
+    return out, rows, launches
+
+
+def csr_kernel_line(rows: dict, launches: dict) -> list:
+    """The CSR kernels' entries of the ``kernels`` line."""
+    return [{"name": name, "route": "cuda", "source": CSR_SOURCE,
+             "replaces": CSR_REPLACES[name.split("[")[0]],
+             "launches": launches[name], "max_abs_err": row["max_abs_err"],
+             "ms": row["ms"], "plain_ms": row["plain_ms"],
+             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+             "library_ms": row["library_ms"]}
+            for name, row in rows.items()]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2279,6 +2796,14 @@ def main() -> int:
     if sys.argv[1:] == ["--only-out-of-core"]:    # phase 1, then phase 8
         print(json.dumps({"out_of_core": out_of_core(torch, repro_torch, ops,
                                                      dev)}))
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--only-sparse"]:         # phase 1, then phase 9
+        summary, csr_rows, csr_launches = sparse_stream(
+            torch, repro_torch, ops, ref, dev)
+        print(json.dumps({"sparse": summary}))
+        print(json.dumps({"kernels": csr_kernel_line(csr_rows,
+                                                     csr_launches)}))
         print(card_line())
         return 0
 
@@ -2707,8 +3232,13 @@ def main() -> int:
         torch, ops, ref, local_attn, g, dev)
 
     # -- 8. the out-of-core tiers -----------------------------------------
-    print(json.dumps({"out_of_core": out_of_core(torch, repro_torch, ops,
-                                                 dev)}))
+    ooc = out_of_core(torch, repro_torch, ops, dev)
+    print(json.dumps({"out_of_core": ooc}))
+
+    # -- 9. the paper's sparse stream, and resume -------------------------
+    summary, csr_rows, csr_launches = sparse_stream(
+        torch, repro_torch, ops, ref, dev, rate=ooc["h2d"]["pinned"])
+    print(json.dumps({"sparse": summary}))
 
     sweeps = ("block_matvec", "block_rmatvec", "block_gram_chain")
     rows = dict(dtable)
@@ -2743,7 +3273,8 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         **({"library_causal_ms": row["library_causal_ms"]}
            if "library_causal_ms" in row else {})}
-        for name, row in rows.items()]
+        for name, row in rows.items()] + csr_kernel_line(csr_rows,
+                                                         csr_launches)
     print(json.dumps({"block_sweeps_by_route": [
         {"name": name, "dtype": "float32" if key[0] in (
             "float32", "tf32x3_cpasync") else "bfloat16",

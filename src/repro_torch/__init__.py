@@ -15,13 +15,20 @@ batched prefill whose attention runs on the ``local_attention`` kernel
 of ``csrc/local_attn.cu`` (causal sliding-window attention with GQA and
 logit soft-capping), then greedy or sampled decode, for the text
 architectures built of attention blocks and a dense MLP (gemma2-9b
-among them).
+among them).  The out-of-core tiers (``svd`` of a numpy array, a
+``.npy`` path or a memmap: row blocks streamed host -> device), the
+paper's sparse stream (``svd`` of a ``SyntheticSparseMatrix``, a scipy
+matrix or a ``.npz``/``.mtx`` path: CSR row blocks packed on the host
+and swept on the card by the kernels of ``csrc/csr_sweep.cu``) and
+checkpoint/resume (``checkpoint_dir=``, the JAX package's format).
 
     import torch, repro_torch
     res = repro_torch.svd(A, 32)                      # A on the card
     res = repro_torch.svd(A, 16, method="gramfree")   # Alg 1 around Alg 4
     res = repro_torch.svd(A, 8, method="gram")        # Alg 1 around Alg 2/3
     res = repro_torch.svd(A, 8, device="cpu")         # plain PyTorch, CPU
+    sp = repro_torch.SyntheticSparseMatrix(2**25, 2**25, 33, seed=0)
+    res = repro_torch.svd(sp, 8)                      # the sparse stream
 
     python -m repro_torch.launch.serve --arch gemma2-9b   # LM serving
 
@@ -30,9 +37,15 @@ no ``device`` and no visible CUDA device they raise.
 """
 from repro_torch.core import (  # noqa: F401
     DenseOperator,
+    DenseStreamOperator,
     InputError,
     LinearOperator,
+    RowBlockStream,
+    ScipySparseMatrix,
+    ScipySparseOperator,
     SolverState,
+    SparseStreamOperator,
+    SparseTSVDResult,
     SVDConfig,
     SVDError,
     SVDResult,
@@ -44,9 +57,14 @@ from repro_torch.core import (  # noqa: F401
     svd_1d,
     svd,
     svd_update,
+    sparse_tsvd,
+    SyntheticSparseMatrix,
 )
 
 __all__ = ["svd", "svd_update", "SVDConfig", "SVDResult", "SolverState",
            "init_state", "step", "finalize", "LinearOperator",
            "DenseOperator", "SVDError", "InputError", "svd_1d",
-           "power_iterate_gram", "power_iterate_chain"]
+           "power_iterate_gram", "power_iterate_chain",
+           "RowBlockStream", "SyntheticSparseMatrix", "ScipySparseMatrix",
+           "SparseStreamOperator", "ScipySparseOperator",
+           "DenseStreamOperator", "sparse_tsvd", "SparseTSVDResult"]

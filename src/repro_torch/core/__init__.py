@@ -3,8 +3,11 @@
 Mirrors the names of the JAX package's ``repro.core`` for what is
 ported: ``svd``/``svd_update``, the ``init_state``/``step``/``finalize``
 state machine, ``SVDConfig``/``SVDResult``/``SolverState``, the
-``LinearOperator`` protocol with ``DenseOperator``, ``HostBlockedOperator``
-and ``MemmapOperator``, the out-of-core tiers (``HostBlockedMatrix``,
+``LinearOperator`` protocol with ``DenseOperator``, ``HostBlockedOperator``,
+``MemmapOperator`` and ``SparseStreamOperator``, the sparse stream
+(``RowBlockStream``, ``SyntheticSparseMatrix``, ``ScipySparseMatrix``,
+``ScipySparseOperator``, ``DenseStreamOperator`` and the deprecated
+``sparse_tsvd``), the out-of-core tiers (``HostBlockedMatrix``,
 ``CountingHostMatrix``, ``MemmapMatrix``, ``stage_to_disk``,
 ``open_matrix_memmap``, the blocked Gram helpers and the deprecated
 ``oom_tsvd``), the batching plans of ``core/partition.py``, the deflation
@@ -37,6 +40,7 @@ from repro_torch.core.operator import (  # noqa: F401
     DenseOperator,
     HostBlockedOperator,
     MemmapOperator,
+    SparseStreamOperator,
 )
 from repro_torch.core.partition import (  # noqa: F401
     BatchPlan,
@@ -58,6 +62,15 @@ from repro_torch.core.diskio import (  # noqa: F401
     MemmapMatrix,
     open_matrix_memmap,
     stage_to_disk,
+)
+from repro_torch.core.sparse import (  # noqa: F401
+    DenseStreamOperator,
+    RowBlockStream,
+    ScipySparseMatrix,
+    ScipySparseOperator,
+    SparseTSVDResult,
+    SyntheticSparseMatrix,
+    sparse_tsvd,
 )
 from repro_torch.core.errors import (  # noqa: F401
     CheckpointCorruptError,
@@ -95,11 +108,19 @@ __all__ = [
     "DenseOperator",
     "HostBlockedOperator",
     "MemmapOperator",
+    "SparseStreamOperator",
+    "ScipySparseOperator",
     "HostBlockedMatrix",
     "CountingHostMatrix",
     "MemmapMatrix",
     "stage_to_disk",
     "open_matrix_memmap",
+    "RowBlockStream",
+    "ScipySparseMatrix",
+    "SyntheticSparseMatrix",
+    "DenseStreamOperator",
+    "sparse_tsvd",
+    "SparseTSVDResult",
     "blocked_gram",
     "tiled_gram",
     "blocked_deflated_matvec",

@@ -33,13 +33,9 @@ METHODS = ("gram", "gramfree", "block")
 @dataclasses.dataclass(frozen=True)
 class SVDConfig:
     """All solver knobs, validated once (see the JAX package's
-    ``SVDConfig`` for the meaning of each field; the two agree).
-
-    Fields that select paths this port does not run yet
-    (``checkpoint_dir``) validate exactly as in the JAX package;
-    ``repro_torch.svd`` then raises ``NotImplementedError`` naming the
-    ROADMAP item that ports them.
-    """
+    ``SVDConfig`` for the meaning of each field; the two agree, and so
+    does ``solver_fingerprint()``, which a checkpoint written by either
+    package carries)."""
 
     method: str = "block"
     eps: float = 1e-6

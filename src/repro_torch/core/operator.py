@@ -6,9 +6,10 @@
 tensor resident on one device, ``HostBlockedOperator`` for the row
 blocks of a host matrix streamed to the device (``core/oom.py``), and
 ``MemmapOperator`` for a matrix on disk (``core/diskio.py``): the
-demotion ladder dense -> host-blocked -> memmap of the JAX package.
-The sharded and sparse-stream adapters come with later slices of the
-port (ROADMAP.md, queue 1).
+demotion ladder dense -> host-blocked -> memmap of the JAX package; and
+``SparseStreamOperator`` for a streamed sparse matrix
+(``core/sparse.py``).  The sharded adapter comes with a later slice of
+the port (ROADMAP.md, queue 1).
 
 Every A-sized product of ``DenseOperator`` goes through the sweep
 wrappers of ``kernels/ops.py``: on the card those launch the Hopper
@@ -22,7 +23,11 @@ Pass and byte accounting is the JAX package's: on the dense tier
 N * itemsize(sweep dtype)`` and ``bytes_moved = {"device": passes *
 bytes_per_pass}``; on the streamed tiers a pass is one stream of the
 host blocks (the fused chain one, ``chain_passes = 1``) and
-``bytes_moved`` adds the host tier (and the disk tier's counters).
+``bytes_moved`` adds the host tier (and the disk tier's counters); on
+the sparse stream a pass is one stream of the nonzeros, ``bytes_per_pass
+= nnz * itemsize(sweep dtype)`` and ``bytes_moved = {"host": passes *
+bytes_per_pass}``, the JAX package's numbers (the real PCIe bytes, which
+carry the columns and offsets too, are the stream's ``feed_stats``).
 ``lagged_sync``: CUDA launches and the streamed tiers' copies are
 asynchronous, so the driver's lagged ``.item()`` of the previous gap
 lands after the next step is queued.
@@ -47,6 +52,7 @@ __all__ = [
     "DenseOperator",
     "HostBlockedOperator",
     "MemmapOperator",
+    "SparseStreamOperator",
     "host_sync_scalar",
     "resolve_device",
     "warm_start_width",
@@ -530,3 +536,92 @@ class MemmapOperator(HostBlockedOperator):
     @property
     def bytes_moved(self):
         return self._host.bytes_moved
+
+
+# ---------------------------------------------------------------------------
+# SparseStreamOperator — a procedural sparse (or duck-typed streamed) matrix
+# ---------------------------------------------------------------------------
+
+def stream_call(sp, name: str, X, block_rows: int, device, **kw):
+    """``sp.<name>(X, block_rows, **kw)`` on ``device``.  The port's own
+    streams (``streams_on_device``) take the tensor and run on its
+    device; any other object keeps the JAX package's contract, numpy in
+    and numpy out on the host, and its result is lifted to ``device``."""
+    if getattr(sp, "streams_on_device", False):
+        return getattr(sp, name)(X, block_rows, device=device, **kw)
+    if isinstance(X, torch.Tensor):
+        X = X.detach().cpu().numpy()
+    out = getattr(sp, name)(X, block_rows, **kw)
+    return torch.as_tensor(np.asarray(out, np.float32), device=device)
+
+
+class SparseStreamOperator(LinearOperator):
+    """Wraps a streamed matrix (``SyntheticSparseMatrix``,
+    ``ScipySparseMatrix``, ``DenseStreamOperator``, or anything with their
+    ``matmat``/``rmatmat``/``gram_chain``/``range_sketch`` surface).
+
+    A "pass" is one full stream of the nonzeros; ``gram_chain`` runs both
+    sweep halves on each streamed block (``chain_passes = 1``).  The
+    chain and the sketch read the values at ``sweep_dtype`` with fp32
+    sums; the extraction pass is fp32.  The JAX package's choices stay:
+    ``lagged_sync = False`` (the gap is read every step), and the cold
+    start ``random_block`` is numpy's ``default_rng(seed)``, so both
+    packages start from the same ``Q0``.  The iterate lives on
+    ``device`` and is orthonormalized there.
+    """
+
+    backend = "sparsestream"
+    chain_passes = 1
+
+    def __init__(self, sp, *, block_rows=1 << 16, sweep_dtype="float32",
+                 device=None):
+        super().__init__()
+        self._sp = sp
+        self._block_rows = block_rows
+        self.sweep_dtype = dtype_name(resolve_sweep_dtype(sweep_dtype))
+        self.device = resolve_device(device)
+
+    @property
+    def shape(self):
+        return (self._sp.m, self._sp.n)
+
+    def _call(self, name, X, **kw):
+        return stream_call(self._sp, name, X, self._block_rows, self.device,
+                           **kw)
+
+    def matmat(self, Q):
+        self._count(1)
+        return self._call("matmat", Q)
+
+    def rmatmat(self, Y):
+        self._count(1)
+        return self._call("rmatmat", Y)
+
+    def gram_chain(self, Q):
+        self._count(self.chain_passes)
+        return self._call("gram_chain", Q, dtype=self.sweep_dtype)
+
+    def range_sketch(self, l, seed):
+        self._count(self.sketch_passes)
+        kw = {"seed": seed, "block_rows": self._block_rows,
+              "dtype": self.sweep_dtype}
+        if getattr(self._sp, "streams_on_device", False):
+            return self._sp.range_sketch(l, device=self.device, **kw)
+        return self.from_host(self._sp.range_sketch(l, **kw))
+
+    def random_block(self, k, seed):
+        rng = np.random.default_rng(seed)
+        return self.from_host(
+            rng.standard_normal((self._sp.n, k)).astype(np.float32))
+
+    @property
+    def bytes_per_pass(self):
+        sp = self._sp
+        elems = getattr(sp, "nnz", sp.m * sp.n)
+        return elems * resolve_sweep_dtype(self.sweep_dtype).itemsize
+
+    @property
+    def bytes_moved(self):
+        # the JAX package's accounting: the nonzero stream is generated or
+        # read on the host, once a pass
+        return {"host": self.passes * self.bytes_per_pass}

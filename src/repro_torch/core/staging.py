@@ -32,7 +32,9 @@ pipeline is explicit:
   the next ``put``: the streamed ops of ``core/oom.py`` fetch, compute
   and fetch again, so the copy of block ``b + 1`` runs while block
   ``b``'s kernels do, and a pass's first copy starts as soon as its
-  buffer is free, whatever the host is waiting for.
+  buffer is free, whatever the host is waiting for.  ``H2DArrays``
+  orders the sparse stream's CSR blocks the same way, each array of a
+  block in a named 1-D buffer of its slot that grows with the blocks.
 
 Nothing here runs on import; the library is built at first use.
 """
@@ -45,7 +47,8 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["H2DRing", "pitch", "pinned_empty", "register", "unregister"]
+__all__ = ["H2DArrays", "H2DRing", "copy_h2d", "pitch", "pinned_empty", "register",
+           "unregister"]
 
 #: cudaErrorHostMemoryAlreadyRegistered: the range is page-locked already
 ALREADY_REGISTERED = 712
@@ -107,6 +110,8 @@ def register(t: torch.Tensor) -> tuple[int, int]:
 def _ends_pinned(t: torch.Tensor) -> bool:
     """Whether the first and the last element of ``t`` lie in page-locked
     memory: a range can only be partly locked at its ends."""
+    # is_pinned() reads False until torch has initialised CUDA
+    torch.cuda.init()
     last = t.storage_offset() + sum((d - 1) * st for d, st in
                                     zip(t.shape, t.stride()))
     return bool(t.as_strided((1,), (1,)).is_pinned()
@@ -137,7 +142,73 @@ def pinned_empty(shape, dtype: torch.dtype) -> tuple[torch.Tensor, tuple]:
     return t, register(t)
 
 
-class H2DRing:
+def copy_h2d(dst: torch.Tensor, src: torch.Tensor, stream) -> None:
+    """One asynchronous copy of the contiguous pinned host tensor ``src``
+    into the contiguous device tensor ``dst`` (same bytes) on ``stream``
+    (a ``torch.cuda.Stream``); the sparse stream's CSR blocks go so."""
+    nbytes = src.numel() * src.element_size()
+    if nbytes != dst.numel() * dst.element_size() or not (
+            src.is_contiguous() and dst.is_contiguous()):
+        raise ValueError("copy_h2d copies whole contiguous tensors of one "
+                         "size")
+    err = _lib().repro_h2d_pitched(dst.data_ptr(), nbytes, src.data_ptr(),
+                                   nbytes, nbytes, 1, stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"host -> device copy failed: CUDA error {err}")
+
+
+class _Ring:
+    """The ordering of a ring of two device buffer slots: a copy stream and
+    the events between it and the compute stream (see the module
+    docstring).  Subclasses hold the buffers and enqueue the copies
+    between ``_begin`` and ``_end``."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device=device)
+        self._copied = [torch.cuda.Event(), torch.cuda.Event()]
+        self._freed: list = [None, None]
+        self._slot = 1                    # the slot handed out last
+
+    @property
+    def next_slot(self) -> int:
+        return 1 - self._slot
+
+    def copied(self, slot: int) -> torch.cuda.Event:
+        return self._copied[slot]
+
+    def copies_done(self) -> torch.cuda.Event:
+        """A fresh event after every copy enqueued so far: their host
+        sources may be refilled once it has completed."""
+        done = torch.cuda.Event()
+        done.record(self.stream)
+        return done
+
+    def _begin(self) -> tuple[int, torch.cuda.Event]:
+        """Order the copy stream after the readers of the next slot's
+        previous contents; returns the slot and the event of all compute
+        work so far (a buffer allocated now waits on it too)."""
+        compute = torch.cuda.current_stream(self.device)
+        # every read of the slot handed out last is enqueued by now
+        freed = torch.cuda.Event()
+        freed.record(compute)
+        self._freed[self._slot] = freed
+        s = self.next_slot
+        if self._freed[s] is not None:     # its previous contents' readers
+            self.stream.wait_event(self._freed[s])
+        return s, freed
+
+    def _end(self, s: int) -> None:
+        """Make the compute stream wait for the copies into slot ``s``."""
+        self._copied[s].record(self.stream)
+        torch.cuda.current_stream(self.device).wait_event(self._copied[s])
+        self._slot = s
+
+    def close(self) -> None:
+        self.stream.synchronize()
+
+
+class H2DRing(_Ring):
     """Two device buffers of ``rows`` x ``pitch(n)`` elements, a copy
     stream and the events that order them (see the module docstring).
 
@@ -152,23 +223,13 @@ class H2DRing:
 
     def __init__(self, rows: int, n: int, dtype: torch.dtype,
                  device: torch.device):
+        super().__init__(device)
         self.n, self.dtype = n, dtype
         self.ld = pitch(n, dtype)
-        self.stream = torch.cuda.Stream(device=device)
         self._bufs = [torch.empty((max(rows, 1), self.ld), dtype=dtype,
                                   device=device) for _ in range(2)]
         for buf in self._bufs:            # the allocator waits for copies
             buf.record_stream(self.stream)
-        self._copied = [torch.cuda.Event(), torch.cuda.Event()]
-        self._freed: list = [None, None]
-        self._slot = 1                    # the buffer handed out last
-
-    @property
-    def next_slot(self) -> int:
-        return 1 - self._slot
-
-    def copied(self, slot: int) -> torch.cuda.Event:
-        return self._copied[slot]
 
     def put(self, src: torch.Tensor) -> torch.Tensor:
         rows, n = src.shape
@@ -184,14 +245,7 @@ class H2DRing:
             raise RuntimeError("H2DRing copies from pinned host memory only "
                                "(a pageable copy would serialize the "
                                "pipeline)")
-        compute = torch.cuda.current_stream(self._bufs[0].device)
-        # every read of the block handed out last is enqueued by now
-        freed = torch.cuda.Event()
-        freed.record(compute)
-        self._freed[self._slot] = freed
-        s = self.next_slot
-        if self._freed[s] is not None:     # its previous block's readers
-            self.stream.wait_event(self._freed[s])
+        s, _ = self._begin()
         size = src.element_size()
         spitch = (src.stride(0) if rows > 1 else n) * size
         err = _lib().repro_h2d_pitched(
@@ -200,10 +254,43 @@ class H2DRing:
         if err != 0:
             raise RuntimeError(f"host -> device block copy failed: CUDA "
                                f"error {err}")
-        self._copied[s].record(self.stream)
-        compute.wait_event(self._copied[s])
-        self._slot = s
+        self._end(s)
         return self._bufs[s][:rows, :n]
 
-    def close(self) -> None:
-        self.stream.synchronize()
+
+class H2DArrays(_Ring):
+    """The ring of ``H2DRing`` over sets of named 1-D arrays of any size:
+    each slot holds one device buffer a name, grown when an array
+    outgrows it.  ``put(arrays)`` copies the pinned contiguous host
+    tensors of ``{name: tensor}`` into the next slot and returns their
+    views on the card, of the same names and shapes."""
+
+    def __init__(self, device: torch.device):
+        super().__init__(device)
+        self._bufs: list[dict] = [{}, {}]
+
+    def put(self, arrays: dict) -> dict:
+        for name, src in arrays.items():
+            if not src.is_contiguous() or (src.numel() and
+                                           not _ends_pinned(src)):
+                raise RuntimeError(f"H2DArrays copies contiguous pinned "
+                                   f"host tensors only ({name!r} is not)")
+        s, now = self._begin()
+        out = {}
+        for name, src in arrays.items():
+            buf = self._bufs[s].get(name)
+            if buf is None or buf.numel() < src.numel() or \
+                    buf.dtype != src.dtype:
+                buf = torch.empty((max(src.numel(), 1),), dtype=src.dtype,
+                                  device=self.device)
+                buf.record_stream(self.stream)
+                # fresh memory may be what the compute stream freed and
+                # still reads: the copy waits for all compute work so far
+                self.stream.wait_event(now)
+                self._bufs[s][name] = buf
+            dst = buf[:src.numel()].view(src.shape)
+            if src.numel():
+                copy_h2d(dst, src, self.stream)
+            out[name] = dst
+        self._end(s)
+        return out

@@ -35,14 +35,25 @@ over ``HostBlockedOperator``/``MemmapOperator``) and ``"gramfree"``
 (``core/oom.py::_oom_deflation``).  A device OOM demotes dense ->
 host-blocked -> memmap with the warm iterate.
 
+The sparse stream, as in the JAX package: a scipy sparse matrix, a
+``ScipySparseMatrix`` or a ``.npz``/``.mtx``/``.mtx.gz`` path
+(``ScipySparseOperator``), a ``SyntheticSparseMatrix`` or any object
+with the streamed surface (``SparseStreamOperator``), for
+``method="block"`` and ``"gramfree"`` (``core/sparse.py``): the row
+blocks are packed on the host and swept on the device by the CSR
+kernels.
+
+Checkpoint/resume (``checkpoint_dir``): the driver saves the
+``SolverState`` every ``checkpoint_every`` iterations and at loop exit
+(``checkpoint/manager.py``, the JAX package's on-disk format), and the
+next solve in that directory resumes from the newest readable step; a
+corrupt or non-finite step is quarantined and the previous one taken.
+
 Entry points run on the card: ``device=None`` means ``"cuda"`` and
 raises when no card is visible; the caller passes ``device="cpu"`` to
-run the plain PyTorch versions of the kernels on the CPU.
-
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md queue-1 item: scipy sparse inputs and ``.npz``/``.mtx``
-paths (the sparse stream), ``mesh=`` (the sharded backend), and
-``checkpoint_dir`` (checkpoint/resume).
+run the plain PyTorch versions of the kernels on the CPU.  ``mesh=``
+(the sharded backend) is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP.md queue-1 item.
 """
 from __future__ import annotations
 
@@ -61,6 +72,7 @@ from repro_torch.core.errors import (FaultExhaustedError, InputError,
 from repro_torch.core.faults import (FaultTelemetry, RetryPolicy, fault_hook,
                                      maybe_corrupt)
 from repro_torch.core.operator import (DenseOperator, LinearOperator,
+                                       SparseStreamOperator,
                                        host_sync_scalar, resolve_device,
                                        warm_start_width)
 from repro_torch.core.precision import dtype_name, resolve_sweep_dtype
@@ -98,7 +110,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1, "
         f"item {item}); use the JAX package (repro.core.svd) for it, or "
-        f"pass a torch.Tensor for the dense solve")
+        f"drop it for a one-device solve")
 
 
 # ---------------------------------------------------------------------------
@@ -135,14 +147,17 @@ def _tol(state: SolverState, cfg: SVDConfig) -> float:
 def init_state(op: LinearOperator, k: int, cfg: SVDConfig,
                warm=None, telemetry: FaultTelemetry | None = None
                ) -> SolverState:
-    """Phase 1: the initial iterate — a caller-supplied host seed
-    subspace ``warm`` (aligned to the operator, then ``cfg.warmup_q``
-    refinements), the randomized range-finder sketch (``warmup_q > 0``),
-    or a cold Gaussian block."""
-    if cfg.checkpoint_dir is not None:
-        raise _not_ported("checkpoint_dir (checkpoint/resume)", "9")
+    """Phase 1: the initial iterate — the newest matching checkpoint
+    under ``cfg.checkpoint_dir`` (auto-resume; a fingerprint mismatch
+    raises), a caller-supplied host seed subspace ``warm`` (aligned to
+    the operator, then ``cfg.warmup_q`` refinements), the randomized
+    range-finder sketch (``warmup_q > 0``), or a cold Gaussian block."""
     cfp = cfg.solver_fingerprint()
     ofp = op.fingerprint
+    if cfg.checkpoint_dir is not None:
+        state = _resume_state(op, k, cfg, cfp, ofp, telemetry=telemetry)
+        if state is not None:
+            return state
     p0, b0 = int(op.passes), dict(op.bytes_moved)
     N = op.shape[1]
     if warm is not None:
@@ -247,6 +262,59 @@ def _align_seed(W, N: int, k: int, cfg: SVDConfig) -> np.ndarray:
     return out
 
 
+def _resume_state(op, k, cfg, cfp: str, ofp: str,
+                  telemetry: FaultTelemetry | None = None
+                  ) -> SolverState | None:
+    """The newest READABLE checkpointed state, or None if the directory
+    has none.  A corrupt, torn or non-finite step is quarantined
+    (``step_X.corrupt``) and resume falls back to the previous one; an
+    INTACT step whose fingerprints or rank differ is a hard
+    ``InputError``: continuing another run's trajectory would corrupt the
+    accounting and the bitwise-resume contract."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.errors import CheckpointCorruptError
+    mgr = CheckpointManager(cfg.checkpoint_dir)
+    for step_no in reversed(mgr.all_steps()):
+        try:
+            extra = mgr.read_meta(step_no).get("extra", {})
+            saved_cfp = extra.get("config_fp")
+            saved_ofp = extra.get("op_fp")
+            if saved_cfp != cfp or saved_ofp != ofp:
+                raise InputError(
+                    f"checkpoint_dir={cfg.checkpoint_dir!r} step "
+                    f"{step_no} was written by a different run: config "
+                    f"fingerprint {saved_cfp!r} vs {cfp!r}, operator "
+                    f"fingerprint {saved_ofp!r} vs {ofp!r}; point "
+                    f"checkpoint_dir at a fresh directory (or delete "
+                    f"the stale steps) to start over")
+            state = SolverState.from_tree(
+                mgr.restore(step_no, SolverState.host_template()),
+                config_fp=cfp, op_fp=ofp)
+            if not np.all(np.isfinite(state.Q)):
+                raise CheckpointCorruptError(
+                    f"step {step_no}: non-finite iterate (the state was "
+                    f"saved mid-corruption)")
+        except CheckpointCorruptError as e:
+            quarantined = mgr.quarantine(step_no)
+            if telemetry is not None:
+                telemetry.record("checkpoint", "quarantine",
+                                 step=int(step_no), path=quarantined,
+                                 error=str(e))
+            continue                    # fall back to the previous step
+        if state.k != k:
+            raise InputError(
+                f"checkpoint at {cfg.checkpoint_dir!r} targets rank "
+                f"{state.k}, this call asked for rank {k}")
+        return state.replace(Q=op.from_host(state.Q))
+    return None
+
+
+def _save_state(mgr, op, state: SolverState) -> None:
+    mgr.save(state.it, state.to_tree(op.to_host),
+             extra={"kind": "solver_state", "config_fp": state.config_fp,
+                    "op_fp": state.op_fp})
+
+
 def _carry_state(st: SolverState | None, op: LinearOperator,
                  telemetry: FaultTelemetry) -> SolverState | None:
     """Pull the warm iterate off a just-OOM'd operator so the demoted
@@ -261,14 +329,16 @@ def _carry_state(st: SolverState | None, op: LinearOperator,
         return None
 
 
-def _drive(op: LinearOperator, k: int, cfg: SVDConfig, warm,
+def _drive(op: LinearOperator, k: int, cfg: SVDConfig, warm, mgr,
            telemetry: FaultTelemetry, carried: SolverState | None,
            cell: dict) -> SVDResult:
     """One tier's worth of the solve loop: init (or adopt the iterate
     carried down from a demoted tier), iterate with the numeric health
-    guard, finalize.  A ``NumericalHealthError`` rolls the loop back to
-    the last CONFIRMED-healthy state; the sweeps are deterministic, so a
-    transient corruption replays onto the bitwise fault-free trajectory.
+    guard, checkpoint every ``cfg.checkpoint_every`` iterations and at
+    loop exit (``mgr``), finalize.  A ``NumericalHealthError`` rolls the
+    loop back to the last CONFIRMED-healthy state; the sweeps are
+    deterministic, so a transient corruption replays onto the bitwise
+    fault-free trajectory.
     """
     if carried is not None:
         state = carried.replace(Q=op.from_host(carried.Q),
@@ -278,6 +348,7 @@ def _drive(op: LinearOperator, k: int, cfg: SVDConfig, warm,
     cell["state"] = state
     good = state                        # last confirmed-healthy state
     health_attempts = 0
+    last_saved = state.it if state.it else None         # resumed at it
     while True:
         if state.converged or state.it >= cfg.max_iters:
             # a run that exits on max_iters never synced its final gap
@@ -312,12 +383,17 @@ def _drive(op: LinearOperator, k: int, cfg: SVDConfig, warm,
             good, health_attempts = state, 0
         state = new
         cell["state"] = state
-        fault_hook("kill", telemetry)   # chaos: die after an iteration
+        if mgr is not None and state.it % cfg.checkpoint_every == 0:
+            _save_state(mgr, op, state)                 # syncs the gap
+            last_saved = state.it
+        fault_hook("kill", telemetry)   # chaos: die AFTER the checkpoint
         if cfg.on_iteration is not None:
             if getattr(cfg.on_iteration, "_wants_operator", False):
                 cfg.on_iteration(state, op)
             else:
                 cfg.on_iteration(state)
+    if mgr is not None and last_saved != state.it:
+        _save_state(mgr, op, state)                     # final state
     return finalize(op, state, cfg)
 
 
@@ -353,10 +429,16 @@ def _run_block(op: LinearOperator, k: int, cfg: SVDConfig, warm=None):
     memory tier (dense -> host-blocked -> memmap) and carries the warm
     iterate there; on the disk tier, which has none, an OOM ends the
     solve with ``FaultExhaustedError`` whose ``__cause__`` is the OOM.
+    With ``cfg.checkpoint_dir`` the states go through a
+    ``CheckpointManager`` there.
     """
     telemetry = FaultTelemetry()
     policy = RetryPolicy(max_attempts=cfg.io_retries,
                          base_delay=cfg.io_retry_backoff)
+    mgr = None
+    if cfg.checkpoint_dir is not None:
+        from repro_torch.checkpoint import CheckpointManager
+        mgr = CheckpointManager(cfg.checkpoint_dir)
     carried = None
     op.acquire_solve()
     try:
@@ -365,7 +447,8 @@ def _run_block(op: LinearOperator, k: int, cfg: SVDConfig, warm=None):
             op.set_resilience(telemetry, policy)
             cell: dict = {"state": None}
             try:
-                res = _drive(op, k, cfg, warm, telemetry, carried, cell)
+                res = _drive(op, k, cfg, warm, mgr, telemetry, carried,
+                             cell)
                 return res._replace(faults=telemetry.snapshot())
             except Exception as e:
                 if not (cfg.demote_on_oom and is_oom_error(e)):
@@ -565,17 +648,77 @@ def _memmap_svd(A, k: int, cfg: SVDConfig, device, warm=None) -> SVDResult:
 _PATH_SUFFIXES = (".npy", ".npz", ".mtx", ".mtx.gz")
 
 
+def _sparsestream_svd(sp, k: int, cfg: SVDConfig, device,
+                      op_cls=SparseStreamOperator, warm=None) -> SVDResult:
+    """The solve on a streamed sparse matrix: the block driver over
+    ``op_cls``, or the streamed deflation engine."""
+    from repro_torch.core.sparse import _sparse_deflation
+    # duck-typed streamed sources expose either .shape or (.m, .n)
+    shape = getattr(sp, "shape", None)
+    if shape is None:
+        shape = (getattr(sp, "m", 1), getattr(sp, "n", 1))
+    _validate_problem(shape, k)
+    if cfg.method == "block":
+        op = op_cls(sp, block_rows=cfg.block_rows,
+                    sweep_dtype=cfg.sweep_dtype, device=device)
+        # sparse never transposes in, so the seed is always the prev V
+        return _run_block(op, k, cfg, warm=_pick_seed(warm, False))
+    if cfg.method != "gramfree":
+        raise ValueError("method='gram' is not available on the "
+                         "sparse-streamed backend (the Gram matrix would "
+                         "densify); expected 'gramfree' | 'block'")
+    U, S, V, iters, passes = _sparse_deflation(
+        sp, k, eps=cfg.eps, max_iters=cfg.max_iters,
+        force_iters=cfg.force_iters, seed=cfg.seed,
+        block_rows=cfg.block_rows, device=device)
+    # deflation is always fp32; one source of truth for the pass size
+    bpp = op_cls(sp, device=device).bytes_per_pass
+    return SVDResult(U, S, V, np.asarray(iters), passes, bpp,
+                     _deflation_converged(iters, cfg), op_cls.backend,
+                     bytes_moved=None)  # the engine streams outside op
+
+
+def _scipysparse_svd(sp, k: int, cfg: SVDConfig, device,
+                     warm=None) -> SVDResult:
+    """Real scipy CSR/COO/CSC input on the sparse stream."""
+    from repro_torch.core.sparse import ScipySparseMatrix, ScipySparseOperator
+    if not isinstance(sp, ScipySparseMatrix):
+        sp = ScipySparseMatrix(sp, seed=cfg.seed)
+    return _sparsestream_svd(sp, k, cfg, device,
+                             op_cls=ScipySparseOperator, warm=warm)
+
+
 def _path_svd(path, k: int, cfg: SVDConfig, device, warm=None) -> SVDResult:
     """Dispatch a dataset path: ``.npy`` -> the disk tier; scipy ``.npz``
-    and MatrixMarket ``.mtx`` load onto the sparse stream, which is not
-    ported yet."""
+    and MatrixMarket ``.mtx``/``.mtx.gz`` load onto the sparse stream."""
+    import zipfile
     p = os.fspath(path)
     low = p.lower()
     if low.endswith(".npy"):
         return _memmap_svd(p, k, cfg, device, warm=warm)
-    if low.endswith((".npz", ".mtx", ".mtx.gz")):
-        raise _not_ported("a sparse dataset path (.npz/.mtx, the sparse "
-                          "stream)", "7")
+    if low.endswith(".npz"):
+        import scipy.sparse
+        try:
+            sp = scipy.sparse.load_npz(p)
+        except (OSError, ValueError, KeyError, EOFError,
+                zipfile.BadZipFile) as e:
+            raise InputError(
+                f"{p!r} is not a readable scipy-sparse .npz "
+                f"({type(e).__name__}: {e}); re-save it with "
+                f"scipy.sparse.save_npz or point svd() at an intact "
+                f"file") from e
+        return _scipysparse_svd(sp, k, cfg, device, warm=warm)
+    if low.endswith((".mtx", ".mtx.gz")):
+        import scipy.io
+        try:
+            sp = scipy.io.mmread(p).tocsr()
+        except (OSError, ValueError, EOFError) as e:
+            raise InputError(
+                f"{p!r} is not a readable MatrixMarket file "
+                f"({type(e).__name__}: {e}); re-export it with "
+                f"scipy.io.mmwrite or point svd() at an intact file"
+            ) from e
+        return _scipysparse_svd(sp, k, cfg, device, warm=warm)
     raise InputError(
         f"svd() path input must end in one of {_PATH_SUFFIXES}, got {p!r}")
 
@@ -612,10 +755,18 @@ def svd(A, k: int, *, device=None, mesh=None, axes=("data",),
     * a ``.npy`` path, ``np.memmap`` / ``MemmapMatrix`` -> disk tier:
       row blocks staged disk -> host -> device, the host cache capped at
       ``host_budget_bytes``;
+    * a ``scipy.sparse`` matrix, a ``ScipySparseMatrix`` or a
+      ``.npz``/``.mtx``/``.mtx.gz`` path -> the sparse stream on real
+      data; a ``SyntheticSparseMatrix`` (or any object with the streamed
+      ``matmat``/``rmatmat``/``gram_chain``/``range_sketch`` surface)
+      -> the sparse stream: row blocks packed on the host, swept on
+      ``device`` by the CSR kernels;
     * a ``LinearOperator``  -> the shared block driver on it;
-    * scipy sparse inputs, ``.npz``/``.mtx`` paths and ``mesh=`` raise
-      ``NotImplementedError`` naming the ROADMAP.md item that ports
-      them.
+    * ``mesh=`` raises ``NotImplementedError`` naming the ROADMAP.md item
+      that ports it.
+
+    ``checkpoint_dir`` saves the solver state there and resumes from it
+    (the JAX package's format: either package resumes the other's).
 
     Solver knobs come from ``config`` and/or keyword ``overrides``, as in
     the JAX package's ``svd``.  Returns an ``SVDResult``.
@@ -635,8 +786,6 @@ def _dispatch(A, k: int, *, device=None, mesh=None, axes=("data",),
     if _warm is not None and cfg.method != "block":
         raise ValueError("warm restarts (svd_update) seed the block "
                          "iterate; method must be 'block'")
-    if cfg.checkpoint_dir is not None:
-        raise _not_ported("checkpoint_dir (checkpoint/resume)", "9")
     if mesh is not None:
         raise _not_ported("mesh= (the sharded backend)", "8")
     if isinstance(A, LinearOperator):
@@ -646,7 +795,7 @@ def _dispatch(A, k: int, *, device=None, mesh=None, axes=("data",),
     if isinstance(A, (str, os.PathLike)):
         return _path_svd(A, k, cfg, device, warm=_warm)
     if _is_scipy_sparse(A):
-        raise _not_ported("a scipy.sparse matrix (the sparse stream)", "7")
+        return _scipysparse_svd(A, k, cfg, device, warm=_warm)
     # np.memmap subclasses np.ndarray and MemmapMatrix subclasses
     # HostBlockedMatrix: the disk-tier checks must come FIRST
     from repro_torch.core.diskio import MemmapMatrix
@@ -655,11 +804,18 @@ def _dispatch(A, k: int, *, device=None, mesh=None, axes=("data",),
         return _memmap_svd(A, k, cfg, device, warm=_warm)
     if isinstance(A, (np.ndarray, HostBlockedMatrix)):
         return _hostblocked_svd(A, k, cfg, device, warm=_warm)
+    from repro_torch.core.sparse import ScipySparseMatrix
+    if isinstance(A, ScipySparseMatrix):
+        return _scipysparse_svd(A, k, cfg, device, warm=_warm)
+    if all(hasattr(A, attr) for attr in
+           ("matmat", "rmatmat", "gram_chain", "range_sketch")):
+        return _sparsestream_svd(A, k, cfg, device, warm=_warm)
     raise InputError(
         f"svd() cannot dispatch on input of type {type(A).__name__}: "
         "expected a torch.Tensor (dense solve), a numpy array or "
-        "HostBlockedMatrix (host-blocked tier), a .npy path, np.memmap or "
-        "MemmapMatrix (disk tier), or a LinearOperator")
+        "HostBlockedMatrix (host-blocked tier), a .npy/.npz/.mtx path, "
+        "np.memmap or MemmapMatrix (disk tier), a scipy.sparse matrix or "
+        "streamed sparse operator, or a LinearOperator")
 
 
 def svd_update(prev, A, k: int | None = None, *, device=None, mesh=None,

@@ -5,14 +5,18 @@ The block sweeps ``block_matvec`` (``A @ Q``), ``block_rmatvec``
 (``A^T (A Q)``); the deflation engines' ``matvec`` (``A @ v``),
 ``deflate_rmatvec`` (the fused Alg-4 reverse sweep) and ``gram``
 (``A^T A``), each with ``trans=True`` for the same function of ``A^T``;
-and the LM prefill's ``local_attention`` (causal sliding-window
-attention with GQA and soft-capping).  Each checks its operands, then:
+the LM prefill's ``local_attention`` (causal sliding-window
+attention with GQA and soft-capping); and the sparse stream's CSR
+sweeps of one row block, ``csr_matmat`` (``A_b Q``), ``csr_rmatmat``
+(``Z += A_b^T Y``, in place) and ``csr_gram_chain`` (both halves on one
+copy of the block).  Each checks its operands, then:
 
 * for tensors on the CPU, run the plain PyTorch version
   (``kernels/ref.py``) — the caller asked for the CPU;
 * for CUDA tensors, launch the Hopper kernel (``kernels/block_matvec.py``,
   ``deflate_matvec.py``, ``gram.py``, ``local_attn.py``) or raise.
-  There is no fallback from the card to anything else.
+  There is no fallback from the card to anything else.  The CSR sweeps'
+  kernels are ``kernels/csr_sweep.py``'s.
 
 ``dtype`` is the sweep dtype of the precision policy (``None`` = A's own
 dtype): both operands are cast to it and the sums are fp32, so the
@@ -35,7 +39,10 @@ describes ``A``, else ``"tf32x3_cpasync"``; bf16 on them, ``"wgmma"``
 by the same rule, else ``"wgmma_ld"``, ``A`` copied by the kernel's own
 producer), and ``gram``'s (``gram.route``: fp32 on ``"tf32x3"`` or
 ``"tf32x3_cpasync"`` by the same rule, bf16 on ``"wgmma"`` or
-``"wgmma_ld"`` by it).
+``"wgmma_ld"`` by it), and the CSR sweeps' counts by the values'
+dtype (``"csr_matmat/float32"``, ``"csr_matmat/bfloat16"``, ...).  The
+CSR chain counts itself and its two halves, as ``block_gram_chain``
+does.
 
 The block sweeps and ``gram`` read ``A`` in place where it is row-major
 with unit column stride (``block_matvec.row_stride``): contiguous, or a
@@ -53,6 +60,7 @@ import torch
 
 from repro_torch.core.precision import resolve_sweep_dtype
 from repro_torch.kernels import block_matvec as _bm
+from repro_torch.kernels import csr_sweep as _csr
 from repro_torch.kernels import deflate_matvec as _dm
 from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import local_attn as _la
@@ -61,7 +69,11 @@ from repro_torch.kernels import ref as _ref
 #: launches made on the card since the last ``reset_launches()``
 launches = {"block_matvec": 0, "block_rmatvec": 0, "block_gram_chain": 0,
             "matvec": 0, "deflate_rmatvec": 0, "gram": 0,
-            "local_attention": 0}
+            "local_attention": 0, "csr_matmat": 0, "csr_rmatmat": 0,
+            "csr_gram_chain": 0}
+
+#: the CSR sweeps, by the dtype of the values they read
+CSR_KERNELS = ("csr_matmat", "csr_rmatmat", "csr_gram_chain")
 
 
 #: the block sweeps' and ``gram``'s launches by route, since the last
@@ -69,7 +81,9 @@ launches = {"block_matvec": 0, "block_rmatvec": 0, "block_gram_chain": 0,
 route_launches = {**{f"{name}/{which}": 0
                      for name in ("block_matvec", "block_rmatvec")
                      for which in _bm.ROUTES},
-                  **{f"gram/{which}": 0 for which in _gram.ROUTES}}
+                  **{f"gram/{which}": 0 for which in _gram.ROUTES},
+                  **{f"{name}/{dt}": 0 for name in CSR_KERNELS
+                     for dt in ("float32", "bfloat16")}}
 
 
 def reset_launches() -> None:
@@ -338,6 +352,105 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def _csr_operands(what: str, off, col, val, X, *, rows_of_X: bool,
+                  out=None) -> None:
+    """Check one CSR block and its dense operand ``X`` (``Q`` (n, k) or
+    ``Y`` (rows, k)): tensors on one device, int32 ``off`` (rows + 1) and
+    ``col`` (nnz), fp32 or bf16 ``val`` (nnz), contiguous fp32 ``X``."""
+    for x in (off, col, val, X, *(() if out is None else (out,))):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{what} takes torch tensors, got "
+                            f"{type(x).__name__}")
+        if x.device != X.device:
+            raise ValueError(f"{what}: operands on different devices "
+                             f"({x.device} and {X.device})")
+    if X.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on 'cpu' (plain PyTorch) or 'cuda' "
+                         f"(the Hopper kernel), got {X.device}")
+    if off.dtype != torch.int32 or col.dtype != torch.int32 or \
+            off.ndim != 1 or col.ndim != 1 or off.numel() < 1:
+        raise ValueError(f"{what} takes int32 row offsets (rows + 1) and "
+                         f"int32 columns, got {off.dtype} {tuple(off.shape)} "
+                         f"and {col.dtype} {tuple(col.shape)}")
+    if val.dtype not in (torch.float32, torch.bfloat16) or \
+            val.shape != col.shape:
+        raise ValueError(f"{what} reads float32 or bfloat16 values, one a "
+                         f"column, got {val.dtype} {tuple(val.shape)}")
+    if X.dtype != torch.float32 or X.ndim != 2 or not X.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous 2-D float32 dense "
+                         f"operand, got {X.dtype} {tuple(X.shape)}")
+    if rows_of_X and X.shape[0] != off.numel() - 1:
+        raise ValueError(f"{what}: Y has {X.shape[0]} rows, the block "
+                         f"{off.numel() - 1}")
+    for x in (off, col, val):
+        if not x.is_contiguous():
+            raise ValueError(f"{what} reads the CSR arrays contiguous")
+
+
+def _count_csr(name: str, val: torch.Tensor) -> None:
+    launches[name] += 1
+    route_launches[f"{name}/{str(val.dtype).rsplit('.', 1)[-1]}"] += 1
+
+
+def csr_matmat(off: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
+               Q: torch.Tensor, *, out: torch.Tensor | None = None
+               ) -> torch.Tensor:
+    """``A_b Q`` of one CSR row block; Q (n, k) -> (rows, k) fp32, into
+    ``out`` (contiguous, (rows, k) fp32) when given.  Each row's
+    nonzeros are summed in stream order."""
+    _csr_operands("csr_matmat", off, col, val, Q, rows_of_X=False, out=out)
+    rows, k = off.numel() - 1, Q.shape[1]
+    if out is not None and (out.shape != (rows, k) or out.dtype !=
+                            torch.float32 or not out.is_contiguous()):
+        raise ValueError(f"csr_matmat: out must be contiguous ({rows}, {k}) "
+                         f"float32, got {out.dtype} {tuple(out.shape)}")
+    if Q.device.type == "cpu":
+        Y = _ref.csr_matmat_ref(off, col, val, Q)
+        return Y if out is None else out.copy_(Y)
+    Y = _csr.csr_matmat_cuda(off, col, val, Q, out)
+    _count_csr("csr_matmat", val)
+    return Y
+
+
+def csr_rmatmat(off: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
+                Y: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+    """``Z += A_b^T Y`` for one CSR row block, in place (Y (rows, k), Z
+    (n, k) fp32); returns ``Z``.  Each column's nonzeros are added in
+    stream order, straight into ``Z``: no atomics."""
+    _csr_operands("csr_rmatmat", off, col, val, Y, rows_of_X=True, out=Z)
+    if Z.dtype != torch.float32 or Z.ndim != 2 or not Z.is_contiguous() \
+            or Z.shape[1] != Y.shape[1]:
+        raise ValueError(f"csr_rmatmat: Z must be contiguous (n, "
+                         f"{Y.shape[1]}) float32, got {Z.dtype} "
+                         f"{tuple(Z.shape)}")
+    if Y.device.type == "cpu":
+        return _ref.csr_rmatmat_ref(off, col, val, Y, Z)
+    _csr.csr_rmatmat_cuda(off, col, val, Y, Z)
+    _count_csr("csr_rmatmat", val)
+    return Z
+
+
+def csr_gram_chain(off: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
+                   Q: torch.Tensor, Z: torch.Tensor, *,
+                   round_y: bool = False) -> torch.Tensor:
+    """``Z += A_b^T (A_b Q)`` for one CSR row block, both halves on the
+    same copy of the block; ``round_y`` rounds the intermediate to bf16
+    (the JAX package's bf16 chain).  Returns ``Z``."""
+    _csr_operands("csr_gram_chain", off, col, val, Q, rows_of_X=False,
+                  out=Z)
+    if Z.dtype != torch.float32 or Z.ndim != 2 or not Z.is_contiguous() \
+            or Z.shape[1] != Q.shape[1]:
+        raise ValueError(f"csr_gram_chain: Z must be contiguous (n, "
+                         f"{Q.shape[1]}) float32, got {Z.dtype} "
+                         f"{tuple(Z.shape)}")
+    if Q.device.type == "cpu":
+        return _ref.csr_gram_chain_ref(off, col, val, Q, Z, round_y)
+    _csr.csr_gram_chain_cuda(off, col, val, Q, Z, round_y)
+    for name in CSR_KERNELS:
+        _count_csr(name, val)
+    return Z
+
+
 block_matvec_ref = _ref.block_matvec_ref
 block_rmatvec_ref = _ref.block_rmatvec_ref
 block_gram_chain_ref = _ref.block_gram_chain_ref
@@ -345,3 +458,6 @@ matvec_ref = _ref.matvec_ref
 deflate_rmatvec_ref = _ref.deflate_rmatvec_ref
 gram_ref = _ref.gram_ref
 local_attention_ref = _ref.local_attention_ref
+csr_matmat_ref = _ref.csr_matmat_ref
+csr_rmatmat_ref = _ref.csr_rmatmat_ref
+csr_gram_chain_ref = _ref.csr_gram_chain_ref

@@ -16,6 +16,12 @@ fits in fp32), which is the JAX package's
 function to ``A^T`` without forming it (the wide inputs' left-side
 power step), as the kernels' ``trans`` forms do.
 
+The CSR sweeps' versions (``csr_matmat_ref``, ``csr_rmatmat_ref``,
+``csr_gram_chain_ref``) are ``index_add_`` over the block's nonzeros in
+stream order, each product rounded before its add: on CPU tensors that
+is bitwise ``np.add.at``, the JAX package's host sweep; on CUDA tensors
+``index_add_`` sums with atomics, in no fixed order.
+
 ``local_attention_ref`` is the JAX oracle's math for the LM prefill
 attention: K/V repeated to every query head, the full (S, S) scores, the
 causal window mask, a softmax, all in fp32.
@@ -82,6 +88,38 @@ def gram_ref(A: torch.Tensor, trans: bool = False) -> torch.Tensor:
     """``B = A^T A`` (``A A^T`` with ``trans``) in fp32."""
     A32 = A.to(torch.float32)
     return A32 @ A32.mT if trans else A32.mT @ A32
+
+
+def csr_rows(off: torch.Tensor) -> torch.Tensor:
+    """The block-local row of each nonzero of a CSR block."""
+    rows = off.numel() - 1
+    return torch.repeat_interleave(
+        torch.arange(rows, device=off.device), (off[1:] - off[:-1]).long(),
+        output_size=int(off[-1]) if rows else 0)
+
+
+def csr_matmat_ref(off: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
+                   Q: torch.Tensor, round_out: bool = False) -> torch.Tensor:
+    """``A_b Q`` of a CSR block (``off`` rows + 1, ``col``/``val`` nnz);
+    ``round_out`` rounds the fp32 sums to bf16."""
+    Y = torch.zeros((off.numel() - 1, Q.shape[1]), dtype=torch.float32,
+                    device=Q.device)
+    Y.index_add_(0, csr_rows(off),
+                 val.to(torch.float32)[:, None] * Q[col.long()])
+    return _rounded(Y, "bfloat16") if round_out else Y
+
+
+def csr_rmatmat_ref(off: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
+                    Y: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
+    """``Z += A_b^T Y`` in place; returns ``Z``."""
+    return Z.index_add_(0, col.long(),
+                        val.to(torch.float32)[:, None] * Y[csr_rows(off)])
+
+
+def csr_gram_chain_ref(off, col, val, Q, Z, round_y: bool = False):
+    """``Z += A_b^T (A_b Q)``, ``y`` rounded to bf16 with ``round_y``."""
+    return csr_rmatmat_ref(off, col, val,
+                           csr_matmat_ref(off, col, val, Q, round_y), Z)
 
 
 def local_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

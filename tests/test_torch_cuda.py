@@ -32,7 +32,12 @@ The out-of-core tiers (``core/staging.py``): every streamed op of a
 and on the TMA routes at any width (the device rows padded), bitwise
 reruns, one registration for an array two matrices share, the disk tier
 on the card against the CPU, and the driver's lagged gap read waiting
-for its own step only.
+for its own step only.  The sparse stream (``csr_sweep.cu``): every CSR
+sweep bitwise ``np.add.at`` (fp32 and bf16 values, k = 1 to 33, empty
+rows and repeated columns), reruns bitwise; the pipeline's streamed ops
+bitwise the CPU path's, with its launch and PCIe byte counts, through
+empty and shrinking blocks too; a block beyond int32 nonzeros refused;
+and a sparse solve on the card resumed from a checkpoint bitwise.
 """
 import collections
 import importlib
@@ -52,6 +57,8 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    # is_pinned() reads False until torch has initialised CUDA
+    torch.cuda.init()
     return torch.device("cuda")
 
 
@@ -875,3 +882,178 @@ def test_lagged_gap_read_waits_for_its_step_alone(card):
     waited = time.perf_counter() - t0
     torch.cuda.synchronize()
     assert abs(v) < 1e-4 and waited < 0.5
+
+
+# ---------------------------------------------------------------------------
+# the sparse stream: CSR sweeps and the host -> device pipeline
+# ---------------------------------------------------------------------------
+
+def _csr_block(rows, n, per_row, seed, sd):
+    """A CSR block of ``rows`` rows (``per_row`` nonzeros each, some
+    rows empty, repeated columns), host arrays and card tensors."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 2 * per_row, rows)
+    off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    col = rng.integers(0, n, int(off[-1])).astype(np.int32)
+    val = rng.standard_normal(int(off[-1])).astype(np.float32)
+    if sd == torch.bfloat16:
+        val = torch.from_numpy(val).to(sd).to(torch.float32).numpy()
+    return off, col, val, [torch.from_numpy(x).to("cuda") for x in
+                           (off, col, val)]
+
+
+def _oracle(off, col, val, X, transpose, round_y=False):
+    """``np.add.at`` in stream order: the JAX package's host sweep."""
+    import numpy as np
+    rows = np.repeat(np.arange(len(off) - 1), np.diff(off))
+    if transpose:
+        out = np.zeros((int(col.max()) + 1 if col.size else 0, X.shape[1]),
+                       np.float32)
+        np.add.at(out, col, val[:, None] * X[rows])
+        return out
+    out = np.zeros((len(off) - 1, X.shape[1]), np.float32)
+    np.add.at(out, rows, val[:, None] * X[col])
+    if round_y:
+        out = torch.from_numpy(out).to(torch.bfloat16).to(
+            torch.float32).numpy()
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 33])
+@pytest.mark.parametrize("sd", [torch.float32, torch.bfloat16])
+def test_csr_sweeps_are_bitwise_np_add_at(card, sd, k):
+    """Each product rounded before its add, summed in stream order: every
+    element is np.add.at's; reruns are bitwise equal (no atomics)."""
+    import numpy as np
+    n = 5000
+    off, col, val, (o, c, v) = _csr_block(3001, n, 5, k, sd)
+    v = v.to(sd)
+    rng = np.random.default_rng(7)
+    Q = rng.standard_normal((n, k)).astype(np.float32)
+    Y = rng.standard_normal((3000 + 1, k)).astype(np.float32)
+    if sd == torch.bfloat16:
+        Q, Y = (torch.from_numpy(x).to(sd).to(torch.float32).numpy()
+                for x in (Q, Y))
+    Qd, Yd = torch.from_numpy(Q).to(card), torch.from_numpy(Y).to(card)
+    ops.reset_launches()
+    got = ops.csr_matmat(o, c, v, Qd)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _oracle(off, col, val, Q, False))
+    Z = torch.zeros((n, k), device=card)
+    ops.csr_rmatmat(o, c, v, Yd, Z)
+    want = np.zeros((n, k), np.float32)
+    np.add.at(want, col, val[:, None] * Y[np.repeat(np.arange(3001),
+                                                    np.diff(off))])
+    np.testing.assert_array_equal(Z.cpu().numpy(), want)
+    Z2 = torch.zeros((n, k), device=card)
+    ops.csr_gram_chain(o, c, v, Qd, Z2, round_y=sd == torch.bfloat16)
+    y = _oracle(off, col, val, Q, False, round_y=sd == torch.bfloat16)
+    want2 = np.zeros((n, k), np.float32)
+    np.add.at(want2, col, val[:, None] * y[np.repeat(np.arange(3001),
+                                                     np.diff(off))])
+    np.testing.assert_array_equal(Z2.cpu().numpy(), want2)
+    Z3 = torch.zeros((n, k), device=card)
+    ops.csr_gram_chain(o, c, v, Qd, Z3, round_y=sd == torch.bfloat16)
+    assert torch.equal(Z2, Z3)
+    name = str(sd).rsplit(".", 1)[-1]
+    assert ops.launches["csr_matmat"] == 3 and \
+        ops.launches["csr_rmatmat"] == 3 and \
+        ops.launches["csr_gram_chain"] == 2
+    assert ops.route_launches[f"csr_matmat/{name}"] == 3
+
+
+def test_sparse_stream_on_the_card_matches_the_cpu(card):
+    """The pipeline (packing threads, pinned buffers, copy stream) gives
+    the CPU path's bits for every streamed op; launches are one a block
+    and a kernel; PCIe bytes count the CSR arrays."""
+    import numpy as np
+    from repro_torch.core import SyntheticSparseMatrix
+    sp = SyntheticSparseMatrix(10000, 3000, 7, seed=2, chunk=512)
+    Q = np.random.default_rng(1).standard_normal((3000, 8)).astype(
+        np.float32)
+    Y = np.random.default_rng(2).standard_normal((10000, 8)).astype(
+        np.float32)
+    for sd in ("float32", "bfloat16"):
+        sp.reset_feed_stats()
+        ops.reset_launches()
+        for name, X in (("matmat", Q), ("rmatmat", Y), ("gram_chain", Q)):
+            got = getattr(sp, name)(X, 999, dtype=sd, device=card)
+            want = getattr(sp, name)(X, 999, dtype=sd, device="cpu")
+            assert torch.equal(got.cpu(), want), (name, sd)
+        got = sp.range_sketch(5, seed=3, block_rows=999, dtype=sd,
+                              device=card)
+        assert torch.equal(got.cpu(), sp.range_sketch(
+            5, seed=3, block_rows=999, dtype=sd, device="cpu"))
+        blocks = 11
+        assert ops.launches["csr_gram_chain"] == blocks
+        assert ops.launches["csr_matmat"] == 2 * blocks
+        assert ops.launches["csr_rmatmat"] == 3 * blocks
+        st = sp.feed_stats()
+        assert st["blocks"] == 4 * blocks and st["nnz"] == 4 * sp.nnz
+        itemsize = 4 if sd == "float32" else 2
+        assert st["pcie_bytes"] == 4 * (sp.nnz * (4 + itemsize) + 4 * (
+            10000 + blocks)) + 10000 * 5 * 4
+    sp.close()
+
+
+def test_sparse_solve_on_the_card_resumes_bitwise(card, tmp_path):
+    """A capped sparse solve on the card resumes onto the uncapped one's
+    bits; launches are blocks x passes by kernel."""
+    from repro_torch.core import SyntheticSparseMatrix
+    import repro_torch
+    sp = SyntheticSparseMatrix(20000, 500, 9, seed=4)
+    kw = dict(force_iters=True, max_iters=6, block_rows=4096)
+    ops.reset_launches()
+    ref = repro_torch.svd(sp, 4, **kw)
+    assert ref.passes_over_A == 7 and ref.backend == "sparsestream"
+    assert ops.launches["csr_gram_chain"] == 5 * 6
+    assert ops.launches["csr_matmat"] == 5 * 7
+    ck = str(tmp_path / "ck")
+    repro_torch.svd(sp, 4, checkpoint_dir=ck, **{**kw, "max_iters": 3})
+    again = repro_torch.svd(sp, 4, checkpoint_dir=ck, **kw)
+    for a, b in zip(again[:3], ref[:3]):
+        assert torch.equal(a, b)
+    assert again.passes_over_A == ref.passes_over_A
+
+
+def test_sparse_stream_with_empty_blocks_on_the_card(card):
+    """A scipy stream whose row blocks hold no nonzeros, or far fewer than
+    the block before, goes through the ring's grown and emptied buffers
+    with the CPU path's bits."""
+    import numpy as np
+    import scipy.sparse
+    from repro_torch.core import ScipySparseMatrix
+    dense = np.zeros((3000, 400), np.float32)
+    rng = np.random.default_rng(5)
+    dense[:500] = rng.standard_normal((500, 400)) * (rng.random((500, 400))
+                                                      < 0.3)
+    dense[2200:2210, :7] = 1.5                    # a thin block after
+    sp = ScipySparseMatrix(scipy.sparse.csr_matrix(dense))
+    Q = rng.standard_normal((400, 3)).astype(np.float32)
+    for sd in ("float32", "bfloat16"):
+        got = sp.gram_chain(Q, 500, dtype=sd, device=card)
+        want = sp.gram_chain(Q, 500, dtype=sd, device="cpu")
+        assert torch.equal(got.cpu(), want), sd
+        assert torch.equal(sp.matmat(Q, 500, dtype=sd, device=card).cpu(),
+                           sp.matmat(Q, 500, dtype=sd, device="cpu"))
+    sp.close()
+
+
+def test_block_beyond_int32_nonzeros_is_refused_on_the_card(card):
+    """The packing threads refuse a block of 2^31 nonzeros (the count is
+    stubbed) before anything is cast or copied."""
+    import numpy as np
+    from repro_torch.core import RowBlockStream
+
+    class Huge(RowBlockStream):
+        m, n, seed = 2, 8, 0
+
+        def _csr_block(self, lo, hi):
+            return (np.array([0, 2**31 - 1, 2**31][:hi - lo + 1], np.int64),
+                    np.zeros(0, np.int64), np.zeros(0, np.float32))
+
+    s = Huge()
+    with pytest.raises(ValueError, match="int32.*block_rows"):
+        s.rmatmat(torch.zeros((2, 1), device=card), block_rows=2)
+    s.close()

@@ -6,7 +6,8 @@
   without a CUDA device and without ``device=`` (``--device`` for
   ``python -m repro_torch.launch.serve``) they raise; that holds for the
   out-of-core tiers' inputs (numpy arrays, ``.npy`` paths, memmaps) and
-  matrices too.
+  matrices too, and for the sparse stream's (synthetic streams, scipy
+  matrices, ``.npz`` paths).
 * The CUDA kernels build into a directory git ignores.
 """
 import ast
@@ -63,7 +64,8 @@ def test_port_imports_with_jax_unavailable():
             "repro_torch.kernels.deflate_matvec, repro_torch.kernels.gram, "
             "repro_torch.kernels.local_attn, repro_torch.core.partition, "
             "repro_torch.core.staging, repro_torch.core.oom, "
-            "repro_torch.core.diskio, "
+            "repro_torch.core.diskio, repro_torch.core.sparse, "
+            "repro_torch.kernels.csr_sweep, repro_torch.checkpoint, "
             "repro_torch.configs, repro_torch.models.config, "
             "repro_torch.models.layers, repro_torch.models.mlp, "
             "repro_torch.models.transformer, repro_torch.models.convert, "
@@ -111,6 +113,28 @@ def test_numpy_svd_without_device_raises_when_no_card(tmp_path):
         assert repro_torch.svd(src, 2, device="cpu").S.shape == (2,)
 
 
+def test_sparse_svd_without_device_raises_when_no_card(tmp_path):
+    """The sparse stream runs on the card too: a synthetic stream, a
+    scipy matrix or a ``.npz`` path given no device raises; its streamed
+    ops given numpy and no device raise; ``device="cpu"`` runs."""
+    _no_card()
+    import scipy.sparse
+    from repro_torch.core import SyntheticSparseMatrix
+    sp = SyntheticSparseMatrix(64, 12, 3, seed=0)
+    csr = scipy.sparse.random(40, 12, density=0.3, random_state=0,
+                              format="csr")
+    path = str(tmp_path / "A.npz")
+    scipy.sparse.save_npz(path, csr)
+    for src in (sp, csr, path):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            repro_torch.svd(src, 2)
+        assert repro_torch.svd(src, 2, device="cpu").S.shape == (2,)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sp.matmat(np.ones((12, 2), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.svd(sp, 2, method="gramfree")
+
+
 def test_host_blocked_matrix_without_device_raises_when_no_card(tmp_path):
     _no_card()
     A = np.ones((8, 3), np.float32)
@@ -148,7 +172,8 @@ def test_kernel_build_directory_is_ignored_by_git():
     ignored = (ROOT / ".gitignore").read_text().split()
     rel = build.BUILD_DIR.relative_to(ROOT).as_posix() + "/"
     assert rel in ignored
-    for name in ("block_matvec_tc", "block_matvec_tf32", "deflate_matvec",
-                 "gram_bf16", "gram_tf32", "local_attn", "staging"):
+    for name in ("block_matvec_tc", "block_matvec_tf32", "csr_sweep",
+                 "deflate_matvec", "gram_bf16", "gram_tf32", "local_attn",
+                 "staging"):
         assert build.CSRC.joinpath(f"{name}.cu").exists()
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

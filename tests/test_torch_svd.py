@@ -255,15 +255,59 @@ def test_solver_state_tree_is_the_jax_tree():
 
 
 @pytest.mark.parametrize("call", [
-    lambda A: repro_torch.svd(scipy.sparse.csr_matrix(A.numpy()), K,
-                              device="cpu"),
-    lambda A: repro_torch.svd("A.npz", K, device="cpu"),
     lambda A: repro_torch.svd(A, K, device="cpu", mesh=object()),
-    lambda A: repro_torch.svd(A, K, device="cpu", checkpoint_dir="ckpt"),
 ])
 def test_unported_inputs_raise_not_implemented(call):
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
         call(torch.from_numpy(_matrix()))
+
+
+def test_mesh_names_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match="item 8"):
+        repro_torch.svd(torch.from_numpy(_matrix()), K, device="cpu",
+                        mesh=object())
+
+
+def _dense_reference():
+    return repro_torch.svd(torch.from_numpy(_matrix()), K, device="cpu")
+
+
+def test_scipy_input_runs_the_sparse_stream():
+    """A scipy matrix (once refused) runs on the sparse stream and finds
+    the dense solve's spectrum and subspaces."""
+    res = repro_torch.svd(scipy.sparse.csr_matrix(_matrix()), K,
+                          device="cpu")
+    dense = _dense_reference()
+    assert res.backend == "scipysparse" and res.converged
+    np.testing.assert_allclose(_np(res.S), _np(dense.S), rtol=2e-4)
+    for X, Y in ((res.U, dense.U), (res.V, dense.V)):
+        assert np.linalg.svd(_np(X).T @ _np(Y), compute_uv=False).min() > \
+            1 - 1e-3
+
+
+def test_npz_path_runs_the_sparse_stream(tmp_path):
+    """A ``.npz`` path (once refused) loads onto the sparse stream: the
+    same solve as the in-memory scipy matrix, bitwise."""
+    path = str(tmp_path / "A.npz")
+    scipy.sparse.save_npz(path, scipy.sparse.csr_matrix(_matrix()))
+    got = repro_torch.svd(path, K, device="cpu")
+    want = repro_torch.svd(scipy.sparse.load_npz(path), K, device="cpu")
+    assert got.backend == "scipysparse"
+    torch.testing.assert_close(got.S, want.S, rtol=0, atol=0)
+
+
+def test_checkpoint_dir_saves_and_resumes(tmp_path):
+    """``checkpoint_dir`` (once refused) writes the solver state every
+    iteration and resumes a capped solve onto the uncapped one's bits."""
+    A = torch.from_numpy(_matrix())
+    ck = str(tmp_path / "ckpt")
+    ref = repro_torch.svd(A, K, device="cpu")
+    first = repro_torch.svd(A, K, device="cpu", max_iters=2,
+                            checkpoint_dir=ck)
+    assert int(first.iters[0]) == 2 and not first.converged
+    again = repro_torch.svd(A, K, device="cpu", checkpoint_dir=ck)
+    torch.testing.assert_close(again.S, ref.S, rtol=0, atol=0)
+    assert again.passes_over_A == ref.passes_over_A
 
 
 def test_undispatchable_input_is_an_input_error():

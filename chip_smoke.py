@@ -212,8 +212,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bf16 under bf16) and rerun bitwise; timed on the first block beside
    the plain version (``index_add_`` on the card), ``torch.sparse.mm``
    (fp32; cuSPARSE) and the bound.  Then ``svd(sp, 8,
-   force_iters=True, max_iters=6)`` in fp32 and bf16 (the main path):
-   passes 7, launches 512 blocks x passes by kernel and dtype,
+   force_iters=True, max_iters=3)`` in fp32 and bf16 (the main path;
+   3 iterations since phase 10 came: 6 before), passes 4, launches 512 blocks x passes by kernel and dtype,
    ``bytes_moved`` the JAX package's exactly, the factors finite and
    orthonormal; seconds a pass beside the host's packing rate, the PCIe
    bytes and rate, and (bf16, profiled) kernel time and device idle
@@ -228,6 +228,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    uncapped solve's with equal passes; gram-free at k = 2, sigma within
    2e-3, passes = sum(2 it + 1).  The dense shard of phase 3 capped and
    resumed the same way.  ``--only-sparse`` runs phases 1 and 9 alone.
+10. the paper's N-GPU layout, ``svd(A, k, mesh=...)`` (``A`` row-sharded
+   over a ``torch.distributed`` mesh, one ``(n, k)`` all-reduce a block
+   step, the deflation engines' faithful and fused schedules), on a
+   262144 x 32768 fp32 matrix separable by rows (``separable_matrix``:
+   noise seeded per 1 GiB chunk, so any split over ranks builds the same
+   bits).  10.1, one rank on NCCL (the card holds one; NCCL refuses two
+   ranks on one GPU) at the paper's full per-node shard: the block solve
+   (k = 32, default config) in fp32 and bf16, held to the spectrum and to
+   the dense solve of the same ``A`` (rtol 1e-4; bf16 1e-2), launches
+   to the pass accounting by route, the collectives to exactly one
+   (32768, 32) fp32 all-reduce a step (4 MiB) and the extraction's
+   (32, 32); the all-reduce timed alone and a profiled solve's NCCL
+   kernel time; gram-free k = 16 and gram k = 8 on 262144 x 8192,
+   faithful and fused: collectives a power step (3 and 1), launches and
+   passes the reference's schedule.  10.2, four gloo ranks sharing the
+   card (``torchrun --standalone``, this script with ``--sharded-rank``,
+   under a timeout), each building and holding only its 65536 rows (8
+   GiB) as a ``DTensor``: the block solve, sigma within 1e-4 of 10.1,
+   ``U`` (gathered) orthonormal, S, V and iters bitwise on every rank, a
+   rerun bitwise, each rank's rows bitwise 10.1's (checksums); a kill
+   after iteration 8 and a resume from the first rank's checkpoint,
+   bitwise; a wide 4096 x 65536 input (each rank copying its column
+   slice); gram-free and gram at k = 4 on 65536 x 8192, faithful and
+   fused, with their collectives; a planted device OOM at 16384 x 1024
+   moving each rank's own 4096 rows to its host (the host-blocked tier,
+   one all-reduce a step still).  gloo times on one
+   card are not NCCL's between cards.  ``--only-sharded`` runs phases 1
+   and 10 alone.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches in the
 run of its path, and its times; the block sweeps as ``<name>/tf32x3``
@@ -246,8 +274,13 @@ power limit line again, and last ``{"ok": true, "device": {...}}``;
 the CSR kernels as ``csr_matmat``, ``csr_rmatmat`` and
 ``csr_gram_chain`` (fp32 values; launches from the fp32 paper-share
 solve) and the same with ``[bf16]`` (from the bf16 solve); before them an
-``{"out_of_core": {...}}`` line with phase 8's numbers and a
-``{"sparse": {...}}`` line with phase 9's.
+``{"out_of_core": {...}}`` line with phase 8's numbers, a
+``{"sparse": {...}}`` line with phase 9's and a ``{"sharded": {...}}``
+line with phase 10's; the sharded path's launches (10.1, one rank) as
+``<kernel>/<route>[sharded]`` for the block solves and ``<kernel>[sharded
+<method> faithful]`` / ``[sharded <method> fused]`` for the deflation
+solves, beside the rows measured at the same shapes; and each phase's
+seconds.
 Exits 2 without a CUDA device or without ``src/repro_torch`` beside this
 script.
 """
@@ -2457,8 +2490,8 @@ def sparse_profile(torch, fn) -> tuple:
 
 
 def paper_share(torch, repro_torch, ops, sp, sd, rate, profile) -> dict:
-    """``svd(sp, 8, force_iters=True, max_iters=6)`` at ``sd``: passes
-    7, launches 512 x passes by kernel, ``bytes_moved`` exact; seconds a
+    """``svd(sp, 8, force_iters=True, max_iters=3)`` at ``sd``: passes
+    4, launches 512 x passes by kernel, ``bytes_moved`` exact; seconds a
     pass split into the host's packing rate, H2D and kernels."""
     nb = -(-sp.m // SP_BLOCK)
     label = f"paper share svd(sp, {SP_K}) {sd}"
@@ -2699,6 +2732,665 @@ def sparse_stream(torch, repro_torch, ops, ref, dev, rate=None) -> tuple:
     return out, rows, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the paper's N-GPU layout (svd(A, k, mesh=...))
+# ---------------------------------------------------------------------------
+
+SH_SEED = SEED + 20                    # the phase's block matrix (M x N)
+SH_RANKS = 4                           # gloo ranks sharing the card (10.2)
+SH_DEFL = (M, N_GRAM)                  # 10.1's deflation solves
+SH_DEFL_K = {"gramfree": K_GRAMFREE, "gram": K_GRAM}
+SH_SMALL, SH_SMALL_K = (65536, 8192), 4   # 10.2's deflation solves
+SH_WIDE, SH_WIDE_K = (4096, 65536), 16    # 10.2's wide input
+SH_DEMOTE = (16384, 1024)              # 10.2's planted device OOM
+SH_KILL_AT = 8                         # 10.2's resume: killed after it 8
+SH_TIMEOUT = 420                       # seconds for the four ranks
+SH_CHUNK = 1 << 30                     # bytes of fp32 rows a noise chunk
+TOL_ORTH = 5e-3                        # |U^T U - I|, tests/test_distributed.py
+
+
+def separable_matrix(torch, m, n, seed, dev, lo=0, hi=None):
+    """Rows ``[lo, hi)`` of ``U diag(s) V^T + NOISE * G`` (s as
+    ``spectral_matrix``): ``U`` and ``V`` from QR of seeded draws, made
+    whole by every caller; ``G`` and the product one 1 GiB chunk of rows
+    at a time, each chunk's noise from its own generator seeded by
+    (seed, chunk) and each product over the whole chunk.  So any split of
+    the rows over ranks builds bitwise the same matrix.  Returns (rows,
+    s)."""
+    hi = m if hi is None else hi
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s = (100.0 * 0.9 ** torch.arange(N_SPECTRUM, dtype=torch.float64)
+         ).to(torch.float32).to(dev)
+    U = torch.linalg.qr(torch.randn(m, N_SPECTRUM, generator=g,
+                                    device=dev)).Q
+    V = torch.linalg.qr(torch.randn(n, N_SPECTRUM, generator=g,
+                                    device=dev)).Q
+    A = torch.empty((hi - lo, n), dtype=torch.float32, device=dev)
+    step = max(1, SH_CHUNK // (4 * n))
+    for c in range(lo // step, (hi - 1) // step + 1):
+        r0, r1 = c * step, min((c + 1) * step, m)
+        gc = torch.Generator(device=dev).manual_seed((seed << 32) + c)
+        blk = (U[r0:r1] * s) @ V.mT
+        blk.add_(torch.randn((r1 - r0, n), generator=gc, device=dev),
+                 alpha=NOISE)
+        a, b = max(r0, lo), min(r1, hi)
+        A[a - lo:b - lo] = blk[a - r0:b - r0]
+        del blk
+    return A, s
+
+
+def row_checksums(torch, A, parts: int) -> list:
+    """The float64 sum and sum of squares of each of ``parts`` row
+    slices, each summed a 1 GiB chunk of rows at a time in row order (no
+    float64 copy of a whole slice): equal slices give equal bits."""
+    m, step = A.shape[0] // parts, max(1, SH_CHUNK // (4 * A.shape[1]))
+    out = []
+    for i in range(parts):
+        total = [0.0, 0.0]
+        for r in range(i * m, (i + 1) * m, step):
+            blk = A[r:min(r + step, (i + 1) * m)].double()
+            total[0] += float(blk.sum())
+            total[1] += float(blk.square().sum())
+            del blk
+        out.append(total)
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def collective_summary(coll) -> dict:
+    """The collectives since the last reset, counted by (op, shape)."""
+    out: dict = {}
+    for c in coll.record:
+        key = f"{c['op']}{list(c['shape'])}/{c['dtype']}"
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def deflation_collectives(method, faithful, n, k, iters, shards) -> dict:
+    """What the reference's schedule issues (``core/dist_svd.py``): the
+    fused chain one (n + k,) all-reduce a power step, the faithful three;
+    the Gram path a reduce-scatter (fused, one axis) or all-reduce of B
+    a rank and, fused, one all-gather of B_loc v (n / shards a rank) a
+    step; a scalar all-reduce a rank for sigma."""
+    steps, f32 = int(sum(iters)), "float32"
+    want = {f"all_reduce[]/{f32}": len(iters)}
+    if method == "gramfree" and not faithful:
+        want[f"all_reduce[{n + k}]/{f32}"] = steps
+    elif method == "gramfree":
+        want[f"all_reduce[{n}]/{f32}"] = 2 * steps
+        want[f"all_reduce[{k}]/{f32}"] = steps
+    elif faithful:
+        want[f"all_reduce[{n}, {n}]/{f32}"] = len(iters)
+    else:
+        want[f"reduce_scatter[{n}, {n}]/{f32}"] = len(iters)
+        want[f"all_gather[{n // shards}]/{f32}"] = steps
+    return want
+
+
+def sharded_deflation(torch, repro_torch, ops, coll, mesh, X, k, method,
+                      faithful, s, label, n_blocks=None) -> dict:
+    """One deflation solve on ``mesh``, held to the prescribed spectrum,
+    to the reference's collectives and passes, and (one rank) to the
+    launches its schedule implies."""
+    from repro_torch.core.config import SVDConfig
+    nb = SVDConfig().n_blocks if n_blocks is None else n_blocks
+    ops.reset_launches()
+    coll.reset_record()
+    res = repro_torch.svd(X, k, mesh=mesh, method=method, faithful=faithful,
+                          n_blocks=nb)
+    it = [int(i) for i in res.iters]
+    steps = sum(it)
+    got = collective_summary(coll)
+    counts = {n_: c for n_, c in ops.launches.items() if c}
+    err = float((res.S.double().cpu() / s[:k].double().cpu() - 1)
+                .abs().max())
+    n = X.shape[1]
+    per_step = (0 if method == "gram" else 3 if faithful else 1)
+    print(f"{label}: iters {it} (sum {steps}), passes_over_A "
+          f"{res.passes_over_A}, wall_time_s {res.wall_time_s:.3f}, "
+          f"collectives {got} ({per_step} a power step), launches {counts}, "
+          f"max sigma rel err {err:.2e} (limit {TOL_DEFLATION:.0e})")
+    want = deflation_collectives(method, faithful, n, k, it,
+                                 mesh.size(mesh.mesh_dim_names.index("data")))
+    if got != want:
+        fail(f"{label}: collectives {got}, the schedule implies {want}")
+    passes = 3 * k if method == "gram" else (3 if faithful else 2) * steps + k
+    if res.passes_over_A != passes or res.backend != "sharded" \
+            or res.bytes_moved is not None:
+        fail(f"{label}: passes {res.passes_over_A} (want {passes}), "
+             f"backend {res.backend}")
+    if not (res.converged and err <= TOL_DEFLATION):
+        fail(f"{label}: not converged to the prescribed sigma")
+    return {"iters": it, "passes": res.passes_over_A,
+            "wall_s": res.wall_time_s, "collectives": got,
+            "launches": counts, "sigma_err": err, "res": res}
+
+
+def sharded_one_rank(torch, repro_torch, ops, ref, bm, dev,
+                     time_rows: bool = False) -> tuple:
+    """10.1: one rank on NCCL at the paper's per-node shard.  Returns its
+    numbers, each kernel's launches on its path and (``time_rows``) the
+    deflation kernels' rows at the shapes this path gives them: ``matvec``
+    on the whole 262144 x 8192 shard (the faithful chain, u recovery) and
+    on a row block of it (the fused chain, ``n_blocks`` = 4), and
+    ``deflate_rmatvec`` on that block."""
+    import torch.distributed as dist
+    from repro_torch.core import collectives as coll
+    from repro_torch.launch.mesh import axes_group
+    t_phase = time.perf_counter()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    out: dict = {"backend": backend}
+    path_counts: dict = {}
+    rows: dict = {}
+    try:
+        mesh = repro_torch.make_host_mesh(device=dev.type)
+        group = axes_group(mesh, ("data",))
+        # one-time costs, timed apart so that the solves below time the
+        # steady state: NCCL sets its communicator up at the first
+        # collective; DTensor's import and its first tensor; the first eigh
+        # on the device
+        setup = {}
+
+        def first_dtensor():
+            from torch.distributed.tensor import DTensor, Replicate, Shard
+            return DTensor.from_local(torch.zeros((1, K), device=dev), mesh,
+                                      [Shard(0), Replicate()],
+                                      run_check=False)
+        for what, fn in (
+                ("first_collective", lambda: coll.all_reduce(
+                    torch.zeros(1, device=dev), group)),
+                ("dtensor_import", lambda: __import__(
+                    "torch.distributed.tensor")),
+                ("first_dtensor", first_dtensor),
+                ("first_eigh", lambda: torch.linalg.eigh(
+                    torch.eye(K, device=dev)))):
+            t0 = time.perf_counter()
+            fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            setup[what] = time.perf_counter() - t0
+        out["setup_s"] = setup
+        print(f"10.1 {backend} at world size 1, one-time costs: " + ", ".join(
+            f"{what} {t:.3f} s" for what, t in setup.items()))
+        A, s = separable_matrix(torch, M, N, SH_SEED, dev)
+        out["checksums"] = row_checksums(torch, A, SH_RANKS)
+        bf16_kw = {"sweep_dtype": "bfloat16", "eps": 1e-4}
+        for sd, kw, rtol, route in (("float32", {}, 1e-4, "tf32x3"),
+                                    ("bfloat16", bf16_kw, 1e-2, "wgmma")):
+            label = f"10.1 svd(A, {K}, mesh) {M}x{N} {sd} sweeps, 1 rank"
+            ops.reset_launches()
+            coll.reset_record()
+            res = repro_torch.svd(A, K, mesh=mesh, **kw)
+            counts = {n_: c for n_, c in ops.launches.items() if c}
+            routes = {n_: c for n_, c in ops.route_launches.items() if c}
+            got = collective_summary(coll)
+            step_bytes = coll.record[0]["bytes"]
+            it = int(res.iters[0])
+            dense = repro_torch.svd(A, K, device=dev, **kw)
+            err = float((res.S.double() / s[:K].double() - 1).abs().max())
+            vs_dense = float((res.S.double() / dense.S.double() - 1)
+                             .abs().max())
+            print(f"{label}: iters {it} (dense {int(dense.iters[0])}), "
+                  f"passes_over_A {res.passes_over_A}, bytes_per_pass "
+                  f"{res.bytes_per_pass}, wall_time_s {res.wall_time_s:.3f} "
+                  f"(dense {dense.wall_time_s:.3f}), collectives {got} "
+                  f"({step_bytes} bytes a step), "
+                  f"launches {counts} (by route {routes}), max sigma rel err "
+                  f"{err:.2e} against the spectrum, {vs_dense:.2e} against "
+                  f"the dense solve (limit {rtol:.0e})")
+            want = {"block_gram_chain": it, "block_matvec": it + 1,
+                    "block_rmatvec": it}
+            want_routes = {f"block_matvec/{route}": it,
+                           f"block_rmatvec/{route}": it}
+            last = f"block_matvec/{bm.route(A, K)}"
+            want_routes[last] = want_routes.get(last, 0) + 1
+            if counts != want or routes != want_routes:
+                fail(f"{label}: launches {counts} by route {routes}, the "
+                     f"pass accounting implies {want} by route "
+                     f"{want_routes}")
+            if got != {f"all_reduce[{N}, {K}]/float32": it,
+                       f"all_reduce[{K}, {K}]/float32": 1}:
+                fail(f"{label}: collectives {got}, want one ({N}, {K}) "
+                     f"all-reduce a step and the extraction's ({K}, {K})")
+            if res.passes_over_A != 2 * it + 1 or res.backend != "sharded" \
+                    or res.bytes_per_pass != M * N * (4 if sd == "float32"
+                                                      else 2):
+                fail(f"{label}: passes {res.passes_over_A} for {it} iters, "
+                     f"backend {res.backend}")
+            if not (res.converged and err <= rtol and vs_dense <= rtol):
+                fail(f"{label}: sigma not within {rtol} of the spectrum and "
+                     f"the dense solve")
+            out[sd] = {"iters": it, "dense_iters": int(dense.iters[0]),
+                       "wall_s": res.wall_time_s,
+                       "dense_wall_s": dense.wall_time_s,
+                       "passes": res.passes_over_A,
+                       "bytes_per_pass": res.bytes_per_pass,
+                       "collectives": got, "step_bytes": step_bytes,
+                       "sigma_err": err,
+                       "vs_dense": vs_dense}
+            for n_, c in routes.items():
+                key = f"{n_}[sharded]"
+                path_counts[key] = path_counts.get(key, 0) + c
+            path_counts[f"block_gram_chain/{route}[sharded]"] = \
+                counts["block_gram_chain"]
+            if sd == "float32":
+                out["S"] = res.S.cpu().tolist()
+                # the first sharded solve of a process pays one-time costs
+                # beyond those timed above; the second is the steady state
+                again = repro_torch.svd(A, K, mesh=mesh, **kw)
+                out[sd]["second_wall_s"] = again.wall_time_s
+                print(f"10.1 the same solve again: wall_time_s "
+                      f"{again.wall_time_s:.3f} (dense "
+                      f"{dense.wall_time_s:.3f}, "
+                      f"{100 * (again.wall_time_s / dense.wall_time_s - 1):+.1f}"
+                      f" %)")
+                if not torch.equal(again.S, res.S):
+                    fail("10.1: a rerun of the sharded solve differs")
+                del again
+                # the row-sharded U gathered by DTensor itself (on NCCL;
+                # on a gloo mesh of CUDA tensors full_tensor() crashes,
+                # ROADMAP.md queue 3, so 10.2 gathers through collectives)
+                U = res.U.full_tensor()
+                out["orth_err"] = float((U.mT @ U - torch.eye(
+                    K, device=dev)).abs().max())
+                print(f"10.1 U.full_tensor() {tuple(U.shape)}: |U^T U - I| "
+                      f"{out['orth_err']:.2e} (limit {TOL_ORTH:.0e})")
+                if out["orth_err"] > TOL_ORTH:
+                    fail("10.1: U is not orthonormal")
+                del U
+            del res, dense
+        # the all-reduce: events around the collective alone, and where a
+        # profiled solve's device time goes
+        x = torch.randn((N, K), device=dev)
+        out["all_reduce_ms"] = time_ms(torch, lambda: coll.all_reduce(
+            x, group), 20) if dev.type == "cuda" else None
+        coll.reset_record()
+        if dev.type == "cuda":
+            _, wall, busy, n_act, names = profile_window(
+                torch, lambda: repro_torch.svd(A, K, mesh=mesh))
+            nccl = {n_: t for n_, t in names.items() if "nccl" in n_.lower()}
+            out["profile"] = {"wall_s": wall, "busy_s": busy,
+                              "idle": 1 - busy / wall,
+                              "nccl_s": sum(nccl.values()),
+                              "nccl_kernels": sorted(nccl)}
+            print(f"10.1 profile of the fp32 sharded solve: {wall:.3f} s, "
+                  f"device busy {busy:.3f} s (idle "
+                  f"{100 * (1 - busy / wall):.1f} %), {n_act} activities; "
+                  f"NCCL kernels {sum(nccl.values()) * 1e3:.3f} ms "
+                  f"({sorted(nccl) or 'none: one rank sums nothing'}); "
+                  f"one ({N}, {K}) all-reduce timed alone "
+                  f"{out['all_reduce_ms']:.4f} ms")
+        del A, x
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+        Ad, sdf = separable_matrix(torch, *SH_DEFL, SH_SEED + 1, dev)
+        for method in ("gramfree", "gram"):
+            for faithful in (True, False):
+                k = SH_DEFL_K[method]
+                row = sharded_deflation(
+                    torch, repro_torch, ops, coll, mesh, Ad, k, method,
+                    faithful, sdf, f"10.1 svd(A, {k}, mesh, method="
+                    f"{method!r}, faithful={faithful}) {SH_DEFL[0]}x"
+                    f"{SH_DEFL[1]}, 1 rank")
+                nb = repro_torch.SVDConfig().n_blocks
+                steps, counts = sum(row["iters"]), row["launches"]
+                if method == "gram":
+                    want = {"gram": k, "matvec": k}
+                elif faithful:
+                    want = {"matvec": 3 * steps + k}
+                else:
+                    want = {"matvec": nb * steps + k,
+                            "deflate_rmatvec": nb * steps}
+                if dev.type == "cuda" and counts != want:
+                    fail(f"10.1 {method} faithful={faithful}: launches "
+                         f"{counts}, the schedule implies {want}")
+                tag = "faithful" if faithful else "fused"
+                for n_, c in counts.items():
+                    key = f"{n_}[sharded {method} {tag}]"
+                    path_counts[key] = path_counts.get(key, 0) + c
+                del row["res"]
+                out[f"{method}/{tag}"] = row
+        if time_rows:
+            rows = sharded_kernel_rows(torch, ops, ref, Ad)
+        del Ad
+    finally:
+        dist.destroy_process_group()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"10.1: {out['seconds']:.1f} s")
+    return out, path_counts, rows
+
+
+def sharded_kernel_rows(torch, ops, ref, Ad) -> dict:
+    """The deflation kernels on the card against their plain versions at
+    the sharded path's shapes, timed (phase 4's ``time_kernel``)."""
+    from repro_torch.core.config import SVDConfig
+    g = torch.Generator(device=Ad.device).manual_seed(SH_SEED + 5)
+    m, n = Ad.shape
+    blk = Ad[:m // SVDConfig().n_blocks]
+    k = SH_DEFL_K["gramfree"]
+    v = torch.randn(n, generator=g, device=Ad.device)
+    Xv = torch.randn(blk.shape[0], generator=g, device=Ad.device)
+    Ud = torch.randn((blk.shape[0], k), generator=g, device=Ad.device)
+    c = torch.randn(k, generator=g, device=Ad.device)
+    rows = {}
+    for label, X in (("matvec/whole", Ad), ("matvec/block", blk)):
+        rows[label] = time_kernel(
+            torch, "matvec", lambda X=X: ops.matvec(X, v),
+            lambda X=X: ref.matvec_ref(X, v), lambda X=X: torch.mv(X, v), 10,
+            TOL["float32"], deflation_bound("matvec", *X.shape))
+    rows["deflate_rmatvec/block"] = time_kernel(
+        torch, "deflate_rmatvec", lambda: ops.deflate_rmatvec(blk, Ud, Xv, c),
+        lambda: ref.deflate_rmatvec_ref(blk, Ud, Xv, c),
+        lambda: (torch.mv(blk.mT, Xv - Ud @ c), Ud.mT @ Xv), 10,
+        TOL["float32"], deflation_bound("deflate_rmatvec", *blk.shape, k))
+    return rows
+
+
+def sharded_rank(outdir: str, device_type: str) -> int:
+    """10.2, one of ``SH_RANKS`` gloo ranks started by ``torchrun`` (this
+    script with ``--sharded-rank DIR DEVICE``): its rows of the phase's
+    matrix, the solves, and its numbers into ``DIR/rank<r>.json`` /
+    ``.npz`` for the parent to compare."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    import repro_torch
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.errors import KilledFault
+    from repro_torch.core.faults import FaultPlan, FaultSpec, inject_faults
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import axes_group, mesh_device
+    dist.init_process_group("gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = repro_torch.make_host_mesh(device=device_type)
+    group, dev = axes_group(mesh, ("data",)), mesh_device(mesh)
+    saved, out = {}, {"rank": rank, "device": str(dev)}
+
+    def rows(m, n, seed):
+        lo, hi = rank * m // world, (rank + 1) * m // world
+        X, s = separable_matrix(torch, m, n, seed, dev, lo, hi)
+        return DTensor.from_local(X, mesh, [Shard(0), Replicate()],
+                                  run_check=False, shape=torch.Size((m, n)),
+                                  stride=(n, 1)), s
+
+    t0 = time.perf_counter()
+    A, s = rows(M, N, SH_SEED)
+    out["checksums"] = row_checksums(torch, A.to_local(), 1)[0]
+    out["build_s"] = time.perf_counter() - t0
+
+    def block(label, X, k, **kw):
+        ops.reset_launches()
+        coll.reset_record()
+        res = repro_torch.svd(X, k, mesh=mesh, **kw)
+        out[label] = {"iters": int(res.iters[0]),
+                      "passes": res.passes_over_A,
+                      "wall_s": res.wall_time_s, "backend": res.backend,
+                      "collectives": collective_summary(coll),
+                      "launches": {n_: c for n_, c in ops.launches.items()
+                                   if c}}
+        saved[f"{label}/S"] = res.S.cpu().numpy()
+        return res
+
+    res = block("block", A, K)
+    # U is the row-sharded DTensor; gathered through the collectives
+    # module, which gloo runs on CUDA tensors
+    U = coll.all_gather(res.U.to_local(), group)
+    out["block"]["orth_err"] = float((U.mT @ U - torch.eye(
+        K, device=dev)).abs().max())
+    saved["block/V"] = res.V.cpu().numpy()
+    saved["block/U"] = res.U.to_local().cpu().numpy()
+    x = torch.randn((N, K), device=dev)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        coll.all_reduce(x, group)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["all_reduce_ms"] = (time.perf_counter() - t0) * 100
+    again = block("block_rerun", A, K)
+    out["rerun_bitwise"] = all(torch.equal(a.to_local() if hasattr(
+        a, "to_local") else a, b.to_local() if hasattr(b, "to_local")
+        else b) for a, b in zip(res[:3], again[:3]))
+    del again
+    # a resume after a kill at iteration SH_KILL_AT: the first rank writes
+    # each step, every rank resumes from it; bitwise the uncut solve
+    ck = os.path.join(outdir, "ck")
+    try:
+        with inject_faults(FaultPlan(FaultSpec("kill", at=SH_KILL_AT - 1))):
+            repro_torch.svd(A, K, mesh=mesh, checkpoint_dir=ck)
+        out["killed"] = False
+    except KilledFault:
+        out["killed"] = True
+    from repro_torch.checkpoint import CheckpointManager
+    out["resumed_from"] = CheckpointManager(ck).latest_step()
+    resumed = block("resumed", A, K, checkpoint_dir=ck)
+    out["resume_bitwise"] = all(torch.equal(
+        a.to_local() if hasattr(a, "to_local") else a,
+        b.to_local() if hasattr(b, "to_local") else b)
+        for a, b in zip(res[:3], resumed[:3])) and \
+        resumed.passes_over_A == res.passes_over_A
+    # the transpose of the main matrix, A.mT: a wide DTensor whose
+    # transposed-in rows are each rank's own (no copy)
+    wide = block("transpose", A.mT, K)
+    out["transpose"]["vs_block"] = float((wide.S.double() / res.S.double()
+                                          - 1).abs().max())
+    out["transpose"]["long_side"] = type(wide.V).__name__
+    del res, resumed, wide, A, U
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # a wide input given whole (every rank copies its column slice)
+    W, sw = separable_matrix(torch, *SH_WIDE, SH_SEED + 2, dev)
+    res = block("wide", W, SH_WIDE_K)
+    out["wide"]["sigma_err"] = float((res.S.double() / sw[:SH_WIDE_K]
+                                      .double() - 1).abs().max())
+    out["wide"]["long_side"] = type(res.V).__name__
+    del W, res
+    # the deflation engines on the small matrix, faithful and fused
+    A2, s2 = rows(*SH_SMALL, SH_SEED + 3)
+    for method in ("gramfree", "gram"):
+        for faithful in (True, False):
+            row = sharded_deflation(
+                torch, repro_torch, ops, coll, mesh, A2, SH_SMALL_K, method,
+                faithful, s2, f"10.2 rank {rank} svd(A, {SH_SMALL_K}, mesh, "
+                f"method={method!r}, faithful={faithful}) {SH_SMALL[0]}x"
+                f"{SH_SMALL[1]}")
+            res = row.pop("res")
+            saved[f"{method}/{faithful}/S"] = res.S.cpu().numpy()
+            saved[f"{method}/{faithful}/V"] = res.V.cpu().numpy()
+            out[f"{method}/{'faithful' if faithful else 'fused'}"] = row
+    del A2, res
+    # a planted device OOM: each rank's own rows move to its host, the
+    # solve finishes on the host-blocked tier with the same collectives,
+    # the iterations kept
+    A3, _ = rows(*SH_DEMOTE, SH_SEED + 4)
+    kw = dict(force_iters=True, max_iters=10)
+    clean = repro_torch.svd(A3, 8, mesh=mesh, **kw)
+    coll.reset_record()
+    with inject_faults(FaultPlan(FaultSpec("device_oom", at=3))):
+        demoted = repro_torch.svd(A3, 8, mesh=mesh, **kw)
+    out["demote"] = {
+        "backend": demoted.backend, "iters": int(demoted.iters[0]),
+        "collectives": collective_summary(coll),
+        "demotions": demoted.faults["counters"].get("device_oom.demote", 0),
+        "vs_clean": float((demoted.S.double() / clean.S.double() - 1)
+                          .abs().max())}
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **saved)
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def sharded_four_ranks(torch, dev, one_rank: dict) -> dict:
+    """10.2: ``SH_RANKS`` gloo ranks sharing the card, started by
+    ``torchrun`` under ``SH_TIMEOUT`` (a rank that fails or hangs ends
+    them all, and the phase fails); their results held to each other
+    (bitwise), to 10.1's solve of the same matrix and to the spectrum."""
+    import signal
+    import tempfile
+    import numpy as np
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={SH_RANKS}", os.path.abspath(__file__),
+               "--sharded-rank", tmp, dev.type]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True,
+                                env=dict(os.environ, OMP_NUM_THREADS="2"))
+        try:
+            log = proc.communicate(timeout=SH_TIMEOUT)[0]
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            log = proc.communicate()[0]
+            print(log[-6000:])
+            fail(f"10.2: the {SH_RANKS} ranks did not finish in "
+                 f"{SH_TIMEOUT} s")
+        print("\n".join(l for l in log.splitlines()
+                        if "10.2 rank 0" in l or "FAILED" in l))
+        if proc.returncode != 0:
+            print(log[-8000:])
+            fail(f"10.2: torchrun exited {proc.returncode}")
+        ranks = []
+        for r in range(SH_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append((json.load(f), dict(np.load(os.path.join(
+                    tmp, f"rank{r}.npz")))))
+    first, arrays = ranks[0]
+    for r, (_, arr) in enumerate(ranks[1:], 1):
+        for key in arrays:
+            if key.endswith("/U"):
+                continue                      # each rank's own rows
+            if not np.array_equal(arr[key], arrays[key]):
+                fail(f"10.2: rank {r}'s {key} differs from rank 0's")
+    for r, (row, _) in enumerate(ranks):
+        for key in ("block", "block_rerun", "resumed", "transpose", "wide"):
+            if row[key]["iters"] != first[key]["iters"]:
+                fail(f"10.2: rank {r} took {row[key]['iters']} iterations "
+                     f"of {key}, rank 0 {first[key]['iters']}")
+        if row["checksums"] != one_rank["checksums"][r]:
+            fail(f"10.2: rank {r}'s rows {row['checksums']} are not 10.1's "
+                 f"{one_rank['checksums'][r]}: the split changed the matrix")
+        if not (row["rerun_bitwise"] and row["killed"] and
+                row["resumed_from"] == SH_KILL_AT and row["resume_bitwise"]):
+            fail(f"10.2: rank {r}: rerun bitwise {row['rerun_bitwise']}, "
+                 f"killed {row['killed']} at {row['resumed_from']}, resume "
+                 f"bitwise {row['resume_bitwise']}")
+        if row["block"]["orth_err"] > TOL_ORTH:
+            fail(f"10.2: rank {r}: |U^T U - I| {row['block']['orth_err']}")
+    S = arrays["block/S"]
+    vs_one = float(np.abs(S.astype(np.float64) /
+                          np.asarray(one_rank["S"]) - 1).max())
+    b = first["block"]
+    print(f"10.2 svd(A, {K}, mesh) {M}x{N} fp32 on {SH_RANKS} gloo ranks "
+          f"sharing the card ({M // SH_RANKS} rows each): iters {b['iters']} "
+          f"(1 rank: {one_rank['float32']['iters']}), wall_time_s "
+          f"{b['wall_s']:.3f} (1 rank on NCCL: "
+          f"{one_rank['float32']['wall_s']:.3f}), collectives a rank "
+          f"{b['collectives']}, launches a rank {b['launches']}, sigma "
+          f"within {vs_one:.2e} of 10.1 (limit 1e-4), |U^T U - I| "
+          f"{b['orth_err']:.2e} (limit {TOL_ORTH:.0e}); S, V, iters bitwise "
+          f"on every rank; rerun bitwise; killed after iteration "
+          f"{first['resumed_from']} and resumed bitwise; one ({N}, {K}) "
+          f"all-reduce on gloo {first['all_reduce_ms']:.3f} ms (host clock; "
+          f"gloo stages through the host: not NCCL's cost)")
+    if b["collectives"] != {f"all_reduce[{N}, {K}]/float32": b["iters"],
+                            f"all_reduce[{K}, {K}]/float32": 1}:
+        fail(f"10.2: collectives {b['collectives']}")
+    if vs_one > 1e-4:
+        fail(f"10.2: sigma {vs_one} from the one-rank solve")
+    t = first["transpose"]
+    print(f"10.2 the transpose, svd(A.mT, {K}, mesh) {N}x{M} (a wide "
+          f"DTensor, each rank's rows its own): iters {t['iters']}, wall_time_s "
+          f"{t['wall_s']:.3f}, long side a {t['long_side']}, sigma within "
+          f"{t['vs_block']:.2e} of svd(A) (limit 1e-4)")
+    if t["vs_block"] > 1e-4 or t["long_side"] != "DTensor":
+        fail("10.2: the transpose")
+    w = first["wide"]
+    print(f"10.2 wide {SH_WIDE[0]}x{SH_WIDE[1]} svd(A, {SH_WIDE_K}, mesh) "
+          f"given whole: iters {w['iters']}, long side a {w['long_side']}, "
+          f"max sigma rel err {w['sigma_err']:.2e} (limit 1e-4)")
+    if w["sigma_err"] > 1e-4 or w["long_side"] != "DTensor":
+        fail("10.2: the wide input")
+    d = first["demote"]
+    print(f"10.2 planted device OOM at step 3 ({SH_DEMOTE[0]}x"
+          f"{SH_DEMOTE[1]}): backend {d['backend']}, {d['demotions']} "
+          f"demotion, iters {d['iters']}, sigma within {d['vs_clean']:.2e} "
+          f"of the clean sharded solve (limit 1e-4), collectives "
+          f"{d['collectives']}")
+    n3 = SH_DEMOTE[1]
+    if not (d["backend"] == "hostblocked" and d["demotions"] == 1 and
+            d["iters"] == 10 and d["vs_clean"] <= 1e-4 and
+            d["collectives"] == {f"all_reduce[{n3}, 8]/float32": 10,
+                                 "all_reduce[8, 8]/float32": 1}):
+        fail("10.2: the planted device OOM")
+    out = {"ranks": SH_RANKS, "backend": "gloo", "block": b,
+           "vs_one_rank": vs_one, "transpose": t, "wide": w, "demote": d,
+           "all_reduce_ms_gloo": first["all_reduce_ms"],
+           "build_s": first["build_s"],
+           "deflation": {key: first[key] for key in first if "/" in key}}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"10.2: {out['seconds']:.1f} s")
+    return out
+
+
+def sharded(torch, repro_torch, ops, ref, bm, dev,
+            time_rows: bool = False) -> tuple:
+    """Phase 10 (see the module docstring): returns its numbers, each
+    kernel's launches on the one-rank path and the deflation kernels'
+    rows at its shapes (``time_rows``)."""
+    t_phase = time.perf_counter()
+    one, path_counts, rows = sharded_one_rank(torch, repro_torch, ops, ref,
+                                              bm, dev, time_rows)
+    four = sharded_four_ranks(torch, dev, one)
+    summary = {"one_rank": one, "four_ranks": four,
+               "seconds": time.perf_counter() - t_phase}
+    print(f"phase 10: {summary['seconds']:.1f} s")
+    return summary, path_counts, rows
+
+
+def sharded_kernel_line(counts: dict, table: dict, dtable: dict,
+                        rows: dict) -> list:
+    """The kernels line's entries for the sharded path (one rank, 10.1):
+    its launches by kernel and route, each beside the row measured at the
+    same shape (the block sweeps' phase-2b rows at 262144 x 32768, k =
+    32; ``gram``'s phase-5 row at 262144 x 8192; ``matvec`` and
+    ``deflate_rmatvec`` from ``sharded_kernel_rows``)."""
+    out = []
+    for key, c in sorted(counts.items()):
+        name, tag = key.split("[", 1)
+        kernel = name.split("/")[0]
+        if "/" in name:
+            which = name.split("/")[1]
+            row = table[(kernel, "float32" if which == "tf32x3"
+                         else "bfloat16")]
+            source = TF32_SOURCE if which == "tf32x3" else TC_SOURCE
+        elif kernel == "gram":
+            row, source = dtable["gram"], SOURCES["gram"]
+        else:
+            # the fused chain's sweeps run on row blocks (n_blocks = 4);
+            # u recovery and the faithful chain on the whole shard
+            shape = "block" if "gramfree fused" in tag else "whole"
+            row, source = rows[f"{kernel}/{shape}"], SOURCES[kernel]
+        out.append({"name": key, "route": "cuda", "source": source,
+                    "replaces": REPLACES[kernel], "launches": c,
+                    **{f: row[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms")}})
+    return out
+
+
 def csr_kernel_line(rows: dict, launches: dict) -> list:
     """The CSR kernels' entries of the ``kernels`` line."""
     return [{"name": name, "route": "cuda", "source": CSR_SOURCE,
@@ -2711,6 +3403,8 @@ def csr_kernel_line(rows: dict, launches: dict) -> list:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--sharded-rank"]:      # one rank of phase 10.2
+        return sharded_rank(*sys.argv[2:4])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2741,7 +3435,17 @@ def main() -> int:
           "3xTF32, never plain TF32)")
 
     # -- 1. build ----------------------------------------------------------
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
+    phase_s: dict = {}
+    t_mark = [t_start]
+
+    def mark(label: str) -> None:
+        """Print and keep the seconds since the last mark."""
+        now = time.perf_counter()
+        phase_s[label] = now - t_mark[0]
+        t_mark[0] = now
+        print(f"phase {label}: {phase_s[label]:.1f} s")
+
     planted_builds = {key: build_planted(build, *key)
                       for key in PLANTED + TIMING}
     logs = build.build_all()
@@ -2792,6 +3496,7 @@ def main() -> int:
                    for ld in (0, 1)))):
         sweep_instances(build, name, logs.get(name) or (
             build.BUILD_DIR / f"{name}.log").read_text(), tag, sd, want)
+    mark("1")
 
     if sys.argv[1:] == ["--only-out-of-core"]:    # phase 1, then phase 8
         print(json.dumps({"out_of_core": out_of_core(torch, repro_torch, ops,
@@ -2804,6 +3509,11 @@ def main() -> int:
         print(json.dumps({"sparse": summary}))
         print(json.dumps({"kernels": csr_kernel_line(csr_rows,
                                                      csr_launches)}))
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--only-sharded"]:        # phase 1, then phase 10
+        summary, _, _ = sharded(torch, repro_torch, ops, ref, bm, dev)
+        print(json.dumps({"sharded": summary}))
         print(card_line())
         return 0
 
@@ -2863,6 +3573,7 @@ def main() -> int:
     worst = deflation_ragged(torch, ops, ref, gm, g, dev)
     print(f"deflation kernels at ragged shapes: all within limits (worst "
           f"{worst:.2f} of limit)")
+    mark("2a")
 
     # -- 2b/3. the main path's A ----------------------------------------
     t0 = time.perf_counter()
@@ -2922,6 +3633,7 @@ def main() -> int:
             deflation_bound("deflate_rmatvec", M, N, K_GRAMFREE)),
     }
     del v, Xv, Ud, c
+    mark("2b and 4 (the main shape)")
 
     # -- 3. the main path (block) -----------------------------------------
     def solve(X, label, expect_trans=False, rtol=1e-4, route="tf32x3",
@@ -3013,6 +3725,7 @@ def main() -> int:
     _, bf16_counts, bf16_routes = solve(A, f"svd(A, {K}) bf16 sweeps",
                                         rtol=1e-2, route="wgmma", **bf16_kw)
     profile_solve("bf16", **bf16_kw)
+    mark("3 (the main path)")
 
     # -- 5. the deflation paths ------------------------------------------
     counts = deflation_solve(
@@ -3109,6 +3822,7 @@ def main() -> int:
         REPLACES[key] = REPLACES["gram"]
     del Agob
     torch.cuda.empty_cache()
+    mark("5 and 4 (gram)")
 
     # rows of 4 * 8190 bytes: no tensor map; fp32 runs 3xTF32 with A copied
     # by cp.async (8 bytes a copy: the rows start 8-byte aligned)
@@ -3191,6 +3905,7 @@ def main() -> int:
     staging_ld(torch, gm, planted, dtable["gram/wgmma_ld[trans]"], Awb,
                trans=True)
     del Awb
+    mark("3 (odd widths, wide) and 5 (wide)")
 
     # -- 6. determinism --------------------------------------------------
     Ar, _ = spectral_matrix(torch, *RERUN, SEED + 3, dev)
@@ -3226,19 +3941,29 @@ def main() -> int:
 
     del Ar, Aro
     torch.cuda.empty_cache()
+    mark("6")
 
     # -- 7. the LM serving path ------------------------------------------
     dtable["local_attention"], path_counts["local_attention"] = lm_serving(
         torch, ops, ref, local_attn, g, dev)
+    mark("7")
 
     # -- 8. the out-of-core tiers -----------------------------------------
     ooc = out_of_core(torch, repro_torch, ops, dev)
     print(json.dumps({"out_of_core": ooc}))
+    mark("8")
 
     # -- 9. the paper's sparse stream, and resume -------------------------
     summary, csr_rows, csr_launches = sparse_stream(
         torch, repro_torch, ops, ref, dev, rate=ooc["h2d"]["pinned"])
     print(json.dumps({"sparse": summary}))
+    mark("9")
+
+    # -- 10. the paper's N-GPU layout -------------------------------------
+    sh_summary, sh_counts, sh_rows = sharded(torch, repro_torch, ops, ref,
+                                             bm, dev, time_rows=True)
+    print(json.dumps({"sharded": sh_summary}))
+    mark("10")
 
     sweeps = ("block_matvec", "block_rmatvec", "block_gram_chain")
     rows = dict(dtable)
@@ -3273,8 +3998,9 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         **({"library_causal_ms": row["library_causal_ms"]}
            if "library_causal_ms" in row else {})}
-        for name, row in rows.items()] + csr_kernel_line(csr_rows,
-                                                         csr_launches)
+        for name, row in rows.items()] + csr_kernel_line(
+            csr_rows, csr_launches) + sharded_kernel_line(
+            sh_counts, table, dtable, sh_rows)
     print(json.dumps({"block_sweeps_by_route": [
         {"name": name, "dtype": "float32" if key[0] in (
             "float32", "tf32x3_cpasync") else "bfloat16",
@@ -3284,6 +4010,9 @@ def main() -> int:
                     ("wgmma_ld", ODD_LDA))
         for name in sweeps]}))
     print(json.dumps({"kernels": kernels}))
+    print("seconds by phase: " + ", ".join(f"{p} {t:.1f}"
+                                           for p, t in phase_s.items())
+          + f"; in all {time.perf_counter() - t_start:.1f}")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,11 @@ among them).  The out-of-core tiers (``svd`` of a numpy array, a
 paper's sparse stream (``svd`` of a ``SyntheticSparseMatrix``, a scipy
 matrix or a ``.npz``/``.mtx`` path: CSR row blocks packed on the host
 and swept on the card by the kernels of ``csrc/csr_sweep.cu``) and
-checkpoint/resume (``checkpoint_dir=``, the JAX package's format).
+checkpoint/resume (``checkpoint_dir=``, the JAX package's format), and
+the paper's N-GPU layout (``svd(A, k, mesh=make_host_mesh())``, run by
+every rank of a ``torch.distributed`` world: ``A`` row-sharded, one
+``(n, k)`` all-reduce a block step, the deflation engines' faithful and
+fused schedules).
 
     import torch, repro_torch
     res = repro_torch.svd(A, 32)                      # A on the card
@@ -29,6 +33,8 @@ checkpoint/resume (``checkpoint_dir=``, the JAX package's format).
     res = repro_torch.svd(A, 8, device="cpu")         # plain PyTorch, CPU
     sp = repro_torch.SyntheticSparseMatrix(2**25, 2**25, 33, seed=0)
     res = repro_torch.svd(sp, 8)                      # the sparse stream
+    mesh = repro_torch.make_host_mesh()               # under torchrun
+    res = repro_torch.svd(A, 32, mesh=mesh)           # row-sharded
 
     python -m repro_torch.launch.serve --arch gemma2-9b   # LM serving
 
@@ -38,19 +44,24 @@ no ``device`` and no visible CUDA device they raise.
 from repro_torch.core import (  # noqa: F401
     DenseOperator,
     DenseStreamOperator,
+    DistTSVDResult,
     InputError,
     LinearOperator,
     RowBlockStream,
     ScipySparseMatrix,
     ScipySparseOperator,
+    ShardedOperator,
     SolverState,
     SparseStreamOperator,
     SparseTSVDResult,
     SVDConfig,
     SVDError,
     SVDResult,
+    dist_tsvd,
     finalize,
     init_state,
+    make_host_mesh,
+    make_production_mesh,
     power_iterate_chain,
     power_iterate_gram,
     step,
@@ -67,4 +78,6 @@ __all__ = ["svd", "svd_update", "SVDConfig", "SVDResult", "SolverState",
            "power_iterate_gram", "power_iterate_chain",
            "RowBlockStream", "SyntheticSparseMatrix", "ScipySparseMatrix",
            "SparseStreamOperator", "ScipySparseOperator",
-           "DenseStreamOperator", "sparse_tsvd", "SparseTSVDResult"]
+           "DenseStreamOperator", "sparse_tsvd", "SparseTSVDResult",
+           "ShardedOperator", "dist_tsvd", "DistTSVDResult",
+           "make_host_mesh", "make_production_mesh"]

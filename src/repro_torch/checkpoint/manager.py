@@ -111,6 +111,45 @@ def _restore_leaf(a: np.ndarray, like):
     return np.asarray(a).astype(np.asarray(like).dtype)
 
 
+def _placements(like, shardings) -> list:
+    """One ``(mesh, placements)`` pair or ``None`` per leaf of ``like``,
+    in flatten order, from ``shardings`` (a tree matching ``like``, with
+    pairs or ``None`` at its leaves, or ``None`` for a whole subtree)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if like is None:
+        return []
+    if shardings is None:
+        return [None] * len(_flatten(like)[1])
+    if isinstance(shardings, tuple) and len(shardings) == 2 and \
+            isinstance(shardings[0], DeviceMesh):
+        if isinstance(like, (dict, list, tuple)):
+            raise ValueError("a (mesh, placements) pair places one leaf, "
+                             "not a subtree")
+        return [shardings]
+    if isinstance(like, dict) and isinstance(shardings, dict) and \
+            like.keys() == shardings.keys():
+        return [p for key in sorted(like)
+                for p in _placements(like[key], shardings[key])]
+    if isinstance(like, (list, tuple)) and \
+            isinstance(shardings, (list, tuple)) and \
+            len(like) == len(shardings):
+        return [p for a, b in zip(like, shardings)
+                for p in _placements(a, b)]
+    raise ValueError(f"shardings does not match the tree it restores: "
+                     f"{type(shardings).__name__} against "
+                     f"{type(like).__name__}")
+
+
+def _place(leaf, mesh, placements):
+    """A restored leaf distributed over ``mesh`` as ``placements`` say, on
+    the mesh's device."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch.mesh import mesh_device
+    t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(leaf))
+    return distribute_tensor(t.to(mesh_device(mesh)), mesh, list(placements))
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -207,11 +246,15 @@ class CheckpointManager:
     def restore(self, step: int, like, shardings=None):
         """Restore into the structure, containers and dtypes of ``like``
         (a matching tree).  Unreadable files raise
-        ``CheckpointCorruptError``."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=) places arrays on a device mesh, which "
-                "the port does not have yet (ROADMAP.md, queue 1, item 8)")
+        ``CheckpointCorruptError``.
+
+        ``shardings`` places the restored arrays on a device mesh (elastic
+        restore onto whatever mesh the new job has): a tree matching
+        ``like`` whose leaves are ``(mesh, placements)`` pairs — that leaf
+        comes back as a ``DTensor`` through ``distribute_tensor`` (every
+        rank of the mesh makes the call) — or ``None``, a plain leaf as
+        without ``shardings``; ``None`` in place of a subtree covers all
+        of it."""
         path = self._step_dir(step)
         keys, likes = _flatten(like)
         try:
@@ -222,8 +265,11 @@ class CheckpointManager:
                 f"step {step}: unreadable arrays.npz under {path!r} "
                 f"({type(e).__name__}: {e}) — truncated write or disk "
                 f"corruption") from e
-        return _unflatten(like, [_restore_leaf(a, v)
-                                 for a, v in zip(arrays, likes)])
+        leaves = [_restore_leaf(a, v) for a, v in zip(arrays, likes)]
+        if shardings is not None:
+            leaves = [a if s is None else _place(a, *s) for a, s in
+                      zip(leaves, _placements(like, shardings))]
+        return _unflatten(like, leaves)
 
     def restore_latest(self, like, shardings=None):
         step = self.latest_step()

@@ -3,8 +3,10 @@
 Mirrors the names of the JAX package's ``repro.core`` for what is
 ported: ``svd``/``svd_update``, the ``init_state``/``step``/``finalize``
 state machine, ``SVDConfig``/``SVDResult``/``SolverState``, the
-``LinearOperator`` protocol with ``DenseOperator``, ``HostBlockedOperator``,
-``MemmapOperator`` and ``SparseStreamOperator``, the sparse stream
+``LinearOperator`` protocol with ``DenseOperator``, ``ShardedOperator``,
+``HostBlockedOperator``, ``MemmapOperator`` and ``SparseStreamOperator``,
+the sharded backend's mesh helpers (``make_host_mesh``,
+``make_production_mesh``) and deprecated ``dist_tsvd``, the sparse stream
 (``RowBlockStream``, ``SyntheticSparseMatrix``, ``ScipySparseMatrix``,
 ``ScipySparseOperator``, ``DenseStreamOperator`` and the deprecated
 ``sparse_tsvd``), the out-of-core tiers (``HostBlockedMatrix``,
@@ -38,9 +40,15 @@ from repro_torch.core.tsvd import (  # noqa: F401
 from repro_torch.core.operator import (  # noqa: F401
     LinearOperator,
     DenseOperator,
+    ShardedOperator,
     HostBlockedOperator,
     MemmapOperator,
     SparseStreamOperator,
+)
+from repro_torch.core.dist_svd import DistTSVDResult, dist_tsvd  # noqa: F401
+from repro_torch.launch.mesh import (  # noqa: F401
+    make_host_mesh,
+    make_production_mesh,
 )
 from repro_torch.core.partition import (  # noqa: F401
     BatchPlan,
@@ -106,6 +114,7 @@ __all__ = [
     "finalize",
     "LinearOperator",
     "DenseOperator",
+    "ShardedOperator",
     "HostBlockedOperator",
     "MemmapOperator",
     "SparseStreamOperator",
@@ -153,4 +162,8 @@ __all__ = [
     "FaultTelemetry",
     "RetryPolicy",
     "inject_faults",
+    "dist_tsvd",
+    "DistTSVDResult",
+    "make_host_mesh",
+    "make_production_mesh",
 ]

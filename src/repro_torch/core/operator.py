@@ -6,10 +6,11 @@
 tensor resident on one device, ``HostBlockedOperator`` for the row
 blocks of a host matrix streamed to the device (``core/oom.py``), and
 ``MemmapOperator`` for a matrix on disk (``core/diskio.py``): the
-demotion ladder dense -> host-blocked -> memmap of the JAX package; and
+demotion ladder dense -> host-blocked -> memmap of the JAX package;
 ``SparseStreamOperator`` for a streamed sparse matrix
-(``core/sparse.py``).  The sharded adapter comes with a later slice of
-the port (ROADMAP.md, queue 1).
+(``core/sparse.py``); and ``ShardedOperator`` for the rows of ``A``
+sharded over the axes of a ``torch.distributed`` device mesh, one rank
+each (the paper's N-GPU layout; ``core/collectives.py``).
 
 Every A-sized product of ``DenseOperator`` goes through the sweep
 wrappers of ``kernels/ops.py``: on the card those launch the Hopper
@@ -53,6 +54,9 @@ __all__ = [
     "HostBlockedOperator",
     "MemmapOperator",
     "SparseStreamOperator",
+    "ShardedOperator",
+    "ShardedHostOperator",
+    "ShardLayout",
     "host_sync_scalar",
     "resolve_device",
     "warm_start_width",
@@ -288,6 +292,15 @@ class LinearOperator:
         lower tier.  Called by the driver when a step hits device OOM."""
         return None
 
+    # -- ranks (a sharded operator is driven by every rank of its mesh) ------
+
+    #: this process writes the solver's checkpoints (on a mesh: one rank)
+    writes_checkpoints = True
+
+    def sync_ranks(self):
+        """Wait for every rank driving this operator (none but this one
+        here)."""
+
 
 # ---------------------------------------------------------------------------
 # DenseOperator — a tensor resident on one device
@@ -394,6 +407,245 @@ class DenseOperator(LinearOperator):
                                  stage_dtype=self.sweep_dtype,
                                  device=self.device)
         return HostBlockedOperator(host)
+
+    @property
+    def bytes_per_pass(self):
+        m, n = self._shape
+        return m * n * self._As.element_size()
+
+
+# ---------------------------------------------------------------------------
+# ShardedOperator — rows of A sharded over torch.distributed mesh axes
+# ---------------------------------------------------------------------------
+
+class ShardLayout:
+    """Where this rank's rows of a matrix row-sharded over ``axes`` of
+    ``mesh`` live: the one process group over those axes
+    (``launch/mesh.py::axes_group``), the shard count, this rank's flat
+    shard index (row-major over ``axes``, as ``P(("pod", "data"), None)``
+    orders the rows), the device (from the mesh) and the DTensor
+    placements of such a matrix."""
+
+    def __init__(self, mesh, axes=("data",), device=None):
+        import torch.distributed as dist
+        from torch.distributed.tensor import Replicate, Shard
+        from repro_torch.launch.mesh import (axes_group, mesh_device,
+                                             shard_count)
+        self.device = mesh_device(mesh)
+        want = None if device is None else torch.device(device)
+        if want is not None and (want.type != self.device.type or (
+                want.index is not None and want.index != self.device.index)):
+            raise ValueError(f"device={device!r} disagrees with the mesh, "
+                             f"whose rank {dist.get_rank()} lives on "
+                             f"{self.device}; drop device= on a mesh")
+        self.mesh, self.axes = mesh, tuple(axes)
+        names = tuple(mesh.mesh_dim_names or ())
+        if not self.axes or any(a not in names for a in self.axes):
+            raise ValueError(f"axes {self.axes} are not dims of the mesh "
+                             f"{names}")
+        dims = [names.index(a) for a in self.axes]
+        if dims != sorted(dims):
+            raise ValueError(f"axes {self.axes} must follow the mesh's own "
+                             f"order {names}")
+        self.group = axes_group(mesh, self.axes)
+        self.n_shards = shard_count(mesh, self.axes)
+        coord = mesh.get_coordinate()
+        self.index = 0
+        for d in dims:
+            self.index = self.index * mesh.size(d) + coord[d]
+        if self.index != dist.get_rank(self.group):
+            raise ValueError(
+                f"rank {dist.get_rank()} is shard {self.index} of the mesh "
+                f"but rank {dist.get_rank(self.group)} of its group: build "
+                f"the mesh over ranks in row-major order")
+        self.placements = [Shard(0) if name in self.axes else Replicate()
+                           for name in names]
+        # dims outside the axes replicate the rows, so shard 0 is one rank
+        # for each of their coordinates: the checkpoints have one writer,
+        # the mesh's first rank, and every rank of the mesh waits for it
+        self.writes_checkpoints = (dist.get_rank()
+                                   == int(mesh.mesh.flatten()[0]))
+        self.mesh_group = axes_group(mesh, names)
+
+    def sync(self) -> None:
+        """Wait for every rank of the mesh."""
+        from repro_torch.core.collectives import barrier
+        barrier(self.mesh_group)
+
+    def check_rows(self, m: int) -> int:
+        """Rows a shard holds; the reference's error when they do not
+        divide."""
+        if m % self.n_shards:
+            raise ValueError(f"m={m} not divisible by shards={self.n_shards}; "
+                             "pad first")
+        return m // self.n_shards
+
+    def local_rows(self, X) -> torch.Tensor:
+        """This rank's rows of ``X`` (the tall orientation: a tensor, an
+        ndarray, either's transposed view, or a DTensor) as a contiguous
+        fp32 tensor on the rank's device.  Only those rows are copied: of
+        a transposed view, the column slice of the matrix beneath it."""
+        from torch.distributed.tensor import DTensor
+        if isinstance(X, DTensor):
+            if X.device_mesh != self.mesh:
+                raise ValueError("the DTensor lives on another mesh than "
+                                 "mesh=")
+            self.check_rows(X.shape[0])
+            X = X.redistribute(self.mesh, self.placements).to_local()
+            return X.to(device=self.device, dtype=torch.float32).contiguous()
+        m_loc = self.check_rows(X.shape[0])
+        rows = X[self.index * m_loc:(self.index + 1) * m_loc]
+        if isinstance(rows, np.ndarray):
+            rows = torch.from_numpy(np.array(rows, np.float32))
+        return rows.to(device=self.device,
+                       dtype=torch.float32).contiguous()
+
+    def dtensor(self, X_loc: torch.Tensor, m: int):
+        """The row-sharded global ``(m, ...)`` DTensor of this rank's rows
+        (``full_tensor()`` gathers it)."""
+        from torch.distributed.tensor import DTensor
+        shape = (m, *X_loc.shape[1:])
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(X_loc.contiguous(), self.mesh,
+                                  self.placements, run_check=False,
+                                  shape=torch.Size(shape), stride=stride)
+
+
+def _shard_seed(seed: int, index: int) -> int:
+    """The sketch's seed for shard ``index``: one stream per (seed,
+    shard), so no rank draws another's rows of Omega."""
+    return int(np.random.SeedSequence([int(seed) % 2**64, index])
+               .generate_state(1, np.uint64)[0])
+
+
+def sharded_extract(W_loc, Q, all_reduce):
+    """Rayleigh–Ritz of ``A`` row-sharded, from this rank's rows ``W_loc``
+    of ``A Q``: the all-reduced ``(l, l)`` Gram of ``W``, ``eigh`` on every
+    rank.  Returns this rank's rows of ``U``, ``S`` and ``V``."""
+    lam, P = torch.linalg.eigh(all_reduce(W_loc.mT @ W_loc))   # ascending
+    lam, P = lam.flip(0), P.flip(1)
+    S = torch.sqrt(torch.clamp(lam, min=0.0))
+    # zero, don't 1/eps-blow-up, the directions beyond the numerical rank
+    # (lam ~ 0): their U columns are noise either way, but every entry
+    # stays finite when k > rank(A)
+    inv = torch.where(S > 1e-6 * S[0], 1.0 / (S + 1e-30),
+                      torch.zeros_like(S))
+    return (W_loc @ P) * inv, S, Q @ P
+
+
+class _OnShards:
+    """What the operators of a row-sharded matrix share: the sums over
+    their layout's group, and its one checkpoint writer and barrier."""
+
+    def _sum(self, X):
+        from repro_torch.core.collectives import all_reduce
+        return all_reduce(X, self.layout.group)
+
+    @property
+    def writes_checkpoints(self) -> bool:
+        return self.layout.writes_checkpoints
+
+    def sync_ranks(self):
+        self.layout.sync()
+
+    @property
+    def fingerprint(self):
+        return super().fingerprint + f":shards={self.layout.n_shards}"
+
+
+class ShardedOperator(_OnShards, LinearOperator):
+    """``A`` row-sharded over ``axes`` of a ``torch.distributed`` device
+    mesh (the paper's N-GPU map); every rank of the mesh builds one and
+    drives the same solve.
+
+    ``A`` is the tall global matrix (a tensor or an ndarray, of which
+    this rank keeps and copies only its rows) or a ``DTensor``
+    row-sharded over the axes.  Each A-sized product is a local sweep of
+    the rank's rows on the kernels of ``kernels/ops.py`` followed by at
+    most ONE collective over the axes' group: ``gram_chain`` is the
+    local ``A_loc^T (A_loc Q)`` (``ops.block_gram_chain`` on the sweep
+    copy, bf16 rows padded as ``DenseOperator`` pads them) and one
+    ``(n, k)`` fp32 all-reduce; ``rmatmat`` and ``range_sketch`` one
+    all-reduce each (the sketch's Omega drawn a row block a shard, from a
+    generator seeded by (seed, shard), never whole); ``matmat`` none (its
+    result is this rank's rows); ``extract`` Rayleigh–Ritz through the
+    all-reduced ``(l, l)`` Gram of ``W = A Q`` (``sharded_extract``).
+    QR, the gap and the small products run replicated on every rank: the
+    all-reduces give every rank the same bits, so every rank takes the
+    same steps and stops at the same one.  ``extract`` returns this
+    rank's rows of ``U``.  ``lagged_sync``: the gap is read one iteration
+    late.  ``ShardedOperator.on_layout`` builds one on a ``ShardLayout``
+    its caller has already made.
+    """
+
+    backend = "sharded"
+    lagged_sync = True
+
+    def __init__(self, A, mesh, axes=("data",), *, sweep_dtype="float32",
+                 device=None):
+        self._place(A, ShardLayout(mesh, axes, device), sweep_dtype)
+
+    @classmethod
+    def on_layout(cls, A, layout: ShardLayout, *, sweep_dtype="float32"):
+        op = cls.__new__(cls)
+        op._place(A, layout, sweep_dtype)
+        return op
+
+    def _place(self, A, layout: ShardLayout, sweep_dtype) -> None:
+        LinearOperator.__init__(self)
+        self.layout = layout
+        self.mesh, self.axes = layout.mesh, layout.axes
+        self.n_shards, self.device = layout.n_shards, layout.device
+        if len(A.shape) != 2:
+            raise InputError(f"ShardedOperator takes a 2-D matrix, got "
+                             f"shape {tuple(A.shape)}")
+        self._shape = (int(A.shape[0]), int(A.shape[1]))
+        self._A = layout.local_rows(A)
+        sd = resolve_sweep_dtype(sweep_dtype)
+        self.sweep_dtype = dtype_name(sd)
+        self._As = sweep_copy(self._A, sd)     # no copy for fp32 sweeps
+
+    @property
+    def shape(self):
+        return self._shape
+
+    def matmat(self, Q):
+        self._count(1)
+        return ops.block_matvec(self._A, Q)
+
+    def rmatmat(self, Y):
+        self._count(1)
+        return self._sum(ops.block_rmatvec(self._A, Y))
+
+    def gram_chain(self, Q):
+        self._count(self.chain_passes)
+        return self._sum(ops.block_gram_chain(self._As, Q))
+
+    def range_sketch(self, l, seed):
+        self._count(self.sketch_passes)
+        g = seeded_generator(self.device, _shard_seed(seed, self.layout.index))
+        Om = torch.randn((self._A.shape[0], l), generator=g,
+                         device=self.device, dtype=torch.float32)
+        return self._sum(ops.block_rmatvec(self._As, Om))
+
+    def random_block(self, k, seed):
+        return torch.randn((self._shape[1], k), generator=seeded_generator(
+            self.device, seed), device=self.device, dtype=torch.float32)
+
+    def extract(self, Q):
+        self._count(1)
+        return sharded_extract(ops.block_matvec(self._A, Q), Q, self._sum)
+
+    def demote(self, cfg):
+        """Device OOM: this rank's rows move to the host and are streamed
+        on its device block by block, with the same one all-reduce a
+        product: slower, but the solve finishes, and each rank holds 1/N
+        of ``A`` on its host, as the paper lays the matrix out."""
+        from repro_torch.core.oom import HostBlockedMatrix
+        host = HostBlockedMatrix(self._A.cpu().numpy(), cfg.n_blocks,
+                                 stage_dtype=self.sweep_dtype,
+                                 device=self.device)
+        return ShardedHostOperator(host, self.layout, self._shape)
 
     @property
     def bytes_per_pass(self):
@@ -513,6 +765,46 @@ class HostBlockedOperator(LinearOperator):
         # blocks) and is then read once from device memory
         moved = self.passes * self.bytes_per_pass
         return {"host": moved, "device": moved}
+
+
+class ShardedHostOperator(_OnShards, HostBlockedOperator):
+    """A ``ShardedOperator`` demoted after a device OOM: this rank's rows
+    on the host, streamed block by block through the host tier's sweeps,
+    and the sharded operator's collectives over the same group (one
+    all-reduce a product, ``sharded_extract``).  ``shape``, the
+    fingerprint's shard count and ``bytes_per_pass`` are the global
+    matrix's, as on the tier above.  It is the bottom of the sharded
+    ladder: the disk tier holds a whole matrix, not a shard."""
+
+    def __init__(self, host, layout: ShardLayout, shape):
+        super().__init__(host)
+        self.layout, self._shape = layout, tuple(shape)
+
+    @property
+    def shape(self):
+        return self._shape
+
+    def rmatmat(self, Y):
+        return self._sum(super().rmatmat(Y))
+
+    def gram_chain(self, Q):
+        return self._sum(super().gram_chain(Q))
+
+    def range_sketch(self, l, seed):
+        return self._sum(super().range_sketch(
+            l, _shard_seed(seed, self.layout.index)))
+
+    def extract(self, Q):
+        self._count(1)
+        return sharded_extract(self._host.matmat(Q), Q, self._sum)
+
+    def demote(self, cfg):
+        return None
+
+    @property
+    def bytes_per_pass(self):
+        m, n = self._shape
+        return m * n * self._host.stage_dtype.itemsize
 
 
 # ---------------------------------------------------------------------------

@@ -49,11 +49,26 @@ Checkpoint/resume (``checkpoint_dir``): the driver saves the
 next solve in that directory resumes from the newest readable step; a
 corrupt or non-finite step is quarantined and the previous one taken.
 
+The sharded backend (``mesh=``, a ``torch.distributed`` device mesh;
+every rank of it makes the same call): ``A`` row-sharded over the
+product of ``axes`` (wide inputs transposed in, each rank copying only
+its column slice, and the factors swapped out), the block method on
+``ShardedOperator`` through the same driver (one ``(n, k)`` all-reduce a
+step) and the deflation methods on ``core/dist_svd.py``'s engine (the
+paper's three all-reduces a power step with ``faithful=True``, one
+fused otherwise).  The factor on ``A``'s long side comes back as a
+row-sharded ``DTensor``; ``S``, the other factor, ``iters`` and the
+accounting are replicated, the same bits on every rank.  With
+``checkpoint_dir`` the mesh's first rank writes each step, every rank of
+the mesh waits for it, and every rank resumes from the same step.  A
+device OOM moves each rank's own rows to its host (``ShardedHostOperator``)
+and the solve goes on with the same collectives.
+
 Entry points run on the card: ``device=None`` means ``"cuda"`` and
 raises when no card is visible; the caller passes ``device="cpu"`` to
-run the plain PyTorch versions of the kernels on the CPU.  ``mesh=``
-(the sharded backend) is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP.md queue-1 item.
+run the plain PyTorch versions of the kernels on the CPU.  On a mesh the
+device is the mesh's: ``cuda:{local_rank % device_count}``, or the CPU
+for a ``"cpu"`` mesh.
 """
 from __future__ import annotations
 
@@ -104,13 +119,6 @@ def warn_legacy(name: str) -> None:
 def _reset_legacy_warnings() -> None:
     """Test hook: make every shim warn again."""
     _LEGACY_WARNED.clear()
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, queue 1, "
-        f"item {item}); use the JAX package (repro.core.svd) for it, or "
-        f"drop it for a one-device solve")
 
 
 # ---------------------------------------------------------------------------
@@ -295,11 +303,14 @@ def _resume_state(op, k, cfg, cfp: str, ofp: str,
                     f"step {step_no}: non-finite iterate (the state was "
                     f"saved mid-corruption)")
         except CheckpointCorruptError as e:
-            quarantined = mgr.quarantine(step_no)
-            if telemetry is not None:
-                telemetry.record("checkpoint", "quarantine",
-                                 step=int(step_no), path=quarantined,
-                                 error=str(e))
+            # on a mesh one rank renames the step; the others read it as
+            # corrupt or no longer see it, and fall back the same way
+            if op.writes_checkpoints:
+                quarantined = mgr.quarantine(step_no)
+                if telemetry is not None:
+                    telemetry.record("checkpoint", "quarantine",
+                                     step=int(step_no), path=quarantined,
+                                     error=str(e))
             continue                    # fall back to the previous step
         if state.k != k:
             raise InputError(
@@ -310,9 +321,14 @@ def _resume_state(op, k, cfg, cfp: str, ofp: str,
 
 
 def _save_state(mgr, op, state: SolverState) -> None:
-    mgr.save(state.it, state.to_tree(op.to_host),
-             extra={"kind": "solver_state", "config_fp": state.config_fp,
-                    "op_fp": state.op_fp})
+    """Save ``state`` as step ``state.it``; on a mesh one rank writes it
+    (``Q`` is replicated) and every rank waits until it is published."""
+    tree = state.to_tree(op.to_host)
+    if op.writes_checkpoints:
+        mgr.save(state.it, tree,
+                 extra={"kind": "solver_state", "config_fp": state.config_fp,
+                        "op_fp": state.op_fp})
+    op.sync_ranks()
 
 
 def _carry_state(st: SolverState | None, op: LinearOperator,
@@ -549,6 +565,51 @@ def _dense_svd(A: torch.Tensor, k: int, cfg: SVDConfig, device,
     return res._replace(bytes_per_pass=bpp)
 
 
+def _sharded_svd(A, k: int, mesh, axes, cfg: SVDConfig, device,
+                 warm=None) -> SVDResult:
+    """The solve of ``A`` row-sharded over ``axes`` of ``mesh``, made by
+    every rank.  A wide ``A`` is transposed in (each rank copies only its
+    column slice) and the factors swapped out, so the factor on the long
+    side comes back as the row-sharded ``DTensor``."""
+    from repro_torch.core.dist_svd import _dist_deflation
+    from repro_torch.core.operator import ShardLayout, ShardedOperator
+    layout = ShardLayout(mesh, axes, device)
+    if len(A.shape) != 2:
+        raise InputError(f"svd() takes a 2-D matrix, got shape "
+                         f"{tuple(A.shape)}")
+    m, n = (int(d) for d in A.shape)
+    transposed = m < n                      # CSVD orientation: swap out
+    if transposed:
+        A = A.T if isinstance(A, np.ndarray) else A.mT
+        m, n = n, m
+    _validate_problem((m, n), k)
+    layout.check_rows(m)
+    bpp = m * n * resolve_sweep_dtype(cfg.sweep_dtype).itemsize
+    if cfg.method == "block":
+        if cfg.faithful:
+            raise ValueError("method='block' has no paper-faithful "
+                             "collective schedule (faithful=True applies "
+                             "to the deflation methods)")
+        # n_blocks is the OOM-staging / in-shard deflation-batching knob;
+        # the block step is one fused chain, so it has no batching here
+        op = ShardedOperator.on_layout(A, layout,
+                                       sweep_dtype=cfg.sweep_dtype)
+        res = _run_block(op, k, cfg, warm=_pick_seed(warm, transposed))
+        res = res._replace(U=layout.dtensor(res.U, m), bytes_per_pass=bpp)
+        return res._replace(U=res.V, V=res.U) if transposed else res
+    U, S, V, iters, passes = _dist_deflation(
+        layout.local_rows(A), k, layout, method=cfg.method,
+        faithful=cfg.faithful, n_blocks=cfg.n_blocks, eps=cfg.eps,
+        max_iters=cfg.max_iters, force_iters=cfg.force_iters,
+        seed=cfg.seed)
+    U = layout.dtensor(U, m)
+    if transposed:
+        U, V = V, U
+    return SVDResult(U, S, V, iters, int(passes), bpp,
+                     _deflation_converged(iters, cfg), "sharded",
+                     bytes_moved=None)  # as the reference: no tier counters
+
+
 def _tall_host(A, k: int, source=None):
     """The tall orientation of a host matrix (CSVD: a wide one is
     row-blocked as its transposed view) and whether it was transposed."""
@@ -762,8 +823,12 @@ def svd(A, k: int, *, device=None, mesh=None, axes=("data",),
       -> the sparse stream: row blocks packed on the host, swept on
       ``device`` by the CSR kernels;
     * a ``LinearOperator``  -> the shared block driver on it;
-    * ``mesh=`` raises ``NotImplementedError`` naming the ROADMAP.md item
-      that ports it.
+    * any matrix (a tensor, an ndarray or a row-sharded ``DTensor``) plus
+      ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``; every rank makes
+      the call) -> row-sharded over ``axes`` of the mesh on the mesh's
+      devices (the block method: one ``(n, k)`` all-reduce a step; the
+      deflation methods: ``core/dist_svd.py``); the long-side factor
+      comes back as a row-sharded ``DTensor``.
 
     ``checkpoint_dir`` saves the solver state there and resumes from it
     (the JAX package's format: either package resumes the other's).
@@ -787,7 +852,8 @@ def _dispatch(A, k: int, *, device=None, mesh=None, axes=("data",),
         raise ValueError("warm restarts (svd_update) seed the block "
                          "iterate; method must be 'block'")
     if mesh is not None:
-        raise _not_ported("mesh= (the sharded backend)", "8")
+        return _sharded_svd(A, k, mesh, tuple(axes), cfg, device,
+                            warm=_warm)
     if isinstance(A, LinearOperator):
         return _operator_svd(A, k, cfg, warm=_warm)
     if isinstance(A, torch.Tensor):
@@ -825,8 +891,12 @@ def svd_update(prev, A, k: int | None = None, *, device=None, mesh=None,
     ``prev`` is an ``SVDResult`` or a ``SolverState`` (for instance one
     loaded with ``SolverState.from_tree`` from either package).  ``k``
     defaults to the previous rank; everything else works as in ``svd``."""
-    to_np = lambda X: np.asarray(
-        X.detach().cpu() if isinstance(X, torch.Tensor) else X, np.float32)
+    def to_np(X):
+        if isinstance(X, torch.Tensor):
+            # a sharded factor (DTensor) is gathered: every rank calls this
+            X = getattr(X, "full_tensor", lambda: X)().detach().cpu()
+        return np.asarray(X, np.float32)
+
     if isinstance(prev, SolverState):
         Q = to_np(prev.Q)
         warm = (Q, Q)     # the iterate is already the tall right side

@@ -150,10 +150,40 @@ def test_corrupt_files_raise_and_quarantine(tmp_path):
 
 
 def test_restore_onto_a_mesh_is_not_ported(tmp_path):
-    mgr = CheckpointManager(str(tmp_path))
-    mgr.save(1, {"x": np.arange(4)})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        mgr.restore(1, {"x": np.arange(4)}, shardings={"x": None})
+    """``restore(shardings=)`` (once unported) places each leaf as its
+    pair says: a ``(mesh, placements)`` pair gives a DTensor, ``None`` a
+    plain leaf, for a leaf or a whole subtree; a pair on a subtree or a
+    tree that does not match is refused."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    tree = {"Q": np.arange(12, dtype=np.float32).reshape(6, 2),
+            "S": torch.arange(3, dtype=torch.float32),
+            "meta": {"it": np.asarray(4, np.int64)}}
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(1, tree)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        got = mgr.restore(1, tree, shardings={
+            "Q": (mesh, [Shard(0)]), "S": (mesh, [Replicate()]),
+            "meta": None})
+        assert isinstance(got["Q"], DTensor) and isinstance(got["S"], DTensor)
+        assert got["Q"].placements == (Shard(0),)
+        np.testing.assert_array_equal(got["Q"].full_tensor().numpy(),
+                                      tree["Q"])
+        np.testing.assert_array_equal(got["S"].full_tensor().numpy(),
+                                      tree["S"].numpy())
+        assert isinstance(got["meta"]["it"], np.ndarray)
+        assert int(got["meta"]["it"]) == 4
+        with pytest.raises(ValueError, match="one leaf"):
+            mgr.restore(1, tree, shardings={"Q": None, "S": None,
+                                            "meta": (mesh, [Replicate()])})
+        with pytest.raises(ValueError, match="does not match"):
+            mgr.restore(1, tree, shardings={"Q": None})
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

@@ -254,18 +254,45 @@ def test_solver_state_tree_is_the_jax_tree():
         {k: v.dtype for k, v in ht.items()}
 
 
+@pytest.fixture
+def world1(tmp_path):
+    """A world-1 gloo group and a (1,) "cpu" mesh in this process."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        yield init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("call", [
     lambda A: repro_torch.svd(A, K, device="cpu", mesh=object()),
 ])
 def test_unported_inputs_raise_not_implemented(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
+    """``mesh=`` (once unported) takes a ``DeviceMesh``; any other object
+    is the typed ``InputError``."""
+    with pytest.raises(errors.InputError, match="DeviceMesh"):
         call(torch.from_numpy(_matrix()))
 
 
-def test_mesh_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        repro_torch.svd(torch.from_numpy(_matrix()), K, device="cpu",
-                        mesh=object())
+def test_mesh_names_its_roadmap_item(world1):
+    """``mesh=`` (ROADMAP.md item 8, once refused) on a world-1 mesh: the
+    dense solve's chain (the same start, sweeps and QR: equal iterations
+    and passes), sigma to the extraction's rounding, row-sharded U."""
+    A = torch.from_numpy(_matrix())
+    sharded = repro_torch.svd(A, K, mesh=world1)
+    dense = repro_torch.svd(A, K, device="cpu")
+    assert sharded.backend == "sharded"
+    np.testing.assert_array_equal(sharded.iters, dense.iters)
+    assert sharded.passes_over_A == dense.passes_over_A
+    np.testing.assert_allclose(_np(sharded.S), _np(dense.S), rtol=2e-4)
+    U = sharded.U.full_tensor()
+    assert tuple(U.shape) == tuple(dense.U.shape)
+    for X, Y in ((U, dense.U), (sharded.V, dense.V)):
+        assert np.linalg.svd(_np(X).T @ _np(Y), compute_uv=False).min() > \
+            1 - 1e-3
 
 
 def _dense_reference():

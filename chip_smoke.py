@@ -190,7 +190,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    8192 host blocks (passes sum(2 it + 1), launches ``matvec`` 4 x
    sum(it + 1), ``deflate_rmatvec`` 4 x sum(it)); the streamed Gram
    against ``ops.gram`` of the whole A (phase 4's two readings); the
-   disk tier on that A staged in fp32 and bf16 (``svd(path, 8)``: one
+   disk tier on 131072 x 8192 of the same spectrum (cut in depth from
+   262144 rows to keep the script under 850 s) staged in fp32 and bf16
+   (``svd(path, 8)``: one
    file read with an unbounded host budget, one a pass with half the
    file as budget and the cache never above it, bf16 halving disk and
    H2D bytes; the files dropped from the page cache first); 65536 x
@@ -256,6 +258,39 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    one all-reduce a step still).  gloo times on one
    card are not NCCL's between cards.  ``--only-sharded`` runs phases 1
    and 10 alone.
+11. the SVD service (``repro_torch.serving``): one ``SVDService(max_workers=2,
+   byte_budget=48 GiB)`` on the card serves, at once: the paper's shard
+   (phase 3's 262144 x 32768 fp32 matrix, k = 32, default config,
+   ``stream_every=4``), held to the plain ``repro_torch.svd`` of the same
+   ``A`` (the same iterations, sigma rtol 1e-4), a partial every 4
+   iterations; a second job on the same ``A`` at lower priority with a
+   deadline and ``stream_every=1``, which the budget keeps queued until
+   the first ends (its queue wait printed) and which is cancelled after
+   its first partial; a host-blocked job (a 65536 x 8192 fp32 numpy
+   array in a ``CountingHostMatrix``, 4 blocks: fetches n_blocks x
+   passes); gram-free and gram jobs at k = 4 on the same rows on the
+   card; a job with k > min(m, n) (``error_kind == "input"``).  Every
+   launch of that window is read job by job (``Job.launches``, each
+   worker's own tally) and equals that job's pass accounting by route
+   (the shard jobs on ``tf32x3``, plus one ``block_matvec`` a partial),
+   and the window's totals their sum;
+   peak device memory under 80 GB.  Then two bursts of 256 jobs of 1024 x
+   256 (the batcher's ``MAX_BATCH_ELEMS``), k = 8, ``warmup_q=1``, seeds
+   0-255, one lane holding a NaN: fp32 (eps 1e-8) and bf16 (eps 1e-4),
+   each in 16 batched dispatches of 16 (``torch.bmm``: no kernel of the
+   port launches; TF32 off around them), every lane held to its job's
+   standalone ``repro_torch.svd`` (sigma rtol 1e-4 for both dtypes:
+   both sides start from the same ``Q0`` and round at the same points;
+   subspace cosines > 1 - 1e-3), the NaN lane alone FAILED with
+   ``NumericalHealthError``; the standalone solves, timed one by one (jobs
+   a second against the batched service), launching the chains on
+   ``tf32x3`` / ``wgmma`` to their pass accounting.  The cost records'
+   integers equal the results' own, the metrics rollup is printed, and
+   device memory returns to its level before the service once the
+   results are dropped.  Beside them the kernels at these shapes against
+   their plain versions, and ``deflate_rmatvec`` at 65536 x 8192, k = 16,
+   re-timed against its two-call yardstick in turns (7 runs each).
+   ``--only-serving`` runs phases 1 and 11 alone.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches in the
 run of its path, and its times; the block sweeps as ``<name>/tf32x3``
@@ -276,11 +311,14 @@ the CSR kernels as ``csr_matmat``, ``csr_rmatmat`` and
 solve) and the same with ``[bf16]`` (from the bf16 solve); before them an
 ``{"out_of_core": {...}}`` line with phase 8's numbers, a
 ``{"sparse": {...}}`` line with phase 9's and a ``{"sharded": {...}}``
-line with phase 10's; the sharded path's launches (10.1, one rank) as
+line with phase 10's and a ``{"serving": {...}}`` line with phase 11's;
+the sharded path's launches (10.1, one rank) as
 ``<kernel>/<route>[sharded]`` for the block solves and ``<kernel>[sharded
 <method> faithful]`` / ``[sharded <method> fused]`` for the deflation
-solves, beside the rows measured at the same shapes; and each phase's
-seconds.
+solves, beside the rows measured at the same shapes; the service's as
+``<kernel>[/<route>][service <job>]``, each job's measured launches (and ``[service burst <dtype>, one
+by one]`` for the bursts' standalone solves), beside the rows measured at
+their shapes in phase 11; and each phase's seconds.
 Exits 2 without a CUDA device or without ``src/repro_torch`` beside this
 script.
 """
@@ -1671,6 +1709,8 @@ H2D_PROBE = 1 << 29                    # fp32 elements: the 2 GiB rate probe
 PCIE_PEAK = 64e9                       # B/s host -> device: PCIe Gen5 x16, the
                                        # data sheet's 128 GB/s both ways
 K_OOC_GRAMFREE, K_DISK = 2, 8
+DISK_ROWS = 131072                     # x N_GRAM: 8.6's A, cut in depth from
+                                       # 262144 rows (the script's 850 s aim)
 DEMOTE = (65536, 8192)
 DEMOTE_ITERS = 10                      # force_iters of the demotion runs
 
@@ -2113,9 +2153,15 @@ def out_of_core(torch, repro_torch, ops, dev) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         saved, tempfile.tempdir = tempfile.tempdir, tmp  # demotion spills
         try:
-            out["disk"] = disk_tier(torch, repro_torch, stage_to_disk,
-                                    MemmapMatrix, Agh, sg, pinned, tmp)
             del Agh
+            Ad, sd6 = spectral_matrix(torch, DISK_ROWS, N_GRAM, SEED + 8,
+                                      dev)
+            Adh = to_host(torch, Ad)
+            del Ad
+            torch.cuda.empty_cache()
+            out["disk"] = disk_tier(torch, repro_torch, stage_to_disk,
+                                    MemmapMatrix, Adh, sd6, pinned, tmp)
+            del Adh
             out["odd"] = odd_width(torch, repro_torch, ops, pinned, dev)
             out["demote"] = demotion(torch, repro_torch, inject_faults,
                                      FaultPlan, FaultSpec, dev)
@@ -3402,6 +3448,577 @@ def csr_kernel_line(rows: dict, launches: dict) -> list:
             for name, row in rows.items()]
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the SVD service (repro_torch.serving) on the card
+# ---------------------------------------------------------------------------
+
+SV_SEED = SEED + 30
+SV_BUDGET = 48 << 30                   # bytes: one 32 GiB shard job at a time
+SV_STREAM = 4                          # the shard job's stream_every
+SV_DEADLINE = 900.0                    # s, the second shard job's deadline
+SV_BURST = 256                         # small jobs a burst
+SV_SMALL = (1024, 256)                 # m * n = the batcher's MAX_BATCH_ELEMS
+SV_K_SMALL = 8                         # warmup_q=1: l = 16
+SV_MAX_BATCH = 16
+SV_NAN = 37                            # the burst's poisoned job
+SV_HB = (65536, 8192)                  # the host-blocked and deflation jobs' A
+SV_HB_BLOCKS = 4
+SV_K_DEFL = 4
+SV_RETIME = (65536, 8192, 16)          # deflate_rmatvec's re-time: m, n, k
+SV_RETIME_RUNS = 7                     # alternating runs of it and the yardstick
+SV_WAIT = 300.0                        # s, every wait on a job
+TOL_COS = 1e-3                         # 1 - subspace cosine, tests/test_operator_contract.py
+TOL_LANE = 1e-4                        # a lane's sigma rtol to its per-job
+                                       # solve, fp32 and bf16 alike
+                                       # (tests/test_torch_serving_batch.py)
+
+
+def cosines_min(torch, X, Y) -> float:
+    """The smallest cosine of the principal angles between span(X) and
+    span(Y) (orthonormal columns)."""
+    return float(torch.linalg.svdvals(X.double().mT @ Y.double()).min())
+
+
+def retime_deflate_rmatvec(torch, ops, ref, Ad, g) -> dict:
+    """``deflate_rmatvec`` at ``SV_RETIME`` against its two-call
+    yardstick, ``SV_RETIME_RUNS`` runs of each in turns (kernel,
+    yardstick, yardstick, kernel, ...; 20 launches a run, CUDA events):
+    the spread of each and whether the kernel's trail is beyond it."""
+    m, n, k = SV_RETIME
+    X = Ad[:m, :n]
+    Ud = torch.randn((m, k), generator=g, device=Ad.device)
+    Xv = torch.randn(m, generator=g, device=Ad.device)
+    c = torch.randn(k, generator=g, device=Ad.device)
+    kern = lambda: ops.deflate_rmatvec(X, Ud, Xv, c)
+    lib = lambda: (torch.mv(X.mT, Xv - Ud @ c), Ud.mT @ Xv)
+    check(torch, "deflate_rmatvec (re-time)", kern()[0],
+          ref.deflate_rmatvec_ref(X, Ud, Xv, c)[0], TOL["float32"])
+    runs = {"kernel": [], "two calls": []}
+    for i in range(SV_RETIME_RUNS):
+        order = ("kernel", "two calls") if i % 2 == 0 else \
+            ("two calls", "kernel")
+        for label in order:
+            runs[label].append(time_ms(torch, kern if label == "kernel"
+                                       else lib, 20))
+    bnd, by = deflation_bound("deflate_rmatvec", m, n, k)
+    kmin, kmax = min(runs["kernel"]), max(runs["kernel"])
+    lmin, lmax = min(runs["two calls"]), max(runs["two calls"])
+    beyond = kmin > lmax                  # every kernel run slower
+    verdict = ("slower in every run: a trail beyond the spread" if beyond
+               else "faster in every run" if kmax < lmin
+               else "within the spread of the two")
+    print(f"  deflate_rmatvec re-time at {m}x{n}, k={k} ({SV_RETIME_RUNS} "
+          f"runs each, in turns): kernel {kmin:.4f}-{kmax:.4f} ms (median "
+          f"{sorted(runs['kernel'])[SV_RETIME_RUNS // 2]:.4f}), two calls "
+          f"{lmin:.4f}-{lmax:.4f} ms (median "
+          f"{sorted(runs['two calls'])[SV_RETIME_RUNS // 2]:.4f}), bound "
+          f"{bnd:.4f} ms ({by}); the kernel is {verdict}")
+    return {"shape": [m, n, k], "kernel_ms": runs["kernel"],
+            "two_calls_ms": runs["two calls"], "bound_ms": bnd,
+            "trail_beyond_spread": beyond}
+
+
+def burst_inputs(torch, dev):
+    """``SV_BURST`` small matrices (``SV_SMALL``), stacked on the card:
+    ``U diag(s) V^T + NOISE * G`` with s_i = 10 * 0.7**i, i < 32; job
+    ``SV_NAN`` holds a NaN."""
+    g = torch.Generator(device=dev).manual_seed(SV_SEED + 1)
+    m, n = SV_SMALL
+    s = (10.0 * 0.7 ** torch.arange(32, dtype=torch.float64)).to(
+        torch.float32).to(dev)
+    U = torch.linalg.qr(torch.randn((SV_BURST, m, 32), generator=g,
+                                    device=dev)).Q
+    V = torch.linalg.qr(torch.randn((SV_BURST, n, 32), generator=g,
+                                    device=dev)).Q
+    X = (U * s) @ V.mT
+    X.add_(torch.randn(X.shape, generator=g, device=dev), alpha=NOISE)
+    X[SV_NAN, 3, 5] = float("nan")
+    return X
+
+
+def serve_burst(torch, repro_torch, ops, bm, svc, X, sd) -> tuple:
+    """One burst through the service (batched) and the same jobs one by
+    one through ``repro_torch.svd``: every lane held to its per-job solve
+    (sigma, subspace), the NaN lane failing alone, the dispatches, the
+    per-job solves' launches to their pass accounting by route, the
+    rates.  Returns (summary, launches by path key)."""
+    from repro_torch.core.config import SVDConfig
+    from repro_torch.core.errors import (FaultExhaustedError,
+                                         NumericalHealthError)
+    from repro_torch.serving import JobSpec, JobStatus
+    from repro_torch.serving.batcher import solve_batch
+    eps, rtol = 1e-8 if sd == "float32" else 1e-4, TOL_LANE
+    cfgs = [SVDConfig(warmup_q=1, eps=eps, seed=i, sweep_dtype=sd)
+            for i in range(SV_BURST)]
+    label = f"burst {sd}"
+
+    def tf32_off():
+        if torch.backends.cuda.matmul.allow_tf32 or \
+                torch.get_float32_matmul_precision() != "highest":
+            fail(f"{label}: TF32 is on for fp32 matmuls (allow_tf32 "
+                 f"{torch.backends.cuda.matmul.allow_tf32}, precision "
+                 f"{torch.get_float32_matmul_precision()!r})")
+
+    tf32_off()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = [svc.submit(X[i], SV_K_SMALL, config=cfgs[i], tag=f"{label} {i}")
+          for i in range(SV_BURST)]
+    for h in hs:
+        h.wait(SV_WAIT)
+    t_batched = time.perf_counter() - t0
+    tf32_off()
+    ran = {n_: c for n_, c in ops.launches.items() if c}
+    if ran:
+        fail(f"{label}: the batched dispatches launched {ran} (they run "
+             f"torch.bmm, no kernel of the port)")
+    recs = {r.job_id: r for r in svc.meter.records}
+    sizes = [recs[h.job_id].batch_size for h in hs]
+    if not all(recs[h.job_id].batched for h in hs) or \
+            sizes != [SV_MAX_BATCH] * SV_BURST:
+        fail(f"{label}: batch sizes {sorted(set(sizes))}, want "
+             f"{SV_BURST // SV_MAX_BATCH} dispatches of {SV_MAX_BATCH}")
+    # the same jobs one by one, timed; then each lane against its job
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    per_job, nan_delta = [], {}
+    for i in range(SV_BURST):
+        if i == SV_NAN:
+            before = dict(ops.route_launches), dict(ops.launches)
+            try:
+                repro_torch.svd(X[i], SV_K_SMALL, config=cfgs[i])
+            except FaultExhaustedError:
+                pass
+            else:
+                fail(f"{label}: the per-job solve of the NaN job finished")
+            nan_delta = ({n_: c - before[0][n_] for n_, c in
+                          ops.route_launches.items()},
+                         {n_: c - before[1][n_] for n_, c in
+                          ops.launches.items()})
+            per_job.append(None)
+            continue
+        r = repro_torch.svd(X[i], SV_K_SMALL, config=cfgs[i])
+        per_job.append((r.S.cpu(), r.V.cpu(), int(r.iters[0])))
+    torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+    its = [p[2] for p in per_job if p is not None]
+    chain = bm.route(X[0].to(getattr(torch, sd)), 2 * SV_K_SMALL)
+    fp32 = bm.route(X[0], 2 * SV_K_SMALL)
+    if (chain, fp32) != ({"float32": "tf32x3", "bfloat16": "wgmma"}[sd],
+                         "tf32x3"):
+        fail(f"{label}: routes {chain} / {fp32}")
+    want = {"block_gram_chain": sum(its) + len(its),
+            "block_matvec": sum(its) + 2 * len(its),
+            "block_rmatvec": sum(its) + 2 * len(its)}
+    want_routes = {f"block_matvec/{chain}": sum(its) + len(its),
+                   f"block_rmatvec/{chain}": sum(its) + 2 * len(its)}
+    want_routes[f"block_matvec/{fp32}"] = \
+        want_routes.get(f"block_matvec/{fp32}", 0) + len(its)
+    got = {n_: c - nan_delta[1].get(n_, 0) for n_, c in ops.launches.items()}
+    got_routes = {n_: c - nan_delta[0].get(n_, 0)
+                  for n_, c in ops.route_launches.items()}
+    got = {n_: c for n_, c in got.items() if c}
+    got_routes = {n_: c for n_, c in got_routes.items() if c}
+    if got != want or got_routes != want_routes:
+        fail(f"{label}: the per-job solves launched {got} by route "
+             f"{got_routes}; their pass accounting implies {want} by route "
+             f"{want_routes}")
+    worst_s, worst_cos, lane_its = 0.0, 1.0, []
+    for i, (h, p) in enumerate(zip(hs, per_job)):
+        if i == SV_NAN:
+            if h.status is not JobStatus.FAILED or not isinstance(
+                    h.error, NumericalHealthError) or \
+                    h.error_kind != "internal":
+                fail(f"{label}: the NaN lane ended {h.status} "
+                     f"({type(h.error).__name__}, {h.error_kind})")
+            continue
+        if h.status is not JobStatus.DONE:
+            fail(f"{label}: lane {i} ended {h.status} ({h.error})")
+        res = h.result(1.0)
+        S, V = res.S.cpu(), res.V.cpu()
+        e = float((S.double() / p[0].double() - 1).abs().max())
+        cos = cosines_min(torch, V, p[1])
+        worst_s, worst_cos = max(worst_s, e), min(worst_cos, cos)
+        lane_its.append(int(res.iters[0]))
+        if not (e <= rtol and cos > 1 - TOL_COS and res.backend == "dense"
+                and res.passes_over_A == 3 + 2 * int(res.iters[0]) + 1):
+            fail(f"{label}: lane {i} sigma rel err {e} (limit {rtol}), "
+                 f"cosine {cos}, passes {res.passes_over_A}")
+    batchmates = [h.status.value for i, h in enumerate(hs)
+                  if i // SV_MAX_BATCH == SV_NAN // SV_MAX_BATCH]
+    # where a dispatch's time goes, beside one job's own solve
+    specs = [JobSpec(input=X[i], k=SV_K_SMALL, config=cfgs[i])
+             for i in range(SV_MAX_BATCH)]
+    prof = {}
+    for what, fn in (("one batched dispatch of 16 lanes",
+                      lambda: solve_batch(specs, device=X.device)),
+                     ("one job's own solve",
+                      lambda: repro_torch.svd(X[0], SV_K_SMALL,
+                                              config=cfgs[0]))):
+        _, wall, busy, n_act, names = profile_window(torch, fn)
+        top = sorted(names.items(), key=lambda x: -x[1])[:5]
+        prof[what] = {"wall_s": wall, "busy_s": busy, "activities": n_act}
+        print(f"  {label}, profile of {what}: {wall:.4f} s, device busy "
+              f"{busy:.4f} s ({100 * busy / wall:.1f} %), {n_act} device "
+              f"activities; by time: " + ", ".join(
+                  f"{n_[:40]} {1e3 * t:.2f} ms" for n_, t in top))
+    out = {"jobs": SV_BURST, "dispatches": SV_BURST // SV_MAX_BATCH,
+           "batched_s": t_batched, "sequential_s": t_seq,
+           "batched_jobs_per_s": SV_BURST / t_batched,
+           "sequential_jobs_per_s": SV_BURST / t_seq,
+           "sigma_rel_err_max": worst_s, "cosine_min": worst_cos,
+           "lane_iters": [min(lane_its), max(lane_its)],
+           "per_job_iters": [min(its), max(its)],
+           "nan_lane_batch": batchmates, "profiles": prof}
+    print(f"{label}: {SV_BURST} jobs {SV_SMALL[0]}x{SV_SMALL[1]}, k="
+          f"{SV_K_SMALL}, warmup_q=1, eps={eps:g}: batched in "
+          f"{out['dispatches']} dispatches of {SV_MAX_BATCH} in "
+          f"{t_batched:.3f} s ({out['batched_jobs_per_s']:.1f} jobs/s), "
+          f"one by one through repro_torch.svd in {t_seq:.3f} s "
+          f"({out['sequential_jobs_per_s']:.1f} jobs/s; "
+          f"{t_seq / t_batched:.2f}x); lanes' sigma within {worst_s:.2e} "
+          f"(limit {rtol:.0e}) and cosines >= {worst_cos:.7f} of their "
+          f"per-job solves; iterations: lanes {out['lane_iters']}, per job "
+          f"{out['per_job_iters']}; the NaN lane {SV_NAN} failed alone "
+          f"(NumericalHealthError), its batch {batchmates.count('done')} "
+          f"done; per-job launches {got} by route {got_routes}")
+    return out, {f"{n_}[service burst {sd}, one by one]": c
+                 for n_, c in got_routes.items()}
+
+
+def serving(torch, repro_torch, ops, ref, bm, dev, table=None) -> tuple:
+    """Phase 11 (see the module docstring): returns its numbers and its
+    entries of the kernels line."""
+    import contextlib
+    import gc
+    import threading
+
+    import numpy as np
+    from repro_torch.core import CountingHostMatrix, SVDConfig
+    from repro_torch.core.errors import InputError
+    from repro_torch.serving import JobStatus, SVDService
+    from repro_torch.serving.batcher import MAX_BATCH_ELEMS
+    t_phase = time.perf_counter()
+    if SV_SMALL[0] * SV_SMALL[1] != MAX_BATCH_ELEMS:
+        fail(f"burst jobs of {SV_SMALL} are not the batcher's "
+             f"MAX_BATCH_ELEMS = {MAX_BATCH_ELEMS}")
+    # -- the inputs, all on the card before the service starts -----------
+    A, _ = spectral_matrix(torch, M, N, SEED, dev)     # phase 3's matrix
+    Ad, s_d = spectral_matrix(torch, *SV_HB, SV_SEED, dev)
+    H = Ad.cpu().numpy()                  # the host-blocked job's array
+    Xb = burst_inputs(torch, dev)
+    torch.cuda.synchronize()
+    # -- the kernels at phase 11's shapes, against their plain versions ---
+    g = torch.Generator(device=dev).manual_seed(SV_SEED + 2)
+    rows = {}
+
+    def sweeps(key, X, k, sd):
+        Q = torch.linalg.qr(torch.randn((X.shape[1], k), generator=g,
+                                        device=dev)).Q
+        Y = torch.randn((X.shape[0], k), generator=g, device=dev)
+        rows[key] = sweep_rows(torch, ops, ref, bm, X, Q, Y, sd)
+
+    if table is not None and ("block_matvec", "float32") in table:
+        rows["shard"] = {n_: table[(n_, "float32")] for n_ in
+                         ("block_matvec", "block_rmatvec", "block_gram_chain")}
+    else:
+        sweeps("shard", A, K, "float32")
+    sweeps("host block", Ad[:SV_HB[0] // SV_HB_BLOCKS], K, "float32")
+    sweeps("burst float32", Xb[0], 2 * SV_K_SMALL, "float32")
+    sweeps("burst bfloat16", Xb[0], 2 * SV_K_SMALL, "bfloat16")
+    v = torch.randn(SV_HB[1], generator=g, device=dev)
+    Xv = torch.randn(SV_HB[0], generator=g, device=dev)
+    Ud = torch.randn((SV_HB[0], SV_K_DEFL), generator=g, device=dev)
+    c = torch.randn(SV_K_DEFL, generator=g, device=dev)
+    rows["deflation"] = {
+        "matvec": time_kernel(
+            torch, "matvec", lambda: ops.matvec(Ad, v),
+            lambda: ref.matvec_ref(Ad, v), lambda: torch.mv(Ad, v), 10,
+            TOL["float32"], deflation_bound("matvec", *SV_HB)),
+        "deflate_rmatvec": time_kernel(
+            torch, "deflate_rmatvec",
+            lambda: ops.deflate_rmatvec(Ad, Ud, Xv, c),
+            lambda: ref.deflate_rmatvec_ref(Ad, Ud, Xv, c),
+            lambda: (torch.mv(Ad.mT, Xv - Ud @ c), Ud.mT @ Xv), 10,
+            TOL["float32"],
+            deflation_bound("deflate_rmatvec", *SV_HB, SV_K_DEFL)),
+        "gram": time_kernel(
+            torch, "gram", lambda: ops.gram(Ad), lambda: ref.gram_ref(Ad),
+            lambda: torch.mm(Ad.mT, Ad), 3, gram_tol(SV_HB[0]),
+            deflation_bound("gram", *SV_HB), offdiag=True)}
+    retime = retime_deflate_rmatvec(torch, ops, ref, Ad, g)
+    del v, Xv, Ud, c
+    # the plain solve of the shard job's A (warm, then timed)
+    repro_torch.svd(A, K)
+    plain = repro_torch.svd(A, K)
+    plain_S, plain_it, plain_wall = plain.S.cpu(), int(plain.iters[0]), \
+        plain.wall_time_s
+    del plain
+    print(f"plain repro_torch.svd(A, {K}) of the shard: iters {plain_it}, "
+          f"wall_time_s {plain_wall:.3f}")
+
+    # -- the service --------------------------------------------------------
+    clear_ws = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+
+    def settled() -> int:
+        """Device bytes allocated once every dropped tensor is freed:
+        cuBLAS's per-thread workspaces cleared, and the blocks freed
+        under ``record_stream`` (the host-blocked tier's copy buffers)
+        returned, which the allocator does when it processes its events
+        (``empty_cache`` does)."""
+        gc.collect()
+        torch.cuda.synchronize()
+        if clear_ws is not None:
+            clear_ws()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated()
+
+    base = settled()
+
+    def run_service() -> tuple:
+        """The service and its jobs (every reference to them local, so
+        that their device memory is free once it returns)."""
+        hb = CountingHostMatrix(H, SV_HB_BLOCKS, device=dev)
+        gate = threading.Event()
+
+        def park(state):
+            """The second shard job, after its first partial: wait until the
+            client has cancelled it (its launches are then fixed: two
+            steps, one extraction)."""
+            if state.it == 1:
+                gate.wait(SV_WAIT)
+
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        svc = SVDService(max_workers=2, byte_budget=SV_BUDGET,
+                         batch_window_s=0.25, max_batch=SV_MAX_BATCH, device=dev)
+        summary = {}
+        # the gate opens on the way out whatever happens, so a failed check
+        # never leaves a worker parked while the service drains
+        with svc, contextlib.ExitStack() as opened:
+            opened.callback(gate.set)
+            t0 = time.perf_counter()
+            h1 = svc.submit(A, K, priority=1, stream_every=SV_STREAM,
+                            tag="shard")
+            hg = svc.submit(Ad, SV_K_DEFL, method="gramfree", priority=1,
+                            tag="gramfree")
+            hgr = svc.submit(Ad, SV_K_DEFL, method="gram", priority=1,
+                             tag="gram")
+            hh = svc.submit(hb, K, priority=1, tag="host-blocked")
+            he = svc.submit(Xb[1], SV_SMALL[1] + 1, priority=1,
+                            tag="input error")          # k > min(m, n)
+            h2 = svc.submit(A, K, priority=0, deadline_s=SV_DEADLINE,
+                            stream_every=1, config=SVDConfig(on_iteration=park),
+                            tag="shard, second")
+            partials = list(h1.stream(timeout=SV_WAIT))
+            first = next(iter(h2.stream(timeout=SV_WAIT)))
+            j1, j2 = svc._jobs[h1.job_id], svc._jobs[h2.job_id]
+            if not (j2.started_at is not None and j1.finished_at is not None
+                    and j2.started_at >= j1.finished_at):
+                fail("the second shard job ran before the first ended: the "
+                     "byte budget admitted two 32 GiB estimates")
+            h2.cancel()
+            gate.set()
+            for h in (h1, h2, hg, hgr, hh, he):
+                h.wait(SV_WAIT)
+            t_group = time.perf_counter() - t0
+            counts = {n_: c for n_, c in ops.launches.items() if c}
+            routes = {n_: c for n_, c in ops.route_launches.items() if c}
+            peak = torch.cuda.max_memory_allocated()
+            ended = [(h.job_id, h.status.value, h.error)
+                     for h in (h1, h2, hg, hgr, hh, he)]
+            if [e[1] for e in ended] != ["done", "cancelled", "done", "done",
+                                         "done", "failed"]:
+                fail(f"phase 11 jobs ended {ended}")
+            if not isinstance(he.error, InputError) or he.error_kind != "input":
+                fail(f"the input-error job: {he.error!r} ({he.error_kind})")
+            r1, rg, rgr, rh = (h.result(1.0) for h in (h1, hg, hgr, hh))
+            # the shard job against the plain solve of the same A
+            it1 = int(r1.iters[0])
+            e1 = float((r1.S.cpu().double() / plain_S.double() - 1).abs().max())
+            if it1 != plain_it or e1 > 1e-4 or not r1.converged:
+                fail(f"the shard job: iters {it1} (plain {plain_it}), sigma rel "
+                     f"err {e1} against the plain solve")
+            if len(partials) != it1 // SV_STREAM or h1.partial_count != \
+                    len(partials) or first.it != 1 or h2.partial_count != 1:
+                fail(f"partials: shard {len(partials)} for {it1} iters, second "
+                     f"{h2.partial_count} (first at it {first.it})")
+            if partials[-1].U.shape != (M, K) or not np.isfinite(
+                    partials[-1].S).all():
+                fail(f"the shard job's last partial: U {partials[-1].U.shape}")
+            # the host-blocked and deflation jobs against their spectrum
+            ith, ph = int(rh.iters[0]), rh.passes_over_A
+            nb = SV_HB_BLOCKS
+            itg = [int(i) for i in rg.iters]
+            for label, res, k, tol in (("host-blocked", rh, K, 1e-4),
+                                       ("gramfree", rg, SV_K_DEFL, TOL_DEFLATION),
+                                       ("gram", rgr, SV_K_DEFL, TOL_DEFLATION)):
+                e = float((res.S.cpu().double() / s_d[:k].cpu().double() - 1)
+                          .abs().max())
+                if not (res.converged and e <= tol):
+                    fail(f"the {label} job: sigma rel err {e} (limit {tol})")
+            if rh.backend != "hostblocked" or ph != ith + 1 or \
+                    hb.fetches != nb * ph:
+                fail(f"the host-blocked job: backend {rh.backend}, passes {ph} "
+                     f"for {ith} iters, fetches {hb.fetches}")
+            # every launch of the window, job by job (each job's own tally,
+            # ``Job.launches``) against that job's pass accounting (the
+            # second shard job: two chains and one partial's extraction),
+            # and the window's totals against their sum
+            def sweeps_want(chains, matvecs, rmatvecs):
+                return {"block_gram_chain": chains,
+                        "block_matvec": matvecs,
+                        "block_matvec/tf32x3": matvecs,
+                        "block_rmatvec": rmatvecs,
+                        "block_rmatvec/tf32x3": rmatvecs}
+
+            jobs = {
+                "shard": (j1, sweeps_want(it1, it1 + 1 + len(partials), it1)),
+                "shard, second": (j2, sweeps_want(2, 2 + 1, 2)),
+                "host-blocked": (svc._jobs[hh.job_id], sweeps_want(
+                    nb * ith, nb * (ith + 1), nb * ith)),
+                "gramfree": (svc._jobs[hg.job_id],
+                             {"matvec": sum(itg) + SV_K_DEFL,
+                              "deflate_rmatvec": sum(itg)}),
+                "gram": (svc._jobs[hgr.job_id],
+                         {"matvec": SV_K_DEFL, "gram": SV_K_DEFL,
+                          "gram/tf32x3": SV_K_DEFL}),
+                "input error": (svc._jobs[he.job_id], {})}
+            per_job = {tag: dict(j.launches) for tag, (j, _) in jobs.items()}
+            for tag, (_, w) in jobs.items():
+                if per_job[tag] != w:
+                    fail(f"the {tag} job launched {per_job[tag]}; its pass "
+                         f"accounting (the shard job's {it1} iterations and "
+                         f"{len(partials)} partials, the host-blocked job's "
+                         f"{ith}, the gram-free job's {itg}) implies {w}")
+            want, want_routes = {}, {}
+            for _, w in jobs.values():
+                for key, c in w.items():
+                    into = want_routes if "/" in key else want
+                    into[key] = into.get(key, 0) + c
+            if counts != want or routes != want_routes:
+                fail(f"phase 11 launches {counts} by route {routes}; the "
+                     f"jobs' tallies sum to {want} by route {want_routes}")
+            if peak >= 80e9:
+                fail(f"peak device memory {peak} bytes")
+            recs = {r.job_id: r for r in svc.meter.records}
+            wait2 = recs[h2.job_id].queue_wait_s
+            print(f"service: 6 jobs in {t_group:.3f} s on 2 workers, byte "
+                  f"budget {SV_BUDGET / 2**30:.0f} GiB; the shard job "
+                  f"(stream_every={SV_STREAM}): iters {it1} (plain {plain_it}), "
+                  f"sigma within {e1:.2e} of the plain solve, wall_time_s "
+                  f"{r1.wall_time_s:.3f} (plain {plain_wall:.3f}), "
+                  f"{len(partials)} partials (last gap {partials[-1].gap}); the "
+                  f"second shard job waited {wait2:.3f} s in the queue (started "
+                  f"{j2.started_at - j1.finished_at:.3f} s after the first "
+                  f"ended), cancelled after its first partial; peak device "
+                  f"memory {peak / 2**30:.2f} GiB; the host-blocked job: iters "
+                  f"{ith}, passes {ph}, fetches {hb.fetches}; gramfree iters "
+                  f"{itg}; launches by job {per_job}")
+            summary["group"] = {
+                "seconds": t_group, "shard_iters": it1, "plain_iters": plain_it,
+                "shard_wall_s": r1.wall_time_s, "plain_wall_s": plain_wall,
+                "shard_run_wall_s": recs[h1.job_id].run_wall_s,
+                "partials": len(partials), "second_queue_wait_s": wait2,
+                "peak_device_bytes": peak, "hostblocked_iters": ith,
+                "gramfree_iters": itg, "launches": per_job}
+            del r1, rg, rgr, rh, partials, first
+
+            # -- the bursts --------------------------------------------------
+            # the kernels line's service entries: each job's measured
+            # launches by route (the chain under its halves' route)
+            line_counts = {}
+            for tag, launched in per_job.items():
+                for key, c in launched.items():
+                    if "/" in key:
+                        line_counts[f"{key}[service {tag}]"] = c
+                    elif key == "block_gram_chain":
+                        route = next(r for r in launched
+                                     if r.startswith("block_matvec/"))
+                        line_counts[f"block_gram_chain/{route.split('/')[1]}"
+                                    f"[service {tag}]"] = c
+                    elif key in ("matvec", "deflate_rmatvec"):
+                        line_counts[f"{key}[service {tag}]"] = c
+            for sd in ("float32", "bfloat16"):
+                summary[f"burst {sd}"], extra = serve_burst(
+                    torch, repro_torch, ops, bm, svc, Xb, sd)
+                line_counts.update(extra)
+            metrics = svc.metrics()
+        # -- metering: the records' integers are the results' own -------------
+        done = [j for j in svc._jobs.values() if j.status is JobStatus.DONE]
+        recs = {r.job_id: r for r in svc.meter.records}
+        for j in done:
+            r, res = recs[j.job_id], j.result
+            if (r.passes_over_A, r.bytes_per_pass, r.bytes_moved, r.backend) != (
+                    int(res.passes_over_A), int(res.bytes_per_pass),
+                    res.bytes_moved, res.backend) or \
+                    r.stream_extracts != j.partial_count:
+                fail(f"{j.job_id}: cost record {r} against its result")
+        for j in (j1, j2, *(svc._jobs[h.job_id] for h in (hg, hgr, hh, he))):
+            r = recs[j.job_id]
+            print(f"  cost record {r.tag}: status {r.status}, backend "
+                  f"{r.backend}, passes_over_A {r.passes_over_A}, bytes_per_pass "
+                  f"{r.bytes_per_pass}, bytes_moved {r.bytes_moved}, "
+                  f"stream_extracts {r.stream_extracts}, batched {r.batched}, "
+                  f"error_kind {r.error_kind}, queue_wait_s "
+                  f"{r.queue_wait_s:.3f}, run_wall_s {r.run_wall_s:.3f}")
+        burst = [r for r in svc.meter.records if r.batched]
+        print(f"  cost records of the bursts: {len(burst)} batched, "
+              f"passes_over_A {sum(r.passes_over_A or 0 for r in burst)}, "
+              f"bytes_moved "
+              f"{sum((r.bytes_moved or {}).get('device', 0) for r in burst)}"
+              f", {sum(r.status == 'failed' for r in burst)} failed")
+        if metrics["jobs"] != 6 + 2 * SV_BURST or metrics["by_status"] != {
+                "done": 4 + 2 * (SV_BURST - 1), "failed": 3, "cancelled": 1}:
+            fail(f"the service's metrics {metrics}")
+        print("service metrics: " + json.dumps(metrics, default=str))
+        summary["metrics"] = metrics
+        return summary, line_counts
+
+    summary, line_counts = run_service()
+    summary["deflate_rmatvec_retime"] = retime
+    # the cancelled job, and every other, returned its device memory
+    after = settled()
+    print(f"device memory with every job's result dropped: {after} bytes "
+          f"(before the service: {base})")
+    if after != base:
+        live = sorted((t.numel() * t.element_size(), tuple(t.shape), t.dtype)
+                      for t in gc.get_objects()
+                      if isinstance(t, torch.Tensor) and t.is_cuda)
+        fail(f"device memory {after} bytes after the service, {base} before; "
+             f"live CUDA tensors (bytes, shape, dtype): {live[-12:]}; "
+             f"allocator: " + json.dumps({key: val for key, val in
+                                          torch.cuda.memory_stats().items()
+                                          if key.endswith(".all.current")}))
+    del A, Ad, Xb, H
+    torch.cuda.empty_cache()
+
+    # -- the kernels line's entries: launches beside the rows at their shapes
+    line = []
+    for key, c in line_counts.items():
+        name, tag = key.split("[", 1)
+        kernel = name.split("/")[0]
+        if kernel in ("block_matvec", "block_rmatvec", "block_gram_chain"):
+            wgmma = name.endswith("/wgmma")
+            which = "shard" if "shard" in tag else "host block" if \
+                "host-blocked" in tag else "burst bfloat16" if wgmma else \
+                "burst float32"
+            row = rows[which][kernel]
+            source = TC_SOURCE if wgmma else TF32_SOURCE
+        else:
+            row, source = rows["deflation"][kernel], SOURCES[kernel]
+        line.append({"name": key, "route": "cuda", "source": source,
+                     "replaces": REPLACES[kernel], "launches": c,
+                     **{f: row[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms")}})
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 11: {summary['seconds']:.1f} s")
+    return summary, line
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sharded-rank"]:      # one rank of phase 10.2
         return sharded_rank(*sys.argv[2:4])
@@ -3514,6 +4131,13 @@ def main() -> int:
     if sys.argv[1:] == ["--only-sharded"]:        # phase 1, then phase 10
         summary, _, _ = sharded(torch, repro_torch, ops, ref, bm, dev)
         print(json.dumps({"sharded": summary}))
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--only-serving"]:        # phase 1, then phase 11
+        summary, line = serving(torch, repro_torch, ops, ref, bm, dev)
+        mark("11")
+        print(json.dumps({"serving": summary}))
+        print(json.dumps({"kernels": line}))
         print(card_line())
         return 0
 
@@ -3965,6 +4589,12 @@ def main() -> int:
     print(json.dumps({"sharded": sh_summary}))
     mark("10")
 
+    # -- 11. the SVD service ----------------------------------------------
+    sv_summary, sv_line = serving(torch, repro_torch, ops, ref, bm, dev,
+                                  table=table)
+    print(json.dumps({"serving": sv_summary}))
+    mark("11")
+
     sweeps = ("block_matvec", "block_rmatvec", "block_gram_chain")
     rows = dict(dtable)
     # the fp32 solve's sweeps (3xTF32), the bf16 solve's chains (wgmma) and
@@ -4000,7 +4630,7 @@ def main() -> int:
            if "library_causal_ms" in row else {})}
         for name, row in rows.items()] + csr_kernel_line(
             csr_rows, csr_launches) + sharded_kernel_line(
-            sh_counts, table, dtable, sh_rows)
+            sh_counts, table, dtable, sh_rows) + sv_line
     print(json.dumps({"block_sweeps_by_route": [
         {"name": name, "dtype": "float32" if key[0] in (
             "float32", "tf32x3_cpasync") else "bfloat16",

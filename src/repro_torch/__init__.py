@@ -24,7 +24,12 @@ checkpoint/resume (``checkpoint_dir=``, the JAX package's format), and
 the paper's N-GPU layout (``svd(A, k, mesh=make_host_mesh())``, run by
 every rank of a ``torch.distributed`` world: ``A`` row-sharded, one
 ``(n, k)`` all-reduce a block step, the deflation engines' faithful and
-fused schedules).
+fused schedules).  The SVD service (``repro_torch.serving``; also
+exported here: ``SVDService``, ``JobSpec``, ``JobStatus``, ``JobHandle``)
+serves many concurrent ``svd()`` jobs from one process on one device:
+priority and byte-budget admission, a micro-batcher for bursts of small
+solves, streamed partial results, cancellation, deadlines, per-job
+checkpoints and metering.
 
     import torch, repro_torch
     res = repro_torch.svd(A, 32)                      # A on the card
@@ -36,7 +41,12 @@ fused schedules).
     mesh = repro_torch.make_host_mesh()               # under torchrun
     res = repro_torch.svd(A, 32, mesh=mesh)           # row-sharded
 
+    with repro_torch.SVDService(max_workers=2) as svc:  # SVD service
+        h = svc.submit(A, 32, stream_every=4)
+        res = h.result(timeout=600)
+
     python -m repro_torch.launch.serve --arch gemma2-9b   # LM serving
+    python -m repro_torch.serving --smoke                 # SVD service
 
 Entry points run on the card unless the caller asks for the CPU: with
 no ``device`` and no visible CUDA device they raise.
@@ -71,6 +81,12 @@ from repro_torch.core import (  # noqa: F401
     sparse_tsvd,
     SyntheticSparseMatrix,
 )
+from repro_torch.serving import (  # noqa: F401
+    JobHandle,
+    JobSpec,
+    JobStatus,
+    SVDService,
+)
 
 __all__ = ["svd", "svd_update", "SVDConfig", "SVDResult", "SolverState",
            "init_state", "step", "finalize", "LinearOperator",
@@ -80,4 +96,5 @@ __all__ = ["svd", "svd_update", "SVDConfig", "SVDResult", "SolverState",
            "SparseStreamOperator", "ScipySparseOperator",
            "DenseStreamOperator", "sparse_tsvd", "SparseTSVDResult",
            "ShardedOperator", "dist_tsvd", "DistTSVDResult",
-           "make_host_mesh", "make_production_mesh"]
+           "make_host_mesh", "make_production_mesh", "SVDService",
+           "JobSpec", "JobStatus", "JobHandle"]

@@ -10,7 +10,9 @@ demotion ladder dense -> host-blocked -> memmap of the JAX package;
 ``SparseStreamOperator`` for a streamed sparse matrix
 (``core/sparse.py``); and ``ShardedOperator`` for the rows of ``A``
 sharded over the axes of a ``torch.distributed`` device mesh, one rank
-each (the paper's N-GPU layout; ``core/collectives.py``).
+each (the paper's N-GPU layout; ``core/collectives.py``), with its own
+ladder of each rank's rows: ``ShardedHostOperator`` (host) ->
+``ShardedMemmapOperator`` (disk).
 
 Every A-sized product of ``DenseOperator`` goes through the sweep
 wrappers of ``kernels/ops.py``: on the card those launch the Hopper
@@ -56,6 +58,7 @@ __all__ = [
     "SparseStreamOperator",
     "ShardedOperator",
     "ShardedHostOperator",
+    "ShardedMemmapOperator",
     "ShardLayout",
     "host_sync_scalar",
     "resolve_device",
@@ -101,22 +104,26 @@ def _orth(X: torch.Tensor) -> torch.Tensor:
     return torch.linalg.qr(X).Q
 
 
+def stage_scalar(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (0-d) with its copy to pinned host memory started now, in
+    stream order, where it lives on the card: a later
+    ``host_sync_scalar(x)`` then waits for the work that made it alone,
+    while the work queued after it (the next step, the streamed tiers'
+    copies of the next pass) runs on."""
+    if x.is_cuda:
+        host = torch.empty((), dtype=x.dtype, pin_memory=True)
+        host.copy_(x, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        x._repro_host = (host, ready)
+    return x
+
+
 def _gap(Q: torch.Tensor, Qn: torch.Tensor) -> torch.Tensor:
     # sum of squared sines of the principal angles between span(Q) and
     # span(Qn): invariant to rotations within the subspace.  Returned
     # unsynced — a 0-d device tensor the driver floats one step late.
-    g = Q.shape[1] - torch.sum((Q.mT @ Qn) ** 2)
-    if g.is_cuda:
-        # its copy to the host starts now, in stream order: the lagged
-        # read (host_sync_scalar) then waits for this step alone, while
-        # the next step's work, and the streamed tiers' copies of the next
-        # pass, are already queued behind it
-        host = torch.empty((), dtype=g.dtype, pin_memory=True)
-        host.copy_(g, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record()
-        g._repro_host = (host, ready)
-    return g
+    return stage_scalar(Q.shape[1] - torch.sum((Q.mT @ Qn) ** 2))
 
 
 # ---------------------------------------------------------------------------
@@ -653,6 +660,28 @@ class ShardedOperator(_OnShards, LinearOperator):
         return m * n * self._As.element_size()
 
 
+def spill_to_disk(host, cfg, shards: int = 1):
+    """``host``'s staged blocks written block by block to a temp ``.npy``
+    (nothing A-sized is resident) and re-opened as a ``MemmapMatrix`` with
+    the same block plan, dtype and device; its host cache budget is half
+    the file, or, when ``cfg.host_budget_bytes`` is set, a ``1/shards``
+    share of it: the ``shards`` ranks that each spill their rows of a
+    row-sharded matrix then cache together what one spill of the whole
+    matrix would.  Returns the matrix and the file's path."""
+    import tempfile
+    from repro_torch.core.diskio import MemmapMatrix, write_npy
+    fd, path = tempfile.mkstemp(suffix=".npy", prefix="repro_demoted_")
+    os.close(fd)
+    write_npy(path, (host.m, host.n), host.stage_dtype,
+              ((host.plan.bounds(b)[0], host.host_block(b))
+               for b in range(host.n_blocks)))
+    budget = max(1, cfg.host_budget_bytes // shards) \
+        if cfg.host_budget_bytes else \
+        (host.m * host.n * host.stage_dtype.itemsize) // 2
+    return MemmapMatrix(path, host.n_blocks, stage_dtype=host.stage_dtype,
+                        host_budget_bytes=budget, device=host.device), path
+
+
 # ---------------------------------------------------------------------------
 # HostBlockedOperator — host-resident row blocks streamed H2D (degree-1)
 # ---------------------------------------------------------------------------
@@ -739,18 +768,7 @@ class HostBlockedOperator(LinearOperator):
         streamed accumulation order, and with it the bits, is unchanged).
         The host cache budget is ``cfg.host_budget_bytes`` when set, else
         half the file.  The caller owns the temp file (``spill_path``)."""
-        import tempfile
-        from repro_torch.core.diskio import MemmapMatrix, write_npy
-        host = self._host
-        fd, path = tempfile.mkstemp(suffix=".npy", prefix="repro_demoted_")
-        os.close(fd)
-        write_npy(path, (host.m, host.n), host.stage_dtype,
-                  ((host.plan.bounds(b)[0], host.host_block(b))
-                   for b in range(host.n_blocks)))  # nothing A-sized
-        budget = cfg.host_budget_bytes or (
-            host.m * host.n * host.stage_dtype.itemsize) // 2
-        mm = MemmapMatrix(path, host.n_blocks, stage_dtype=host.stage_dtype,
-                          host_budget_bytes=budget, device=host.device)
+        mm, path = spill_to_disk(self._host, cfg)
         op = MemmapOperator(mm)
         op.spill_path = path
         return op
@@ -767,14 +785,13 @@ class HostBlockedOperator(LinearOperator):
         return {"host": moved, "device": moved}
 
 
-class ShardedHostOperator(_OnShards, HostBlockedOperator):
-    """A ``ShardedOperator`` demoted after a device OOM: this rank's rows
-    on the host, streamed block by block through the host tier's sweeps,
-    and the sharded operator's collectives over the same group (one
-    all-reduce a product, ``sharded_extract``).  ``shape``, the
-    fingerprint's shard count and ``bytes_per_pass`` are the global
-    matrix's, as on the tier above.  It is the bottom of the sharded
-    ladder: the disk tier holds a whole matrix, not a shard."""
+class _HostShards(_OnShards):
+    """What the host-side tiers of a row-sharded matrix share: this rank's
+    rows streamed block by block through the host tier's sweeps, and the
+    sharded operator's collectives over the same group (one all-reduce a
+    product, ``sharded_extract``).  ``shape``, the fingerprint's shard
+    count and ``bytes_per_pass`` are the global matrix's, as on the tier
+    above."""
 
     def __init__(self, host, layout: ShardLayout, shape):
         super().__init__(host)
@@ -798,13 +815,27 @@ class ShardedHostOperator(_OnShards, HostBlockedOperator):
         self._count(1)
         return sharded_extract(self._host.matmat(Q), Q, self._sum)
 
-    def demote(self, cfg):
-        return None
-
     @property
     def bytes_per_pass(self):
         m, n = self._shape
         return m * n * self._host.stage_dtype.itemsize
+
+
+class ShardedHostOperator(_HostShards, HostBlockedOperator):
+    """A ``ShardedOperator`` demoted after a device OOM: this rank's rows
+    on the host (``_HostShards``).  Host pressure demotes it once more,
+    to ``ShardedMemmapOperator``."""
+
+    def demote(self, cfg):
+        """Each rank spills only its own rows to its own temp ``.npy``
+        (``spill_to_disk``, the host tier's block plan: each rank's sums
+        keep their order and bits; each rank caches its share of
+        ``cfg.host_budget_bytes``) and goes on with the same collectives.
+        The caller owns the temp file (``spill_path``)."""
+        mm, path = spill_to_disk(self._host, cfg, self.layout.n_shards)
+        op = ShardedMemmapOperator(mm, self.layout, self._shape)
+        op.spill_path = path
+        return op
 
 
 # ---------------------------------------------------------------------------
@@ -828,6 +859,22 @@ class MemmapOperator(HostBlockedOperator):
     @property
     def bytes_moved(self):
         return self._host.bytes_moved
+
+
+class ShardedMemmapOperator(_HostShards, MemmapOperator):
+    """The disk tier of a row-sharded matrix: this rank's rows in its own
+    ``.npy``, staged disk -> host -> device, and the sharded collectives
+    (``_HostShards``).  Disk is the bottom of the ladder (``demote`` is
+    ``MemmapOperator``'s).  ``bytes_moved`` is the global matrix's: every
+    rank holds as many rows under the same block plan and the same share
+    of the host budget, so each rank's tier counters are the same and the
+    sum is ``n_shards`` times this rank's, which is what the reference's
+    one gathered memmap moves."""
+
+    @property
+    def bytes_moved(self):
+        return {tier: n * self.layout.n_shards
+                for tier, n in self._host.bytes_moved.items()}
 
 
 # ---------------------------------------------------------------------------

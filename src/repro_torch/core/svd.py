@@ -61,8 +61,10 @@ row-sharded ``DTensor``; ``S``, the other factor, ``iters`` and the
 accounting are replicated, the same bits on every rank.  With
 ``checkpoint_dir`` the mesh's first rank writes each step, every rank of
 the mesh waits for it, and every rank resumes from the same step.  A
-device OOM moves each rank's own rows to its host (``ShardedHostOperator``)
-and the solve goes on with the same collectives.
+device OOM moves each rank's own rows to its host
+(``ShardedHostOperator``), a second one spills them to the rank's own
+``.npy`` (``ShardedMemmapOperator``), and the solve goes on with the
+same collectives.
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and
 raises when no card is visible; the caller passes ``device="cpu"`` to
@@ -442,9 +444,10 @@ def _run_block(op: LinearOperator, k: int, cfg: SVDConfig, warm=None):
 
     A device OOM (``torch.cuda.OutOfMemoryError`` or an injected
     ``DeviceOOMFault``) asks ``op.demote(cfg)`` for the next-lower
-    memory tier (dense -> host-blocked -> memmap) and carries the warm
-    iterate there; on the disk tier, which has none, an OOM ends the
-    solve with ``FaultExhaustedError`` whose ``__cause__`` is the OOM.
+    memory tier (dense -> host-blocked -> memmap; on a mesh, each rank's
+    rows sharded -> host -> disk) and carries the warm iterate there; on
+    the disk tier, which has none, an OOM ends the solve with
+    ``FaultExhaustedError`` whose ``__cause__`` is the OOM.
     With ``cfg.checkpoint_dir`` the states go through a
     ``CheckpointManager`` there.
     """

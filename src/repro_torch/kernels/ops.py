@@ -42,7 +42,9 @@ producer), and ``gram``'s (``gram.route``: fp32 on ``"tf32x3"`` or
 ``"wgmma_ld"`` by it), and the CSR sweeps' counts by the values'
 dtype (``"csr_matmat/float32"``, ``"csr_matmat/bfloat16"``, ...).  The
 CSR chain counts itself and its two halves, as ``block_gram_chain``
-does.
+does.  ``thread_launches`` also tallies, by kernel and by route, the
+launches one thread makes while it is open (the SVD service's workers
+each run one job at a time, so a job's own launches).
 
 The block sweeps and ``gram`` read ``A`` in place where it is row-major
 with unit column stride (``block_matvec.row_stride``): contiguous, or a
@@ -55,6 +57,9 @@ no tile padding of ``A`` (a padded copy of a 32 GiB ``A`` would not fit
 beside it) and no interpret mode.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -86,10 +91,44 @@ route_launches = {**{f"{name}/{which}": 0
                      for dt in ("float32", "bfloat16")}}
 
 
+#: the counts are written from every thread that launches (the SVD
+#: service's workers run solves at once): an increment holds this lock
+_COUNT_LOCK = threading.Lock()
+
+#: this thread's open ``thread_launches`` tally, if any
+_TALLY = threading.local()
+
+
 def reset_launches() -> None:
-    for counts in (launches, route_launches):
-        for name in counts:
-            counts[name] = 0
+    with _COUNT_LOCK:
+        for counts in (launches, route_launches):
+            for name in counts:
+                counts[name] = 0
+
+
+@contextlib.contextmanager
+def thread_launches():
+    """Yields a dict that counts, by kernel name and by route (the keys
+    of ``launches`` and ``route_launches``), the launches this thread
+    makes until the block ends."""
+    outer = getattr(_TALLY, "counts", None)
+    _TALLY.counts = tally = {}
+    try:
+        yield tally
+    finally:
+        _TALLY.counts = outer
+
+
+def _count(name: str, route: str | None = None) -> None:
+    """One launch of ``name`` (and of its ``route``) on the card."""
+    with _COUNT_LOCK:
+        launches[name] += 1
+        if route is not None:
+            route_launches[route] += 1
+    tally = getattr(_TALLY, "counts", None)
+    if tally is not None:
+        for key in (name, route) if route is not None else (name,):
+            tally[key] = tally.get(key, 0) + 1
 
 
 def _sweep_dtype(A, X, dtype, what: str) -> torch.dtype:
@@ -140,8 +179,7 @@ def block_matvec(A: torch.Tensor, Q: torch.Tensor, *,
     A, Q = _on_card(A, Q, sd)
     which = _bm.route(A, Q.shape[1])
     Y = _bm.block_matvec_cuda(A, Q, which)
-    launches["block_matvec"] += 1
-    route_launches[f"block_matvec/{which}"] += 1
+    _count("block_matvec", f"block_matvec/{which}")
     return Y
 
 
@@ -160,8 +198,7 @@ def block_rmatvec(A: torch.Tensor, Y: torch.Tensor, *,
     A, Y = _on_card(A, Y, sd)
     which = _bm.route(A, Y.shape[1])
     Z = _bm.block_rmatvec_cuda(A, Y, which)
-    launches["block_rmatvec"] += 1
-    route_launches[f"block_rmatvec/{which}"] += 1
+    _count("block_rmatvec", f"block_rmatvec/{which}")
     return Z
 
 
@@ -179,7 +216,7 @@ def block_gram_chain(A: torch.Tensor, X: torch.Tensor, *, dtype=None,
     else:
         Z = block_rmatvec(A, block_matvec(A, X, dtype=sd), dtype=sd)
     if A.device.type == "cuda":
-        launches["block_gram_chain"] += 1
+        _count("block_gram_chain")
     return Z
 
 
@@ -227,7 +264,7 @@ def matvec(A: torch.Tensor, v: torch.Tensor, *,
                            device=A.device)
     A, v = _fp32_on_card(A, v)
     y = _dm.matvec_cuda(A, v, trans)
-    launches["matvec"] += 1
+    _count("matvec")
     return y
 
 
@@ -255,7 +292,7 @@ def deflate_rmatvec(A: torch.Tensor, U: torch.Tensor, Xv: torch.Tensor,
                 _ref.deflate_rmatvec_ref(A, U, Xv, SVtv, trans)[1])
     A, U, Xv, SVtv = _fp32_on_card(A, U, Xv, SVtv)
     out = _dm.deflate_rmatvec_cuda(A, U, Xv, SVtv, trans)
-    launches["deflate_rmatvec"] += 1
+    _count("deflate_rmatvec")
     return out
 
 
@@ -284,8 +321,7 @@ def gram(A: torch.Tensor, *, symmetric: bool = True,
                          "wider rows (for A A^T use trans=True)")
     which = _gram.route(A)
     B = _gram.gram_cuda(A, which, symmetric=symmetric, trans=trans)
-    launches["gram"] += 1
-    route_launches[f"gram/{which}"] += 1
+    _count("gram", f"gram/{which}")
     return B
 
 
@@ -348,7 +384,7 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "and v through TMA tensor maps, which take no zero "
                          "stride (pass a contiguous copy)")
     out = _la.local_attention_cuda(q, k, v, window, softcap)
-    launches["local_attention"] += 1
+    _count("local_attention")
     return out
 
 
@@ -388,8 +424,7 @@ def _csr_operands(what: str, off, col, val, X, *, rows_of_X: bool,
 
 
 def _count_csr(name: str, val: torch.Tensor) -> None:
-    launches[name] += 1
-    route_launches[f"{name}/{str(val.dtype).rsplit('.', 1)[-1]}"] += 1
+    _count(name, f"{name}/{str(val.dtype).rsplit('.', 1)[-1]}")
 
 
 def csr_matmat(off: torch.Tensor, col: torch.Tensor, val: torch.Tensor,

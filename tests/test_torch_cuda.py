@@ -1057,3 +1057,101 @@ def test_block_beyond_int32_nonzeros_is_refused_on_the_card(card):
     with pytest.raises(ValueError, match="int32.*block_rows"):
         s.rmatmat(torch.zeros((2, 1), device=card), block_rows=2)
     s.close()
+
+
+# ---------------------------------------------------------------------------
+# the SVD service on the card (repro_torch.serving)
+# ---------------------------------------------------------------------------
+
+def _service_specs(n_jobs, sweep_dtype="float32", nan_lane=None):
+    import numpy as np
+    from repro_torch.core.config import SVDConfig
+    from repro_torch.serving import JobSpec
+    rng = np.random.default_rng(0)
+    specs = []
+    for i in range(n_jobs):
+        U, _ = np.linalg.qr(rng.standard_normal((512, 128)))
+        V, _ = np.linalg.qr(rng.standard_normal((128, 128)))
+        A = ((U * np.geomspace(10.0, 1e-2, 128)) @ V.T).astype(np.float32)
+        if i == nan_lane:
+            A[1, 2] = np.nan
+        specs.append(JobSpec(input=torch.from_numpy(A), k=6, config=SVDConfig(
+            eps=1e-6, max_iters=200, warmup_q=1, seed=i,
+            sweep_dtype=sweep_dtype)))
+    return specs
+
+
+@pytest.mark.parametrize("sweep_dtype", ["float32", "bfloat16"])
+def test_batched_solve_on_the_card_matches_the_cpu(card, sweep_dtype):
+    """The same jobs stacked on the card and on the CPU: sigma within
+    1e-4, the same subspaces, a NaN lane failing alone on both."""
+    import numpy as np
+    from repro_torch.serving.batcher import solve_batch
+    specs = _service_specs(6, sweep_dtype, nan_lane=3)
+    gpu = solve_batch(specs, device="cuda")
+    cpu = solve_batch(specs, device="cpu")
+    for i, ((g, ge), (c, ce)) in enumerate(zip(gpu, cpu)):
+        if i == 3:
+            assert g is None and type(ge).__name__ == "NumericalHealthError"
+            assert c is None and type(ce).__name__ == "NumericalHealthError"
+            continue
+        assert ge is None and ce is None
+        assert g.S.is_cuda and g.U.is_cuda
+        # (no iteration count compared: at eps * l the fp32 gap is near
+        # its rounding noise, which differs between the two devices)
+        torch.testing.assert_close(g.S.cpu(), c.S, rtol=1e-4, atol=0)
+        cos = torch.linalg.svdvals(g.V.cpu().mT @ c.V)
+        assert float(cos.min()) > 1 - 1e-3, cos
+        for r in (g, c):
+            assert r.passes_over_A == 2 * int(r.iters[0]) + 1 + 3
+        assert g.bytes_per_pass == c.bytes_per_pass
+
+
+def test_fp32_lanes_run_no_tf32(card):
+    """The port's contract: fp32 operands are never plain TF32.  The
+    batcher sets no flag, so a batched fp32 lane's products are full fp32
+    sgemm: its chain equals the float64 product to fp32 rounding, where
+    TF32 (10-bit mantissas) would be ~1e-3 off."""
+    from repro_torch.serving.batcher import _bmm_fp32
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+    g = torch.Generator(device="cuda").manual_seed(0)
+    X = torch.randn((4, 1024, 256), generator=g, device="cuda")
+    Q = torch.randn((4, 256, 8), generator=g, device="cuda")
+    got = _bmm_fp32(X, Q)
+    want = (X.double() @ Q.double()).float()
+    err = float((got - want).norm() / want.norm())
+    assert err < 1e-6, err
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_two_workers_on_the_card_give_the_serial_bits(card):
+    """Two jobs through a two-worker service on the card, at once on the
+    default stream, are bitwise the same solves run one after another,
+    and each job's own launch tally is its serial solve's plus one
+    ``block_matvec`` a streamed partial."""
+    import repro_torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import JobStatus, SVDService
+    specs = _service_specs(2)
+    Xs = [s.input.cuda() for s in specs]
+    serial, tallies = [], []
+    for X, s in zip(Xs, specs):
+        with ops.thread_launches() as tally:
+            serial.append(repro_torch.svd(
+                X, 6, config=s.config.replace(warmup_q=0)))
+        tallies.append(tally)
+    with SVDService(max_workers=2, device="cuda") as svc:
+        hs = [svc.submit(X, 6, config=s.config.replace(warmup_q=0),
+                         stream_every=7) for X, s in zip(Xs, specs)]
+        assert all(h.wait(60.0) is JobStatus.DONE for h in hs)
+        got = [h.result(1.0) for h in hs]
+        jobs = [svc._jobs[h.job_id] for h in hs]
+    for s, t in zip(serial, got):
+        for a, b in zip(s[:3], t[:3]):
+            assert torch.equal(a, b)
+        assert s.passes_over_A == t.passes_over_A
+    for job, tally in zip(jobs, tallies):
+        want = {key: c + job.partial_count * key.startswith("block_matvec")
+                for key, c in tally.items()}
+        assert job.partial_count > 0 and job.launches == want

@@ -14,8 +14,8 @@ Two kinds of cases:
   wide input, ``n_blocks=4``, ``U`` orthonormal, a ("pod", "data")
   2 x 2 mesh, block at k = 8, the rank-deficient block, the warm start
   on real sharding), plus checkpoints on a mesh that replicates the rows
-  over a dim outside the axes and a planted device OOM, and save what
-  they got; the parent compares the ranks bit for bit and the results
+  over a dim outside the axes and planted device OOMs down to the host
+  and the disk tiers, and save what they got; the parent compares the ranks bit for bit and the results
   with the JAX package's sharded solve of the same matrix.  The children
   import no JAX.  Every child runs under a timeout, and a rank that fails
   ends them all.
@@ -45,7 +45,8 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import collectives
 from repro_torch.core.errors import InputError
 from repro_torch.core.faults import FaultPlan, FaultSpec, inject_faults
-from repro_torch.core.operator import HostBlockedOperator, ShardedOperator
+from repro_torch.core.operator import (HostBlockedOperator,
+                                       ShardedMemmapOperator, ShardedOperator)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPECTRUM = np.concatenate([np.linspace(20, 2, 8), 2 * 0.75 ** np.arange(1, 9)])
@@ -204,7 +205,13 @@ def test_operator_contract(mesh1):
     assert isinstance(low, HostBlockedOperator)
     assert low.shape == top.shape and low.sweep_dtype == "bfloat16"
     assert low.bytes_per_pass == top.bytes_per_pass
-    assert low.fingerprint.endswith(":shards=1") and low.demote(None) is None
+    assert low.fingerprint.endswith(":shards=1")
+    disk = low.demote(repro_torch.SVDConfig())
+    assert isinstance(disk, ShardedMemmapOperator)
+    assert disk.backend == "memmap" and disk.shape == top.shape
+    assert disk.bytes_per_pass == top.bytes_per_pass
+    assert disk.fingerprint.endswith(":shards=1") and disk.demote(None) is None
+    os.remove(disk.spill_path)
     staged = torch.cat([low.host.host_block(b)
                         for b in range(low.host.n_blocks)])
     np.testing.assert_array_equal(_np(staged.float()), _np(
@@ -330,6 +337,39 @@ def test_planted_oom_demotes_to_host_blocks(mesh1):
     assert isinstance(res.U, torch.distributed.tensor.DTensor)
 
 
+def test_planted_oom_twice_reaches_the_sharded_disk_tier(mesh1):
+    """Two planted device OOMs take the sharded solve down the whole
+    ladder, sharded -> host blocks -> the rank's rows on disk, as the
+    reference's world-1 sharded solve under the same plan goes down to
+    its memmap: the same backend, iterations, passes and bytes, sigma
+    within the limits of the one-demotion case."""
+    from repro.core.faults import FaultPlan as JaxPlan
+    from repro.core.faults import FaultSpec as JaxSpec
+    from repro.core.faults import inject_faults as jax_inject
+    A = _lowrank(96, 32, seed=9)
+    kw = dict(force_iters=True, max_iters=10)
+    clean = repro_torch.svd(A, 4, mesh=mesh1, **kw)
+    with inject_faults(FaultPlan(FaultSpec("device_oom", at=3),
+                                 FaultSpec("device_oom", at=6))):
+        res = repro_torch.svd(A, 4, mesh=mesh1, **kw)
+    with jax_inject(JaxPlan(JaxSpec("device_oom", at=3),
+                            JaxSpec("device_oom", at=6))):
+        ref = _jax_sharded(A, 4, **kw)
+    assert res.backend == ref.backend == "memmap"
+    assert res.faults["counters"] == ref.faults["counters"] == {
+        "device_oom.injected": 2, "device_oom.demote": 2}
+    np.testing.assert_array_equal(res.iters, clean.iters)
+    np.testing.assert_array_equal(res.iters, np.asarray(ref.iters))
+    # three steps on the card (two passes a chain), three on host blocks
+    # and four on disk (one pass a chain), the extraction
+    assert res.passes_over_A == int(ref.passes_over_A) == 3 * 2 + 3 + 4 + 1
+    assert res.bytes_per_pass == int(ref.bytes_per_pass) == 96 * 32 * 4
+    assert res.bytes_moved == ref.bytes_moved
+    np.testing.assert_allclose(_np(res.S), _np(clean.S), rtol=1e-4)
+    np.testing.assert_allclose(_np(res.S), np.asarray(ref.S), rtol=1e-4)
+    assert isinstance(res.U, torch.distributed.tensor.DTensor)
+
+
 def test_svd_update_on_a_mesh(mesh1):
     A = _lowrank(128, 48, seed=10)
     rng = np.random.default_rng(2)
@@ -415,6 +455,9 @@ def run(name, X, k, m=mesh, **kw):
     saved[name + "/V"] = full(r.V)
     saved[name + "/iters"] = np.asarray(r.iters)
     saved[name + "/passes"] = np.asarray(r.passes_over_A)
+    saved[name + "/backend"] = np.asarray(r.backend)
+    saved[name + "/bytes_moved"] = np.asarray(
+        sorted((r.bytes_moved or {}).items()))
     saved[name + "/collectives"] = np.asarray(
         [[c["op"] == "all_reduce", int(np.prod(c["shape"])),
           c["group_size"]] for c in collectives.record])
@@ -560,10 +603,15 @@ assert writers[0] and not any(writers[1:]), writers
 assert CheckpointManager(ck2).latest_step() == int(rep.iters[0])
 # a planted device OOM: each rank's own rows move to its host and the
 # solve goes on with the same one all-reduce a step
-from repro_torch.core.operator import ShardedHostOperator, ShardedOperator
+from repro_torch.core.operator import (ShardedHostOperator,
+                                       ShardedMemmapOperator, ShardedOperator)
 low = ShardedOperator(A, mesh).demote(repro_torch.SVDConfig())
 assert isinstance(low, ShardedHostOperator) and low.host.m == 32
-assert low.shape == (128, 48) and low.demote(None) is None
+assert low.shape == (128, 48)
+disk = low.demote(repro_torch.SVDConfig())
+assert isinstance(disk, ShardedMemmapOperator) and disk.host.m == 32
+assert disk.shape == (128, 48) and disk.demote(None) is None
+os.remove(disk.spill_path)
 with inject_faults(FaultPlan(FaultSpec("device_oom", at=3))):
     dm = run("demoted", A, 4, method="block", force_iters=True,
              max_iters=10)
@@ -577,6 +625,19 @@ np.testing.assert_array_equal(dm.iters, clean.iters)
 assert dm.passes_over_A == 3 * 2 + 7 * 1 + 1, dm.passes_over_A
 np.testing.assert_allclose(dm.S.numpy(), clean.S.numpy(), rtol=1e-4)
 np.testing.assert_allclose(full(dm.U).T @ full(dm.U), np.eye(4), atol=5e-3)
+# two planted device OOMs: each rank's rows go on from its host to its
+# own .npy, with the same one all-reduce a step; an explicit host budget
+# is shared out, each rank caching a quarter of it
+for budget in DISK_BUDGETS:
+    with inject_faults(FaultPlan(FaultSpec("device_oom", at=3),
+                                 FaultSpec("device_oom", at=6))):
+        dd = run(f"disk/{budget}", A, 4, method="block", force_iters=True,
+                 max_iters=10, host_budget_bytes=budget)
+    assert dd.backend == "memmap", dd.backend
+    assert dd.faults["counters"]["device_oom.demote"] == 2
+    np.testing.assert_array_equal(dd.iters, clean.iters)
+    assert dd.passes_over_A == 3 * 2 + 3 + 4 + 1, dd.passes_over_A
+    np.testing.assert_allclose(dd.S.numpy(), clean.S.numpy(), rtol=1e-4)
 # a rerun is bitwise equal
 r2 = run("block2", A, 8, method="block", eps=1e-8, max_iters=500)
 np.testing.assert_array_equal(saved["block2/S"], saved["block/S"])
@@ -585,6 +646,12 @@ np.savez(f"{out}/rank{rank}.npz", **saved)
 dist.destroy_process_group()
 print("RANK_OK", rank)
 '''
+
+#: the four-rank disk tier's host budgets: the default (half the file)
+#: and a quarter of ``A``'s 128 x 48 fp32 bytes, one of the four blocks
+#: of the whole matrix, which each rank's whole share of ``A`` would fit
+DISK_BUDGETS = (0, 128 * 48 * 4 // 4)
+RANKS = f"DISK_BUDGETS = {DISK_BUDGETS}\n" + RANKS
 
 CASES = {   # name -> (k, input, JAX kwargs): the parent's reference solves
     "gram/True": (4, "A", dict(method="gram", faithful=True, eps=1e-10,
@@ -621,13 +688,18 @@ def test_four_ranks_agree_bitwise(four_ranks):
                                           four_ranks[0][key], err_msg=key)
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_four_ranks_match_the_jax_sharded_solve(four_ranks, name):
-    k, which, kw = CASES[name]
+def _ranks_A():
+    """The four-rank child's ``A``."""
     rng = np.random.default_rng(0)
     U0, _, Vt0 = np.linalg.svd(rng.normal(size=(128, 48)).astype(np.float32),
                                full_matrices=False)
-    A = (U0 * np.linspace(20, 1, 48).astype(np.float32)) @ Vt0
+    return (U0 * np.linspace(20, 1, 48).astype(np.float32)) @ Vt0
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_four_ranks_match_the_jax_sharded_solve(four_ranks, name):
+    k, which, kw = CASES[name]
+    A = _ranks_A()
     want = _jax_sharded(A if which == "A" else A.T.copy(), k, **kw)
     got = four_ranks[0]
     np.testing.assert_allclose(got[name + "/S"], np.asarray(want.S),
@@ -637,6 +709,30 @@ def test_four_ranks_match_the_jax_sharded_solve(four_ranks, name):
             getattr(want, side)).shape
         assert _cosines(got[name + "/" + side],
                         np.asarray(getattr(want, side))).min() > 1 - 2e-3
+
+
+@pytest.mark.parametrize("budget", DISK_BUDGETS)
+def test_four_ranks_reach_the_sharded_disk_tier(four_ranks, budget):
+    """Two planted device OOMs on four ranks against the JAX package's
+    sharded solve under the same plan, whose disk tier is one memmap of
+    the gathered matrix: the same backend, iterations, passes and bytes
+    moved per tier (the four ranks' files together, each rank caching its
+    share of the host budget).  Sigma is held in the child to the ranks'
+    clean solve: ten forced steps from another ``Q0`` than the JAX
+    package's do not converge this spectrum's close top values."""
+    from repro.core.faults import FaultPlan as JaxPlan
+    from repro.core.faults import FaultSpec as JaxSpec
+    from repro.core.faults import inject_faults as jax_inject
+    with jax_inject(JaxPlan(JaxSpec("device_oom", at=3),
+                            JaxSpec("device_oom", at=6))):
+        want = _jax_sharded(_ranks_A(), 4, method="block", force_iters=True,
+                            max_iters=10, host_budget_bytes=budget)
+    got, name = four_ranks[0], f"disk/{budget}"
+    assert str(got[name + "/backend"]) == want.backend == "memmap"
+    np.testing.assert_array_equal(got[name + "/iters"], np.asarray(want.iters))
+    assert int(got[name + "/passes"]) == int(want.passes_over_A)
+    assert {t: int(b) for t, b in got[name + "/bytes_moved"]} == {
+        t: int(b) for t, b in want.bytes_moved.items()}
 
 
 def test_four_ranks_collective_schedule(four_ranks):
@@ -668,3 +764,7 @@ def test_four_ranks_collective_schedule(four_ranks):
     # over the four ranks, and nothing gathered
     c = [tuple(x) for x in got["demoted/collectives"]]
     assert c == [(1, n * 4, 4)] * 10 + [(1, 16, 4)]
+    # and on down to disk at step 6
+    for budget in DISK_BUDGETS:
+        c = [tuple(x) for x in got[f"disk/{budget}/collectives"]]
+        assert c == [(1, n * 4, 4)] * 10 + [(1, 16, 4)], budget

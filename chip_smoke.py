@@ -291,6 +291,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    their plain versions, and ``deflate_rmatvec`` at 65536 x 8192, k = 16,
    re-timed against its two-call yardstick in turns (7 runs each).
    ``--only-serving`` runs phases 1 and 11 alone.
+12. training (``repro_torch.training``).  12.1: the backward kernel of
+   ``local_attention`` (``csrc/local_attn_bwd.cu``) against its plain
+   version (``ref.local_attention_bwd_ref``) on the forward kernel's
+   log-sum-exp, element by element (phase 7's rule: fp32 1e-4, bf16 half
+   a bf16 step plus ``ATOL_ATTN_BF16``), at ragged shapes (every head
+   dim, fp32 and bf16, G in {1, 2, 8}, windows below, at and past S,
+   soft-cap on and off, views of (B, S, H, D) memory) and through the
+   autograd Function (one forward launch, the backward's three kernels);
+   at the path's shapes (qwen3-0.6b 8 x 16 x 2048 x 128 causal;
+   gemma2-9b 1 x 16 x 8192 x 256, cap 50, window 4096 and global) with
+   two runs bitwise equal, each timed beside its bound (10 D flop a live
+   pair at the bf16 peak), its plain version and, where no cap or window
+   is set, autograd of ``scaled_dot_product_attention(is_causal=True)``.
+   12.2: qwen3-0.6b at full width and depth, bf16 parameters, fp32
+   moments, ``loss_chunks`` 8, 8 x 2048 synthetic tokens a step,
+   ``TR_STEPS`` steps plain and as many with the rank-8 compression,
+   through ``init_train_state`` and ``make_train_step``: the loss falls in
+   both, every step's launches equal the accounting (``train_expected``),
+   ``compress_ratio`` is the JAX package's 2384199680 / 41213952, ms a
+   step, tokens/s, peak memory, and one compressed step's profile; the
+   compression's sweeps at their eight shapes, each against its plain
+   version and timed.  12.3: the
+   runner with a failure planted before step 5 and a checkpoint every 4
+   steps (qwen3's widths, 2 layers) resumes bitwise: every loss and the
+   final state.  12.4: the fp32 smoke configs of gemma2-9b and qwen3-0.6b,
+   3 steps plain and 3 compressed at lr 5e-3 on the card and on the CPU
+   from one state: every loss within 1e-4, each parameter tensor within
+   1e-4 of its norm (not element by element: see ``train_card_vs_cpu``).  ``--only-training`` runs phases 1 and 12 alone.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches in the
 run of its path, and its times; the block sweeps as ``<name>/tf32x3``
@@ -311,14 +339,19 @@ the CSR kernels as ``csr_matmat``, ``csr_rmatmat`` and
 solve) and the same with ``[bf16]`` (from the bf16 solve); before them an
 ``{"out_of_core": {...}}`` line with phase 8's numbers, a
 ``{"sparse": {...}}`` line with phase 9's and a ``{"sharded": {...}}``
-line with phase 10's and a ``{"serving": {...}}`` line with phase 11's;
+line with phase 10's, a ``{"serving": {...}}`` line with phase 11's and
+a ``{"training": {...}}`` line with phase 12's;
 the sharded path's launches (10.1, one rank) as
 ``<kernel>/<route>[sharded]`` for the block solves and ``<kernel>[sharded
 <method> faithful]`` / ``[sharded <method> fused]`` for the deflation
 solves, beside the rows measured at the same shapes; the service's as
 ``<kernel>[/<route>][service <job>]``, each job's measured launches (and ``[service burst <dtype>, one
 by one]`` for the bursts' standalone solves), beside the rows measured at
-their shapes in phase 11; and each phase's seconds.
+their shapes in phase 11; the training path's (phase 12.2) as
+``local_attention_bwd``, ``local_attention[training]`` (the forward with
+its log-sum-exp), ``block_matvec/tf32x3[compression]`` and
+``block_rmatvec/tf32x3[compression]`` (one step's eight sweeps, their
+times summed); and each phase's seconds.
 Exits 2 without a CUDA device or without ``src/repro_torch`` beside this
 script.
 """
@@ -4019,6 +4052,584 @@ def serving(torch, repro_torch, ops, ref, bm, dev, table=None) -> tuple:
     return summary, line
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training (repro_torch.training) on the card
+# ---------------------------------------------------------------------------
+
+TR_ARCH = "qwen3-0.6b"
+TR_BATCH, TR_SEQ, TR_CHUNKS = 8, 2048, 8   # tokens a step, loss_chunks
+TR_STEPS = 10                              # steps plain, then compressed
+TR_RANK = 8
+# compress_ratio at qwen3-0.6b's full width, rank 8, min_size 65536 (the
+# JAX package's count): 8 compressed leaves and 6 plain ones
+TR_RATIO = 2384199680 / 41213952
+TR_LR = 1e-3                               # warmup 2 steps, then cosine
+# the restart check (12.3): qwen3-0.6b's widths, 2 layers, 2 x 256 tokens
+TR_RESTART_LAYERS, TR_RESTART_TOKENS = 2, (2, 256)
+TR_RESTART_STEPS, TR_CKPT_EVERY, TR_FAIL_AT = 8, 4, 5
+TR_CPU_ARCHS, TR_CPU_STEPS = ("gemma2-9b", "qwen3-0.6b"), 3
+TOL_TRAIN_CPU = 1e-4                       # card vs CPU, smoke size, fp32
+TR_CPU_LR = 5e-3                           # 12.4's AdamW lr
+# the backward kernel at ragged shapes: (B, H, Hkv, S, window, softcap);
+# S is no multiple of the tiles, G = H / Hkv in {2, 8, 1, 8}, windows
+# below S, at S and past it
+BWD_RAGGED = [(2, 4, 2, 133, 64, 50.0), (1, 8, 1, 70, 70, None),
+              (1, 3, 3, 97, 1000, None), (2, 8, 1, 150, 40, 30.0)]
+# the path's shapes: (label, B, H, Hkv, S, D, window, softcap)
+BWD_PATH = [("qwen3-0.6b", TR_BATCH, 16, 8, TR_SEQ, 128, TR_SEQ, None),
+            ("gemma2-9b local", 1, 16, 8, 8192, 256, 4096, 50.0),
+            ("gemma2-9b global", 1, 16, 8, 8192, 256, 8192, 50.0)]
+BWD_SOURCE = "src/repro_torch/csrc/local_attn_bwd.cu"
+# what the backward kernel stands in for: the JAX package differentiates
+# its jnp attention (it has no backward kernel)
+BWD_REPLACES = "src/repro/models/layers.py:136"
+
+
+def attn_bwd_bound(B, H, Hkv, S, D, window) -> tuple:
+    """Least time of the gradient on an H100 SXM: 10 D flop per live
+    (query, key) pair (the scores again, dO V^T, P^T dO, dS K, dS^T Q)
+    over the bf16 tensor-core peak, against q, k, v, o, dO and lse read
+    once and dQ, dK, dV written once (bf16) over the memory rate."""
+    w = min(window, S)
+    pairs = B * H * (w * (w + 1) // 2 + (S - w) * w)
+    nbytes = 2 * B * S * D * (4 * H + 4 * Hkv) + 4 * B * H * S
+    return pick(nbytes / PEAK_BYTES * 1e3,
+                pairs * 10 * D / PEAK_OPS["bfloat16"] * 1e3)
+
+
+def plain_attention_bwd(ref, q, k, v, o, do, lse, window, softcap, each):
+    """The backward's plain version one K/V head (its query heads) at a
+    time, so the (S, S) tensors stay a few GB; ``each(hk, dq, dk, dv)``
+    sees every chunk."""
+    G = q.shape[1] // k.shape[1]
+    for hk in range(k.shape[1]):
+        sl = slice(hk * G, (hk + 1) * G)
+        grads = ref.local_attention_bwd_ref(
+            q[:, sl], k[:, hk:hk + 1], v[:, hk:hk + 1], o[:, sl], do[:, sl],
+            lse[:, sl], window=window, softcap=softcap)
+        each(hk, *grads)
+        del grads
+
+
+def bwd_readings(torch, ref, got, q, k, v, o, do, lse, window, softcap,
+                 dtype) -> tuple:
+    """(max |kernel - plain| over dq, dk, dv; each one's worst share of
+    its per-element limit), the plain version by K/V head."""
+    G = q.shape[1] // k.shape[1]
+    mae, shares = 0.0, [0.0, 0.0, 0.0]
+
+    def each(hk, *want):
+        nonlocal mae
+        parts = (got[0][:, hk * G:(hk + 1) * G], got[1][:, hk:hk + 1],
+                 got[2][:, hk:hk + 1])
+        for i, (a, b) in enumerate(zip(parts, want)):
+            mae = max(mae, float((a.float() - b).abs().max()))
+            shares[i] = max(shares[i], attn_share(a, b, dtype))
+    plain_attention_bwd(ref, q, k, v, o, do, lse, window, softcap, each)
+    return mae, shares
+
+
+def attention_bwd_ragged(torch, ops, ref, la, g, dev) -> float:
+    """The backward kernel against its plain version at ragged shapes,
+    fp32 and bf16, every head dim, on the forward kernel's log-sum-exp
+    (itself held to the plain version's within ``TOL_ATTN_FP32``); one
+    shape also through the autograd Function (launches: one forward, the
+    backward's kernels).  Returns the worst share of a limit."""
+    worst = 0.0
+    for D in la.HEAD_DIMS:
+        for (B, H, Hkv, S, window, softcap) in BWD_RAGGED:
+            for sd in ("float32", "bfloat16"):
+                dt = getattr(torch, sd)
+                q, k, v = attn_inputs(torch, g, dev, B, H, Hkv, S, D, dt)
+                do = attn_inputs(torch, g, dev, B, H, Hkv, S, D, dt)[0]
+                lse = torch.empty((B, H, S), device=dev)
+                o = la.local_attention_cuda(q, k, v, window, softcap, lse)
+                got = ops.local_attention_bwd(q, k, v, o, do, lse,
+                                              window=window, softcap=softcap)
+                want = ref.local_attention_bwd_ref(q, k, v, o, do, lse,
+                                                   window=window,
+                                                   softcap=softcap)
+                lse_err = float((lse - ref.local_attention_lse_ref(
+                    q, k, v, window=window, softcap=softcap)[1]).abs().max())
+                torch.cuda.synchronize()
+                shares = [attn_share(a, b, sd) for a, b in zip(got, want)]
+                label = (f"local_attention_bwd {sd} B={B} H={H} Hkv={Hkv} "
+                         f"S={S} D={D} window={window} softcap={softcap}")
+                print(f"  {label}: dq, dk, dv "
+                      f"{', '.join(f'{s:.2f}' for s in shares)} of the "
+                      f"per-element limit; forward lse err {lse_err:.1e}")
+                ok = all(a.dtype == dt and a.shape == b.shape
+                         and bool(torch.isfinite(a).all())
+                         for a, b in zip(got, want))
+                if not (ok and max(shares) <= 1 and
+                        lse_err <= TOL_ATTN_FP32):
+                    fail(f"{label}: {shares} of the limit, lse err "
+                         f"{lse_err}")
+                worst = max(worst, *shares)
+    # the autograd Function: one forward launch (keeping lse), then the
+    # backward's kernels, and the same gradient as the direct call
+    B, H, Hkv, S, window, softcap = BWD_RAGGED[0]
+    q, k, v = (x.detach().requires_grad_() for x in attn_inputs(
+        torch, g, dev, B, H, Hkv, S, 128, torch.bfloat16))
+    do = attn_inputs(torch, g, dev, B, H, Hkv, S, 128, torch.bfloat16)[0]
+    ops.reset_launches()
+    o = ops.local_attention(q, k, v, window=window, softcap=softcap)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in ops.launches.items() if c}
+    if counts != {"local_attention": 1,
+                  "local_attention_bwd": la.BWD_KERNELS}:
+        fail(f"the autograd Function launched {counts}")
+    lse = torch.empty((B, H, S), device=dev)
+    o2 = la.local_attention_cuda(q.detach(), k.detach(), v.detach(), window,
+                                 softcap, lse)
+    direct = ops.local_attention_bwd(q.detach(), k.detach(), v.detach(), o2,
+                                     do, lse, window=window, softcap=softcap)
+    if not all(torch.equal(a, b) for a, b in zip(grads, direct)):
+        fail("the autograd Function's gradient differs from the direct "
+             "backward call")
+    print(f"  autograd Function: launches {counts}, gradient bitwise the "
+          f"direct call's")
+    return worst
+
+
+def attention_bwd_path(torch, ops, ref, la, g, dev) -> dict:
+    """The backward kernel at the path's shapes (``BWD_PATH``, bf16):
+    within its limits, two runs bitwise equal, then timed beside its
+    bound, its plain version and, with no cap and no window, autograd of
+    ``scaled_dot_product_attention(is_causal=True)`` (K/V repeated to
+    every head: a yardstick only).  The qwen3 row also times the forward
+    kernel with its log-sum-exp (training's forward) beside its plain
+    version and SDPA's forward."""
+    import torch.nn.functional as F
+    rows = {}
+    for (label, B, H, Hkv, S, D, window, softcap) in BWD_PATH:
+        q, k, v = attn_inputs(torch, g, dev, B, H, Hkv, S, D, torch.bfloat16)
+        do = attn_inputs(torch, g, dev, B, H, Hkv, S, D, torch.bfloat16)[0]
+        lse = torch.empty((B, H, S), device=dev)
+        o = la.local_attention_cuda(q, k, v, window, softcap, lse)
+        bwd = lambda: ops.local_attention_bwd(q, k, v, o, do, lse,
+                                              window=window, softcap=softcap)
+        got, again = bwd(), bwd()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        mae, shares = bwd_readings(torch, ref, got, q, k, v, o, do, lse,
+                                   window, softcap, "bfloat16")
+        del got
+        if not same or max(shares) > 1:
+            fail(f"local_attention_bwd {label}: shares {shares}, reruns "
+                 f"bitwise equal: {same}")
+        row = {"max_abs_err": mae, "shares_of_limit": shares,
+               "reruns_bitwise": same,
+               "ms": time_ms(torch, bwd, 5 if S <= 2048 else 3),
+               "plain_ms": time_ms(torch, lambda: plain_attention_bwd(
+                   ref, q, k, v, o, do, lse, window, softcap,
+                   lambda *a: None), 1),
+               "library_ms": None}
+        row["bound_ms"], row["bound_by"] = attn_bwd_bound(B, H, Hkv, S, D,
+                                                          window)
+        G = H // Hkv
+        if softcap is None and window >= S:
+            qc = q.contiguous().requires_grad_()
+            kr = k.repeat_interleave(G, dim=1).contiguous().requires_grad_()
+            vr = v.repeat_interleave(G, dim=1).contiguous().requires_grad_()
+            out = F.scaled_dot_product_attention(qc, kr, vr, is_causal=True)
+            doc = do.contiguous()
+            row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+                out, (qc, kr, vr), doc, retain_graph=True), 5)
+            fwd = {"ms": time_ms(torch, lambda: la.local_attention_cuda(
+                       q, k, v, window, softcap, lse), 10),
+                   "plain_ms": time_ms(torch, lambda: plain_attention(
+                       ref, q, k, v, window, softcap), 1),
+                   "library_ms": time_ms(
+                       torch, lambda: F.scaled_dot_product_attention(
+                           qc, kr, vr, is_causal=True), 10)}
+            o_mae, (o_share,) = attn_readings(torch, ref, [o], q, k, v,
+                                              window, softcap)
+            if o_share > 1:
+                fail(f"local_attention (with lse) {label}: {o_share} of "
+                     f"the per-element limit")
+            fwd["max_abs_err"] = o_mae
+            fwd["bound_ms"], fwd["bound_by"] = attn_bound(B, H, Hkv, S, D,
+                                                          window)
+            rows[f"forward {label}"] = fwd
+            print(f"  local_attention with lse, bf16 {label} B={B} H={H} "
+                  f"Hkv={Hkv} S={S} D={D}: max abs err {o_mae:.2e} "
+                  f"({o_share:.2f} of the limit), kernel {fwd['ms']:.3f} ms, "
+                  f"plain {fwd['plain_ms']:.1f} ms, SDPA is_causal "
+                  f"{fwd['library_ms']:.3f} ms, bound {fwd['bound_ms']:.3f} "
+                  f"ms ({fwd['bound_by']})")
+            del qc, kr, vr, out, doc
+        rows[label] = row
+        print(f"  local_attention_bwd bf16 {label} B={B} H={H} Hkv={Hkv} "
+              f"S={S} D={D} window={window} softcap={softcap}: max abs err "
+              f"{mae:.2e}, dq, dk, dv {', '.join(f'{s:.2f}' for s in shares)} "
+              f"of the per-element limit, reruns bitwise equal; kernel "
+              f"{row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms, bound "
+              f"{row['bound_ms']:.3f} ms ({row['bound_by']}), autograd of "
+              f"SDPA " + ("-" if row["library_ms"] is None else
+                          f"{row['library_ms']:.3f} ms (is_causal=True)"))
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_expected(cfg, micro: int, n_comp: int) -> dict:
+    """The kernels one train step launches, by its accounting: the
+    attention forward once a layer and again in the remat recompute, the
+    backward's kernels once a layer, and with compression one
+    ``block_matvec`` and one ``block_rmatvec`` a compressed leaf, on
+    ``tf32x3``."""
+    from repro_torch.kernels import local_attn
+    remat = 2 if cfg.remat_policy in ("minimal", "full") else 1
+    L = cfg.num_layers
+    return {"local_attention": L * remat * micro,
+            "local_attention_bwd": L * local_attn.BWD_KERNELS * micro,
+            "block_matvec": n_comp,
+            "block_rmatvec": n_comp}
+
+
+def train_run(torch, ops, dev, cfg, tc, batches, profile=False) -> dict:
+    """``init_train_state`` and ``len(batches)`` calls of the train step
+    (the entry points a user calls), each step's launches checked
+    against ``train_expected``; then, with ``profile``, one more step
+    under the profiler."""
+    from repro_torch.models.convert import leaf_layout
+    from repro_torch.optim.compression import _mat_shape
+    from repro_torch.training import init_train_state, make_train_step
+    state = init_train_state(cfg, tc, device=dev)
+    step = make_train_step(cfg, tc)
+    comp_shapes = [(leaf.path, *_mat_shape(leaf.shape))
+                   for leaf in leaf_layout(state.model)
+                   if state.comp is not None and leaf.path in state.comp["Q"]]
+    want = train_expected(cfg, tc.microbatches, len(comp_shapes))
+    routes = ({"block_matvec/tf32x3": want["block_matvec"],
+               "block_rmatvec/tf32x3": want["block_rmatvec"]}
+              if want["block_matvec"] else {})
+    losses, ms, totals = [], [], {}
+    torch.cuda.reset_peak_memory_stats()
+    for i, batch in enumerate(batches):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        got = {n: c for n, c in ops.launches.items() if c}
+        got_routes = {n: c for n, c in ops.route_launches.items() if c}
+        if got != {n: c for n, c in want.items() if c} or \
+                got_routes != routes:
+            fail(f"train step {i}: launches {got}, by route {got_routes}; "
+                 f"the accounting says {want}, {routes}")
+        for n, c in got.items():
+            totals[n] = totals.get(n, 0) + c
+    out = {"losses": losses, "ms_steps": ms, "launches": totals,
+           "comp_shapes": comp_shapes,
+           "launches_per_step": want,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "compress_ratio": (float(metrics["compress_ratio"])
+                              if "compress_ratio" in metrics else None)}
+    if profile:
+        _, wall, busy, n, by_name = profile_window(
+            torch, lambda: step(state, batches[-1]))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        share = lambda key: sum(t for nm, t in by_name.items()
+                                if key in nm) / max(busy, 1e-12)
+        out["profile"] = {
+            "wall_ms": wall * 1e3, "busy_ms": busy * 1e3,
+            "busy_share": busy / wall, "activities": n,
+            "attention_bwd_share": share("bwd_"),
+            "attention_fwd_share": share("local_attn"),
+            "sweeps_share": share("tf32"),
+            "top_ms": {nm[:60]: t * 1e3 for nm, t in top}}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def compression_sweeps(torch, ops, ref, bm, dev, shapes) -> dict:
+    """``block_matvec`` (``M Q``) and ``block_rmatvec`` (``M^T P``) at the
+    compression's shapes (``shapes``: (leaf, p, q) of each compressed
+    leaf; rank 8, fp32, random M), each against its plain version, timed
+    beside its bound and ``torch.matmul``; the rows sum the shapes' times
+    (one step's sweeps)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    sums = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                   "bound_ms": 0.0, "max_abs_err": 0.0, "shapes": []}
+            for name in ("block_matvec", "block_rmatvec")}
+    for path, p, qd in shapes:
+        M = torch.randn((p, qd), generator=g, device=dev)
+        Q = torch.linalg.qr(torch.randn((qd, TR_RANK), generator=g,
+                                        device=dev)).Q
+        P = torch.linalg.qr(torch.randn((p, TR_RANK), generator=g,
+                                        device=dev)).Q
+        for name, kern, plain, lib in (
+                ("block_matvec", lambda: ops.block_matvec(M, Q),
+                 lambda: ref.block_matvec_ref(M, Q), lambda: M @ Q),
+                ("block_rmatvec", lambda: ops.block_rmatvec(M, P),
+                 lambda: ref.block_rmatvec_ref(M, P), lambda: M.mT @ P)):
+            if bm.route(M, TR_RANK) != "tf32x3":
+                fail(f"{name} at {(p, qd)}: route {bm.route(M, TR_RANK)}")
+            got, want = kern(), plain()
+            e = rel_err(torch, got, want)
+            if not e <= TOL["float32"]:
+                fail(f"{name} at {(p, qd)}: rel err {e}")
+            row = sums[name]
+            t = {"ms": time_ms(torch, kern, 10),
+                 "plain_ms": time_ms(torch, plain, 10),
+                 "library_ms": time_ms(torch, lib, 10),
+                 "bound_ms": bound(name, p, qd, TR_RANK, "float32",
+                                   "tf32x3")[0]}
+            for key, val in t.items():
+                row[key] += val
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     float((got - want).abs().max()))
+            row["shapes"].append({"leaf": path, "m": p, "n": qd,
+                                  "rel_err": e, **t})
+            print(f"  {name:13s} {path:22s} ({p} x {qd}, k {TR_RANK}): "
+                  f"rel err {e:.1e}, kernel {t['ms']:.3f} ms, plain "
+                  f"{t['plain_ms']:.3f} ms, torch.matmul "
+                  f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms")
+        del M, Q, P
+    for row in sums.values():
+        # the sum of the shapes' bounds; by bytes at every shape (k = 8)
+        row["bound_by"] = "bytes"
+    torch.cuda.empty_cache()
+    return sums
+
+
+def train_restart(torch, dev) -> dict:
+    """12.3: the runner with a failure planted before step ``TR_FAIL_AT``
+    and a checkpoint every ``TR_CKPT_EVERY`` steps, against an
+    uninterrupted run: every step's loss and the final parameters,
+    moments and compression state bitwise equal."""
+    import dataclasses
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.data import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import CompressionConfig
+    from repro_torch.training import TrainConfig
+    from repro_torch.training.runner import RunnerConfig, TrainingRunner
+    cfg = dataclasses.replace(configs.get_config(TR_ARCH),
+                              num_layers=TR_RESTART_LAYERS, loss_chunks=2)
+    tc = TrainConfig(adamw=AdamWConfig(lr=TR_LR, warmup_steps=2,
+                                       total_steps=TR_RESTART_STEPS),
+                     compression=CompressionConfig(rank=TR_RANK))
+    B, S = TR_RESTART_TOKENS
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)
+    fired = []
+
+    def plant(step):
+        if step == TR_FAIL_AT and not fired:
+            fired.append(step)
+            raise RuntimeError(f"planted failure before step {step}")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        runs = {}
+        for label, hook in (("uninterrupted", None), ("restarted", plant)):
+            rc = RunnerConfig(total_steps=TR_RESTART_STEPS,
+                              ckpt_every=TR_CKPT_EVERY,
+                              ckpt_dir=os.path.join(d, label),
+                              max_restarts=1 if hook else 0)
+            runner = TrainingRunner(cfg, tc, rc, dc, failure_hook=hook,
+                                    device=dev)
+            state = runner.run()
+            runs[label] = (runner, state.tree())
+    (ra, ta), (rb, tb) = runs["uninterrupted"], runs["restarted"]
+    la = {h["step"]: h["loss"] for h in ra.history}
+    lb = {h["step"]: h["loss"] for h in rb.history}
+    replayed = [h["loss"] for h in rb.history if h["step"] == TR_CKPT_EVERY]
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for key in sorted(tree) for x in leaves(tree[key])]
+        return [] if tree is None else [tree]
+    same = all(torch.equal(a.detach(), b.detach())
+               for a, b in zip(leaves(ta), leaves(tb)))
+    out = {"restarts": rb.restarts, "losses_bitwise": la == lb,
+           "replayed_step_bitwise": len(set(replayed)) == 1,
+           "state_bitwise": same, "leaves": len(leaves(ta)),
+           "seconds": time.perf_counter() - t0}
+    print(f"  restart: a failure before step {TR_FAIL_AT}, checkpoints every "
+          f"{TR_CKPT_EVERY} steps ({cfg.num_layers} layers of "
+          f"{TR_ARCH}, {B} x {S} tokens, compressed): restarts "
+          f"{rb.restarts}, every loss bitwise {out['losses_bitwise']}, "
+          f"final state ({out['leaves']} tensors) bitwise {same} "
+          f"({out['seconds']:.1f} s)")
+    if not (rb.restarts == 1 and out["losses_bitwise"] and same
+            and out["replayed_step_bitwise"]):
+        fail(f"the resumed run is not the uninterrupted one: {out}")
+    return out
+
+
+def train_card_vs_cpu(torch, dev) -> dict:
+    """12.4: the smoke configs (fp32) trained ``TR_CPU_STEPS`` steps on
+    the card and on ``device="cpu"`` from the same state (made on the
+    CPU and copied), plain and compressed: every loss within
+    ``TOL_TRAIN_CPU``, and each parameter tensor within
+    ``TOL_TRAIN_CPU`` of its norm (Frobenius).  Not element by element:
+    a few entries of a smoke model's gradient sum to ~1e-9 (cancelling
+    terms; 7 of 60k here), where AdamW's first update ``g / (|g| +
+    eps)`` turns the sums' rounding on either device into up to ``lr``
+    (on an H100 the worst single entry moved 3.6e-4 plain and 4.7e-4
+    compressed at lr 5e-3); a wrong gradient moves whole tensors by
+    ~``lr`` an entry, 1e-2 of their norm.  The largest single entry's
+    difference is printed beside."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import CompressionConfig
+    from repro_torch.training import (TrainConfig, init_train_state,
+                                      make_train_step)
+
+    def to(tree, where):
+        if isinstance(tree, dict):
+            return {key: to(val, where) for key, val in tree.items()}
+        return None if tree is None else tree.detach().to(where).clone()
+    out = {}
+    for arch, enabled in ((a, e) for a in TR_CPU_ARCHS for e in (False,
+                                                                 True)):
+        cfg = configs.smoke_config(configs.get_config(arch))
+        tc = TrainConfig(adamw=AdamWConfig(lr=TR_CPU_LR, warmup_steps=1,
+                                           total_steps=TR_CPU_STEPS),
+                         compression=CompressionConfig(
+                             enabled=enabled, rank=TR_RANK, min_size=512))
+        sc = init_train_state(cfg, tc, device="cpu")
+        sg = init_train_state(cfg, tc, device=dev)
+        sg.load_tree(to(sc.tree(), dev))
+        ds = SyntheticLMDataset(DataConfig(cfg.vocab_size, 32, 4))
+        step_c, step_g = make_train_step(cfg, tc), make_train_step(cfg, tc)
+        loss_err = 0.0
+        for i in range(TR_CPU_STEPS):
+            sc, mc = step_c(sc, ds.batch(i))
+            sg, mg = step_g(sg, ds.batch(i))
+            loss_err = max(loss_err, abs(float(mc["loss"])
+                                         - float(mg["loss"])))
+        pc = dict(sc.model.named_parameters())
+        rel = entry = 0.0
+        for n, p in sg.model.named_parameters():
+            d = p.detach().cpu() - pc[n].detach()
+            rel = max(rel, float(d.norm() / pc[n].detach().norm()))
+            entry = max(entry, float(d.abs().max()))
+        label = f"{arch} {'compressed' if enabled else 'plain'}"
+        out[label] = {"loss_err": loss_err, "param_rel_err": rel,
+                      "param_max_entry_err": entry}
+        print(f"  {cfg.name} fp32, {TR_CPU_STEPS} "
+              f"{'compressed' if enabled else 'plain'} steps at lr "
+              f"{TR_CPU_LR} on the card and on the CPU: loss diff "
+              f"{loss_err:.1e}, parameters {rel:.1e} of their norm (limit "
+              f"{TOL_TRAIN_CPU:.0e} for both), largest single entry "
+              f"{entry:.1e}")
+        if not (loss_err <= TOL_TRAIN_CPU and rel <= TOL_TRAIN_CPU):
+            fail(f"{label} smoke: card vs CPU {out[label]}")
+    return out
+
+
+def training(torch, ops, ref, la, bm, dev) -> tuple:
+    """Phase 12; returns (its summary, its rows of the ``kernels``
+    line)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import CompressionConfig
+    from repro_torch.training import TrainConfig
+    g = torch.Generator(device=dev).manual_seed(SEED + 42)
+    t0 = time.perf_counter()
+    worst = attention_bwd_ragged(torch, ops, ref, la, g, dev)
+    print(f"backward kernel at ragged shapes: all within limits (worst "
+          f"{worst:.2f} of limit)")
+    path = attention_bwd_path(torch, ops, ref, la, g, dev)
+    t_kernels = time.perf_counter() - t0
+
+    # 12.2 qwen3-0.6b at full width and depth
+    cfg = dataclasses.replace(configs.get_config(TR_ARCH),
+                              loss_chunks=TR_CHUNKS)
+    ds = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=TR_SEQ, global_batch=TR_BATCH))
+    batches = [ds.batch(i) for i in range(TR_STEPS)]
+    runs = {}
+    for label, enabled in (("plain", False), ("compressed", True)):
+        tc = TrainConfig(adamw=AdamWConfig(lr=TR_LR, warmup_steps=2,
+                                           total_steps=TR_STEPS),
+                         compression=CompressionConfig(enabled=enabled,
+                                                       rank=TR_RANK))
+        r = train_run(torch, ops, dev, cfg, tc, batches, profile=enabled)
+        ms = sorted(r["ms_steps"][1:])[len(r["ms_steps"][1:]) // 2]
+        r.update(ms_step=ms, tokens_s=TR_BATCH * TR_SEQ / (ms / 1e3))
+        runs[label] = r
+        print(f"  {cfg.name} {label}: {cfg.num_layers} layers, "
+              f"{TR_BATCH} x {TR_SEQ} tokens a step, bf16 parameters, fp32 "
+              f"moments, loss_chunks {TR_CHUNKS}: loss "
+              + " ".join(f"{x:.4f}" for x in r["losses"])
+              + f"; {ms:.1f} ms a step (median of steps 2-{TR_STEPS}; the "
+              f"first {r['ms_steps'][0]:.0f} ms), {r['tokens_s']:.0f} "
+              f"tokens/s, peak {r['peak_gb']:.2f} GB; launches a step "
+              f"{r['launches_per_step']}")
+        if not r["losses"][-1] < r["losses"][0]:
+            fail(f"{label} training: the loss did not fall: {r['losses']}")
+    comp_run = runs["compressed"]
+    ratio = comp_run["compress_ratio"]
+    if ratio != float(torch.tensor(TR_RATIO, dtype=torch.float32)):
+        fail(f"compress_ratio {ratio}, want {TR_RATIO}")
+    prof = comp_run["profile"]
+    comp_share = 1 - runs["plain"]["ms_step"] / comp_run["ms_step"]
+    print(f"  compress_ratio {ratio} (= {TR_RATIO:.6f}); one compressed "
+          f"step under the profiler: {prof['wall_ms']:.0f} ms, device busy "
+          f"{prof['busy_share']:.1%}; attention backward "
+          f"{prof['attention_bwd_share']:.1%} of the busy time, forward "
+          f"{prof['attention_fwd_share']:.1%}, the compression's sweeps "
+          f"{prof['sweeps_share']:.2%}; the compression adds {comp_share:.1%} "
+          f"to a step's time; top kernels (ms) {prof['top_ms']}")
+    sweeps = compression_sweeps(torch, ops, ref, bm, dev,
+                                comp_run["comp_shapes"])
+
+    # 12.3 restart; 12.4 card against the CPU
+    restart = train_restart(torch, dev)
+    cpu = train_card_vs_cpu(torch, dev)
+
+    launches = {n: runs["plain"]["launches"].get(n, 0)
+                + comp_run["launches"].get(n, 0)
+                for n in set(runs["plain"]["launches"])
+                | set(comp_run["launches"])}
+    q_row, f_row = path["qwen3-0.6b"], path["forward qwen3-0.6b"]
+    line_rows = [
+        ("local_attention_bwd", BWD_SOURCE, BWD_REPLACES,
+         launches["local_attention_bwd"], q_row),
+        ("local_attention[training]", SOURCES["local_attention"],
+         REPLACES["local_attention"], launches["local_attention"], f_row),
+        ("block_matvec/tf32x3[compression]", TF32_SOURCE,
+         REPLACES["block_matvec"], comp_run["launches"]["block_matvec"],
+         sweeps["block_matvec"]),
+        ("block_rmatvec/tf32x3[compression]", TF32_SOURCE,
+         REPLACES["block_rmatvec"], comp_run["launches"]["block_rmatvec"],
+         sweeps["block_rmatvec"])]
+    kernels = [{"name": name, "route": "cuda", "source": src,
+                "replaces": rep, "launches": n,
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]}
+               for name, src, rep, n, row in line_rows]
+    for k in kernels:
+        if not k["launches"]:
+            fail(f"{k['name']} was not launched by the training path")
+    summary = {"kernel_checks_s": t_kernels, "backward_path": path,
+               "runs": {label: {key: r[key] for key in (
+                   "losses", "ms_step", "tokens_s", "peak_gb", "launches",
+                   "launches_per_step", "compress_ratio", "ms_steps")}
+                   for label, r in runs.items()},
+               "profile": prof, "compression_step_share": comp_share,
+               "compression_sweeps": sweeps,
+               "restart": restart, "card_vs_cpu": cpu}
+    return summary, kernels
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sharded-rank"]:      # one rank of phase 10.2
         return sharded_rank(*sys.argv[2:4])
@@ -4131,6 +4742,13 @@ def main() -> int:
     if sys.argv[1:] == ["--only-sharded"]:        # phase 1, then phase 10
         summary, _, _ = sharded(torch, repro_torch, ops, ref, bm, dev)
         print(json.dumps({"sharded": summary}))
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--only-training"]:       # phase 1, then phase 12
+        summary, line = training(torch, ops, ref, local_attn, bm, dev)
+        mark("12")
+        print(json.dumps({"training": summary}))
+        print(json.dumps({"kernels": line}))
         print(card_line())
         return 0
     if sys.argv[1:] == ["--only-serving"]:        # phase 1, then phase 11
@@ -4595,6 +5213,11 @@ def main() -> int:
     print(json.dumps({"serving": sv_summary}))
     mark("11")
 
+    # -- 12. training -----------------------------------------------------
+    tr_summary, tr_line = training(torch, ops, ref, local_attn, bm, dev)
+    print(json.dumps({"training": tr_summary}))
+    mark("12")
+
     sweeps = ("block_matvec", "block_rmatvec", "block_gram_chain")
     rows = dict(dtable)
     # the fp32 solve's sweeps (3xTF32), the bf16 solve's chains (wgmma) and
@@ -4630,7 +5253,7 @@ def main() -> int:
            if "library_causal_ms" in row else {})}
         for name, row in rows.items()] + csr_kernel_line(
             csr_rows, csr_launches) + sharded_kernel_line(
-            sh_counts, table, dtable, sh_rows) + sv_line
+            sh_counts, table, dtable, sh_rows) + sv_line + tr_line
     print(json.dumps({"block_sweeps_by_route": [
         {"name": name, "dtype": "float32" if key[0] in (
             "float32", "tf32x3_cpasync") else "bfloat16",

@@ -84,11 +84,14 @@
 //
 // C interface (bound with ctypes; every pointer and the stream as void*):
 //   int repro_local_attention(q, k, v, o, B, H, Hkv, S, D, strides[12],
-//                             window, scale, softcap, is_bf16, stream)
+//                             window, scale, softcap, lse, is_bf16, stream)
 //   int repro_local_attention_wgmma(q, k, v, o, B, H, Hkv, S, D, strides[12],
-//                                   window, scale, softcap, stream)
+//                                   window, scale, softcap, lse, stream)
 //   long long repro_local_attention_smem(wgmma, D)
-// strides: (b, h, s) of q, k, v, o in elements.  The launchers return
+// strides: (b, h, s) of q, k, v, o in elements.  lse, when not null, is a
+// (B, H, S) fp32 array that receives each row's natural log-sum-exp of its
+// capped, scaled logits, for the backward (csrc/local_attn_bwd.cu); prefill
+// passes null.  The launchers return
 // cudaGetLastError() after the launch (0 on success), cudaErrorInvalidValue
 // for a (dtype, D) outside their route or views a tensor map cannot
 // describe, or cudaErrorNotSupported without libcuda's tensor-map
@@ -179,9 +182,10 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
 template <typename T, int D>
 __global__ void __launch_bounds__(NT, 1)
     local_attn_ffma(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, Strides sq,
-                      Strides sk, Strides sv, Strides so, int S, int group,
-                      int window, float scale, float softcap) {
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, Strides sq, Strides sk,
+                      Strides sv, Strides so, int S, int group, int window,
+                      float scale, float softcap) {
   constexpr int LQ = D + PAD;
   constexpr int W = D >= 64 ? 4 : D / 16;   // consecutive output columns
   constexpr int NC = D / (16 * W);          // chunks of W, 16 W apart
@@ -319,6 +323,9 @@ __global__ void __launch_bounds__(NT, 1)
     const int qi = q_lo + ty * 4 + r;
     if (qi >= S) continue;
     const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * S + qi] =
+          m[r] + logf(l[r]);
     T* orow = o + b * so.b + h * so.h + static_cast<long long>(qi) * so.s;
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc)
@@ -329,9 +336,9 @@ __global__ void __launch_bounds__(NT, 1)
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Hkv, int S, const long long* st, int window, float scale,
-           float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Hkv, int S, const long long* st, int window,
+           float scale, float softcap, cudaStream_t stream) {
   auto kern = local_attn_ffma<T, D>;
   constexpr size_t bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -341,7 +348,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   kern<<<grid, NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o),
+      static_cast<const T*>(v), static_cast<T*>(o), lse,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, S,
       H / Hkv, window, scale, softcap);
@@ -537,9 +544,9 @@ __global__ void __launch_bounds__(NT, 1)
     local_attn_wgmma(const __grid_constant__ CUtensorMap mq,
                      const __grid_constant__ CUtensorMap mk,
                      const __grid_constant__ CUtensorMap mv,
-                     __nv_bfloat16* __restrict__ o, Strides so, int S, int H,
-                     int B, int group, int window, float scale,
-                     float softcap) {
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     Strides so, int S, int H, int B, int group, int window,
+                     float scale, float softcap) {
   using L = Smem<D>;
   constexpr int NCH = L::NCH;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -740,6 +747,9 @@ __global__ void __launch_bounds__(NT, 1)
     const int qi = row0 + 8 * r;
     if (qi >= S) continue;
     const float inv = 1.0f / fmaxf(lr, 1e-30f);
+    if (lse != nullptr && lane % 4 == 0)   // natural log: 2^m l = e^lse
+      lse[(static_cast<long long>(b) * H + h) * S + qi] =
+          (m[r] + log2f(lr)) * 0.6931471805599453f;
     __nv_bfloat16* orow = ob + static_cast<long long>(qi) * so.s + col;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
@@ -774,9 +784,9 @@ cudaError_t encode(CUtensorMap* map, const void* ptr, int D, int S, int heads,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Hkv, int S, const long long* st, int window, float scale,
-           float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Hkv, int S, const long long* st, int window,
+           float scale, float softcap, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   cudaError_t err = encode(&mq, q, D, S, H, B, st);
   if (err == cudaSuccess) err = encode(&mk, k, D, S, Hkv, B, st + 3);
@@ -788,7 +798,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (S + BQ - 1) / BQ * H * B;
   kern<<<blocks, NT, Smem<D>::BYTES, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o),
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse,
       Strides{st[9], st[10], st[11]}, S, H, B, H / Hkv, window, scale,
       softcap);
   return static_cast<int>(cudaGetLastError());
@@ -797,27 +807,28 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 }  // namespace tc
 
 template <typename T>
-int dispatch_ffma(const void* q, const void* k, const void* v, void* o, int B,
-                  int H, int Hkv, int S, int D, const long long* st,
-                  int window, float scale, float softcap, cudaStream_t s) {
+int dispatch_ffma(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int B, int H, int Hkv, int S, int D,
+                  const long long* st, int window, float scale, float softcap,
+                  cudaStream_t s) {
   switch (D) {
     case 16:
-      return ffma::launch<T, 16>(q, k, v, o, B, H, Hkv, S, st, window, scale,
-                                 softcap, s);
+      return ffma::launch<T, 16>(q, k, v, o, lse, B, H, Hkv, S, st, window,
+                                 scale, softcap, s);
     case 32:
-      return ffma::launch<T, 32>(q, k, v, o, B, H, Hkv, S, st, window, scale,
-                                 softcap, s);
+      return ffma::launch<T, 32>(q, k, v, o, lse, B, H, Hkv, S, st, window,
+                                 scale, softcap, s);
   }
   if constexpr (sizeof(T) == 4) {       // bf16 at these D is the wgmma route
     switch (D) {
       case 64:
-        return ffma::launch<T, 64>(q, k, v, o, B, H, Hkv, S, st, window,
+        return ffma::launch<T, 64>(q, k, v, o, lse, B, H, Hkv, S, st, window,
                                    scale, softcap, s);
       case 128:
-        return ffma::launch<T, 128>(q, k, v, o, B, H, Hkv, S, st, window,
+        return ffma::launch<T, 128>(q, k, v, o, lse, B, H, Hkv, S, st, window,
                                     scale, softcap, s);
       case 256:
-        return ffma::launch<T, 256>(q, k, v, o, B, H, Hkv, S, st, window,
+        return ffma::launch<T, 256>(q, k, v, o, lse, B, H, Hkv, S, st, window,
                                     scale, softcap, s);
     }
   }
@@ -831,16 +842,17 @@ extern "C" int repro_local_attention(const void* q, const void* k,
                                      long long H, long long Hkv, long long S,
                                      long long D, const long long* strides,
                                      long long window, float scale,
-                                     float softcap, int is_bf16,
+                                     float softcap, void* lse, int is_bf16,
                                      void* stream) {
   cudaGetLastError();  // report this call's launch, not an older error
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int w = static_cast<int>(window < S ? window : S);
+  float* l = static_cast<float*>(lse);
   if (is_bf16)
-    return dispatch_ffma<__nv_bfloat16>(q, k, v, o, (int)B, (int)H, (int)Hkv,
-                                        (int)S, (int)D, strides, w, scale,
-                                        softcap, s);
-  return dispatch_ffma<float>(q, k, v, o, (int)B, (int)H, (int)Hkv, (int)S,
+    return dispatch_ffma<__nv_bfloat16>(q, k, v, o, l, (int)B, (int)H,
+                                        (int)Hkv, (int)S, (int)D, strides, w,
+                                        scale, softcap, s);
+  return dispatch_ffma<float>(q, k, v, o, l, (int)B, (int)H, (int)Hkv, (int)S,
                               (int)D, strides, w, scale, softcap, s);
 }
 
@@ -848,19 +860,20 @@ extern "C" int repro_local_attention_wgmma(
     const void* q, const void* k, const void* v, void* o, long long B,
     long long H, long long Hkv, long long S, long long D,
     const long long* strides, long long window, float scale, float softcap,
-    void* stream) {
+    void* lse, void* stream) {
   cudaGetLastError();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int w = static_cast<int>(window < S ? window : S);
+  float* l = static_cast<float*>(lse);
   switch (D) {
     case 64:
-      return tc::launch<64>(q, k, v, o, (int)B, (int)H, (int)Hkv, (int)S,
+      return tc::launch<64>(q, k, v, o, l, (int)B, (int)H, (int)Hkv, (int)S,
                             strides, w, scale, softcap, s);
     case 128:
-      return tc::launch<128>(q, k, v, o, (int)B, (int)H, (int)Hkv, (int)S,
+      return tc::launch<128>(q, k, v, o, l, (int)B, (int)H, (int)Hkv, (int)S,
                              strides, w, scale, softcap, s);
     case 256:
-      return tc::launch<256>(q, k, v, o, (int)B, (int)H, (int)Hkv, (int)S,
+      return tc::launch<256>(q, k, v, o, l, (int)B, (int)H, (int)Hkv, (int)S,
                              strides, w, scale, softcap, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);

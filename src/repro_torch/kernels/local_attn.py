@@ -1,4 +1,5 @@
-"""Hopper kernels of causal sliding-window attention (LM prefill).
+"""Hopper kernels of causal sliding-window attention (LM prefill and
+training) and of its gradient.
 
 Binding of ``csrc/local_attn.cu`` (CUDA C++ for ``sm_90a``, built by
 ``kernels/build.py`` at first use and called through ``ctypes``).  It
@@ -30,6 +31,14 @@ with ``torch.empty`` in the memory order ``(B, S, H, D)`` and returns it
 as a ``(B, H, S, D)`` view, so the model's next product reads
 ``(B, S, H * D)`` without a copy; it launches on the current stream.
 Call it through ``ops``, which keeps the launch counts.
+
+The gradient (training) is ``csrc/local_attn_bwd.cu``, its own library,
+bound by ``local_attention_bwd_cuda``: three kernels in order (the rows'
+``sum(dO * O)``, then dK and dV by key tile, then dQ by query tile), by
+FFMA on fp32 tiles at every head dim and in both dtypes, reading the
+forward's log-sum-exp of each row (``local_attention_cuda(..., lse=)``).
+The JAX package has no kernel for it: it differentiates its jnp
+attention.
 """
 from __future__ import annotations
 
@@ -59,7 +68,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.library("local_attn")
     if not getattr(lib, "_repro_bound", False):
         common = [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _STRIDES,
-                  _I64, ctypes.c_float, ctypes.c_float]
+                  _I64, ctypes.c_float, ctypes.c_float, _P]
         lib.repro_local_attention.argtypes = common + [ctypes.c_int, _P]
         lib.repro_local_attention_wgmma.argtypes = common + [_P]
         lib.repro_local_attention_smem.argtypes = [ctypes.c_int, _I64]
@@ -93,10 +102,13 @@ def tma_describable(t: torch.Tensor) -> bool:
 
 
 def local_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         window: int, softcap: float | None) -> torch.Tensor:
+                         window: int, softcap: float | None,
+                         lse: torch.Tensor | None = None) -> torch.Tensor:
     """Attention on the card; q (B, H, S, D), k/v (B, Hkv, S, D), one
     dtype (fp32 or bf16), D in ``HEAD_DIMS`` -> (B, H, S, D) in q's
-    dtype, by the kernel of ``route(q.dtype, D)``."""
+    dtype, by the kernel of ``route(q.dtype, D)``.  ``lse``, a contiguous
+    (B, H, S) fp32 tensor, receives each row's log-sum-exp of its logits
+    (what the backward needs); prefill passes none."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device
@@ -104,7 +116,7 @@ def local_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = _STRIDES(*(s for t in (q, k, v, o) for s in t.stride()[:3]))
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
             Hkv, S, D, strides, window, 1.0 / math.sqrt(D),
-            float(softcap or 0.0))
+            float(softcap or 0.0), None if lse is None else lse.data_ptr())
     which = route(q.dtype, D)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -117,3 +129,50 @@ def local_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"local_attention kernel launch failed ({which} "
                            f"route): CUDA error {err}")
     return o
+
+
+#: kernels one backward launches: Dlt = rowsum(dO * O), dK/dV, dQ
+BWD_KERNELS = 3
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.library("local_attn_bwd")
+    if not getattr(lib, "_repro_bound", False):
+        lib.repro_local_attention_bwd.argtypes = (
+            [_P] * 10 + [_I64] * 5 + [_I64 * 24, _I64, ctypes.c_float,
+                                      ctypes.c_float, ctypes.c_int, _P])
+        lib.repro_local_attention_bwd.restype = ctypes.c_int
+        lib._repro_bound = True
+    return lib
+
+
+def local_attention_bwd_cuda(q, k, v, o, do, lse, window: int,
+                             softcap: float | None):
+    """The gradient on the card (``csrc/local_attn_bwd.cu``, FFMA at every
+    head dim of ``HEAD_DIMS``, fp32 or bf16): (dq, dk, dv) in q's dtype,
+    each allocated in the memory order (B, S, heads, D) and returned as a
+    (B, heads, S, D) view, like the forward's output.  ``lse`` is the
+    forward's (B, H, S) fp32 log-sum-exp, contiguous; every other operand
+    is ``readable``."""
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+
+    def out(heads):
+        return torch.empty((B, S, heads, D), dtype=q.dtype,
+                           device=q.device).transpose(1, 2)
+    dq, dk, dv = out(H), out(Hkv), out(Hkv)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    strides = (_I64 * 24)(*(s for t in (q, k, v, o, do, dq, dk, dv)
+                            for s in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _bwd_lib().repro_local_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, Hkv, S, D, strides, window,
+            1.0 / math.sqrt(D), float(softcap or 0.0),
+            int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"local_attention backward kernel launch failed: "
+                           f"CUDA error {err}")
+    return dq, dk, dv

@@ -5,8 +5,9 @@ The block sweeps ``block_matvec`` (``A @ Q``), ``block_rmatvec``
 (``A^T (A Q)``); the deflation engines' ``matvec`` (``A @ v``),
 ``deflate_rmatvec`` (the fused Alg-4 reverse sweep) and ``gram``
 (``A^T A``), each with ``trans=True`` for the same function of ``A^T``;
-the LM prefill's ``local_attention`` (causal sliding-window
-attention with GQA and soft-capping); and the sparse stream's CSR
+the LM's ``local_attention`` (causal sliding-window attention with GQA
+and soft-capping; differentiable where autograd records, its gradient
+being ``local_attention_bwd``); and the sparse stream's CSR
 sweeps of one row block, ``csr_matmat`` (``A_b Q``), ``csr_rmatmat``
 (``Z += A_b^T Y``, in place) and ``csr_gram_chain`` (both halves on one
 copy of the block).  Each checks its operands, then:
@@ -74,8 +75,8 @@ from repro_torch.kernels import ref as _ref
 #: launches made on the card since the last ``reset_launches()``
 launches = {"block_matvec": 0, "block_rmatvec": 0, "block_gram_chain": 0,
             "matvec": 0, "deflate_rmatvec": 0, "gram": 0,
-            "local_attention": 0, "csr_matmat": 0, "csr_rmatmat": 0,
-            "csr_gram_chain": 0}
+            "local_attention": 0, "local_attention_bwd": 0,
+            "csr_matmat": 0, "csr_rmatmat": 0, "csr_gram_chain": 0}
 
 #: the CSR sweeps, by the dtype of the values they read
 CSR_KERNELS = ("csr_matmat", "csr_rmatmat", "csr_gram_chain")
@@ -325,20 +326,8 @@ def gram(A: torch.Tensor, *, symmetric: bool = True,
     return B
 
 
-def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int, softcap: float | None = None
-                    ) -> torch.Tensor:
-    """Causal sliding-window attention: query ``i`` attends to keys
-    ``i - window < j <= i`` (``window >= S`` is plain causal attention),
-    logits ``tanh(s / softcap) * softcap`` when ``softcap`` is given.
-    q (B, H, S, D), k/v (B, Hkv, S, D) with ``Hkv`` dividing ``H`` (head
-    ``h`` reads K/V head ``h // (H // Hkv)``) -> (B, H, S, D) in q's
-    dtype.  On the card D is one of ``local_attn.HEAD_DIMS`` and
-    ``local_attn.route`` picks the kernel (bf16 at D >= 64 on the tensor
-    cores, the rest by FFMA); any strides along B, H and S are read in
-    place, and an operand whose base or strides are not 16-byte aligned
-    is refused, on both devices (on the tensor-core route, also a zero
-    stride: a broadcast view)."""
+def _attention_operands(q, k, v, window, softcap) -> None:
+    """Check ``local_attention``'s operands, on both devices."""
     for x in (q, k, v):
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"local_attention takes torch tensors, got "
@@ -367,25 +356,117 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("local_attention reads q, k and v in place: unit "
                          "stride along D, base and other strides 16-byte "
                          "aligned (pass a contiguous copy)")
-    if q.device.type == "cpu":
-        return _ref.local_attention_ref(q, k, v, window=window,
-                                        softcap=softcap).to(q.dtype)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"local_attention runs on 'cpu' (plain PyTorch) or "
                          f"'cuda' (the Hopper kernel), got {q.device}")
-    if D not in _la.HEAD_DIMS:
-        raise ValueError(f"local_attention on the card takes a head dim in "
-                         f"{_la.HEAD_DIMS}, got {D}")
+    if q.device.type == "cuda":
+        if D not in _la.HEAD_DIMS:
+            raise ValueError(f"local_attention on the card takes a head dim "
+                             f"in {_la.HEAD_DIMS}, got {D}")
+        if q.numel() and _la.route(q.dtype, D) == "wgmma" and not all(
+                _la.tma_describable(x) for x in (q, k, v)):
+            raise ValueError("local_attention on the tensor cores reads q, k "
+                             "and v through TMA tensor maps, which take no "
+                             "zero stride (pass a contiguous copy)")
+
+
+def _attention_forward(q, k, v, window, softcap, with_lse: bool):
+    """(o, lse or None) of checked operands: the plain version on the
+    CPU, the kernel (one counted launch) on the card."""
+    if q.device.type == "cpu":
+        o, lse = _ref.local_attention_lse_ref(q, k, v, window=window,
+                                              softcap=softcap)
+        return o.to(q.dtype), lse if with_lse else None
     if q.numel() == 0:
-        return torch.empty_like(q)
-    if _la.route(q.dtype, D) == "wgmma" and not all(
-            _la.tma_describable(x) for x in (q, k, v)):
-        raise ValueError("local_attention on the tensor cores reads q, k "
-                         "and v through TMA tensor maps, which take no zero "
-                         "stride (pass a contiguous copy)")
-    out = _la.local_attention_cuda(q, k, v, window, softcap)
+        return torch.empty_like(q), q.new_empty(q.shape[:3],
+                                                dtype=torch.float32)
+    lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    out = _la.local_attention_cuda(q, k, v, window, softcap, lse)
     _count("local_attention")
-    return out
+    return out, lse
+
+
+class _LocalAttention(torch.autograd.Function):
+    """``local_attention`` with its gradient: the forward kernel keeping
+    each row's log-sum-exp, the backward ``local_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, softcap):
+        o, lse = _attention_forward(q, k, v, window, softcap, True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window, ctx.softcap = window, softcap
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = local_attention_bwd(q, k, v, o, do, lse,
+                                         window=ctx.window,
+                                         softcap=ctx.softcap)
+        return dq, dk, dv, None, None
+
+
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int, softcap: float | None = None
+                    ) -> torch.Tensor:
+    """Causal sliding-window attention: query ``i`` attends to keys
+    ``i - window < j <= i`` (``window >= S`` is plain causal attention),
+    logits ``tanh(s / softcap) * softcap`` when ``softcap`` is given.
+    q (B, H, S, D), k/v (B, Hkv, S, D) with ``Hkv`` dividing ``H`` (head
+    ``h`` reads K/V head ``h // (H // Hkv)``) -> (B, H, S, D) in q's
+    dtype.  On the card D is one of ``local_attn.HEAD_DIMS`` and
+    ``local_attn.route`` picks the kernel (bf16 at D >= 64 on the tensor
+    cores, the rest by FFMA); any strides along B, H and S are read in
+    place, and an operand whose base or strides are not 16-byte aligned
+    is refused, on both devices (on the tensor-core route, also a zero
+    stride: a broadcast view).
+
+    Where autograd records (grad mode on and q, k or v requiring grad),
+    the call is differentiable: the forward also keeps each row's
+    log-sum-exp and the backward is ``local_attention_bwd`` (on the card
+    the hand-written backward kernel).  Without grad it is the forward
+    alone, as prefill runs it."""
+    _attention_operands(q, k, v, window, softcap)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _LocalAttention.apply(q, k, v, window, softcap)
+    return _attention_forward(q, k, v, window, softcap, False)[0]
+
+
+def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        *, window: int, softcap: float | None = None):
+    """The gradient of ``local_attention``: given its operands, its output
+    ``o``, the output's gradient ``do`` and the forward's row log-sum-exp
+    ``lse`` (B, H, S) fp32, (dq, dk, dv) in q's dtype and the shapes of
+    q, k and v.  On the CPU the plain version
+    (``ref.local_attention_bwd_ref``); on the card the backward kernel
+    (``csrc/local_attn_bwd.cu``: ``local_attn.BWD_KERNELS`` launches, all
+    counted under ``local_attention_bwd``).  ``do`` and ``o`` are read in
+    place where ``local_attn.readable`` takes them, else copied
+    contiguous first; ``lse`` likewise."""
+    _attention_operands(q, k, v, window, softcap)
+    for x in (o, do):
+        if x.shape != q.shape or x.device != q.device:
+            raise ValueError(f"local_attention_bwd: o and do must be "
+                             f"{tuple(q.shape)} on {q.device}, got "
+                             f"{tuple(x.shape)} on {x.device}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError(f"local_attention_bwd: lse must be "
+                         f"{tuple(q.shape[:3])} float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if q.device.type == "cpu":
+        return tuple(g.to(q.dtype) for g in _ref.local_attention_bwd_ref(
+            q, k, v, o, do, lse, window=window, softcap=softcap))
+    if q.numel() == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    o, do = (x.to(q.dtype) if _la.readable(x) and x.dtype == q.dtype
+             else x.to(q.dtype).contiguous() for x in (o, do))
+    grads = _la.local_attention_bwd_cuda(q, k, v, o, do, lse.contiguous(),
+                                         window, softcap)
+    for _ in range(_la.BWD_KERNELS):
+        _count("local_attention_bwd")
+    return grads
 
 
 def _csr_operands(what: str, off, col, val, X, *, rows_of_X: bool,
@@ -493,6 +574,7 @@ matvec_ref = _ref.matvec_ref
 deflate_rmatvec_ref = _ref.deflate_rmatvec_ref
 gram_ref = _ref.gram_ref
 local_attention_ref = _ref.local_attention_ref
+local_attention_bwd_ref = _ref.local_attention_bwd_ref
 csr_matmat_ref = _ref.csr_matmat_ref
 csr_rmatmat_ref = _ref.csr_rmatmat_ref
 csr_gram_chain_ref = _ref.csr_gram_chain_ref

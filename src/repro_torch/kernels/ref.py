@@ -24,7 +24,12 @@ is bitwise ``np.add.at``, the JAX package's host sweep; on CUDA tensors
 
 ``local_attention_ref`` is the JAX oracle's math for the LM prefill
 attention: K/V repeated to every query head, the full (S, S) scores, the
-causal window mask, a softmax, all in fp32.
+causal window mask, a softmax, all in fp32.  ``local_attention_lse_ref``
+also gives each row's log-sum-exp, and ``local_attention_bwd_ref`` is
+the gradient written out from the same formulas as the backward kernel
+(the probabilities from that log-sum-exp, ``Dlt = sum(dO * O)``, the
+soft-cap's slope ``1 - tanh^2``, GQA's dK and dV summed over each K/V
+head's query heads), in plain PyTorch, not by autograd.
 """
 from __future__ import annotations
 
@@ -122,22 +127,72 @@ def csr_gram_chain_ref(off, col, val, Q, Z, round_y: bool = False):
                            csr_matmat_ref(off, col, val, Q, round_y), Z)
 
 
+def _attention_logits(q, k, window, softcap):
+    """(capped logits, tanh of the scaled scores or None, live mask) in
+    fp32, K already repeated to q's heads."""
+    S, D = q.shape[2], q.shape[3]
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) * (1.0 / math.sqrt(D))
+    t = None
+    if softcap is not None:
+        t = torch.tanh(logits / softcap)
+        logits = t * softcap
+    pos = torch.arange(S, device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    return logits, t, mask
+
+
+def local_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, window: int,
+                            softcap: float | None = None):
+    """``local_attention_ref`` and each row's log-sum-exp of its live
+    logits: (o fp32 (B, H, S, D), lse fp32 (B, H, S))."""
+    rep = q.shape[1] // k.shape[1]
+    logits, _, mask = _attention_logits(
+        q, k.repeat_interleave(rep, dim=1), window, softcap)
+    logits = torch.where(mask, logits, -1e30)
+    v = v.to(torch.float32).repeat_interleave(rep, dim=1)
+    o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1), v)
+    return o, torch.logsumexp(logits, dim=-1)
+
+
 def local_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, window: int,
                         softcap: float | None = None) -> torch.Tensor:
     """Causal sliding-window attention, fp32 out: query ``i`` attends to
     keys ``i - window < j <= i``.  q (B, H, S, D), k/v (B, Hkv, S, D);
     GQA by repeating each K/V head ``H // Hkv`` times."""
+    return local_attention_lse_ref(q, k, v, window=window,
+                                   softcap=softcap)[0]
+
+
+def local_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor, *,
+                            window: int, softcap: float | None = None):
+    """The gradient of ``local_attention`` given its output ``o``, the
+    output's gradient ``do`` and the rows' log-sum-exp ``lse``: (dq, dk,
+    dv) fp32 in the shapes of q, k, v.  P = exp(c - lse) on the live
+    pairs, dC = P (dO V^T - sum(dO * O)), dS = dC (1 - tanh^2) with a
+    soft-cap, dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D), dV = P^T dO,
+    dK and dV summed over the query heads of each K/V head."""
     B, H, S, D = q.shape
-    rep = H // k.shape[1]
-    k = k.to(torch.float32).repeat_interleave(rep, dim=1)
-    v = v.to(torch.float32).repeat_interleave(rep, dim=1)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), k) * (
-        1.0 / math.sqrt(D))
-    if softcap is not None:
-        logits = torch.tanh(logits / softcap) * softcap
-    pos = torch.arange(S, device=q.device)
-    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
-                                             - window)
-    logits = torch.where(mask, logits, -1e30)
-    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1), v)
+    Hkv = k.shape[1]
+    rep = H // Hkv
+    k32 = k.to(torch.float32).repeat_interleave(rep, dim=1)
+    v32 = v.to(torch.float32).repeat_interleave(rep, dim=1)
+    q32, do32 = q.to(torch.float32), do.to(torch.float32)
+    logits, t, mask = _attention_logits(q32, k32, window, softcap)
+    p = torch.where(mask, torch.exp(logits - lse[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do32, v32)
+    delta = (do32 * o.to(torch.float32)).sum(dim=-1)
+    ds = p * (dp - delta[..., None])
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    scale = 1.0 / math.sqrt(D)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k32) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q32) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
+    return (dq, dk.view(B, Hkv, rep, S, D).sum(dim=2),
+            dv.view(B, Hkv, rep, S, D).sum(dim=2))

@@ -11,9 +11,32 @@ packages can be run on the same weights.  ``jax_layers`` does the same
 unstacking for any per-layer tree, such as a KV cache.
 
 bf16 arrays (numpy's ``bfloat16`` extension type) are carried bit for
-bit through an int16 view.
+bit through an int16 view.  ``from_jax_params`` maps any tree of the
+parameters' structure the same way: gradients and optimizer moments too.
+
+The other direction, for training: ``leaf_layout(model)`` lists the JAX
+package's leaves over the port's parameters, in its flattening order
+(dict keys sorted).  Two things in training depend on those leaves and
+not on the port's per-layer tensors:
+
+* AdamW decays a leaf when ``ndim >= 2`` (``repro/optim/adamw.py:83``).
+  A stacked norm scale ``(n_groups, D)`` is decayed; its per-layer
+  tensor ``(D,)`` here is 1-D.  ``final_norm.scale`` ``(D,)`` is not
+  decayed, nor, with ``scan_layers=False``, any per-layer ``(D,)``
+  (``decayed`` gives the set).
+* The gradient compression factors each stacked leaf as one matrix
+  (every leading dim collapsed, ``repro/optim/compression.py:44``): one
+  ``(28 * 1024 * 16, 128)`` matrix for qwen3-0.6b's ``wq``, not 28.
+
+Each ``Leaf`` names its JAX path (``"groups/b0/mix/wq"``), the port's
+parameters it stacks (one per group, in group order; one for an
+unstacked leaf) and its JAX shape.  ``gather`` stacks a leaf from a dict
+of per-parameter tensors, ``scatter`` splits a stacked value back.
 """
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -74,3 +97,76 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig) -> dict:
     for n, layer in enumerate(jax_layers(np_tree, cfg)):
         _flatten(layer, f"layers.{n}.", state)
     return state
+
+
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    path: str                    # the JAX tree path, "/"-joined
+    names: tuple[str, ...]       # the port's parameters, in group order
+    stacked: bool                # a leading group axis over ``names``
+    shape: tuple[int, ...]       # the JAX leaf's shape
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+def _sort_key(parts: tuple):
+    # JAX sorts dict keys as strings and keeps list order (the tail)
+    return tuple((0, p) if isinstance(p, int) else (1, p) for p in parts)
+
+
+def leaf_layout(model) -> list[Leaf]:
+    """The JAX package's leaves over ``model``'s parameters, in its
+    flattening order."""
+    cfg = model.cfg
+    pat, n_groups, tail = group_layout(cfg)
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    entries = []
+    for name in ("embed", "final_norm.scale", "head"):
+        if name in shapes:
+            entries.append((tuple(name.split(".")), (name,), False,
+                            shapes[name]))
+    per_layer = lambda n: [key.split(".", 2)[2] for key in shapes
+                           if key.startswith(f"layers.{n}.")]
+    for i in range(len(pat)):
+        for sub in per_layer(i):
+            names = tuple(f"layers.{g * len(pat) + i}.{sub}"
+                          for g in range(n_groups))
+            if names:
+                entries.append((("groups", f"b{i}", *sub.split(".")), names,
+                                True, (n_groups, *shapes[names[0]])))
+    for t in range(len(tail)):
+        n = n_groups * len(pat) + t
+        for sub in per_layer(n):
+            name = f"layers.{n}.{sub}"
+            entries.append((("tail", t, *sub.split(".")), (name,), False,
+                            shapes[name]))
+    entries.sort(key=lambda e: _sort_key(e[0]))
+    return [Leaf("/".join(str(p) for p in parts), names, stacked, shape)
+            for parts, names, stacked, shape in entries]
+
+
+def gather(leaf: Leaf, tensors: dict) -> torch.Tensor:
+    """The leaf's value from per-parameter ``tensors`` (stacked: a new
+    tensor; else the tensor itself)."""
+    if leaf.stacked:
+        return torch.stack([tensors[n] for n in leaf.names])
+    return tensors[leaf.names[0]]
+
+
+def scatter(leaf: Leaf, value: torch.Tensor) -> dict:
+    """``{name: tensor}`` of a leaf's value (views of ``value``)."""
+    if leaf.stacked:
+        return dict(zip(leaf.names, value.unbind(0)))
+    return {leaf.names[0]: value}
+
+
+def decayed(layout: list[Leaf]) -> set[str]:
+    """The port's parameters that AdamW decays: those of the leaves
+    with ``ndim >= 2``."""
+    return {n for leaf in layout if leaf.ndim >= 2 for n in leaf.names}

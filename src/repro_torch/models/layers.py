@@ -9,12 +9,14 @@ changed the math.
 
 Attention has two paths, as in the JAX package:
 
-* prefill (``kv is None``): K/V come from ``x`` and stay at ``Hkv``
-  heads; the scores, mask, softmax and V product are one call of the
+* prefill and training (``kv is None``): K/V come from ``x`` and stay
+  at ``Hkv`` heads; the scores, mask, softmax and V product are one call of the
   hand-written ``local_attention`` kernel (``kernels/ops.py``) on
   ``(B, H, S, D)`` views of the ``(B, S, H, D)`` projections, with the
   layer's window for ``local`` layers and ``S`` (plain causal attention)
-  for global ones.  No ``(B, H, S, S)`` score tensor exists.
+  for global ones.  No ``(B, H, S, S)`` score tensor exists.  Where
+  autograd records (training), the call is the kernel's autograd
+  Function: its backward is the hand-written backward kernel.
 * decode (``kv`` given): one query step against the ring-buffer cache,
   in plain PyTorch, rounded as the JAX package rounds: operands in the
   model dtype, the query pre-scaled in it, products summed in fp32 (the
@@ -36,14 +38,14 @@ from repro_torch.models.config import ModelConfig
 
 
 def param(shape, dtype, device) -> nn.Parameter:
-    """An uninitialised inference parameter (``init_model`` fills it).
+    """An uninitialised, trainable parameter (``init_model`` fills it;
+    serving runs under ``torch.no_grad``, so it records nothing).
     ``device=None`` is the card, as at every entry point of the port: the
     modules built from these (``RMSNorm``, ``Attention``, ``MLP``,
     ``Layer``, ``Transformer``) raise without one unless the caller asks
     for the CPU."""
     return nn.Parameter(torch.empty(shape, dtype=dtype,
-                                    device=resolve_device(device)),
-                        requires_grad=False)
+                                    device=resolve_device(device)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly for serving: init, forward, prefill, decode.
+"""Decoder-only LM assembly: init, forward, training loss, prefill, decode.
 
 The port of the JAX package's ``repro/models/transformer.py`` for the
 text family with attention blocks (``attn`` | ``local``) and the dense
@@ -16,9 +16,21 @@ the JAX package, which returns new cache arrays, ``prefill`` and
 batch 2 and 8224 positions is 4.2 GB in bf16) and return the same
 object.
 
+Training (``forward_hidden``, ``loss_fn``; the JAX package's
+``transformer.py:288-409``) runs with autograd: the attention is the
+``local_attention`` kernel's autograd Function (its backward the
+hand-written backward kernel), ``remat_policy`` "minimal" or "full" puts
+each layer under ``torch.utils.checkpoint`` (recomputed in the backward;
+the math is the same), ``loss_chunks`` splits the LM head and the cross
+entropy over sequence chunks, each under checkpoint, so one chunk's fp32
+logits exist at a time.  Every backward on the path sums in a fixed
+order on the card (the embedding lookup's, torch's sort-based
+``index_put_`` with accumulation; the label logit's ``gather``, one add
+into each row), so two runs of a step give the same bits.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
 ``ROADMAP.md`` item: the recurrent blocks (``rglru``, ``rwkv``), the MoE
-FFN, the VLM/audio front ends, and the training side (``loss_fn``).
+FFN and the VLM/audio front ends.
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.operator import resolve_device
 from repro_torch.models import layers as L
@@ -200,6 +213,85 @@ def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     for lp in model.layers:
         x = _apply_layer(lp, cfg, x, positions)
     return _lm_head(model, model.final_norm(x))
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def forward_hidden(model: Transformer, tokens: torch.Tensor):
+    """Full-sequence forward up to the final norm, recording for
+    autograd: tokens (B, S) -> (x (B, S, D), aux).  ``aux`` (the MoE
+    router's loss) is 0: the dense MLP has none.  With ``remat_policy``
+    "minimal" or "full" each layer runs under ``checkpoint`` (its
+    activations recomputed in the backward, attention included)."""
+    cfg = model.cfg
+    x = _embed_tokens(model, tokens)
+    positions = _positions(*tokens.shape, x.device)
+    remat = cfg.remat_policy in ("minimal", "full")
+    for lp in model.layers:
+        if remat:
+            x = checkpoint(_apply_layer, lp, cfg, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _apply_layer(lp, cfg, x, positions)
+    return (model.final_norm(x),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _xent(lg: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
+    """Cross entropy of fp32 logits (..., V) at integer labels (...):
+    log-sum-exp minus the label's logit.  (The label's logit is read by
+    ``gather``; its backward adds one value into each row, so no two
+    adds meet.)"""
+    lse = torch.logsumexp(lg, dim=-1)
+    sel = torch.gather(lg, -1, lb[..., None].long())[..., 0]
+    return lse - sel
+
+
+def _nll_block(model: Transformer, x: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    """Head + cross entropy for one sequence block: x (B, s, D) ->
+    nll (B, s) fp32."""
+    return _xent(_lm_head(model, x), labels)
+
+
+def loss_fn(model: Transformer, batch: dict):
+    """Next-token cross entropy (+ ``router_aux_coef`` x aux).  ``batch``
+    holds ``tokens`` and ``labels`` (B, S) and optionally ``loss_mask``
+    (B, S), tensors on the model's device.  Returns (total, {"loss",
+    "aux"}).  ``cfg.loss_chunks > 1`` (dividing S) runs the head and the
+    cross entropy chunk by chunk along the sequence, each chunk under
+    ``checkpoint``, as the JAX package's scan with remat does."""
+    cfg = model.cfg
+    x, aux = forward_hidden(model, batch["tokens"])
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask.to(torch.float32)
+    S = labels.shape[-1]
+    lc = cfg.loss_chunks
+    if lc <= 1 or S % lc:
+        nll = _nll_block(model, x, labels)
+        loss = (torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+                if mask is not None else torch.mean(nll))
+    else:
+        c = S // lc
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(lc):
+            sl = slice(i * c, (i + 1) * c)
+            nll = checkpoint(_nll_block, model, x[:, sl], labels[:, sl],
+                             use_reentrant=False)
+            if mask is None:
+                tot = tot + torch.sum(nll)
+                cnt = cnt + float(nll.numel())
+            else:
+                tot = tot + torch.sum(nll * mask[:, sl])
+                cnt = cnt + torch.sum(mask[:, sl])
+        loss = tot / torch.clamp(cnt, min=1.0)
+    total = loss + cfg.router_aux_coef * aux
+    return total, {"loss": loss, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,

@@ -16,7 +16,10 @@ fp32 (the JAX package's limit for its kernel, ``tests/test_kernels.py:208``);
 in bf16 each element within the kernel's one rounding of its output to
 bf16, 2^-8 |plain| of that element, plus 1e-5 for the fp32 sums' order
 (``_attn_within``).  bf16 at D >= 64 runs the tensor-core kernel
-(``local_attn.route``), the rest the FFMA one.  The block sweeps
+(``local_attn.route``), the rest the FFMA one.  Its backward kernel is
+held element by element to the same limits against
+``ref.local_attention_bwd_ref``, with bitwise reruns, and the autograd
+Function's launches are counted.  The block sweeps
 (``block_matvec.route``): every fp32 A on the tensor cores as 3xTF32,
 staged by TMA where a tensor map describes A and by cp.async elsewhere;
 bf16 by wgmma, staged by TMA where a map describes A (the solver's
@@ -1155,3 +1158,59 @@ def test_two_workers_on_the_card_give_the_serial_bits(card):
         want = {key: c + job.partial_count * key.startswith("block_matvec")
                 for key, c in tally.items()}
         assert job.partial_count > 0 and job.launches == want
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,window,softcap", [
+    (2, 4, 2, 133, 128, 64, 50.0), (1, 8, 1, 70, 256, 70, None)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_local_attention_bwd_matches_plain_version(
+        card, B, H, Hkv, S, D, window, softcap, dtype):
+    """The backward kernel (``csrc/local_attn_bwd.cu``) at ragged shapes
+    against its plain version on the forward kernel's log-sum-exp, each
+    gradient element held as the forward's output is (``_attn_within``),
+    two runs bitwise equal."""
+    from repro_torch.kernels import local_attn
+    g = torch.Generator(device=card).manual_seed(B * H * S + D)
+    dt = getattr(torch, dtype)
+    q, do = (torch.randn((B, S, H, D), generator=g, device=card).to(dt)
+             .transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=g, device=card).to(dt)
+            .transpose(1, 2) for _ in range(2))
+    lse = torch.empty((B, H, S), device=card)
+    o = local_attn.local_attention_cuda(q, k, v, window, softcap, lse)
+    ops.reset_launches()
+    got = ops.local_attention_bwd(q, k, v, o, do, lse, window=window,
+                                  softcap=softcap)
+    again = ops.local_attention_bwd(q, k, v, o, do, lse, window=window,
+                                    softcap=softcap)
+    want = ref.local_attention_bwd_ref(q, k, v, o, do, lse, window=window,
+                                       softcap=softcap)
+    torch.cuda.synchronize()
+    assert ops.launches["local_attention_bwd"] == 2 * local_attn.BWD_KERNELS
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == dt and a.shape == w.shape
+        assert torch.equal(a, b)
+        assert _attn_within(a, w, dtype)
+
+
+def test_local_attention_autograd_launches_forward_and_backward(card):
+    """Under autograd ``ops.local_attention`` is the kernel's Function:
+    one forward launch (keeping the log-sum-exp), then the backward's
+    kernels; no grad, the forward alone."""
+    from repro_torch.kernels import local_attn
+    g = torch.Generator(device=card).manual_seed(3)
+    q, k, v = (torch.randn((1, 130, h, 128), generator=g, device=card)
+               .to(torch.bfloat16).transpose(1, 2).requires_grad_()
+               for h in (4, 2, 2))
+    ops.reset_launches()
+    o = ops.local_attention(q, k, v, window=64, softcap=50.0)
+    grads = torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
+    torch.cuda.synchronize()
+    assert {n: c for n, c in ops.launches.items() if c} == {
+        "local_attention": 1, "local_attention_bwd": local_attn.BWD_KERNELS}
+    assert all(gr.shape == x.shape for gr, x in zip(grads, (q, k, v)))
+    ops.reset_launches()
+    with torch.no_grad():
+        ops.local_attention(q, k, v, window=64, softcap=50.0)
+    assert {n: c for n, c in ops.launches.items() if c} == {
+        "local_attention": 1}

@@ -4,7 +4,8 @@
   or the JAX package ``repro`` (the port runs where JAX is absent).
 * Entry points run on the card unless the caller asks for the CPU:
   without a CUDA device and without ``device=`` (``--device`` for
-  ``python -m repro_torch.launch.serve``) they raise; that holds for the
+  ``python -m repro_torch.launch.serve`` and ``launch.train``) they
+  raise (training's ``init_train_state`` and ``TrainingRunner`` too); that holds for the
   out-of-core tiers' inputs (numpy arrays, ``.npy`` paths, memmaps) and
   matrices too, and for the sparse stream's (synthetic streams, scipy
   matrices, ``.npz`` paths).
@@ -69,7 +70,10 @@ def test_port_imports_with_jax_unavailable():
             "repro_torch.configs, repro_torch.models.config, "
             "repro_torch.models.layers, repro_torch.models.mlp, "
             "repro_torch.models.transformer, repro_torch.models.convert, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.data, "
+            "repro_torch.optim.adamw, repro_torch.optim.compression, "
+            "repro_torch.training, repro_torch.training.runner, "
+            "repro_torch.launch.train; "
             "import repro_torch.configs as c; "
             "[c.get_config(a) for a in c.list_archs()]; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -161,6 +165,29 @@ def test_serve_without_device_raises_when_no_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         transformer.init_cache(cfg, 1, 8)
     assert serve.main(argv + ["--device", "cpu"])["tokens"].shape == (1, 1)
+
+
+def test_training_without_device_raises_when_no_card(tmp_path):
+    """Training's entry points run on the card too: ``init_train_state``,
+    ``TrainingRunner`` and ``python -m repro_torch.launch.train`` given no
+    device raise; ``device="cpu"`` (``--device cpu``) trains."""
+    _no_card()
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import train
+    from repro_torch.training import TrainConfig, init_train_state
+    from repro_torch.training.runner import RunnerConfig, TrainingRunner
+    cfg = smoke_config(get_config("qwen3-0.6b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(cfg, TrainConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainingRunner(cfg, TrainConfig(), RunnerConfig(
+            ckpt_dir=str(tmp_path / "r")), DataConfig(cfg.vocab_size, 8, 2))
+    argv = ["--arch", "qwen3-0.6b", "--smoke", "--steps", "1", "--batch",
+            "2", "--seq", "8", "--ckpt-dir", str(tmp_path / "c")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(argv)
+    assert len(train.main(argv + ["--device", "cpu"])["losses"]) == 1
 
 
 def test_devices_other_than_cpu_and_cuda_are_refused():

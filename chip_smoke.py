@@ -8,12 +8,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; build the CUDA kernels of ``src/repro_torch/csrc`` and
    print the build time and each kernel's registers/spills; for every
-   ``local_attention`` instance and every tensor-core instance of the
+   ``local_attention`` instance, every instance of its backward
+   (``local_attn_bwd``) and every tensor-core instance of the
    block sweeps (``block_matvec_tc``: bf16; ``block_matvec_tf32``: fp32
    as 3xTF32) its registers, spills (and for attention its dynamic
    shared memory) and tensor-core instructions (``HGMMA``/``HMMA`` in
    the library's SASS, ``cuobjdump -sass``).  Fails unless the path's
-   instances (attention bf16 D = 256; the sweeps' ``matvec_tc<32,LD>``
+   instances (attention bf16 D = 256; the backward's
+   ``bwd_dkdv_wgmma<D>`` and ``bwd_dq_wgmma<D>`` at D = 64, 128, 256;
+   the sweeps' ``matvec_tc<32,LD>``
    and ``rmatvec_tc<LD>`` for LD = 0, 8, 4, 2: A by TMA, by cp.async of
    8 and of 4 bytes, and with register copies of rows 2 bytes off; and
    ``matvec_tf32<32,CP>`` and ``rmatvec_tf32<32,CP>`` for CP = 0, 1, 2:
@@ -28,8 +31,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``-DREPRO_TF32_ONLY``, with ``-DREPRO_TC_SUMS_ONLY`` and with
    ``-DREPRO_NO_ZFILL``, ``gram_tf32.cu`` with ``-DREPRO_TF32_ONLY`` and
    with ``-DREPRO_TC_SUMS_ONLY``, and ``gram_bf16.cu`` with
-   ``-DREPRO_TC_SUMS_ONLY``; and, for timing alone, ``gram_bf16.cu`` and
-   ``block_matvec_tc.cu`` with ``-DREPRO_STAGING_ONLY`` (no products).
+   ``-DREPRO_TC_SUMS_ONLY``; for timing alone, ``gram_bf16.cu`` and
+   ``block_matvec_tc.cu`` with ``-DREPRO_STAGING_ONLY`` (no products);
+   and, read in phase 12, ``local_attn_bwd.cu`` with
+   ``-DREPRO_TWO_TERMS`` and ``-DREPRO_TC_SUMS_ONLY``.
 2. every kernel on the card against its plain PyTorch version
    (``repro_torch/kernels/ref.py``): ``block_matvec``, ``block_rmatvec``
    and ``block_gram_chain`` (both orientations), fp32 and bf16, at
@@ -296,21 +301,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    version (``ref.local_attention_bwd_ref``) on the forward kernel's
    log-sum-exp, element by element (phase 7's rule: fp32 1e-4, bf16 half
    a bf16 step plus ``ATOL_ATTN_BF16``), at ragged shapes (every head
-   dim, fp32 and bf16, G in {1, 2, 8}, windows below, at and past S,
-   soft-cap on and off, views of (B, S, H, D) memory) and through the
-   autograd Function (one forward launch, the backward's three kernels);
-   at the path's shapes (qwen3-0.6b 8 x 16 x 2048 x 128 causal;
-   gemma2-9b 1 x 16 x 8192 x 256, cap 50, window 4096 and global) with
-   two runs bitwise equal, each timed beside its bound (10 D flop a live
-   pair at the bf16 peak), its plain version and, where no cap or window
-   is set, autograd of ``scaled_dot_product_attention(is_causal=True)``.
+   dim, fp32 and bf16, each on the route ``local_attn.bwd_route`` names:
+   bf16 at D >= 64 on the tensor cores, the rest FFMA; launches counted
+   by route; G in {1, 2, 8}, windows below, at and past S, soft-cap on
+   and off, views of (B, S, H, D) memory) and through the autograd
+   Function (one forward launch, the backward's three kernels); at the
+   path's shapes (qwen3-0.6b 8 x 16 x 2048 x 128 causal; gemma2-9b 1 x 16
+   x 8192 x 256, cap 50, window 4096 and global) with two runs bitwise
+   equal, each timed beside its bound (10 D flop a live pair at the bf16
+   peak), its plain version and, where no cap or window is set, autograd
+   of ``scaled_dot_product_attention(is_causal=True)`` and the FFMA
+   kernels on the same inputs through their C entry point (yardsticks).
    12.2: qwen3-0.6b at full width and depth, bf16 parameters, fp32
    moments, ``loss_chunks`` 8, 8 x 2048 synthetic tokens a step,
    ``TR_STEPS`` steps plain and as many with the rank-8 compression,
    through ``init_train_state`` and ``make_train_step``: the loss falls in
    both, every step's launches equal the accounting (``train_expected``),
    ``compress_ratio`` is the JAX package's 2384199680 / 41213952, ms a
-   step, tokens/s, peak memory, and one compressed step's profile; the
+   step, tokens/s, peak memory, and one compressed step's profile (whose
+   backward kernels must be the route's: delta, dK/dV, dQ); the
    compression's sweeps at their eight shapes, each against its plain
    version and timed.  12.3: the
    runner with a failure planted before step 5 and a checkpoint every 4
@@ -348,7 +357,7 @@ solves, beside the rows measured at the same shapes; the service's as
 ``<kernel>[/<route>][service <job>]``, each job's measured launches (and ``[service burst <dtype>, one
 by one]`` for the bursts' standalone solves), beside the rows measured at
 their shapes in phase 11; the training path's (phase 12.2) as
-``local_attention_bwd``, ``local_attention[training]`` (the forward with
+``local_attention_bwd/wgmma``, ``local_attention[training]`` (the forward with
 its log-sum-exp), ``block_matvec/tf32x3[compression]`` and
 ``block_rmatvec/tf32x3[compression]`` (one step's eight sweeps, their
 times summed); and each phase's seconds.
@@ -1145,6 +1154,37 @@ def attention_instances(build, la, log: str) -> None:
              f"spills")
 
 
+def attention_bwd_instances(build, la, log: str) -> None:
+    """Each ``local_attn_bwd`` instance's registers, spills and tensor-core
+    instructions; fail unless every instance of the tensor-core route
+    (``bwd_dkdv_wgmma<D>``, ``bwd_dq_wgmma<D>``, D in
+    ``WGMMA_HEAD_DIMS``) has tensor-core instructions and spills
+    nothing."""
+    import re
+    insts, mma = instances(build, "local_attn_bwd", log)
+    path = {}
+    for mangled, info in insts.items():
+        m = re.search(r"(bwd_dkdv_wgmma|bwd_dq_wgmma|bwd_dkdv|bwd_dq|"
+                      r"bwd_delta)I(f|13__nv_bfloat16)?Li(\d+)E", mangled)
+        if m is None:
+            continue
+        name, D = m.group(1), int(m.group(3))
+        dtype = {"f": "fp32", None: "bf16"}.get(m.group(2), "bf16")
+        n_mma = mma.get(mangled, 0)
+        print(f"  local_attn_bwd {name:14s} {dtype} D={D:3d}: "
+              f"{info['regs']} registers, {info['spill']} bytes spilled, "
+              f"{n_mma} tensor-core instructions (HGMMA)")
+        if name.endswith("_wgmma"):
+            path[f"{name}<{D}>"] = (n_mma, info["spill"])
+    want = sorted(f"{n}<{D}>" for n in ("bwd_dkdv_wgmma", "bwd_dq_wgmma")
+                  for D in la.WGMMA_HEAD_DIMS)
+    if sorted(path) != want or any(n == 0 or sp != 0
+                                   for n, sp in path.values()):
+        fail(f"local_attn_bwd tensor-core instances (HGMMA, bytes spilled): "
+             f"{path}; want {want} with tensor-core instructions and no "
+             f"spills")
+
+
 # the planted faults of phase 2b: (library, its -D flag)
 PLANTED = (("block_matvec_tc", "REPRO_TC_SUMS_ONLY"),
            ("block_matvec_tc", "REPRO_NO_ZFILL"),
@@ -1154,6 +1194,11 @@ PLANTED = (("block_matvec_tc", "REPRO_TC_SUMS_ONLY"),
            ("gram_tf32", "REPRO_TF32_ONLY"),
            ("gram_tf32", "REPRO_TC_SUMS_ONLY"),
            ("gram_bf16", "REPRO_TC_SUMS_ONLY"))
+# the backward's precision, as planted faults read in phase 12 (printed,
+# not held to a limit): P and dS in two bf16 terms, and the sums left in
+# the tensor cores
+BWD_PLANTED = (("local_attn_bwd", "REPRO_TWO_TERMS"),
+               ("local_attn_bwd", "REPRO_TC_SUMS_ONLY"))
 # builds for timing alone, beside the planted faults: the staging with no
 # products of bf16 gram (phase 5) and of the bf16 sweeps (phase 3, on
 # wgmma_ld): where the kernels' time goes
@@ -4144,8 +4189,11 @@ def attention_bwd_ragged(torch, ops, ref, la, g, dev) -> float:
                 do = attn_inputs(torch, g, dev, B, H, Hkv, S, D, dt)[0]
                 lse = torch.empty((B, H, S), device=dev)
                 o = la.local_attention_cuda(q, k, v, window, softcap, lse)
+                route = la.bwd_route(dt, D)
+                ops.reset_launches()
                 got = ops.local_attention_bwd(q, k, v, o, do, lse,
                                               window=window, softcap=softcap)
+                ran = {n: c for n, c in ops.route_launches.items() if c}
                 want = ref.local_attention_bwd_ref(q, k, v, o, do, lse,
                                                    window=window,
                                                    softcap=softcap)
@@ -4153,8 +4201,9 @@ def attention_bwd_ragged(torch, ops, ref, la, g, dev) -> float:
                     q, k, v, window=window, softcap=softcap)[1]).abs().max())
                 torch.cuda.synchronize()
                 shares = [attn_share(a, b, sd) for a, b in zip(got, want)]
-                label = (f"local_attention_bwd {sd} B={B} H={H} Hkv={Hkv} "
-                         f"S={S} D={D} window={window} softcap={softcap}")
+                label = (f"local_attention_bwd {sd} ({route}) B={B} H={H} "
+                         f"Hkv={Hkv} S={S} D={D} window={window} "
+                         f"softcap={softcap}")
                 print(f"  {label}: dq, dk, dv "
                       f"{', '.join(f'{s:.2f}' for s in shares)} of the "
                       f"per-element limit; forward lse err {lse_err:.1e}")
@@ -4165,6 +4214,8 @@ def attention_bwd_ragged(torch, ops, ref, la, g, dev) -> float:
                         lse_err <= TOL_ATTN_FP32):
                     fail(f"{label}: {shares} of the limit, lse err "
                          f"{lse_err}")
+                if ran != {f"local_attention_bwd/{route}": la.BWD_KERNELS}:
+                    fail(f"{label}: launches by route {ran}")
                 worst = max(worst, *shares)
     # the autograd Function: one forward launch (keeping lse), then the
     # backward's kernels, and the same gradient as the direct call
@@ -4177,9 +4228,11 @@ def attention_bwd_ragged(torch, ops, ref, la, g, dev) -> float:
     grads = torch.autograd.grad(o, (q, k, v), do)
     torch.cuda.synchronize()
     counts = {n: c for n, c in ops.launches.items() if c}
+    ran = {n: c for n, c in ops.route_launches.items() if c}
     if counts != {"local_attention": 1,
-                  "local_attention_bwd": la.BWD_KERNELS}:
-        fail(f"the autograd Function launched {counts}")
+                  "local_attention_bwd": la.BWD_KERNELS} or \
+            ran != {"local_attention_bwd/wgmma": la.BWD_KERNELS}:
+        fail(f"the autograd Function launched {counts}, by route {ran}")
     lse = torch.empty((B, H, S), device=dev)
     o2 = la.local_attention_cuda(q.detach(), k.detach(), v.detach(), window,
                                  softcap, lse)
@@ -4193,14 +4246,33 @@ def attention_bwd_ragged(torch, ops, ref, la, g, dev) -> float:
     return worst
 
 
-def attention_bwd_path(torch, ops, ref, la, g, dev) -> dict:
-    """The backward kernel at the path's shapes (``BWD_PATH``, bf16):
-    within its limits, two runs bitwise equal, then timed beside its
-    bound, its plain version and, with no cap and no window, autograd of
-    ``scaled_dot_product_attention(is_causal=True)`` (K/V repeated to
-    every head: a yardstick only).  The qwen3 row also times the forward
-    kernel with its log-sum-exp (training's forward) beside its plain
-    version and SDPA's forward."""
+def ffma_bwd(torch, la, q, k, v, o, do, lse, window, softcap):
+    """The backward's FFMA kernels through their C entry point, whatever
+    ``bwd_route`` says (a yardstick: the training path never takes them
+    for bf16 at D >= 64)."""
+    grads, args, _ = la.bwd_call(q, k, v, o, do, lse, window, softcap)
+    err = la._bwd_lib().repro_local_attention_bwd(
+        *args, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        fail(f"the FFMA backward's launch failed: CUDA error {err}")
+    return grads
+
+
+def attention_bwd_path(torch, ops, ref, la, g, dev, planted=None) -> dict:
+    """The backward kernel at the path's shapes (``BWD_PATH``, bf16, on
+    the route ``bwd_route`` names): within its limits, two runs bitwise
+    equal, then timed beside its bound, its plain version and, with no cap
+    and no window, autograd of ``scaled_dot_product_attention(is_causal=
+    True)`` (K/V repeated to every head: a yardstick only).  The qwen3
+    row also times the FFMA kernels on the same inputs through their C
+    entry point (``ffma_ms``, with their readings: a yardstick, no
+    limit), and the forward kernel with its log-sum-exp (training's
+    forward) beside its plain version and SDPA's forward.  With
+    ``planted`` (phase 1's builds), the qwen3 and gemma2-9b global rows
+    also read the ``BWD_PLANTED`` builds of the tensor-core route on the
+    same inputs (printed: what two bf16 terms, or sums left in the tensor
+    cores, would cost against the limit)."""
     import torch.nn.functional as F
     rows = {}
     for (label, B, H, Hkv, S, D, window, softcap) in BWD_PATH:
@@ -4220,8 +4292,8 @@ def attention_bwd_path(torch, ops, ref, la, g, dev) -> dict:
         if not same or max(shares) > 1:
             fail(f"local_attention_bwd {label}: shares {shares}, reruns "
                  f"bitwise equal: {same}")
-        row = {"max_abs_err": mae, "shares_of_limit": shares,
-               "reruns_bitwise": same,
+        row = {"route": la.bwd_route(q.dtype, D), "max_abs_err": mae,
+               "shares_of_limit": shares, "reruns_bitwise": same,
                "ms": time_ms(torch, bwd, 5 if S <= 2048 else 3),
                "plain_ms": time_ms(torch, lambda: plain_attention_bwd(
                    ref, q, k, v, o, do, lse, window, softcap,
@@ -4229,8 +4301,31 @@ def attention_bwd_path(torch, ops, ref, la, g, dev) -> dict:
                "library_ms": None}
         row["bound_ms"], row["bound_by"] = attn_bwd_bound(B, H, Hkv, S, D,
                                                           window)
+        for (lib, flag), path in (planted or {}).items():
+            if (lib, flag) not in BWD_PLANTED or window < S:
+                continue
+            f_mae, f_shares = planted_run(la, lib, path, lambda: bwd_readings(
+                torch, ref, bwd(), q, k, v, o, do, lse, window, softcap,
+                "bfloat16"))
+            row[f"shares_{flag.lower()}"] = f_shares
+            print(f"  planted -D{flag} (the tensor-core route) bf16 {label}: "
+                  f"max abs err {f_mae:.2e}, dq, dk, dv "
+                  f"{', '.join(f'{x:.2f}' for x in f_shares)} of the "
+                  f"per-element limit")
         G = H // Hkv
         if softcap is None and window >= S:
+            ffma = lambda: ffma_bwd(torch, la, q, k, v, o, do, lse, window,
+                                    softcap)
+            f_mae, f_shares = bwd_readings(torch, ref, ffma(), q, k, v, o,
+                                           do, lse, window, softcap,
+                                           "bfloat16")
+            row.update(ffma_ms=time_ms(torch, ffma, 2), ffma_max_abs_err=f_mae,
+                       ffma_shares_of_limit=f_shares)
+            print(f"  FFMA backward (yardstick, its C entry point) bf16 "
+                  f"{label}: {row['ffma_ms']:.3f} ms, max abs err "
+                  f"{f_mae:.2e}, dq, dk, dv "
+                  f"{', '.join(f'{x:.2f}' for x in f_shares)} of the "
+                  f"per-element limit")
             qc = q.contiguous().requires_grad_()
             kr = k.repeat_interleave(G, dim=1).contiguous().requires_grad_()
             vr = v.repeat_interleave(G, dim=1).contiguous().requires_grad_()
@@ -4262,8 +4357,9 @@ def attention_bwd_path(torch, ops, ref, la, g, dev) -> dict:
                   f"ms ({fwd['bound_by']})")
             del qc, kr, vr, out, doc
         rows[label] = row
-        print(f"  local_attention_bwd bf16 {label} B={B} H={H} Hkv={Hkv} "
-              f"S={S} D={D} window={window} softcap={softcap}: max abs err "
+        print(f"  local_attention_bwd bf16 ({row['route']}) {label} B={B} "
+              f"H={H} Hkv={Hkv} S={S} D={D} window={window} "
+              f"softcap={softcap}: max abs err "
               f"{mae:.2e}, dq, dk, dv {', '.join(f'{s:.2f}' for s in shares)} "
               f"of the per-element limit, reruns bitwise equal; kernel "
               f"{row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms, bound "
@@ -4295,6 +4391,7 @@ def train_run(torch, ops, dev, cfg, tc, batches, profile=False) -> dict:
     (the entry points a user calls), each step's launches checked
     against ``train_expected``; then, with ``profile``, one more step
     under the profiler."""
+    from repro_torch.kernels import local_attn
     from repro_torch.models.convert import leaf_layout
     from repro_torch.optim.compression import _mat_shape
     from repro_torch.training import init_train_state, make_train_step
@@ -4304,9 +4401,13 @@ def train_run(torch, ops, dev, cfg, tc, batches, profile=False) -> dict:
                    for leaf in leaf_layout(state.model)
                    if state.comp is not None and leaf.path in state.comp["Q"]]
     want = train_expected(cfg, tc.microbatches, len(comp_shapes))
-    routes = ({"block_matvec/tf32x3": want["block_matvec"],
-               "block_rmatvec/tf32x3": want["block_rmatvec"]}
-              if want["block_matvec"] else {})
+    bwd_route = local_attn.bwd_route(getattr(torch, cfg.dtype),
+                                     cfg.head_dim)
+    routes = {f"local_attention_bwd/{bwd_route}":
+              want["local_attention_bwd"],
+              **({"block_matvec/tf32x3": want["block_matvec"],
+                  "block_rmatvec/tf32x3": want["block_rmatvec"]}
+                 if want["block_matvec"] else {})}
     losses, ms, totals = [], [], {}
     torch.cuda.reset_peak_memory_stats()
     for i, batch in enumerate(batches):
@@ -4338,9 +4439,21 @@ def train_run(torch, ops, dev, cfg, tc, batches, profile=False) -> dict:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         share = lambda key: sum(t for nm, t in by_name.items()
                                 if key in nm) / max(busy, 1e-12)
+        # the backward's kernels by name: delta and the route's two
+        import re
+        bwd_ms = {re.search(r"bwd_\w+<[^>]*>", nm).group(0): t * 1e3
+                  for nm, t in by_name.items() if "bwd_" in nm}
+        if sorted(bwd_ms) != sorted(
+                f"{k}<{cfg.head_dim}>" if k.endswith("wgmma") else
+                f"{k}<__nv_bfloat16, {cfg.head_dim}>"
+                for k in (("bwd_delta", "bwd_dkdv_wgmma", "bwd_dq_wgmma")
+                          if bwd_route == "wgmma" else
+                          ("bwd_delta", "bwd_dkdv", "bwd_dq"))):
+            fail(f"the profiled step's backward kernels: {sorted(bwd_ms)}")
         out["profile"] = {
             "wall_ms": wall * 1e3, "busy_ms": busy * 1e3,
             "busy_share": busy / wall, "activities": n,
+            "attention_bwd_ms": bwd_ms,
             "attention_bwd_share": share("bwd_"),
             "attention_fwd_share": share("local_attn"),
             "sweeps_share": share("tf32"),
@@ -4530,7 +4643,7 @@ def train_card_vs_cpu(torch, dev) -> dict:
     return out
 
 
-def training(torch, ops, ref, la, bm, dev) -> tuple:
+def training(torch, ops, ref, la, bm, dev, planted=None) -> tuple:
     """Phase 12; returns (its summary, its rows of the ``kernels``
     line)."""
     import dataclasses
@@ -4544,7 +4657,7 @@ def training(torch, ops, ref, la, bm, dev) -> tuple:
     worst = attention_bwd_ragged(torch, ops, ref, la, g, dev)
     print(f"backward kernel at ragged shapes: all within limits (worst "
           f"{worst:.2f} of limit)")
-    path = attention_bwd_path(torch, ops, ref, la, g, dev)
+    path = attention_bwd_path(torch, ops, ref, la, g, dev, planted)
     t_kernels = time.perf_counter() - t0
 
     # 12.2 qwen3-0.6b at full width and depth
@@ -4599,7 +4712,7 @@ def training(torch, ops, ref, la, bm, dev) -> tuple:
                 | set(comp_run["launches"])}
     q_row, f_row = path["qwen3-0.6b"], path["forward qwen3-0.6b"]
     line_rows = [
-        ("local_attention_bwd", BWD_SOURCE, BWD_REPLACES,
+        (f"local_attention_bwd/{q_row['route']}", BWD_SOURCE, BWD_REPLACES,
          launches["local_attention_bwd"], q_row),
         ("local_attention[training]", SOURCES["local_attention"],
          REPLACES["local_attention"], launches["local_attention"], f_row),
@@ -4675,7 +4788,7 @@ def main() -> int:
         print(f"phase {label}: {phase_s[label]:.1f} s")
 
     planted_builds = {key: build_planted(build, *key)
-                      for key in PLANTED + TIMING}
+                      for key in PLANTED + TIMING + BWD_PLANTED}
     logs = build.build_all()
     planted = {}
     for (name, flag), (proc, path) in planted_builds.items():
@@ -4688,10 +4801,13 @@ def main() -> int:
           f"phase 2b: " + ", ".join(f"{name} -D{flag}"
                                     for name, flag in PLANTED)
           + "; for timing: " + ", ".join(f"{name} -D{flag}"
-                                         for name, flag in TIMING) + ")")
+                                         for name, flag in TIMING)
+          + "; the backward's precision: " + ", ".join(
+              f"{name} -D{flag}" for name, flag in BWD_PLANTED) + ")")
     for name, log in logs.items():       # nvcc -Xptxas=-v, per kernel
         regs = [int(l.split("Used ")[1].split()[0])
-                for l in log.splitlines() if "registers" in l]
+                for l in log.splitlines()
+                if "Used " in l and "registers" in l]
         spills = [int(l.split()[4]) for l in log.splitlines()
                   if "spill stores" in l]
         if not regs:                     # staging.cu: host functions only
@@ -4702,6 +4818,8 @@ def main() -> int:
               f"{max(spills)} bytes stored)")
     attention_instances(build, local_attn, logs.get("local_attn") or (
         build.BUILD_DIR / "local_attn.log").read_text())
+    attention_bwd_instances(build, local_attn, logs.get("local_attn_bwd") or (
+        build.BUILD_DIR / "local_attn_bwd.log").read_text())
     # fp32 on the paths: TMA (CP 0) at the main path's width, cp.async of
     # 4 bytes (CP 1) at 32767 columns, of 8 (CP 2) at 8190; bf16 by TMA
     # (LD 0) on the solver's copy, by cp.async of 4 bytes (LD 4) at 8190,
@@ -4745,7 +4863,8 @@ def main() -> int:
         print(card_line())
         return 0
     if sys.argv[1:] == ["--only-training"]:       # phase 1, then phase 12
-        summary, line = training(torch, ops, ref, local_attn, bm, dev)
+        summary, line = training(torch, ops, ref, local_attn, bm, dev,
+                                 planted)
         mark("12")
         print(json.dumps({"training": summary}))
         print(json.dumps({"kernels": line}))
@@ -5214,7 +5333,8 @@ def main() -> int:
     mark("11")
 
     # -- 12. training -----------------------------------------------------
-    tr_summary, tr_line = training(torch, ops, ref, local_attn, bm, dev)
+    tr_summary, tr_line = training(torch, ops, ref, local_attn, bm, dev,
+                                   planted)
     print(json.dumps({"training": tr_summary}))
     mark("12")
 

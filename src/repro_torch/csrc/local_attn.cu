@@ -99,7 +99,9 @@
 // dynamic shared memory of an instance, in bytes.
 //
 // The mbarrier, TMA, wgmma-descriptor and tensor-map helpers are shared with
-// the block sweeps' tensor-core kernels in hopper.cuh.
+// the block sweeps' tensor-core kernels in hopper.cuh; the wgmma forms with
+// A in registers, ex2, tanh and the operands' tensor maps also with the
+// backward, csrc/local_attn_bwd.cu.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -369,7 +371,6 @@ constexpr int BQ = 64 * NCONS;         // query rows per block
 constexpr int BK = 64;                 // keys per tile
 constexpr int STAGES = 2;              // K/V ring
 constexpr int BOX = 64 * 64 * 2;       // one TMA box: 64 rows x 64 bf16
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Dynamic shared memory, from a 1024-byte aligned base (the 128-byte
 // swizzle repeats every 8 rows): Q [NCONS][D / 64][64][64], K and V
@@ -384,160 +385,6 @@ struct Smem {
   // full_q, full_k[STAGES], full_v[STAGES], empty[STAGES]
   static constexpr int BYTES = BAR + 8 * (1 + 3 * STAGES) + 1024;
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// tanh(y) for |y| < 1/8: y + y^3 (c1 + y^2 (c2 + y^2 (c3 + y^2 c4))), the
-// Taylor series; the next term is below 1e-11 relative there.
-__device__ __forceinline__ float tanh_small(float y) {
-  const float y2 = y * y;
-  float p = fmaf(y2, 62.0f / 2835.0f, -17.0f / 315.0f);
-  p = fmaf(y2, p, 2.0f / 15.0f);
-  p = fmaf(y2, p, -1.0f / 3.0f);
-  return fmaf(y * y2, p, y);
-}
-// tanh(y) for any y: 1 - 2 / (e^2|y| + 1) with an IEEE division, signed.
-__device__ __forceinline__ float tanh_any(float y) {
-  if (fabsf(y) < 0.125f) return tanh_small(y);
-  const float e = exp2f(2.0f * LOG2E * fabsf(y));
-  return copysignf(1.0f - 2.0f / (e + 1.0f), y);
-}
-
-// D (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 128, fp32) += A (64 x 16, registers) * B (16 x 128, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 256, fp32) += A (64 x 16, registers) * B (16 x 256, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71,"
-      "%72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87,"
-      "%88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103,"
-      "%104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119,"
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 64)
-    wgmma_rs_n64(o, a, db);
-  else if constexpr (D == 128)
-    wgmma_rs_n128(o, a, db);
-  else
-    wgmma_rs_n256(o, a, db);
-}
 
 template <int D>
 __global__ void __launch_bounds__(NT, 1)
@@ -725,10 +572,10 @@ __global__ void __launch_bounds__(NT, 1)
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<D>(acc, p_hi[kk], desc(v_base + kk * 2048, 64 * 128, 1024));
+        wgmma_rs<D>(acc, p_hi[kk], desc(v_base + kk * 2048, 64 * 128, 1024));
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<D>(acc, p_lo[kk], desc(v_base + kk * 2048, 64 * 128, 1024));
+        wgmma_rs<D>(acc, p_lo[kk], desc(v_base + kk * 2048, 64 * 128, 1024));
       wg_commit();
       wg_wait_all();
       hold(acc);
@@ -758,39 +605,14 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-// The (D, S, heads, B) view at `ptr` with element strides `st`, in boxes of
-// 64 x 64 with the 128-byte swizzle.  A dimension of size 1 takes any
-// stride; TMA wants a multiple of 16 bytes there too.
-cudaError_t encode(CUtensorMap* map, const void* ptr, int D, int S, int heads,
-                   int B, const long long* st) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(B)};
-  const long long el[3] = {st[2], st[1], st[0]};   // s, h, b
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i)
-    strides[i] = dims[i + 1] == 1 ? 16 : static_cast<cuuint64_t>(el[i]) * 2;
-  const cuuint32_t box[4] = {64, BK, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? cudaSuccess
-             : cudaErrorInvalidValue;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Hkv, int S, const long long* st, int window,
            float scale, float softcap, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  cudaError_t err = encode(&mq, q, D, S, H, B, st);
-  if (err == cudaSuccess) err = encode(&mk, k, D, S, Hkv, B, st + 3);
-  if (err == cudaSuccess) err = encode(&mv, v, D, S, Hkv, B, st + 6);
+  cudaError_t err = encode_attn(&mq, q, D, S, H, B, st);
+  if (err == cudaSuccess) err = encode_attn(&mk, k, D, S, Hkv, B, st + 3);
+  if (err == cudaSuccess) err = encode_attn(&mv, v, D, S, Hkv, B, st + 6);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto kern = local_attn_wgmma<D>;
   err = cudaFuncSetAttribute(

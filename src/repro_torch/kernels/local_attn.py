@@ -34,9 +34,21 @@ Call it through ``ops``, which keeps the launch counts.
 
 The gradient (training) is ``csrc/local_attn_bwd.cu``, its own library,
 bound by ``local_attention_bwd_cuda``: three kernels in order (the rows'
-``sum(dO * O)``, then dK and dV by key tile, then dQ by query tile), by
-FFMA on fp32 tiles at every head dim and in both dtypes, reading the
-forward's log-sum-exp of each row (``local_attention_cuda(..., lse=)``).
+``sum(dO * O)``, then dK and dV by key tile, then dQ by query tile),
+reading the forward's log-sum-exp of each row
+(``local_attention_cuda(..., lse=)``), on one of two routes that
+``bwd_route(dtype, D)`` picks, one C entry point each:
+
+* ``"wgmma"``: bf16 at a head dim in ``WGMMA_HEAD_DIMS``.  The
+  scores and ``dO V^T`` again on the tensor cores (both operands in
+  shared memory), the products with P and dS with those in registers,
+  each split into two bf16 terms; K/V (dK/dV pass) or Q/dO (dQ pass)
+  held, the other pair streamed by TMA through a two-stage ring.  TMA
+  reads q, k, v and dO through tensor maps: ``ops`` copies a ``do``
+  (or ``o``) that ``tma_describable`` refuses (``bwd_reads_in_place``).
+* ``"ffma"``: fp32 at every head dim, and bf16 at the small ones: fp32
+  tiles in shared memory, FFMA.
+
 The JAX package has no kernel for it: it differentiates its jnp
 attention.
 """
@@ -60,6 +72,14 @@ _STRIDES = _I64 * 12
 
 def route(dtype: torch.dtype, D: int) -> str:
     """The kernel that takes (dtype, D): ``"wgmma"`` or ``"ffma"``."""
+    return ("wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS
+            else "ffma")
+
+
+def bwd_route(dtype: torch.dtype, D: int) -> str:
+    """The backward kernels that take (dtype, D): ``"wgmma"`` or
+    ``"ffma"``, split as the forward's (bf16 at ``WGMMA_HEAD_DIMS`` on the
+    tensor cores; D = 256 too: its instances spill nothing)."""
     return ("wgmma" if dtype == torch.bfloat16 and D in WGMMA_HEAD_DIMS
             else "ffma")
 
@@ -131,29 +151,38 @@ def local_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
-#: kernels one backward launches: Dlt = rowsum(dO * O), dK/dV, dQ
+#: kernels one backward launches on either route: Dlt = rowsum(dO * O),
+#: dK/dV, dQ
 BWD_KERNELS = 3
+
+
+def bwd_reads_in_place(route_name: str, t: torch.Tensor) -> bool:
+    """Whether the backward on ``route_name`` reads ``o`` or ``do`` as
+    they are (else ``ops`` passes a contiguous copy): ``readable``, and on
+    ``"wgmma"`` also ``tma_describable`` (dO goes through a tensor map;
+    a broadcast gradient does not)."""
+    return readable(t) and (route_name != "wgmma" or tma_describable(t))
 
 
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.library("local_attn_bwd")
     if not getattr(lib, "_repro_bound", False):
-        lib.repro_local_attention_bwd.argtypes = (
-            [_P] * 10 + [_I64] * 5 + [_I64 * 24, _I64, ctypes.c_float,
-                                      ctypes.c_float, ctypes.c_int, _P])
-        lib.repro_local_attention_bwd.restype = ctypes.c_int
+        common = [_P] * 10 + [_I64] * 5 + [_I64 * 24, _I64, ctypes.c_float,
+                                            ctypes.c_float]
+        lib.repro_local_attention_bwd.argtypes = common + [ctypes.c_int, _P]
+        lib.repro_local_attention_bwd_wgmma.argtypes = common + [_P]
+        for fn in (lib.repro_local_attention_bwd,
+                   lib.repro_local_attention_bwd_wgmma):
+            fn.restype = ctypes.c_int
         lib._repro_bound = True
     return lib
 
 
-def local_attention_bwd_cuda(q, k, v, o, do, lse, window: int,
-                             softcap: float | None):
-    """The gradient on the card (``csrc/local_attn_bwd.cu``, FFMA at every
-    head dim of ``HEAD_DIMS``, fp32 or bf16): (dq, dk, dv) in q's dtype,
-    each allocated in the memory order (B, S, heads, D) and returned as a
-    (B, heads, S, D) view, like the forward's output.  ``lse`` is the
-    forward's (B, H, S) fp32 log-sum-exp, contiguous; every other operand
-    is ``readable``."""
+def bwd_call(q, k, v, o, do, lse, window: int, softcap: float | None):
+    """The outputs (dq, dk, dv), each allocated in the memory order (B, S,
+    heads, D) and seen as a (B, heads, S, D) view, the arguments both C
+    entry points share (their route's own follow), and the fp32 buffer
+    they point into for Dlt, to be kept until the launch is queued."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
 
@@ -164,15 +193,32 @@ def local_attention_bwd_cuda(q, k, v, o, do, lse, window: int,
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     strides = (_I64 * 24)(*(s for t in (q, k, v, o, do, dq, dk, dv)
                             for s in t.stride()[:3]))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _bwd_lib().repro_local_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, H, Hkv, S, D, strides, window,
-            1.0 / math.sqrt(D), float(softcap or 0.0),
-            int(q.dtype == torch.bfloat16), stream)
+            1.0 / math.sqrt(D), float(softcap or 0.0))
+    return (dq, dk, dv), args, delta
+
+
+def local_attention_bwd_cuda(q, k, v, o, do, lse, window: int,
+                             softcap: float | None):
+    """The gradient on the card (``csrc/local_attn_bwd.cu``) by the kernels
+    of ``bwd_route(q.dtype, D)``: (dq, dk, dv) in q's dtype, each
+    allocated in the memory order (B, S, heads, D) and returned as a (B,
+    heads, S, D) view, like the forward's output.  ``lse`` is the
+    forward's (B, H, S) fp32 log-sum-exp, contiguous; ``o`` and ``do``
+    are as ``bwd_reads_in_place`` takes them, q, k and v as the forward
+    on the same route does."""
+    grads, args, delta = bwd_call(q, k, v, o, do, lse, window, softcap)
+    which = bwd_route(q.dtype, q.shape[3])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if which == "wgmma":
+            err = _bwd_lib().repro_local_attention_bwd_wgmma(*args, stream)
+        else:
+            err = _bwd_lib().repro_local_attention_bwd(
+                *args, int(q.dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"local_attention backward kernel launch failed: "
-                           f"CUDA error {err}")
-    return dq, dk, dv
+        raise RuntimeError(f"local_attention backward kernel launch failed "
+                           f"({which} route): CUDA error {err}")
+    return grads

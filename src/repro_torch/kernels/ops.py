@@ -41,7 +41,9 @@ by the same rule, else ``"wgmma_ld"``, ``A`` copied by the kernel's own
 producer), and ``gram``'s (``gram.route``: fp32 on ``"tf32x3"`` or
 ``"tf32x3_cpasync"`` by the same rule, bf16 on ``"wgmma"`` or
 ``"wgmma_ld"`` by it), and the CSR sweeps' counts by the values'
-dtype (``"csr_matmat/float32"``, ``"csr_matmat/bfloat16"``, ...).  The
+dtype (``"csr_matmat/float32"``, ``"csr_matmat/bfloat16"``, ...), and
+the attention backward's by ``local_attn.bwd_route`` (``"wgmma"`` or
+``"ffma"``, ``local_attn.BWD_KERNELS`` launches a call).  The
 CSR chain counts itself and its two halves, as ``block_gram_chain``
 does.  ``thread_launches`` also tallies, by kernel and by route, the
 launches one thread makes while it is open (the SVD service's workers
@@ -89,7 +91,9 @@ route_launches = {**{f"{name}/{which}": 0
                      for which in _bm.ROUTES},
                   **{f"gram/{which}": 0 for which in _gram.ROUTES},
                   **{f"{name}/{dt}": 0 for name in CSR_KERNELS
-                     for dt in ("float32", "bfloat16")}}
+                     for dt in ("float32", "bfloat16")},
+                  **{f"local_attention_bwd/{which}": 0
+                     for which in ("wgmma", "ffma")}}
 
 
 #: the counts are written from every thread that launches (the SVD
@@ -442,9 +446,10 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k and v.  On the CPU the plain version
     (``ref.local_attention_bwd_ref``); on the card the backward kernel
     (``csrc/local_attn_bwd.cu``: ``local_attn.BWD_KERNELS`` launches, all
-    counted under ``local_attention_bwd``).  ``do`` and ``o`` are read in
-    place where ``local_attn.readable`` takes them, else copied
-    contiguous first; ``lse`` likewise."""
+    counted under ``local_attention_bwd`` and under its route,
+    ``local_attention_bwd/<local_attn.bwd_route>``).  ``do`` and ``o``
+    are read in place where ``local_attn.bwd_reads_in_place`` takes them
+    on that route, else copied contiguous first; ``lse`` likewise."""
     _attention_operands(q, k, v, window, softcap)
     for x in (o, do):
         if x.shape != q.shape or x.device != q.device:
@@ -460,12 +465,13 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q, k, v, o, do, lse, window=window, softcap=softcap))
     if q.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    o, do = (x.to(q.dtype) if _la.readable(x) and x.dtype == q.dtype
+    which = _la.bwd_route(q.dtype, q.shape[3])
+    o, do = (x if x.dtype == q.dtype and _la.bwd_reads_in_place(which, x)
              else x.to(q.dtype).contiguous() for x in (o, do))
     grads = _la.local_attention_bwd_cuda(q, k, v, o, do, lse.contiguous(),
                                          window, softcap)
     for _ in range(_la.BWD_KERNELS):
-        _count("local_attention_bwd")
+        _count("local_attention_bwd", f"local_attention_bwd/{which}")
     return grads
 
 

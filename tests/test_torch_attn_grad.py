@@ -11,7 +11,10 @@ backward).  One attention layer's vjp (projections, qk-norm, RoPE, the
 soft-capped windowed GQA attention, the output projection), in fp32 on
 the same numpy weights and cotangent, against ``jax.vjp`` of
 ``repro.models.layers.apply_attention``: limit 1e-5 relative to the
-largest element of each gradient (fp32 sums in other orders).
+largest element of each gradient (fp32 sums in other orders).  The
+backward's route on the card (``local_attn.bwd_route``) over every head
+dim and dtype, and whether it reads ``o``/``do`` in place or copies them
+(``local_attn.bwd_reads_in_place``), as functions of dtype, D and strides.
 """
 import dataclasses
 
@@ -103,6 +106,53 @@ def test_bwd_checks_its_operands():
         ops.local_attention_bwd(q, k, v, o[:, :1], do, lse, window=4)
     with pytest.raises(ValueError, match="window"):
         ops.local_attention_bwd(q, k, v, o, do, lse, window=0)
+
+
+@pytest.mark.parametrize("D", (16, 32, 64, 128, 256))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_route_over_every_head_dim(dtype, D):
+    """The backward's route on the card: bf16 at D >= 64 on the tensor
+    cores, the rest by FFMA, as the forward's; every head dim on one."""
+    from repro_torch.kernels import local_attn
+    dt = getattr(torch, dtype)
+    assert D in local_attn.HEAD_DIMS
+    want = "wgmma" if dtype == "bfloat16" and D >= 64 else "ffma"
+    assert local_attn.bwd_route(dt, D) == want == local_attn.route(dt, D)
+
+
+def _strided(shape, strides, dtype=torch.bfloat16):
+    """A view of the given shape and element strides over fresh memory."""
+    need = 1 + sum((n - 1) * st for n, st in zip(shape, strides))
+    return torch.zeros(need, dtype=dtype).as_strided(shape, strides)
+
+
+@pytest.mark.parametrize("route", ["wgmma", "ffma"])
+@pytest.mark.parametrize("layout,wgmma,ffma", [
+    ("bshd", True, True),          # the model's (B, S, H, D) memory, viewed
+    ("contiguous", True, True),
+    ("broadcast_heads", False, True),   # do expanded over H: a zero stride
+    ("broadcast_batch", False, True),   # ... over B
+    ("one_head_zero_stride", True, True),   # stride 0 on a dim of size 1
+    ("misaligned_rows", False, False),  # rows 8 bytes apart in bf16 x 4
+])
+def test_bwd_copy_decision(route, layout, wgmma, ffma):
+    """Whether ``ops.local_attention_bwd`` reads ``o``/``do`` in place on a
+    route (``local_attn.bwd_reads_in_place``), from strides alone: the
+    tensor-core route reads dO through a TMA tensor map, which takes no
+    zero stride on a dimension longer than 1; both need 16-byte rows."""
+    from repro_torch.kernels import local_attn
+    B, H, S, D = 2, 4, 40, 64
+    t = {"bshd": lambda: _strided((B, H, S, D), (S * H * D, D, H * D, 1)),
+         "contiguous": lambda: torch.zeros((B, H, S, D), dtype=torch.bfloat16),
+         "broadcast_heads": lambda: _strided((B, H, S, D), (S * D, 0, D, 1)),
+         "broadcast_batch": lambda: _strided((B, H, S, D), (0, S * D, D, 1)),
+         "one_head_zero_stride": lambda: _strided((B, 1, S, D),
+                                                  (S * D, 0, D, 1)),
+         "misaligned_rows": lambda: _strided((B, H, S, 4),
+                                             (H * S * 4, S * 4, 4, 1)),
+         }[layout]()
+    assert local_attn.bwd_reads_in_place(route, t) == {
+        "wgmma": wgmma, "ffma": ffma}[route]
 
 
 def _attention_pair(arch, seed):

@@ -18,8 +18,11 @@ bf16, 2^-8 |plain| of that element, plus 1e-5 for the fp32 sums' order
 (``_attn_within``).  bf16 at D >= 64 runs the tensor-core kernel
 (``local_attn.route``), the rest the FFMA one.  Its backward kernel is
 held element by element to the same limits against
-``ref.local_attention_bwd_ref``, with bitwise reruns, and the autograd
-Function's launches are counted.  The block sweeps
+``ref.local_attention_bwd_ref``, with bitwise reruns, on both of its
+routes (``local_attn.bwd_route``: bf16 at D >= 64 on the tensor cores, at
+GQA groups 1, 2 and 8, windows cutting key tiles, S no multiple of 64,
+the cap on and off; launches counted by route), a broadcast ``do`` copied
+first, and the autograd Function's launches are counted.  The block sweeps
 (``block_matvec.route``): every fp32 A on the tensor cores as 3xTF32,
 staged by TMA where a tensor map describes A and by cp.async elsewhere;
 bf16 by wgmma, staged by TMA where a map describes A (the solver's
@@ -1191,6 +1194,62 @@ def test_local_attention_bwd_matches_plain_version(
         assert a.dtype == dt and a.shape == w.shape
         assert torch.equal(a, b)
         assert _attn_within(a, w, dtype)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,window,softcap", [
+    (1, 4, 4, 97, 40, 50.0),       # G = 1; a window cutting key tiles, cap
+    (2, 4, 2, 133, 64, None),      # G = 2, S past two tiles
+    (1, 8, 1, 150, 1000, 30.0),    # G = 8, window past S, cap
+    (1, 2, 1, 200, 70, None)])     # G = 2, window 70 across three tiles
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_local_attention_bwd_tensor_core_route(card, B, H, Hkv, S, D, window,
+                                               softcap):
+    """bf16 at D >= 64: the backward's tensor-core kernels
+    (``local_attn.bwd_route`` says ``"wgmma"``), each gradient element
+    held as the forward's output is (``_attn_within``), two runs bitwise
+    equal, every launch counted under that route."""
+    from repro_torch.kernels import local_attn
+    assert local_attn.bwd_route(torch.bfloat16, D) == "wgmma"
+    g = torch.Generator(device=card).manual_seed(B * H * S + D + window)
+    q, do = (torch.randn((B, S, H, D), generator=g, device=card)
+             .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=g, device=card)
+            .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+    lse = torch.empty((B, H, S), device=card)
+    o = local_attn.local_attention_cuda(q, k, v, window, softcap, lse)
+    ops.reset_launches()
+    got = ops.local_attention_bwd(q, k, v, o, do, lse, window=window,
+                                  softcap=softcap)
+    again = ops.local_attention_bwd(q, k, v, o, do, lse, window=window,
+                                    softcap=softcap)
+    want = ref.local_attention_bwd_ref(q, k, v, o, do, lse, window=window,
+                                       softcap=softcap)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in ops.route_launches.items() if c} == {
+        "local_attention_bwd/wgmma": 2 * local_attn.BWD_KERNELS}
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        assert torch.equal(a, b)
+        assert _attn_within(a, w, "bfloat16")
+
+
+def test_local_attention_bwd_copies_a_broadcast_gradient(card):
+    """A ``do`` broadcast over the heads (a zero stride, which no tensor
+    map describes) is copied before the tensor-core route reads it: the
+    same gradient as from its contiguous copy."""
+    from repro_torch.kernels import local_attn
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v = (torch.randn((1, 70, h, 128), generator=g, device=card)
+               .to(torch.bfloat16).transpose(1, 2) for h in (4, 2, 2))
+    do = torch.randn((1, 1, 70, 128), generator=g, device=card).to(
+        torch.bfloat16).expand(1, 4, 70, 128)
+    assert not local_attn.bwd_reads_in_place("wgmma", do)
+    lse = torch.empty((1, 4, 70), device=card)
+    o = local_attn.local_attention_cuda(q, k, v, 70, None, lse)
+    got = ops.local_attention_bwd(q, k, v, o, do, lse, window=70)
+    want = ops.local_attention_bwd(q, k, v, o, do.contiguous(), lse,
+                                   window=70)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_local_attention_autograd_launches_forward_and_backward(card):

@@ -34,7 +34,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``-DREPRO_TC_SUMS_ONLY``; for timing alone, ``gram_bf16.cu`` and
    ``block_matvec_tc.cu`` with ``-DREPRO_STAGING_ONLY`` (no products);
    and, read in phase 12, ``local_attn_bwd.cu`` with
-   ``-DREPRO_TWO_TERMS`` and ``-DREPRO_TC_SUMS_ONLY``.
+   ``-DREPRO_TWO_TERMS`` and ``-DREPRO_TC_SUMS_ONLY``.  Each
+   ``csr_sweep`` kernel's registers and spills too (CUB's among them);
+   fails unless the sparse path's instances (``CSR_PATH``) spill nothing.
 2. every kernel on the card against its plain PyTorch version
    (``repro_torch/kernels/ref.py``): ``block_matvec``, ``block_rmatvec``
    and ``block_gram_chain`` (both orientations), fp32 and bf16, at
@@ -213,18 +215,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``SyntheticSparseMatrix(33554432, 33554432, 33, seed=0)``
    (1,107,296,256 nonzeros, density 9.8e-7, 4.5 PB dense-equivalent):
    the kernels on its first, a middle and a ragged last row block
-   (rows [m - 61437, m)), fp32 and bf16 values, k = 8, each held BITWISE
-   against ``np.add.at`` computed here (``A_b Q``; ``Z += A_b^T Y`` into
-   a nonzero Z, the untouched rows of Z still 0; the chain, y rounded to
-   bf16 under bf16) and rerun bitwise; timed on the first block beside
-   the plain version (``index_add_`` on the card), ``torch.sparse.mm``
-   (fp32; cuSPARSE) and the bound.  Then ``svd(sp, 8,
+   (rows [m - 61437, m)) and on the first block with every nonzero moved
+   to one column (one run as long as the block), fp32 and bf16 values,
+   k = 8, each held BITWISE against ``np.add.at`` computed here (``A_b
+   Q``; ``Z += A_b^T Y`` into a nonzero Z, the untouched rows of Z still
+   0; the chain, y rounded to bf16 under bf16) and rerun bitwise; timed
+   on the first block beside the plain version (``index_add_`` on the
+   card), ``torch.sparse.mm`` (cuSPARSE; with bf16 values where the
+   card's torch takes them, else the error is printed) and the bound,
+   ``csr_rmatmat``'s sort and sum halves apart, each kernel read against
+   the random-row ceiling (``row_gather`` of uniformly random 32-byte
+   rows of a 1 GiB fp32 array, as many as the block's nonzeros); the
+   long-run block timed alone.  Then ``svd(sp, 8,
    force_iters=True, max_iters=3)`` in fp32 and bf16 (the main path;
    3 iterations since phase 10 came: 6 before), passes 4, launches 512 blocks x passes by kernel and dtype,
    ``bytes_moved`` the JAX package's exactly, the factors finite and
    orthonormal; seconds a pass beside the host's packing rate, the PCIe
-   bytes and rate, and (bf16, profiled) kernel time and device idle
-   share, against the pinned H2D rate of phase 8.1 (measured here under
+   bytes and rate, and (bf16, profiled) the CSR kernels' device time a
+   pass beside the wall's, and the device idle share, against the pinned H2D rate of phase 8.1 (measured here under
    ``--only-sparse``).  A known spectrum: a 4194304 x 4194304 scipy CSR,
    ``SyntheticSparseMatrix(2^22, 2^22, 33, seed=1)`` scaled by 1e-6 plus
    64 entries 100 * 0.9^i at distinct rows and columns from seed 0
@@ -1183,6 +1191,63 @@ def attention_bwd_instances(build, la, log: str) -> None:
         fail(f"local_attn_bwd tensor-core instances (HGMMA, bytes spilled): "
              f"{path}; want {want} with tensor-core instructions and no "
              f"spills")
+
+
+#: csr_sweep.cu's instances on the sparse stream's path at the paper's
+#: share (k = 8: a lane a column of a row, eight or four nonzeros ahead;
+#: 32-bit keys and indices; float4 rows of Y and Z), each of which must
+#: spill nothing; csr_big_buckets<u64,8,0,0> runs too but returns at once
+#: unless a bucket holds more than a chunk (its spilled bytes are printed,
+#: not held)
+CSR_PATH = ("csr_matmat<fp32,1,8,0,0>", "csr_matmat<bf16,1,4,0,0>",
+            "csr_records<fp32>", "csr_records<bf16>", "csr_bucket_bounds",
+            "csr_bucket_sort<u32>", "csr_runs<8,4,1,0>")
+
+
+def csr_instances(build, log: str) -> None:
+    """Each ``csr_sweep`` kernel's registers and spills (``nvcc
+    -Xptxas=-v``): its own (``csr_matmat<V,CW,U,VEC,WIDE>``,
+    ``csr_records<V>``, ``csr_bucket_bounds``, ``csr_bucket_sort<K>``,
+    ``csr_runs<CW,U,VEC,WIDE>``, ``csr_big_buckets<K,CW,VEC,WIDE>``,
+    ``row_gather``) and CUB's radix sort kernels; fail
+    unless the path's (``CSR_PATH``) spill nothing."""
+    import re
+    insts, fn = {}, None                 # no tensor cores: the log alone
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and "spill stores" in line:
+            insts[fn] = {"spill": int(line.split()[4])}
+        elif fn in insts and "Used" in line and "registers" in line:
+            insts[fn]["regs"] = int(line.split("Used ")[1].split()[0])
+    path, cub = {}, []
+    for mangled, info in sorted(insts.items()):
+        m = re.search(r"\d(csr_matmat|csr_records|csr_runs|"
+                      r"csr_bucket_bounds|csr_bucket_sort|csr_big_buckets|"
+                      r"row_gather)(I.*?)?E", mangled)
+        if m is None:
+            k = re.search(r"(Device\w*?Kernel)", mangled)
+            cub.append(f"{k.group(1) if k else mangled[:40]} "
+                       f"{info['regs']}/{info['spill']}")
+            continue
+        head = mangled[m.end(1):mangled.find("Ev", m.end(1))] \
+            if m.group(2) else ""
+        args = (["bf16" if "bfloat16" in head else "fp32"]
+                if m.group(1) in ("csr_matmat", "csr_records") else
+                ["u32" if head.startswith("Ij") else "u64"]
+                if m.group(1) in ("csr_bucket_sort", "csr_big_buckets")
+                else []) + \
+            re.findall(r"L[ib](\d+)E", head)
+        label = m.group(1) + (f"<{','.join(args)}>" if args else "")
+        print(f"  csr_sweep {label:26s}: {info['regs']} registers, "
+              f"{info['spill']} bytes spilled")
+        if label in CSR_PATH:
+            path[label] = info["spill"]
+    print(f"  csr_sweep CUB's kernels (registers/bytes spilled): "
+          + ", ".join(cub))
+    if sorted(path) != sorted(CSR_PATH) or any(path.values()):
+        fail(f"csr_sweep path instances (bytes spilled): {path}; want "
+             f"{CSR_PATH} and no spills")
 
 
 # the planted faults of phase 2b: (library, its -D flag)
@@ -2401,7 +2466,7 @@ def demotion(torch, repro_torch, inject_faults, FaultPlan, FaultSpec,
 
 SP_N = 33_554_432                      # the paper's per-node share, m = n
 SP_ROW = 33                            # nonzeros a row: density 9.8e-7
-SP_K, SP_ITERS = 8, 6
+SP_K, SP_ITERS = 8, 3                  # forced iterations: 4 passes a solve
 SP_BLOCK = 1 << 16                     # SVDConfig's default block_rows
 SP_CHECK_K = 8                         # the kernels' checks at the path's k
 # the kernels' check blocks: the first, a middle one, and the ragged last
@@ -2416,6 +2481,7 @@ HOST_SWEEP = "src/repro/core/sparse.py"  # the np.add.at it replaces
 CSR_REPLACES = {"csr_matmat": f"{HOST_SWEEP}:109",
                 "csr_rmatmat": f"{HOST_SWEEP}:120",
                 "csr_gram_chain": f"{HOST_SWEEP}:162"}
+CSR_GATHER_BYTES = 1 << 30             # the random-row ceiling's array
 CSR_LIBRARY = {"csr_matmat": "torch.sparse.mm(A_b, Q) (cuSPARSE, CSR)",
                "csr_rmatmat": "torch.sparse.mm(A_b^T, Y) (cuSPARSE; A_b^T "
                               "converted to CSR outside the timing)",
@@ -2439,22 +2505,61 @@ def _host_sweep(np, off, col, val, X, transpose, Z0=None, round_y=None):
     return uniq, out
 
 
+def csr_ceiling(torch, csr, count: int, dev) -> dict:
+    """The random-row ceiling: ``row_gather`` of ``count`` uniformly random
+    32-byte rows of a 1 GiB fp32 array (CUDA events, warm): ms, and ms a
+    row."""
+    src = torch.empty((CSR_GATHER_BYTES // 32, 8), dtype=torch.float32,
+                      device=dev).normal_()
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    idx = torch.randint(0, src.shape[0], (count,), generator=g, device=dev,
+                        dtype=torch.int32)
+    ms = time_ms(torch, lambda: csr.row_gather_cuda(src, idx), 20)
+    del src, idx
+    return {"rows": count, "ms": ms, "ms_a_row": ms / count,
+            "bytes_per_s": count * 32 / ms * 1e3}
+
+
+def csr_library(torch, key, A, At, Qd, Yd):
+    """One ``torch.sparse.mm`` call of the same function (``None`` for
+    the chain's two calls, timed as one), or the error it raises."""
+    try:
+        fn = {"csr_matmat": lambda: torch.sparse.mm(A, Qd),
+              "csr_rmatmat": lambda: torch.sparse.mm(At, Yd),
+              "csr_gram_chain": lambda: torch.sparse.mm(
+                  At, torch.sparse.mm(A, Qd))}[key]
+        fn()
+        torch.cuda.synchronize()
+        return fn, None
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+
+
 def csr_kernel_rows(torch, ops, ref, sp, dev) -> dict:
     """The CSR kernels at the paper's per-node share, k = 8: on the first,
-    a middle and the ragged last row block, fp32 and bf16 values, each
-    held bitwise against ``np.add.at`` in this script (``A_b Q``; ``Z +=
-    A_b^T Y`` into a nonzero Z; the chain, y rounded to bf16 under bf16)
-    and rerun bitwise; timed on the first block beside the plain version
-    (``index_add_`` on the card), ``torch.sparse.mm`` (fp32) and the
-    bound.  Returns the rows of the kernels line by name."""
+    a middle and the ragged last row block, and the first block with
+    every nonzero moved to one column (one run as long as the block),
+    fp32 and bf16 values, each held bitwise against ``np.add.at`` in this
+    script (``A_b Q``; ``Z += A_b^T Y`` into a nonzero Z; the chain, y
+    rounded to bf16 under bf16), the untouched rows of Z still zero, and
+    rerun bitwise; timed on the first block beside the plain version
+    (``index_add_`` on the card), ``torch.sparse.mm`` (bf16 values where
+    the card's cuSPARSE takes them, with bf16 Q and Y: bf16 out) and the
+    bound, with ``csr_rmatmat``'s sort and run halves timed apart and
+    each kernel read against the random-row ceiling (``csr_ceiling``);
+    the long run timed alone.  Returns the rows of the kernels line by
+    name."""
+    import importlib
     import numpy as np
     from repro_torch.core.sparse import _bf16_bits
+    csr = importlib.import_module("repro_torch.kernels.csr_sweep")
     m, n, k = sp.m, sp.n, SP_CHECK_K
     rng = np.random.default_rng(SEED + 20)
     Q = rng.standard_normal((n, k)).astype(np.float32)
     blocks = ((0, SP_BLOCK), (m // 2, min(m, m // 2 + SP_BLOCK)),
-              (m - SP_RAGGED, m))
-    rows = {}
+              (m - SP_RAGGED, m), (0, SP_BLOCK))
+    long_run = len(blocks) - 1          # its columns all n // 3
+    rows, ceiling = {}, None
     for sd in (torch.float32, torch.bfloat16):
         name_sd = "float32" if sd == torch.float32 else "bfloat16"
 
@@ -2463,8 +2568,14 @@ def csr_kernel_rows(torch, ops, ref, sp, dev) -> dict:
                 _bf16_bits(x).astype(np.uint32) << 16).view(np.float32)
         Qs = rnd(Q)
         Qd = torch.from_numpy(Qs).to(dev)
+        first = None
         for bi, (lo, hi) in enumerate(blocks):
-            off, col, val = sp._csr_block(lo, hi)
+            if bi == long_run:              # the first block's, one column
+                off, col, val = first
+                col = np.full_like(col, n // 3)
+            else:
+                off, col, val = sp._csr_block(lo, hi)
+                first = first or (off, col, val)
             off32, col32, vals = off.astype(np.int32), col.astype(np.int32), \
                 rnd(val)
             o, c = (torch.from_numpy(x).to(dev) for x in (off32, col32))
@@ -2507,59 +2618,108 @@ def csr_kernel_rows(torch, ops, ref, sp, dev) -> dict:
             errs = {"csr_matmat": float(np.abs(gy - want_y).max()),
                     "csr_rmatmat": float(np.abs(gz - want_z).max()),
                     "csr_gram_chain": float(np.abs(gc - want_c).max())}
-            print(f"  csr block [{lo}, {hi}) {name_sd}: {col.size} "
+            what = "long run (every nonzero in one column)" \
+                if bi == long_run else f"[{lo}, {hi})"
+            print(f"  csr block {what} {name_sd}: {col.size} "
                   f"nonzeros, {uniq.size} columns; bitwise np.add.at "
                   f"{exact} (max |diff| {errs}); untouched rows of Z stay "
                   f"0: {rest_z == 0 and rest_c == 0}; rerun bitwise "
                   f"{same}; the numpy oracle {t_np:.1f} s")
             if not (all(exact.values()) and same and rest_z == 0
                     and rest_c == 0):
-                fail(f"csr kernels on block [{lo}, {hi}) {name_sd}: "
+                fail(f"csr kernels on block {what} {name_sd}: "
                      f"bitwise {exact}, rerun {same}, rest {rest_z}, "
                      f"{rest_c}")
             tag = "" if sd == torch.float32 else "[bf16]"
-            if bi:                        # the worst of the three blocks
+            if bi:                        # the worst of the blocks
                 for key, e in errs.items():
                     row = rows[key + tag]
                     row["max_abs_err"] = max(row["max_abs_err"], e)
+            if bi == long_run:
+                Zt = torch.zeros((n, k), device=dev)
+                t_run = {"csr_matmat": time_ms(
+                    torch, lambda: ops.csr_matmat(o, c, v, Qd), 3),
+                    "csr_rmatmat": time_ms(
+                    torch, lambda: ops.csr_rmatmat(o, c, v, Yd, Zt), 3)}
+                for key, t in t_run.items():
+                    rows[key + tag]["long_run_ms"] = t
+                print(f"  long run {name_sd}: csr_matmat "
+                      f"{t_run['csr_matmat']:.3f} ms, csr_rmatmat "
+                      f"{t_run['csr_rmatmat']:.3f} ms "
+                      f"({col.size} ordered adds a column)")
+                del Zt
+            if bi:
                 continue
             # timing on the first block: kernel, plain, library, bound
             nnz, isz = col.size, vals.itemsize if sd == torch.float32 else 2
+            if ceiling is None:
+                ceiling = csr_ceiling(torch, csr, nnz, dev)
+                print(f"  the random-row ceiling: row_gather of {nnz} "
+                      f"uniformly random 32-byte rows of a 1 GiB fp32 array "
+                      f"{ceiling['ms']:.4f} ms, "
+                      f"{ceiling['bytes_per_s'] / 1e12:.3f} TB/s (the byte "
+                      f"bound's rate: {PEAK_BYTES / 1e12:.2f})")
             csr_bytes = 4 * (off.size + nnz) + isz * nnz
             touched = uniq.size * k * 4
             Zt = torch.zeros((n, k), device=dev)
-            lib = {}
-            if sd == torch.float32:
-                A = torch.sparse_csr_tensor(o, c, v, (hi - lo, n))
-                rowid = ref.csr_rows(o)
-                At = torch.sparse_coo_tensor(
-                    torch.stack([c.long(), rowid]), v,
-                    (n, hi - lo)).coalesce().to_sparse_csr()
-                lib = {"csr_matmat": lambda: torch.sparse.mm(A, Qd),
-                       "csr_rmatmat": lambda: torch.sparse.mm(At, Yd),
-                       "csr_gram_chain": lambda: torch.sparse.mm(
-                           At, torch.sparse.mm(A, Qd))}
+            v32 = v.to(torch.float32)
+            A = torch.sparse_csr_tensor(o, c, v32, (hi - lo, n))
+            rowid = ref.csr_rows(o)
+            At = torch.sparse_coo_tensor(
+                torch.stack([c.long(), rowid]), v32,
+                (n, hi - lo)).coalesce().to_sparse_csr()
+            if sd == torch.bfloat16:        # the same structure, bf16 values
+                A, At = (torch.sparse_csr_tensor(
+                    X.crow_indices(), X.col_indices(), X.values().to(sd),
+                    X.shape) for X in (A, At))
+            lib, lib_err = {}, {}
+            for key in CSR_REPLACES:
+                if sd == torch.float32:
+                    lib[key], lib_err[key] = csr_library(
+                        torch, key, A, At, Qd, Yd)
+                else:                   # bf16 values, Q and Y: bf16 out
+                    lib[key], lib_err[key] = csr_library(
+                        torch, key, A, At, Qd.to(sd), Yd.to(sd))
+            if sd == torch.bfloat16:
+                print("  torch.sparse.mm with bf16 CSR values on the card: "
+                      + ("takes them (bf16 Q and Y, bf16 out)" if
+                         all(f is not None for f in lib.values()) else
+                         f"raises: {lib_err}"))
+            scratch = csr.rmatmat_scratch(nnz, n, dev)
+            halves = {
+                "sort": time_ms(torch, lambda: csr.csr_rmatmat_cuda(
+                    o, c, v, Yd, Zt, scratch=scratch, phases=csr.SORT), 20),
+                "runs": time_ms(torch, lambda: csr.csr_rmatmat_cuda(
+                    o, c, v, Yd, Zt, scratch=scratch, phases=csr.RUNS), 20)}
+            del scratch
             fns = {
                 "csr_matmat": (lambda: ops.csr_matmat(o, c, v, Qd),
                                lambda: ref.csr_matmat_ref(o, c, v, Qd),
-                               csr_bytes + touched + (hi - lo) * k * 4),
+                               csr_bytes + touched + (hi - lo) * k * 4,
+                               nnz),
                 "csr_rmatmat": (lambda: ops.csr_rmatmat(o, c, v, Yd, Zt),
                                 lambda: ref.csr_rmatmat_ref(o, c, v, Yd, Zt),
-                                csr_bytes + (hi - lo) * k * 4 + 2 * touched),
+                                csr_bytes + (hi - lo) * k * 4 + 2 * touched,
+                                2 * uniq.size),
                 "csr_gram_chain": (
                     lambda: ops.csr_gram_chain(o, c, v, Qd, Zt,
                                                round_y=sd == torch.bfloat16),
                     lambda: ref.csr_gram_chain_ref(
                         o, c, v, Qd, Zt, sd == torch.bfloat16),
-                    csr_bytes + touched + 2 * touched)}
-            for key, (kern, plain, nbytes) in fns.items():
+                    csr_bytes + touched + 2 * touched,
+                    nnz + 2 * uniq.size)}
+            for key, (kern, plain, nbytes, scattered) in fns.items():
                 flop = (4 if key == "csr_gram_chain" else 2) * nnz * k
                 row = {"max_abs_err": errs[key], "nnz": nnz,
                        "columns": int(uniq.size), "dtype": name_sd,
                        "ms": time_ms(torch, kern, 20),
                        "plain_ms": time_ms(torch, plain, 3),
                        "library_ms": time_ms(torch, lib[key], 20)
-                       if key in lib else None}
+                       if lib[key] is not None else None,
+                       "ceiling_ms": scattered * ceiling["ms_a_row"]}
+                if key == "csr_rmatmat":
+                    row["sort_ms"], row["runs_ms"] = halves["sort"], \
+                        halves["runs"]
                 row["bound_ms"], row["bound_by"] = pick(
                     nbytes / PEAK_BYTES * 1e3,
                     flop / PEAK_OPS["float32"] * 1e3)
@@ -2571,8 +2731,17 @@ def csr_kernel_rows(torch, ops, ref, sp, dev) -> dict:
                                      f"{row['library_ms']:.3f} ms ("
                                      f"{CSR_LIBRARY[key]})")
                       + f", bound {row['bound_ms']:.3f} ms "
-                      f"({row['bound_by']}: {nbytes} bytes)")
-            del Zt, lib
+                      f"({row['bound_by']}: {nbytes} bytes; "
+                      f"{100 * row['bound_ms'] / row['ms']:.0f} %), "
+                      f"random-row ceiling {row['ceiling_ms']:.3f} ms ("
+                      f"{scattered} rows; "
+                      f"{100 * row['ceiling_ms'] / row['ms']:.0f} %)" + (
+                          f"; the sort half (records, the radix pass, the "
+                          f"bucket sorts, the run list) {halves['sort']:.3f}"
+                          f" ms, the sum half (the runs) "
+                          f"{halves['runs']:.3f} ms"
+                          if key == "csr_rmatmat" else ""))
+            del Zt, lib, A, At
             torch.cuda.empty_cache()
     return rows
 
@@ -2580,8 +2749,9 @@ def csr_kernel_rows(torch, ops, ref, sp, dev) -> dict:
 def sparse_profile(torch, fn) -> tuple:
     """``fn()`` under ``torch.profiler``: its result and wall seconds,
     device busy (any kernel or copy), copy engine busy, the CSR kernels'
-    time (``csr_matmat``, ``csr_runs``, ``expand_rows``), the stable
-    sorts' and the rest's."""
+    time (``csr_matmat``, ``csr_records``, ``csr_bucket_*``, ``csr_runs``,
+    ``csr_big_buckets``), their radix passes' (CUB's kernels) and the
+    rest's."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2598,8 +2768,9 @@ def sparse_profile(torch, fn) -> tuple:
         iv = (e.time_range.start / 1e6, e.time_range.end / 1e6)
         name = e.name.lower()
         key = ("copy" if "memcpy" in name else
-               "csr" if any(s in name for s in ("csr_matmat", "csr_runs",
-                                                "expand_rows")) else
+               "csr" if any(s in name for s in (
+                   "csr_matmat", "csr_records", "csr_bucket", "csr_runs",
+                   "csr_big_buckets")) else
                "sort" if "sort" in name or "radix" in name else "other")
         spans[key].append(iv)
         if key == "other":
@@ -2665,10 +2836,14 @@ def paper_share(torch, repro_torch, ops, sp, sd, rate, profile) -> dict:
           f"sigma {[round(float(x), 4) for x in S]}")
     if prof is not None:
         w = prof["wall_s"]
+        kern = prof["csr_s"] + prof["sort_s"]
+        row["kernels_s_per_pass"] = kern / p
         print(f"  profile: {w:.3f} s, device busy {prof['busy_s']:.3f} s "
               f"(idle {100 * prof['idle']:.1f} %), copy engine "
               f"{prof['copy_s']:.3f} s, CSR kernels {prof['csr_s']:.3f} s, "
-              f"stable sorts {prof['sort_s']:.3f} s, the rest "
+              f"their radix passes {prof['sort_s']:.3f} s: the kernels' "
+              f"device time {kern / p:.4f} s a pass beside the wall's "
+              f"{w / p:.3f} s a pass; the rest "
               f"{prof['other_s']:.3f} s (" + ", ".join(
                   f"{n_[:40]} {t:.3f} s" for n_, t in prof["other_top"])
               + f"); {prof['activities']} activities")
@@ -3352,6 +3527,8 @@ def sharded_rank(outdir: str, device_type: str) -> int:
     np.savez(os.path.join(outdir, f"rank{rank}.npz"), **saved)
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+    # every rank is done with its pairs before any rank tears its own down
+    dist.barrier()
     dist.destroy_process_group()
     return 0
 
@@ -4842,6 +5019,8 @@ def main() -> int:
                    for ld in (0, 1)))):
         sweep_instances(build, name, logs.get(name) or (
             build.BUILD_DIR / f"{name}.log").read_text(), tag, sd, want)
+    csr_instances(build, logs.get("csr_sweep") or (
+        build.BUILD_DIR / "csr_sweep.log").read_text())
     mark("1")
 
     if sys.argv[1:] == ["--only-out-of-core"]:    # phase 1, then phase 8

@@ -40,7 +40,12 @@ reruns, one registration for an array two matrices share, the disk tier
 on the card against the CPU, and the driver's lagged gap read waiting
 for its own step only.  The sparse stream (``csr_sweep.cu``): every CSR
 sweep bitwise ``np.add.at`` (fp32 and bf16 values, k = 1 to 33, empty
-rows and repeated columns), reruns bitwise; the pipeline's streamed ops
+rows and repeated columns), reruns bitwise; the CPU order model's cases
+(``tests/csr_cases.py``: an empty block, one column holding every
+nonzero, a run longer than a bucket chunk, Z carried across blocks,
+n = 2^25 and 2^31 - 1) and a block of the paper's share likewise, with
+the launch counts by route; ``csr_rmatmat``'s sort and sum halves
+giving the whole call's bits; the pipeline's streamed ops
 bitwise the CPU path's, with its launch and PCIe byte counts, through
 empty and shrinking blocks too; a block beyond int32 nonzeros refused;
 and a sparse solve on the card resumed from a checkpoint bitwise.
@@ -50,6 +55,8 @@ import importlib
 
 import pytest
 import torch
+
+import csr_cases
 
 from repro_torch.kernels import ops, ref
 
@@ -967,6 +974,148 @@ def test_csr_sweeps_are_bitwise_np_add_at(card, sd, k):
         ops.launches["csr_rmatmat"] == 3 and \
         ops.launches["csr_gram_chain"] == 2
     assert ops.route_launches[f"csr_matmat/{name}"] == 3
+
+
+#: every order case of ``tests/csr_cases.py`` at every k, but n = 2^31 - 1
+#: at k = 1 (Q and Z 8.6 GB each, 32-bit index math) and k = 2 (17.2 GB
+#: each: n k >= 2^31, the 64-bit index path)
+CSR_ORDER = [(name, k) for name in csr_cases.CASES
+             for k in (csr_cases.KS if name != "n_2^31-1" else (1, 2))]
+
+
+def _csr_order_run(case, Q, Z, Zc, Ys, sd, dev):
+    """Every block of ``case``: ``A_b Q`` (returned), ``Z += A_b^T Y``
+    and the chain into ``Zc``, through ``ops``."""
+    ys = []
+    for (off, col, val), Y in zip(case["blocks"], Ys):
+        o, c = (torch.from_numpy(x).to(dev) for x in (off, col))
+        v = torch.from_numpy(val).to(dev).to(sd)
+        ys.append(ops.csr_matmat(o, c, v, Q).cpu().numpy())
+        ops.csr_rmatmat(o, c, v, torch.from_numpy(Y).to(dev), Z)
+        ops.csr_gram_chain(o, c, v, Q, Zc, round_y=sd == torch.bfloat16)
+    torch.cuda.synchronize()
+    return ys
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("name,k", CSR_ORDER)
+def test_csr_order_cases_are_bitwise_np_add_at(card, name, k, bf16):
+    """The CPU order model's cases on the card: empty rows and an empty
+    block, one column holding every nonzero, Z carried across blocks that
+    share columns, n = 2^25 and 2^31 - 1; each ``A_b Q``, each
+    ``Z += A_b^T Y`` and the chain bitwise ``np.add.at``, the untouched
+    rows of Z still zero, a rerun bitwise, and one launch a call counted
+    under its route."""
+    import numpy as np
+    import csr_cases as cc
+    case = cc.make_case(name, bf16)
+    u = cc.touched(case)
+    Qu, Zu, Ys = cc.dense_rows(case, k, bf16)
+    sd = torch.bfloat16 if bf16 else torch.float32
+    n, nb = case["n"], len(case["blocks"])
+    ui = torch.from_numpy(u.astype(np.int64)).to(card)
+    Q = torch.zeros((n, k), device=card)
+    Q[ui] = torch.from_numpy(Qu).to(card)
+    outs = []
+    for _ in range(2):                          # the rerun must match
+        Z = torch.zeros((n, k), device=card)
+        Z[ui] = torch.from_numpy(Zu).to(card)
+        Zc = Z.clone()
+        ops.reset_launches()
+        ys = _csr_order_run(case, Q, Z, Zc, Ys, sd, card)
+        name_sd = str(sd).rsplit(".", 1)[-1]
+        assert ops.launches["csr_matmat"] == 2 * nb
+        assert ops.launches["csr_rmatmat"] == 2 * nb
+        assert ops.launches["csr_gram_chain"] == nb
+        assert ops.route_launches[f"csr_matmat/{name_sd}"] == 2 * nb
+        assert ops.route_launches[f"csr_rmatmat/{name_sd}"] == 2 * nb
+        outs.append((ys, Z[ui].cpu().numpy(), Zc[ui].cpu().numpy()))
+        Z[ui] = 0
+        Zc[ui] = 0
+        assert not bool(Z.any()) and not bool(Zc.any())   # untouched rows
+        del Z, Zc
+    Z_at, C_at = Zu.copy(), Zu.copy()
+    for (off, col, val), Y, y in zip(case["blocks"], Ys, outs[0][0]):
+        np.testing.assert_array_equal(y, cc.add_at_matmat(off, col, val, u,
+                                                          Qu))
+        Z_at = cc.add_at_rmatmat(off, col, val, u, Y, Z_at)
+        yr = cc.bf16_round(y) if bf16 else y
+        C_at = cc.add_at_rmatmat(off, col, val, u, yr, C_at)
+    np.testing.assert_array_equal(outs[0][1], Z_at)
+    np.testing.assert_array_equal(outs[0][2], C_at)
+    for a, b in zip(outs[0][0] + list(outs[0][1:]),
+                    outs[1][0] + list(outs[1][1:])):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_csr_block_of_the_paper_share_is_bitwise_np_add_at(card, bf16):
+    """Rows [2^24, 2^24 + 4096) of ``SyntheticSparseMatrix`` at the
+    paper's per-node share (n = 33554432, 33 nonzeros a row), k = 8:
+    ``A_b Q`` and ``Z += A_b^T Y`` bitwise ``np.add.at``, a rerun bitwise."""
+    import numpy as np
+    import csr_cases as cc
+    from repro_torch.core import SyntheticSparseMatrix
+    sp = SyntheticSparseMatrix(1 << 25, 1 << 25, 33, seed=0)
+    lo = 1 << 24
+    off, col, val = sp._csr_block(lo, lo + 4096)
+    off, col = off.astype(np.int32), col.astype(np.int32)
+    val = cc.bf16_round(val) if bf16 else val.astype(np.float32)
+    case = {"n": sp.n, "blocks": [(off, col, val)]}
+    u = cc.touched(case)
+    Qu, Zu, Ys = cc.dense_rows(case, 8, bf16)
+    sd = torch.bfloat16 if bf16 else torch.float32
+    ui = torch.from_numpy(u.astype(np.int64)).to(card)
+    Q = torch.zeros((sp.n, 8), device=card)
+    Q[ui] = torch.from_numpy(Qu).to(card)
+    got = []
+    for _ in range(2):
+        Z = torch.zeros((sp.n, 8), device=card)
+        Z[ui] = torch.from_numpy(Zu).to(card)
+        ys = _csr_order_run(case, Q, Z, Z.clone(), Ys, sd, card)
+        got.append((ys[0], Z[ui].cpu().numpy()))
+        del Z
+    np.testing.assert_array_equal(got[0][0], cc.add_at_matmat(
+        off, col, val, u, Qu))
+    np.testing.assert_array_equal(got[0][1], cc.add_at_rmatmat(
+        off, col, val, u, Ys[0], Zu))
+    np.testing.assert_array_equal(got[0][0], got[1][0])
+    np.testing.assert_array_equal(got[0][1], got[1][1])
+
+
+def test_csr_halves_and_probe_on_the_card(card):
+    """``csr_rmatmat``'s sort half then its sum half on one scratch give
+    the whole call's bits (the sort half sums nothing); the library's
+    chunk is the binding's ``BUCKET_CAP``; the row gather probe sums
+    ``src[idx]`` in column order."""
+    import numpy as np
+    import csr_cases as cc
+    csr = importlib.import_module("repro_torch.kernels.csr_sweep")
+    for name in ("ragged", "one_column_long"):
+        case = cc.make_case(name, False)
+        off, col, val = case["blocks"][0]
+        o, c, v = (torch.from_numpy(x).to(card) for x in (off, col, val))
+        for k in (1, 8, 33):
+            Y = torch.randn((off.size - 1, k), device=card)
+            Z0 = torch.randn((case["n"], k), device=card)
+            want = csr.csr_rmatmat_cuda(o, c, v, Y, Z0.clone())
+            scratch = csr.rmatmat_scratch(col.size, case["n"], card)
+            Z = Z0.clone()
+            csr.csr_rmatmat_cuda(o, c, v, Y, Z, scratch=scratch,
+                                 phases=csr.SORT)
+            assert torch.equal(Z, Z0)
+            csr.csr_rmatmat_cuda(o, c, v, Y, Z, scratch=scratch,
+                                 phases=csr.RUNS)
+            assert torch.equal(Z, want), (name, k)
+    assert csr.bucket_cap() == csr.BUCKET_CAP
+    src = torch.randn((1 << 16, 8), device=card)
+    idx = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 1 << 16, 5000).astype(np.int32)).to(card)
+    rows = src[idx.long()]
+    want = rows[:, 0].clone()
+    for x in range(1, 8):
+        want = want + rows[:, x]
+    assert torch.equal(csr.row_gather_cuda(src, idx), want)
 
 
 def test_sparse_stream_on_the_card_matches_the_cpu(card):

@@ -259,6 +259,8 @@ except ValueError as e:
 else:
     raise AssertionError("n=58 over 4 shards was accepted")
 np.savez(f"{out}/rank{dist.get_rank()}.npz", **saved)
+# every rank is done with its pairs before any rank tears its own down
+dist.barrier()
 dist.destroy_process_group()
 print("RANK_OK")
 '''

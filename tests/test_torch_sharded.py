@@ -643,6 +643,8 @@ r2 = run("block2", A, 8, method="block", eps=1e-8, max_iters=500)
 np.testing.assert_array_equal(saved["block2/S"], saved["block/S"])
 np.testing.assert_array_equal(saved["block2/U"], saved["block/U"])
 np.savez(f"{out}/rank{rank}.npz", **saved)
+# every rank is done with its pairs before any rank tears its own down
+dist.barrier()
 dist.destroy_process_group()
 print("RANK_OK", rank)
 '''

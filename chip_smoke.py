@@ -214,7 +214,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    resume.  The per-node share of the paper's 128 PB matrix,
    ``SyntheticSparseMatrix(33554432, 33554432, 33, seed=0)``
    (1,107,296,256 nonzeros, density 9.8e-7, 4.5 PB dense-equivalent):
-   the kernels on its first, a middle and a ragged last row block
+   the kernels on its first and its ragged last row block
    (rows [m - 61437, m)) and on the first block with every nonzero moved
    to one column (one run as long as the block), fp32 and bf16 values,
    k = 8, each held BITWISE against ``np.add.at`` computed here (``A_b
@@ -336,6 +336,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    3 steps plain and 3 compressed at lr 5e-3 on the card and on the CPU
    from one state: every loss within 1e-4, each parameter tensor within
    1e-4 of its norm (not element by element: see ``train_card_vs_cpu``).  ``--only-training`` runs phases 1 and 12 alone.
+13. the static contract checker and the tooling around the solver.
+   13.1: ``repro_torch.analysis.run_all(device="cuda")``: every target
+   (the driver's own block step on each backend, fp32 and bf16, the
+   sketches and extractions, the faithful and fused deflation steps, the
+   bf16 chain; the sharded ones in a child process on a world-1 NCCL
+   group) runs once on the card and launches its kernels; the route
+   census is printed, and it fails on any violation that is not
+   allowlisted, and unless each A-traffic group (the kernels' own tally,
+   ``ops.thread_a_bytes``) equals its operator's accounting.  13.2: the
+   memory pass's peak estimate of one block step at
+   65536 x 8192 (fp32, then its bf16 twin) beside
+   ``torch.cuda.max_memory_allocated()`` around the step, within
+   ``TOL_MEM_BYTES``, where an estimate blind to the step's own storages
+   falls outside it.  13.3: ``python -m repro_torch.launch.svd_dryrun``
+   (fake tensors, a fake group of world 256) printed as one
+   ``{"svd_dryrun": {...}}`` line; in a full run also ``block/opt``'s
+   bytes of A a step for the 262144 x 32768 per-node shard over
+   ``PEAK_BYTES`` beside phase 3's measured seconds a step.  13.4: the
+   five examples (``python -m repro_torch.examples.<name>``) on the
+   card, started together with the dry run at the phase's start, each
+   must exit 0; their seconds are printed.  ``--only-analysis`` runs
+   phases 1 and 13 alone.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches in the
 run of its path, and its times; the block sweeps as ``<name>/tf32x3``
@@ -357,7 +379,8 @@ solve) and the same with ``[bf16]`` (from the bf16 solve); before them an
 ``{"out_of_core": {...}}`` line with phase 8's numbers, a
 ``{"sparse": {...}}`` line with phase 9's and a ``{"sharded": {...}}``
 line with phase 10's, a ``{"serving": {...}}`` line with phase 11's and
-a ``{"training": {...}}`` line with phase 12's;
+a ``{"training": {...}}`` line with phase 12's, an ``{"analysis":
+{...}}`` line with phase 13's;
 the sharded path's launches (10.1, one rank) as
 ``<kernel>/<route>[sharded]`` for the block solves and ``<kernel>[sharded
 <method> faithful]`` / ``[sharded <method> fused]`` for the deflation
@@ -413,6 +436,20 @@ SLAB = 16384                           # rows per chunk of the plain versions
 # boundary that entry moves by a whole bf16 step (2^-8 relative).
 TOL = {"float32": 1e-5, "bfloat16": 1e-5}
 TOL_CHAIN_BF16 = 1e-3
+# phase 13.2: the memory pass's peak estimate of a block step against
+# max_memory_allocated() around it.  A and the state are live on both
+# sides, so what is compared is the step's own peak (readings on an H100
+# at MEM_SHAPE: 34.6 MB fp32, 17.8 MB bf16).  The estimate sees every
+# storage made through the dispatcher; it cannot see what is allocated
+# below it (cuSOLVER's QR workspace, cuBLAS's) or the allocator's
+# rounding of each block to 512 bytes.  Readings: estimate - measured 0
+# bytes fp32, -67,584 bf16.  1 MiB is 15 times the larger reading and
+# under a sixteenth of the smaller step's own peak; the phase also shows
+# that an estimate blind to the step's own storages falls outside it
+MEM_SHAPE = (65536, 8192)
+TOL_MEM_BYTES = 1 << 20
+EXAMPLES = ("quickstart", "unified_api", "svd_service", "chaos_demo",
+            "compress_model")
 
 
 def gram_tol(r: int) -> float:
@@ -2469,8 +2506,10 @@ SP_ROW = 33                            # nonzeros a row: density 9.8e-7
 SP_K, SP_ITERS = 8, 3                  # forced iterations: 4 passes a solve
 SP_BLOCK = 1 << 16                     # SVDConfig's default block_rows
 SP_CHECK_K = 8                         # the kernels' checks at the path's k
-# the kernels' check blocks: the first, a middle one, and the ragged last
-# rows [m - (2^16 - 4099), m) of a blocking whose rows do not divide m
+# the kernels' check blocks: the first, and the ragged last rows
+# [m - (2^16 - 4099), m) of a blocking whose rows do not divide m (a
+# middle block, a full one like the first, was dropped to keep the
+# script inside its time limit)
 SP_RAGGED = SP_BLOCK - 4099
 SPEC_N = 1 << 22                       # the known spectrum's matrix
 SPEC_SCALE = 1e-6
@@ -2537,7 +2576,7 @@ def csr_library(torch, key, A, At, Qd, Yd):
 
 def csr_kernel_rows(torch, ops, ref, sp, dev) -> dict:
     """The CSR kernels at the paper's per-node share, k = 8: on the first,
-    a middle and the ragged last row block, and the first block with
+    the ragged last row block, and the first block with
     every nonzero moved to one column (one run as long as the block),
     fp32 and bf16 values, each held bitwise against ``np.add.at`` in this
     script (``A_b Q``; ``Z += A_b^T Y`` into a nonzero Z; the chain, y
@@ -2556,8 +2595,7 @@ def csr_kernel_rows(torch, ops, ref, sp, dev) -> dict:
     m, n, k = sp.m, sp.n, SP_CHECK_K
     rng = np.random.default_rng(SEED + 20)
     Q = rng.standard_normal((n, k)).astype(np.float32)
-    blocks = ((0, SP_BLOCK), (m // 2, min(m, m // 2 + SP_BLOCK)),
-              (m - SP_RAGGED, m), (0, SP_BLOCK))
+    blocks = ((0, SP_BLOCK), (m - SP_RAGGED, m), (0, SP_BLOCK))
     long_run = len(blocks) - 1          # its columns all n // 3
     rows, ceiling = {}, None
     for sd in (torch.float32, torch.bfloat16):
@@ -2587,8 +2625,8 @@ def csr_kernel_rows(torch, ops, ref, sp, dev) -> dict:
             t0 = time.perf_counter()
             want_y = _host_sweep(np, off32, col32, vals, Qs, False)
             _, want_z = _host_sweep(np, off32, col32, vals, Ys, True, Z0)
-            y_r = _host_sweep(np, off32, col32, vals, Qs, False,
-                              round_y=None if sd == torch.float32 else rnd)
+            y_r = want_y if sd == torch.float32 else _host_sweep(
+                np, off32, col32, vals, Qs, False, round_y=rnd)
             _, want_c = _host_sweep(np, off32, col32, vals, y_r, True, Z0)
             t_np = time.perf_counter() - t0
             ui = torch.from_numpy(uniq.astype(np.int64)).to(dev)
@@ -2664,7 +2702,7 @@ def csr_kernel_rows(torch, ops, ref, sp, dev) -> dict:
             Zt = torch.zeros((n, k), device=dev)
             v32 = v.to(torch.float32)
             A = torch.sparse_csr_tensor(o, c, v32, (hi - lo, n))
-            rowid = ref.csr_rows(o)
+            rowid = ref.csr_rows(o, c.numel())
             At = torch.sparse_coo_tensor(
                 torch.stack([c.long(), rowid]), v32,
                 (n, hi - lo)).coalesce().to_sparse_csr()
@@ -4920,6 +4958,171 @@ def training(torch, ops, ref, la, bm, dev, planted=None) -> tuple:
     return summary, kernels
 
 
+def analysis(torch, repro_torch, ops, dev, step_s=None) -> dict:
+    """Phase 13: the static contract checker on the card, its memory
+    estimate against the allocator, the paper-scale dry run and the
+    examples (the dry run and the examples run as processes of their
+    own, started first, beside 13.1 and 13.2)."""
+    import tempfile
+    from repro_torch.analysis import run_all
+    from repro_torch.analysis.trace_check import trace_step
+    from repro_torch.core.config import SVDConfig
+    from repro_torch.core.operator import DenseOperator
+    from repro_torch.core.svd import init_state, step
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    # six processes beside this one on the host's cores: two threads each
+    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=src + (
+        os.pathsep + os.environ["PYTHONPATH"]
+        if os.environ.get("PYTHONPATH") else ""))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_analysis_")
+    dry_out = os.path.join(tmp, "svd_dryrun_torch.json")
+    import threading
+    procs, secs, t_launch = {}, {}, time.perf_counter()
+
+    def waiter(name, proc):
+        proc.wait()
+        secs[name] = time.perf_counter() - t_launch
+
+    threads = []
+    for name, args in (("svd_dryrun", ("repro_torch.launch.svd_dryrun",
+                                       "--out", dry_out)),
+                       *((name, (f"repro_torch.examples.{name}",))
+                         for name in EXAMPLES)):
+        with open(os.path.join(tmp, f"{name}.log"), "w") as log:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", *args], stdout=log,
+                stderr=subprocess.STDOUT, env=env, cwd=tmp,
+                start_new_session=True)
+        threads.append(threading.Thread(target=waiter,
+                                        args=(name, procs[name])))
+        threads[-1].start()
+    summary: dict = {}
+    try:
+        # -- 13.1 every target on the card -------------------------------
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rep = run_all(device="cuda")
+        census: dict = {}
+        for c in rep.checks:
+            if c.pass_name == "trace":
+                for key, n in c.details.get("launches", {}).items():
+                    if "/" in key:
+                        census[key] = census.get(key, 0) + n
+        traced = [c.target for c in rep.checks if c.pass_name == "trace"
+                  and "launches" in c.details]
+        print(f"13.1 run_all(device='cuda'): {len(rep.checks)} checks in "
+              f"{time.perf_counter() - t0:.1f} s, {len(traced)} targets "
+              f"traced on the card, {len(rep.allowed)} allowlisted, "
+              f"{len(rep.failures)} violations; route census {census}")
+        for v in rep.violations:
+            print(f"  {v}")
+        if not rep.ok:
+            fail(f"phase 13.1: {len(rep.failures)} contract violations")
+        acct = {c.target.split(":", 1)[1]: c.details for c in rep.checks
+                if c.target.startswith("accounting:")}
+        for name, d in acct.items():
+            print(f"  A-traffic {name}: kernels' tally {d['measured_bytes']} "
+                  f"bytes, accounting {d['expected_bytes']} ({d['source']})")
+            if d["measured_bytes"] != d["expected_bytes"]:
+                fail(f"phase 13.1: A-traffic of {name} is "
+                     f"{d['measured_bytes']}, its accounting "
+                     f"{d['expected_bytes']}")
+        if len(acct) != 12 or not any(k.endswith(("/wgmma", "/wgmma_ld"))
+                                      for k in census) or not any(
+                k.endswith(("/tf32x3", "/tf32x3_cpasync")) for k in census):
+            fail(f"phase 13.1: groups {sorted(acct)}, census {census}")
+        summary["run_all"] = {"checks": len(rep.checks),
+                              "allowlisted": len(rep.allowed),
+                              "census": census}
+
+        # -- 13.2 the memory estimate against the allocator ----------------
+        g = torch.Generator(device=dev).manual_seed(SEED + 13)
+        A = torch.randn(MEM_SHAPE, generator=g, device=dev)
+        summary["memory"] = {}
+        for sd in ("float32", "bfloat16"):
+            op = DenseOperator(A, sweep_dtype=sd)
+            cfg = SVDConfig(force_iters=True, sweep_dtype=sd)
+            state = init_state(op, K, cfg)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            tr = trace_step(step, op, state, cfg)
+            measured = torch.cuda.max_memory_allocated()
+            # the estimate counts the step's inputs; the allocator also
+            # holds whatever else is live in the process
+            estimate = tr.peak_live_bytes + (base - tr.resident_bytes)
+            diff = estimate - measured
+            print(f"13.2 block step {MEM_SHAPE[0]}x{MEM_SHAPE[1]} {sd}: peak "
+                  f"estimate {tr.peak_live_bytes} bytes (inputs "
+                  f"{tr.resident_bytes}, the step's own "
+                  f"{tr.peak_live_bytes - tr.resident_bytes}), other live "
+                  f"{base - tr.resident_bytes}; max_memory_allocated "
+                  f"{measured}; estimate - measured {diff} bytes (limit "
+                  f"+-{TOL_MEM_BYTES}); launches {tr.launches}")
+            summary["memory"][sd] = {"estimate": estimate,
+                                     "measured": measured, "diff": diff}
+            # a planted fault: the estimate without the step's own
+            # storages (inputs and other live bytes alone) must fail
+            blind = base - measured
+            print(f"  planted: an estimate blind to the step's own storages "
+                  f"would be {blind} bytes off (limit +-{TOL_MEM_BYTES})")
+            summary["memory"][sd]["blind_diff"] = blind
+            if abs(diff) > TOL_MEM_BYTES:
+                fail(f"phase 13.2 {sd}: the peak estimate is {diff} bytes "
+                     f"off max_memory_allocated")
+            if abs(blind) <= TOL_MEM_BYTES:
+                fail(f"phase 13.2 {sd}: an estimate blind to the step's own "
+                     f"storages ({blind} bytes off) passes the limit")
+            del op, state, tr
+        del A
+        torch.cuda.empty_cache()
+
+        # -- 13.3 the dry run, 13.4 the examples -----------------------------
+        for t in threads:
+            t.join(timeout=300)
+        for name, proc in procs.items():
+            with open(os.path.join(tmp, f"{name}.log")) as f:
+                out = f.read()
+            if proc.returncode != 0:
+                fail(f"phase 13: {name} exited {proc.returncode}:\n"
+                     f"{out[-4000:]}")
+            if name != "svd_dryrun":
+                print(f"13.4 example {name}: exit 0, {secs[name]:.1f} s from "
+                      f"the phase's start; last line: "
+                      f"{out.strip().splitlines()[-1][:160]}")
+        with open(dry_out) as f:
+            dry = json.load(f)
+        keep = ("flops", "sweep_flops", "qr_flops_closed_form", "a_bytes",
+                "collective_bytes_by_op", "all_reduce_payloads")
+        line = {"fake": True, "global_shape": dry["global_shape"],
+                "mesh": dry["mesh"], "k": dry["k"],
+                "variants": {tag: {key: rec[key] for key in keep}
+                             for tag, rec in dry["variants"].items()}}
+        print(json.dumps({"svd_dryrun": line}))
+        summary["examples_s"] = {n: secs[n] for n in EXAMPLES}
+        if step_s is not None:
+            rec = dry["variants"]["block/opt"]
+            rows, n = rec["per_rank_shape"]
+            node_bytes = rec["a_bytes"] * (M // rows) * (N // n)
+            bound_s = node_bytes / PEAK_BYTES
+            print(f"13.3 block/opt reads {node_bytes} bytes of A a step on "
+                  f"the {M}x{N} per-node shard: {bound_s * 1e3:.2f} ms at "
+                  f"{PEAK_BYTES:.3g} B/s; phase 3's fp32 solve took "
+                  f"{step_s * 1e3:.2f} ms a step: "
+                  f"{100 * bound_s / step_s:.1f} % of the byte bound")
+            summary["byte_bound_share"] = bound_s / step_s
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    return summary
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sharded-rank"]:      # one rank of phase 10.2
         return sharded_rank(*sys.argv[2:4])
@@ -5047,6 +5250,12 @@ def main() -> int:
         mark("12")
         print(json.dumps({"training": summary}))
         print(json.dumps({"kernels": line}))
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--only-analysis"]:       # phase 1, then phase 13
+        summary = analysis(torch, repro_torch, ops, dev)
+        mark("13")
+        print(json.dumps({"analysis": summary}))
         print(card_line())
         return 0
     if sys.argv[1:] == ["--only-serving"]:        # phase 1, then phase 11
@@ -5259,7 +5468,10 @@ def main() -> int:
               + "; the rest by time: " + ", ".join(
                   f"{n_[:48]} {t:.4f} s" for n_, t in rest[:6]))
 
-    _, main_counts, main_routes = solve(A, f"main path svd(A, {K}) fp32")
+    main_res, main_counts, main_routes = solve(A, f"main path svd(A, {K}) "
+                                                  f"fp32")
+    # seconds a step: the wall time over the solve's passes, two a step
+    step_s = main_res.wall_time_s * 2 / main_res.passes_over_A
     profile_solve("fp32")
     bf16_kw = {"sweep_dtype": "bfloat16", "eps": 1e-4}
     _, bf16_counts, bf16_routes = solve(A, f"svd(A, {K}) bf16 sweeps",
@@ -5516,6 +5728,11 @@ def main() -> int:
                                    planted)
     print(json.dumps({"training": tr_summary}))
     mark("12")
+
+    # -- 13. the static contract checker, the dry run, the examples ---------
+    an_summary = analysis(torch, repro_torch, ops, dev, step_s)
+    print(json.dumps({"analysis": an_summary}))
+    mark("13")
 
     sweeps = ("block_matvec", "block_rmatvec", "block_gram_chain")
     rows = dict(dtable)

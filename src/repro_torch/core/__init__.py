@@ -1,7 +1,8 @@
 """repro_torch.core — the ported front door and block driver.
 
 Mirrors the names of the JAX package's ``repro.core`` for what is
-ported: ``svd``/``svd_update``, the ``init_state``/``step``/``finalize``
+ported: ``svd``/``svd_update``, the deprecated ``tsvd`` and its
+``TSVDResult``, the ``init_state``/``step``/``finalize``
 state machine, ``SVDConfig``/``SVDResult``/``SolverState``, the
 ``LinearOperator`` protocol with ``DenseOperator``, ``ShardedOperator``,
 ``HostBlockedOperator``, ``MemmapOperator`` and ``SparseStreamOperator``,
@@ -27,6 +28,8 @@ from repro_torch.core.precision import (  # noqa: F401
     resolve_sweep_dtype,
 )
 from repro_torch.core.tsvd import (  # noqa: F401
+    TSVDResult,
+    tsvd,
     power_iterate_chain,
     power_iterate_gram,
     svd_1d,
@@ -162,6 +165,8 @@ __all__ = [
     "FaultTelemetry",
     "RetryPolicy",
     "inject_faults",
+    "tsvd",
+    "TSVDResult",
     "dist_tsvd",
     "DistTSVDResult",
     "make_host_mesh",

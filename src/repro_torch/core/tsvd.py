@@ -1,7 +1,8 @@
 """The serial deflation engine (paper Alg 1 around Alg 2/4) and the
 numerical helpers every backend shares (PyTorch port).
 
-The counterparts of the JAX package's ``repro/core/tsvd.py``: the block
+The counterparts of the JAX package's ``repro/core/tsvd.py``: the
+deprecated ``tsvd`` shim (and its result alias ``TSVDResult``), the block
 driver's ``sweep_ops``, ``rayleigh_ritz_from_W``, ``rayleigh_ritz``,
 ``warm_start_width``, ``reconstruct`` and ``relative_error``, and the
 rank-one deflation engine ``_dense_deflation`` with its power loops
@@ -33,8 +34,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.config import SVDConfig, SVDResult
 from repro_torch.core.precision import resolve_sweep_dtype
 from repro_torch.kernels import ops
+
+#: Back-compat alias — the per-backend result NamedTuples were unified.
+TSVDResult = SVDResult
 
 
 def rayleigh_ritz_from_W(W: torch.Tensor, Q: torch.Tensor):
@@ -264,3 +269,27 @@ def _dense_deflation(A: torch.Tensor, k: int, *, seed: int = 0,
     else:
         passes = 3 * int(iters.sum()) + k  # 3 sweeps/step + u recovery
     return U, S, V, iters, passes
+
+
+# ---------------------------------------------------------------------------
+# Deprecated back-compat shim
+# ---------------------------------------------------------------------------
+
+def tsvd(A, k: int, seed: int = 0, *, eps: float = 1e-6,
+         max_iters: int = 200, force_iters: bool = False,
+         method: str = "gram", warmup_q: int = 0, oversample: int = 8,
+         sweep_dtype: str = "float32", device=None) -> SVDResult:
+    """Deprecated: use ``repro_torch.svd(A, k, config=SVDConfig(...))``.
+
+    Translates the legacy keywords, and this entry point's old
+    ``method="gram"`` default, into an ``SVDConfig`` and delegates to the
+    front door; warns once a process.  The JAX package's third argument
+    is a PRNG key; here it is the integer ``SVDConfig.seed`` itself.
+    """
+    from repro_torch.core.svd import svd, warn_legacy
+    warn_legacy("tsvd")
+    cfg = SVDConfig(method=method, eps=eps, max_iters=max_iters,
+                    force_iters=force_iters, warmup_q=warmup_q,
+                    oversample=oversample, sweep_dtype=sweep_dtype,
+                    seed=int(seed))
+    return svd(A, k, device=device, config=cfg)

@@ -47,7 +47,14 @@ the attention backward's by ``local_attn.bwd_route`` (``"wgmma"`` or
 CSR chain counts itself and its two halves, as ``block_gram_chain``
 does.  ``thread_launches`` also tallies, by kernel and by route, the
 launches one thread makes while it is open (the SVD service's workers
-each run one job at a time, so a job's own launches).
+each run one job at a time, so a job's own launches).  ``thread_a_bytes``
+tallies, by kernel and in all (``"a_bytes"``), the bytes of ``A`` the
+sweeps one thread calls read while it is open, on the CPU path as on the
+card: ``A.numel()`` times the sweep dtype's itemsize for the dense
+sweeps (``block_gram_chain`` is its two sweeps), the values' bytes for
+the CSR sweeps (a chain reads its block once), the unit the operators'
+``bytes_per_pass`` counts in; the static analysis
+(``repro_torch.analysis``) holds it against that accounting.
 
 The block sweeps and ``gram`` read ``A`` in place where it is row-major
 with unit column stride (``block_matvec.row_stride``): contiguous, or a
@@ -112,16 +119,38 @@ def reset_launches() -> None:
 
 
 @contextlib.contextmanager
+def _thread_tally(attr: str):
+    """Open a fresh dict as this thread's ``attr`` tally for the block,
+    then restore the one it replaced."""
+    outer = getattr(_TALLY, attr, None)
+    tally = {}
+    setattr(_TALLY, attr, tally)
+    try:
+        yield tally
+    finally:
+        setattr(_TALLY, attr, outer)
+
+
 def thread_launches():
     """Yields a dict that counts, by kernel name and by route (the keys
     of ``launches`` and ``route_launches``), the launches this thread
     makes until the block ends."""
-    outer = getattr(_TALLY, "counts", None)
-    _TALLY.counts = tally = {}
-    try:
-        yield tally
-    finally:
-        _TALLY.counts = outer
+    return _thread_tally("counts")
+
+
+def thread_a_bytes():
+    """Yields a dict that sums, by kernel name and in all (``"a_bytes"``),
+    the bytes of ``A`` the sweeps this thread calls read until the block
+    ends, on either device."""
+    return _thread_tally("a_bytes")
+
+
+def _read_a(name: str, nbytes: int) -> None:
+    """``nbytes`` of ``A`` read by one call of the sweep ``name``."""
+    tally = getattr(_TALLY, "a_bytes", None)
+    if tally is not None:
+        for key in ("a_bytes", name):
+            tally[key] = tally.get(key, 0) + int(nbytes)
 
 
 def _count(name: str, route: str | None = None) -> None:
@@ -176,6 +205,7 @@ def block_matvec(A: torch.Tensor, Q: torch.Tensor, *,
     if Q.shape[0] != A.shape[1]:
         raise ValueError(f"block_matvec: A {tuple(A.shape)} @ Q "
                          f"{tuple(Q.shape)} do not conform")
+    _read_a("block_matvec", A.numel() * sd.itemsize)
     if A.device.type == "cpu":
         return _ref.block_matvec_ref(A, Q, sd)
     if A.numel() == 0 or Q.shape[1] == 0:
@@ -195,6 +225,7 @@ def block_rmatvec(A: torch.Tensor, Y: torch.Tensor, *,
     if Y.shape[0] != A.shape[0]:
         raise ValueError(f"block_rmatvec: A^T {tuple(A.shape)} @ Y "
                          f"{tuple(Y.shape)} do not conform")
+    _read_a("block_rmatvec", A.numel() * sd.itemsize)
     if A.device.type == "cpu":
         return _ref.block_rmatvec_ref(A, Y, sd)
     if A.numel() == 0 or Y.shape[1] == 0:
@@ -262,6 +293,7 @@ def matvec(A: torch.Tensor, v: torch.Tensor, *,
     if v.ndim != 1 or v.shape[0] != (m if trans else n):
         raise ValueError(f"matvec: A {tuple(A.shape)} (trans={trans}) and "
                          f"v {tuple(v.shape)} do not conform")
+    _read_a("matvec", A.numel() * 4)
     if A.device.type == "cpu":
         return _ref.matvec_ref(A, v, trans)
     if A.numel() == 0:
@@ -289,6 +321,7 @@ def deflate_rmatvec(A: torch.Tensor, U: torch.Tensor, Xv: torch.Tensor,
             f"deflate_rmatvec: A {tuple(A.shape)} (trans={trans}), U "
             f"{tuple(U.shape)}, Xv {tuple(Xv.shape)}, SVtv "
             f"{tuple(SVtv.shape)} do not conform")
+    _read_a("deflate_rmatvec", A.numel() * 4)
     if A.device.type == "cpu":
         return _ref.deflate_rmatvec_ref(A, U, Xv, SVtv, trans)
     if A.numel() == 0:
@@ -314,6 +347,7 @@ def gram(A: torch.Tensor, *, symmetric: bool = True,
     _vector_operands("gram", A)
     if A.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gram reads float32 or bfloat16, got {A.dtype}")
+    _read_a("gram", A.numel() * A.element_size())
     if A.device.type == "cpu":
         return _ref.gram_ref(A, trans)
     m, n = A.shape
@@ -526,6 +560,7 @@ def csr_matmat(off: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
                             torch.float32 or not out.is_contiguous()):
         raise ValueError(f"csr_matmat: out must be contiguous ({rows}, {k}) "
                          f"float32, got {out.dtype} {tuple(out.shape)}")
+    _read_a("csr_matmat", val.numel() * val.element_size())
     if Q.device.type == "cpu":
         Y = _ref.csr_matmat_ref(off, col, val, Q)
         return Y if out is None else out.copy_(Y)
@@ -545,6 +580,7 @@ def csr_rmatmat(off: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
         raise ValueError(f"csr_rmatmat: Z must be contiguous (n, "
                          f"{Y.shape[1]}) float32, got {Z.dtype} "
                          f"{tuple(Z.shape)}")
+    _read_a("csr_rmatmat", val.numel() * val.element_size())
     if Y.device.type == "cpu":
         return _ref.csr_rmatmat_ref(off, col, val, Y, Z)
     _csr.csr_rmatmat_cuda(off, col, val, Y, Z)
@@ -565,6 +601,7 @@ def csr_gram_chain(off: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
         raise ValueError(f"csr_gram_chain: Z must be contiguous (n, "
                          f"{Q.shape[1]}) float32, got {Z.dtype} "
                          f"{tuple(Z.shape)}")
+    _read_a("csr_gram_chain", val.numel() * val.element_size())
     if Q.device.type == "cpu":
         return _ref.csr_gram_chain_ref(off, col, val, Q, Z, round_y)
     _csr.csr_gram_chain_cuda(off, col, val, Q, Z, round_y)

@@ -95,12 +95,13 @@ def gram_ref(A: torch.Tensor, trans: bool = False) -> torch.Tensor:
     return A32 @ A32.mT if trans else A32.mT @ A32
 
 
-def csr_rows(off: torch.Tensor) -> torch.Tensor:
-    """The block-local row of each nonzero of a CSR block."""
+def csr_rows(off: torch.Tensor, nnz: int) -> torch.Tensor:
+    """The block-local row of each nonzero of a CSR block of ``nnz``
+    nonzeros (its columns' length, so nothing is read on the host)."""
     rows = off.numel() - 1
     return torch.repeat_interleave(
         torch.arange(rows, device=off.device), (off[1:] - off[:-1]).long(),
-        output_size=int(off[-1]) if rows else 0)
+        output_size=nnz)
 
 
 def csr_matmat_ref(off: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
@@ -109,7 +110,7 @@ def csr_matmat_ref(off: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     ``round_out`` rounds the fp32 sums to bf16."""
     Y = torch.zeros((off.numel() - 1, Q.shape[1]), dtype=torch.float32,
                     device=Q.device)
-    Y.index_add_(0, csr_rows(off),
+    Y.index_add_(0, csr_rows(off, col.numel()),
                  val.to(torch.float32)[:, None] * Q[col.long()])
     return _rounded(Y, "bfloat16") if round_out else Y
 
@@ -118,7 +119,8 @@ def csr_rmatmat_ref(off: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
                     Y: torch.Tensor, Z: torch.Tensor) -> torch.Tensor:
     """``Z += A_b^T Y`` in place; returns ``Z``."""
     return Z.index_add_(0, col.long(),
-                        val.to(torch.float32)[:, None] * Y[csr_rows(off)])
+                        val.to(torch.float32)[:, None]
+                        * Y[csr_rows(off, col.numel())])
 
 
 def csr_gram_chain_ref(off, col, val, Q, Z, round_y: bool = False):

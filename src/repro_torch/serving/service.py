@@ -55,6 +55,16 @@ from repro_torch.serving.runner import run_batch, run_job
 
 __all__ = ["SVDService", "JobHandle"]
 
+def _load_cuda_linalg(device) -> None:
+    """torch loads its CUDA linear-algebra library at a process's first
+    ``torch.linalg`` call on the card, and that load is not thread-safe:
+    two workers making their first solves at once fail one of them with
+    ``RuntimeError: lazy wrapper should be called at most once``.  One
+    small SVD on the starting thread loads it before any worker runs."""
+    with torch.cuda.device(device):
+        torch.linalg.svd(torch.eye(2, device=device))
+
+
 #: default admission budget: enough for a handful of mid-sized jobs,
 #: small enough that a burst of large ones actually queues
 DEFAULT_BYTE_BUDGET = 1 << 30
@@ -165,6 +175,8 @@ class SVDService:
             if self._started:
                 return self
             self._started = True
+        if self.device.type == "cuda":
+            _load_cuda_linalg(self.device)
         self._pool = ThreadPoolExecutor(
             max_workers=self._max_workers,
             thread_name_prefix="svd-runner")

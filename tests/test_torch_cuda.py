@@ -49,6 +49,9 @@ giving the whole call's bits; the pipeline's streamed ops
 bitwise the CPU path's, with its launch and PCIe byte counts, through
 empty and shrinking blocks too; a block beyond int32 nonzeros refused;
 and a sparse solve on the card resumed from a checkpoint bitwise.
+``repro_torch.analysis.run_all(device="cuda")`` comes out clean with its
+A-traffic equal to the accounting and each block step on its dtype's
+routes; the SVD service's first solves in a fresh process all finish.
 """
 import collections
 import importlib
@@ -1422,3 +1425,60 @@ def test_local_attention_autograd_launches_forward_and_backward(card):
         ops.local_attention(q, k, v, window=64, softcap=50.0)
     assert {n: c for n, c in ops.launches.items() if c} == {
         "local_attention": 1}
+
+
+def test_analysis_on_the_card_census_and_a_traffic(card):
+    """``chip_smoke.py``'s 13.1 as a test: every analysis target runs on the
+    card (the sharded ones in a child process on a world-1 NCCL group) and
+    comes out clean; each accounting group's A-traffic, the kernels' own
+    tally (``ops.thread_a_bytes``), equals its operator's accounting; the
+    block steps launched the routes their sweep dtype names."""
+    from repro_torch.analysis import run_all
+    rep = run_all(device="cuda")
+    assert rep.ok, "\n".join(str(v) for v in rep.failures)
+    acct = [c.details for c in rep.checks
+            if c.target.startswith("accounting:")]
+    assert len(acct) == 12
+    for d in acct:
+        assert d["measured_bytes"] == d["expected_bytes"], d
+    trace = {c.target: c.details for c in rep.checks
+             if c.pass_name == "trace"}
+    for tag, routes in (("dense/block/float32", ("tf32x3", "tf32x3_cpasync")),
+                        ("sharded/block/float32",
+                         ("tf32x3", "tf32x3_cpasync")),
+                        ("dense/block/bfloat16", ("wgmma", "wgmma_ld")),
+                        ("sharded/block/bfloat16", ("wgmma", "wgmma_ld")),
+                        ("hostblocked/chain/bfloat16/block0",
+                         ("wgmma", "wgmma_ld"))):
+        ran = {k.split("/", 1)[1] for k in trace[tag]["launches"]
+               if k.startswith(("block_matvec/", "block_rmatvec/"))}
+        assert ran and ran <= set(routes), (tag, trace[tag]["launches"])
+    assert trace["sparsestream/block/bfloat16"]["launches"].get(
+        "csr_gram_chain/bfloat16") == 3
+
+
+def test_service_first_solves_on_the_card_in_a_fresh_process(card):
+    """A fresh process's first ``torch.linalg`` calls on the card load
+    torch's CUDA linear-algebra library, a load that is not thread-safe:
+    two workers starting their first solves at once failed one job with
+    ``lazy wrapper should be called at most once`` until
+    ``SVDService.start`` made one call first."""
+    import os
+    import subprocess
+    import sys
+    code = (
+        "import torch\n"
+        "from repro_torch.serving import JobStatus, SVDService\n"
+        "g = torch.Generator(device='cuda').manual_seed(0)\n"
+        "with SVDService(max_workers=4, device='cuda') as svc:\n"
+        "    hs = [svc.submit(torch.randn((64 + 8 * i, 24), generator=g,\n"
+        "                                 device='cuda'), 4, stream_every=1)\n"
+        "          for i in range(8)]\n"
+        "    st = [h.wait(120.0) for h in hs]\n"
+        "print([s.value for s in st], [h.error for h in hs])\n"
+        "assert all(s is JobStatus.DONE for s in st)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

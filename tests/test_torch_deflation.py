@@ -22,6 +22,8 @@ step earlier or later.  The test allows exactly that.
 """
 import dataclasses
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,10 +38,13 @@ from repro.core.operator import DenseOperator as JaxDense
 from repro.kernels import ops as jax_ops
 from repro_torch.core import errors
 from repro_torch.core import partition as tpart
-from repro_torch.core import tsvd as ttsvd
 from repro_torch.core.config import SVDConfig
 from repro_torch.core.operator import DenseOperator
 from repro_torch.kernels import ops
+
+# the module: ``repro_torch.core.tsvd`` is the legacy function, as
+# ``repro.core.tsvd`` is
+ttsvd = importlib.import_module("repro_torch.core.tsvd")
 
 SPECTRUM = np.linspace(20, 2, 10)
 

@@ -358,6 +358,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    card, started together with the dry run at the phase's start, each
    must exit 0; their seconds are printed.  ``--only-analysis`` runs
    phases 1 and 13 alone.
+14. the other LM families, served at full width.  The recurrence
+   kernels (``rglru_scan``, ``wkv6``) against their plain loops at
+   ragged shapes (T = 1, T = 4097, B = 1, with and without an initial
+   state; limits ``TOL_REC``: 1e-5 and 1e-4 of the output's max |value|,
+   the states also read for bitwise equality), then at the prefill's
+   shapes, (2, 4096, 4096) and (2, 4096, 32, 64), timed beside their byte
+   bounds and plain versions; ``local_attention`` at the families' head
+   layouts (MQA at D 256 with window 2048, grok-1's capped global layers,
+   a group of 7, a group of 1 at D 64) against its plain version, phase
+   7's per-element rule; each family's fp32 smoke config (llama4-scout's
+   too) on the card against the CPU within ``TOL_CACHE``; then
+   recurrentgemma-9b (38 layers, 2 x 4096 tokens, 16 decode steps),
+   rwkv6-1.6b (24, 4096, 16), grok-1-314b (cut to 4 of 64 layers, 2048,
+   8), llava-next-34b (cut to 16 of 60, 576 zero patch positions + 1024
+   tokens, 8) and musicgen-large (48, 4 codebooks x 1024, 16), one at a
+   time from seeded random weights: the launches of a prefill and of the
+   decode steps (one attention an attention layer in the prefill, one
+   recurrence a recurrent layer in both), finite logits and tokens in
+   range, prefill seconds, decode ms a step, peak device memory, decode
+   at position S against a prefill over S + 1 within ``TOL_CONSISTENCY``
+   (grok-1 on a copy of its config with capacity factor E / k; its drops
+   at the published 1.25 printed), and a profile of a prefill of the two
+   recurrent models.  ``--only-lm-families`` runs phases 1 and 14
+   alone.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches in the
 run of its path, and its times; the block sweeps as ``<name>/tf32x3``
@@ -380,7 +404,9 @@ solve) and the same with ``[bf16]`` (from the bf16 solve); before them an
 ``{"sparse": {...}}`` line with phase 9's and a ``{"sharded": {...}}``
 line with phase 10's, a ``{"serving": {...}}`` line with phase 11's and
 a ``{"training": {...}}`` line with phase 12's, an ``{"analysis":
-{...}}`` line with phase 13's;
+{...}}`` line with phase 13's, an ``{"lm_families": {...}}`` line with
+phase 14's; the recurrences as ``rglru_scan`` and ``wkv6``, launches
+from phase 14's served models (prefill and decode);
 the sharded path's launches (10.1, one rank) as
 ``<kernel>/<route>[sharded]`` for the block solves and ``<kernel>[sharded
 <method> faithful]`` / ``[sharded <method> fused]`` for the deflation
@@ -5123,6 +5149,419 @@ def analysis(torch, repro_torch, ops, dev, step_s=None) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the LM families beyond the dense text models, served at full
+# width: RG-LRU and RWKV-6 on their recurrence kernels, the capacity MoE,
+# the VLM and audio front ends
+# ---------------------------------------------------------------------------
+
+LF_SEED = SEED + 40
+LF_BATCH = 2
+# (arch, layers kept (None: all), prompt tokens, decode steps); grok-1 is
+# cut to 4 of its 64 layers (all need ~620 GB), llava-next to 16 of 60
+LF_MODELS = (("recurrentgemma-9b", None, 4096, 16),
+             ("rwkv6-1.6b", None, 4096, 16),
+             ("grok-1-314b", 4, 2048, 8),
+             ("llava-next-34b", 16, 1024, 8),
+             ("musicgen-large", None, 1024, 16))
+# their smoke configs, card against CPU (fp32, TOL_CACHE); llama4-scout's
+# MoE too, which no full-width run takes
+LF_SMOKE = ("recurrentgemma-9b", "rwkv6-1.6b", "grok-1-314b",
+            "llama4-scout-17b-a16e", "llava-next-34b", "musicgen-large")
+# the recurrences against their plain loops: max |kernel - plain| over the
+# output's max |value|.  RG-LRU rounds each product and sum as the plain
+# version does (bitwise in practice); RWKV-6's output sums its hd products
+# in another order than the plain version's einsum
+TOL_REC = {"rglru_scan": 1e-5, "wkv6": 1e-4}
+REC_PATH = {"rglru_scan": (2, 4096, 4096), "wkv6": (2, 4096, 32, 64)}
+REC_RAGGED = {"rglru_scan": [(2, 1, 4096), (2, 4097, 256), (1, 33, 4096),
+                             (3, 130, 100)],
+              "wkv6": [(2, 1, 32, 64), (2, 4097, 4, 64), (1, 33, 32, 64),
+                       (3, 70, 5, 16), (2, 40, 3, 32), (1, 20, 2, 128)]}
+REC_SOURCES = {"rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
+               "wkv6": "src/repro_torch/csrc/wkv6.cu"}
+# no Pallas kernel: the JAX package's scans, compiled by XLA
+REC_REPLACES = {"rglru_scan": "src/repro/models/recurrent.py:65",
+                "wkv6": "src/repro/models/recurrent.py:177"}
+# local_attention at the families' head layouts, bf16 (B, H, Hkv, S, D,
+# window, softcap): recurrentgemma's local layers (MQA, a group of 16 at
+# D 256), grok-1's capped global layers, llava-next's group of 7,
+# musicgen's group of 1 at D 64
+LF_ATTN = (("recurrentgemma-9b local", 2, 16, 1, 4096, 256, 2048, None),
+           ("grok-1-314b global", 2, 48, 8, 2048, 128, 2048, 30.0),
+           ("llava-next-34b global", 2, 56, 8, 1600, 128, 1600, None),
+           ("musicgen-large global", 2, 32, 32, 1024, 64, 1024, None))
+
+
+def rec_inputs(torch, name, shape, g, dev, with_state):
+    """A recurrence's operands at ``shape``: decays in (0, 1) as the
+    blocks make them."""
+    if name == "rglru_scan":
+        a = torch.rand(shape, generator=g, device=dev) * 0.5 + 0.499
+        b = torch.randn(shape, generator=g, device=dev)
+        h0 = (torch.randn((shape[0], shape[2]), generator=g, device=dev)
+              if with_state else None)
+        return a, b, h0
+    B, T, H, hd = shape
+    r, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(shape, generator=g, device=dev)
+                             * 0.5 - 2.0))
+    u = torch.randn((H, hd), generator=g, device=dev) * 0.1
+    S0 = (torch.randn((B, H, hd, hd), generator=g, device=dev)
+          if with_state else None)
+    return r, k, v, w, u, S0
+
+
+def rec_bound(name, shape) -> tuple:
+    """Least time on an H100 SXM: each input read once and each output
+    written once (fp32) over the memory rate, against the fp32 flop over
+    the fp32 (non-tensor) peak: RG-LRU 2 an element; RWKV-6 5 per (i, j)
+    of a step (the output's and the state's multiply-adds, the outer
+    product)."""
+    if name == "rglru_scan":
+        B, T, R = shape
+        nbytes, flop = 4 * (3 * B * T * R + B * R), 2 * B * T * R
+    else:
+        B, T, H, hd = shape
+        nbytes = 4 * (5 * B * T * H * hd + 2 * B * H * hd * hd + H * hd)
+        flop = 5 * B * T * H * hd * hd
+    return pick(nbytes / PEAK_BYTES * 1e3, flop / PEAK_OPS["float32"] * 1e3)
+
+
+def rec_reading(torch, name, got, want) -> tuple:
+    """(max |kernel - plain|, its share of ``TOL_REC`` relative to the
+    output's max |value|, the state bitwise equal) of one call."""
+    outs = (got,) if name == "rglru_scan" else got
+    wants = (want,) if name == "rglru_scan" else want
+    mae = max(float((a - b).abs().max()) for a, b in zip(outs, wants))
+    share = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(outs, wants)) / TOL_REC[name]
+    return mae, share, torch.equal(outs[-1], wants[-1])
+
+
+def recurrence_checks(torch, ops, ref, dev) -> dict:
+    """Both recurrences against their plain loops at ragged shapes (T = 1,
+    T past a chunk, B = 1, with and without an initial state), then at
+    the prefill's shapes, timed beside their bounds and plain versions;
+    returns each kernel's row."""
+    g = torch.Generator(device=dev).manual_seed(LF_SEED + 1)
+    kern = {"rglru_scan": ops.rglru_scan, "wkv6": ops.wkv6}
+    plain = {"rglru_scan": ref.rglru_scan_ref, "wkv6": ref.wkv6_ref}
+    rows = {}
+    for name in ("rglru_scan", "wkv6"):
+        for shape in REC_RAGGED[name]:
+            for with_state in (False, True):
+                x = rec_inputs(torch, name, shape, g, dev, with_state)
+                ops.reset_launches()
+                got = kern[name](*x)
+                torch.cuda.synchronize()
+                if ops.launches[name] != 1:
+                    fail(f"{name} {shape}: launches {ops.launches[name]}")
+                mae, share, same = rec_reading(torch, name, got,
+                                               plain[name](*x))
+                print(f"  {name} {shape} state={with_state}: max abs err "
+                      f"{mae:.2e}, {share:.3f} of the limit "
+                      f"({TOL_REC[name]:.0e} of max |out|), state bitwise "
+                      f"equal: {same}")
+                if not share <= 1:
+                    fail(f"{name} {shape}: {share} of the limit")
+        shape = REC_PATH[name]
+        x = rec_inputs(torch, name, shape, g, dev, True)
+        mae, share, same = rec_reading(torch, name, kern[name](*x),
+                                       plain[name](*x))
+        if not share <= 1:
+            fail(f"{name} {shape}: {share} of the limit")
+        row = {"max_abs_err": mae, "share_of_limit": share,
+               "state_bitwise": same,
+               "ms": time_ms(torch, lambda: kern[name](*x), 20),
+               "plain_ms": time_ms(torch, lambda: plain[name](*x), 1),
+               "library_ms": None}
+        row["bound_ms"], row["bound_by"] = rec_bound(name, shape)
+        print(f"  {name} at the prefill's {shape}: max abs err {mae:.2e} "
+              f"({share:.3f} of the limit), state bitwise equal {same}; "
+              f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms, "
+              f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}, "
+              f"{100 * row['bound_ms'] / row['ms']:.1f} % of it); library - "
+              f"(no PyTorch call computes it)")
+        rows[name] = row
+        del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def family_attention(torch, ops, ref, la, dev) -> dict:
+    """``local_attention`` at the families' head layouts against its plain
+    version (per element, phase 7's rule), timed beside its bound."""
+    g = torch.Generator(device=dev).manual_seed(LF_SEED + 2)
+    rows = {}
+    for label, B, H, Hkv, S, D, window, cap in LF_ATTN:
+        q, k, v = attn_inputs(torch, g, dev, B, H, Hkv, S, D, torch.bfloat16)
+        got = ops.local_attention(q, k, v, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        mae, (share,) = attn_readings(torch, ref, [got], q, k, v, window,
+                                      cap)
+        row = {"max_abs_err": mae, "share_of_limit": share,
+               "route": la.route(q.dtype, D),
+               "ms": time_ms(torch, lambda: ops.local_attention(
+                   q, k, v, window=window, softcap=cap), 10)}
+        row["bound_ms"], row["bound_by"] = attn_bound(B, H, Hkv, S, D,
+                                                      window)
+        print(f"  local_attention bf16 {label} ({row['route']}) B={B} H={H} "
+              f"Hkv={Hkv} S={S} D={D} window={window} softcap={cap}: max "
+              f"abs err {mae:.2e}, {share:.2f} of the per-element limit, "
+              f"kernel {row['ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']})")
+        if not (bool(torch.isfinite(got).all()) and share <= 1):
+            fail(f"local_attention {label}: {share} of the limit")
+        rows[label] = row
+        del q, k, v, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def family_smoke_serve(torch, T, serve, model, dev, tokens, patches) -> tuple:
+    """``model`` on ``dev``: a prefill of ``tokens[..., :CACHE_PROMPT]``
+    (the VLM's ``patches`` first), then ``CACHE_STEPS`` decode steps fed
+    the next columns; (each step's logits, the final cache) on the CPU."""
+    P = CACHE_PROMPT
+    logits, cache, _ = serve.serve_prefill(
+        model, tokens[..., :P].to(dev), P + CACHE_STEPS,
+        patch_embeds=None if patches is None else patches.to(dev))
+    out = [logits.cpu()]
+    start = serve.decode_start(model.cfg, P)
+    for i in range(CACHE_STEPS):
+        logits, cache = T.decode_step(
+            model, cache, tokens[..., P + i:P + i + 1].to(dev), start + i)
+        out.append(logits.cpu())
+    return out, [{n: t.cpu() for n, t in c.items()} for c in cache]
+
+
+def family_smoke_checks(torch, T, serve, dev) -> dict:
+    """Each family's fp32 smoke config served on the card and on the CPU
+    from the same seed-0 weights (drawn on the CPU, copied to the card),
+    the decode fed the CPU's greedy tokens: every step's logits and every
+    cache tensor within ``TOL_CACHE``, the slots' positions equal."""
+    import copy
+    cpu = torch.device("cpu")
+    out = {}
+    for arch in LF_SMOKE:
+        model = serve.build(arch, smoke=True, device=cpu, seed=LF_SEED)
+        cfg = model.cfg
+        prompt = serve.make_prompt(cfg, LF_BATCH, CACHE_PROMPT, seed=LF_SEED,
+                                   device=cpu)
+        patches = (torch.randn((LF_BATCH, cfg.patch_positions, cfg.d_model),
+                               generator=torch.Generator().manual_seed(
+                                   LF_SEED))
+                   if cfg.family == "vlm" else None)
+        logits, cache, _ = serve.serve_prefill(
+            model, prompt, CACHE_PROMPT + CACHE_STEPS, patch_embeds=patches)
+        fed, _, _ = serve.serve_decode(model, cache, logits,
+                                       serve.decode_start(cfg, CACHE_PROMPT),
+                                       CACHE_STEPS)
+        tokens = torch.cat([prompt, fed], dim=-1)
+        want = family_smoke_serve(torch, T, serve, model, cpu, tokens,
+                                  patches)
+        card = copy.deepcopy(model).to(dev)
+        err, same = cache_reading(torch, family_smoke_serve(
+            torch, T, serve, card, dev, tokens, patches), want)
+        print(f"  {cfg.name} fp32, card vs CPU, prefill {CACHE_PROMPT} + "
+              f"{CACHE_STEPS} decode steps: worst rel err over the logits "
+              f"and cache tensors {err:.2e} (limit {TOL_CACHE:.0e}), slot "
+              f"positions equal: {same}")
+        if not (same and err <= TOL_CACHE):
+            fail(f"{cfg.name} card vs CPU: {err} (limit {TOL_CACHE}), "
+                 f"positions equal {same}")
+        out[arch] = err
+        del model, card
+    torch.cuda.empty_cache()
+    return out
+
+
+def expected_launches(cfg) -> tuple:
+    """(a prefill's, a decode step's) kernel launches: one attention an
+    attention layer in the prefill, one recurrence a recurrent layer in
+    both."""
+    per = {"local_attention": sum(k in ("attn", "local") for k in cfg.blocks),
+           "rglru_scan": cfg.blocks.count("rglru"),
+           "wkv6": cfg.blocks.count("rwkv")}
+    pre = {n: c for n, c in per.items() if c}
+    return pre, {n: c for n, c in pre.items() if n != "local_attention"}
+
+
+def count_drops(M, drops: list):
+    """Wrap ``mlp.moe_route`` to keep each call's dropped (token, choice)
+    count (a device scalar: no sync); returns the original."""
+    route = M.moe_route
+
+    def counting(p, cfg, x):
+        out = route(p, cfg, x)
+        drops.append((~out["keep"]).sum())
+        return out
+    M.moe_route = counting
+    return route
+
+
+def serve_family(torch, ops, T, M, serve, dev, cfg, S, steps,
+                 profile=False) -> dict:
+    """One family at full width: build, a prefill of ``LF_BATCH`` x ``S``
+    seeded tokens, ``steps`` greedy decode steps (launches, finite logits,
+    tokens in range, seconds, peak memory), decode at position S against
+    a prefill over S + 1 (the MoE on a copy of its config with capacity
+    factor E / k, where no token can drop; the drops at the published
+    factor printed), and, with ``profile``, where a prefill's device time
+    goes."""
+    import dataclasses
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = T.init_model(cfg, seed=LF_SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"{cfg.name}: {cfg.num_layers} layers ({', '.join(f'{cfg.blocks.count(k)} {k}' for k in dict.fromkeys(cfg.blocks))}), "
+          f"{n_params / 1e9:.3f} B parameters ({w_bytes / 1e9:.2f} GB "
+          f"{cfg.dtype}) drawn on the card from seed {LF_SEED} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    prompt = serve.make_prompt(cfg, LF_BATCH, S, seed=LF_SEED, device=dev)
+    want_pre, want_step = expected_launches(cfg)
+    drops = []
+    route = count_drops(M, drops) if cfg.is_moe else None
+    try:
+        ops.reset_launches()
+        logits, cache, t_pre = serve.serve_prefill(model, prompt, S + steps)
+        pre = {n: c for n, c in ops.launches.items() if c}
+    finally:
+        if route is not None:
+            M.moe_route = route
+    dropped = int(sum(drops)) if drops else 0
+    start = serve.decode_start(cfg, S)
+    ops.reset_launches()
+    tokens, last, t_dec = serve.serve_decode(model, cache, logits, start,
+                                             steps)
+    dec = {n: c for n, c in ops.launches.items() if c}
+    peak = torch.cuda.max_memory_allocated()
+    V = cfg.vocab_size
+    row = {"layers": cfg.num_layers, "params": n_params,
+           "prompt": S, "steps": steps, "prefill_s": t_pre,
+           "decode_ms_a_step": 1e3 * t_dec / steps,
+           "weight_read_ms": w_bytes / PEAK_BYTES * 1e3,
+           "peak_gib": peak / 2**30, "prefill_launches": pre,
+           "decode_launches": dec}
+    print(f"serve {cfg.name} batch {LF_BATCH}: prefill {S} tokens"
+          + (f" (+ {serve.patch_positions(cfg)} patch positions)"
+             if serve.patch_positions(cfg) else "")
+          + f" {t_pre:.3f} s ({LF_BATCH * S / t_pre:.0f} tokens/s), launches "
+          f"{pre}; {steps} greedy decode steps {t_dec:.3f} s "
+          f"({1e3 * t_dec / steps:.2f} ms a step; weight-read bound "
+          f"{row['weight_read_ms']:.2f} ms), launches {dec}; peak device "
+          f"memory {peak / 2**30:.1f} GiB")
+    if cfg.is_moe:
+        T_k = LF_BATCH * S * cfg.experts_per_token
+        print(f"  {cfg.name} at capacity factor {cfg.capacity_factor}: "
+              f"{dropped} of {T_k} (token, choice) pairs dropped over the "
+              f"prefill's {cfg.num_layers} MoE layers ({100 * dropped / (T_k * cfg.num_layers):.2f} %)")
+        row["dropped"] = dropped
+    if pre != want_pre:
+        fail(f"{cfg.name} prefill launches {pre}, want {want_pre}")
+    want_dec = {n: c * steps for n, c in want_step.items()}
+    if dec != want_dec:
+        fail(f"{cfg.name} decode launches {dec}, want {want_dec}")
+    shape = ((LF_BATCH, cfg.num_codebooks, steps) if cfg.family == "audio"
+             else (LF_BATCH, steps))
+    if not (tuple(tokens.shape) == shape and int(tokens.min()) >= 0
+            and int(tokens.max()) < V and bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(last).all())
+            and logits.shape[-1] == V):
+        fail(f"{cfg.name}: non-finite logits or tokens out of range")
+    print(f"  seq0: {tokens[0].reshape(-1, steps)[0, :16].tolist()}")
+    del cache, last
+
+    if cfg.is_moe:        # C = T: no token can drop in either run
+        model.cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    again, cache, _ = serve.serve_prefill(model, prompt, S + 3)
+    nxt = torch.argmax(again, dim=-1)[..., None]
+    dec_logits, _ = T.decode_step(model, cache, nxt, start)
+    del cache
+    P = serve.patch_positions(cfg)
+    patches = (torch.zeros((LF_BATCH, P, cfg.d_model), device=dev)
+               if P else None)
+    full, _ = T.prefill(model, torch.cat([prompt, nxt], dim=-1), None,
+                        patch_embeds=patches)
+    e = rel_err(torch, dec_logits, full)
+    row["decode_vs_prefill"] = e
+    print(f"  decode at position {start} vs prefill over {start + 1} "
+          f"positions" + (f" (capacity factor {model.cfg.capacity_factor})"
+                          if cfg.is_moe else "")
+          + f": rel err {e:.2e} (limit {TOL_CONSISTENCY:.0e})")
+    if not (bool(torch.isfinite(dec_logits).all()) and e <= TOL_CONSISTENCY):
+        fail(f"{cfg.name} decode vs prefill: rel err {e}")
+    model.cfg = cfg
+    del dec_logits, full, again
+
+    if profile:
+        _, wall, busy, n_act, names = profile_window(
+            torch, lambda: T.prefill(model, prompt, None)[0])
+        if n_act:
+            top = sorted(names.items(), key=lambda x: -x[1])
+            rec = sum(t for n_, t in names.items()
+                      if "rglru_scan" in n_ or "wkv6" in n_)
+            attn = sum(t for n_, t in names.items() if "local_attn" in n_)
+            row["profile"] = {"wall_s": wall, "busy_s": busy,
+                              "recurrence_s": rec, "attention_s": attn,
+                              "activities": n_act}
+            print(f"  profile of a prefill: {wall:.3f} s under the profiler, "
+                  f"device busy {busy:.3f} s ({100 * busy / wall:.1f} %), "
+                  f"{n_act} device activities; the recurrence kernels "
+                  f"{rec:.3f} s ({100 * rec / busy:.1f} % of busy), "
+                  f"local_attention {attn:.3f} s ({100 * attn / busy:.1f} "
+                  f"%); by time: " + ", ".join(
+                      f"{n_[:40]} {t:.3f} s" for n_, t in top[:6]))
+        else:
+            print("  profile: not measured (the profiler saw no device "
+                  "activity)")
+    del model
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_families(torch, ops, ref, la, dev) -> tuple:
+    """Phase 14; returns (its summary, the recurrences' kernel rows with
+    their launches on the served path)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import mlp as M
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    rows = recurrence_checks(torch, ops, ref, dev)
+    summary = {"attention": family_attention(torch, ops, ref, la, dev),
+               "smoke_card_vs_cpu": family_smoke_checks(torch, T, serve,
+                                                        dev),
+               "models": {}}
+    launches = {"rglru_scan": 0, "wkv6": 0}
+    for arch, layers, S, steps in LF_MODELS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        row = serve_family(torch, ops, T, M, serve, dev, cfg, S, steps,
+                           profile=arch in ("recurrentgemma-9b",
+                                            "rwkv6-1.6b"))
+        summary["models"][arch] = row
+        for name in launches:
+            launches[name] += (row["prefill_launches"].get(name, 0)
+                               + row["decode_launches"].get(name, 0))
+    line = [{"name": name, "route": "cuda", "source": REC_SOURCES[name],
+             "replaces": REC_REPLACES[name], "launches": launches[name],
+             **{key: rows[name][key] for key in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")}} for name in ("rglru_scan", "wkv6")]
+    summary["kernels"] = rows
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 14: {summary['seconds']:.1f} s")
+    return summary, line
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sharded-rank"]:      # one rank of phase 10.2
         return sharded_rank(*sys.argv[2:4])
@@ -5256,6 +5695,13 @@ def main() -> int:
         summary = analysis(torch, repro_torch, ops, dev)
         mark("13")
         print(json.dumps({"analysis": summary}))
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--only-lm-families"]:    # phase 1, then phase 14
+        summary, line = lm_families(torch, ops, ref, local_attn, dev)
+        mark("14")
+        print(json.dumps({"lm_families": summary}))
+        print(json.dumps({"kernels": line}))
         print(card_line())
         return 0
     if sys.argv[1:] == ["--only-serving"]:        # phase 1, then phase 11
@@ -5734,6 +6180,11 @@ def main() -> int:
     print(json.dumps({"analysis": an_summary}))
     mark("13")
 
+    # -- 14. the other LM families, served at full width -----------------
+    lf_summary, lf_line = lm_families(torch, ops, ref, local_attn, dev)
+    print(json.dumps({"lm_families": lf_summary}))
+    mark("14")
+
     sweeps = ("block_matvec", "block_rmatvec", "block_gram_chain")
     rows = dict(dtable)
     # the fp32 solve's sweeps (3xTF32), the bf16 solve's chains (wgmma) and
@@ -5769,7 +6220,7 @@ def main() -> int:
            if "library_causal_ms" in row else {})}
         for name, row in rows.items()] + csr_kernel_line(
             csr_rows, csr_launches) + sharded_kernel_line(
-            sh_counts, table, dtable, sh_rows) + sv_line + tr_line
+            sh_counts, table, dtable, sh_rows) + sv_line + tr_line + lf_line
     print(json.dumps({"block_sweeps_by_route": [
         {"name": name, "dtype": "float32" if key[0] in (
             "float32", "tf32x3_cpasync") else "bfloat16",

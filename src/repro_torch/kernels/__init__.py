@@ -19,6 +19,10 @@
 * ``local_attention``  — causal sliding-window attention with GQA and
                          logit soft-capping, the LM prefill's attention
                          (CUDA C++, ``csrc/local_attn.cu``)
+* ``rglru_scan``       — RG-LRU's linear recurrence (CUDA C++,
+                         ``csrc/rglru_scan.cu``; no Pallas counterpart)
+* ``wkv6``             — RWKV-6's matrix-state recurrence (CUDA C++,
+                         ``csrc/wkv6.cu``; no Pallas counterpart)
 
 ``matvec``, ``deflate_rmatvec`` and ``gram`` take ``trans=True`` for the
 same function of ``A^T``.
@@ -43,6 +47,10 @@ from repro_torch.kernels.ops import (  # noqa: F401
     gram_ref,
     local_attention,
     local_attention_ref,
+    rglru_scan,
+    rglru_scan_ref,
+    wkv6,
+    wkv6_ref,
     launches,
     route_launches,
     reset_launches,

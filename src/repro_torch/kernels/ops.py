@@ -10,14 +10,17 @@ and soft-capping; differentiable where autograd records, its gradient
 being ``local_attention_bwd``); and the sparse stream's CSR
 sweeps of one row block, ``csr_matmat`` (``A_b Q``), ``csr_rmatmat``
 (``Z += A_b^T Y``, in place) and ``csr_gram_chain`` (both halves on one
-copy of the block).  Each checks its operands, then:
+copy of the block); and the LM's two recurrences, ``rglru_scan``
+(RG-LRU's ``h_t = a_t h_{t-1} + b_t``) and ``wkv6`` (RWKV-6's matrix
+state).  Each checks its operands, then:
 
 * for tensors on the CPU, run the plain PyTorch version
   (``kernels/ref.py``) — the caller asked for the CPU;
 * for CUDA tensors, launch the Hopper kernel (``kernels/block_matvec.py``,
   ``deflate_matvec.py``, ``gram.py``, ``local_attn.py``) or raise.
   There is no fallback from the card to anything else.  The CSR sweeps'
-  kernels are ``kernels/csr_sweep.py``'s.
+  kernels are ``kernels/csr_sweep.py``'s, the recurrences'
+  ``kernels/recurrent.py``'s.
 
 ``dtype`` is the sweep dtype of the precision policy (``None`` = A's own
 dtype): both operands are cast to it and the sums are fp32, so the
@@ -79,13 +82,15 @@ from repro_torch.kernels import csr_sweep as _csr
 from repro_torch.kernels import deflate_matvec as _dm
 from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import local_attn as _la
+from repro_torch.kernels import recurrent as _rec
 from repro_torch.kernels import ref as _ref
 
 #: launches made on the card since the last ``reset_launches()``
 launches = {"block_matvec": 0, "block_rmatvec": 0, "block_gram_chain": 0,
             "matvec": 0, "deflate_rmatvec": 0, "gram": 0,
             "local_attention": 0, "local_attention_bwd": 0,
-            "csr_matmat": 0, "csr_rmatmat": 0, "csr_gram_chain": 0}
+            "csr_matmat": 0, "csr_rmatmat": 0, "csr_gram_chain": 0,
+            "rglru_scan": 0, "wkv6": 0}
 
 #: the CSR sweeps, by the dtype of the values they read
 CSR_KERNELS = ("csr_matmat", "csr_rmatmat", "csr_gram_chain")
@@ -610,6 +615,128 @@ def csr_gram_chain(off: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     return Z
 
 
+#: what a recurrence's backward on the card raises: no kernel computes it
+_NO_BACKWARD = ("the gradient of {} on the card has no kernel yet "
+                "(ROADMAP.md, queue 1, item 17: training of the recurrent "
+                "families)")
+
+
+def _recurrence_operands(what: str, *xs) -> None:
+    """Check a recurrence's operands: fp32 tensors on one device, 'cpu'
+    or 'cuda' (``None`` entries, an absent initial state, pass)."""
+    dev = xs[0].device if isinstance(xs[0], torch.Tensor) else None
+    for x in xs:
+        if x is None:
+            continue
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{what} takes torch tensors, got "
+                            f"{type(x).__name__}")
+        if x.dtype != torch.float32 or x.device != dev:
+            raise ValueError(f"{what} takes float32 tensors on one device, "
+                             f"got {x.dtype} on {x.device} beside {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on 'cpu' (plain PyTorch) or 'cuda' "
+                         f"(the Hopper kernel), got {dev}")
+
+
+def _records(*xs) -> bool:
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in xs)
+
+
+def _rglru_scan_forward(a, b, h0):
+    """The kernel's h, one counted launch (checked operands, card)."""
+    h = _rec.rglru_scan_cuda(a.contiguous(), b.contiguous(),
+                             None if h0 is None else h0.contiguous())
+    _count("rglru_scan")
+    return h
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """``rglru_scan`` on the card where autograd records: the kernel
+    forward; no backward kernel yet."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        return _rglru_scan_forward(a, b, h0)
+
+    @staticmethod
+    def backward(ctx, dh):
+        raise NotImplementedError(_NO_BACKWARD.format("rglru_scan"))
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor,
+               h0: torch.Tensor | None = None) -> torch.Tensor:
+    """RG-LRU's recurrence ``h_t = a_t h_{t-1} + b_t`` along axis 1: a, b
+    (B, T, R) fp32, h0 (B, R) fp32 or None (zeros) -> h (B, T, R) fp32;
+    the last state is ``h[:, -1]``.  T >= 1.  On the CPU the plain loop
+    (``ref.rglru_scan_ref``, differentiable by autograd); on the card
+    ``csrc/rglru_scan.cu``, one launch (bitwise the plain version), whose
+    backward raises where autograd records."""
+    _recurrence_operands("rglru_scan", a, b, h0)
+    if a.ndim != 3 or b.shape != a.shape or a.shape[1] < 1 or (
+            h0 is not None and h0.shape != (a.shape[0], a.shape[2])):
+        raise ValueError(f"rglru_scan takes a, b (B, T >= 1, R) and h0 "
+                         f"(B, R), got {tuple(a.shape)}, {tuple(b.shape)}, "
+                         f"{None if h0 is None else tuple(h0.shape)}")
+    if a.device.type == "cpu":
+        return _ref.rglru_scan_ref(a, b, h0)
+    if _records(a, b, h0):
+        return _RGLRUScan.apply(a, b, h0)
+    return _rglru_scan_forward(a, b, h0)
+
+
+def _wkv6_forward(r, k, v, w, u, S0):
+    """The kernel's (out, S_T), one counted launch (checked operands,
+    card)."""
+    out = _rec.wkv6_cuda(*(x.contiguous() for x in (r, k, v, w, u)),
+                         None if S0 is None else S0.contiguous())
+    _count("wkv6")
+    return out
+
+
+class _WKV6(torch.autograd.Function):
+    """``wkv6`` on the card where autograd records: the kernel forward;
+    no backward kernel yet."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, S0):
+        return _wkv6_forward(r, k, v, w, u, S0)
+
+    @staticmethod
+    def backward(ctx, dout, dS):
+        raise NotImplementedError(_NO_BACKWARD.format("wkv6"))
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         w: torch.Tensor, u: torch.Tensor, S0: torch.Tensor | None = None):
+    """RWKV-6's recurrence: r, k, v, w (B, T, H, hd) fp32 (w the decays
+    in (0, 1)), u (H, hd), S0 (B, H, hd, hd) or None (zeros) -> (out
+    (B, T, H, hd), S_T (B, H, hd, hd)) fp32; each step ``o_t = r_t^T
+    (S + u * (k_t v_t^T))``, then ``S <- w_t * S + k_t v_t^T``.  T >= 1.
+    On the CPU the plain loop (``ref.wkv6_ref``, differentiable by
+    autograd); on the card ``csrc/wkv6.cu``, one launch, at hd in
+    ``recurrent.WKV_HEAD_DIMS``, whose backward raises where autograd
+    records."""
+    _recurrence_operands("wkv6", r, k, v, w, u, S0)
+    B, T, H, hd = r.shape if r.ndim == 4 else (0, 0, 0, 0)
+    if (r.ndim != 4 or T < 1 or any(x.shape != r.shape for x in (k, v, w))
+            or u.shape != (H, hd)
+            or (S0 is not None and S0.shape != (B, H, hd, hd))):
+        raise ValueError(f"wkv6 takes r, k, v, w (B, T >= 1, H, hd), u "
+                         f"(H, hd) and S0 (B, H, hd, hd), got "
+                         f"{[tuple(x.shape) for x in (r, k, v, w, u)]}, "
+                         f"{None if S0 is None else tuple(S0.shape)}")
+    if r.device.type == "cpu":
+        return _ref.wkv6_ref(r, k, v, w, u, S0)
+    if hd not in _rec.WKV_HEAD_DIMS:
+        raise ValueError(f"wkv6 on the card takes a head size in "
+                         f"{_rec.WKV_HEAD_DIMS}, got {hd}")
+    if _records(r, k, v, w, u, S0):
+        return _WKV6.apply(r, k, v, w, u, S0)
+    return _wkv6_forward(r, k, v, w, u, S0)
+
+
 block_matvec_ref = _ref.block_matvec_ref
 block_rmatvec_ref = _ref.block_rmatvec_ref
 block_gram_chain_ref = _ref.block_gram_chain_ref
@@ -621,3 +748,5 @@ local_attention_bwd_ref = _ref.local_attention_bwd_ref
 csr_matmat_ref = _ref.csr_matmat_ref
 csr_rmatmat_ref = _ref.csr_rmatmat_ref
 csr_gram_chain_ref = _ref.csr_gram_chain_ref
+rglru_scan_ref = _ref.rglru_scan_ref
+wkv6_ref = _ref.wkv6_ref

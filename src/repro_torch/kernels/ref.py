@@ -30,6 +30,15 @@ the gradient written out from the same formulas as the backward kernel
 (the probabilities from that log-sum-exp, ``Dlt = sum(dO * O)``, the
 soft-cap's slope ``1 - tanh^2``, GQA's dK and dV summed over each K/V
 head's query heads), in plain PyTorch, not by autograd.
+
+``rglru_scan_ref`` and ``wkv6_ref`` are the two recurrences of the LM's
+recurrent blocks (RG-LRU and RWKV-6) as loops over time, one step a
+time: the JAX package's ``_rglru_scan`` (an associative scan) and
+``_wkv_scan`` (a ``lax.scan``).  Each elementwise step rounds as the
+kernels do (a product rounded, then a sum), so the RG-LRU kernel and
+the RWKV-6 kernel's state equal them bit for bit; only the RWKV-6
+output's sum over the key index runs in another order.  Both stay
+differentiable by autograd on the CPU.
 """
 from __future__ import annotations
 
@@ -198,3 +207,37 @@ def local_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
     return (dq, dk.view(B, Hkv, rep, S, D).sum(dim=2),
             dv.view(B, Hkv, rep, S, D).sum(dim=2))
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
+                   h0: torch.Tensor | None = None) -> torch.Tensor:
+    """``h_t = a_t h_{t-1} + b_t`` along axis 1: a, b (B, T, R), h0 (B, R)
+    or None (zeros) -> h (B, T, R) fp32.  The last state is ``h[:, -1]``."""
+    a32, b32 = a.to(torch.float32), b.to(torch.float32)
+    h = (torch.zeros_like(b32[:, 0]) if h0 is None
+         else h0.to(torch.float32))
+    out = []
+    for t in range(a.shape[1]):
+        h = a32[:, t] * h + b32[:, t]
+        out.append(h)
+    return torch.stack(out, dim=1)
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor,
+             S0: torch.Tensor | None = None):
+    """RWKV-6's recurrence: r, k, v, w (B, T, H, hd), u (H, hd), S0
+    (B, H, hd, hd) or None (zeros) -> (out (B, T, H, hd), S_T) fp32.
+    Each step ``o_t = r_t^T (S + (u * k_t) v_t^T)`` (``u * (k_t v_t^T)``
+    as the JAX package rounds it), then ``S <- w_t * S + k_t v_t^T``."""
+    r, k, v, w = (x.to(torch.float32) for x in (r, k, v, w))
+    B, T, H, hd = r.shape
+    S = (r.new_zeros((B, H, hd, hd)) if S0 is None
+         else S0.to(torch.float32))
+    ub = u.to(torch.float32)[None, :, :, None]
+    out = []
+    for t in range(T):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        out.append(torch.einsum("bhk,bhkv->bhv", r[:, t], S + ub * kv))
+        S = w[:, t, :, :, None] * S + kv
+    return torch.stack(out, dim=1), S

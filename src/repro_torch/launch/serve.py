@@ -14,10 +14,17 @@ no card is visible and no device was asked for.  Temperature sampling
 draws from a ``torch.Generator``, so its tokens cannot match the JAX
 package's ``jax.random``; greedy decoding is the path the two share.
 
+Every architecture of ``configs/`` serves: the recurrent blocks run
+their recurrences on the ``rglru_scan`` and ``wkv6`` kernels, the MoE
+its capacity dispatch; the VLM's prefill takes zero patch embeddings
+ahead of the prompt, as the JAX package's launcher does, so its caches
+hold ``patch_positions`` more positions and its decode starts after
+them; audio prompts are (batch, K, prompt_len) grids and each step
+picks a token per codebook.
+
 The phases are functions (``build``, ``make_prompt``, ``serve_prefill``,
-``serve_decode``) so that a caller can time and count them apart, as
-``chip_smoke.py`` does.  Only the text family with attention blocks is
-ported (``models/transformer.py`` names what is not).
+``serve_decode``, ``decode_start``) so that a caller can time and count
+them apart, as ``chip_smoke.py`` does.
 """
 from __future__ import annotations
 
@@ -49,21 +56,42 @@ def build(arch: str, *, smoke: bool = False, device=None,
 
 def make_prompt(cfg: ModelConfig, batch: int, prompt_len: int, *,
                 seed: int = 0, device=None) -> torch.Tensor:
-    """Uniform random token ids (batch, prompt_len) from ``seed``."""
+    """Uniform random token ids (batch, prompt_len) (audio: (batch, K,
+    prompt_len)) from ``seed``."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
-    return torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g,
-                         device=dev)
+    shape = ((batch, cfg.num_codebooks, prompt_len)
+             if cfg.family == "audio" else (batch, prompt_len))
+    return torch.randint(0, cfg.vocab_size, shape, generator=g, device=dev)
 
 
-def serve_prefill(model: T.Transformer, prompt: torch.Tensor, max_seq: int):
-    """Fresh caches for ``max_seq`` positions, then the prompt's prefill.
-    Returns (last logits (B, V), cache, seconds to the device's end)."""
+def patch_positions(cfg: ModelConfig) -> int:
+    """Positions the VLM's patch embeddings take ahead of the prompt."""
+    return cfg.patch_positions if cfg.family == "vlm" else 0
+
+
+def decode_start(cfg: ModelConfig, prompt_len: int) -> int:
+    """The position of the first decode step after a prompt."""
+    return prompt_len + patch_positions(cfg)
+
+
+def serve_prefill(model: T.Transformer, prompt: torch.Tensor, max_seq: int,
+                  *, patch_embeds: torch.Tensor | None = None):
+    """Fresh caches for ``max_seq`` token positions (plus the VLM's
+    patch positions), then the prompt's prefill; the VLM's
+    ``patch_embeds`` (B, P, D) default to zeros.  Returns (last logits
+    (B, V) (audio (B, K, V)), cache, seconds to the device's end)."""
     dev = prompt.device
-    cache = T.init_cache(model.cfg, prompt.shape[0], max_seq, dev)
+    cfg = model.cfg
+    P = patch_positions(cfg)
+    if P and patch_embeds is None:
+        patch_embeds = torch.zeros((prompt.shape[0], P, cfg.d_model),
+                                   dtype=torch.float32, device=dev)
+    cache = T.init_cache(cfg, prompt.shape[0], max_seq + P, dev)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = T.prefill(model, prompt, cache)
+    logits, cache = T.prefill(model, prompt, cache,
+                              patch_embeds=patch_embeds if P else None)
     _sync(dev)
     return logits, cache, time.perf_counter() - t0
 
@@ -72,9 +100,10 @@ def serve_decode(model: T.Transformer, cache: list, logits: torch.Tensor,
                  start: int, n_tokens: int, *, temperature: float = 0.0,
                  generator: torch.Generator | None = None):
     """``n_tokens`` decode steps from position ``start``: pick each next
-    token from ``logits`` (argmax, or a sample at ``temperature``) and
-    run it.  Returns (tokens (B, n_tokens), the last step's logits,
-    seconds to the device's end)."""
+    token from ``logits`` (argmax, or a sample at ``temperature``; audio
+    one per codebook) and run it.  Returns (tokens (B, n_tokens) (audio
+    (B, K, n_tokens)), the last step's logits, seconds to the device's
+    end)."""
     dev = logits.device
     out = []
     _sync(dev)
@@ -82,14 +111,18 @@ def serve_decode(model: T.Transformer, cache: list, logits: torch.Tensor,
     for i in range(n_tokens):
         if temperature > 0:
             probs = torch.softmax(logits / temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            nxt = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                                    generator=generator)
+            nxt = nxt.view(logits.shape[:-1])
         else:
-            nxt = torch.argmax(logits, dim=-1)
+            nxt = torch.argmax(logits, dim=-1)        # (B,) or (B, K)
         out.append(nxt)
-        logits, cache = T.decode_step(model, cache, nxt[:, None], start + i)
+        logits, cache = T.decode_step(model, cache, nxt[..., None],
+                                      start + i)
     _sync(dev)
-    tokens = (torch.stack(out, dim=1) if out else
-              torch.empty((logits.shape[0], 0), dtype=torch.long, device=dev))
+    tokens = (torch.stack(out, dim=-1) if out else
+              torch.empty((*logits.shape[:-1], 0), dtype=torch.long,
+                          device=dev))
     return tokens, logits, time.perf_counter() - t0
 
 
@@ -111,17 +144,18 @@ def main(argv=None) -> dict:
     B, P = args.batch, args.prompt_len
     prompt = make_prompt(cfg, B, P, device=dev)
     logits, cache, t_pre = serve_prefill(model, prompt, P + args.tokens)
+    P0 = decode_start(cfg, P)
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
     print(f"{cfg.name} on {where}: prefill({P} tok x{B}): {t_pre:.3f}s")
     gen = (torch.Generator(device=dev).manual_seed(0)
            if args.temperature > 0 else None)
-    tokens, _, t_dec = serve_decode(model, cache, logits, P, args.tokens,
+    tokens, _, t_dec = serve_decode(model, cache, logits, P0, args.tokens,
                                     temperature=args.temperature,
                                     generator=gen)
     print(f"decode {args.tokens} steps x{B}: {t_dec:.3f}s "
           f"({args.tokens * B / max(t_dec, 1e-9):.1f} tok/s)")
-    print("seq0:", tokens[0, :20].tolist())
+    print("seq0:", tokens[0].reshape(-1, tokens.shape[-1])[0, :20].tolist())
     return {"tokens": tokens, "prefill_s": t_pre, "decode_s": t_dec}
 
 

@@ -37,6 +37,16 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
 
+def normal(std: float) -> tuple:
+    """An ``inits`` entry: N(0, std^2), drawn in fp32 (``init_model``)."""
+    return ("normal", std)
+
+
+def const(value: float) -> tuple:
+    """An ``inits`` entry: every element ``value``."""
+    return ("const", value)
+
+
 def param(shape, dtype, device) -> nn.Parameter:
     """An uninitialised, trainable parameter (``init_model`` fills it;
     serving runs under ``torch.no_grad``, so it records nothing).
@@ -66,6 +76,10 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.scale = param((d,), torch.float32, device)
+
+    @staticmethod
+    def inits(cfg: ModelConfig) -> dict:
+        return {"scale": const(0.0)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return apply_rmsnorm(self.scale, x, self.eps)
@@ -110,6 +124,16 @@ class Attention(nn.Module):
         if cfg.qk_norm:
             self.q_norm = param((Dh,), torch.float32, device)
             self.k_norm = param((Dh,), torch.float32, device)
+
+    @staticmethod
+    def inits(cfg: ModelConfig) -> dict:
+        """``init_attention``'s: projections in N(0, 1/D), wo N(0,
+        1/(H Dh)), the qk-norm scales 0."""
+        si = normal(1 / math.sqrt(cfg.d_model))
+        return {"wq": si, "wk": si, "wv": si,
+                "wo": normal(1 / math.sqrt(cfg.num_heads
+                                           * cfg.resolved_head_dim)),
+                "q_norm": const(0.0), "k_norm": const(0.0)}
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,30 @@
 """Decoder-only LM assembly: init, forward, training loss, prefill, decode.
 
-The port of the JAX package's ``repro/models/transformer.py`` for the
-text family with attention blocks (``attn`` | ``local``) and the dense
-MLP — gemma2-9b's alternating local/global attention with soft-caps and
-sandwich norms among them.  The JAX package scans its layers in groups
-of the block pattern; here ``Transformer.layers`` is an
-``nn.ModuleList`` in layer order and a Python loop runs it
-(``models/convert.py`` maps the JAX package's stacked tree onto it).
+The port of the JAX package's ``repro/models/transformer.py`` for every
+architecture family in ``configs/``: the per-layer block pattern
+(``attn`` | ``local`` | ``rglru`` | ``rwkv``), the FFN (the dense MLP,
+the capacity MoE, or RWKV's channel mix, which lives with its time mix
+under ``ffn``), and the two front ends:
+
+* ``vlm``: precomputed patch embeddings (B, P, D) are cast to the model
+  dtype and concatenated ahead of the token embeddings, and positions
+  run over P + S (the vision tower is a stub, as in the JAX package);
+* ``audio``: K parallel codebook streams, tokens (B, K, S), embed
+  (K, V, D) summed over the streams, K untied heads (K, D, V), logits
+  (B, S, K, V).
+
+The JAX package scans its layers in groups of the block pattern; here
+``Transformer.layers`` is an ``nn.ModuleList`` in layer order and a Python
+loop runs it (``models/convert.py`` maps the JAX package's stacked tree
+onto it).  Attention runs on the ``local_attention`` kernel, RG-LRU's and
+RWKV-6's recurrences on the ``rglru_scan`` and ``wkv6`` kernels
+(``models/recurrent.py``).
 
 Caches: each attention layer has a ring-buffer KV cache of
 ``min(window, max_seq)`` slots for ``local`` layers and ``max_seq`` for
-global ones, with the position held in each slot (-1: empty).  Unlike
-the JAX package, which returns new cache arrays, ``prefill`` and
+global ones, with the position held in each slot (-1: empty); each
+recurrent layer its O(1) state (``models/recurrent.py``).  Unlike the
+JAX package, which returns new cache arrays, ``prefill`` and
 ``decode_step`` write the caches in place (one cache of gemma2-9b at
 batch 2 and 8224 positions is 4.2 GB in bf16) and return the same
 object.
@@ -26,11 +39,10 @@ entropy over sequence chunks, each under checkpoint, so one chunk's fp32
 logits exist at a time.  Every backward on the path sums in a fixed
 order on the card (the embedding lookup's, torch's sort-based
 ``index_put_`` with accumulation; the label logit's ``gather``, one add
-into each row), so two runs of a step give the same bits.
-
-Not ported yet, each raising ``NotImplementedError`` that names its
-``ROADMAP.md`` item: the recurrent blocks (``rglru``, ``rwkv``), the MoE
-FFN and the VLM/audio front ends.
+into each row), so two runs of a step give the same bits.  The
+recurrences' kernels have no backward yet (ROADMAP item 17): on the card
+a training step of ``rglru``/``rwkv`` layers raises; on the CPU their
+plain loops are differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -43,20 +55,22 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.operator import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
+from repro_torch.models import recurrent as R
 from repro_torch.models.config import ModelConfig
 
-_TODO = "is not ported yet (ROADMAP.md, queue 1, item 13: LM side, {})"
+BLOCK_KINDS = ("attn", "local", "rglru", "rwkv")
 
 
 class Layer(nn.Module):
-    """Pre-norm block (with gemma2's post norms when ``post_block_norm``)."""
+    """Pre-norm block (with gemma2's post norms when ``post_block_norm``):
+    ``mix`` (attention or RG-LRU) and ``ffn`` (MLP or MoE), or, for
+    ``rwkv``, ``ffn`` alone holding the time and channel mixes, as the
+    JAX package's tree (``transformer.py:45-68``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device=None):
         super().__init__()
-        if kind not in ("attn", "local"):
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} "
-                + _TODO.format("recurrent blocks"))
+        if kind not in BLOCK_KINDS:
+            raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
         self.kind = kind
         D, eps = cfg.d_model, cfg.norm_eps
         self.norm1 = L.RMSNorm(D, eps, device)
@@ -64,29 +78,36 @@ class Layer(nn.Module):
         if cfg.post_block_norm:
             self.norm1_post = L.RMSNorm(D, eps, device)
             self.norm2_post = L.RMSNorm(D, eps, device)
-        self.mix = L.Attention(cfg, device)
+        if kind == "rwkv":
+            self.ffn = R.RWKVBlock(cfg, device)
+            return
+        self.mix = (R.RGLRUBlock(cfg, device) if kind == "rglru"
+                    else L.Attention(cfg, device))
         self.ffn = M.init_mlp(cfg, device)
 
 
 class Transformer(nn.Module):
-    """embed (V, D), final_norm, head (D, V) when embeddings are untied,
-    and ``layers`` in layer order."""
+    """embed (V, D) (audio: (K, V, D)), final_norm, head (D, V) (audio:
+    (K, D, V)) when embeddings are untied, and ``layers`` in layer
+    order."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.family in ("vlm", "audio"):
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} front end "
-                + _TODO.format("VLM/audio front ends"))
         self.cfg = cfg
         dt = getattr(torch, cfg.dtype)
-        V, D = cfg.vocab_size, cfg.d_model
-        self.embed = L.param((V, D), dt, device)
+        V, D, K = cfg.vocab_size, cfg.d_model, cfg.num_codebooks
+        audio = cfg.family == "audio"
+        self.embed = L.param((K, V, D) if audio else (V, D), dt, device)
         self.final_norm = L.RMSNorm(D, cfg.norm_eps, device)
         if not cfg.tie_embeddings:
-            self.head = L.param((D, V), dt, device)
+            self.head = L.param((K, D, V) if audio else (D, V), dt, device)
         self.layers = nn.ModuleList(
             Layer(cfg, kind, device) for kind in cfg.blocks)
+
+    @staticmethod
+    def inits(cfg: ModelConfig) -> dict:
+        s = L.normal(1 / math.sqrt(cfg.d_model))
+        return {"embed": s, "head": s}
 
 
 # ---------------------------------------------------------------------------
@@ -96,29 +117,32 @@ class Transformer(nn.Module):
 @torch.no_grad()
 def init_model(cfg: ModelConfig, *, seed: int = 0,
                device=None) -> Transformer:
-    """Random weights with the JAX package's distributions and scales:
-    embed and head N(0, 1/D); wq, wk, wv, w_in, w_gate N(0, 1/D); wo
-    N(0, 1/(H Dh)); w_out N(0, 1/F); every norm scale 0.  The numbers
-    come from a ``torch.Generator`` on ``device`` seeded with ``seed``
-    (they cannot be ``jax.random``'s), drawn in fp32 and cast to
-    ``cfg.dtype``.  ``device=None`` is the card."""
+    """Random weights with the JAX package's distributions and scales,
+    keyed by module kind and parameter name (each module's ``inits``):
+    the ``init_*`` functions of ``repro/models`` leaf for leaf, constants
+    included (norm scales 0; RG-LRU's ``lam`` 0.65; RWKV's ``mu`` and
+    ``c_mu`` 0.5, ``w0`` -2).  A parameter no table names raises.  The
+    numbers come from a ``torch.Generator`` on ``device`` seeded with
+    ``seed`` (they cannot be ``jax.random``'s), drawn in fp32 and cast
+    to the parameter's dtype.  ``device=None`` is the card."""
     dev = resolve_device(device)
     model = Transformer(cfg, dev)
     g = torch.Generator(device=dev).manual_seed(seed)
-    D, F = cfg.d_model, cfg.d_ff
-    H, Dh = cfg.num_heads, cfg.resolved_head_dim
-    std = {"embed": 1 / math.sqrt(D), "head": 1 / math.sqrt(D),
-           "wq": 1 / math.sqrt(D), "wk": 1 / math.sqrt(D),
-           "wv": 1 / math.sqrt(D), "wo": 1 / math.sqrt(H * Dh),
-           "w_in": 1 / math.sqrt(D), "w_gate": 1 / math.sqrt(D),
-           "w_out": 1 / math.sqrt(F)}
-    for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf in std:
-            p.copy_(torch.randn(p.shape, generator=g, device=dev)
-                    .mul_(std[leaf]))
-        else:                                   # norm scales
-            p.zero_()
+    for mod_name, mod in model.named_modules():
+        params = dict(mod.named_parameters(recurse=False))
+        if not params:
+            continue
+        table = type(mod).inits(cfg)
+        for name, p in params.items():
+            if name not in table:
+                raise KeyError(f"{cfg.name}: no init for "
+                               f"{mod_name}.{name} ({type(mod).__name__})")
+            how, value = table[name]
+            if how == "const":
+                p.fill_(value)
+            else:
+                p.copy_(torch.randn(p.shape, generator=g, device=dev)
+                        .mul_(value))
     return model
 
 
@@ -126,16 +150,33 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
 # Layer application
 # ---------------------------------------------------------------------------
 
+def _update(cache: dict | None, state: dict) -> None:
+    """Write a recurrent layer's new state into its cache, in place."""
+    if cache is not None:
+        for name, t in state.items():
+            cache[name].copy_(t)
+
+
 def _apply_layer(lp: Layer, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor, cache: dict | None = None,
-                 decode_pos: int | None = None) -> torch.Tensor:
-    """One block.  Prefill (``decode_pos`` None): attention on the
-    kernel, and the ring buffer filled when a ``cache`` is given.
-    Decode: the step's K/V written into slot ``decode_pos % Lc`` of the
-    cache, then attention over the cache."""
+                 decode_pos: int | None = None):
+    """One block; returns (x, aux), aux the MoE's router loss (else
+    None).
+    Attention: prefill (``decode_pos`` None) on the kernel, the ring
+    buffer filled when a ``cache`` is given; decode, the step's K/V
+    written into slot ``decode_pos % Lc`` of the cache, then attention
+    over the cache.  Recurrent blocks start from the cache's state (from
+    zeros without one) and write their new state into it."""
+    aux = None
     h = lp.norm1(x)
-    local = lp.kind == "local"
-    if decode_pos is not None:
+    if lp.kind == "rglru":
+        mix, st = R.apply_rglru_block(lp.mix, cfg, h, cache)
+        _update(cache, st)
+    elif lp.kind == "rwkv":
+        mix, st = R.apply_rwkv_time_mix(lp.ffn, cfg, h, cache)
+        _update(cache, st)
+    elif decode_pos is not None:
+        local = lp.kind == "local"
         k_new, v_new = L.project_kv(lp.mix, cfg, h, positions)
         Lc = cache["k"].shape[1]
         idx = decode_pos % Lc
@@ -147,8 +188,8 @@ def _apply_layer(lp: Layer, cfg: ModelConfig, x: torch.Tensor,
                                 kv=(cache["k"], cache["v"]),
                                 kv_positions=kv_pos, kv_mask=kv_pos >= 0)
     else:
-        mix, k_full, v_full = L.prefill_attention(lp.mix, cfg, h, positions,
-                                                  local=local)
+        mix, k_full, v_full = L.prefill_attention(
+            lp.mix, cfg, h, positions, local=lp.kind == "local")
         if cache is not None:
             _fill_cache(cache, k_full, v_full, positions)
     if cfg.post_block_norm:
@@ -156,10 +197,16 @@ def _apply_layer(lp: Layer, cfg: ModelConfig, x: torch.Tensor,
     x = x + mix
 
     h = lp.norm2(x)
-    ffn = M.apply_mlp(lp.ffn, cfg, h)
+    if lp.kind == "rwkv":
+        ffn, st = R.apply_rwkv_channel_mix(lp.ffn, cfg, h, cache)
+        _update(cache, st)
+    elif cfg.is_moe:
+        ffn, aux = M.apply_moe(lp.ffn, cfg, h)
+    else:
+        ffn = M.apply_mlp(lp.ffn, cfg, h)
     if cfg.post_block_norm:
         ffn = lp.norm2_post(ffn)
-    return x + ffn
+    return x + ffn, aux
 
 
 def _fill_cache(cache: dict, k_full: torch.Tensor, v_full: torch.Tensor,
@@ -180,16 +227,33 @@ def _fill_cache(cache: dict, k_full: torch.Tensor, v_full: torch.Tensor,
 # Embedding / head
 # ---------------------------------------------------------------------------
 
-def _embed_tokens(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    x = model.embed[tokens]
-    return x * torch.tensor(math.sqrt(model.cfg.d_model), dtype=x.dtype)
+def _embed_tokens(model: Transformer, tokens: torch.Tensor,
+                  patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """tokens (B, S) (audio: (B, K, S)) -> x (B, S, D) in the model dtype
+    (VLM with ``patch_embeds`` (B, P, D): (B, P + S, D), the patches
+    first)."""
+    cfg = model.cfg
+    if cfg.family == "audio":
+        # one lookup a codebook, summed in order (MusicGen sums the streams)
+        x = model.embed[0][tokens[:, 0]]
+        for c in range(1, cfg.num_codebooks):
+            x = x + model.embed[c][tokens[:, c]]
+    else:
+        x = model.embed[tokens]
+    x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    if cfg.family == "vlm" and patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def _lm_head(model: Transformer, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) -> logits fp32 (B, S, V)."""
+    """x: (B, S, D) -> logits fp32 (B, S, V) (audio: (B, S, K, V))."""
     cfg = model.cfg
-    w = model.embed.mT if cfg.tie_embeddings else model.head
-    logits = (x @ w).to(torch.float32)
+    w = model.embed.mT if cfg.tie_embeddings else model.head  # audio (K, D, V)
+    if cfg.family == "audio":
+        logits = torch.einsum("bsd,kdv->bskv", x, w).to(torch.float32)
+    else:
+        logits = (x @ w).to(torch.float32)
     if cfg.final_softcap is not None:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
     return logits
@@ -205,38 +269,45 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward: tokens (B, S) -> logits fp32 (B, S, V)."""
-    cfg = model.cfg
-    x = _embed_tokens(model, tokens)
-    positions = _positions(*tokens.shape, x.device)
-    for lp in model.layers:
-        x = _apply_layer(lp, cfg, x, positions)
-    return _lm_head(model, model.final_norm(x))
+def forward(model: Transformer, tokens: torch.Tensor, *,
+            patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence forward: tokens (B, S) -> logits fp32 (B, S, V)
+    (audio: tokens (B, K, S) -> (B, S, K, V); VLM with ``patch_embeds``:
+    (B, P + S, V))."""
+    x, _ = _hidden(model, tokens, patch_embeds, remat=False)
+    return _lm_head(model, x)
 
 
 # ---------------------------------------------------------------------------
 # Training
 # ---------------------------------------------------------------------------
 
-def forward_hidden(model: Transformer, tokens: torch.Tensor):
-    """Full-sequence forward up to the final norm, recording for
-    autograd: tokens (B, S) -> (x (B, S, D), aux).  ``aux`` (the MoE
-    router's loss) is 0: the dense MLP has none.  With ``remat_policy``
-    "minimal" or "full" each layer runs under ``checkpoint`` (its
-    activations recomputed in the backward, attention included)."""
+def _hidden(model: Transformer, tokens, patch_embeds, remat: bool):
     cfg = model.cfg
-    x = _embed_tokens(model, tokens)
-    positions = _positions(*tokens.shape, x.device)
-    remat = cfg.remat_policy in ("minimal", "full")
+    x = _embed_tokens(model, tokens, patch_embeds)
+    positions = _positions(x.shape[0], x.shape[1], x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in model.layers:
         if remat:
-            x = checkpoint(_apply_layer, lp, cfg, x, positions,
-                           use_reentrant=False)
+            x, a = checkpoint(_apply_layer, lp, cfg, x, positions,
+                              use_reentrant=False)
         else:
-            x = _apply_layer(lp, cfg, x, positions)
-    return (model.final_norm(x),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+            x, a = _apply_layer(lp, cfg, x, positions)
+        if a is not None:
+            aux = aux + a
+    return model.final_norm(x), aux
+
+
+def forward_hidden(model: Transformer, tokens: torch.Tensor, *,
+                   patch_embeds: torch.Tensor | None = None):
+    """Full-sequence forward up to the final norm, recording for
+    autograd: tokens (B, S) (audio (B, K, S)) -> (x (B, S, D), aux), aux
+    the MoE router's loss summed over the layers (0 without MoE).  With
+    ``remat_policy`` "minimal" or "full" each layer runs under
+    ``checkpoint`` (its activations recomputed in the backward, attention
+    included)."""
+    return _hidden(model, tokens, patch_embeds,
+                   remat=model.cfg.remat_policy in ("minimal", "full"))
 
 
 def _xent(lg: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
@@ -251,25 +322,34 @@ def _xent(lg: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
 
 def _nll_block(model: Transformer, x: torch.Tensor,
                labels: torch.Tensor) -> torch.Tensor:
-    """Head + cross entropy for one sequence block: x (B, s, D) ->
-    nll (B, s) fp32."""
-    return _xent(_lm_head(model, x), labels)
+    """Head + cross entropy for one sequence block: x (B, s, D) and
+    labels (B, s) (audio (B, K, s), the mean over the K streams) -> nll
+    (B, s) fp32."""
+    logits = _lm_head(model, x)
+    if model.cfg.family == "audio":
+        return _xent(logits, labels.movedim(1, 2)).mean(dim=-1)
+    return _xent(logits, labels)
 
 
 def loss_fn(model: Transformer, batch: dict):
     """Next-token cross entropy (+ ``router_aux_coef`` x aux).  ``batch``
-    holds ``tokens`` and ``labels`` (B, S) and optionally ``loss_mask``
-    (B, S), tensors on the model's device.  Returns (total, {"loss",
-    "aux"}).  ``cfg.loss_chunks > 1`` (dividing S) runs the head and the
-    cross entropy chunk by chunk along the sequence, each chunk under
-    ``checkpoint``, as the JAX package's scan with remat does."""
+    holds ``tokens`` and ``labels`` (B, S) (audio: (B, K, S)), optionally
+    ``loss_mask`` (B, S) and, for the VLM, ``patch_embeds`` (B, P, D),
+    whose positions the loss drops; tensors on the model's device.
+    Returns (total, {"loss", "aux"}).  ``cfg.loss_chunks > 1`` (dividing
+    S) runs the head and the cross entropy chunk by chunk along the
+    sequence, each chunk under ``checkpoint``, as the JAX package's scan
+    with remat does."""
     cfg = model.cfg
-    x, aux = forward_hidden(model, batch["tokens"])
+    x, aux = forward_hidden(model, batch["tokens"],
+                            patch_embeds=batch.get("patch_embeds"))
     labels = batch["labels"]
+    S = labels.shape[-1]
+    if cfg.family == "vlm":
+        x = x[:, -S:]                            # drop patch positions
     mask = batch.get("loss_mask")
     if mask is not None:
         mask = mask.to(torch.float32)
-    S = labels.shape[-1]
     lc = cfg.loss_chunks
     if lc <= 1 or S % lc:
         nll = _nll_block(model, x, labels)
@@ -281,7 +361,7 @@ def loss_fn(model: Transformer, batch: dict):
         cnt = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(lc):
             sl = slice(i * c, (i + 1) * c)
-            nll = checkpoint(_nll_block, model, x[:, sl], labels[:, sl],
+            nll = checkpoint(_nll_block, model, x[:, sl], labels[..., sl],
                              use_reentrant=False)
             if mask is None:
                 tot = tot + torch.sum(nll)
@@ -296,17 +376,21 @@ def loss_fn(model: Transformer, batch: dict):
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device=None) -> list[dict]:
-    """Empty ring-buffer caches, one dict per layer (``k``/``v``
-    (B, Lc, Hkv, Dh) in the model dtype, ``pos`` (Lc,) int32 of -1)."""
+    """Empty caches, one dict per layer: attention a ring buffer (``k``/
+    ``v`` (B, Lc, Hkv, Dh) in the model dtype, ``pos`` (Lc,) int32 of
+    -1); ``rglru`` ``{"h", "conv"}`` and ``rwkv`` ``{"x_prev_t",
+    "x_prev_c", "S"}``, zeros (``models/recurrent.py``)."""
     dev = resolve_device(device)
     Hkv, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
     dt = getattr(torch, cfg.dtype)
     caches = []
     for kind in cfg.blocks:
-        if kind not in ("attn", "local"):
-            raise NotImplementedError(
-                f"{cfg.name}: the {kind!r} state "
-                + _TODO.format("recurrent blocks"))
+        if kind == "rglru":
+            caches.append(R.init_rglru_state(cfg, batch, dev))
+            continue
+        if kind == "rwkv":
+            caches.append(R.init_rwkv_state(cfg, batch, dev))
+            continue
         Lc = max_seq if kind == "attn" else min(cfg.window, max_seq)
         caches.append({
             "k": torch.zeros((batch, Lc, Hkv, Dh), dtype=dt, device=dev),
@@ -317,16 +401,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 @torch.no_grad()
 def prefill(model: Transformer, tokens: torch.Tensor,
-            cache: list[dict] | None):
-    """Process the prompt tokens (B, S); returns (last-position logits
-    (B, V) fp32, cache).  Only the final position is projected to the
-    vocabulary.  ``cache=None`` runs the prompt without filling one."""
+            cache: list[dict] | None, *,
+            patch_embeds: torch.Tensor | None = None):
+    """Process the prompt tokens (B, S) (audio (B, K, S); VLM with
+    ``patch_embeds`` (B, P, D) ahead of them, at positions 0..P-1);
+    returns (last-position logits (B, V) (audio (B, K, V)) fp32, cache).
+    Only the final position is projected to the vocabulary.  ``cache=None``
+    runs the prompt without filling one."""
     cfg = model.cfg
-    x = _embed_tokens(model, tokens)
-    positions = _positions(*tokens.shape, x.device)
+    x = _embed_tokens(model, tokens, patch_embeds)
+    positions = _positions(x.shape[0], x.shape[1], x.device)
     for i, lp in enumerate(model.layers):
-        x = _apply_layer(lp, cfg, x, positions,
-                         None if cache is None else cache[i])
+        x, _ = _apply_layer(lp, cfg, x, positions,
+                            None if cache is None else cache[i])
     logits = _lm_head(model, model.final_norm(x[:, -1:]))
     return logits[:, 0], cache
 
@@ -334,13 +421,14 @@ def prefill(model: Transformer, tokens: torch.Tensor,
 @torch.no_grad()
 def decode_step(model: Transformer, cache: list[dict], tokens: torch.Tensor,
                 pos: int):
-    """One decode step: tokens (B, 1) at position ``pos`` (a Python int).
-    Returns (logits (B, V) fp32, cache)."""
+    """One decode step: tokens (B, 1) (audio (B, K, 1)) at position
+    ``pos`` (a Python int; for the VLM counting the patch positions).
+    Returns (logits (B, V) (audio (B, K, V)) fp32, cache)."""
     cfg = model.cfg
     x = _embed_tokens(model, tokens)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
     for i, lp in enumerate(model.layers):
-        x = _apply_layer(lp, cfg, x, positions, cache[i], decode_pos=pos)
+        x, _ = _apply_layer(lp, cfg, x, positions, cache[i], decode_pos=pos)
     logits = _lm_head(model, model.final_norm(x))
     return logits[:, 0], cache

@@ -49,6 +49,16 @@ giving the whole call's bits; the pipeline's streamed ops
 bitwise the CPU path's, with its launch and PCIe byte counts, through
 empty and shrinking blocks too; a block beyond int32 nonzeros refused;
 and a sparse solve on the card resumed from a checkpoint bitwise.
+The LM's recurrences (``rglru_scan``, ``wkv6``) against their plain loops
+at small and ragged shapes (T = 1, T past a chunk, with and without an
+initial state): RG-LRU's h and RWKV-6's state bitwise (both round each
+product, then each sum, as the plain version's elementwise ops), each
+output within its stated limit (``rglru_scan`` 1e-5, ``wkv6`` 1e-4 of the
+output's largest magnitude: the RWKV-6 output's sum over the key index
+runs in another order than the plain version's einsum); their autograd
+backward on the card raising ``NotImplementedError`` that names ROADMAP
+item 17; and the launches of a prefill and a decode step of the
+recurrentgemma and rwkv6 smoke configs.
 ``repro_torch.analysis.run_all(device="cuda")`` comes out clean with its
 A-traffic equal to the accounting and each block step on its dtype's
 routes; the SVD service's first solves in a fresh process all finish.
@@ -1482,3 +1492,104 @@ def test_service_first_solves_on_the_card_in_a_fresh_process(card):
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# the LM's recurrences
+# ---------------------------------------------------------------------------
+
+TOL_RGLRU = 1e-5
+TOL_WKV6 = 1e-4
+
+
+def _rel_max(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("B,T,R", [(2, 1, 64), (2, 37, 130), (1, 4097, 96),
+                                   (3, 16, 4096)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_kernel_matches_plain_version(card, B, T, R, with_h0):
+    g = torch.Generator(device=card).manual_seed(B * T + R)
+    a = torch.rand((B, T, R), generator=g, device=card) * 0.5 + 0.499
+    b = torch.randn((B, T, R), generator=g, device=card)
+    h0 = torch.randn((B, R), generator=g, device=card) if with_h0 else None
+    ops.reset_launches()
+    got = ops.rglru_scan(a, b, h0)
+    want = ref.rglru_scan_ref(a, b, h0)
+    torch.cuda.synchronize()
+    assert ops.launches["rglru_scan"] == 1
+    assert got.shape == (B, T, R) and got.dtype == torch.float32
+    assert _rel_max(got, want) <= TOL_RGLRU
+    assert torch.equal(got, want)
+
+
+def _wkv_operands(g, card, B, T, H, hd):
+    r, k, v = (torch.randn((B, T, H, hd), generator=g, device=card)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((B, T, H, hd), generator=g,
+                                         device=card) * 0.5 - 2.0))
+    u = torch.randn((H, hd), generator=g, device=card) * 0.1
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("B,T,H,hd", [(2, 1, 4, 16), (2, 33, 3, 32),
+                                      (1, 4097, 2, 64), (2, 70, 2, 128)])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv6_kernel_matches_plain_version(card, B, T, H, hd, with_s0):
+    g = torch.Generator(device=card).manual_seed(B * T + hd)
+    r, k, v, w, u = _wkv_operands(g, card, B, T, H, hd)
+    S0 = (torch.randn((B, H, hd, hd), generator=g, device=card)
+          if with_s0 else None)
+    ops.reset_launches()
+    out, S_T = ops.wkv6(r, k, v, w, u, S0)
+    want_o, want_s = ref.wkv6_ref(r, k, v, w, u, S0)
+    torch.cuda.synchronize()
+    assert ops.launches["wkv6"] == 1
+    assert out.shape == (B, T, H, hd) and S_T.shape == (B, H, hd, hd)
+    assert _rel_max(out, want_o) <= TOL_WKV6
+    assert _rel_max(S_T, want_s) <= TOL_WKV6
+    assert torch.equal(S_T, want_s)
+
+
+def test_wkv6_refuses_an_untemplated_head_size(card):
+    g = torch.Generator(device=card).manual_seed(0)
+    with pytest.raises(ValueError, match="head size"):
+        ops.wkv6(*_wkv_operands(g, card, 1, 4, 2, 24))
+
+
+def test_recurrence_backwards_name_their_roadmap_item(card):
+    g = torch.Generator(device=card).manual_seed(1)
+    a = torch.rand((1, 5, 8), generator=g, device=card).requires_grad_()
+    b = torch.randn((1, 5, 8), generator=g, device=card)
+    h = ops.rglru_scan(a, b)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        h.sum().backward()
+    xs = [x.requires_grad_() for x in _wkv_operands(g, card, 1, 3, 2, 16)]
+    out, _ = ops.wkv6(*xs)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-1.6b"])
+def test_recurrent_smoke_serving_launches(card, arch):
+    """A prefill launches one recurrence a recurrent layer (and one
+    attention a local layer); a decode step one recurrence a recurrent
+    layer and no attention."""
+    from repro_torch.launch import serve
+    model = serve.build(arch, smoke=True, device=card)
+    cfg = model.cfg
+    prompt = serve.make_prompt(cfg, 2, 12, device=card)
+    n_rglru, n_rwkv = cfg.blocks.count("rglru"), cfg.blocks.count("rwkv")
+    n_local = cfg.blocks.count("local")
+    ops.reset_launches()
+    logits, cache, _ = serve.serve_prefill(model, prompt, 16)
+    pre = {n: c for n, c in ops.launches.items() if c}
+    ops.reset_launches()
+    tokens, last, _ = serve.serve_decode(model, cache, logits, 12, 1)
+    dec = {n: c for n, c in ops.launches.items() if c}
+    want = {n: c for n, c in (("rglru_scan", n_rglru), ("wkv6", n_rwkv),
+                              ("local_attention", n_local)) if c}
+    assert pre == want
+    assert dec == {n: c for n, c in want.items() if n != "local_attention"}
+    assert bool(torch.isfinite(last).all())

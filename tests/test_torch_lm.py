@@ -40,6 +40,7 @@ from repro_torch import configs
 from repro_torch.launch import serve
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
+from repro_torch.models import recurrent as R
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import from_jax_params, jax_layers
 
@@ -195,17 +196,27 @@ def test_init_model_is_seeded():
     assert abs(float(a.layers[0].mix.wq.std()) - pc.d_model ** -0.5) < 0.02
 
 
-@pytest.mark.parametrize("build", [
-    lambda cfg, **kw: T.Transformer(cfg, **kw),
-    lambda cfg, **kw: T.Layer(cfg, "local", **kw),
-    lambda cfg, **kw: L.Attention(cfg, **kw),
-    lambda cfg, **kw: M.MLP(cfg, **kw),
-    lambda cfg, **kw: L.RMSNorm(cfg.d_model, cfg.norm_eps, **kw),
-], ids=["Transformer", "Layer", "Attention", "MLP", "RMSNorm"])
-def test_constructors_build_on_the_card_by_default(build):
+@pytest.mark.parametrize("arch,build", [
+    ("gemma2-9b", lambda cfg, **kw: T.Transformer(cfg, **kw)),
+    ("gemma2-9b", lambda cfg, **kw: T.Layer(cfg, "local", **kw)),
+    ("gemma2-9b", lambda cfg, **kw: L.Attention(cfg, **kw)),
+    ("gemma2-9b", lambda cfg, **kw: M.MLP(cfg, **kw)),
+    ("gemma2-9b", lambda cfg, **kw: L.RMSNorm(cfg.d_model, cfg.norm_eps,
+                                              **kw)),
+    ("recurrentgemma-9b", lambda cfg, **kw: T.Layer(cfg, "rglru", **kw)),
+    ("recurrentgemma-9b", lambda cfg, **kw: R.RGLRUBlock(cfg, **kw)),
+    ("rwkv6-1.6b", lambda cfg, **kw: T.Layer(cfg, "rwkv", **kw)),
+    ("rwkv6-1.6b", lambda cfg, **kw: R.RWKVBlock(cfg, **kw)),
+    ("grok-1-314b", lambda cfg, **kw: M.MoE(cfg, **kw)),
+    ("musicgen-large", lambda cfg, **kw: T.Transformer(cfg, **kw)),
+    ("llava-next-34b", lambda cfg, **kw: T.Transformer(cfg, **kw)),
+], ids=["Transformer", "Layer", "Attention", "MLP", "RMSNorm", "Layer-rglru",
+        "RGLRUBlock", "Layer-rwkv", "RWKVBlock", "MoE", "Transformer-audio",
+        "Transformer-vlm"])
+def test_constructors_build_on_the_card_by_default(arch, build):
     """``device=None`` is the card, as for ``init_model``: without one a
     bare constructor raises instead of building on the CPU."""
-    cfg = configs.smoke_config(configs.get_config("gemma2-9b"))
+    cfg = configs.smoke_config(configs.get_config(arch))
     if torch.cuda.is_available():
         assert all(p.is_cuda for p in build(cfg).parameters())
     else:
@@ -213,15 +224,6 @@ def test_constructors_build_on_the_card_by_default(build):
             build(cfg)
     params = list(build(cfg, device="cpu").parameters())
     assert params and all(p.device.type == "cpu" for p in params)
-
-
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-1.6b",
-                                  "grok-1-314b", "llava-next-34b",
-                                  "musicgen-large"])
-def test_unported_families_name_their_roadmap_item(arch):
-    cfg = configs.smoke_config(configs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.init_model(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("arch", jax_configs.list_archs())

@@ -63,12 +63,14 @@ def test_port_imports_with_jax_unavailable():
             "import repro_torch, repro_torch.kernels.build, "
             "repro_torch.kernels.block_matvec, "
             "repro_torch.kernels.deflate_matvec, repro_torch.kernels.gram, "
-            "repro_torch.kernels.local_attn, repro_torch.core.partition, "
+            "repro_torch.kernels.local_attn, repro_torch.kernels.recurrent, "
+            "repro_torch.core.partition, "
             "repro_torch.core.staging, repro_torch.core.oom, "
             "repro_torch.core.diskio, repro_torch.core.sparse, "
             "repro_torch.kernels.csr_sweep, repro_torch.checkpoint, "
             "repro_torch.configs, repro_torch.models.config, "
             "repro_torch.models.layers, repro_torch.models.mlp, "
+            "repro_torch.models.recurrent, "
             "repro_torch.models.transformer, repro_torch.models.convert, "
             "repro_torch.launch.serve, repro_torch.data, "
             "repro_torch.optim.adamw, repro_torch.optim.compression, "

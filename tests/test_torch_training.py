@@ -85,12 +85,6 @@ def test_data_pipeline_is_bitwise_the_jax_packages(vocab, seq, batch, seed):
                                   ours.batch(3)["tokens"][:, 1:])
 
 
-@pytest.mark.parametrize("family", ["vlm", "audio"])
-def test_unported_data_families_name_their_roadmap_item(family):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SyntheticLMDataset(DataConfig(64, 8, 2, family=family))
-
-
 # ---------------------------------------------------------------------------
 # loss and gradients
 # ---------------------------------------------------------------------------

@@ -360,14 +360,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    phases 1 and 13 alone.
 14. the other LM families, served at full width.  The recurrence
    kernels (``rglru_scan``, ``wkv6``) against their plain loops at
-   ragged shapes (T = 1, T = 4097, B = 1, with and without an initial
-   state; limits ``TOL_REC``: 1e-5 and 1e-4 of the output's max |value|,
-   the states also read for bitwise equality), then at the prefill's
-   shapes, (2, 4096, 4096) and (2, 4096, 32, 64), timed beside their byte
-   bounds and plain versions; ``local_attention`` at the families' head
+   ragged shapes (``REC_RAGGED``: T = 1, T = 4097, T at wkv6's chunk
+   edges at each head size, R no multiple of 4, B = 1, with and without
+   an initial state; ``REC_DECAYS``: wkv6's decays all below 1e-30 and
+   all 1 - 2^-24; limits ``TOL_REC``: 1e-5 and 1e-4 of the output's max
+   |value|; every state bitwise the plain loop's and every rerun bitwise
+   its first run, or the phase fails), then at the prefill's shapes,
+   (2, 4096, 4096) and (2, 4096, 32, 64), timed beside their byte bounds
+   and plain versions; ``local_attention`` at the families' head
    layouts (MQA at D 256 with window 2048, grok-1's capped global layers,
    a group of 7, a group of 1 at D 64) against its plain version, phase
-   7's per-element rule; each family's fp32 smoke config (llama4-scout's
+   7's per-element rule, timed beside its plain version and
+   ``scaled_dot_product_attention`` (K/V repeated; a band mask where the
+   window is shorter than the sequence, ``is_causal`` where not; none on
+   the capped layer); each family's fp32 smoke config (llama4-scout's
    too) on the card against the CPU within ``TOL_CACHE``; then
    recurrentgemma-9b (38 layers, 2 x 4096 tokens, 16 decode steps),
    rwkv6-1.6b (24, 4096, 16), grok-1-314b (cut to 4 of 64 layers, 2048,
@@ -406,7 +412,8 @@ line with phase 10's, a ``{"serving": {...}}`` line with phase 11's and
 a ``{"training": {...}}`` line with phase 12's, an ``{"analysis":
 {...}}`` line with phase 13's, an ``{"lm_families": {...}}`` line with
 phase 14's; the recurrences as ``rglru_scan`` and ``wkv6``, launches
-from phase 14's served models (prefill and decode);
+from phase 14's served models (prefill and decode), each with its
+``share_of_bound`` (``bound_ms`` over ``ms``);
 the sharded path's launches (10.1, one rank) as
 ``<kernel>/<route>[sharded]`` for the block solves and ``<kernel>[sharded
 <method> faithful]`` / ``[sharded <method> fused]`` for the deflation
@@ -5174,10 +5181,21 @@ LF_SMOKE = ("recurrentgemma-9b", "rwkv6-1.6b", "grok-1-314b",
 # in another order than the plain version's einsum
 TOL_REC = {"rglru_scan": 1e-5, "wkv6": 1e-4}
 REC_PATH = {"rglru_scan": (2, 4096, 4096), "wkv6": (2, 4096, 32, 64)}
+# steps a chunk of csrc/wkv6.cu by head size (its Tile's C)
+WKV_CHUNK = {16: 32, 32: 32, 64: 32, 128: 16}
+# ragged shapes: T = 1, T no multiple of a stage (rglru_scan: 32 steps) or
+# at a chunk's edges (wkv6: T = C - 1, C, C + 1 at each head size), R no
+# multiple of 4 or of a block's 64 channels
 REC_RAGGED = {"rglru_scan": [(2, 1, 4096), (2, 4097, 256), (1, 33, 4096),
-                             (3, 130, 100)],
+                             (3, 130, 100), (2, 161, 4099), (1, 95, 130)],
               "wkv6": [(2, 1, 32, 64), (2, 4097, 4, 64), (1, 33, 32, 64),
-                       (3, 70, 5, 16), (2, 40, 3, 32), (1, 20, 2, 128)]}
+                       (3, 70, 5, 16), (2, 40, 3, 32), (1, 20, 2, 128)]
+              + [(2, C + d, 3, hd) for hd, C in WKV_CHUNK.items()
+                 for d in (-1, 0, 1)]}
+# wkv6's decays at the edges the plain loop takes, at each head size: all
+# below 1e-30 (exp(-80) and less, some subnormal) and all 1 - 2^-24
+REC_DECAYS = {"strong": [(2, 69, 2, hd) for hd in (16, 32, 64, 128)],
+              "near_one": [(2, 69, 2, hd) for hd in (16, 32, 64, 128)]}
 REC_SOURCES = {"rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
                "wkv6": "src/repro_torch/csrc/wkv6.cu"}
 # no Pallas kernel: the JAX package's scans, compiled by XLA
@@ -5193,9 +5211,9 @@ LF_ATTN = (("recurrentgemma-9b local", 2, 16, 1, 4096, 256, 2048, None),
            ("musicgen-large global", 2, 32, 32, 1024, 64, 1024, None))
 
 
-def rec_inputs(torch, name, shape, g, dev, with_state):
+def rec_inputs(torch, name, shape, g, dev, with_state, decay=None):
     """A recurrence's operands at ``shape``: decays in (0, 1) as the
-    blocks make them."""
+    blocks make them, or wkv6's at one edge (``REC_DECAYS``)."""
     if name == "rglru_scan":
         a = torch.rand(shape, generator=g, device=dev) * 0.5 + 0.499
         b = torch.randn(shape, generator=g, device=dev)
@@ -5206,6 +5224,11 @@ def rec_inputs(torch, name, shape, g, dev, with_state):
     r, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
     w = torch.exp(-torch.exp(torch.randn(shape, generator=g, device=dev)
                              * 0.5 - 2.0))
+    if decay == "strong":
+        w = torch.exp(-80.0 - 10.0 * torch.rand(shape, generator=g,
+                                                device=dev))
+    elif decay == "near_one":
+        w = torch.full(shape, 1.0 - 2.0 ** -24, device=dev)
     u = torch.randn((H, hd), generator=g, device=dev) * 0.1
     S0 = (torch.randn((B, H, hd, hd), generator=g, device=dev)
           if with_state else None)
@@ -5239,46 +5262,67 @@ def rec_reading(torch, name, got, want) -> tuple:
     return mae, share, torch.equal(outs[-1], wants[-1])
 
 
+def rec_rerun(torch, name, kern, x, got) -> bool:
+    """Whether a second call on the same inputs gives the same bits."""
+    again = kern(*x)
+    outs = (got,) if name == "rglru_scan" else got
+    agains = (again,) if name == "rglru_scan" else again
+    return all(torch.equal(a, b) for a, b in zip(outs, agains))
+
+
 def recurrence_checks(torch, ops, ref, dev) -> dict:
     """Both recurrences against their plain loops at ragged shapes (T = 1,
-    T past a chunk, B = 1, with and without an initial state), then at
-    the prefill's shapes, timed beside their bounds and plain versions;
-    returns each kernel's row."""
+    T at and past a chunk's edges, B = 1, R ragged, with and without an
+    initial state; wkv6 also at its decays' edges), then at the prefill's
+    shapes, timed beside their bounds and plain versions; each call one
+    launch, its state bitwise the plain loop's and its rerun bitwise its
+    own.  Returns each kernel's row."""
     g = torch.Generator(device=dev).manual_seed(LF_SEED + 1)
     kern = {"rglru_scan": ops.rglru_scan, "wkv6": ops.wkv6}
     plain = {"rglru_scan": ref.rglru_scan_ref, "wkv6": ref.wkv6_ref}
     rows = {}
     for name in ("rglru_scan", "wkv6"):
-        for shape in REC_RAGGED[name]:
-            for with_state in (False, True):
-                x = rec_inputs(torch, name, shape, g, dev, with_state)
-                ops.reset_launches()
-                got = kern[name](*x)
-                torch.cuda.synchronize()
-                if ops.launches[name] != 1:
-                    fail(f"{name} {shape}: launches {ops.launches[name]}")
-                mae, share, same = rec_reading(torch, name, got,
-                                               plain[name](*x))
-                print(f"  {name} {shape} state={with_state}: max abs err "
-                      f"{mae:.2e}, {share:.3f} of the limit "
-                      f"({TOL_REC[name]:.0e} of max |out|), state bitwise "
-                      f"equal: {same}")
-                if not share <= 1:
-                    fail(f"{name} {shape}: {share} of the limit")
+        cases = [(shape, with_state, None) for shape in REC_RAGGED[name]
+                 for with_state in (False, True)]
+        if name == "wkv6":
+            cases += [(shape, True, decay) for decay, shapes in
+                      REC_DECAYS.items() for shape in shapes]
+        for shape, with_state, decay in cases:
+            x = rec_inputs(torch, name, shape, g, dev, with_state, decay)
+            ops.reset_launches()
+            got = kern[name](*x)
+            torch.cuda.synchronize()
+            if ops.launches[name] != 1:
+                fail(f"{name} {shape}: launches {ops.launches[name]}")
+            mae, share, same = rec_reading(torch, name, got,
+                                           plain[name](*x))
+            rerun = rec_rerun(torch, name, kern[name], x, got)
+            print(f"  {name} {shape} state={with_state}"
+                  + (f" decays={decay}" if decay else "")
+                  + f": max abs err {mae:.2e}, {share:.3f} of the limit "
+                  f"({TOL_REC[name]:.0e} of max |out|), state bitwise "
+                  f"equal: {same}, rerun bitwise: {rerun}")
+            if not (share <= 1 and same and rerun):
+                fail(f"{name} {shape} decays={decay}: {share} of the "
+                     f"limit, state bitwise {same}, rerun bitwise {rerun}")
         shape = REC_PATH[name]
         x = rec_inputs(torch, name, shape, g, dev, True)
-        mae, share, same = rec_reading(torch, name, kern[name](*x),
-                                       plain[name](*x))
-        if not share <= 1:
-            fail(f"{name} {shape}: {share} of the limit")
+        got = kern[name](*x)
+        mae, share, same = rec_reading(torch, name, got, plain[name](*x))
+        rerun = rec_rerun(torch, name, kern[name], x, got)
+        del got
+        if not (share <= 1 and same and rerun):
+            fail(f"{name} {shape}: {share} of the limit, state bitwise "
+                 f"{same}, rerun bitwise {rerun}")
         row = {"max_abs_err": mae, "share_of_limit": share,
-               "state_bitwise": same,
+               "state_bitwise": same, "rerun_bitwise": rerun,
                "ms": time_ms(torch, lambda: kern[name](*x), 20),
                "plain_ms": time_ms(torch, lambda: plain[name](*x), 1),
                "library_ms": None}
         row["bound_ms"], row["bound_by"] = rec_bound(name, shape)
         print(f"  {name} at the prefill's {shape}: max abs err {mae:.2e} "
-              f"({share:.3f} of the limit), state bitwise equal {same}; "
+              f"({share:.3f} of the limit), state bitwise equal {same}, "
+              f"rerun bitwise {rerun}; "
               f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms, "
               f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}, "
               f"{100 * row['bound_ms'] / row['ms']:.1f} % of it); library - "
@@ -5291,7 +5335,13 @@ def recurrence_checks(torch, ops, ref, dev) -> dict:
 
 def family_attention(torch, ops, ref, la, dev) -> dict:
     """``local_attention`` at the families' head layouts against its plain
-    version (per element, phase 7's rule), timed beside its bound."""
+    version (per element, phase 7's rule), timed beside its bound, the
+    plain version and ``scaled_dot_product_attention`` on the same
+    inputs, K and V repeated
+    to the query heads as phase 7 does: a band mask where the window is
+    shorter than the sequence, ``is_causal=True`` where it is not; none
+    on a capped layer (no call soft-caps)."""
+    import torch.nn.functional as F
     g = torch.Generator(device=dev).manual_seed(LF_SEED + 2)
     rows = {}
     for label, B, H, Hkv, S, D, window, cap in LF_ATTN:
@@ -5303,14 +5353,40 @@ def family_attention(torch, ops, ref, la, dev) -> dict:
         row = {"max_abs_err": mae, "share_of_limit": share,
                "route": la.route(q.dtype, D),
                "ms": time_ms(torch, lambda: ops.local_attention(
-                   q, k, v, window=window, softcap=cap), 10)}
+                   q, k, v, window=window, softcap=cap), 10),
+               "plain_ms": time_ms(torch, lambda: plain_attention(
+                   ref, q, k, v, window, cap), 1),
+               "library_ms": None, "library_call": None}
+        if cap is None:
+            qc = q.contiguous()
+            kr = k.repeat_interleave(H // Hkv, dim=1).contiguous()
+            vr = v.repeat_interleave(H // Hkv, dim=1).contiguous()
+            if window < S:
+                pos = torch.arange(S, device=dev)
+                band = (pos[None, :] <= pos[:, None]) & (
+                    pos[None, :] > pos[:, None] - window)
+                row["library_call"] = "band mask"
+                row["library_ms"] = time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qc, kr, vr, attn_mask=band), 3)
+                del band
+            else:
+                row["library_call"] = "is_causal"
+                row["library_ms"] = time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qc, kr, vr, is_causal=True), 10)
+            del qc, kr, vr
         row["bound_ms"], row["bound_by"] = attn_bound(B, H, Hkv, S, D,
                                                       window)
+        lib = ("- (no call soft-caps)" if row["library_ms"] is None
+               else f"{row['library_ms']:.3f} ms ({row['library_call']}, "
+               f"K/V repeated)")
         print(f"  local_attention bf16 {label} ({row['route']}) B={B} H={H} "
               f"Hkv={Hkv} S={S} D={D} window={window} softcap={cap}: max "
               f"abs err {mae:.2e}, {share:.2f} of the per-element limit, "
-              f"kernel {row['ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
-              f"({row['bound_by']})")
+              f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.2f} ms, "
+              f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}); "
+              f"scaled_dot_product_attention {lib}")
         if not (bool(torch.isfinite(got).all()) and share <= 1):
             fail(f"local_attention {label}: {share} of the limit")
         rows[label] = row
@@ -5555,7 +5631,9 @@ def lm_families(torch, ops, ref, la, dev) -> tuple:
              "replaces": REC_REPLACES[name], "launches": launches[name],
              **{key: rows[name][key] for key in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")}} for name in ("rglru_scan", "wkv6")]
+                 "library_ms")},
+             "share_of_bound": rows[name]["bound_ms"] / rows[name]["ms"]}
+            for name in ("rglru_scan", "wkv6")]
     summary["kernels"] = rows
     summary["seconds"] = time.perf_counter() - t_phase
     print(f"phase 14: {summary['seconds']:.1f} s")

@@ -1,5 +1,6 @@
 // RG-LRU's linear recurrence (recurrentgemma's recurrent block), written for
-// Hopper (sm_90a).  All operands fp32, contiguous.
+// Hopper (sm_90a).  All operands fp32, contiguous; a and b 16-byte
+// aligned.
 //
 //   h_t = a_t * h_{t-1} + b_t  along t     a, b (B, T, R), h0 (B, R) or none
 //                                          -> h (B, T, R); the last state h[:, T-1]
@@ -14,43 +15,89 @@
 //
 // Bound on an H100 SXM (3.35 TB/s): 2 flops an element on 12 bytes (a and b
 // read, h written), so bytes bound it: 0.120 ms at the prefill's
-// (2, 4096, 4096).  What the design does:
-//   * One thread a channel (b, r), the state in a register, a loop over t.
-//     Neighbouring threads take neighbouring r, so every load and store of
-//     a warp is one 128-byte line.  Blocks of 64 threads spread the 8192
-//     channels of the prefill over 128 SMs.
-//   * The loop is latency-bound (each step's product needs the last step's
-//     state), so the loads run ahead of the dependent arithmetic: a chunk of
-//     U steps of a and b is loaded into registers while the chunk before it
-//     is computed.
+// (2, 4096, 4096).  The dependent chain is short (a product, then a sum:
+// some 8 cycles a step), so what holds the loop is the bytes it keeps in
+// flight (Little's law: 3.35 TB/s over 132 SMs at ~0.7 us a load needs
+// ~18 KB an SM); 16 steps of loads a thread in registers kept 8 KB an SM
+// in flight and ran at half the bound.  What the design does:
+//   * One thread a channel r of one batch row b, the state in a register,
+//     a loop over t; a block takes NC = 64 neighbouring channels of one
+//     batch row (the 8192 channels of the prefill: 128 blocks).
+//   * Tiles of U = 32 steps x the block's channels of a and b are staged by
+//     cp.async into a shared ring of NS = 4 stages: three tiles (~52 KB)
+//     are in flight while one is computed.  All 256 threads of the block
+//     copy (16 a staged row), so the copies keep pace; the first 64 step
+//     the channels.  Every copy moves 16 bytes, for any R: a staged row is
+//     shifted by where its first channel lies in its 16-byte granule.
 //   * Each step rounds the product, then the sum (__fmul_rn, __fadd_rn): the
 //     plain version's two elementwise ops, so kernel and plain version agree
-//     bit for bit (no FMA contraction).
-// B x R = 8192 channels leave most of the card's threads idle; a chunked
-// two-pass scan (chunk states, then a carry-in pass) is the later redesign.
+//     bit for bit (no FMA contraction), and reruns are bitwise.
+//   * h is stored straight from the register: a warp's stores of a step
+//     are one 128-byte line.
 //
 // C interface (bound with ctypes; every pointer and the stream as void*):
 //   int repro_rglru_scan(a, b, h0, h, B, T, R, stream)
 // h0 may be null (a zero state).  Returns cudaGetLastError() after the
-// launch (0 on success); allocates nothing.
+// launch (0 on success; cudaErrorMisalignedAddress where a or b is not
+// 16-byte aligned); allocates nothing.
 
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int NT = 64;   // channels (threads) a block
-constexpr int U = 16;    // steps a chunk: the loads in flight per thread
+using repro_hopper::cp_async;
+using repro_hopper::cp_async_commit;
+using repro_hopper::cp_async_wait_group;
+using repro_hopper::smem_u32;
 
-__device__ __forceinline__ void load_chunk(const float* __restrict__ a,
+constexpr int NC = 64;         // channels a block (its first NC threads)
+constexpr int NT = 256;        // threads a block: all of them copy
+constexpr int NTP = NC + 4;    // floats a staged row: NC and the shift
+constexpr int U = 32;          // steps a stage
+constexpr int NS = 4;          // stages in the ring
+constexpr size_t SMEM = sizeof(float) * NS * 2 * U * NTP;
+static_assert(NC == 64 && NT % 16 == 0, "16 threads copy a staged row");
+
+__device__ __forceinline__ int64_t lmin(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
+
+// One 16-byte granule g of a staged row: bytes past the arrays' end
+// (`left` floats from the granule's start) are not read.
+__device__ __forceinline__ void copy_granule(float* row, const float* src,
+                                             int g, int64_t left) {
+  const int bytes = left <= 0 ? 0 : (left >= 4 ? 16 : (int)(4 * left));
+  cp_async<16>(smem_u32(row + 4 * g), src + 4 * g, bytes);
+}
+
+// Steps [0, n) of the block's nr channels of a and b from element `off` into
+// a stage (a: U rows of NTP floats, then b), 16 threads a row.  Row t
+// starts at element p = off + t R, which lies p % 4 into its 16-byte
+// granule: the row lands that far into its staged row, so the 16-byte
+// copies of the granules covering it (16, or 17 where the shift pushes its
+// end past the 16th) keep their alignment for any R.  A granule past the
+// arrays' end (`total` elements) reads only what lies inside.
+__device__ __forceinline__ void stage_tile(float* st,
+                                           const float* __restrict__ a,
                                            const float* __restrict__ b,
-                                           int64_t off, int64_t R,
-                                           float (&av)[U], float (&bv)[U]) {
-#pragma unroll
-  for (int j = 0; j < U; ++j) {
-    av[j] = __ldg(a + off + j * R);
-    bv[j] = __ldg(b + off + j * R);
+                                           int64_t off, int64_t R, int nr,
+                                           int n, int64_t total, int tid) {
+  const int g = tid % 16;
+  for (int row = tid / 16; row < 2 * n; row += NT / 16) {
+    const int ab = row >= n;
+    const int t = row - ab * n;
+    const int64_t p = off + t * R;
+    const int mis = (int)(p & 3);
+    const int64_t first = p - mis;             // the row's first granule
+    const float* src = (ab ? b : a) + first;
+    float* dst = st + ab * U * NTP + t * NTP;
+    if (4 * g < mis + nr) copy_granule(dst, src, g, total - first - 4 * g);
+    if (g == 0 && 4 * 16 < mis + nr)
+      copy_granule(dst, src, 16, total - first - 4 * 16);
   }
 }
 
@@ -58,31 +105,45 @@ __global__ void __launch_bounds__(NT)
 rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
                   const float* __restrict__ h0, float* __restrict__ h,
                   int64_t B, int64_t T, int64_t R) {
-  const int64_t c = (int64_t)blockIdx.x * NT + threadIdx.x;  // b * R + r
-  if (c >= B * R) return;
-  const int64_t bi = c / R;
-  const int64_t base = bi * T * R + (c - bi * R);            // (bi, 0, r)
-  float s = h0 != nullptr ? h0[c] : 0.f;
-  const int64_t whole = T / U * U;
-  float av[U], bv[U], an[U], bn[U];
-  if (whole > 0) load_chunk(a, b, base, R, av, bv);
-  for (int64_t t = 0; t < whole; t += U) {
-    if (t + U < whole) load_chunk(a, b, base + (t + U) * R, R, an, bn);
+  extern __shared__ __align__(16) float ring[];   // [NS][2][U][NTP]
+  const int tid = threadIdx.x;
+  const int64_t r0 = (int64_t)blockIdx.x * NC, bi = blockIdx.y;
+  const int nr = (int)lmin(NC, R - r0);
+  const int64_t base = bi * T * R + r0;          // (bi, 0, r0)
+  const int64_t total = B * T * R;
+  float s = (h0 != nullptr && tid < nr) ? h0[bi * R + r0 + tid] : 0.f;
+  const int64_t tiles = (T + U - 1) / U;
 #pragma unroll
-    for (int j = 0; j < U; ++j) {
-      s = __fadd_rn(__fmul_rn(av[j], s), bv[j]);
-      h[base + (t + j) * R] = s;
-    }
-#pragma unroll
-    for (int j = 0; j < U; ++j) {
-      av[j] = an[j];
-      bv[j] = bn[j];
-    }
+  for (int p = 0; p < NS - 1; ++p) {
+    if (p < tiles)
+      stage_tile(ring + p * 2 * U * NTP, a, b, base + p * U * R, R, nr,
+                 (int)lmin(U, T - p * U), total, tid);
+    cp_async_commit();
   }
-  for (int64_t t = whole; t < T; ++t) {
-    const int64_t o = base + t * R;
-    s = __fadd_rn(__fmul_rn(__ldg(a + o), s), __ldg(b + o));
-    h[o] = s;
+  const int step = (int)(R & 3);
+  for (int64_t c = 0; c < tiles; ++c) {
+    cp_async_wait_group<NS - 2>();
+    __syncthreads();            // tile c visible; tile c - 1 done by all
+    const int64_t next = c + NS - 1;
+    if (next < tiles)
+      stage_tile(ring + (next % NS) * 2 * U * NTP, a, b, base + next * U * R,
+                 R, nr, (int)lmin(U, T - next * U), total, tid);
+    cp_async_commit();
+    if (tid < nr) {
+      const float* as = ring + (c % NS) * 2 * U * NTP + tid;
+      const float* bs = as + U * NTP;
+      const int64_t off = base + c * U * R;
+      const int n = (int)lmin(U, T - c * U);
+      float* out = h + off + tid;
+      int mis = (int)(off & 3);   // where row t starts in its staged row
+#pragma unroll 8
+      for (int t = 0; t < n; ++t) {
+        const int o = t * NTP + mis;
+        s = __fadd_rn(__fmul_rn(as[o], s), bs[o]);
+        out[t * R] = s;
+        mis = (mis + step) & 3;
+      }
+    }
   }
 }
 
@@ -92,12 +153,22 @@ extern "C" int repro_rglru_scan(const void* a, const void* b, const void* h0,
                                 void* h, long long B, long long T,
                                 long long R, void* stream) {
   cudaGetLastError();  // report this call's launch, not an older error
-  const int64_t channels = (int64_t)B * R;
-  if (channels > 0 && T > 0) {
-    const unsigned blocks = (unsigned)((channels + NT - 1) / NT);
-    rglru_scan_kernel<<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b),
-        static_cast<const float*>(h0), static_cast<float*>(h), B, T, R);
+  if (B * R == 0 || T == 0) return 0;
+  if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  static unsigned done = 0;   // devices whose shared memory limit is raised
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && !(dev < 32 && (done >> dev & 1u))) {
+    e = cudaFuncSetAttribute(rglru_scan_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SMEM);
+    if (e == cudaSuccess && dev < 32) done |= 1u << dev;
   }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((unsigned)((R + NC - 1) / NC), (unsigned)B);
+  rglru_scan_kernel<<<grid, NT, SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const float*>(h0), static_cast<float*>(h), B, T, R);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 // RWKV-6's recurrence (rwkv6's time mix), written for Hopper (sm_90a).  All
-// operands fp32, contiguous.
+// operands fp32, contiguous; r, k, v, w and S0 16-byte aligned.
 //
 //   each step t:  o_t = r_t^T (S + u * (k_t v_t^T));  S <- w_t * S + k_t v_t^T
 //   r, k, v, w (B, T, H, hd); u (H, hd); S0 (B, H, hd, hd) or none (zeros)
@@ -15,110 +15,355 @@
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32): 20 bytes an element of
 // (B, T, H, hd) (r, k, v, w read, out written) against about 5 hd flops an
-// element (the output's and the state's multiply-adds, the outer product):
-// bytes bound it, 0.100 ms at the prefill's (2, 4096, 32, 64).  What the
-// design does (the layout of the public RWKV-LM wkv6 CUDA kernel):
-//   * One block a (b, h), one thread a value column j, holding the state's
-//     column S[:, j] (hd floats) in registers for the whole sequence: the
-//     state never touches device memory between steps.
-//   * r_t, k_t and w_t are broadcast through shared memory (each thread
-//     loads one element of each, reads all hd as 16-byte vectors); every
-//     thread sums its own o_t[j] over i, so no reduction crosses threads.
-//   * Two shared buffers, one __syncthreads a step; the next step's four
-//     loads start before this step's arithmetic.
-//   * The state update and the bonus term round as the plain version's
-//     elementwise ops (__fmul_rn, __fadd_rn: k v rounded, u (k v) rounded,
-//     w S rounded, then each sum), so S_T equals it bit for bit; only o's sum
-//     over i (an FMA chain in order of i) differs from its einsum.
-// B x H = 64 blocks of 64 threads leave most of the card idle; a chunked
-// form (GLA-style: intra-chunk products on the tensor cores, the state
-// carried between chunks) is the later redesign.
+// element: bytes bound it, 0.101 ms at the prefill's (2, 4096, 32, 64).  A
+// state kept bitwise the plain loop's costs 4 FP32 instructions an
+// element-step (below), 1.07e9 element-steps there: 0.128 ms on 132 x 128
+// lanes at 1.98 GHz, the ceiling of any design that keeps it.
+//
+// The update S[i][j] <- w_i S[i][j] + k_i v_j is elementwise: no state
+// element reads another, and only the output sums over i.  So the state is
+// spread over the card and advanced a chunk of steps between barriers (one
+// block a (b, h) and one thread a value column ran a step a barrier on 64
+// SMs, at 3 % of the bound):
+//   * A block holds JB value columns of one head (all hd keys), so a head
+//     spans hd / JB blocks: 128 blocks at the prefill's shape.  Its first
+//     NT threads own the state in registers, KI keys x JT columns each; a
+//     warp's lanes run across the columns, its warps across the key groups
+//     (r, k, w reach a warp as broadcast 16-byte reads).
+//   * Its other NF = 128 threads (a warp on each scheduler) stage chunk c + 1
+//     by cp.async into a three-stage ring and finish chunk c - 1's outputs
+//     while the state threads take chunk c's steps: one barrier a chunk.
+//   * A state thread writes, each step, its key group's partial o_t (an FMA
+//     chain over its keys, from the state before the step) to one of two
+//     shared buffers; the finishing threads sum the partials in group order
+//     and store the chunk's outputs as 16-byte rows.
+//   * The bonus term is factored: sum_i r_i u_i k_i v_j = v_j (sum_i r_i u_i
+//     k_i), one scalar a step and head, summed by a finishing warp (lane l's
+//     FMA chain over keys l, l + 32, ..., then a butterfly of shuffles).  A
+//     step then costs an element 4 FP32 instructions (k v, w S, their sum,
+//     the output's FMA), not 6.
+//   * The state update rounds as the plain version's elementwise ops
+//     (__fmul_rn, __fadd_rn: k v rounded, w S rounded, then the sum), so S_T
+//     equals it bit for bit; the output sums in another order than its
+//     einsum (held to a tolerance).  No atomics: reruns are bitwise.
 //
 // C interface (bound with ctypes; every pointer and the stream as void*):
 //   int repro_wkv6(r, k, v, w, u, S0, out, S_T, B, T, H, hd, stream)
 // hd is one of 16, 32, 64, 128; S0 may be null.  Returns cudaGetLastError()
-// after the launch (0 on success, cudaErrorInvalidValue for another hd);
+// after the launch (0 on success, cudaErrorInvalidValue for another hd,
+// cudaErrorMisalignedAddress for an operand not 16-byte aligned);
 // allocates nothing.
 
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+using repro_hopper::cp_async;
+using repro_hopper::cp_async_commit;
+using repro_hopper::cp_async_wait_group;
+using repro_hopper::smem_u32;
+
+constexpr int NS = 3;        // stages in the ring (see the chunk loop)
+constexpr int NF = 128;      // threads that stage chunks and finish outputs
+constexpr int UNROLL = 4;    // steps of the state loop unrolled
+constexpr int JT = 2;        // value columns a state thread
+
+__device__ __forceinline__ int64_t lmin(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
+
+// keys a state thread (KI), value columns a block (JB), steps a chunk (C),
+// by head size
+template <int HD> struct Tile;
+template <> struct Tile<16> { static constexpr int KI = 4, JB = 16, C = 32; };
+template <> struct Tile<32> { static constexpr int KI = 4, JB = 16, C = 32; };
+template <> struct Tile<64> { static constexpr int KI = 8, JB = 32, C = 32; };
+template <> struct Tile<128> { static constexpr int KI = 8, JB = 32, C = 16; };
+
 template <int HD>
-__global__ void __launch_bounds__(HD)
+struct Plan {
+  static constexpr int KI = Tile<HD>::KI, JB = Tile<HD>::JB;
+  static constexpr int C = Tile<HD>::C;
+  static constexpr int G = HD / KI;           // key groups
+  static constexpr int NCG = JB / JT;         // column groups
+  static constexpr int NT = G * NCG;          // threads on the state
+  static constexpr int KL = (HD + 31) / 32;   // keys a lane of the bonus sum
+  static constexpr int RG = HD / 4;           // 16-byte copies a row of r
+  static constexpr int VG = JB / 4;           // 16-byte copies a row of v
+  static constexpr int SW = 32 / VG;          // steps a warp's output row
+  // shared memory, in floats: NS stages of (r, k, w: C x HD; v: C x JB) and
+  // two buffers of partial outputs (C x G x JB)
+  static constexpr int STAGE = C * (3 * HD + JB);
+  static constexpr int PART = C * G * JB;
+  static constexpr size_t BYTES = sizeof(float) * (NS * STAGE + 2 * PART);
+  static_assert(NT % 32 == 0 && KI % 4 == 0 && 32 % VG == 0 &&
+                NF % RG == 0 && NF % VG == 0 && (C * VG) % 32 == 0, "tiles");
+};
+
+// N (2 or 4) consecutive floats, one 8- or 16-byte access
+template <int N>
+__device__ __forceinline__ void ld_vec(const float* p, float (&x)[N]) {
+  if constexpr (N == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    x[0] = q.x; x[1] = q.y;
+  } else {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    x[0] = q.x; x[1] = q.y; x[2] = q.z; x[3] = q.w;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void st_vec(float* p, const float (&x)[N]) {
+  if constexpr (N == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  else
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+  cp_async<16>(smem_u32(dst), src, 16);
+}
+
+// Steps [0, n) of a chunk of (b, h) from element `row` (step 0's row; rows
+// ld apart) into a stage: rows of r, k, w (HD) and v (the block's JB columns
+// from j0).  A thread keeps one 16-byte column of the rows it copies
+// (consecutive threads on consecutive columns) and steps down the rows.
+template <int HD>
+__device__ __forceinline__ void stage_chunk(
+    float* st, const float* __restrict__ r, const float* __restrict__ k,
+    const float* __restrict__ w, const float* __restrict__ v, int64_t row,
+    int64_t ld, int j0, int n, int tid) {
+  using P = Plan<HD>;
+  constexpr int C = P::C;
+  const int c = 4 * (tid % P::RG);
+  for (int t = tid / P::RG; t < n; t += NF / P::RG) {
+    const int64_t src = row + t * ld + c;
+    copy16(st + t * HD + c, r + src);
+    copy16(st + C * HD + t * HD + c, k + src);
+    copy16(st + 2 * C * HD + t * HD + c, w + src);
+  }
+  const int cv = 4 * (tid % P::VG);
+  for (int t = tid / P::VG; t < n; t += NF / P::VG)
+    copy16(st + 3 * C * HD + t * P::JB + cv, v + row + t * ld + j0 + cv);
+}
+
+// Step t's operands of a thread: r, k, w of its KI keys from i0 (16-byte
+// broadcast reads), v of its JT columns from jt.
+template <int HD>
+__device__ __forceinline__ void load_step(const float* st, int t, int i0,
+                                          int jt, float (&rr)[Plan<HD>::KI],
+                                          float (&kk)[Plan<HD>::KI],
+                                          float (&ww)[Plan<HD>::KI],
+                                          float (&vv)[JT]) {
+  using P = Plan<HD>;
+  constexpr int C = P::C;
+#pragma unroll
+  for (int a = 0; a < P::KI; a += 4) {
+    float r4[4], k4[4], w4[4];
+    ld_vec<4>(st + t * HD + i0 + a, r4);
+    ld_vec<4>(st + C * HD + t * HD + i0 + a, k4);
+    ld_vec<4>(st + 2 * C * HD + t * HD + i0 + a, w4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      rr[a + e] = r4[e];
+      kk[a + e] = k4[e];
+      ww[a + e] = w4[e];
+    }
+  }
+  ld_vec<JT>(st + 3 * C * HD + t * P::JB + jt, vv);
+}
+
+// One step of a thread's elements: its key group's partial output (an FMA
+// chain over its keys, from the state before the step) stored at p, then
+// S <- w S + k v, each product and the sum rounded as the plain loop does.
+template <int HD>
+__device__ __forceinline__ void advance(
+    float (&S)[Plan<HD>::KI][JT], const float (&rr)[Plan<HD>::KI],
+    const float (&kk)[Plan<HD>::KI], const float (&ww)[Plan<HD>::KI],
+    const float (&vv)[JT], float* p) {
+  float acc[JT];
+#pragma unroll
+  for (int b = 0; b < JT; ++b) acc[b] = 0.f;
+#pragma unroll
+  for (int a = 0; a < Plan<HD>::KI; ++a) {
+#pragma unroll
+    for (int b = 0; b < JT; ++b) {
+      acc[b] = fmaf(rr[a], S[a][b], acc[b]);
+      const float kv = __fmul_rn(kk[a], vv[b]);
+      S[a][b] = __fadd_rn(__fmul_rn(ww[a], S[a][b]), kv);
+    }
+  }
+  st_vec<JT>(p, acc);
+}
+
+// The outputs of a chunk's steps [0, n) staged at st, whose partials are at
+// part: o_t[j] = (the partials in group order) + v_j b_t, where the bonus
+// sum b_t = sum_i (r_i u_i) k_i is lane l's FMA chain over keys l, l + 32,
+// ... met with the other lanes' in a butterfly of shuffles (the same order
+// on every lane).  A warp takes SW whole steps of outputs (16-byte rows) a
+// pass, and sums their SW bonus terms itself.
+template <int HD>
+__device__ __forceinline__ void finish_chunk(
+    const float* st, const float* part, const float (&ul)[Plan<HD>::KL],
+    float* __restrict__ out, int64_t row, int64_t ld, int j0, int n,
+    int tid) {
+  using P = Plan<HD>;
+  constexpr int C = P::C, JB = P::JB, G = P::G, VG = P::VG, SW = P::SW;
+  const int lane = tid % 32;
+#pragma unroll 1
+  for (int idx = tid; idx < C * VG; idx += NF) {
+    const int t0 = (idx - lane) / VG;         // the warp's first step
+    float bt = 0.f;
+#pragma unroll
+    for (int s = 0; s < SW; ++s) {
+      const float* rs = st + (t0 + s) * HD;
+      float b = 0.f;
+#pragma unroll
+      for (int m = 0; m < P::KL; ++m) {
+        const int i = lane + 32 * m;
+        if (i < HD) b = fmaf(rs[i] * ul[m], rs[C * HD + i], b);
+      }
+#pragma unroll
+      for (int d = 16; d >= 1; d /= 2) b += __shfl_xor_sync(~0u, b, d);
+      if (s == lane / VG) bt = b;
+    }
+    const int t = idx / VG, c4 = 4 * (idx % VG);
+    if (t < n) {
+      float o[4], p[4], vq[4];
+      ld_vec<4>(part + t * G * JB + c4, o);
+#pragma unroll
+      for (int g = 1; g < G; ++g) {
+        ld_vec<4>(part + (t * G + g) * JB + c4, p);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[e] += p[e];
+      }
+      ld_vec<4>(st + 3 * C * HD + t * JB + c4, vq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[e] = fmaf(vq[e], bt, o[e]);
+      st_vec<4>(out + row + t * ld + j0 + c4, o);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Plan<HD>::NT + NF, 1)
 wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ w,
             const float* __restrict__ u, const float* __restrict__ S0,
             float* __restrict__ out, float* __restrict__ ST, int64_t T,
             int H) {
-  __shared__ __align__(16) float rs[2][HD];
-  __shared__ __align__(16) float ks[2][HD];
-  __shared__ __align__(16) float ws[2][HD];
-  __shared__ __align__(16) float us[HD];
-  const int64_t bh = blockIdx.x;          // b * H + h
+  using P = Plan<HD>;
+  constexpr int KI = P::KI, JB = P::JB, G = P::G, NCG = P::NCG;
+  constexpr int C = P::C, KL = P::KL;
+  extern __shared__ __align__(16) float smem[];
+  float* parts = smem + NS * P::STAGE;        // [2][C][G][JB]
+
+  const int jblocks = HD / JB;
+  const int64_t bh = blockIdx.x / jblocks;    // b * H + h
+  const int j0 = (int)(blockIdx.x - bh * jblocks) * JB;
   const int hh = (int)(bh % H);
   const int64_t bi = bh / H;
-  const int j = threadIdx.x;
-  const int64_t ld = (int64_t)H * HD;     // one step of (B, T, H, hd)
-  const int64_t base = (bi * T * H + hh) * HD + j;
+  const int64_t ld = (int64_t)H * HD;         // one step of (B, T, H, hd)
+  const int64_t row0 = (bi * T * H + hh) * HD;
+  const int64_t chunks = (T + C - 1) / C;
 
-  float S[HD];
-  const float* s0 = S0 != nullptr ? S0 + bh * HD * HD + j : nullptr;
+  // Threads NT .. NT + NF - 1 stage chunk c + 1 into stage (c + 1) % 3 and
+  // finish chunk c - 1 (stage (c - 1) % 3, partial buffer (c - 1) % 2)
+  // while threads 0 .. NT - 1 take chunk c's steps (stage c % 3, into
+  // buffer c % 2).  One barrier a chunk: past it, chunk c has landed and
+  // every thread is done with chunk c - 1's steps and chunk c - 2's outputs.
+  if (threadIdx.x >= P::NT) {
+    const int f = threadIdx.x - P::NT, lane = f % 32;
+    float ul[KL];                             // u of keys lane, lane + 32, ..
 #pragma unroll
-  for (int i = 0; i < HD; ++i) S[i] = s0 != nullptr ? s0[i * HD] : 0.f;
-  us[j] = u[hh * HD + j];
-
-  float rn = __ldg(r + base), kn = __ldg(k + base), wn = __ldg(w + base),
-        vn = __ldg(v + base);
-  for (int64_t t = 0; t < T; ++t) {
-    const int buf = (int)(t & 1);
-    rs[buf][j] = rn;
-    ks[buf][j] = kn;
-    ws[buf][j] = wn;
-    const float vj = vn;
+    for (int m = 0; m < KL; ++m)
+      ul[m] = lane + 32 * m < HD ? u[hh * HD + lane + 32 * m] : 0.f;
+    stage_chunk<HD>(smem, r, k, w, v, row0, ld, j0, (int)lmin(C, T), f);
+    cp_async_commit();
+    for (int64_t c = 0; c < chunks; ++c) {
+      cp_async_wait_group<0>();
+      __syncthreads();
+      if (c + 1 < chunks)
+        stage_chunk<HD>(smem + ((c + 1) % NS) * P::STAGE, r, k, w, v,
+                        row0 + (c + 1) * C * ld, ld, j0,
+                        (int)lmin(C, T - (c + 1) * C), f);
+      cp_async_commit();
+      if (c > 0)
+        finish_chunk<HD>(smem + ((c - 1) % NS) * P::STAGE,
+                         parts + ((c - 1) & 1) * P::PART, ul, out,
+                         row0 + (c - 1) * C * ld, ld, j0, C, f);
+    }
     __syncthreads();
-    if (t + 1 < T) {
-      const int64_t o = base + (t + 1) * ld;
-      rn = __ldg(r + o);
-      kn = __ldg(k + o);
-      wn = __ldg(w + o);
-      vn = __ldg(v + o);
-    }
-    const float4* r4 = reinterpret_cast<const float4*>(rs[buf]);
-    const float4* k4 = reinterpret_cast<const float4*>(ks[buf]);
-    const float4* w4 = reinterpret_cast<const float4*>(ws[buf]);
-    const float4* u4 = reinterpret_cast<const float4*>(us);
-    float acc = 0.f;
-#pragma unroll
-    for (int q = 0; q < HD / 4; ++q) {
-      const float4 rq = r4[q], kq = k4[q], wq = w4[q], uq = u4[q];
-      const float rr[4] = {rq.x, rq.y, rq.z, rq.w};
-      const float kk[4] = {kq.x, kq.y, kq.z, kq.w};
-      const float ww[4] = {wq.x, wq.y, wq.z, wq.w};
-      const float uu[4] = {uq.x, uq.y, uq.z, uq.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 4 * q + e;
-        const float kv = __fmul_rn(kk[e], vj);
-        acc = fmaf(rr[e], __fadd_rn(S[i], __fmul_rn(uu[e], kv)), acc);
-        S[i] = __fadd_rn(__fmul_rn(ww[e], S[i]), kv);
-      }
-    }
-    out[base + t * ld] = acc;
+    const int64_t last = chunks - 1;
+    finish_chunk<HD>(smem + (last % NS) * P::STAGE,
+                     parts + (last & 1) * P::PART, ul, out,
+                     row0 + last * C * ld, ld, j0, (int)(T - last * C), f);
+    return;
   }
-  float* st = ST + bh * HD * HD + j;
+
+  const int kg = threadIdx.x / NCG, cg = threadIdx.x - kg * NCG;
+  const int i0 = kg * KI, jt = JT * cg;       // this thread's first key, column
+  float S[KI][JT];
 #pragma unroll
-  for (int i = 0; i < HD; ++i) st[i * HD] = S[i];
+  for (int a = 0; a < KI; ++a) {
+#pragma unroll
+    for (int b = 0; b < JT; ++b) S[a][b] = 0.f;
+    if (S0 != nullptr) ld_vec<JT>(S0 + (bh * HD + i0 + a) * HD + j0 + jt, S[a]);
+  }
+  for (int64_t c = 0; c < chunks; ++c) {
+    const int n = (int)lmin(C, T - c * C);
+    const float* st = smem + (c % NS) * P::STAGE;
+    float* part = parts + (c & 1) * P::PART;
+    __syncthreads();
+    // step t + 1's operands are read before step t's partial is stored (a
+    // read past the chunk's last step stays inside shared memory and is
+    // not used)
+    float rr[KI], kk[KI], ww[KI], vv[JT];
+    load_step<HD>(st, 0, i0, jt, rr, kk, ww, vv);
+#pragma unroll UNROLL
+    for (int t = 0; t < n; ++t) {
+      float rn[KI], kn[KI], wn[KI], vn[JT];
+      load_step<HD>(st, t + 1, i0, jt, rn, kn, wn, vn);
+      advance<HD>(S, rr, kk, ww, vv, part + (t * G + kg) * JB + jt);
+#pragma unroll
+      for (int a = 0; a < KI; ++a) {
+        rr[a] = rn[a];
+        kk[a] = kn[a];
+        ww[a] = wn[a];
+      }
+#pragma unroll
+      for (int b = 0; b < JT; ++b) vv[b] = vn[b];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < KI; ++a)
+    st_vec<JT>(ST + (bh * HD + i0 + a) * HD + j0 + jt, S[a]);
 }
 
 template <int HD>
-void launch(const float* r, const float* k, const float* v, const float* w,
-            const float* u, const float* S0, float* out, float* ST,
-            int64_t B, int64_t T, int H, cudaStream_t s) {
-  wkv6_kernel<HD><<<(unsigned)(B * H), HD, 0, s>>>(r, k, v, w, u, S0, out,
-                                                    ST, T, H);
+int launch(const float* r, const float* k, const float* v, const float* w,
+           const float* u, const float* S0, float* out, float* ST, int64_t B,
+           int64_t T, int H, cudaStream_t s) {
+  using P = Plan<HD>;
+  static unsigned done = 0;   // devices whose shared memory limit is raised
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && !(dev < 32 && (done >> dev & 1u))) {
+    e = cudaFuncSetAttribute(wkv6_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)P::BYTES);
+    if (e == cudaSuccess && dev < 32) done |= 1u << dev;
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned blocks = (unsigned)(B * H * (HD / P::JB));
+  wkv6_kernel<HD><<<blocks, P::NT + NF, P::BYTES, s>>>(r, k, v, w, u, S0,
+                                                          out, ST, T, H);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -129,6 +374,10 @@ extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
                           long long H, long long hd, void* stream) {
   cudaGetLastError();  // report this call's launch, not an older error
   if (B * H == 0 || T == 0) return 0;
+  if ((reinterpret_cast<uintptr_t>(r) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(S0)) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const auto* r_ = static_cast<const float*>(r);
   const auto* k_ = static_cast<const float*>(k);
   const auto* v_ = static_cast<const float*>(v);
@@ -139,12 +388,11 @@ extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
   auto* st = static_cast<float*>(ST);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: launch<16>(r_, k_, v_, w_, u_, s0, o_, st, B, T, (int)H, s); break;
-    case 32: launch<32>(r_, k_, v_, w_, u_, s0, o_, st, B, T, (int)H, s); break;
-    case 64: launch<64>(r_, k_, v_, w_, u_, s0, o_, st, B, T, (int)H, s); break;
-    case 128: launch<128>(r_, k_, v_, w_, u_, s0, o_, st, B, T, (int)H, s);
-      break;
+    case 16: return launch<16>(r_, k_, v_, w_, u_, s0, o_, st, B, T, (int)H, s);
+    case 32: return launch<32>(r_, k_, v_, w_, u_, s0, o_, st, B, T, (int)H, s);
+    case 64: return launch<64>(r_, k_, v_, w_, u_, s0, o_, st, B, T, (int)H, s);
+    case 128:
+      return launch<128>(r_, k_, v_, w_, u_, s0, o_, st, B, T, (int)H, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

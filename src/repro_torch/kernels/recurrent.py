@@ -53,11 +53,18 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+def _aligned(t: torch.Tensor | None) -> torch.Tensor | None:
+    """``t``, or a copy of it where its first element is not 16-byte
+    aligned: the kernels stage their operands by 16-byte copies."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
 def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
                     h0: torch.Tensor | None) -> torch.Tensor:
     """h (B, T, R) of ``h_t = a_t h_{t-1} + b_t`` on the card; a, b
     (B, T, R) and h0 (B, R) or None, contiguous fp32."""
     B, T, R = a.shape
+    a, b = _aligned(a), _aligned(b)
     h = torch.empty_like(a)
     with torch.cuda.device(a.device):
         err = _lib("rglru_scan").repro_rglru_scan(
@@ -73,6 +80,7 @@ def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the card; r, k, v, w (B, T, H, hd), u (H, hd), S0 (B, H, hd, hd) or
     None, contiguous fp32, hd in ``WKV_HEAD_DIMS``."""
     B, T, H, hd = r.shape
+    r, k, v, w, S0 = (_aligned(x) for x in (r, k, v, w, S0))
     out = torch.empty_like(r)
     S_T = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):

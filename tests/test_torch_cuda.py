@@ -50,8 +50,10 @@ bitwise the CPU path's, with its launch and PCIe byte counts, through
 empty and shrinking blocks too; a block beyond int32 nonzeros refused;
 and a sparse solve on the card resumed from a checkpoint bitwise.
 The LM's recurrences (``rglru_scan``, ``wkv6``) against their plain loops
-at small and ragged shapes (T = 1, T past a chunk, with and without an
-initial state): RG-LRU's h and RWKV-6's state bitwise (both round each
+at small and ragged shapes (T = 1, T past a stage or chunk and at
+``wkv6``'s chunk edges at each head size, R no multiple of 4, decays
+below 1e-30 and at 1 - 2^-24, with and without an initial state, reruns
+bitwise): RG-LRU's h and RWKV-6's state bitwise (both round each
 product, then each sum, as the plain version's elementwise ops), each
 output within its stated limit (``rglru_scan`` 1e-5, ``wkv6`` 1e-4 of the
 output's largest magnitude: the RWKV-6 output's sum over the key index
@@ -1507,7 +1509,8 @@ def _rel_max(got, want):
 
 
 @pytest.mark.parametrize("B,T,R", [(2, 1, 64), (2, 37, 130), (1, 4097, 96),
-                                   (3, 16, 4096)])
+                                   (3, 16, 4096), (2, 161, 100),
+                                   (1, 95, 4099)])
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_rglru_scan_kernel_matches_plain_version(card, B, T, R, with_h0):
     g = torch.Generator(device=card).manual_seed(B * T + R)
@@ -1550,6 +1553,54 @@ def test_wkv6_kernel_matches_plain_version(card, B, T, H, hd, with_s0):
     assert _rel_max(out, want_o) <= TOL_WKV6
     assert _rel_max(S_T, want_s) <= TOL_WKV6
     assert torch.equal(S_T, want_s)
+
+
+#: steps a chunk of ``csrc/wkv6.cu`` by head size (its Tile's C)
+WKV_CHUNK = {16: 32, 32: 32, 64: 32, 128: 16}
+
+
+def _wkv6_case(card, B, T, H, hd, w=None, with_s0=True, seed=0):
+    """The kernel against the plain loop on one draw (``w`` replacing the
+    decays where given): one launch, the output within ``TOL_WKV6``, the
+    state bitwise, and a rerun bitwise."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    r, k, v, w0, u = _wkv_operands(g, card, B, T, H, hd)
+    w = w0 if w is None else w(g)
+    S0 = (torch.randn((B, H, hd, hd), generator=g, device=card)
+          if with_s0 else None)
+    ops.reset_launches()
+    out, S_T = ops.wkv6(r, k, v, w, u, S0)
+    torch.cuda.synchronize()
+    assert ops.launches["wkv6"] == 1
+    want_o, want_s = ref.wkv6_ref(r, k, v, w, u, S0)
+    assert _rel_max(out, want_o) <= TOL_WKV6
+    assert torch.equal(S_T, want_s)
+    again = ops.wkv6(r, k, v, w, u, S0)
+    assert torch.equal(again[0], out) and torch.equal(again[1], S_T)
+
+
+@pytest.mark.parametrize("hd,T", [(hd, C + d) for hd, C in WKV_CHUNK.items()
+                                  for d in (-1, 0, 1)])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv6_kernel_at_chunk_edges(card, hd, T, with_s0):
+    _wkv6_case(card, 2, T, 3, hd, with_s0=with_s0, seed=T + hd)
+
+
+#: decays at the edges the plain loop takes: all below 1e-30 (exp(-80)
+#: and less), and all 1 - 2^-24, the largest float32 below 1
+WKV_DECAYS = {
+    "strong": lambda shape: lambda g: torch.exp(
+        -80.0 - torch.rand(shape, generator=g, device=g.device) * 10.0),
+    "near_one": lambda shape: lambda g: torch.full(
+        shape, 1.0 - 2.0 ** -24, device=g.device)}
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("decay", sorted(WKV_DECAYS))
+def test_wkv6_kernel_at_extreme_decays(card, hd, decay):
+    B, T, H = 2, 2 * WKV_CHUNK[hd] + 5, 2
+    _wkv6_case(card, B, T, H, hd, w=WKV_DECAYS[decay]((B, T, H, hd)),
+               seed=hd)
 
 
 def test_wkv6_refuses_an_untemplated_head_size(card):

@@ -97,6 +97,76 @@ def test_wkv6_matches_jax(B, T, H, hd, with_s0):
     assert torch.equal(o2, got_o) and torch.equal(s2, got_s)
 
 
+#: ``csrc/wkv6.cu``'s order of the output's sums: keys a thread (its Tile
+#: KI) by head size; lanes of the warp that sums a step's bonus
+WKV_KEYS_A_THREAD = {16: 4, 32: 4, 64: 8, 128: 8}
+WKV_LANES = 32
+
+
+def _fma(a, b, c):
+    """fp32 ``a * b + c`` rounded once (the product is exact in float64;
+    the sum's rounding to float64 first aside)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _wkv6_kernel_order(r, k, v, w, u, S0):
+    """``wkv6`` with the card kernel's output order in plain PyTorch: each
+    key group's partial an FMA chain over its keys from the state before
+    the step, the partials summed in group order, then v_j times the
+    factored bonus sum_i (r_i u_i) k_i (lane l's FMA chain over keys l,
+    l + 32, ..., the lanes' sums met in a butterfly of xor-shuffles).  The
+    state as the kernel rounds it: k v, w S, their sum."""
+    B, T, H, hd = r.shape
+    KI = WKV_KEYS_A_THREAD[hd]
+    G, L = hd // KI, WKV_LANES
+    lanes = torch.arange(L)
+    S = r.new_zeros((B, H, hd, hd)) if S0 is None else S0.clone()
+    out = []
+    for t in range(T):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
+        acc = torch.zeros((B, H, G, hd))
+        for a in range(KI):
+            acc = _fma(rt.view(B, H, G, KI)[..., a, None],
+                       S.view(B, H, G, KI, hd)[:, :, :, a], acc)
+        o = acc[:, :, 0]
+        for g in range(1, G):
+            o = o + acc[:, :, g]
+        ru = rt * u
+        b = torch.zeros((B, H, L))
+        for m in range(0, hd, L):
+            keys = lanes + m
+            live = keys < hd
+            keys = keys.clamp(max=hd - 1)
+            b = torch.where(live, _fma(ru[..., keys], kt[..., keys], b), b)
+        d = L // 2
+        while d:
+            b = b + b[..., lanes ^ d]
+            d //= 2
+        out.append(_fma(vt, b[..., :1], o))
+        S = wt[..., None] * S + kt[..., :, None] * vt[..., None, :]
+    return torch.stack(out, dim=1), S
+
+
+@pytest.mark.parametrize("decay", ["strong", "near_one"])
+def test_wkv6_kernel_order_fits_the_card_limit(decay):
+    """The card kernel sums the output in another order than the plain
+    loop's einsum (``tests/test_torch_cuda.py``'s ``TOL_WKV6``, 1e-4 of
+    the output's largest magnitude): its order, emulated here over 4097
+    steps (128 chunks and one step) at the two edges of the decays (all
+    below 1e-30; all 1 - 2^-24), fits that limit, and its state is the
+    plain loop's bit for bit."""
+    B, T, H, hd = 1, 4097, 2, 64
+    r, k, v, _, u, S0 = _wkv_inputs(np.random.default_rng(31), B, T, H, hd)
+    rng = np.random.default_rng(32)
+    w = (np.exp(-80.0 - 10.0 * rng.random((B, T, H, hd))) if decay == "strong"
+         else np.full((B, T, H, hd), 1.0 - 2.0 ** -24)).astype(np.float32)
+    args = [torch.from_numpy(x) for x in (r, k, v, w, u, S0)]
+    got_o, got_s = _wkv6_kernel_order(*args)
+    want_o, want_s = ref.wkv6_ref(*args)
+    assert _rel_max(got_o.numpy(), want_o.numpy()) <= 1e-4
+    assert torch.equal(got_s, want_s)
+
+
 def test_recurrences_are_differentiable_on_the_cpu():
     rng = np.random.default_rng(5)
     a, b, h0 = (torch.from_numpy(x).requires_grad_()

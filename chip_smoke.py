@@ -332,7 +332,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    version and timed.  12.3: the
    runner with a failure planted before step 5 and a checkpoint every 4
    steps (qwen3's widths, 2 layers) resumes bitwise: every loss and the
-   final state.  12.4: the fp32 smoke configs of gemma2-9b and qwen3-0.6b,
+   final state.  12.4: the fp32 smoke configs of the dense-attention
+   text archs (gemma2-9b, qwen3-0.6b, starcoder2-15b, yi-6b),
    3 steps plain and 3 compressed at lr 5e-3 on the card and on the CPU
    from one state: every loss within 1e-4, each parameter tensor within
    1e-4 of its norm (not element by element: see ``train_card_vs_cpu``).  ``--only-training`` runs phases 1 and 12 alone.
@@ -388,6 +389,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    at the published 1.25 printed), and a profile of a prefill of the two
    recurrent models.  ``--only-lm-families`` runs phases 1 and 14
    alone.
+15. training of the recurrent families.  15.1: the backward kernels of
+   the recurrences (``rglru_scan_bwd``, ``wkv6_bwd``: ``csrc/rglru_scan.cu``
+   and ``csrc/wkv6.cu``) against their plain reverse loops
+   (``ref.rglru_scan_bwd_ref``, ``ref.wkv6_bwd_ref``) at ``REC_RAGGED``'s
+   shapes, with and without an initial state (wkv6: and a given or an
+   absent dS_T) and wkv6 at ``REC_DECAYS``' edges: RG-LRU's da, db, dh0
+   and wkv6's dS0 bitwise, wkv6's other gradients within
+   ``TOL_WKV6_BWD`` (1e-4 of each one's max |value|), every rerun
+   bitwise; then at a training step's shapes (8, 2048, 4096) and (8,
+   2048, 32, 64), timed beside their bounds and plain loops, with wkv6's
+   forward timed with and without its chunk starts; the attention
+   backward at recurrentgemma-9b's local layers' training shape (MQA, a
+   group of 16 at D 256, window 2048) held element by element to its
+   plain version with float64 sums (the fp32 one's reading beside).
+   15.2: rwkv6-1.6b (24 layers) and recurrentgemma-9b (cut to 6 of 38
+   layers, two groups: ``RT_MODELS``) at full width, bf16 parameters,
+   fp32 moments, ``loss_chunks`` 8, 8 x 2048 synthetic tokens a step,
+   ``RT_STEPS`` plain steps: the loss falls, every step's launches equal
+   the accounting (a recurrent layer its recurrence twice and its
+   backward kernel once, a local layer the attention twice and its
+   backward's kernels once), ms a step, tokens/s, peak memory, and a
+   profiled step (busy share, top kernels, the backward kernels'
+   share); two compressed steps of rwkv6-1.6b (``compress_ratio`` the
+   JAX package's 6335569920 / 24149248); each family at full width and
+   2 layers stepped twice from one state, bitwise.  15.3: the fp32 smoke
+   configs of the six other families (recurrentgemma, rwkv6, grok-1,
+   llama4-scout, llava-next, musicgen) trained on the card and on the CPU
+   as in 12.4 without the compression; with it, each step from the
+   CPU's state on both, the loss and each compressed leaf's P Qn^T held
+   to 1e-4 (``compressed_card_vs_cpu`` says why not the trajectory).
+   ``--only-recurrent-training`` runs phases 1 and 15 alone.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches in the
 run of its path, and its times; the block sweeps as ``<name>/tf32x3``
@@ -411,7 +443,7 @@ solve) and the same with ``[bf16]`` (from the bf16 solve); before them an
 line with phase 10's, a ``{"serving": {...}}`` line with phase 11's and
 a ``{"training": {...}}`` line with phase 12's, an ``{"analysis":
 {...}}`` line with phase 13's, an ``{"lm_families": {...}}`` line with
-phase 14's; the recurrences as ``rglru_scan`` and ``wkv6``, launches
+phase 14's, a ``{"recurrent_training": {...}}`` line with phase 15's; the recurrences as ``rglru_scan`` and ``wkv6``, launches
 from phase 14's served models (prefill and decode), each with its
 ``share_of_bound`` (``bound_ms`` over ``ms``);
 the sharded path's launches (10.1, one rank) as
@@ -424,7 +456,9 @@ their shapes in phase 11; the training path's (phase 12.2) as
 ``local_attention_bwd/wgmma``, ``local_attention[training]`` (the forward with
 its log-sum-exp), ``block_matvec/tf32x3[compression]`` and
 ``block_rmatvec/tf32x3[compression]`` (one step's eight sweeps, their
-times summed); and each phase's seconds.
+times summed); the recurrences' backward kernels as ``rglru_scan_bwd``
+and ``wkv6_bwd``, launches from phase 15.2's training steps, timed at a
+training step's shapes; and each phase's seconds.
 Exits 2 without a CUDA device or without ``src/repro_torch`` beside this
 script.
 """
@@ -4360,7 +4394,12 @@ TR_LR = 1e-3                               # warmup 2 steps, then cosine
 # the restart check (12.3): qwen3-0.6b's widths, 2 layers, 2 x 256 tokens
 TR_RESTART_LAYERS, TR_RESTART_TOKENS = 2, (2, 256)
 TR_RESTART_STEPS, TR_CKPT_EVERY, TR_FAIL_AT = 8, 4, 5
-TR_CPU_ARCHS, TR_CPU_STEPS = ("gemma2-9b", "qwen3-0.6b"), 3
+# card against CPU at smoke size: all ten archs, the dense-attention text
+# ones in 12.4, the other families (recurrent, MoE, VLM, audio) in 15.3
+TR_CPU_ARCHS = ("gemma2-9b", "qwen3-0.6b", "starcoder2-15b", "yi-6b",
+                "recurrentgemma-9b", "rwkv6-1.6b", "grok-1-314b",
+                "llama4-scout-17b-a16e", "llava-next-34b", "musicgen-large")
+TR_CPU_DENSE, TR_CPU_STEPS = 4, 3
 TOL_TRAIN_CPU = 1e-4                       # card vs CPU, smoke size, fp32
 TR_CPU_LR = 5e-3                           # 12.4's AdamW lr
 # the backward kernel at ragged shapes: (B, H, Hkv, S, window, softcap);
@@ -4619,17 +4658,36 @@ def attention_bwd_path(torch, ops, ref, la, g, dev, planted=None) -> dict:
     return rows
 
 
+def tree_to(tree, where):
+    """A state tree (``TrainState.tree()``) cloned onto ``where``."""
+    if isinstance(tree, dict):
+        return {key: tree_to(val, where) for key, val in tree.items()}
+    return None if tree is None else tree.detach().to(where).clone()
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in tree_leaves(tree[key])]
+    return [] if tree is None else [tree]
+
+
 def train_expected(cfg, micro: int, n_comp: int) -> dict:
     """The kernels one train step launches, by its accounting: the
-    attention forward once a layer and again in the remat recompute, the
-    backward's kernels once a layer, and with compression one
-    ``block_matvec`` and one ``block_rmatvec`` a compressed leaf, on
-    ``tf32x3``."""
+    attention forward once an attention layer and again in the remat
+    recompute, the backward's kernels once such a layer; a recurrent
+    layer's recurrence (``rglru_scan``, ``wkv6``) likewise twice and its
+    backward kernel once; and with compression one ``block_matvec`` and
+    one ``block_rmatvec`` a compressed leaf, on ``tf32x3``."""
     from repro_torch.kernels import local_attn
     remat = 2 if cfg.remat_policy in ("minimal", "full") else 1
-    L = cfg.num_layers
-    return {"local_attention": L * remat * micro,
-            "local_attention_bwd": L * local_attn.BWD_KERNELS * micro,
+    n_attn = sum(kind in ("attn", "local") for kind in cfg.blocks)
+    n_rglru, n_rwkv = cfg.blocks.count("rglru"), cfg.blocks.count("rwkv")
+    return {"local_attention": n_attn * remat * micro,
+            "local_attention_bwd": n_attn * local_attn.BWD_KERNELS * micro,
+            "rglru_scan": n_rglru * remat * micro,
+            "rglru_scan_bwd": n_rglru * micro,
+            "wkv6": n_rwkv * remat * micro,
+            "wkv6_bwd": n_rwkv * micro,
             "block_matvec": n_comp,
             "block_rmatvec": n_comp}
 
@@ -4651,11 +4709,10 @@ def train_run(torch, ops, dev, cfg, tc, batches, profile=False) -> dict:
     want = train_expected(cfg, tc.microbatches, len(comp_shapes))
     bwd_route = local_attn.bwd_route(getattr(torch, cfg.dtype),
                                      cfg.head_dim)
-    routes = {f"local_attention_bwd/{bwd_route}":
-              want["local_attention_bwd"],
-              **({"block_matvec/tf32x3": want["block_matvec"],
-                  "block_rmatvec/tf32x3": want["block_rmatvec"]}
-                 if want["block_matvec"] else {})}
+    routes = {name: c for name, c in (
+        (f"local_attention_bwd/{bwd_route}", want["local_attention_bwd"]),
+        ("block_matvec/tf32x3", want["block_matvec"]),
+        ("block_rmatvec/tf32x3", want["block_rmatvec"])) if c}
     losses, ms, totals = [], [], {}
     torch.cuda.reset_peak_memory_stats()
     for i, batch in enumerate(batches):
@@ -4687,23 +4744,42 @@ def train_run(torch, ops, dev, cfg, tc, batches, profile=False) -> dict:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         share = lambda key: sum(t for nm, t in by_name.items()
                                 if key in nm) / max(busy, 1e-12)
-        # the backward's kernels by name: delta and the route's two
+        # the attention backward's kernels by name: delta and the
+        # route's two (the recurrences' backward kernels apart)
         import re
+        rec = ("rglru_scan_bwd", "wkv6_bwd")
         bwd_ms = {re.search(r"bwd_\w+<[^>]*>", nm).group(0): t * 1e3
-                  for nm, t in by_name.items() if "bwd_" in nm}
-        if sorted(bwd_ms) != sorted(
-                f"{k}<{cfg.head_dim}>" if k.endswith("wgmma") else
-                f"{k}<__nv_bfloat16, {cfg.head_dim}>"
-                for k in (("bwd_delta", "bwd_dkdv_wgmma", "bwd_dq_wgmma")
-                          if bwd_route == "wgmma" else
-                          ("bwd_delta", "bwd_dkdv", "bwd_dq"))):
+                  for nm, t in by_name.items()
+                  if "bwd_" in nm and not any(r in nm for r in rec)}
+        want_bwd = sorted(
+            f"{k}<{cfg.head_dim}>" if k.endswith("wgmma") else
+            f"{k}<__nv_bfloat16, {cfg.head_dim}>"
+            for k in (("bwd_delta", "bwd_dkdv_wgmma", "bwd_dq_wgmma")
+                      if bwd_route == "wgmma" else
+                      ("bwd_delta", "bwd_dkdv", "bwd_dq")))
+        if sorted(bwd_ms) != (want_bwd if want["local_attention_bwd"]
+                              else []):
             fail(f"the profiled step's backward kernels: {sorted(bwd_ms)}")
+        rec_ms = {nm[:60]: t * 1e3 for nm, t in by_name.items()
+                  if any(r in nm for r in rec)}
+        if sorted(r for r in rec if any(r in nm for nm in rec_ms)) != \
+                sorted(r for r in rec if want[r]):
+            fail(f"the profiled step's recurrence backward kernels: "
+                 f"{sorted(rec_ms)}")
         out["profile"] = {
             "wall_ms": wall * 1e3, "busy_ms": busy * 1e3,
             "busy_share": busy / wall, "activities": n,
             "attention_bwd_ms": bwd_ms,
-            "attention_bwd_share": share("bwd_"),
+            "attention_bwd_share": sum(t for nm, t in by_name.items()
+                                       if "bwd_" in nm and not any(
+                                           r in nm for r in rec))
+            / max(busy, 1e-12),
             "attention_fwd_share": share("local_attn"),
+            "recurrence_bwd_ms": rec_ms,
+            "recurrence_bwd_share": share("rglru_scan_bwd")
+            + share("wkv6_bwd"),
+            "recurrence_fwd_share": share("rglru_scan_kernel")
+            + share("wkv6_kernel"),
             "sweeps_share": share("tf32"),
             "top_ms": {nm[:60]: t * 1e3 for nm, t in top}}
     del state
@@ -4806,15 +4882,11 @@ def train_restart(torch, dev) -> dict:
     lb = {h["step"]: h["loss"] for h in rb.history}
     replayed = [h["loss"] for h in rb.history if h["step"] == TR_CKPT_EVERY]
 
-    def leaves(tree):
-        if isinstance(tree, dict):
-            return [x for key in sorted(tree) for x in leaves(tree[key])]
-        return [] if tree is None else [tree]
     same = all(torch.equal(a.detach(), b.detach())
-               for a, b in zip(leaves(ta), leaves(tb)))
+               for a, b in zip(tree_leaves(ta), tree_leaves(tb)))
     out = {"restarts": rb.restarts, "losses_bitwise": la == lb,
            "replayed_step_bitwise": len(set(replayed)) == 1,
-           "state_bitwise": same, "leaves": len(leaves(ta)),
+           "state_bitwise": same, "leaves": len(tree_leaves(ta)),
            "seconds": time.perf_counter() - t0}
     print(f"  restart: a failure before step {TR_FAIL_AT}, checkpoints every "
           f"{TR_CKPT_EVERY} steps ({cfg.num_layers} layers of "
@@ -4828,8 +4900,9 @@ def train_restart(torch, dev) -> dict:
     return out
 
 
-def train_card_vs_cpu(torch, dev) -> dict:
-    """12.4: the smoke configs (fp32) trained ``TR_CPU_STEPS`` steps on
+def train_card_vs_cpu(torch, dev, archs, modes=(False, True)) -> dict:
+    """12.4 and 15.3 (plain; ``modes``: compression off, on): the smoke
+    configs (fp32) of ``archs`` trained ``TR_CPU_STEPS`` steps on
     the card and on ``device="cpu"`` from the same state (made on the
     CPU and copied), plain and compressed: every loss within
     ``TOL_TRAIN_CPU``, and each parameter tensor within
@@ -4848,13 +4921,8 @@ def train_card_vs_cpu(torch, dev) -> dict:
     from repro_torch.training import (TrainConfig, init_train_state,
                                       make_train_step)
 
-    def to(tree, where):
-        if isinstance(tree, dict):
-            return {key: to(val, where) for key, val in tree.items()}
-        return None if tree is None else tree.detach().to(where).clone()
     out = {}
-    for arch, enabled in ((a, e) for a in TR_CPU_ARCHS for e in (False,
-                                                                 True)):
+    for arch, enabled in ((a, e) for a in archs for e in modes):
         cfg = configs.smoke_config(configs.get_config(arch))
         tc = TrainConfig(adamw=AdamWConfig(lr=TR_CPU_LR, warmup_steps=1,
                                            total_steps=TR_CPU_STEPS),
@@ -4862,8 +4930,11 @@ def train_card_vs_cpu(torch, dev) -> dict:
                              enabled=enabled, rank=TR_RANK, min_size=512))
         sc = init_train_state(cfg, tc, device="cpu")
         sg = init_train_state(cfg, tc, device=dev)
-        sg.load_tree(to(sc.tree(), dev))
-        ds = SyntheticLMDataset(DataConfig(cfg.vocab_size, 32, 4))
+        sg.load_tree(tree_to(sc.tree(), dev))
+        ds = SyntheticLMDataset(DataConfig(
+            cfg.vocab_size, 32, 4, family=cfg.family,
+            num_codebooks=cfg.num_codebooks,
+            patch_positions=cfg.patch_positions, d_model=cfg.d_model))
         step_c, step_g = make_train_step(cfg, tc), make_train_step(cfg, tc)
         loss_err = 0.0
         for i in range(TR_CPU_STEPS):
@@ -4873,18 +4944,21 @@ def train_card_vs_cpu(torch, dev) -> dict:
                                          - float(mg["loss"])))
         pc = dict(sc.model.named_parameters())
         rel = entry = 0.0
+        worst = ""
         for n, p in sg.model.named_parameters():
             d = p.detach().cpu() - pc[n].detach()
-            rel = max(rel, float(d.norm() / pc[n].detach().norm()))
+            r = float(d.norm() / pc[n].detach().norm())
+            if r > rel:
+                rel, worst = r, n
             entry = max(entry, float(d.abs().max()))
         label = f"{arch} {'compressed' if enabled else 'plain'}"
         out[label] = {"loss_err": loss_err, "param_rel_err": rel,
-                      "param_max_entry_err": entry}
+                      "param_max_entry_err": entry, "param_worst": worst}
         print(f"  {cfg.name} fp32, {TR_CPU_STEPS} "
               f"{'compressed' if enabled else 'plain'} steps at lr "
               f"{TR_CPU_LR} on the card and on the CPU: loss diff "
-              f"{loss_err:.1e}, parameters {rel:.1e} of their norm (limit "
-              f"{TOL_TRAIN_CPU:.0e} for both), largest single entry "
+              f"{loss_err:.1e}, parameters {rel:.1e} of their norm ({worst};"
+              f" limit {TOL_TRAIN_CPU:.0e} for both), largest single entry "
               f"{entry:.1e}")
         if not (loss_err <= TOL_TRAIN_CPU and rel <= TOL_TRAIN_CPU):
             fail(f"{label} smoke: card vs CPU {out[label]}")
@@ -4952,7 +5026,7 @@ def training(torch, ops, ref, la, bm, dev, planted=None) -> tuple:
 
     # 12.3 restart; 12.4 card against the CPU
     restart = train_restart(torch, dev)
-    cpu = train_card_vs_cpu(torch, dev)
+    cpu = train_card_vs_cpu(torch, dev, TR_CPU_ARCHS[:TR_CPU_DENSE])
 
     launches = {n: runs["plain"]["launches"].get(n, 0)
                 + comp_run["launches"].get(n, 0)
@@ -5181,17 +5255,13 @@ LF_SMOKE = ("recurrentgemma-9b", "rwkv6-1.6b", "grok-1-314b",
 # in another order than the plain version's einsum
 TOL_REC = {"rglru_scan": 1e-5, "wkv6": 1e-4}
 REC_PATH = {"rglru_scan": (2, 4096, 4096), "wkv6": (2, 4096, 32, 64)}
-# steps a chunk of csrc/wkv6.cu by head size (its Tile's C)
-WKV_CHUNK = {16: 32, 32: 32, 64: 32, 128: 16}
 # ragged shapes: T = 1, T no multiple of a stage (rglru_scan: 32 steps) or
-# at a chunk's edges (wkv6: T = C - 1, C, C + 1 at each head size), R no
-# multiple of 4 or of a block's 64 channels
+# at a chunk's edges (wkv6: T = C - 1, C, C + 1 at each head size, added by
+# rec_ragged), R no multiple of 4 or of a block's 64 channels
 REC_RAGGED = {"rglru_scan": [(2, 1, 4096), (2, 4097, 256), (1, 33, 4096),
                              (3, 130, 100), (2, 161, 4099), (1, 95, 130)],
               "wkv6": [(2, 1, 32, 64), (2, 4097, 4, 64), (1, 33, 32, 64),
-                       (3, 70, 5, 16), (2, 40, 3, 32), (1, 20, 2, 128)]
-              + [(2, C + d, 3, hd) for hd, C in WKV_CHUNK.items()
-                 for d in (-1, 0, 1)]}
+                       (3, 70, 5, 16), (2, 40, 3, 32), (1, 20, 2, 128)]}
 # wkv6's decays at the edges the plain loop takes, at each head size: all
 # below 1e-30 (exp(-80) and less, some subnormal) and all 1 - 2^-24
 REC_DECAYS = {"strong": [(2, 69, 2, hd) for hd in (16, 32, 64, 128)],
@@ -5270,6 +5340,18 @@ def rec_rerun(torch, name, kern, x, got) -> bool:
     return all(torch.equal(a, b) for a, b in zip(outs, agains))
 
 
+def rec_ragged(name) -> list:
+    """``REC_RAGGED[name]``; for wkv6 also T = C - 1, C, C + 1 at each head
+    size, C the steps a chunk that the build reports
+    (``recurrent.wkv_chunk``)."""
+    if name != "wkv6":
+        return REC_RAGGED[name]
+    from repro_torch.kernels import recurrent as rec
+    return REC_RAGGED[name] + [(2, rec.wkv_chunk(hd) + d, 3, hd)
+                               for hd in rec.WKV_HEAD_DIMS
+                               for d in (-1, 0, 1)]
+
+
 def recurrence_checks(torch, ops, ref, dev) -> dict:
     """Both recurrences against their plain loops at ragged shapes (T = 1,
     T at and past a chunk's edges, B = 1, R ragged, with and without an
@@ -5282,7 +5364,7 @@ def recurrence_checks(torch, ops, ref, dev) -> dict:
     plain = {"rglru_scan": ref.rglru_scan_ref, "wkv6": ref.wkv6_ref}
     rows = {}
     for name in ("rglru_scan", "wkv6"):
-        cases = [(shape, with_state, None) for shape in REC_RAGGED[name]
+        cases = [(shape, with_state, None) for shape in rec_ragged(name)
                  for with_state in (False, True)]
         if name == "wkv6":
             cases += [(shape, True, decay) for decay, shapes in
@@ -5640,6 +5722,523 @@ def lm_families(torch, ops, ref, la, dev) -> tuple:
     return summary, line
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training of the recurrent families on the card: the backward
+# kernels of rglru_scan and wkv6, rwkv6-1.6b and recurrentgemma-9b at full
+# width, every family's smoke config card against CPU
+# ---------------------------------------------------------------------------
+
+RT_SEED = SEED + 50
+# the backward kernels at a training step's shapes (8 x 2048 tokens; no
+# initial state and an unused last state, as a training step has them)
+REC_TRAIN = {"rglru_scan_bwd": (TR_BATCH, TR_SEQ, 4096),
+             "wkv6_bwd": (TR_BATCH, TR_SEQ, 32, 64)}
+# wkv6's gradients other than dS0 (sums over a key or a value index in
+# another order than the plain loop's), each against its largest
+# magnitude: the forward output's limit; RG-LRU's da, db, dh0 and
+# wkv6's dS0 are held bitwise
+TOL_WKV6_BWD = 1e-4
+# (arch, layers kept (None: all)): recurrentgemma-9b is cut to 6 of its 38
+# layers, two (rglru, rglru, local) groups: ~2.4e9 parameters with the
+# 256000 x 4096 embedding, ~38 GB at 16 bytes a parameter (bf16 weight and
+# gradient, fp32 moments and gradient sums); all 38 need ~144 GB
+RT_MODELS = (("rwkv6-1.6b", None), ("recurrentgemma-9b", 6))
+RT_STEPS, RT_COMP_STEPS = 5, 2
+# compress_ratio of rwkv6-1.6b at full width, rank 8, min_size 65536 (the
+# JAX package's count, tests/test_torch_recurrent_bwd.py): 14 compressed
+# leaves of 19
+RT_RATIO = 6335569920 / 24149248
+RT_RERUN_LAYERS = 2                    # the bitwise rerun's full-width depth
+# recurrentgemma-9b's local layers at the training step's shape (B, H, Hkv,
+# S, D, window, softcap): MQA, a group of 16 at D 256, window 2048
+RT_ATTN = (TR_BATCH, 16, 1, TR_SEQ, 256, 2048, None)
+
+
+def rec_bwd_bound(name, shape, with_state=False, with_ds=False) -> tuple:
+    """Least time of a backward on an H100 SXM: each input read once and
+    each output written once (fp32) over the memory rate, against its
+    fp32 flop over the fp32 peak.  RG-LRU: g, a, h read, da, db written
+    (and h0 read, dh0 written with a state); 3 flop an element.  RWKV-6:
+    r, k, v, w, do read, dr, dk, dv, dw written, u and du, dS0 written,
+    dS_T read where given, the chunk starts read; 14 flop per (i, j) of a
+    step (S recomputed: 3; D updated: 3; the four sums' multiply-adds: 8)
+    and 5 per element for b_t and q_t."""
+    if name == "rglru_scan_bwd":
+        B, T, R = shape
+        nbytes = 4 * (5 * B * T * R + 2 * B * R * with_state)
+        return pick(nbytes / PEAK_BYTES * 1e3,
+                    3 * B * T * R / PEAK_OPS["float32"] * 1e3)
+    from repro_torch.kernels import recurrent as rec
+    B, T, H, hd = shape
+    chunks = -(-T // rec.wkv_chunk(hd))
+    nbytes = 4 * (9 * B * T * H * hd + 2 * H * hd
+                  + B * H * hd * hd * (1 + with_ds + chunks))
+    flop = 14 * B * T * H * hd * hd + 5 * B * T * H * hd
+    return pick(nbytes / PEAK_BYTES * 1e3, flop / PEAK_OPS["float32"] * 1e3)
+
+
+def rec_bwd_case(torch, ops, ref, name, shape, g, dev, with_state,
+                 with_ds=False, decay=None) -> tuple:
+    """One draw of a backward against its plain reverse loop: (the
+    kernel's operands, max |kernel - plain|, the worst share of
+    ``TOL_WKV6_BWD`` (0 for RG-LRU, held bitwise), the bitwise outputs
+    equal, a rerun bitwise).  Each call through ``ops`` launches the
+    backward once; wkv6's chunk starts come from its forward kernel,
+    called outside the count."""
+    fwd = name[:-len("_bwd")]
+    x = rec_inputs(torch, fwd, shape, g, dev, with_state, decay)
+    if name == "rglru_scan_bwd":
+        a, b, h0 = x
+        args = (a, ops.rglru_scan(a, b, h0), h0,
+                torch.randn(shape, generator=g, device=dev))
+        kern, plain, exact = ops.rglru_scan_bwd, ref.rglru_scan_bwd_ref, (
+            0, 1, 2)
+        launched = {"rglru_scan_bwd": 1}
+    else:
+        B, T, H, hd = shape
+        dS = (torch.randn((B, H, hd, hd), generator=g, device=dev)
+              if with_ds else None)
+        args = (*x, torch.randn(shape, generator=g, device=dev), dS)
+        from repro_torch.kernels import recurrent as rec
+        Sc = rec.wkv6_cuda(*x, states=True)[2]
+        kern = lambda *a: ops.wkv6_bwd(*a, states=Sc)
+        plain, exact = ref.wkv6_bwd_ref, (5,)
+        launched = {"wkv6_bwd": 1}
+    ops.reset_launches()
+    got = kern(*args)
+    torch.cuda.synchronize()
+    if {n: c for n, c in ops.launches.items() if c} != launched:
+        fail(f"{name} {shape}: launches {ops.launches}")
+    want = plain(*args)
+    again = kern(*args)
+    mae, share, same, rerun = 0.0, 0.0, True, True
+    for i, (a_, b_, c_) in enumerate(zip(got, want, again)):
+        if b_ is None:
+            same &= a_ is None and c_ is None
+            continue
+        err = float((a_ - b_).abs().max())
+        mae = max(mae, err)
+        rerun &= torch.equal(a_, c_)
+        if i in exact:
+            same &= torch.equal(a_, b_)
+        else:
+            share = max(share, err / (TOL_WKV6_BWD
+                                      * max(float(b_.abs().max()), 1e-30)))
+    return args, mae, share, same, rerun
+
+
+def compressed_card_vs_cpu(torch, dev, archs) -> dict:
+    """15.3, compressed: the smoke configs (fp32) of ``archs``,
+    ``TR_CPU_STEPS`` compressed steps, each taken on the CPU and on the
+    card from the CPU's state (copied onto the card before the step):
+    the loss within ``TOL_TRAIN_CPU`` and each compressed leaf's
+    decompressed gradient ``P Qn^T`` within ``TOL_TRAIN_CPU`` of the norm
+    of what it compresses (``M``, the gradient plus the error buffer);
+    the parameters after the step are printed beside, not held.  Not the
+    12.4 trajectory: with the compression, AdamW's per-entry update turns
+    rounding-sized differences of near-zero entries of ``P Qn^T`` into
+    ``lr``-sized steps of single parameters, which then feed the next
+    step; on the CPU alone a relative 1e-7 perturbation of the gradients
+    moves rwkv6-1.6b's and grok-1's smoke parameters by more than 1e-3 of
+    a tensor's norm over three steps
+    (``tests/test_torch_recurrent_bwd.py``)."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.models import convert as LV
+    from repro_torch.optim import compression as comp
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training import (TrainConfig, init_train_state,
+                                      make_train_step)
+    log = []
+    orig = comp.compress_grads
+
+    def recording(grads, state, cc, layout, group=None):
+        res = orig(grads, state, cc, layout, group)
+        log.append({leaf.path: (
+            (LV.gather(leaf, grads).float()
+             + state["err"][leaf.path]).detach().cpu(),
+            LV.gather(leaf, res[0]).float().detach().cpu())
+            for leaf in layout if leaf.path in state["Q"]})
+        return res
+    out = {}
+    comp.compress_grads = recording
+    try:
+        for arch in archs:
+            cfg = configs.smoke_config(configs.get_config(arch))
+            tc = TrainConfig(adamw=AdamWConfig(lr=TR_CPU_LR, warmup_steps=1,
+                                               total_steps=TR_CPU_STEPS),
+                             compression=comp.CompressionConfig(
+                                 enabled=True, rank=TR_RANK, min_size=512))
+            sc = init_train_state(cfg, tc, device="cpu")
+            sg = init_train_state(cfg, tc, device=dev)
+            ds = SyntheticLMDataset(DataConfig(
+                cfg.vocab_size, 32, 4, family=cfg.family,
+                num_codebooks=cfg.num_codebooks,
+                patch_positions=cfg.patch_positions, d_model=cfg.d_model))
+            step_c, step_g = (make_train_step(cfg, tc),
+                              make_train_step(cfg, tc))
+            row = {"loss_err": 0.0, "compressed_rel_err": 0.0,
+                   "compressed_worst": "", "leaves": 0,
+                   "param_rel_err": 0.0, "param_worst": ""}
+            for i in range(TR_CPU_STEPS):
+                sg.load_tree(tree_to(sc.tree(), dev))
+                log.clear()
+                sc, mc = step_c(sc, ds.batch(i))
+                sg, mg = step_g(sg, ds.batch(i))
+                lc, lg = log
+                row["loss_err"] = max(row["loss_err"], abs(
+                    float(mc["loss"]) - float(mg["loss"])))
+                row["leaves"] = len(lc)
+                for path, (M, hat) in lc.items():
+                    e = float((lg[path][1] - hat).norm() / M.norm())
+                    if e > row["compressed_rel_err"]:
+                        row["compressed_rel_err"] = e
+                        row["compressed_worst"] = path
+                pc = dict(sc.model.named_parameters())
+                for n, p in sg.model.named_parameters():
+                    d = p.detach().cpu() - pc[n].detach()
+                    r = float(d.norm() / pc[n].detach().norm())
+                    if r > row["param_rel_err"]:
+                        row["param_rel_err"], row["param_worst"] = r, n
+            out[f"{arch} compressed"] = row
+            print(f"  {cfg.name} fp32, {TR_CPU_STEPS} compressed steps at lr "
+                  f"{TR_CPU_LR}, each from the CPU's state on the card and "
+                  f"on the CPU: loss diff {row['loss_err']:.1e}, the "
+                  f"{row['leaves']} compressed leaves' P Qn^T "
+                  f"{row['compressed_rel_err']:.1e} of |M| "
+                  f"({row['compressed_worst']}; limit {TOL_TRAIN_CPU:.0e} "
+                  f"for both); parameters after a step "
+                  f"{row['param_rel_err']:.1e} of their norm "
+                  f"({row['param_worst']})")
+            if not (row["loss_err"] <= TOL_TRAIN_CPU
+                    and row["compressed_rel_err"] <= TOL_TRAIN_CPU
+                    and row["leaves"] > 0):
+                fail(f"{arch} compressed smoke: card vs CPU {row}")
+    finally:
+        comp.compress_grads = orig
+    return out
+
+
+def recurrence_bwd_checks(torch, ops, ref, dev) -> dict:
+    """15.1: both backward kernels against their plain reverse loops at
+    ragged shapes (``REC_RAGGED``, with and without an initial state and,
+    wkv6, a given or an absent dS_T; wkv6 at ``REC_DECAYS``' edges too),
+    then at a training step's shapes, timed beside their bounds and plain
+    loops; wkv6's forward with and without the chunk starts timed there.
+    Returns each kernel's row."""
+    from repro_torch.kernels import recurrent as rec
+    g = torch.Generator(device=dev).manual_seed(RT_SEED)
+    rows = {}
+    for name in ("rglru_scan_bwd", "wkv6_bwd"):
+        fwd = name[:-len("_bwd")]
+        combos = ((False, False), (True, True)) if fwd == "wkv6" else (
+            (False, False), (True, False))
+        cases = [(shape, st, ds, None) for shape in rec_ragged(fwd)
+                 for st, ds in combos]
+        if fwd == "wkv6":
+            cases += [(shape, True, True, decay) for decay, shapes in
+                      REC_DECAYS.items() for shape in shapes]
+        worst = 0.0
+        for shape, st, ds, decay in cases:
+            _, mae, share, same, rerun = rec_bwd_case(
+                torch, ops, ref, name, shape, g, dev, st, ds, decay)
+            print(f"  {name} {shape} state={st}"
+                  + (f" dS_T={ds}" if fwd == "wkv6" else "")
+                  + (f" decays={decay}" if decay else "")
+                  + f": max abs err {mae:.2e}, "
+                  + (f"{share:.3f} of the limit ({TOL_WKV6_BWD:.0e} of each "
+                     f"gradient's max |value|), dS0" if fwd == "wkv6"
+                     else "da, db, dh0")
+                  + f" bitwise equal: {same}, rerun bitwise: {rerun}")
+            if not (share <= 1 and same and rerun):
+                fail(f"{name} {shape} decays={decay}: {share} of the limit, "
+                     f"bitwise {same}, rerun bitwise {rerun}")
+            worst = max(worst, share)
+        shape = REC_TRAIN[name]
+        args, mae, share, same, rerun = rec_bwd_case(
+            torch, ops, ref, name, shape, g, dev, False)
+        if not (share <= 1 and same and rerun):
+            fail(f"{name} {shape}: {share} of the limit, bitwise {same}, "
+                 f"rerun bitwise {rerun}")
+        if name == "rglru_scan_bwd":
+            a, h, h0, dh = args
+            kern = lambda: rec.rglru_scan_bwd_cuda(a, h, h0, dh)
+            plain = lambda: ref.rglru_scan_bwd_ref(a, h, h0, dh)
+        else:
+            r, k, v, w, u, S0, do, dS = args
+            Sc = rec.wkv6_cuda(r, k, v, w, u, S0, states=True)[2]
+            kern = lambda: rec.wkv6_bwd_cuda(r, k, v, w, u, Sc, do, dS)
+            plain = lambda: ref.wkv6_bwd_ref(r, k, v, w, u, S0, do, dS)
+        row = {"max_abs_err": mae, "share_of_limit": share,
+               "worst_ragged_share": worst, "bitwise": same,
+               "rerun_bitwise": rerun, "shape": list(shape),
+               "ms": time_ms(torch, kern, 20),
+               "plain_ms": time_ms(torch, plain, 1), "library_ms": None}
+        row["bound_ms"], row["bound_by"] = rec_bwd_bound(name, shape)
+        if name == "wkv6_bwd":
+            row["forward_ms"] = time_ms(
+                torch, lambda: rec.wkv6_cuda(r, k, v, w, u, S0), 20)
+            row["forward_states_ms"] = time_ms(
+                torch, lambda: rec.wkv6_cuda(r, k, v, w, u, S0, states=True),
+                20)
+            del Sc
+        print(f"  {name} at a training step's {shape}: max abs err "
+              f"{mae:.2e}" + (f" ({share:.3f} of the limit)"
+                              if name == "wkv6_bwd" else "")
+              + f", bitwise {same}, rerun bitwise {rerun}; kernel "
+              f"{row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms, bound "
+              f"{row['bound_ms']:.3f} ms ({row['bound_by']}, "
+              f"{100 * row['bound_ms'] / row['ms']:.1f} % of it); library - "
+              f"(no PyTorch call computes it)"
+              + (f"; the forward {row['forward_ms']:.3f} ms, with the chunk "
+                 f"starts {row['forward_states_ms']:.3f} ms"
+                 if name == "wkv6_bwd" else ""))
+        rows[name] = row
+        del args, kern, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
+def recurrent_attention_bwd(torch, ops, ref, la, dev) -> dict:
+    """15.1: the attention backward at recurrentgemma-9b's local layers'
+    training shape (``RT_ATTN``, bf16, the ``wgmma`` route): each element
+    against the plain version with its sums in float64 (phase 7's rule;
+    dK and dV sum 16 x 2048 terms, where the fp32 plain version's own
+    rounding nears the rule's 1e-5 floor: its reading is printed beside),
+    two runs bitwise, timed beside its bound."""
+    B, H, Hkv, S, D, window, cap = RT_ATTN
+    g = torch.Generator(device=dev).manual_seed(RT_SEED + 1)
+    q, k, v = attn_inputs(torch, g, dev, B, H, Hkv, S, D, torch.bfloat16)
+    do = attn_inputs(torch, g, dev, B, H, Hkv, S, D, torch.bfloat16)[0]
+    lse = torch.empty((B, H, S), device=dev)
+    o = la.local_attention_cuda(q, k, v, window, cap, lse)
+    call = lambda: ops.local_attention_bwd(q, k, v, o, do, lse,
+                                           window=window, softcap=cap)
+    ops.reset_launches()
+    got = call()
+    ran = {n: c for n, c in ops.route_launches.items() if c}
+    same = all(torch.equal(a, b) for a, b in zip(got, call()))
+    shares = {"float64": [0.0] * 3, "float32": [0.0] * 3}
+    for b in range(B):
+        sl = slice(b, b + 1)
+        for sums, key in ((torch.float64, "float64"),
+                          (torch.float32, "float32")):
+            want = ref.local_attention_bwd_ref(
+                q[sl], k[sl], v[sl], o[sl], do[sl], lse[sl], window=window,
+                softcap=cap, sums=sums)
+            for i, (a, w) in enumerate(zip(got, want)):
+                shares[key][i] = max(shares[key][i],
+                                     attn_share(a[sl], w, "bfloat16"))
+            del want
+    row = {"route_launches": ran, "reruns_bitwise": same,
+           "shares_of_limit": shares["float64"],
+           "shares_against_fp32_plain": shares["float32"],
+           "max_abs_err": max(float((a.float() - w).abs().max())
+                              for a, w in zip(got, ref.local_attention_bwd_ref(
+                                  q, k, v, o, do, lse, window=window,
+                                  softcap=cap))),
+           "ms": time_ms(torch, call, 10),
+           "plain_ms": time_ms(torch, lambda: ref.local_attention_bwd_ref(
+               q, k, v, o, do, lse, window=window, softcap=cap), 1)}
+    row["bound_ms"], row["bound_by"] = attn_bwd_bound(B, H, Hkv, S, D, window)
+    # the yardstick: autograd of SDPA (causal, as the window covers S), K
+    # and V repeated to every head
+    row["library_ms"] = None
+    if window >= S and cap is None:
+        import torch.nn.functional as F
+        qc = q.contiguous().requires_grad_()
+        kr, vr = (x.repeat_interleave(H // Hkv, dim=1).contiguous()
+                  .requires_grad_() for x in (k, v))
+        out = F.scaled_dot_product_attention(qc, kr, vr, is_causal=True)
+        doc = do.contiguous()
+        row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qc, kr, vr), doc, retain_graph=True), 5)
+        del qc, kr, vr, out, doc
+    print(f"  local_attention_bwd at recurrentgemma-9b's training layout "
+          f"{RT_ATTN} bf16 ({sorted(ran)}): dq, dk, dv "
+          + ", ".join(f"{x:.2f}" for x in shares["float64"])
+          + " of the per-element limit against the float64 plain version ("
+          + ", ".join(f"{x:.2f}" for x in shares["float32"])
+          + f" against the fp32 one), reruns bitwise {same}; kernel "
+          f"{row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms, bound "
+          f"{row['bound_ms']:.3f} ms ({row['bound_by']}), autograd of SDPA "
+          f"is_causal " + ("-" if row["library_ms"] is None
+                           else f"{row['library_ms']:.3f} ms"))
+    if ran != {"local_attention_bwd/wgmma": la.BWD_KERNELS} or not same \
+            or max(shares["float64"]) > 1:
+        fail(f"local_attention_bwd at recurrentgemma's layout: {row}")
+    del q, k, v, o, do, lse, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_rerun_bitwise(torch, dev, arch) -> dict:
+    """15.2: a ``RT_RERUN_LAYERS``-layer full-width model stepped twice
+    from the same state (``init_train_state`` of one seed): the same loss
+    and the same bits in every parameter and moment."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import CompressionConfig
+    from repro_torch.training import (TrainConfig, init_train_state,
+                                      make_train_step)
+    cfg = dataclasses.replace(configs.get_config(arch),
+                              num_layers=RT_RERUN_LAYERS,
+                              loss_chunks=TR_CHUNKS)
+    tc = TrainConfig(adamw=AdamWConfig(lr=TR_LR, warmup_steps=1,
+                                       total_steps=2),
+                     compression=CompressionConfig(enabled=False))
+    batch = SyntheticLMDataset(DataConfig(cfg.vocab_size, TR_SEQ,
+                                          TR_BATCH)).batch(0)
+    first = None
+    for _ in range(2):
+        state = init_train_state(cfg, tc, seed=RT_SEED, device=dev)
+        state, m = make_train_step(cfg, tc)(state, batch)
+        now = (float(m["loss"]), tree_leaves(tree_to(state.tree(), dev)))
+        del state
+        if first is None:
+            first = now
+    same = first[0] == now[0] and all(
+        torch.equal(a, b) for a, b in zip(first[1], now[1]))
+    out = {"layers": RT_RERUN_LAYERS, "blocks": list(cfg.blocks),
+           "loss": now[0], "tensors": len(now[1]), "bitwise": same}
+    print(f"  {arch} at full width, {RT_RERUN_LAYERS} layers "
+          f"{list(cfg.blocks)}, one step twice from the same state: loss "
+          f"{now[0]:.6f}, {len(now[1])} tensors, bitwise equal {same}")
+    if not same:
+        fail(f"{arch}: two steps from the same state differ")
+    del first, now
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_full_width(torch, ops, dev) -> dict:
+    """15.2: rwkv6-1.6b (24 layers) and recurrentgemma-9b (6 of 38) at
+    full width, bf16 parameters, fp32 moments, ``loss_chunks`` 8, 8 x
+    2048 synthetic tokens a step, ``RT_STEPS`` plain steps through
+    ``init_train_state`` and ``make_train_step`` (every step's launches
+    the accounting, the loss falling) and one more under the profiler;
+    two compressed steps of rwkv6-1.6b (``compress_ratio`` the JAX
+    package's count); each family's bitwise rerun."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import CompressionConfig
+    from repro_torch.training import TrainConfig
+    out = {"runs": {}, "reruns": {}}
+    for arch, layers in RT_MODELS:
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  loss_chunks=TR_CHUNKS)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        ds = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=TR_SEQ,
+                                           global_batch=TR_BATCH))
+        batches = [ds.batch(i) for i in range(RT_STEPS)]
+        for label, enabled, n in (("plain", False, RT_STEPS),
+                                  ("compressed", True, RT_COMP_STEPS)):
+            if enabled and arch != "rwkv6-1.6b":
+                continue
+            tc = TrainConfig(adamw=AdamWConfig(lr=TR_LR, warmup_steps=2,
+                                               total_steps=n),
+                             compression=CompressionConfig(
+                                 enabled=enabled, rank=TR_RANK))
+            t0 = time.perf_counter()
+            r = train_run(torch, ops, dev, cfg, tc, batches[:n],
+                          profile=not enabled)
+            later = sorted(r["ms_steps"][1:])
+            ms = later[len(later) // 2]
+            r.update(ms_step=ms, tokens_s=TR_BATCH * TR_SEQ / (ms / 1e3),
+                     params=cfg.param_count(), layers=cfg.num_layers,
+                     seconds=time.perf_counter() - t0)
+            print(f"  {cfg.name} {label}: {cfg.num_layers} layers "
+                  f"({r['params'] / 1e9:.3f}e9 parameters, "
+                  f"{16 * r['params'] / 1e9:.1f} GB at 16 bytes each), "
+                  f"{TR_BATCH} x {TR_SEQ} tokens a step, bf16 parameters, "
+                  f"fp32 moments, loss_chunks {TR_CHUNKS}: loss "
+                  + " ".join(f"{x:.4f}" for x in r["losses"])
+                  + f"; {ms:.1f} ms a step (median of steps 2-{n}; the "
+                  f"first {r['ms_steps'][0]:.0f} ms), {r['tokens_s']:.0f} "
+                  f"tokens/s, peak {r['peak_gb']:.2f} GB; launches a step "
+                  f"{ {k: c for k, c in r['launches_per_step'].items() if c} }")
+            if not r["losses"][-1] < r["losses"][0]:
+                fail(f"{arch} {label}: the loss did not fall: "
+                     f"{r['losses']}")
+            if enabled:
+                ratio = r["compress_ratio"]
+                print(f"  {cfg.name} compress_ratio {ratio} (the JAX "
+                      f"package's count {RT_RATIO:.6f})")
+                if ratio != float(torch.tensor(RT_RATIO,
+                                               dtype=torch.float32)):
+                    fail(f"compress_ratio {ratio}, want {RT_RATIO}")
+            else:
+                prof = r["profile"]
+                print(f"  {cfg.name} one plain step under the profiler: "
+                      f"{prof['wall_ms']:.0f} ms, device busy "
+                      f"{prof['busy_share']:.1%}; the recurrences' backward "
+                      f"kernels {prof['recurrence_bwd_share']:.1%} of the "
+                      f"busy time ({prof['recurrence_bwd_ms']}), their "
+                      f"forwards {prof['recurrence_fwd_share']:.1%}, the "
+                      f"attention backward {prof['attention_bwd_share']:.1%}"
+                      f", forward {prof['attention_fwd_share']:.1%}; top "
+                      f"kernels (ms) {prof['top_ms']}")
+            out["runs"][f"{arch} {label}"] = {key: r.get(key) for key in (
+                "losses", "ms_step", "ms_steps", "tokens_s", "peak_gb",
+                "launches", "launches_per_step", "compress_ratio", "params",
+                "layers", "seconds", "profile")}
+        del batches
+    for arch, _ in RT_MODELS:
+        out["reruns"][arch] = train_rerun_bitwise(torch, dev, arch)
+    return out
+
+
+def recurrent_training(torch, ops, ref, la, dev) -> tuple:
+    """Phase 15; returns (its summary, the backward kernels' rows of the
+    ``kernels`` line, launches from 15.2's training steps)."""
+    t_phase = time.perf_counter()
+    rows = recurrence_bwd_checks(torch, ops, ref, dev)
+    attn = recurrent_attention_bwd(torch, ops, ref, la, dev)
+    t_kernels = time.perf_counter() - t_phase
+    full = recurrent_full_width(torch, ops, dev)
+    t_full = time.perf_counter() - t_phase - t_kernels
+    cpu = train_card_vs_cpu(torch, dev, TR_CPU_ARCHS[TR_CPU_DENSE:],
+                            modes=(False,))
+    cpu.update(compressed_card_vs_cpu(torch, dev,
+                                      TR_CPU_ARCHS[TR_CPU_DENSE:]))
+    launches = {name: sum(r["launches"].get(name, 0)
+                          for key, r in full["runs"].items()
+                          if name != "local_attention_bwd"
+                          or key.startswith("recurrentgemma"))
+                for name in ("rglru_scan_bwd", "wkv6_bwd",
+                             "local_attention_bwd")}
+    line = [{"name": name, "route": "cuda", "source": REC_SOURCES[fwd],
+             "replaces": REC_REPLACES[fwd], "launches": launches[name],
+             **{key: rows[name][key] for key in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")},
+             "share_of_bound": rows[name]["bound_ms"] / rows[name]["ms"]}
+            for name, fwd in (("rglru_scan_bwd", "rglru_scan"),
+                              ("wkv6_bwd", "wkv6"))] + [
+        {"name": "local_attention_bwd/wgmma[recurrentgemma-9b]",
+         "route": "cuda", "source": BWD_SOURCE, "replaces": BWD_REPLACES,
+         "launches": launches["local_attention_bwd"],
+         **{key: attn[key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}}]
+    for k in line:
+        if not k["launches"]:
+            fail(f"{k['name']} was not launched by the training path")
+    summary = {"kernels": rows, "attention_bwd": attn, "full_width": full,
+               "card_vs_cpu": cpu, "kernel_checks_s": t_kernels,
+               "full_width_s": t_full,
+               "seconds": time.perf_counter() - t_phase}
+    print(f"phase 15: {summary['seconds']:.1f} s (kernels {t_kernels:.1f}, "
+          f"full width {t_full:.1f})")
+    return summary, line
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sharded-rank"]:      # one rank of phase 10.2
         return sharded_rank(*sys.argv[2:4])
@@ -5779,6 +6378,13 @@ def main() -> int:
         summary, line = lm_families(torch, ops, ref, local_attn, dev)
         mark("14")
         print(json.dumps({"lm_families": summary}))
+        print(json.dumps({"kernels": line}))
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--only-recurrent-training"]:  # phase 1, then 15
+        summary, line = recurrent_training(torch, ops, ref, local_attn, dev)
+        mark("15")
+        print(json.dumps({"recurrent_training": summary}))
         print(json.dumps({"kernels": line}))
         print(card_line())
         return 0
@@ -6263,6 +6869,12 @@ def main() -> int:
     print(json.dumps({"lm_families": lf_summary}))
     mark("14")
 
+    # -- 15. training of the recurrent families ----------------------------
+    rt_summary, rt_line = recurrent_training(torch, ops, ref, local_attn,
+                                             dev)
+    print(json.dumps({"recurrent_training": rt_summary}))
+    mark("15")
+
     sweeps = ("block_matvec", "block_rmatvec", "block_gram_chain")
     rows = dict(dtable)
     # the fp32 solve's sweeps (3xTF32), the bf16 solve's chains (wgmma) and
@@ -6298,7 +6910,8 @@ def main() -> int:
            if "library_causal_ms" in row else {})}
         for name, row in rows.items()] + csr_kernel_line(
             csr_rows, csr_launches) + sharded_kernel_line(
-            sh_counts, table, dtable, sh_rows) + sv_line + tr_line + lf_line
+            sh_counts, table, dtable, sh_rows) + sv_line + tr_line + lf_line \
+        + rt_line
     print(json.dumps({"block_sweeps_by_route": [
         {"name": name, "dtype": "float32" if key[0] in (
             "float32", "tf32x3_cpasync") else "bfloat16",

@@ -35,11 +35,28 @@
 //   * h is stored straight from the register: a warp's stores of a step
 //     are one 128-byte line.
 //
+// The gradient (the training path), a second kernel in the same layout run
+// backward in t: with g = dL/dh (B, T, R), from t = T - 1 down
+//
+//   d_t = g_t + a_{t+1} d_{t+1} (d_{T-1} = g_{T-1});  db_t = d_t;
+//   da_t = d_t h_{t-1} (h0, or zeros, before step 0);  dh0 = a_0 d_0
+//
+// from the forward's a and h (saved by autograd: no recompute).  Bound:
+// 20 bytes an element (g, a, h read; da, db written), 0.40 ms at a training
+// step's (8, 2048, 4096).  Tiles of U steps of g, a and h are staged by
+// cp.async from the END of the sequence, NSB = 3 deep (~78 KB); a thread
+// keeps d and a_{t+1} in registers across tiles and reads h_{t-1} of a
+// tile's first step from device memory (one load a tile, issued before the
+// tile's steps).  d rounds as the plain reverse loop does (__fmul_rn, then
+// __fadd_rn), so da, db and dh0 equal it bit for bit.
+//
 // C interface (bound with ctypes; every pointer and the stream as void*):
 //   int repro_rglru_scan(a, b, h0, h, B, T, R, stream)
-// h0 may be null (a zero state).  Returns cudaGetLastError() after the
-// launch (0 on success; cudaErrorMisalignedAddress where a or b is not
-// 16-byte aligned); allocates nothing.
+//   int repro_rglru_scan_bwd(g, a, h, h0, da, db, dh0, B, T, R, stream)
+// h0 may be null (a zero state; then dh0 is not written and may be null).
+// Each returns cudaGetLastError() after its launch (0 on success;
+// cudaErrorMisalignedAddress where a staged operand -- a and b; g, a and
+// h -- is not 16-byte aligned); neither allocates.
 
 #include <cuda_runtime.h>
 
@@ -147,7 +164,136 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+constexpr int NSB = 3;         // stages in the backward's ring (3 arrays)
+constexpr size_t SMEM_BWD = sizeof(float) * NSB * 3 * U * NTP;
+
+// stage_tile for the backward: steps [0, n) of g, a and h (three staged
+// blocks of U rows) from element `off`, 16 threads a row.
+__device__ __forceinline__ void stage_tile3(float* st,
+                                            const float* __restrict__ g,
+                                            const float* __restrict__ a,
+                                            const float* __restrict__ h,
+                                            int64_t off, int64_t R, int nr,
+                                            int n, int64_t total, int tid) {
+  const int gr = tid % 16;
+  for (int row = tid / 16; row < 3 * n; row += NT / 16) {
+    const int which = row / n;
+    const int t = row - which * n;
+    const int64_t p = off + t * R;
+    const int mis = (int)(p & 3);
+    const int64_t first = p - mis;
+    const float* src = (which == 0 ? g : which == 1 ? a : h) + first;
+    float* dst = st + which * U * NTP + t * NTP;
+    if (4 * gr < mis + nr) copy_granule(dst, src, gr, total - first - 4 * gr);
+    if (gr == 0 && 4 * 16 < mis + nr)
+      copy_granule(dst, src, 16, total - first - 4 * 16);
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+rglru_scan_bwd_kernel(const float* __restrict__ g,
+                      const float* __restrict__ a,
+                      const float* __restrict__ h,
+                      const float* __restrict__ h0, float* __restrict__ da,
+                      float* __restrict__ db, float* __restrict__ dh0,
+                      int64_t B, int64_t T, int64_t R) {
+  extern __shared__ __align__(16) float ring[];   // [NSB][3][U][NTP]
+  const int tid = threadIdx.x;
+  const int64_t r0 = (int64_t)blockIdx.x * NC, bi = blockIdx.y;
+  const int nr = (int)lmin(NC, R - r0);
+  const int64_t base = bi * T * R + r0;          // (bi, 0, r0)
+  const int64_t total = B * T * R;
+  const int64_t tiles = (T + U - 1) / U;
+  // the p-th tile processed is tile tiles - 1 - p (steps from its U p)
+#pragma unroll
+  for (int p = 0; p < NSB - 1; ++p) {
+    if (p < tiles) {
+      const int64_t c = tiles - 1 - p;
+      stage_tile3(ring + p * 3 * U * NTP, g, a, h, base + c * U * R, R, nr,
+                  (int)lmin(U, T - c * U), total, tid);
+    }
+    cp_async_commit();
+  }
+  const int step = (int)(R & 3);
+  float d = 0.f, anext = 0.f;
+  bool started = false;
+  for (int64_t p = 0; p < tiles; ++p) {
+    cp_async_wait_group<NSB - 2>();
+    __syncthreads();            // tile p visible; tile p - 1 done by all
+    const int64_t next = p + NSB - 1;
+    if (next < tiles) {
+      const int64_t c = tiles - 1 - next;
+      stage_tile3(ring + (next % NSB) * 3 * U * NTP, g, a, h,
+                  base + c * U * R, R, nr, (int)lmin(U, T - c * U), total,
+                  tid);
+    }
+    cp_async_commit();
+    if (tid < nr) {
+      const int64_t c = tiles - 1 - p;
+      const float* gs = ring + (p % NSB) * 3 * U * NTP + tid;
+      const float* as = gs + U * NTP;
+      const float* hs = as + U * NTP;
+      const int64_t off = base + c * U * R;
+      const int n = (int)lmin(U, T - c * U);
+      // h_{t-1} of the tile's first step: the last row of the tile before
+      // it, or h0 (zeros without one)
+      const float hfirst = c > 0 ? h[off - R + tid]
+                           : (h0 != nullptr ? h0[bi * R + r0 + tid] : 0.f);
+      const int mis0 = (int)(off & 3);
+#pragma unroll 8
+      for (int t = n - 1; t >= 0; --t) {
+        const int o = t * NTP + ((mis0 + t * step) & 3);
+        const float ad = __fmul_rn(anext, d);
+        d = started ? __fadd_rn(gs[o], ad) : gs[o];
+        started = true;
+        db[off + t * R + tid] = d;
+        const float hp =
+            t > 0 ? hs[(t - 1) * NTP + ((mis0 + (t - 1) * step) & 3)] : hfirst;
+        da[off + t * R + tid] = __fmul_rn(d, hp);
+        anext = as[o];
+      }
+    }
+  }
+  if (h0 != nullptr && tid < nr) dh0[bi * R + r0 + tid] = __fmul_rn(anext, d);
+}
+
+// Raise a kernel's dynamic shared memory limit once a device.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, unsigned& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && !(dev < 32 && (done >> dev & 1u))) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+    if (e == cudaSuccess && dev < 32) done |= 1u << dev;
+  }
+  return e;
+}
+
 }  // namespace
+
+extern "C" int repro_rglru_scan_bwd(const void* g, const void* a,
+                                    const void* h, const void* h0, void* da,
+                                    void* db, void* dh0, long long B,
+                                    long long T, long long R, void* stream) {
+  cudaGetLastError();  // report this call's launch, not an older error
+  if (B * R == 0 || T == 0) return 0;
+  if ((reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(a) |
+       reinterpret_cast<uintptr_t>(h)) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  static unsigned done = 0;   // devices whose shared memory limit is raised
+  const cudaError_t e = allow_smem(rglru_scan_bwd_kernel, SMEM_BWD, done);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((unsigned)((R + NC - 1) / NC), (unsigned)B);
+  rglru_scan_bwd_kernel<<<grid, NT, SMEM_BWD,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<const float*>(a),
+      static_cast<const float*>(h), static_cast<const float*>(h0),
+      static_cast<float*>(da), static_cast<float*>(db),
+      static_cast<float*>(dh0), B, T, R);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int repro_rglru_scan(const void* a, const void* b, const void* h0,
                                 void* h, long long B, long long T,
@@ -157,14 +303,7 @@ extern "C" int repro_rglru_scan(const void* a, const void* b, const void* h0,
   if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
   static unsigned done = 0;   // devices whose shared memory limit is raised
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess && !(dev < 32 && (done >> dev & 1u))) {
-    e = cudaFuncSetAttribute(rglru_scan_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)SMEM);
-    if (e == cudaSuccess && dev < 32) done |= 1u << dev;
-  }
+  const cudaError_t e = allow_smem(rglru_scan_kernel, SMEM, done);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((unsigned)((R + NC - 1) / NC), (unsigned)B);
   rglru_scan_kernel<<<grid, NT, SMEM, static_cast<cudaStream_t>(stream)>>>(

@@ -47,12 +47,66 @@
 //     equals it bit for bit; the output sums in another order than its
 //     einsum (held to a tolerance).  No atomics: reruns are bitwise.
 //
+// Training: where autograd records, the forward also writes S at the start
+// of each of its chunks (Sc, (B, H, ceil(T / C), hd, hd)): one store a chunk
+// from the state threads, in an instance of its own (STATES) behind an entry
+// point of its own (repro_wkv6_states), so inference (repro_wkv6) runs the
+// same code through the same interface as before it existed.
+//
+// The gradient (wkv6_bwd_kernel): with do = dL/dout and D = dL/dS_t (dS_T,
+// or zeros where the state output is unused), from t = T - 1 down
+// (b_t = v_t . do_t, q_t = sum_i r_t[i] u_i k_t[i]):
+//   dr_t[i] = sum_j S_{t-1}[i][j] do_t[j] + u_i k_t[i] b_t
+//   dk_t[i] = sum_j D[i][j] v_t[j] + u_i r_t[i] b_t
+//   dv_t[j] = sum_i D[i][j] k_t[i] + q_t do_t[j]
+//   dw_t[i] = sum_j D[i][j] S_{t-1}[i][j]
+//   du_i += r_t[i] k_t[i] b_t;  then D <- w_t[i] D[i][j] + r_t[i] do_t[j]
+// and dS0 is the last D.  dw needs S_{t-1} beside D at the same step, and
+// undoing the decay ((S_t - k v) / w) is unstable (decays below 1e-30 occur):
+// the states are recomputed forward from the chunk starts in the forward's
+// rounding, so they are bitwise the forward's.  Bound at a training step's
+// (8, 2048, 32, 64): 36 bytes an element (r, k, v, w, do read; dr, dk, dv, dw
+// written), 0.36 ms, against ~13 FP32 instructions an element-step here (3
+// recomputing S once to find the sub-chunk starts and again to keep their
+// states, 3 updating D, 4 FMAs of the sums): 0.84 ms on 132 x 128 lanes at
+// 1.98 GHz.  What the design does (a first, simple kernel: its redesign is
+// later work):
+//   * A block holds JB (<= 32) value columns of one head and all hd keys, a
+//     thread KI = 2 keys x JT = 4 columns of D and S in registers; a warp's
+//     lanes run across NCG = JB / 4 column groups, then key groups.
+//   * Per chunk of the forward (C steps, newest first), all threads stage
+//     r, k, w, v, do (whole rows) by cp.async; each warp sums b_t and q_t of
+//     some steps (lane FMA chains, then a butterfly).  The chunk's states are
+//     recomputed from its saved start, keeping one start a sub-chunk of
+//     U = 8 steps in shared memory; each sub-chunk, newest first, is
+//     recomputed again into registers (its U states) and walked back.
+//   * Sums over j (dr, dk, dw) are FMA chains over a thread's 4 columns,
+//     then a butterfly over the column lanes; they are written per block
+//     (partials over its JB columns, the bonus terms by the first block)
+//     and summed over the hd / JB blocks by the wrapper in a fixed order.
+//     Sums over i (dv) are chains over the thread's 2 keys, a butterfly
+//     over the key lanes, then the warps' sums in warp order through
+//     shared memory.  du is the first block's chains over t, summed over b
+//     by the wrapper.  No atomics: reruns are bitwise.
+//   * D rounds as the plain reverse loop does (__fmul_rn w D, __fmul_rn
+//     r do, __fadd_rn), so dS0 equals it bit for bit.
+//
 // C interface (bound with ctypes; every pointer and the stream as void*):
 //   int repro_wkv6(r, k, v, w, u, S0, out, S_T, B, T, H, hd, stream)
-// hd is one of 16, 32, 64, 128; S0 may be null.  Returns cudaGetLastError()
-// after the launch (0 on success, cudaErrorInvalidValue for another hd,
-// cudaErrorMisalignedAddress for an operand not 16-byte aligned);
-// allocates nothing.
+//   int repro_wkv6_states(r, k, v, w, u, S0, out, S_T, Sc, B, T, H, hd,
+//                         stream)
+//   int repro_wkv6_bwd(r, k, v, w, u, Sc, dout, dS_T, dr, dk, dv, dw, du,
+//                      dS0, B, T, H, hd, stream)
+//   int repro_wkv6_chunk(hd)       steps a chunk, C: Sc has ceil(T / C)
+//   int repro_wkv6_bwd_parts(hd)   the backward's partials, hd / JB
+// hd is one of 16, 32, 64, 128 (the last two return 0 for another); S0 and
+// dS_T may be null.  repro_wkv6_states is the forward that also writes Sc
+// (training); repro_wkv6 is inference.  The backward writes dr, dk, dw as
+// (hd / JB, B, T, H, hd) partials, du as (B, H, hd), dv and dS0 whole.  The
+// launching functions return cudaGetLastError() after their launch (0 on
+// success, cudaErrorInvalidValue for another hd or a null Sc,
+// cudaErrorMisalignedAddress for an operand not 16-byte aligned); none
+// allocates.
 
 #include <cuda_runtime.h>
 
@@ -249,13 +303,13 @@ __device__ __forceinline__ void finish_chunk(
   }
 }
 
-template <int HD>
+template <int HD, bool STATES>
 __global__ void __launch_bounds__(Plan<HD>::NT + NF, 1)
 wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ w,
             const float* __restrict__ u, const float* __restrict__ S0,
-            float* __restrict__ out, float* __restrict__ ST, int64_t T,
-            int H) {
+            float* __restrict__ out, float* __restrict__ ST,
+            float* __restrict__ Sc, int64_t T, int H) {
   using P = Plan<HD>;
   constexpr int KI = P::KI, JB = P::JB, G = P::G, NCG = P::NCG;
   constexpr int C = P::C, KL = P::KL;
@@ -318,6 +372,11 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
     const int n = (int)lmin(C, T - c * C);
     const float* st = smem + (c % NS) * P::STAGE;
     float* part = parts + (c & 1) * P::PART;
+    if constexpr (STATES) {                   // the chunk's start, for training
+      float* dst = Sc + ((bh * chunks + c) * HD + i0) * HD + j0 + jt;
+#pragma unroll
+      for (int a = 0; a < KI; ++a) st_vec<JT>(dst + a * HD, S[a]);
+    }
     __syncthreads();
     // step t + 1's operands are read before step t's partial is stored (a
     // read past the chunk's last step stays inside shared memory and is
@@ -345,38 +404,320 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
     st_vec<JT>(ST + (bh * HD + i0 + a) * HD + j0 + jt, S[a]);
 }
 
+// The backward's tiles: KI keys x JT columns a thread, JB columns a block,
+// sub-chunks of U steps; C is the forward's chunk (its saved starts).
 template <int HD>
-int launch(const float* r, const float* k, const float* v, const float* w,
-           const float* u, const float* S0, float* out, float* ST, int64_t B,
-           int64_t T, int H, cudaStream_t s) {
-  using P = Plan<HD>;
-  static unsigned done = 0;   // devices whose shared memory limit is raised
+struct BPlan {
+  static constexpr int KI = 2, JT = 4, U = 8;
+  static constexpr int JB = HD < 32 ? HD : 32;
+  static constexpr int C = Tile<HD>::C;
+  static constexpr int NCG = JB / JT;         // column lanes
+  static constexpr int KGW = 32 / NCG;        // key groups a warp
+  static constexpr int G = HD / KI;           // key groups
+  static constexpr int NT = G * NCG;          // threads
+  static constexpr int NW = NT / 32;          // warps
+  static constexpr int E = KI * JT;           // elements a thread
+  static constexpr int NSUB = C / U;          // sub-chunks a chunk
+  static constexpr int KL = (HD + 31) / 32;   // keys a lane of the dot sums
+  // shared memory, in floats: a chunk's r, k, w, v, do (C x HD each), its
+  // b_t and q_t, the sub-chunk starts (NSUB x E x NT), the warps' dv sums
+  // of a sub-chunk (U x NW x JB)
+  static constexpr int STAGE = 5 * C * HD;
+  static constexpr int CP = NSUB * E * NT;
+  static constexpr int DVB = U * NW * JB;
+  static constexpr size_t BYTES = sizeof(float) * (STAGE + 2 * C + CP + DVB);
+  static_assert(NT % 32 == 0 && C % U == 0 && NCG >= KI && HD % 4 == 0 &&
+                32 % NCG == 0, "backward tiles");
+};
+
+// S <- w S + k v for a thread's elements, rounded as the forward
+template <int KI, int JT>
+__device__ __forceinline__ void bwd_advance(float (&S)[KI][JT],
+                                            const float* wr, const float* kr,
+                                            const float* vr) {
+  float w2[KI], k2[KI], v4[JT];
+#pragma unroll
+  for (int a = 0; a < KI; ++a) { w2[a] = wr[a]; k2[a] = kr[a]; }
+#pragma unroll
+  for (int b = 0; b < JT; ++b) v4[b] = vr[b];
+#pragma unroll
+  for (int a = 0; a < KI; ++a)
+#pragma unroll
+    for (int b = 0; b < JT; ++b)
+      S[a][b] = __fadd_rn(__fmul_rn(w2[a], S[a][b]), __fmul_rn(k2[a], v4[b]));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(BPlan<HD>::NT)
+wkv6_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ w,
+                const float* __restrict__ u, const float* __restrict__ Sc,
+                const float* __restrict__ dout,
+                const float* __restrict__ dST, float* __restrict__ dr,
+                float* __restrict__ dk, float* __restrict__ dv,
+                float* __restrict__ dw, float* __restrict__ du,
+                float* __restrict__ dS0, int64_t B, int64_t T, int H) {
+  using P = BPlan<HD>;
+  constexpr int KI = P::KI, JT = P::JT, JB = P::JB, C = P::C, U = P::U;
+  constexpr int NCG = P::NCG, NT = P::NT, NW = P::NW, E = P::E;
+  extern __shared__ __align__(16) float smem[];
+  float* st = smem;                           // [5][C][HD]: r k w v do
+  float* bt = st + P::STAGE;                  // [C] v . do
+  float* qt = bt + C;                         // [C] sum r u k
+  float* cps = qt + C;                        // [NSUB][E][NT]
+  float* dvb = cps + P::CP;                   // [U][NW][JB]
+
+  const int jblocks = HD / JB;
+  const int64_t bh = blockIdx.x / jblocks;    // b * H + h
+  const int jb = (int)(blockIdx.x - bh * jblocks);
+  const int j0 = jb * JB;
+  const int hh = (int)(bh % H);
+  const int64_t bi = bh / H;
+  const int64_t ld = (int64_t)H * HD;
+  const int64_t row0 = (bi * T * H + hh) * HD;
+  const int64_t chunks = (T + C - 1) / C;
+  const int64_t part = B * T * ld;            // one block column's partials
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int cg = lane % NCG, kg = warp * P::KGW + lane / NCG;
+  const int i0 = kg * KI, jt = JT * cg;
+  float ul[P::KL], uu[KI], dua[KI], D[KI][JT];
+#pragma unroll
+  for (int m = 0; m < P::KL; ++m)
+    ul[m] = lane + 32 * m < HD ? u[hh * HD + lane + 32 * m] : 0.f;
+#pragma unroll
+  for (int a = 0; a < KI; ++a) {
+    uu[a] = u[hh * HD + i0 + a];
+    dua[a] = 0.f;
+#pragma unroll
+    for (int b = 0; b < JT; ++b) D[a][b] = 0.f;
+    if (dST != nullptr)
+      ld_vec<JT>(dST + (bh * HD + i0 + a) * HD + j0 + jt, D[a]);
+  }
+
+  for (int64_t c = chunks - 1; c >= 0; --c) {
+    const int n = (int)lmin(C, T - c * C);
+    const int64_t crow = row0 + c * C * ld;   // the chunk's first row
+    __syncthreads();                          // the last chunk's reads done
+    for (int idx = tid; idx < 5 * n * (HD / 4); idx += NT) {
+      const int arr = idx / (n * (HD / 4));
+      const int rest = idx - arr * n * (HD / 4);
+      const int t = rest / (HD / 4), c4 = 4 * (rest % (HD / 4));
+      const float* src = arr == 0 ? r : arr == 1 ? k : arr == 2 ? w
+                         : arr == 3 ? v : dout;
+      copy16(st + (arr * C + t) * HD + c4, src + crow + t * ld + c4);
+    }
+    cp_async_commit();
+    cp_async_wait_group<0>();
+    __syncthreads();
+    // b_t and q_t of the chunk's steps, a warp a step at a time
+    for (int t = warp; t < n; t += NW) {
+      float bs = 0.f, qs = 0.f;
+#pragma unroll
+      for (int m = 0; m < P::KL; ++m) {
+        const int i = lane + 32 * m;
+        if (i < HD) {
+          bs = fmaf(st[(3 * C + t) * HD + i], st[(4 * C + t) * HD + i], bs);
+          qs = fmaf(st[t * HD + i] * ul[m], st[(C + t) * HD + i], qs);
+        }
+      }
+#pragma unroll
+      for (int d = 16; d >= 1; d /= 2) {
+        bs += __shfl_xor_sync(~0u, bs, d);
+        qs += __shfl_xor_sync(~0u, qs, d);
+      }
+      if (lane == 0) { bt[t] = bs; qt[t] = qs; }
+    }
+    // the sub-chunks' starts, from the chunk's saved start
+    const int nsub = (n + U - 1) / U;
+    float S[KI][JT];
+#pragma unroll
+    for (int a = 0; a < KI; ++a)
+      ld_vec<JT>(Sc + ((bh * chunks + c) * HD + i0 + a) * HD + j0 + jt, S[a]);
+    for (int s = 0; s < nsub; ++s) {
+#pragma unroll
+      for (int a = 0; a < KI; ++a)
+#pragma unroll
+        for (int b = 0; b < JT; ++b) cps[(s * E + a * JT + b) * NT + tid] = S[a][b];
+      if (s + 1 < nsub) {
+#pragma unroll 2
+        for (int t = s * U; t < s * U + U; ++t)
+          bwd_advance<KI, JT>(S, st + (2 * C + t) * HD + i0,
+                              st + (C + t) * HD + i0,
+                              st + (3 * C + t) * HD + j0 + jt);
+      }
+    }
+    __syncthreads();                          // b_t, q_t visible
+    for (int s = nsub - 1; s >= 0; --s) {
+      const int m = (int)lmin(U, n - s * U);
+      float hist[U][KI][JT];
+#pragma unroll
+      for (int a = 0; a < KI; ++a)
+#pragma unroll
+        for (int b = 0; b < JT; ++b) S[a][b] = cps[(s * E + a * JT + b) * NT + tid];
+#pragma unroll
+      for (int x = 0; x < U; ++x) {
+        if (x < m) {
+          const int t = s * U + x;
+#pragma unroll
+          for (int a = 0; a < KI; ++a)
+#pragma unroll
+            for (int b = 0; b < JT; ++b) hist[x][a][b] = S[a][b];
+          bwd_advance<KI, JT>(S, st + (2 * C + t) * HD + i0,
+                              st + (C + t) * HD + i0,
+                              st + (3 * C + t) * HD + j0 + jt);
+        }
+      }
+#pragma unroll
+      for (int x = U - 1; x >= 0; --x) {
+        if (x < m) {
+          const int t = s * U + x;
+          float rr[KI], kk[KI], ww[KI], vv[JT], dd[JT];
+#pragma unroll
+          for (int a = 0; a < KI; ++a) {
+            rr[a] = st[t * HD + i0 + a];
+            kk[a] = st[(C + t) * HD + i0 + a];
+            ww[a] = st[(2 * C + t) * HD + i0 + a];
+          }
+          ld_vec<JT>(st + (3 * C + t) * HD + j0 + jt, vv);
+          ld_vec<JT>(st + (4 * C + t) * HD + j0 + jt, dd);
+          float pr[KI], pk[KI], pw[KI], pv[JT];
+#pragma unroll
+          for (int b = 0; b < JT; ++b) pv[b] = 0.f;
+#pragma unroll
+          for (int a = 0; a < KI; ++a) {
+            pr[a] = pk[a] = pw[a] = 0.f;
+#pragma unroll
+            for (int b = 0; b < JT; ++b) {
+              pr[a] = fmaf(hist[x][a][b], dd[b], pr[a]);
+              pk[a] = fmaf(D[a][b], vv[b], pk[a]);
+              pw[a] = fmaf(D[a][b], hist[x][a][b], pw[a]);
+              pv[b] = fmaf(D[a][b], kk[a], pv[b]);
+              D[a][b] = __fadd_rn(__fmul_rn(ww[a], D[a][b]),
+                                  __fmul_rn(rr[a], dd[b]));
+            }
+          }
+          // sums over the column lanes (dr, dk, dw), the key lanes (dv)
+#pragma unroll
+          for (int d = 1; d < NCG; d *= 2) {
+#pragma unroll
+            for (int a = 0; a < KI; ++a) {
+              pr[a] += __shfl_xor_sync(~0u, pr[a], d);
+              pk[a] += __shfl_xor_sync(~0u, pk[a], d);
+              pw[a] += __shfl_xor_sync(~0u, pw[a], d);
+            }
+          }
+#pragma unroll
+          for (int d = NCG; d < 32; d *= 2) {
+#pragma unroll
+            for (int b = 0; b < JT; ++b)
+              pv[b] += __shfl_xor_sync(~0u, pv[b], d);
+          }
+          const float bb = bt[t];
+          if (jb == 0) {                      // the bonus terms, once
+#pragma unroll
+            for (int a = 0; a < KI; ++a) {
+              pr[a] = fmaf(uu[a] * kk[a], bb, pr[a]);
+              pk[a] = fmaf(uu[a] * rr[a], bb, pk[a]);
+              dua[a] = fmaf(rr[a] * kk[a], bb, dua[a]);
+            }
+          }
+          if (cg < KI) {
+            float xr = pr[0], xk = pk[0], xw = pw[0];
+#pragma unroll
+            for (int a = 1; a < KI; ++a)
+              if (cg == a) { xr = pr[a]; xk = pk[a]; xw = pw[a]; }
+            const int64_t o = jb * part + crow + t * ld + i0 + cg;
+            dr[o] = xr;
+            dk[o] = xk;
+            dw[o] = xw;
+          }
+          if (lane < NCG) st_vec<JT>(dvb + (x * NW + warp) * JB + jt, pv);
+        }
+      }
+      __syncthreads();                        // the warps' dv sums
+      for (int idx = tid; idx < m * JB; idx += NT) {
+        const int x = idx / JB, j = idx - x * JB, t = s * U + x;
+        float acc = dvb[x * NW * JB + j];
+#pragma unroll
+        for (int q = 1; q < NW; ++q) acc += dvb[(x * NW + q) * JB + j];
+        acc = fmaf(qt[t], st[(4 * C + t) * HD + j0 + j], acc);
+        dv[crow + t * ld + j0 + j] = acc;
+      }
+      __syncthreads();                        // dvb free again
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < KI; ++a)
+    st_vec<JT>(dS0 + (bh * HD + i0 + a) * HD + j0 + jt, D[a]);
+  if (jb == 0 && cg < KI) {
+    float x = dua[0];
+#pragma unroll
+    for (int a = 1; a < KI; ++a)
+      if (cg == a) x = dua[a];
+    du[bh * HD + i0 + cg] = x;
+  }
+}
+
+// Raise a kernel's dynamic shared memory limit once a device.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, unsigned& done) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess && !(dev < 32 && (done >> dev & 1u))) {
-    e = cudaFuncSetAttribute(wkv6_kernel<HD>,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)P::BYTES);
+                             (int)bytes);
     if (e == cudaSuccess && dev < 32) done |= 1u << dev;
   }
+  return e;
+}
+
+template <int HD>
+int launch(const float* r, const float* k, const float* v, const float* w,
+           const float* u, const float* S0, float* out, float* ST, float* Sc,
+           int64_t B, int64_t T, int H, cudaStream_t s) {
+  using P = Plan<HD>;
+  static unsigned done[2] = {0, 0};   // devices whose smem limit is raised
+  const auto kernel = Sc != nullptr ? wkv6_kernel<HD, true>
+                                    : wkv6_kernel<HD, false>;
+  const cudaError_t e = allow_smem(kernel, P::BYTES, done[Sc != nullptr]);
   if (e != cudaSuccess) return static_cast<int>(e);
   const unsigned blocks = (unsigned)(B * H * (HD / P::JB));
-  wkv6_kernel<HD><<<blocks, P::NT + NF, P::BYTES, s>>>(r, k, v, w, u, S0,
-                                                          out, ST, T, H);
+  kernel<<<blocks, P::NT + NF, P::BYTES, s>>>(r, k, v, w, u, S0, out, ST, Sc,
+                                              T, H);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+struct BwdArgs {
+  const float *r, *k, *v, *w, *u, *Sc, *dout, *dST;
+  float *dr, *dk, *dv, *dw, *du, *dS0;
+};
 
-extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
-                          const void* w, const void* u, const void* S0,
-                          void* out, void* ST, long long B, long long T,
-                          long long H, long long hd, void* stream) {
+template <int HD>
+int launch_bwd(const BwdArgs& x, int64_t B, int64_t T, int H,
+               cudaStream_t s) {
+  using P = BPlan<HD>;
+  static unsigned done = 0;
+  const cudaError_t e = allow_smem(wkv6_bwd_kernel<HD>, P::BYTES, done);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned blocks = (unsigned)(B * H * (HD / P::JB));
+  wkv6_bwd_kernel<HD><<<blocks, P::NT, P::BYTES, s>>>(
+      x.r, x.k, x.v, x.w, x.u, x.Sc, x.dout, x.dST, x.dr, x.dk, x.dv, x.dw,
+      x.du, x.dS0, B, T, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int forward(const void* r, const void* k, const void* v, const void* w,
+            const void* u, const void* S0, void* out, void* ST, void* Sc,
+            long long B, long long T, long long H, long long hd,
+            void* stream) {
   cudaGetLastError();  // report this call's launch, not an older error
   if (B * H == 0 || T == 0) return 0;
   if ((reinterpret_cast<uintptr_t>(r) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(w) |
-       reinterpret_cast<uintptr_t>(S0)) % 16)
+       reinterpret_cast<uintptr_t>(S0) | reinterpret_cast<uintptr_t>(Sc)) %
+      16)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const auto* r_ = static_cast<const float*>(r);
   const auto* k_ = static_cast<const float*>(k);
@@ -386,13 +727,87 @@ extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
   const auto* s0 = static_cast<const float*>(S0);
   auto* o_ = static_cast<float*>(out);
   auto* st = static_cast<float*>(ST);
+  auto* sc = static_cast<float*>(Sc);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch<16>(r_, k_, v_, w_, u_, s0, o_, st, B, T, (int)H, s);
-    case 32: return launch<32>(r_, k_, v_, w_, u_, s0, o_, st, B, T, (int)H, s);
-    case 64: return launch<64>(r_, k_, v_, w_, u_, s0, o_, st, B, T, (int)H, s);
+    case 16:
+      return launch<16>(r_, k_, v_, w_, u_, s0, o_, st, sc, B, T, (int)H, s);
+    case 32:
+      return launch<32>(r_, k_, v_, w_, u_, s0, o_, st, sc, B, T, (int)H, s);
+    case 64:
+      return launch<64>(r_, k_, v_, w_, u_, s0, o_, st, sc, B, T, (int)H, s);
     case 128:
-      return launch<128>(r_, k_, v_, w_, u_, s0, o_, st, B, T, (int)H, s);
+      return launch<128>(r_, k_, v_, w_, u_, s0, o_, st, sc, B, T, (int)H, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+extern "C" int repro_wkv6(const void* r, const void* k, const void* v,
+                          const void* w, const void* u, const void* S0,
+                          void* out, void* ST, long long B, long long T,
+                          long long H, long long hd, void* stream) {
+  return forward(r, k, v, w, u, S0, out, ST, nullptr, B, T, H, hd, stream);
+}
+
+extern "C" int repro_wkv6_states(const void* r, const void* k, const void* v,
+                                 const void* w, const void* u, const void* S0,
+                                 void* out, void* ST, void* Sc, long long B,
+                                 long long T, long long H, long long hd,
+                                 void* stream) {
+  if (Sc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return forward(r, k, v, w, u, S0, out, ST, Sc, B, T, H, hd, stream);
+}
+
+extern "C" int repro_wkv6_chunk(long long hd) {
+  switch (hd) {
+    case 16: return Tile<16>::C;
+    case 32: return Tile<32>::C;
+    case 64: return Tile<64>::C;
+    case 128: return Tile<128>::C;
+    default: return 0;
+  }
+}
+
+extern "C" int repro_wkv6_bwd_parts(long long hd) {
+  switch (hd) {
+    case 16: return 16 / BPlan<16>::JB;
+    case 32: return 32 / BPlan<32>::JB;
+    case 64: return 64 / BPlan<64>::JB;
+    case 128: return 128 / BPlan<128>::JB;
+    default: return 0;
+  }
+}
+
+extern "C" int repro_wkv6_bwd(const void* r, const void* k, const void* v,
+                              const void* w, const void* u, const void* Sc,
+                              const void* dout, const void* dST, void* dr,
+                              void* dk, void* dv, void* dw, void* du,
+                              void* dS0, long long B, long long T,
+                              long long H, long long hd, void* stream) {
+  cudaGetLastError();  // report this call's launch, not an older error
+  if (B * H == 0 || T == 0) return 0;
+  if ((reinterpret_cast<uintptr_t>(r) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(Sc) | reinterpret_cast<uintptr_t>(dout) |
+       reinterpret_cast<uintptr_t>(dST) | reinterpret_cast<uintptr_t>(dS0)) %
+      16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const BwdArgs x{static_cast<const float*>(r), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<const float*>(w),
+                  static_cast<const float*>(u), static_cast<const float*>(Sc),
+                  static_cast<const float*>(dout),
+                  static_cast<const float*>(dST), static_cast<float*>(dr),
+                  static_cast<float*>(dk), static_cast<float*>(dv),
+                  static_cast<float*>(dw), static_cast<float*>(du),
+                  static_cast<float*>(dS0)};
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return launch_bwd<16>(x, B, T, (int)H, s);
+    case 32: return launch_bwd<32>(x, B, T, (int)H, s);
+    case 64: return launch_bwd<64>(x, B, T, (int)H, s);
+    case 128: return launch_bwd<128>(x, B, T, (int)H, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

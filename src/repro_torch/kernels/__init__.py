@@ -20,9 +20,11 @@
                          logit soft-capping, the LM prefill's attention
                          (CUDA C++, ``csrc/local_attn.cu``)
 * ``rglru_scan``       — RG-LRU's linear recurrence (CUDA C++,
-                         ``csrc/rglru_scan.cu``; no Pallas counterpart)
+                         ``csrc/rglru_scan.cu``; no Pallas counterpart),
+                         and its gradient ``rglru_scan_bwd`` (same source)
 * ``wkv6``             — RWKV-6's matrix-state recurrence (CUDA C++,
-                         ``csrc/wkv6.cu``; no Pallas counterpart)
+                         ``csrc/wkv6.cu``; no Pallas counterpart), and its
+                         gradient ``wkv6_bwd`` (same source)
 
 ``matvec``, ``deflate_rmatvec`` and ``gram`` take ``trans=True`` for the
 same function of ``A^T``.
@@ -49,8 +51,12 @@ from repro_torch.kernels.ops import (  # noqa: F401
     local_attention_ref,
     rglru_scan,
     rglru_scan_ref,
+    rglru_scan_bwd,
+    rglru_scan_bwd_ref,
     wkv6,
     wkv6_ref,
+    wkv6_bwd,
+    wkv6_bwd_ref,
     launches,
     route_launches,
     reset_launches,

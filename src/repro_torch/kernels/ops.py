@@ -12,7 +12,9 @@ sweeps of one row block, ``csr_matmat`` (``A_b Q``), ``csr_rmatmat``
 (``Z += A_b^T Y``, in place) and ``csr_gram_chain`` (both halves on one
 copy of the block); and the LM's two recurrences, ``rglru_scan``
 (RG-LRU's ``h_t = a_t h_{t-1} + b_t``) and ``wkv6`` (RWKV-6's matrix
-state).  Each checks its operands, then:
+state), each differentiable where autograd records, their gradients
+being ``rglru_scan_bwd`` and ``wkv6_bwd``.  Each checks its operands,
+then:
 
 * for tensors on the CPU, run the plain PyTorch version
   (``kernels/ref.py``) — the caller asked for the CPU;
@@ -90,7 +92,7 @@ launches = {"block_matvec": 0, "block_rmatvec": 0, "block_gram_chain": 0,
             "matvec": 0, "deflate_rmatvec": 0, "gram": 0,
             "local_attention": 0, "local_attention_bwd": 0,
             "csr_matmat": 0, "csr_rmatmat": 0, "csr_gram_chain": 0,
-            "rglru_scan": 0, "wkv6": 0}
+            "rglru_scan": 0, "wkv6": 0, "rglru_scan_bwd": 0, "wkv6_bwd": 0}
 
 #: the CSR sweeps, by the dtype of the values they read
 CSR_KERNELS = ("csr_matmat", "csr_rmatmat", "csr_gram_chain")
@@ -615,12 +617,6 @@ def csr_gram_chain(off: torch.Tensor, col: torch.Tensor, val: torch.Tensor,
     return Z
 
 
-#: what a recurrence's backward on the card raises: no kernel computes it
-_NO_BACKWARD = ("the gradient of {} on the card has no kernel yet "
-                "(ROADMAP.md, queue 1, item 17: training of the recurrent "
-                "families)")
-
-
 def _recurrence_operands(what: str, *xs) -> None:
     """Check a recurrence's operands: fp32 tensors on one device, 'cpu'
     or 'cuda' (``None`` entries, an absent initial state, pass)."""
@@ -644,25 +640,33 @@ def _records(*xs) -> bool:
         x is not None and x.requires_grad for x in xs)
 
 
+def _contiguous(*xs):
+    return tuple(None if x is None else x.contiguous() for x in xs)
+
+
 def _rglru_scan_forward(a, b, h0):
-    """The kernel's h, one counted launch (checked operands, card)."""
-    h = _rec.rglru_scan_cuda(a.contiguous(), b.contiguous(),
-                             None if h0 is None else h0.contiguous())
+    """The kernel's h, one counted launch (checked, contiguous operands,
+    card)."""
+    h = _rec.rglru_scan_cuda(a, b, h0)
     _count("rglru_scan")
     return h
 
 
 class _RGLRUScan(torch.autograd.Function):
-    """``rglru_scan`` on the card where autograd records: the kernel
-    forward; no backward kernel yet."""
+    """``rglru_scan`` on the card where autograd records: the forward
+    kernel, then ``rglru_scan_bwd``'s kernel from the saved a and h."""
 
     @staticmethod
     def forward(ctx, a, b, h0):
-        return _rglru_scan_forward(a, b, h0)
+        a, b, h0 = _contiguous(a, b, h0)
+        h = _rglru_scan_forward(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
 
     @staticmethod
     def backward(ctx, dh):
-        raise NotImplementedError(_NO_BACKWARD.format("rglru_scan"))
+        a, h, h0 = ctx.saved_tensors
+        return rglru_scan_bwd(a, h, h0, dh)
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor,
@@ -671,8 +675,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     (B, T, R) fp32, h0 (B, R) fp32 or None (zeros) -> h (B, T, R) fp32;
     the last state is ``h[:, -1]``.  T >= 1.  On the CPU the plain loop
     (``ref.rglru_scan_ref``, differentiable by autograd); on the card
-    ``csrc/rglru_scan.cu``, one launch (bitwise the plain version), whose
-    backward raises where autograd records."""
+    ``csrc/rglru_scan.cu``, one launch (bitwise the plain version), and
+    where autograd records its backward is ``rglru_scan_bwd``'s kernel,
+    one launch."""
     _recurrence_operands("rglru_scan", a, b, h0)
     if a.ndim != 3 or b.shape != a.shape or a.shape[1] < 1 or (
             h0 is not None and h0.shape != (a.shape[0], a.shape[2])):
@@ -683,29 +688,77 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
         return _ref.rglru_scan_ref(a, b, h0)
     if _records(a, b, h0):
         return _RGLRUScan.apply(a, b, h0)
-    return _rglru_scan_forward(a, b, h0)
+    return _rglru_scan_forward(*_contiguous(a, b, h0))
 
 
-def _wkv6_forward(r, k, v, w, u, S0):
-    """The kernel's (out, S_T), one counted launch (checked operands,
-    card)."""
-    out = _rec.wkv6_cuda(*(x.contiguous() for x in (r, k, v, w, u)),
-                         None if S0 is None else S0.contiguous())
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor,
+                   h0: torch.Tensor | None, g: torch.Tensor) -> tuple:
+    """The gradient of ``rglru_scan``: a and its output h (B, T, R), h0
+    (B, R) or None, g = dL/dh (B, T, R), fp32 -> (da, db, dh0 or None).
+    On the CPU the plain reverse loop (``ref.rglru_scan_bwd_ref``); on
+    the card ``csrc/rglru_scan.cu``'s backward, one launch, bitwise the
+    plain loop."""
+    _recurrence_operands("rglru_scan_bwd", a, h, h0, g)
+    if a.ndim != 3 or h.shape != a.shape or g.shape != a.shape or (
+            h0 is not None and h0.shape != (a.shape[0], a.shape[2])):
+        raise ValueError(f"rglru_scan_bwd takes a, h, g (B, T, R) and h0 "
+                         f"(B, R), got {tuple(a.shape)}, {tuple(h.shape)}, "
+                         f"{tuple(g.shape)}, "
+                         f"{None if h0 is None else tuple(h0.shape)}")
+    if a.device.type == "cpu":
+        return _ref.rglru_scan_bwd_ref(a, h, h0, g)
+    out = _rec.rglru_scan_bwd_cuda(*_contiguous(a, h, h0, g))
+    _count("rglru_scan_bwd")
+    return out
+
+
+def _wkv6_forward(r, k, v, w, u, S0, states=False):
+    """The kernel's (out, S_T), with ``states`` also the chunk starts,
+    one counted launch (checked, contiguous operands, card)."""
+    out = _rec.wkv6_cuda(r, k, v, w, u, S0, states)
     _count("wkv6")
     return out
 
 
 class _WKV6(torch.autograd.Function):
-    """``wkv6`` on the card where autograd records: the kernel forward;
-    no backward kernel yet."""
+    """``wkv6`` on the card where autograd records: the forward kernel,
+    which also writes the state at each chunk's start, then
+    ``wkv6_bwd``'s kernel from those.  A gradient autograd leaves out
+    (the state output unused) is passed on as None, zeros to the
+    kernel."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, S0):
-        return _wkv6_forward(r, k, v, w, u, S0)
+        ctx.set_materialize_grads(False)
+        r, k, v, w, u, S0 = _contiguous(r, k, v, w, u, S0)
+        out, S_T, Sc = _wkv6_forward(r, k, v, w, u, S0, states=True)
+        ctx.save_for_backward(r, k, v, w, u, Sc)
+        ctx.has_state = S0 is not None
+        return out, S_T
 
     @staticmethod
     def backward(ctx, dout, dS):
-        raise NotImplementedError(_NO_BACKWARD.format("wkv6"))
+        r, k, v, w, u, Sc = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(r)
+        dr, dk, dv, dw, du, dS0 = wkv6_bwd(r, k, v, w, u, None, dout, dS,
+                                           states=Sc)
+        return dr, dk, dv, dw, du, dS0 if ctx.has_state else None
+
+
+def _wkv6_shapes(what: str, r, k, v, w, u, S0) -> tuple:
+    B, T, H, hd = r.shape if r.ndim == 4 else (0, 0, 0, 0)
+    if (r.ndim != 4 or T < 1 or any(x.shape != r.shape for x in (k, v, w))
+            or u.shape != (H, hd)
+            or (S0 is not None and S0.shape != (B, H, hd, hd))):
+        raise ValueError(f"{what} takes r, k, v, w (B, T >= 1, H, hd), u "
+                         f"(H, hd) and S0 (B, H, hd, hd), got "
+                         f"{[tuple(x.shape) for x in (r, k, v, w, u)]}, "
+                         f"{None if S0 is None else tuple(S0.shape)}")
+    if r.device.type == "cuda" and hd not in _rec.WKV_HEAD_DIMS:
+        raise ValueError(f"{what} on the card takes a head size in "
+                         f"{_rec.WKV_HEAD_DIMS}, got {hd}")
+    return B, T, H, hd
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -716,25 +769,50 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (S + u * (k_t v_t^T))``, then ``S <- w_t * S + k_t v_t^T``.  T >= 1.
     On the CPU the plain loop (``ref.wkv6_ref``, differentiable by
     autograd); on the card ``csrc/wkv6.cu``, one launch, at hd in
-    ``recurrent.WKV_HEAD_DIMS``, whose backward raises where autograd
-    records."""
+    ``recurrent.WKV_HEAD_DIMS``; where autograd records, the same launch
+    also keeps the state at each chunk's start, and the backward is
+    ``wkv6_bwd``'s kernel, one launch."""
     _recurrence_operands("wkv6", r, k, v, w, u, S0)
-    B, T, H, hd = r.shape if r.ndim == 4 else (0, 0, 0, 0)
-    if (r.ndim != 4 or T < 1 or any(x.shape != r.shape for x in (k, v, w))
-            or u.shape != (H, hd)
-            or (S0 is not None and S0.shape != (B, H, hd, hd))):
-        raise ValueError(f"wkv6 takes r, k, v, w (B, T >= 1, H, hd), u "
-                         f"(H, hd) and S0 (B, H, hd, hd), got "
-                         f"{[tuple(x.shape) for x in (r, k, v, w, u)]}, "
-                         f"{None if S0 is None else tuple(S0.shape)}")
+    _wkv6_shapes("wkv6", r, k, v, w, u, S0)
     if r.device.type == "cpu":
         return _ref.wkv6_ref(r, k, v, w, u, S0)
-    if hd not in _rec.WKV_HEAD_DIMS:
-        raise ValueError(f"wkv6 on the card takes a head size in "
-                         f"{_rec.WKV_HEAD_DIMS}, got {hd}")
     if _records(r, k, v, w, u, S0):
         return _WKV6.apply(r, k, v, w, u, S0)
-    return _wkv6_forward(r, k, v, w, u, S0)
+    return _wkv6_forward(*_contiguous(r, k, v, w, u, S0))
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, S0: torch.Tensor | None,
+             dout: torch.Tensor, dS_T: torch.Tensor | None = None, *,
+             states: torch.Tensor | None) -> tuple:
+    """The gradient of ``wkv6``: its operands, dout = dL/dout (B, T, H,
+    hd) and dS_T = dL/dS_T (B, H, hd, hd) or None (zeros), fp32 -> (dr,
+    dk, dv, dw, du, dS0).  On the CPU the plain reverse loop
+    (``ref.wkv6_bwd_ref``, from S0; ``states`` None); on the card
+    ``csrc/wkv6.cu``'s backward, one launch, from ``states``: the chunk
+    starts that the forward launch wrote (``recurrent.wkv6_cuda(...,
+    states=True)``, as the autograd Function keeps them), which hold S0.
+    dS0 is bitwise the plain loop's; the other gradients sum in another
+    order."""
+    _recurrence_operands("wkv6_bwd", r, k, v, w, u, S0, dout, dS_T, states)
+    B, T, H, hd = _wkv6_shapes("wkv6_bwd", r, k, v, w, u, S0)
+    if dout.shape != r.shape or (dS_T is not None
+                                 and dS_T.shape != (B, H, hd, hd)):
+        raise ValueError(f"wkv6_bwd takes dout {tuple(r.shape)} and dS_T "
+                         f"{(B, H, hd, hd)}, got {tuple(dout.shape)}, "
+                         f"{None if dS_T is None else tuple(dS_T.shape)}")
+    if r.device.type == "cpu":
+        return _ref.wkv6_bwd_ref(r, k, v, w, u, S0, dout, dS_T)
+    want = (B, H, -(-T // _rec.wkv_chunk(hd)), hd, hd)
+    if states is None or tuple(states.shape) != want:
+        raise ValueError(f"wkv6_bwd on the card takes the forward's chunk "
+                         f"states {want}, got "
+                         f"{None if states is None else tuple(states.shape)}")
+    r, k, v, w, u, dout, dS_T, states = _contiguous(r, k, v, w, u, dout,
+                                                    dS_T, states)
+    out = _rec.wkv6_bwd_cuda(r, k, v, w, u, states, dout, dS_T)
+    _count("wkv6_bwd")
+    return out
 
 
 block_matvec_ref = _ref.block_matvec_ref
@@ -750,3 +828,5 @@ csr_rmatmat_ref = _ref.csr_rmatmat_ref
 csr_gram_chain_ref = _ref.csr_gram_chain_ref
 rglru_scan_ref = _ref.rglru_scan_ref
 wkv6_ref = _ref.wkv6_ref
+rglru_scan_bwd_ref = _ref.rglru_scan_bwd_ref
+wkv6_bwd_ref = _ref.wkv6_bwd_ref

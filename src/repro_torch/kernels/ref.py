@@ -38,7 +38,13 @@ time: the JAX package's ``_rglru_scan`` (an associative scan) and
 kernels do (a product rounded, then a sum), so the RG-LRU kernel and
 the RWKV-6 kernel's state equal them bit for bit; only the RWKV-6
 output's sum over the key index runs in another order.  Both stay
-differentiable by autograd on the CPU.
+differentiable by autograd on the CPU.  ``rglru_scan_bwd_ref`` and
+``wkv6_bwd_ref`` are their gradients written out as reverse loops over
+time, in the rounding order of the backward kernels (a product rounded,
+then a sum): RG-LRU's ``d_t = g_t + a_{t+1} d_{t+1}`` and RWKV-6's
+``D <- w_t * D + r_t do_t^T``, so the kernels' ``da``, ``db``, ``dh0``
+and ``dS0`` equal them bit for bit; RWKV-6's other gradients are sums
+over a key or a value index, in another order on the card.
 """
 from __future__ import annotations
 
@@ -138,12 +144,12 @@ def csr_gram_chain_ref(off, col, val, Q, Z, round_y: bool = False):
                            csr_matmat_ref(off, col, val, Q, round_y), Z)
 
 
-def _attention_logits(q, k, window, softcap):
+def _attention_logits(q, k, window, softcap, sums=torch.float32):
     """(capped logits, tanh of the scaled scores or None, live mask) in
-    fp32, K already repeated to q's heads."""
+    fp32 (or ``sums``), K already repeated to q's heads."""
     S, D = q.shape[2], q.shape[3]
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
-                          k.to(torch.float32)) * (1.0 / math.sqrt(D))
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(sums),
+                          k.to(sums)) * (1.0 / math.sqrt(D))
     t = None
     if softcap is not None:
         t = torch.tanh(logits / softcap)
@@ -181,23 +187,28 @@ def local_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def local_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             do: torch.Tensor, lse: torch.Tensor, *,
-                            window: int, softcap: float | None = None):
+                            window: int, softcap: float | None = None,
+                            sums: torch.dtype = torch.float32):
     """The gradient of ``local_attention`` given its output ``o``, the
     output's gradient ``do`` and the rows' log-sum-exp ``lse``: (dq, dk,
     dv) fp32 in the shapes of q, k, v.  P = exp(c - lse) on the live
     pairs, dC = P (dO V^T - sum(dO * O)), dS = dC (1 - tanh^2) with a
     soft-cap, dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D), dV = P^T dO,
-    dK and dV summed over the query heads of each K/V head."""
+    dK and dV summed over the query heads of each K/V head.
+    ``sums=torch.float64`` evaluates the same formulas in float64 (and
+    returns float64): the reading where this version's own fp32
+    rounding nears a limit, as in dK and dV summed over G x window
+    terms."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     rep = H // Hkv
-    k32 = k.to(torch.float32).repeat_interleave(rep, dim=1)
-    v32 = v.to(torch.float32).repeat_interleave(rep, dim=1)
-    q32, do32 = q.to(torch.float32), do.to(torch.float32)
-    logits, t, mask = _attention_logits(q32, k32, window, softcap)
-    p = torch.where(mask, torch.exp(logits - lse[..., None]), 0.0)
+    k32 = k.to(sums).repeat_interleave(rep, dim=1)
+    v32 = v.to(sums).repeat_interleave(rep, dim=1)
+    q32, do32 = q.to(sums), do.to(sums)
+    logits, t, mask = _attention_logits(q32, k32, window, softcap, sums)
+    p = torch.where(mask, torch.exp(logits - lse.to(sums)[..., None]), 0.0)
     dp = torch.einsum("bhqd,bhkd->bhqk", do32, v32)
-    delta = (do32 * o.to(torch.float32)).sum(dim=-1)
+    delta = (do32 * o.to(sums)).sum(dim=-1)
     ds = p * (dp - delta[..., None])
     if t is not None:
         ds = ds * (1.0 - t * t)
@@ -241,3 +252,65 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out.append(torch.einsum("bhk,bhkv->bhv", r[:, t], S + ub * kv))
         S = w[:, t, :, :, None] * S + kv
     return torch.stack(out, dim=1), S
+
+
+def rglru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor,
+                       h0: torch.Tensor | None,
+                       g: torch.Tensor) -> tuple:
+    """The gradient of ``rglru_scan``: a, h (B, T, R) (h the forward's
+    output), h0 (B, R) or None, g = dL/dh (B, T, R) -> (da, db, dh0 or
+    None), fp32.  From t = T - 1 down: ``d_t = g_t + a_{t+1} d_{t+1}``
+    (``d_{T-1} = g_{T-1}``), ``db_t = d_t``, ``da_t = d_t h_{t-1}`` (h0,
+    or zeros, before step 0), ``dh0 = a_0 d_0``."""
+    a32, h32, g32 = (x.to(torch.float32) for x in (a, h, g))
+    da, db = torch.empty_like(g32), torch.empty_like(g32)
+    first = (torch.zeros_like(g32[:, 0]) if h0 is None
+             else h0.to(torch.float32))
+    d = None
+    for t in reversed(range(a.shape[1])):
+        d = g32[:, t] if d is None else g32[:, t] + a32[:, t + 1] * d
+        db[:, t] = d
+        da[:, t] = d * (h32[:, t - 1] if t > 0 else first)
+    return da, db, (None if h0 is None else a32[:, 0] * d)
+
+
+def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor, S0: torch.Tensor | None,
+                 dout: torch.Tensor, dS_T: torch.Tensor | None = None):
+    """The gradient of ``wkv6``: its operands, dout = dL/dout (B, T, H,
+    hd) and dS_T = dL/dS_T (B, H, hd, hd) or None (zeros) -> (dr, dk,
+    dv, dw (B, T, H, hd), du (H, hd), dS0 (B, H, hd, hd)), fp32.  The
+    states S_{t-1} are recomputed as ``wkv6_ref`` makes them; then from
+    t = T - 1 down, with D = dL/dS_t (``b`` = v_t . do_t):
+
+    * ``dr_t[i] = sum_j S_{t-1}[i][j] do_t[j] + u_i k_t[i] b``
+    * ``dk_t[i] = sum_j D[i][j] v_t[j] + u_i r_t[i] b``
+    * ``dv_t[j] = sum_i D[i][j] k_t[i] + (sum_i r_t[i] u_i k_t[i]) do_t[j]``
+    * ``dw_t[i] = sum_j D[i][j] S_{t-1}[i][j]``
+    * ``du_i += r_t[i] k_t[i] b``
+    * ``D <- w_t[i] D[i][j] + r_t[i] do_t[j]``, and ``dS0`` is the last D.
+    """
+    r, k, v, w, do = (x.to(torch.float32) for x in (r, k, v, w, dout))
+    u = u.to(torch.float32)
+    B, T, H, hd = r.shape
+    S = r.new_zeros((B, H, hd, hd)) if S0 is None else S0.to(torch.float32)
+    states = []
+    for t in range(T):
+        states.append(S)
+        S = w[:, t, :, :, None] * S + k[:, t, :, :, None] * v[:, t, :, None, :]
+    D = (r.new_zeros((B, H, hd, hd)) if dS_T is None
+         else dS_T.to(torch.float32))
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros_like(u)
+    for t in reversed(range(T)):
+        rt, kt, vt, wt, dot = (x[:, t] for x in (r, k, v, w, do))
+        Sp = states[t]
+        b = (vt * dot).sum(-1, keepdim=True)
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", Sp, dot) + u * kt * b
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", D, vt) + u * rt * b
+        dv[:, t] = (torch.einsum("bhij,bhi->bhj", D, kt)
+                    + (rt * u * kt).sum(-1, keepdim=True) * dot)
+        dw[:, t] = (D * Sp).sum(-1)
+        du = du + (rt * kt * b).sum(0)
+        D = wt[..., None] * D + rt[..., None] * dot[..., None, :]
+    return dr, dk, dv, dw, du, D

@@ -7,7 +7,10 @@ summed in the JAX order, ``((t0 + t1) + t2) + t3``), the gates, decays
 and recurrences in fp32, and the fp32 leaves (``lam``, ``mu``, ``c_mu``,
 ``w0``, ``u``) stored fp32 whatever ``cfg.dtype`` is.  The two
 recurrences run on hand-written kernels (``ops.rglru_scan``,
-``ops.wkv6``); on the CPU those are their plain loops over time.
+``ops.wkv6``), and so do their gradients in training
+(``ops.rglru_scan_bwd``, ``ops.wkv6_bwd``, through the kernels'
+autograd Functions); on the CPU those are their plain loops over time,
+differentiated by autograd.
 
 Both blocks carry O(1) decode state, a dict per layer that
 ``models/transformer.py`` keeps as the layer's cache and writes in place:

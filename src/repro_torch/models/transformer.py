@@ -40,9 +40,12 @@ logits exist at a time.  Every backward on the path sums in a fixed
 order on the card (the embedding lookup's, torch's sort-based
 ``index_put_`` with accumulation; the label logit's ``gather``, one add
 into each row), so two runs of a step give the same bits.  The
-recurrences' kernels have no backward yet (ROADMAP item 17): on the card
-a training step of ``rglru``/``rwkv`` layers raises; on the CPU their
-plain loops are differentiated by autograd.
+recurrences of ``rglru``/``rwkv`` layers are their kernels' autograd
+Functions on the card (``ops.rglru_scan``, ``ops.wkv6``): a layer
+launches the forward kernel twice a step (the forward, and again in the
+remat recompute; RWKV-6's also keeps its state at each chunk's start)
+and the backward kernel once; on the CPU autograd differentiates their
+plain loops.
 """
 from __future__ import annotations
 

@@ -57,10 +57,15 @@ bitwise): RG-LRU's h and RWKV-6's state bitwise (both round each
 product, then each sum, as the plain version's elementwise ops), each
 output within its stated limit (``rglru_scan`` 1e-5, ``wkv6`` 1e-4 of the
 output's largest magnitude: the RWKV-6 output's sum over the key index
-runs in another order than the plain version's einsum); their autograd
-backward on the card raising ``NotImplementedError`` that names ROADMAP
-item 17; and the launches of a prefill and a decode step of the
-recurrentgemma and rwkv6 smoke configs.
+runs in another order than the plain version's einsum); their backward
+kernels against the plain reverse loops at the same edges (RG-LRU's da,
+db, dh0 and RWKV-6's dS0 bitwise, with and without dS_T; RWKV-6's dr,
+dk, dv, dw, du within 1e-4 of each one's largest magnitude), the forward
+that keeps the chunk starts bitwise the one that does not, the autograd
+Functions launching the backward kernels; a training step of the
+recurrentgemma and rwkv6 smoke configs with its launches; the attention
+backward at recurrentgemma's layout (G = 16, D 256, window 2048); and
+the launches of a prefill and a decode step of the two smoke configs.
 ``repro_torch.analysis.run_all(device="cuda")`` comes out clean with its
 A-traffic equal to the accounting and each block step on its dtype's
 routes; the SVD service's first solves in a fresh process all finish.
@@ -1555,7 +1560,9 @@ def test_wkv6_kernel_matches_plain_version(card, B, T, H, hd, with_s0):
     assert torch.equal(S_T, want_s)
 
 
-#: steps a chunk of ``csrc/wkv6.cu`` by head size (its Tile's C)
+#: steps a chunk of ``csrc/wkv6.cu`` by head size (its Tile's C), for the
+#: parametrizations; ``test_wkv6_chunk_table_is_the_builds`` holds it to
+#: the build's own ``recurrent.wkv_chunk``
 WKV_CHUNK = {16: 32, 32: 32, 64: 32, 128: 16}
 
 
@@ -1609,17 +1616,246 @@ def test_wkv6_refuses_an_untemplated_head_size(card):
         ops.wkv6(*_wkv_operands(g, card, 1, 4, 2, 24))
 
 
-def test_recurrence_backwards_name_their_roadmap_item(card):
+#: the RWKV-6 backward's gradients other than dS0 (sums over a key or a
+#: value index, in another order than the plain loop's), each against its
+#: largest magnitude: the forward output's limit
+TOL_WKV6_BWD = 1e-4
+
+
+def _rglru_bwd_case(card, B, T, R, with_h0, seed):
+    """The backward kernel against the plain reverse loop: one launch, da,
+    db and dh0 bitwise, a rerun bitwise."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    a = torch.rand((B, T, R), generator=g, device=card) * 0.5 + 0.499
+    b = torch.randn((B, T, R), generator=g, device=card)
+    h0 = torch.randn((B, R), generator=g, device=card) if with_h0 else None
+    dh = torch.randn((B, T, R), generator=g, device=card)
+    h = ops.rglru_scan(a, b, h0)
+    ops.reset_launches()
+    got = ops.rglru_scan_bwd(a, h, h0, dh)
+    torch.cuda.synchronize()
+    assert ops.launches["rglru_scan_bwd"] == 1
+    want = ref.rglru_scan_bwd_ref(a, h, h0, dh)
+    again = ops.rglru_scan_bwd(a, h, h0, dh)
+    for x, y, z in zip(got, want, again):
+        if y is None:
+            assert x is None and z is None
+        else:
+            assert torch.equal(x, y) and torch.equal(x, z)
+
+
+@pytest.mark.parametrize("B,T,R", [(2, 1, 64), (2, 37, 130), (1, 4097, 96),
+                                   (3, 16, 4096), (2, 161, 100),
+                                   (1, 95, 4099)])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_bwd_kernel_matches_plain_version(card, B, T, R,
+                                                     with_h0):
+    _rglru_bwd_case(card, B, T, R, with_h0, seed=B * T + R + 1)
+
+
+def _wkv6_bwd_case(card, B, T, H, hd, w=None, with_s0=True, with_ds=True,
+                   seed=0):
+    """The backward kernel against the plain reverse loop, from the chunk
+    states of the forward kernel: one backward launch, dS0 bitwise, the
+    other gradients within ``TOL_WKV6_BWD``, a rerun bitwise."""
+    from repro_torch.kernels import recurrent
+    g = torch.Generator(device=card).manual_seed(seed)
+    r, k, v, w0, u = _wkv_operands(g, card, B, T, H, hd)
+    w = w0 if w is None else w(g)
+    S0 = (torch.randn((B, H, hd, hd), generator=g, device=card)
+          if with_s0 else None)
+    do = torch.randn((B, T, H, hd), generator=g, device=card)
+    dS = (torch.randn((B, H, hd, hd), generator=g, device=card)
+          if with_ds else None)
+    Sc = recurrent.wkv6_cuda(r, k, v, w, u, S0, states=True)[2]
+    ops.reset_launches()
+    got = ops.wkv6_bwd(r, k, v, w, u, S0, do, dS, states=Sc)
+    torch.cuda.synchronize()
+    assert ops.launches["wkv6_bwd"] == 1 and ops.launches["wkv6"] == 0
+    want = ref.wkv6_bwd_ref(r, k, v, w, u, S0, do, dS)
+    again = ops.wkv6_bwd(r, k, v, w, u, S0, do, dS, states=Sc)
+    for name, x, y, z in zip(("dr", "dk", "dv", "dw", "du", "dS0"), got,
+                             want, again):
+        assert x.shape == y.shape and torch.equal(x, z), name
+        if name == "dS0":
+            assert torch.equal(x, y)
+        else:           # dw is all zeros at T = 1 without dS_T
+            assert float((x - y).abs().max()) <= TOL_WKV6_BWD * float(
+                y.abs().max()), name
+
+
+@pytest.mark.parametrize("B,T,H,hd", [(2, 1, 4, 16), (2, 33, 3, 32),
+                                      (1, 4097, 2, 64), (2, 70, 2, 128)])
+@pytest.mark.parametrize("with_s0,with_ds", [(False, False), (True, True),
+                                             (True, False)])
+def test_wkv6_bwd_kernel_matches_plain_version(card, B, T, H, hd, with_s0,
+                                               with_ds):
+    _wkv6_bwd_case(card, B, T, H, hd, with_s0=with_s0, with_ds=with_ds,
+                   seed=B * T + hd + 7)
+
+
+@pytest.mark.parametrize("hd,T", [(hd, C + d) for hd, C in WKV_CHUNK.items()
+                                  for d in (-1, 0, 1)])
+def test_wkv6_bwd_kernel_at_chunk_edges(card, hd, T):
+    _wkv6_bwd_case(card, 2, T, 3, hd, seed=T + hd + 3)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("decay", sorted(WKV_DECAYS))
+def test_wkv6_bwd_kernel_at_extreme_decays(card, hd, decay):
+    B, T, H = 2, 2 * WKV_CHUNK[hd] + 5, 2
+    _wkv6_bwd_case(card, B, T, H, hd, w=WKV_DECAYS[decay]((B, T, H, hd)),
+                   seed=hd + 1)
+
+
+def test_wkv6_chunk_table_is_the_builds(card):
+    """The chunk lengths the parametrizations above use are the build's,
+    and the backward's partials divide each head size."""
+    from repro_torch.kernels import recurrent
+    assert {hd: recurrent.wkv_chunk(hd) for hd in WKV_CHUNK} == WKV_CHUNK
+    for hd in recurrent.WKV_HEAD_DIMS:
+        parts = recurrent.wkv_bwd_parts(hd)
+        assert parts >= 1 and hd % parts == 0, hd
+    assert recurrent.wkv_chunk(24) == 0 and recurrent.wkv_bwd_parts(24) == 0
+
+
+def test_wkv6_bwd_takes_the_forwards_chunk_states(card):
+    """On the card the backward runs only from the forward's chunk starts:
+    without them, or with another chunk count, it raises and launches
+    nothing."""
+    g = torch.Generator(device=card).manual_seed(2)
+    B, T, H, hd = 1, 40, 2, 16
+    r, k, v, w, u = _wkv_operands(g, card, B, T, H, hd)
+    do = torch.randn((B, T, H, hd), generator=g, device=card)
+    ops.reset_launches()
+    for Sc in (None, torch.zeros((B, H, 1, hd, hd), device=card)):
+        with pytest.raises(ValueError, match="chunk states"):
+            ops.wkv6_bwd(r, k, v, w, u, None, do, None, states=Sc)
+    assert not any(ops.launches.values())
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+def test_wkv6_chunk_states_leave_the_forward_unchanged(card, hd):
+    """The forward that keeps the chunk starts gives the same bits as the
+    one that does not, and each start is the plain loop's state there."""
+    from repro_torch.kernels import recurrent
+    g = torch.Generator(device=card).manual_seed(hd)
+    B, T, H = 2, 3 * WKV_CHUNK[hd] + 2, 2
+    r, k, v, w, u = _wkv_operands(g, card, B, T, H, hd)
+    S0 = torch.randn((B, H, hd, hd), generator=g, device=card)
+    out, S_T = recurrent.wkv6_cuda(r, k, v, w, u, S0)
+    out2, S_T2, Sc = recurrent.wkv6_cuda(r, k, v, w, u, S0, states=True)
+    assert torch.equal(out, out2) and torch.equal(S_T, S_T2)
+    C = WKV_CHUNK[hd]
+    assert Sc.shape == (B, H, -(-T // C), hd, hd)
+    for c in range(Sc.shape[2]):
+        want = S0 if c == 0 else ref.wkv6_ref(r[:, :c * C], k[:, :c * C],
+                                              v[:, :c * C], w[:, :c * C], u,
+                                              S0)[1]
+        assert torch.equal(Sc[:, :, c], want), c
+
+
+def test_recurrence_autograd_launches_the_backward_kernels(card):
+    """Under autograd, ``rglru_scan`` and ``wkv6`` on the card are their
+    Functions: a backward launches each one's backward kernel once, and
+    the gradients match autograd of the plain loops (RG-LRU bitwise; the
+    state output's gradient unused, so dS_T arrives as None)."""
     g = torch.Generator(device=card).manual_seed(1)
-    a = torch.rand((1, 5, 8), generator=g, device=card).requires_grad_()
-    b = torch.randn((1, 5, 8), generator=g, device=card)
+    a = (torch.rand((2, 40, 72), generator=g, device=card) * 0.5
+         + 0.499).requires_grad_()
+    b = torch.randn((2, 40, 72), generator=g, device=card).requires_grad_()
+    ops.reset_launches()
     h = ops.rglru_scan(a, b)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        h.sum().backward()
-    xs = [x.requires_grad_() for x in _wkv_operands(g, card, 1, 3, 2, 16)]
+    (h * h).sum().backward()
+    assert ops.launches["rglru_scan"] == 1
+    assert ops.launches["rglru_scan_bwd"] == 1
+    a2, b2 = (x.detach().requires_grad_() for x in (a, b))
+    (ref.rglru_scan_ref(a2, b2) ** 2).sum().backward()
+    assert torch.equal(a.grad, a2.grad) and torch.equal(b.grad, b2.grad)
+    xs = [x.requires_grad_() for x in _wkv_operands(g, card, 2, 37, 3, 64)]
+    ops.reset_launches()
     out, _ = ops.wkv6(*xs)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        out.sum().backward()
+    (out * out).sum().backward()
+    assert ops.launches["wkv6"] == 1 and ops.launches["wkv6_bwd"] == 1
+    ys = [x.detach().requires_grad_() for x in xs]
+    (ref.wkv6_ref(*ys)[0] ** 2).sum().backward()
+    for x, y in zip(xs, ys):
+        assert _rel_max(x.grad, y.grad) <= TOL_WKV6_BWD
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-1.6b"])
+def test_recurrent_smoke_training_step_launches(card, arch):
+    """A training step of the smoke config on the card: each recurrent
+    layer launches its recurrence twice (the forward and the remat
+    recompute) and its backward kernel once, each local layer the
+    attention twice and its backward's kernels once; the loss is finite
+    and the same step on the CPU gives the same loss within 1e-4."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import local_attn
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import CompressionConfig
+    from repro_torch.training import (TrainConfig, init_train_state,
+                                      make_train_step)
+    cfg = configs.smoke_config(configs.get_config(arch))
+    tc = TrainConfig(adamw=AdamWConfig(lr=1e-3, warmup_steps=1,
+                                       total_steps=2),
+                     compression=CompressionConfig(enabled=False))
+    sc = init_train_state(cfg, tc, device="cpu")
+    sg = init_train_state(cfg, tc, device=card)
+    sg.load_tree(_to_device(sc.tree(), card))
+    batch = SyntheticLMDataset(DataConfig(cfg.vocab_size, 24, 2)).batch(0)
+    ops.reset_launches()
+    sg, mg = make_train_step(cfg, tc)(sg, batch)
+    got = {n: c for n, c in ops.launches.items() if c}
+    _, mc = make_train_step(cfg, tc)(sc, batch)
+    n_rglru, n_rwkv = cfg.blocks.count("rglru"), cfg.blocks.count("rwkv")
+    n_local = cfg.blocks.count("local")
+    want = {n: c for n, c in (
+        ("rglru_scan", 2 * n_rglru), ("rglru_scan_bwd", n_rglru),
+        ("wkv6", 2 * n_rwkv), ("wkv6_bwd", n_rwkv),
+        ("local_attention", 2 * n_local),
+        ("local_attention_bwd", local_attn.BWD_KERNELS * n_local)) if c}
+    assert cfg.remat_policy == "minimal" and got == want
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-4
+
+
+def _to_device(tree, where):
+    if isinstance(tree, dict):
+        return {key: _to_device(val, where) for key, val in tree.items()}
+    return None if tree is None else tree.detach().to(where).clone()
+
+
+@pytest.mark.parametrize("S", [2111, 4133])
+def test_local_attention_bwd_at_recurrentgemma_layout(card, S):
+    """recurrentgemma-9b's local layers: MQA with a group of 16 query
+    heads, D 256, window 2048, bf16 on the tensor-core route; each
+    gradient element held as the forward's output is, reruns bitwise.
+    The plain version's sums run in float64 here: dK and dV sum 16 x
+    2048 terms, where the fp32 plain version's own rounding exceeds the
+    limit's 1e-5 floor (``chip_smoke.py`` phase 15.1 prints the kernel's
+    reading against both)."""
+    from repro_torch.kernels import local_attn
+    assert local_attn.bwd_route(torch.bfloat16, 256) == "wgmma"
+    g = torch.Generator(device=card).manual_seed(S)
+    q, do = (torch.randn((1, S, 16, 256), generator=g, device=card)
+             .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn((1, S, 1, 256), generator=g, device=card)
+            .to(torch.bfloat16).transpose(1, 2) for _ in range(2))
+    lse = torch.empty((1, 16, S), device=card)
+    o = local_attn.local_attention_cuda(q, k, v, 2048, None, lse)
+    ops.reset_launches()
+    got = ops.local_attention_bwd(q, k, v, o, do, lse, window=2048)
+    again = ops.local_attention_bwd(q, k, v, o, do, lse, window=2048)
+    want = ref.local_attention_bwd_ref(q, k, v, o, do, lse, window=2048,
+                                       sums=torch.float64)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in ops.route_launches.items() if c} == {
+        "local_attention_bwd/wgmma": 2 * local_attn.BWD_KERNELS}
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        assert torch.equal(a, b)
+        assert _attn_within(a, w, "bfloat16")
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-1.6b"])

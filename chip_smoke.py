@@ -36,7 +36,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and, read in phase 12, ``local_attn_bwd.cu`` with
    ``-DREPRO_TWO_TERMS`` and ``-DREPRO_TC_SUMS_ONLY``.  Each
    ``csr_sweep`` kernel's registers and spills too (CUB's among them);
-   fails unless the sparse path's instances (``CSR_PATH``) spill nothing.
+   fails unless the sparse path's instances (``CSR_PATH``) spill nothing;
+   and each ``wkv6`` kernel's, failing unless every backward instance
+   (``WKV6_BWD_PATH``, one a head size) spills nothing.
 2. every kernel on the card against its plain PyTorch version
    (``repro_torch/kernels/ref.py``): ``block_matvec``, ``block_rmatvec``
    and ``block_gram_chain`` (both orientations), fp32 and bf16, at
@@ -397,12 +399,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    absent dS_T) and wkv6 at ``REC_DECAYS``' edges: RG-LRU's da, db, dh0
    and wkv6's dS0 bitwise, wkv6's other gradients within
    ``TOL_WKV6_BWD`` (1e-4 of each one's max |value|), every rerun
-   bitwise; then at a training step's shapes (8, 2048, 4096) and (8,
-   2048, 32, 64), timed beside their bounds and plain loops, with wkv6's
-   forward timed with and without its chunk starts; the attention
-   backward at recurrentgemma-9b's local layers' training shape (MQA, a
-   group of 16 at D 256, window 2048) held element by element to its
-   plain version with float64 sums (the fp32 one's reading beside).
+   bitwise; wkv6's backward also at its sub-chunk's edges (T = U - 1, U,
+   U + 1 at each head size) and on one and two blocks; then at a training
+   step's shapes (8, 2048, 4096) and (8, 2048, 32, 64), timed beside their
+   bounds and plain loops, with wkv6's forward timed with and without its
+   chunk starts, and wkv6's backward at every head size (8, 2048, H, hd)
+   (``WKV6_BWD_SHAPES``) beside its bound, with its blocks an SM; the
+   attention backward at recurrentgemma-9b's local layers' training shape
+   (MQA, a group of 16 at D 256, window 2048) held element by element to
+   its plain version with float64 sums (the fp32 one's reading beside).
    15.2: rwkv6-1.6b (24 layers) and recurrentgemma-9b (cut to 6 of 38
    layers, two groups: ``RT_MODELS``) at full width, bf16 parameters,
    fp32 moments, ``loss_chunks`` 8, 8 x 2048 synthetic tokens a step,
@@ -1352,6 +1357,43 @@ def csr_instances(build, log: str) -> None:
     if sorted(path) != sorted(CSR_PATH) or any(path.values()):
         fail(f"csr_sweep path instances (bytes spilled): {path}; want "
              f"{CSR_PATH} and no spills")
+
+
+#: csrc/wkv6.cu's backward instances, one a head size, each of which must
+#: spill nothing (its states and D sit in registers)
+WKV6_BWD_PATH = tuple(f"wkv6_bwd_kernel<{hd}>" for hd in (16, 32, 64, 128))
+
+
+def wkv6_instances(log: str) -> None:
+    """Each ``wkv6`` kernel's registers and spills (``nvcc -Xptxas=-v``):
+    the forward's ``wkv6_kernel<HD, STATES>`` and the backward's
+    ``wkv6_bwd_kernel<HD>``; fail unless every backward instance
+    (``WKV6_BWD_PATH``) is built and spills nothing."""
+    import re
+    insts, fn = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and "spill stores" in line:
+            insts[fn] = {"spill": int(line.split()[4])}
+        elif fn in insts and "Used" in line and "registers" in line:
+            insts[fn]["regs"] = int(line.split("Used ")[1].split()[0])
+    bwd = {}
+    for mangled, info in sorted(insts.items()):
+        m = re.search(r"\d(wkv6_bwd_kernel|wkv6_kernel)ILi(\d+)E(?:Lb([01])E)?",
+                      mangled)
+        if m is None:
+            continue
+        label = f"{m.group(1)}<{m.group(2)}" + (
+            f", {'true' if m.group(3) == '1' else 'false'}"
+            if m.group(3) is not None else "") + ">"
+        print(f"  wkv6 {label:28s}: {info['regs']} registers, "
+              f"{info['spill']} bytes spilled")
+        if m.group(1) == "wkv6_bwd_kernel":
+            bwd[label] = info["spill"]
+    if sorted(bwd) != sorted(WKV6_BWD_PATH) or any(bwd.values()):
+        fail(f"wkv6 backward instances (bytes spilled): {bwd}; want "
+             f"{WKV6_BWD_PATH} and no spills")
 
 
 # the planted faults of phase 2b: (library, its -D flag)
@@ -4692,11 +4734,14 @@ def train_expected(cfg, micro: int, n_comp: int) -> dict:
             "block_rmatvec": n_comp}
 
 
-def train_run(torch, ops, dev, cfg, tc, batches, profile=False) -> dict:
+def train_run(torch, ops, dev, cfg, tc, batches, profile=False,
+              first_again=False) -> dict:
     """``init_train_state`` and ``len(batches)`` calls of the train step
     (the entry points a user calls), each step's launches checked
-    against ``train_expected``; then, with ``profile``, one more step
-    under the profiler."""
+    against ``train_expected``; then, with ``first_again``, one more step
+    on the first batch (its loss, from the trained parameters, as
+    ``first_loss_after``); with ``profile``, one more step under the
+    profiler."""
     from repro_torch.kernels import local_attn
     from repro_torch.models.convert import leaf_layout
     from repro_torch.optim.compression import _mat_shape
@@ -4738,6 +4783,9 @@ def train_run(torch, ops, dev, cfg, tc, batches, profile=False) -> dict:
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "compress_ratio": (float(metrics["compress_ratio"])
                               if "compress_ratio" in metrics else None)}
+    if first_again:
+        _, metrics = step(state, batches[0])
+        out["first_loss_after"] = float(metrics["loss"])
     if profile:
         _, wall, busy, n, by_name = profile_window(
             torch, lambda: step(state, batches[-1]))
@@ -4778,6 +4826,7 @@ def train_run(torch, ops, dev, cfg, tc, batches, profile=False) -> dict:
             "recurrence_bwd_ms": rec_ms,
             "recurrence_bwd_share": share("rglru_scan_bwd")
             + share("wkv6_bwd"),
+            "wkv6_bwd_share": share("wkv6_bwd"),
             "recurrence_fwd_share": share("rglru_scan_kernel")
             + share("wkv6_kernel"),
             "sweeps_share": share("tf32"),
@@ -5350,6 +5399,18 @@ def rec_ragged(name) -> list:
     return REC_RAGGED[name] + [(2, rec.wkv_chunk(hd) + d, 3, hd)
                                for hd in rec.WKV_HEAD_DIMS
                                for d in (-1, 0, 1)]
+
+
+def rec_bwd_ragged() -> list:
+    """wkv6's backward shapes: ``rec_ragged("wkv6")``, T = U - 1, U, U + 1
+    at each head size (U the steps a sub-chunk of the backward that the
+    build reports, ``recurrent.wkv_bwd_sub``), and one block (hd 64) and
+    two (hd 128, its two partials) on the card."""
+    from repro_torch.kernels import recurrent as rec
+    return rec_ragged("wkv6") + [(2, rec.wkv_bwd_sub(hd) + d, 3, hd)
+                                 for hd in rec.WKV_HEAD_DIMS
+                                 for d in (-1, 0, 1)] + [
+        (1, 77, 1, 64), (1, 45, 1, 128)]
 
 
 def recurrence_checks(torch, ops, ref, dev) -> dict:
@@ -5933,7 +5994,9 @@ def recurrence_bwd_checks(torch, ops, ref, dev) -> dict:
         fwd = name[:-len("_bwd")]
         combos = ((False, False), (True, True)) if fwd == "wkv6" else (
             (False, False), (True, False))
-        cases = [(shape, st, ds, None) for shape in rec_ragged(fwd)
+        cases = [(shape, st, ds, None)
+                 for shape in (rec_bwd_ragged() if fwd == "wkv6"
+                               else rec_ragged(fwd))
                  for st, ds in combos]
         if fwd == "wkv6":
             cases += [(shape, True, True, decay) for decay, shapes in
@@ -5981,7 +6044,8 @@ def recurrence_bwd_checks(torch, ops, ref, dev) -> dict:
             row["forward_states_ms"] = time_ms(
                 torch, lambda: rec.wkv6_cuda(r, k, v, w, u, S0, states=True),
                 20)
-            del Sc
+            del Sc, args, kern, plain
+            row["by_head_size"] = wkv6_bwd_head_sizes(torch, rec, g, dev)
         print(f"  {name} at a training step's {shape}: max abs err "
               f"{mae:.2e}" + (f" ({share:.3f} of the limit)"
                               if name == "wkv6_bwd" else "")
@@ -5994,9 +6058,51 @@ def recurrence_bwd_checks(torch, ops, ref, dev) -> dict:
                  f"starts {row['forward_states_ms']:.3f} ms"
                  if name == "wkv6_bwd" else ""))
         rows[name] = row
-        del args, kern, plain
+        if name == "rglru_scan_bwd":
+            del args, kern, plain
         torch.cuda.empty_cache()
     return rows
+
+
+# wkv6_bwd at a training step's 8 x 2048 tokens at every head size: the
+# same state elements a step as rwkv6-1.6b's 32 heads of 64, and twice as
+# many at hd 128
+WKV6_BWD_SHAPES = ((TR_BATCH, TR_SEQ, 128, 16), (TR_BATCH, TR_SEQ, 64, 32),
+                   (TR_BATCH, TR_SEQ, 32, 64), (TR_BATCH, TR_SEQ, 16, 128))
+
+
+def wkv6_bwd_head_sizes(torch, rec, g, dev) -> dict:
+    """15.1: the wkv6 backward kernel at ``WKV6_BWD_SHAPES``, from its
+    forward's chunk starts (no initial state, dS_T absent, as a training
+    step has them): ms (CUDA events, 20 launches), bound, share of the
+    bound, blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    through ``recurrent.wkv_bwd_blocks_per_sm``) and a rerun bitwise."""
+    out = {}
+    for shape in WKV6_BWD_SHAPES:
+        B, T, H, hd = shape
+        r, k, v, w, u, _ = rec_inputs(torch, "wkv6", shape, g, dev, False)
+        do = torch.randn(shape, generator=g, device=dev)
+        Sc = rec.wkv6_cuda(r, k, v, w, u, None, states=True)[2]
+        kern = lambda: rec.wkv6_bwd_cuda(r, k, v, w, u, Sc, do, None)
+        first, again = kern(), kern()
+        rerun = all(torch.equal(a, b) for a, b in zip(first, again))
+        del first, again
+        row = {"ms": time_ms(torch, kern, 20),
+               "blocks_per_sm": rec.wkv_bwd_blocks_per_sm(hd),
+               "rerun_bitwise": rerun}
+        row["bound_ms"], row["bound_by"] = rec_bwd_bound("wkv6_bwd", shape)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        print(f"  wkv6_bwd {shape}: {row['ms']:.3f} ms, bound "
+              f"{row['bound_ms']:.3f} ms ({row['bound_by']}), "
+              f"{100 * row['share_of_bound']:.1f} % of it; "
+              f"{row['blocks_per_sm']} blocks an SM; rerun bitwise {rerun}")
+        if not rerun or row["blocks_per_sm"] < 1:
+            fail(f"wkv6_bwd {shape}: rerun bitwise {rerun}, "
+                 f"{row['blocks_per_sm']} blocks an SM")
+        out[str(hd)] = row
+        del r, k, v, w, u, do, Sc, kern
+        torch.cuda.empty_cache()
+    return out
 
 
 def recurrent_attention_bwd(torch, ops, ref, la, dev) -> dict:
@@ -6147,7 +6253,7 @@ def recurrent_full_width(torch, ops, dev) -> dict:
                                  enabled=enabled, rank=TR_RANK))
             t0 = time.perf_counter()
             r = train_run(torch, ops, dev, cfg, tc, batches[:n],
-                          profile=not enabled)
+                          profile=not enabled, first_again=enabled)
             later = sorted(r["ms_steps"][1:])
             ms = later[len(later) // 2]
             r.update(ms_step=ms, tokens_s=TR_BATCH * TR_SEQ / (ms / 1e3),
@@ -6163,9 +6269,18 @@ def recurrent_full_width(torch, ops, dev) -> dict:
                   f"first {r['ms_steps'][0]:.0f} ms), {r['tokens_s']:.0f} "
                   f"tokens/s, peak {r['peak_gb']:.2f} GB; launches a step "
                   f"{ {k: c for k, c in r['launches_per_step'].items() if c} }")
-            if not r["losses"][-1] < r["losses"][0]:
+            # the plain runs' loss falls from the first batch to the last;
+            # the compressed run's two steps move the next batch's loss
+            # less than the batches' losses differ (a five-step compressed
+            # run from the same state, on the previous wkv6 backward, ended
+            # above its start), so it is held on the first batch, before
+            # and after its steps
+            after = r.get("first_loss_after", r["losses"][-1])
+            if not after < r["losses"][0]:
                 fail(f"{arch} {label}: the loss did not fall: "
-                     f"{r['losses']}")
+                     f"{r['losses']}" + (f", the first batch's after the "
+                                         f"steps {after}" if enabled
+                                         else ""))
             if enabled:
                 ratio = r["compress_ratio"]
                 print(f"  {cfg.name} compress_ratio {ratio} (the JAX "
@@ -6179,13 +6294,19 @@ def recurrent_full_width(torch, ops, dev) -> dict:
                       f"{prof['wall_ms']:.0f} ms, device busy "
                       f"{prof['busy_share']:.1%}; the recurrences' backward "
                       f"kernels {prof['recurrence_bwd_share']:.1%} of the "
-                      f"busy time ({prof['recurrence_bwd_ms']}), their "
+                      f"busy time (wkv6_bwd {prof['wkv6_bwd_share']:.1%}; "
+                      f"{prof['recurrence_bwd_ms']}), their "
                       f"forwards {prof['recurrence_fwd_share']:.1%}, the "
                       f"attention backward {prof['attention_bwd_share']:.1%}"
                       f", forward {prof['attention_fwd_share']:.1%}; top "
                       f"kernels (ms) {prof['top_ms']}")
+            if enabled:
+                print(f"  {cfg.name} {label}: the first batch's loss "
+                      f"{r['losses'][0]:.4f} before the steps, "
+                      f"{after:.4f} after them")
             out["runs"][f"{arch} {label}"] = {key: r.get(key) for key in (
-                "losses", "ms_step", "ms_steps", "tokens_s", "peak_gb",
+                "losses", "first_loss_after", "ms_step", "ms_steps",
+                "tokens_s", "peak_gb",
                 "launches", "launches_per_step", "compress_ratio", "params",
                 "layers", "seconds", "profile")}
         del batches
@@ -6340,6 +6461,8 @@ def main() -> int:
             build.BUILD_DIR / f"{name}.log").read_text(), tag, sd, want)
     csr_instances(build, logs.get("csr_sweep") or (
         build.BUILD_DIR / "csr_sweep.log").read_text())
+    wkv6_instances(logs.get("wkv6") or (
+        build.BUILD_DIR / "wkv6.log").read_text())
     mark("1")
 
     if sys.argv[1:] == ["--only-out-of-core"]:    # phase 1, then phase 8

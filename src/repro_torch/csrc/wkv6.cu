@@ -66,31 +66,35 @@
 // the states are recomputed forward from the chunk starts in the forward's
 // rounding, so they are bitwise the forward's.  Bound at a training step's
 // (8, 2048, 32, 64): 36 bytes an element (r, k, v, w, do read; dr, dk, dv, dw
-// written), 0.36 ms, against ~13 FP32 instructions an element-step here (3
-// recomputing S once to find the sub-chunk starts and again to keep their
-// states, 3 updating D, 4 FMAs of the sums): 0.84 ms on 132 x 128 lanes at
-// 1.98 GHz.  What the design does (a first, simple kernel: its redesign is
-// later work):
-//   * A block holds JB (<= 32) value columns of one head and all hd keys, a
-//     thread KI = 2 keys x JT = 4 columns of D and S in registers; a warp's
-//     lanes run across NCG = JB / 4 column groups, then key groups.
-//   * Per chunk of the forward (C steps, newest first), all threads stage
-//     r, k, w, v, do (whole rows) by cp.async; each warp sums b_t and q_t of
-//     some steps (lane FMA chains, then a butterfly).  The chunk's states are
-//     recomputed from its saved start, keeping one start a sub-chunk of
-//     U = 8 steps in shared memory; each sub-chunk, newest first, is
-//     recomputed again into registers (its U states) and walked back.
-//   * Sums over j (dr, dk, dw) are FMA chains over a thread's 4 columns,
-//     then a butterfly over the column lanes; they are written per block
-//     (partials over its JB columns, the bonus terms by the first block)
-//     and summed over the hd / JB blocks by the wrapper in a fixed order.
-//     Sums over i (dv) are chains over the thread's 2 keys, a butterfly
-//     over the key lanes, then the warps' sums in warp order through
-//     shared memory.  du is the first block's chains over t, summed over b
-//     by the wrapper.  No atomics: reruns are bitwise.
+// written), 0.36 ms, against ~12 FP32 instructions an element-step (3
+// recomputing S, 1.6 times over: once to find the sub-chunk starts, once
+// more into registers; 3 updating D; 4 FMAs of the sums), which on 132 x
+// 128 lanes at 1.98 GHz is 0.76 ms.  What the design does:
+//   * A block holds one head's keys and JB (<= 64) of its value columns:
+//     one block a head up to hd 64, two at hd 128 (BTile, BPlan).  A thread
+//     holds 2 keys x 8 columns of D (4 x 8 at hd 128, 2 x 4 at hd 16); a
+//     warp every column of the block, so the sums over columns (dr, dk, dw)
+//     stay in the warp.
+//   * Per forward chunk (C steps), newest first: thread 0 stages the next
+//     chunk's rows of r, k, w, v, do by TMA (one box an operand a half
+//     chunk, OOB steps as zeros) and its saved start (one box) while the
+//     chunk is walked; the chunk's states are recomputed from its start,
+//     keeping one start a sub-chunk of U steps in shared memory; each
+//     sub-chunk, newest first, is recomputed again into registers (its U
+//     states) and walked back as straight-line code.
+//   * A step's sums are FMA chains over a thread's columns (and keys, dv);
+//     its partials go to the warp's scratch and are summed over the lanes
+//     in a fixed tree order (pairs, pairs of pairs), during the next step's
+//     arithmetic where two scratch buffers fit; dr, dk, dw are stored by the
+//     lanes that sum them (the bonus terms in the first block of a head), dv
+//     a sub-chunk later from the warps' sums in warp order, once the split
+//     barrier (an mbarrier each thread arrives at after its walk) has
+//     completed.  du is the first block's chains over t, summed over b by the
+//     wrapper; hd 128's two blocks write dr, dk, dw as partials the wrapper
+//     sums in a fixed order.  No atomics: reruns are bitwise.
 //   * D rounds as the plain reverse loop does (__fmul_rn w D, __fmul_rn
 //     r do, __fadd_rn), so dS0 equals it bit for bit.
-//
+
 // C interface (bound with ctypes; every pointer and the stream as void*):
 //   int repro_wkv6(r, k, v, w, u, S0, out, S_T, B, T, H, hd, stream)
 //   int repro_wkv6_states(r, k, v, w, u, S0, out, S_T, Sc, B, T, H, hd,
@@ -99,14 +103,16 @@
 //                      dS0, B, T, H, hd, stream)
 //   int repro_wkv6_chunk(hd)       steps a chunk, C: Sc has ceil(T / C)
 //   int repro_wkv6_bwd_parts(hd)   the backward's partials, hd / JB
-// hd is one of 16, 32, 64, 128 (the last two return 0 for another); S0 and
-// dS_T may be null.  repro_wkv6_states is the forward that also writes Sc
+//   int repro_wkv6_bwd_sub(hd)     the backward's sub-chunk, U steps
+//   int repro_wkv6_bwd_blocks_per_sm(hd)  its blocks an SM can hold
+// hd is one of 16, 32, 64, 128 (the last four return 0 for another); S0
+// and dS_T may be null.  repro_wkv6_states is the forward that also writes Sc
 // (training); repro_wkv6 is inference.  The backward writes dr, dk, dw as
 // (hd / JB, B, T, H, hd) partials, du as (B, H, hd), dv and dS0 whole.  The
 // launching functions return cudaGetLastError() after their launch (0 on
-// success, cudaErrorInvalidValue for another hd or a null Sc,
-// cudaErrorMisalignedAddress for an operand not 16-byte aligned); none
-// allocates.
+// success, cudaErrorInvalidValue for another hd, a null Sc or a tensor map
+// the driver refuses, cudaErrorMisalignedAddress for an operand not 16-byte
+// aligned); none allocates.
 
 #include <cuda_runtime.h>
 
@@ -119,7 +125,14 @@ namespace {
 using repro_hopper::cp_async;
 using repro_hopper::cp_async_commit;
 using repro_hopper::cp_async_wait_group;
+using repro_hopper::fence_proxy_async;
+using repro_hopper::mbar_arrive;
+using repro_hopper::mbar_expect_tx;
+using repro_hopper::mbar_init;
+using repro_hopper::mbar_init_fence;
+using repro_hopper::mbar_wait;
 using repro_hopper::smem_u32;
+using repro_hopper::tma_load_4d;
 
 constexpr int NS = 3;        // stages in the ring (see the chunk loop)
 constexpr int NF = 128;      // threads that stage chunks and finish outputs
@@ -158,10 +171,12 @@ struct Plan {
                 NF % RG == 0 && NF % VG == 0 && (C * VG) % 32 == 0, "tiles");
 };
 
-// N (2 or 4) consecutive floats, one 8- or 16-byte access
+// N (1, 2 or 4) consecutive floats, one 4-, 8- or 16-byte access
 template <int N>
-__device__ __forceinline__ void ld_vec(const float* p, float (&x)[N]) {
-  if constexpr (N == 2) {
+__device__ __forceinline__ void ld_vec(const float* p, float* x) {
+  if constexpr (N == 1) {
+    x[0] = *p;
+  } else if constexpr (N == 2) {
     const float2 q = *reinterpret_cast<const float2*>(p);
     x[0] = q.x; x[1] = q.y;
   } else {
@@ -171,8 +186,10 @@ __device__ __forceinline__ void ld_vec(const float* p, float (&x)[N]) {
 }
 
 template <int N>
-__device__ __forceinline__ void st_vec(float* p, const float (&x)[N]) {
-  if constexpr (N == 2)
+__device__ __forceinline__ void st_vec(float* p, const float* x) {
+  if constexpr (N == 1)
+    *p = x[0];
+  else if constexpr (N == 2)
     *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
   else
     *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
@@ -404,68 +421,286 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
     st_vec<JT>(ST + (bh * HD + i0 + a) * HD + j0 + jt, S[a]);
 }
 
-// The backward's tiles: KI keys x JT columns a thread, JB columns a block,
-// sub-chunks of U steps; C is the forward's chunk (its saved starts).
-template <int HD>
-struct BPlan {
-  static constexpr int KI = 2, JT = 4, U = 8;
-  static constexpr int JB = HD < 32 ? HD : 32;
-  static constexpr int C = Tile<HD>::C;
-  static constexpr int NCG = JB / JT;         // column lanes
-  static constexpr int KGW = 32 / NCG;        // key groups a warp
-  static constexpr int G = HD / KI;           // key groups
-  static constexpr int NT = G * NCG;          // threads
-  static constexpr int NW = NT / 32;          // warps
-  static constexpr int E = KI * JT;           // elements a thread
-  static constexpr int NSUB = C / U;          // sub-chunks a chunk
-  static constexpr int KL = (HD + 31) / 32;   // keys a lane of the dot sums
-  // shared memory, in floats: a chunk's r, k, w, v, do (C x HD each), its
-  // b_t and q_t, the sub-chunk starts (NSUB x E x NT), the warps' dv sums
-  // of a sub-chunk (U x NW x JB)
-  static constexpr int STAGE = 5 * C * HD;
-  static constexpr int CP = NSUB * E * NT;
-  static constexpr int DVB = U * NW * JB;
-  static constexpr size_t BYTES = sizeof(float) * (STAGE + 2 * C + CP + DVB);
-  static_assert(NT % 32 == 0 && C % U == 0 && NCG >= KI && HD % 4 == 0 &&
-                32 % NCG == 0, "backward tiles");
+// The backward's tiles by head size: a block holds JB value columns of one
+// head and all its keys; a thread KI keys x JT columns (JT / 4 runs of four
+// columns, JB / NV apart); a warp's lanes run across CL = JB / JT column
+// groups, then KL = 32 / CL key groups, so a warp holds WK = KL KI keys and
+// every column of the block, and the block NW = HD / WK warps.  E = KI JT
+// elements a thread: 16, and 32 at hd 128, whose 16384 elements a head take
+// two blocks.  U steps a sub-chunk; MINB blocks an SM (launch bounds); JDB
+// scratch buffers a warp (two: a step's partials are summed during the
+// step before it); NH half chunks of staged rows (four: a whole chunk is
+// staged ahead).  JDB and NH are cut to 1 and 3 where shared memory would
+// otherwise hold fewer blocks (hd 32: four of 54 KB) or not fit (hd 128).
+template <int HD> struct BTile;
+template <> struct BTile<16> {
+  static constexpr int JB = 16, KI = 2, JT = 4, U = 8, MINB = 8;
+  static constexpr int JDB = 2, NH = 4;
+};
+template <> struct BTile<32> {
+  static constexpr int JB = 32, KI = 2, JT = 8, U = 8, MINB = 4;
+  static constexpr int JDB = 1, NH = 3;
+};
+template <> struct BTile<64> {
+  static constexpr int JB = 64, KI = 2, JT = 8, U = 8, MINB = 1;
+  static constexpr int JDB = 2, NH = 4;
+};
+template <> struct BTile<128> {
+  static constexpr int JB = 64, KI = 4, JT = 8, U = 4, MINB = 1;
+  static constexpr int JDB = 1, NH = 3;
 };
 
-// S <- w S + k v for a thread's elements, rounded as the forward
-template <int KI, int JT>
-__device__ __forceinline__ void bwd_advance(float (&S)[KI][JT],
-                                            const float* wr, const float* kr,
-                                            const float* vr) {
-  float w2[KI], k2[KI], v4[JT];
+template <int HD>
+struct BPlan {
+  static constexpr int JB = BTile<HD>::JB, KI = BTile<HD>::KI;
+  static constexpr int JT = BTile<HD>::JT, U = BTile<HD>::U;
+  static constexpr int JDB = BTile<HD>::JDB, NH = BTile<HD>::NH;
+  static constexpr int C = Tile<HD>::C;       // the forward's chunk
+  static constexpr int NV = JT / 4;           // runs of 4 columns a thread
+  static constexpr int RUN = JB / NV;         // columns from run to run
+  static constexpr int CL = JB / JT;          // column lanes
+  static constexpr int KL = 32 / CL;          // key lanes
+  static constexpr int WK = KL * KI;          // keys a warp
+  static constexpr int NW = HD / WK;          // warps
+  static constexpr int NT = 32 * NW;          // threads
+  static constexpr int E = KI * JT;           // elements a thread
+  static constexpr int NSUB = C / U;          // sub-chunks a chunk
+  static constexpr int H2 = C / 2;            // steps a half chunk
+  static constexpr int ROW = 5 * HD;          // a step's r, k, w, v, do
+  static constexpr int AS = H2 * HD;          // an operand's rows a half
+  static constexpr int LPS = NT / C;          // lanes of a step's b_t, q_t
+  static constexpr int KPL = HD / LPS;        // keys a lane of those
+  static constexpr int JS = (CL + 1) * WK;    // one sum's rows in J (padded)
+  static constexpr int WS = 3 * JS + KL * JB; // a warp's scratch: J, V
+  static constexpr int CPL = JB < 32 ? 1 : JB / 32;  // dv columns a lane
+  static constexpr int OUTS = (3 * WK + 31) / 32;    // column sums a lane
+  // shared memory, in floats: NH half chunks of staged rows, the sub-chunk
+  // starts, the warps' dv sums of two sub-chunks, b_t and q_t, u, four
+  // mbarriers, the warps' scratch
+  static constexpr int STAGE = NH * H2 * ROW;
+  static constexpr int STARTS = NSUB * E * NT;
+  static constexpr int DVB = 2 * U * NW * JB;
+  static constexpr int SCR = JDB * NW * WS;
+  static constexpr size_t BYTES =
+      sizeof(float) * (STAGE + STARTS + DVB + 2 * C + HD + 8 + SCR);
+  static_assert(JT % 4 == 0 && (KI == 2 || KI == 4) && 32 % CL == 0 &&
+                    HD % WK == 0 && C % U == 0 && NSUB >= 2 &&
+                    NSUB % 2 == 0 && NT % C == 0 && 32 % LPS == 0 &&
+                    KPL % 4 == 0 && WS % 4 == 0 && JS % 4 == 0 &&
+                    HD % JB == 0 && H2 % U == 0 && BYTES <= 232448,
+                "backward tiles");
+};
+
+template <bool B> struct Bool { static constexpr bool value = B; };
+
+#ifdef REPRO_WKV6_BWD_PHASES
+// A measurement build (launch/time_recurrent.py --phases): lane 0 of each
+// warp of the first 64 blocks sums clock64() cycles by phase, from one mark
+// to the next: 0 barrier A (rows and start landed), 1 the next chunk's
+// staging and b_t, q_t, 2 the first pass, 3 barrier B, 4 before a
+// sub-chunk, 5 its states, 6 the wait for the sub-chunk before's dv sums,
+// 7 those sums, 8 its steps, 9 the end.
+__device__ unsigned long long bwd_phases[64][16][10];
+#define PHASE(i)                                                  \
+  do {                                                            \
+    const long long now_ = clock64();                             \
+    phase_[i] += now_ - mark_;                                    \
+    mark_ = now_;                                                 \
+  } while (0)
+#else
+#define PHASE(i) do {} while (0)
+#endif
+
+// The sums of W consecutive floats over N rows STRIDE apart from p (N a
+// power of 2), each in pairs, then pairs of pairs, ... (x0 + x1) + (x2 +
+// x3) ..., a tree of depth log2 N.
+template <int N, int STRIDE, int W = 1>
+__device__ __forceinline__ void lane_sums(const float* p, float* out) {
+  float x[N][W];
 #pragma unroll
-  for (int a = 0; a < KI; ++a) { w2[a] = wr[a]; k2[a] = kr[a]; }
+  for (int i = 0; i < N; ++i) ld_vec<W>(p + i * STRIDE, x[i]);
 #pragma unroll
-  for (int b = 0; b < JT; ++b) v4[b] = vr[b];
+  for (int w = N / 2; w >= 1; w /= 2)
+#pragma unroll
+    for (int i = 0; i < w; ++i)
+#pragma unroll
+      for (int e = 0; e < W; ++e) x[i][e] = x[2 * i][e] + x[2 * i + 1][e];
+#pragma unroll
+  for (int e = 0; e < W; ++e) out[e] = x[0][e];
+}
+
+template <int N, int STRIDE>
+__device__ __forceinline__ float lane_sum(const float* p) {
+  float x;
+  lane_sums<N, STRIDE>(p, &x);
+  return x;
+}
+
+// Four floats of shared memory, read anew each time it is called (the
+// compiler neither merges nor keeps it): a sub-chunk's start, whose
+// registers would otherwise stay taken through the sub-chunk's walk.
+__device__ __forceinline__ void lds4_anew(const float* p, float* x) {
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x[0]), "=f"(x[1]), "=f"(x[2]), "=f"(x[3])
+               : "r"(smem_u32(p)));
+}
+
+// A half chunk's rows: each operand's (r, k, w, v, do) H2 rows of HD,
+// AS apart.  Half h (0, 1) of a chunk of parity p is staged in half chunk
+// p (h 0), 2 + p (h 1, four halves) or 2 (h 1, three halves).
+template <int HD>
+__device__ __forceinline__ float* bwd_half(float* stage, int p, int h) {
+  using P = BPlan<HD>;
+  return stage + (h == 0 ? p : P::NH == 4 ? 2 + p : 2) * P::H2 * P::ROW;
+}
+
+// Step t's (0 .. C - 1) row of r (of k, w, v, do: AS, 2 AS, ... further).
+template <int HD>
+__device__ __forceinline__ float* bwd_slot(float* stage, int p, int t) {
+  using P = BPlan<HD>;
+  return bwd_half<HD>(stage, p, t >= P::H2) + (t % P::H2) * HD;
+}
+
+// The backward's tensor maps: r, k, w, v, do as (hd, H, T, B) fp32 in
+// boxes of hd x 1 x H2 x 1 (a half chunk of one head; steps past T arrive
+// as zeros), the chunk starts Sc as (hd, hd, chunks, B H) in boxes of JB x
+// hd x 1 x 1 (a block's columns of one start).
+struct BwdMaps {
+  CUtensorMap op[5];                          // r, k, w, v, do
+  CUtensorMap sc;
+};
+
+// Halves [h0, h1) of the chunk of parity p whose first step is t0 (of
+// batch row b, head h), by one thread: one TMA box an operand a half,
+// their bytes posted on bar.
+template <int HD>
+__device__ __forceinline__ void bwd_stage(float* stage, int p, int h0,
+                                          int h1, const BwdMaps& maps,
+                                          int hh, int bi, int t0,
+                                          uint32_t bar) {
+  using P = BPlan<HD>;
+  fence_proxy_async();
+  mbar_expect_tx(bar, (uint32_t)((h1 - h0) * 5 * P::AS * sizeof(float)));
+  for (int h = h0; h < h1; ++h)
+#pragma unroll
+    for (int a = 0; a < 5; ++a)
+      tma_load_4d(smem_u32(bwd_half<HD>(stage, p, h) + a * P::AS), &maps.op[a],
+                  bar, 0, hh, t0 + h * P::H2, bi);
+}
+
+// Chunk c's start (the block's JB columns from j0, of head bh) into dst as
+// rows of JB, by one thread.
+template <int HD>
+__device__ __forceinline__ void start_stage(float* dst, const BwdMaps& maps,
+                                            int j0, int c, int bh,
+                                            uint32_t bar) {
+  using P = BPlan<HD>;
+  fence_proxy_async();
+  mbar_expect_tx(bar, HD * P::JB * sizeof(float));
+  tma_load_4d(smem_u32(dst), &maps.sc, bar, j0, 0, c, bh);
+}
+
+// A thread's elements (keys i0 .., runs of columns from jc) of a (hd, hd)
+// matrix at m, or into it.
+template <int HD>
+__device__ __forceinline__ void ld_tile(
+    const float* m, int i0, int jc,
+    float (&X)[BPlan<HD>::KI][BPlan<HD>::JT], int rows = HD) {
+  using P = BPlan<HD>;
+#pragma unroll
+  for (int a = 0; a < P::KI; ++a)
+#pragma unroll
+    for (int g = 0; g < P::NV; ++g)
+      ld_vec<4>(m + (int64_t)(i0 + a) * rows + jc + g * P::RUN, &X[a][4 * g]);
+}
+
+template <int HD>
+__device__ __forceinline__ void st_tile(
+    float* m, int i0, int jc,
+    const float (&X)[BPlan<HD>::KI][BPlan<HD>::JT]) {
+  using P = BPlan<HD>;
+#pragma unroll
+  for (int a = 0; a < P::KI; ++a)
+#pragma unroll
+    for (int g = 0; g < P::NV; ++g)
+      st_vec<4>(m + (int64_t)(i0 + a) * HD + jc + g * P::RUN, &X[a][4 * g]);
+}
+
+// A sub-chunk start of a thread: its E floats as E / 4 float4, NT apart
+// (thread tid's at p = starts + 4 tid).
+template <int HD>
+__device__ __forceinline__ void start_store(
+    float* p, const float (&X)[BPlan<HD>::KI][BPlan<HD>::JT]) {
+  using P = BPlan<HD>;
+#pragma unroll
+  for (int a = 0; a < P::KI; ++a)
+#pragma unroll
+    for (int g = 0; g < P::NV; ++g)
+      st_vec<4>(p + 4 * P::NT * (a * P::NV + g), &X[a][4 * g]);
+}
+
+template <int HD>
+__device__ __forceinline__ void start_load(
+    const float* p, float (&X)[BPlan<HD>::KI][BPlan<HD>::JT]) {
+  using P = BPlan<HD>;
+#pragma unroll
+  for (int a = 0; a < P::KI; ++a)
+#pragma unroll
+    for (int g = 0; g < P::NV; ++g)
+      lds4_anew(p + 4 * P::NT * (a * P::NV + g), &X[a][4 * g]);
+}
+
+// S <- w S + k v for a thread's elements from the step staged at st, rounded
+// as the forward (k v rounded, w S rounded, then the sum)
+template <int HD>
+__device__ __forceinline__ void bwd_advance(
+    float (&S)[BPlan<HD>::KI][BPlan<HD>::JT], const float* st, int i0,
+    int jc) {
+  using P = BPlan<HD>;
+  constexpr int KI = P::KI, JT = P::JT;
+  float ww[KI], kk[KI], vv[JT];
+  ld_vec<KI>(st + 2 * P::AS + i0, ww);
+  ld_vec<KI>(st + P::AS + i0, kk);
+#pragma unroll
+  for (int g = 0; g < P::NV; ++g)
+    ld_vec<4>(st + 3 * P::AS + jc + g * P::RUN, vv + 4 * g);
 #pragma unroll
   for (int a = 0; a < KI; ++a)
 #pragma unroll
     for (int b = 0; b < JT; ++b)
-      S[a][b] = __fadd_rn(__fmul_rn(w2[a], S[a][b]), __fmul_rn(k2[a], v4[b]));
+      S[a][b] = __fadd_rn(__fmul_rn(ww[a], S[a][b]), __fmul_rn(kk[a], vv[b]));
 }
 
 template <int HD>
-__global__ void __launch_bounds__(BPlan<HD>::NT)
-wkv6_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ w,
-                const float* __restrict__ u, const float* __restrict__ Sc,
-                const float* __restrict__ dout,
+__global__ void __launch_bounds__(BPlan<HD>::NT, BTile<HD>::MINB)
+wkv6_bwd_kernel(const __grid_constant__ BwdMaps maps,
+                const float* __restrict__ u,
                 const float* __restrict__ dST, float* __restrict__ dr,
                 float* __restrict__ dk, float* __restrict__ dv,
                 float* __restrict__ dw, float* __restrict__ du,
                 float* __restrict__ dS0, int64_t B, int64_t T, int H) {
   using P = BPlan<HD>;
   constexpr int KI = P::KI, JT = P::JT, JB = P::JB, C = P::C, U = P::U;
-  constexpr int NCG = P::NCG, NT = P::NT, NW = P::NW, E = P::E;
+  constexpr int NW = P::NW, NT = P::NT, E = P::E, CL = P::CL, KL = P::KL;
+  constexpr int WK = P::WK, NV = P::NV, JS = P::JS, CPL = P::CPL;
+  constexpr int JDB = P::JDB;
   extern __shared__ __align__(16) float smem[];
-  float* st = smem;                           // [5][C][HD]: r k w v do
-  float* bt = st + P::STAGE;                  // [C] v . do
-  float* qt = bt + C;                         // [C] sum r u k
-  float* cps = qt + C;                        // [NSUB][E][NT]
-  float* dvb = cps + P::CP;                   // [U][NW][JB]
+  float* stage = smem;                        // [NH][5][H2][HD]
+  float* starts = stage + P::STAGE;           // [NSUB][E / 4][NT][4]
+  float* scr = starts + P::STARTS;            // [NW][JDB]: J [3][CL + 1]
+                                              //   [WK], V [KL][JB]
+  float* dvb = scr + P::SCR;                  // [2][U][NW][JB]
+  float* bq = dvb + P::DVB;                   // [2][C]: b_t, q_t
+  float* us = bq + 2 * C;                     // [HD]: u of the head
+  // barriers: dvbar, the warps' dv sums of a sub-chunk written (each thread
+  // arrives after its walk of the sub-chunk and waits before summing them,
+  // a sub-chunk later; parity dvph); rbar0 and rbar1, the rows of a
+  // chunk's first and second half landed (rbar0 all of them with four
+  // halves), and scbar, its saved start landed (one phase a chunk, parity
+  // cph)
+  const uint32_t dvbar = smem_u32(us + HD), rbar0 = dvbar + 8;
+  const uint32_t rbar1 = dvbar + 16, scbar = dvbar + 24;
+  uint32_t dvph = 0, cph = 0;
 
   const int jblocks = HD / JB;
   const int64_t bh = blockIdx.x / jblocks;    // b * H + h
@@ -479,184 +714,303 @@ wkv6_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const int64_t part = B * T * ld;            // one block column's partials
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int cg = lane % NCG, kg = warp * P::KGW + lane / NCG;
-  const int i0 = kg * KI, jt = JT * cg;
-  float ul[P::KL], uu[KI], dua[KI], D[KI][JT];
+  const int kl = lane / CL, cl = lane % CL;
+  const int wk0 = warp * WK;                  // the warp's first key
+  const int i0 = wk0 + kl * KI, jc = j0 + 4 * cl;
+  float* J = scr + warp * JDB * P::WS;        // the warp's scratch
+  for (int i = tid; i < HD; i += NT) us[i] = u[hh * HD + i];
+  if (tid == 0) {
+    mbar_init(dvbar, NT);
+    mbar_init(rbar0, 1);
+    mbar_init(rbar1, 1);
+    mbar_init(scbar, 1);
+    mbar_init_fence();
+  }
+#ifdef REPRO_WKV6_BWD_PHASES
+  long long phase_[10] = {}, mark_ = clock64();
+#endif
+  // a lane's column sums: (q, key) = (o / WK, o % WK), o = lane + 32 m;
+  // the bonus terms of dr (q 0) and dk (q 1) and du (q 0) use u of its key
+  int jof[P::OUTS];
+  bool jon[P::OUTS];
+  float* jout[P::OUTS];
 #pragma unroll
-  for (int m = 0; m < P::KL; ++m)
-    ul[m] = lane + 32 * m < HD ? u[hh * HD + lane + 32 * m] : 0.f;
+  for (int mo = 0; mo < P::OUTS; ++mo) {
+    const int o = lane + 32 * mo, oc = o < 3 * WK ? o : 0;
+    const int q = oc / WK, key = oc % WK;
+    jof[mo] = q * JS + key;
+    jon[mo] = o < 3 * WK;
+    jout[mo] = (q == 0 ? dr : q == 1 ? dk : dw) + jb * part + wk0 + key;
+  }
+  const bool isr = lane < WK;                 // dr (and du); else dk or dw
+  const bool bon = jb == 0 && lane < 2 * WK;  // a bonus term in round 0
+  const int bkey = wk0 + lane % WK, vcol = (lane * CPL) % JB;
+  const float ul = u[hh * HD + bkey];
+  float dua = 0.f;
+  float D[KI][JT];
 #pragma unroll
-  for (int a = 0; a < KI; ++a) {
-    uu[a] = u[hh * HD + i0 + a];
-    dua[a] = 0.f;
+  for (int a = 0; a < KI; ++a)
 #pragma unroll
     for (int b = 0; b < JT; ++b) D[a][b] = 0.f;
-    if (dST != nullptr)
-      ld_vec<JT>(dST + (bh * HD + i0 + a) * HD + j0 + jt, D[a]);
-  }
+  if (dST != nullptr) ld_tile<HD>(dST + bh * HD * HD, i0, jc, D);
 
+  // A chunk's saved start lands, as rows of JB, in the last sub-chunk
+  // start's slot (free once that sub-chunk is walked): the next chunk's
+  // while the chunk is walked.  Thread 0 issues the TMA loads.
+  float* scslot = starts + (P::NSUB - 1) * E * NT;
+  if (tid == 0) {                             // the last chunk's rows, start
+    const int c0 = (int)(chunks - 1);
+    bwd_stage<HD>(stage, c0 & 1, 0, P::NH == 4 ? 2 : 1, maps, hh, (int)bi,
+                  c0 * C, rbar0);
+    if (P::NH == 3)
+      bwd_stage<HD>(stage, c0 & 1, 1, 2, maps, hh, (int)bi, c0 * C, rbar1);
+    start_stage<HD>(scslot, maps, j0, c0, (int)bh, scbar);
+  }
+  __syncthreads();                            // the barriers initialised
+  // Chunks newest first.  Chunk c's rows are staged in half chunks c % 2
+  // and 2 (with four halves, 2 + c % 2); chunk c - 1's rows are staged
+  // while chunk c is walked (with three halves, the second half once chunk
+  // c's walk is below step C / 2).  Barriers a chunk: A (its rows and
+  // start landed; chunk c + 1 done), B (its b_t, q_t written), and the
+  // split dvbar a sub-chunk.
   for (int64_t c = chunks - 1; c >= 0; --c) {
     const int n = (int)lmin(C, T - c * C);
-    const int64_t crow = row0 + c * C * ld;   // the chunk's first row
-    __syncthreads();                          // the last chunk's reads done
-    for (int idx = tid; idx < 5 * n * (HD / 4); idx += NT) {
-      const int arr = idx / (n * (HD / 4));
-      const int rest = idx - arr * n * (HD / 4);
-      const int t = rest / (HD / 4), c4 = 4 * (rest % (HD / 4));
-      const float* src = arr == 0 ? r : arr == 1 ? k : arr == 2 ? w
-                         : arr == 3 ? v : dout;
-      copy16(st + (arr * C + t) * HD + c4, src + crow + t * ld + c4);
-    }
-    cp_async_commit();
-    cp_async_wait_group<0>();
-    __syncthreads();
-    // b_t and q_t of the chunk's steps, a warp a step at a time
-    for (int t = warp; t < n; t += NW) {
+    const int p = (int)(c & 1);
+    const int64_t crow = row0 + c * C * ld;
+    mbar_wait(rbar0, cph);
+    if (P::NH == 3) mbar_wait(rbar1, cph);
+    mbar_wait(scbar, cph);
+    cph ^= 1;
+    __syncthreads();                          // A
+    PHASE(0);
+    float S[KI][JT];                          // the chunk's saved start
+    ld_tile<HD>(scslot, i0, jc - j0, S, JB);
+    if (c > 0 && tid == 0)    // chunk c - 1's first half (with four, all)
+      bwd_stage<HD>(stage, 1 - p, 0, P::NH == 4 ? 2 : 1, maps, hh, (int)bi,
+                    (int)(c - 1) * C, rbar0);
+    {  // b_t = v_t . do_t and q_t = sum_i (r_t[i] u_i) k_t[i]: LPS lanes a
+       // step, each an FMA chain over KPL keys, then a butterfly
+      const int t = tid / P::LPS, pl = tid % P::LPS, kb = pl * P::KPL;
+      const float* st = bwd_slot<HD>(stage, p, t);
       float bs = 0.f, qs = 0.f;
 #pragma unroll
-      for (int m = 0; m < P::KL; ++m) {
-        const int i = lane + 32 * m;
-        if (i < HD) {
-          bs = fmaf(st[(3 * C + t) * HD + i], st[(4 * C + t) * HD + i], bs);
-          qs = fmaf(st[t * HD + i] * ul[m], st[(C + t) * HD + i], qs);
+      for (int m = 0; m < P::KPL; m += 4) {
+        float r4[4], k4[4], v4[4], d4[4], u4[4];
+        ld_vec<4>(st + kb + m, r4);
+        ld_vec<4>(st + P::AS + kb + m, k4);
+        ld_vec<4>(st + 3 * P::AS + kb + m, v4);
+        ld_vec<4>(st + 4 * P::AS + kb + m, d4);
+        ld_vec<4>(us + kb + m, u4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bs = fmaf(v4[e], d4[e], bs);
+          qs = fmaf(r4[e] * u4[e], k4[e], qs);
         }
       }
 #pragma unroll
-      for (int d = 16; d >= 1; d /= 2) {
+      for (int d = 1; d < P::LPS; d *= 2) {
         bs += __shfl_xor_sync(~0u, bs, d);
         qs += __shfl_xor_sync(~0u, qs, d);
       }
-      if (lane == 0) { bt[t] = bs; qt[t] = qs; }
+      if (pl == 0 && t < n) { bq[t] = bs; bq[C + t] = qs; }
     }
-    // the sub-chunks' starts, from the chunk's saved start
+    PHASE(1);
+    // the sub-chunks' starts, from the chunk's (the last one, whose slot
+    // holds the chunk's start as rows until every thread has read it, past
+    // barrier B)
     const int nsub = (n + U - 1) / U;
-    float S[KI][JT];
+    start_store<HD>(starts + 4 * tid, S);
+    for (int s = 0; s + 1 < nsub; ++s) {
 #pragma unroll
-    for (int a = 0; a < KI; ++a)
-      ld_vec<JT>(Sc + ((bh * chunks + c) * HD + i0 + a) * HD + j0 + jt, S[a]);
-    for (int s = 0; s < nsub; ++s) {
-#pragma unroll
-      for (int a = 0; a < KI; ++a)
-#pragma unroll
-        for (int b = 0; b < JT; ++b) cps[(s * E + a * JT + b) * NT + tid] = S[a][b];
-      if (s + 1 < nsub) {
-#pragma unroll 2
-        for (int t = s * U; t < s * U + U; ++t)
-          bwd_advance<KI, JT>(S, st + (2 * C + t) * HD + i0,
-                              st + (C + t) * HD + i0,
-                              st + (3 * C + t) * HD + j0 + jt);
-      }
+      for (int x = 0; x < U; ++x)
+        bwd_advance<HD>(S, bwd_slot<HD>(stage, p, s * U + x), i0, jc);
+      if (s + 2 < nsub)
+        start_store<HD>(starts + (s + 1) * E * NT + 4 * tid, S);
     }
-    __syncthreads();                          // b_t, q_t visible
+    PHASE(2);
+    __syncthreads();                          // B
+    if (nsub > 1) start_store<HD>(starts + (nsub - 1) * E * NT + 4 * tid, S);
+    PHASE(3);
+    const int spf = (nsub < P::NSUB / 2 ? nsub : P::NSUB / 2) - 1;
+    // dv of the chunk's sub-chunk s2 once every warp has written its sums
+    // (the walk of sub-chunk s2 - 1 has started): the warps' sums in warp
+    // order, then the bonus term q_t do_t
+    auto dv_sums = [&](int s2) {
+      mbar_wait(dvbar, dvph);
+      dvph ^= 1;
+      // with three halves, chunk c - 1's second half once every thread is
+      // past the steps from C / 2 (walked, their dv summed); chunk c - 1's
+      // start once every thread is past the last slot's sub-chunk
+      if (c > 0 && tid == 0) {
+        if (P::NH == 3 && s2 == spf)
+          bwd_stage<HD>(stage, 1 - p, 1, 2, maps, hh, (int)bi,
+                        (int)(c - 1) * C, rbar1);
+        if (s2 == nsub - 1)
+          start_stage<HD>(scslot, maps, j0, (int)c - 1, (int)bh, scbar);
+      }
+      PHASE(6);
+      const int m2 = (int)lmin(U, n - s2 * U);
+      const float* vb2 = dvb + (s2 & 1) * (U * NW * JB);
+#pragma unroll
+      for (int it = 0; it < (U * JB + NT - 1) / NT; ++it) {
+        const int idx = tid + it * NT;
+        if (idx < m2 * JB) {
+          const int x = idx / JB, j = idx - x * JB, t = s2 * U + x;
+          const float acc = lane_sum<NW, JB>(vb2 + x * NW * JB + j);
+          dv[crow + t * ld + j0 + j] = fmaf(
+              bq[C + t], bwd_slot<HD>(stage, p, t)[4 * P::AS + j0 + j], acc);
+        }
+      }
+      PHASE(7);
+    };
     for (int s = nsub - 1; s >= 0; --s) {
       const int m = (int)lmin(U, n - s * U);
-      float hist[U][KI][JT];
+      const float* start = starts + s * E * NT + 4 * tid;
+      float* vb = dvb + (s & 1) * (U * NW * JB);
+      // the warp's sums of the sub-chunk's step x (staged at st) from its
+      // scratch: over the column lanes (and the bonus terms in the first
+      // block of a head) to dr, dk, dw, over the key lanes to vb
+      auto reduce = [&](int x, const float* st) {
+        const int t = s * U + x;
+        const float* Jx = J + (x % JDB) * P::WS;
 #pragma unroll
-      for (int a = 0; a < KI; ++a)
-#pragma unroll
-        for (int b = 0; b < JT; ++b) S[a][b] = cps[(s * E + a * JT + b) * NT + tid];
-#pragma unroll
-      for (int x = 0; x < U; ++x) {
-        if (x < m) {
-          const int t = s * U + x;
-#pragma unroll
-          for (int a = 0; a < KI; ++a)
-#pragma unroll
-            for (int b = 0; b < JT; ++b) hist[x][a][b] = S[a][b];
-          bwd_advance<KI, JT>(S, st + (2 * C + t) * HD + i0,
-                              st + (C + t) * HD + i0,
-                              st + (3 * C + t) * HD + j0 + jt);
+        for (int mo = 0; mo < P::OUTS; ++mo) {
+          float acc = lane_sum<CL, WK>(Jx + jof[mo]);
+          if (mo == 0) {
+            const float bb = bq[t], ri = st[bkey], ki = st[P::AS + bkey];
+            const float bo = fmaf(ul * (isr ? ki : ri), bb, acc);
+            const float du2 = fmaf(ri * ki, bb, dua);
+            acc = bon ? bo : acc;
+            dua = bon && isr ? du2 : dua;
+          }
+          if (jon[mo]) jout[mo][crow + t * ld] = acc;
         }
-      }
+        float a2[CPL];
+        lane_sums<KL, JB, CPL>(Jx + 3 * JS + vcol, a2);
+        if (lane * CPL < JB)
+          st_vec<CPL>(vb + (x * NW + warp) * JB + vcol, a2);
+      };
+      // the sub-chunk's steps, as straight-line code where it is whole;
+      // with two scratch buffers a step's partials are summed during the
+      // step before it (one __syncwarp a step)
+      auto walk = [&](auto whole) {
+        constexpr bool W = decltype(whole)::value;
+        const float* sb = bwd_slot<HD>(stage, p, s * U);  // steps HD apart
+        // its states: h[x] before its step x (h[0], its start, is read
+        // again at step 0)
+        PHASE(4);
+        float h[U][KI][JT];
+        start_load<HD>(start, h[0]);
 #pragma unroll
-      for (int x = U - 1; x >= 0; --x) {
-        if (x < m) {
-          const int t = s * U + x;
-          float rr[KI], kk[KI], ww[KI], vv[JT], dd[JT];
+        for (int x = 1; x < U; ++x) {
+          if (W || x < m) {
 #pragma unroll
-          for (int a = 0; a < KI; ++a) {
-            rr[a] = st[t * HD + i0 + a];
-            kk[a] = st[(C + t) * HD + i0 + a];
-            ww[a] = st[(2 * C + t) * HD + i0 + a];
+            for (int a = 0; a < KI; ++a)
+#pragma unroll
+              for (int b = 0; b < JT; ++b) h[x][a][b] = h[x - 1][a][b];
+            bwd_advance<HD>(h[x], sb + (x - 1) * HD, i0, jc);
           }
-          ld_vec<JT>(st + (3 * C + t) * HD + j0 + jt, vv);
-          ld_vec<JT>(st + (4 * C + t) * HD + j0 + jt, dd);
-          float pr[KI], pk[KI], pw[KI], pv[JT];
+        }
+        PHASE(5);
+        if (s + 1 < nsub) dv_sums(s + 1);
 #pragma unroll
-          for (int b = 0; b < JT; ++b) pv[b] = 0.f;
+        for (int x = U - 1; x >= 0; --x) {
+          if (W || x < m) {
+            const float* st = sb + x * HD;
+            float* Jx = J + (x % JDB) * P::WS;
+            float Sp[KI][JT], rr[KI], kk[KI], ww[KI], vv[JT], dd[JT];
+            if (x == 0) {
+              start_load<HD>(start, Sp);
+            } else {
 #pragma unroll
-          for (int a = 0; a < KI; ++a) {
-            pr[a] = pk[a] = pw[a] = 0.f;
+              for (int a = 0; a < KI; ++a)
 #pragma unroll
-            for (int b = 0; b < JT; ++b) {
-              pr[a] = fmaf(hist[x][a][b], dd[b], pr[a]);
-              pk[a] = fmaf(D[a][b], vv[b], pk[a]);
-              pw[a] = fmaf(D[a][b], hist[x][a][b], pw[a]);
-              pv[b] = fmaf(D[a][b], kk[a], pv[b]);
-              D[a][b] = __fadd_rn(__fmul_rn(ww[a], D[a][b]),
-                                  __fmul_rn(rr[a], dd[b]));
+                for (int b = 0; b < JT; ++b) Sp[a][b] = h[x][a][b];
             }
-          }
-          // sums over the column lanes (dr, dk, dw), the key lanes (dv)
+            ld_vec<KI>(st + i0, rr);
+            ld_vec<KI>(st + P::AS + i0, kk);
+            ld_vec<KI>(st + 2 * P::AS + i0, ww);
 #pragma unroll
-          for (int d = 1; d < NCG; d *= 2) {
+            for (int g = 0; g < NV; ++g) {
+              ld_vec<4>(st + 3 * P::AS + jc + g * P::RUN, vv + 4 * g);
+              ld_vec<4>(st + 4 * P::AS + jc + g * P::RUN, dd + 4 * g);
+            }
+            // a thread's sums: over its columns (dr, dk, dw), its keys (dv)
+            float pr[KI], pk[KI], pw[KI], pv[JT];
+#pragma unroll
+            for (int b = 0; b < JT; ++b) pv[b] = 0.f;
 #pragma unroll
             for (int a = 0; a < KI; ++a) {
-              pr[a] += __shfl_xor_sync(~0u, pr[a], d);
-              pk[a] += __shfl_xor_sync(~0u, pk[a], d);
-              pw[a] += __shfl_xor_sync(~0u, pw[a], d);
+              pr[a] = pk[a] = pw[a] = 0.f;
+#pragma unroll
+              for (int b = 0; b < JT; ++b) {
+                pr[a] = fmaf(Sp[a][b], dd[b], pr[a]);
+                pk[a] = fmaf(D[a][b], vv[b], pk[a]);
+                pw[a] = fmaf(D[a][b], Sp[a][b], pw[a]);
+                pv[b] = fmaf(D[a][b], kk[a], pv[b]);
+                D[a][b] = __fadd_rn(__fmul_rn(ww[a], D[a][b]),
+                                    __fmul_rn(rr[a], dd[b]));
+              }
+            }
+            if (JDB == 2 && x + 1 < U && (W || x + 1 < m))
+              reduce(x + 1, st + HD);
+            // to the warp's scratch: J[q][cl][key], V[kl][column]
+            st_vec<KI>(Jx + cl * WK + kl * KI, pr);
+            st_vec<KI>(Jx + JS + cl * WK + kl * KI, pk);
+            st_vec<KI>(Jx + 2 * JS + cl * WK + kl * KI, pw);
+#pragma unroll
+            for (int g = 0; g < NV; ++g)
+              st_vec<4>(Jx + 3 * JS + kl * JB + g * P::RUN + 4 * cl,
+                        pv + 4 * g);
+            __syncwarp();
+            if (JDB == 1) {
+              reduce(x, st);
+              __syncwarp();                   // the scratch free again
             }
           }
-#pragma unroll
-          for (int d = NCG; d < 32; d *= 2) {
-#pragma unroll
-            for (int b = 0; b < JT; ++b)
-              pv[b] += __shfl_xor_sync(~0u, pv[b], d);
-          }
-          const float bb = bt[t];
-          if (jb == 0) {                      // the bonus terms, once
-#pragma unroll
-            for (int a = 0; a < KI; ++a) {
-              pr[a] = fmaf(uu[a] * kk[a], bb, pr[a]);
-              pk[a] = fmaf(uu[a] * rr[a], bb, pk[a]);
-              dua[a] = fmaf(rr[a] * kk[a], bb, dua[a]);
-            }
-          }
-          if (cg < KI) {
-            float xr = pr[0], xk = pk[0], xw = pw[0];
-#pragma unroll
-            for (int a = 1; a < KI; ++a)
-              if (cg == a) { xr = pr[a]; xk = pk[a]; xw = pw[a]; }
-            const int64_t o = jb * part + crow + t * ld + i0 + cg;
-            dr[o] = xr;
-            dk[o] = xk;
-            dw[o] = xw;
-          }
-          if (lane < NCG) st_vec<JT>(dvb + (x * NW + warp) * JB + jt, pv);
         }
-      }
-      __syncthreads();                        // the warps' dv sums
-      for (int idx = tid; idx < m * JB; idx += NT) {
-        const int x = idx / JB, j = idx - x * JB, t = s * U + x;
-        float acc = dvb[x * NW * JB + j];
-#pragma unroll
-        for (int q = 1; q < NW; ++q) acc += dvb[(x * NW + q) * JB + j];
-        acc = fmaf(qt[t], st[(4 * C + t) * HD + j0 + j], acc);
-        dv[crow + t * ld + j0 + j] = acc;
-      }
-      __syncthreads();                        // dvb free again
+        if (JDB == 2) reduce(0, sb);
+        PHASE(8);
+      };
+      if (m == U)
+        walk(Bool<true>{});
+      else
+        walk(Bool<false>{});
+      mbar_arrive(dvbar);
     }
+    dv_sums(0);
   }
-#pragma unroll
-  for (int a = 0; a < KI; ++a)
-    st_vec<JT>(dS0 + (bh * HD + i0 + a) * HD + j0 + jt, D[a]);
-  if (jb == 0 && cg < KI) {
-    float x = dua[0];
-#pragma unroll
-    for (int a = 1; a < KI; ++a)
-      if (cg == a) x = dua[a];
-    du[bh * HD + i0 + cg] = x;
+  PHASE(9);
+  st_tile<HD>(dS0 + bh * HD * HD, i0, jc, D);
+  if (jb == 0 && lane < WK) du[bh * HD + wk0 + lane] = dua;
+#ifdef REPRO_WKV6_BWD_PHASES
+  if (lane == 0 && blockIdx.x < 64 && warp < 16)
+    for (int i = 0; i < 10; ++i) bwd_phases[blockIdx.x][warp][i] = phase_[i];
+#endif
+}
+
+// A contiguous fp32 tensor of dims (innermost first) at ptr, as a tensor
+// map of boxes `box` (no swizzle; elements past its edge arrive as zeros):
+// cudaErrorInvalidValue where the encoder refuses it, cudaErrorNotSupported
+// without the encoder.
+cudaError_t encode_f32(CUtensorMap* map, const void* ptr,
+                       const cuuint64_t (&dims)[4],
+                       const cuuint32_t (&box)[4]) {
+  const repro_hopper::EncodeTiled fn = repro_hopper::encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  cuuint64_t strides[3];
+  cuuint64_t st = dims[0] * sizeof(float);
+  for (int i = 0; i < 3; ++i) {
+    strides[i] = st;
+    st *= dims[i + 1];
   }
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
 }
 
 // Raise a kernel's dynamic shared memory limit once a device.
@@ -694,17 +1048,47 @@ struct BwdArgs {
   float *dr, *dk, *dv, *dw, *du, *dS0;
 };
 
+// The backward's shared memory limit, raised once a device.
+template <int HD>
+cudaError_t allow_bwd_smem() {
+  static unsigned done = 0;
+  return allow_smem(wkv6_bwd_kernel<HD>, BPlan<HD>::BYTES, done);
+}
+
+// Blocks of the backward an SM holds at once (registers, shared memory,
+// threads), or minus the CUDA error.
+template <int HD>
+int bwd_blocks_per_sm() {
+  cudaError_t e = allow_bwd_smem<HD>();
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, wkv6_bwd_kernel<HD>, BPlan<HD>::NT, BPlan<HD>::BYTES);
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
+}
+
 template <int HD>
 int launch_bwd(const BwdArgs& x, int64_t B, int64_t T, int H,
                cudaStream_t s) {
   using P = BPlan<HD>;
-  static unsigned done = 0;
-  const cudaError_t e = allow_smem(wkv6_bwd_kernel<HD>, P::BYTES, done);
+  cudaError_t e = allow_bwd_smem<HD>();
   if (e != cudaSuccess) return static_cast<int>(e);
   const unsigned blocks = (unsigned)(B * H * (HD / P::JB));
+  BwdMaps maps;
+  const float* ops[5] = {x.r, x.k, x.w, x.v, x.dout};
+  for (int a = 0; a < 5 && e == cudaSuccess; ++a)
+    e = encode_f32(&maps.op[a], ops[a],
+                   {(cuuint64_t)HD, (cuuint64_t)H, (cuuint64_t)T,
+                    (cuuint64_t)B},
+                   {(cuuint32_t)HD, 1, (cuuint32_t)P::H2, 1});
+  if (e == cudaSuccess)
+    e = encode_f32(&maps.sc, x.Sc,
+                   {(cuuint64_t)HD, (cuuint64_t)HD,
+                    (cuuint64_t)((T + P::C - 1) / P::C), (cuuint64_t)(B * H)},
+                   {(cuuint32_t)P::JB, (cuuint32_t)HD, 1, 1});
+  if (e != cudaSuccess) return static_cast<int>(e);
   wkv6_bwd_kernel<HD><<<blocks, P::NT, P::BYTES, s>>>(
-      x.r, x.k, x.v, x.w, x.u, x.Sc, x.dout, x.dST, x.dr, x.dk, x.dv, x.dw,
-      x.du, x.dS0, B, T, H);
+      maps, x.u, x.dST, x.dr, x.dk, x.dv, x.dw, x.du, x.dS0, B, T, H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -776,6 +1160,33 @@ extern "C" int repro_wkv6_bwd_parts(long long hd) {
     case 32: return 32 / BPlan<32>::JB;
     case 64: return 64 / BPlan<64>::JB;
     case 128: return 128 / BPlan<128>::JB;
+    default: return 0;
+  }
+}
+
+#ifdef REPRO_WKV6_BWD_PHASES
+extern "C" int repro_wkv6_bwd_phases(void* host) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(host, bwd_phases, sizeof(bwd_phases)));
+}
+#endif
+
+extern "C" int repro_wkv6_bwd_sub(long long hd) {
+  switch (hd) {
+    case 16: return BPlan<16>::U;
+    case 32: return BPlan<32>::U;
+    case 64: return BPlan<64>::U;
+    case 128: return BPlan<128>::U;
+    default: return 0;
+  }
+}
+
+extern "C" int repro_wkv6_bwd_blocks_per_sm(long long hd) {
+  switch (hd) {
+    case 16: return bwd_blocks_per_sm<16>();
+    case 32: return bwd_blocks_per_sm<32>();
+    case 64: return bwd_blocks_per_sm<64>();
+    case 128: return bwd_blocks_per_sm<128>();
     default: return 0;
   }
 }

@@ -45,6 +45,8 @@ _ARGTYPES = {
     "repro_wkv6_bwd": [_P] * 14 + [_I64] * 4 + [_P],
     "repro_wkv6_chunk": [_I64],
     "repro_wkv6_bwd_parts": [_I64],
+    "repro_wkv6_bwd_sub": [_I64],
+    "repro_wkv6_bwd_blocks_per_sm": [_I64],
 }
 
 
@@ -67,9 +69,23 @@ def wkv_chunk(hd: int) -> int:
 
 def wkv_bwd_parts(hd: int) -> int:
     """Partials of dr, dk and dw the ``wkv6`` backward writes at head
-    size ``hd``, one a block's value columns (csrc: HD / BPlan<HD>::JB),
-    read from the build."""
+    size ``hd``, one a block's value columns (csrc: HD / BPlan<HD>::JB:
+    1 up to hd 64, 2 at hd 128), read from the build."""
     return _fn("wkv6", "repro_wkv6_bwd_parts")(hd)
+
+
+def wkv_bwd_sub(hd: int) -> int:
+    """Steps a sub-chunk of the ``wkv6`` backward at head size ``hd``
+    (csrc: BPlan<HD>::U), read from the build: the states of one
+    sub-chunk are recomputed into registers and walked back at a time."""
+    return _fn("wkv6", "repro_wkv6_bwd_sub")(hd)
+
+
+def wkv_bwd_blocks_per_sm(hd: int) -> int:
+    """Blocks of the ``wkv6`` backward one SM of the current device holds
+    at once at head size ``hd`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    on the build's kernel; negative: a CUDA error)."""
+    return _fn("wkv6", "repro_wkv6_bwd_blocks_per_sm")(hd)
 
 
 def _check(err: int, what: str) -> None:

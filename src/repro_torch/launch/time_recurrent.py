@@ -4,6 +4,7 @@ another's.
 
     python3 -m repro_torch.launch.time_recurrent                 # this build
     python3 -m repro_torch.launch.time_recurrent --against OTHER/src
+    python3 -m repro_torch.launch.time_recurrent --phases
 
 Forwards, fp32, with an initial state: ``rglru_scan`` at
 recurrentgemma-9b's prefill (2, 4096, 4096) and at (1, 4097, 4099) (rows
@@ -30,7 +31,13 @@ before the backward kernels has the forwards only).  Each row has the
 bound (``chip_smoke.py``'s counts: bytes at 3.35 TB/s, fp32 flop at 67
 TFLOP/s).  Prints the card's ``nvidia-smi`` name and power
 limit first and last, and one JSON line of every reading before the
-last.  Needs one card: exits 2 without one, 1 where a check fails.
+last.  With ``--phases``, also ``wkv6_bwd``'s cycles by phase at its four
+training shapes, from a build of this checkout's ``wkv6.cu`` with
+``-DREPRO_WKV6_BWD_PHASES`` (lane 0 of each warp of the first 64 blocks
+sums ``clock64()`` between marks: the barriers, the staging and b_t, q_t,
+the first pass over a chunk, a sub-chunk's states, the wait for the dv
+sums, those sums, its steps), as shares of the warps' cycles.  Needs one
+card: exits 2 without one, 1 where a check fails.
 """
 from __future__ import annotations
 
@@ -96,15 +103,16 @@ def bound_ms(name: str, shape) -> float:
     return max(nbytes / PEAK_BYTES, flop / PEAK_FP32) * 1e3
 
 
-def build_other(build, src: Path, name: str) -> ctypes.CDLL:
+def build_other(build, src: Path, name: str, flags=(),
+                tag: str = "other") -> ctypes.CDLL:
     """The other checkout's ``csrc/<name>.cu`` built with this package's
-    flags (its own ``csrc`` on the include path)."""
-    out = build.BUILD_DIR / f"time_recurrent-other-{name}.so"
+    flags and ``flags`` (its own ``csrc`` on the include path)."""
+    out = build.BUILD_DIR / f"time_recurrent-{tag}-{name}.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu = src / "repro_torch" / "csrc" / f"{name}.cu"
     proc = subprocess.run([build.cuda_tool("nvcc"), *build.NVCC_FLAGS,
-                           "-I", str(cu.parent), "-o", str(out), str(cu)],
-                          capture_output=True, text=True)
+                           *flags, "-I", str(cu.parent), "-o", str(out),
+                           str(cu)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {cu}:\n{proc.stdout}"
                            f"{proc.stderr}")
@@ -170,9 +178,49 @@ def holds(name: str, got, want) -> bool:
     return True
 
 
+#: the phases of a wkv6_bwd_kernel warp's cycles (csrc/wkv6.cu, PHASE)
+PHASES = ("barrier A", "staging, b_t, q_t", "first pass", "barrier B",
+          "before a sub-chunk", "sub-chunk states", "dv wait", "dv sums",
+          "steps", "end")
+
+
+def phases(rec, build, dev) -> dict:
+    """``wkv6_bwd``'s cycles by phase (a ``-DREPRO_WKV6_BWD_PHASES`` build
+    of this checkout's ``wkv6.cu``) at ``WKV6_BWD_SHAPES``: the mean over
+    the warps of the first 64 blocks, as shares."""
+    import numpy as np
+    lib = build_other(build, Path(rec.__file__).resolve().parents[2],
+                      "wkv6", ("-DREPRO_WKV6_BWD_PHASES",), "phases")
+    call = with_library(rec, {"rglru_scan": lib, "wkv6": lib})
+    g = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+    for shape in WKV6_BWD_SHAPES:
+        r, k, v, w, u, _, do = inputs("wkv6_bwd", shape, g, dev)
+        Sc = call["wkv6"](r, k, v, w, u, None, states=True)[2]
+        call["wkv6_bwd"](r, k, v, w, u, Sc, do, None)
+        torch.cuda.synchronize()
+        buf = np.zeros((64, 16, len(PHASES)), np.uint64)
+        err = lib.repro_wkv6_bwd_phases(ctypes.c_void_p(buf.ctypes.data))
+        if err:
+            raise RuntimeError(f"wkv6 phases: CUDA error {err}")
+        used = buf.sum(axis=2) > 0
+        mean = buf[used].astype(np.float64).mean(axis=0)
+        row = {"cycles": float(mean.sum()),
+               **{name: float(x / mean.sum()) for name, x in
+                  zip(PHASES, mean)}}
+        print(f"wkv6_bwd {shape} phases ({row['cycles']:.0f} cycles a "
+              f"warp): " + ", ".join(f"{n} {100 * row[n]:.1f} %"
+                                     for n in PHASES))
+        out[str(shape)] = row
+        del r, k, v, w, u, do, Sc
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", help="another checkout's src directory")
+    ap.add_argument("--phases", action="store_true",
+                    help="also wkv6_bwd's cycles by phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_recurrent: no CUDA device is visible", file=sys.stderr)
@@ -257,6 +305,8 @@ def main(argv=None) -> int:
             del x, want
             Sc.clear()
             torch.cuda.empty_cache()
+    if args.phases:
+        out["wkv6_bwd_phases"] = phases(rec, build, dev)
     print(json.dumps(out))
     print(card_line())
     if failed:

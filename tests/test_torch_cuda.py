@@ -1708,6 +1708,80 @@ def test_wkv6_bwd_kernel_at_extreme_decays(card, hd, decay):
                    seed=hd + 1)
 
 
+#: steps a sub-chunk of the ``csrc/wkv6.cu`` backward by head size (its
+#: BPlan's U), for the parametrizations; held to the build's own
+#: ``recurrent.wkv_bwd_sub`` by ``test_wkv6_bwd_sub_chunk_table_is_the_builds``
+WKV_BWD_SUB = {16: 8, 32: 8, 64: 8, 128: 4}
+
+
+@pytest.mark.parametrize("hd,T", [(hd, base + U + d)
+                                  for hd, U in WKV_BWD_SUB.items()
+                                  for base in (0, WKV_CHUNK[hd])
+                                  for d in (-1, 0, 1)])
+def test_wkv6_bwd_kernel_at_sub_chunk_edges(card, hd, T):
+    """T = U - 1, U, U + 1 inside the first chunk and past the first
+    chunk: a last sub-chunk one step short, whole, and one step long."""
+    _wkv6_bwd_case(card, 2, T, 2, hd, seed=T + hd + 11)
+
+
+@pytest.mark.parametrize("B,T,H,hd", [(1, 300, 2, 64), (1, 100, 1, 128),
+                                      (2, 150, 3, 16), (1, 77, 3, 32)])
+def test_wkv6_bwd_kernel_below_the_sm_count(card, B, T, H, hd):
+    """Fewer blocks (B H times the partials) than the card has SMs."""
+    from repro_torch.kernels import recurrent
+    assert B * H * recurrent.wkv_bwd_parts(hd) < torch.cuda.get_device_properties(
+        card).multi_processor_count
+    _wkv6_bwd_case(card, B, T, H, hd, with_s0=False, with_ds=True,
+                   seed=B + T + H + hd)
+
+
+@pytest.mark.parametrize("with_s0,with_ds", [(False, False), (True, True),
+                                             (True, False)])
+def test_wkv6_bwd_kernel_at_hd128_two_chunks_and_five(card, with_s0,
+                                                      with_ds):
+    _wkv6_bwd_case(card, 2, 2 * WKV_CHUNK[128] + 5, 2, 128,
+                   with_s0=with_s0, with_ds=with_ds, seed=133)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_wkv6_autograd_matches_autograd_of_the_plain_loop(card, hd):
+    """``ops.wkv6`` under autograd (r, k, v, w, u and S0 require grad;
+    both outputs used): one forward launch (which keeps the chunk starts)
+    and one backward launch, every gradient within ``TOL_WKV6_BWD`` of
+    its largest magnitude against autograd of the plain loop."""
+    g = torch.Generator(device=card).manual_seed(hd + 5)
+    B, T, H = 2, 2 * WKV_CHUNK[hd] + 3, 2
+    xs = list(_wkv_operands(g, card, B, T, H, hd))
+    xs.append(torch.randn((B, H, hd, hd), generator=g, device=card))
+    gout = torch.randn((B, T, H, hd), generator=g, device=card)
+    gS = torch.randn((B, H, hd, hd), generator=g, device=card)
+    xs = [x.requires_grad_() for x in xs]
+    ops.reset_launches()
+    out, S_T = ops.wkv6(*xs)
+    ((out * gout).sum() + (S_T * gS).sum()).backward()
+    torch.cuda.synchronize()
+    assert ops.launches["wkv6"] == 1 and ops.launches["wkv6_bwd"] == 1
+    ys = [x.detach().clone().requires_grad_() for x in xs]
+    out2, S_T2 = ref.wkv6_ref(*ys)
+    ((out2 * gout).sum() + (S_T2 * gS).sum()).backward()
+    for name, x, y in zip(("r", "k", "v", "w", "u", "S0"), xs, ys):
+        assert float((x.grad - y.grad).abs().max()) <= TOL_WKV6_BWD * float(
+            y.grad.abs().max()), name
+
+
+def test_wkv6_bwd_sub_chunk_table_is_the_builds(card):
+    """The sub-chunk lengths the parametrizations above use are the
+    build's, each divides its chunk, and an SM holds at least one block
+    of the backward at every head size."""
+    from repro_torch.kernels import recurrent
+    assert {hd: recurrent.wkv_bwd_sub(hd) for hd in WKV_BWD_SUB} == \
+        WKV_BWD_SUB
+    for hd, U in WKV_BWD_SUB.items():
+        assert WKV_CHUNK[hd] % U == 0
+        assert recurrent.wkv_bwd_blocks_per_sm(hd) >= 1, hd
+    assert recurrent.wkv_bwd_sub(24) == 0
+
+
 def test_wkv6_chunk_table_is_the_builds(card):
     """The chunk lengths the parametrizations above use are the build's,
     and the backward's partials divide each head size."""

@@ -17,6 +17,13 @@ within 1e-5 of its own largest magnitude, the forwards' limit
 scans and autograd sum in other orders.  On the CPU the ``ops``
 wrappers run these loops.
 
+The card's ``wkv6`` backward sums in its own order (per-thread FMA
+chains, trees over lanes and warps, partials of a head's two blocks at
+hd 128): ``_wkv6_bwd_kernel_order`` repeats that order in plain PyTorch,
+and ``test_wkv6_bwd_kernel_order_fits_the_card_limit`` holds it to the
+card's limit (1e-4 of each gradient's largest magnitude) against the
+plain loop and ``jax.vjp``, dS0 bitwise, before any card runs it.
+
 Also: rwkv6-1.6b's ``compress_ratio`` at full width (rank 8), the count
 ``chip_smoke.py`` holds the card's compressed steps to, computed from
 the JAX package's compression state and from the port's rule on the
@@ -278,3 +285,172 @@ def test_compressed_training_amplifies_rounding(arch, monkeypatch):
         return max(float((a[n] - b[n]).norm() / a[n].norm()) for n in a)
     assert worst(False) <= 1e-5
     assert worst(True) > 1e-3
+
+
+#: ``csrc/wkv6.cu``'s backward tiles by head size (BTile): value columns a
+#: block (JB), keys (KI) and columns (JT) a thread; the forward's chunk
+#: (C) and the backward's sub-chunk (U), which set the shapes' edges
+WKV_BWD_TILE = {16: (16, 2, 4), 32: (32, 2, 8), 64: (64, 2, 8),
+                128: (64, 4, 8)}
+WKV_CHUNK = {16: 32, 32: 32, 64: 32, 128: 16}
+WKV_BWD_SUB = {16: 8, 32: 8, 64: 8, 128: 4}
+#: the gradients other than dS0 against their largest magnitude: the card's
+#: limit (``TOL_WKV6_BWD`` in tests/test_torch_cuda.py)
+TOL_WKV6_BWD = 1e-4
+
+
+def _fma(a, b, c):
+    """fp32 ``a * b + c`` rounded once (the product is exact in float64;
+    the sum's rounding to float64 first aside)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _tree(x, dim):
+    """The kernel's sum over ``dim`` (a power of 2 long): pairs, then
+    pairs of pairs, in fp32."""
+    x = x.movedim(dim, -1)
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def _wkv6_bwd_kernel_order(r, k, v, w, u, S0, do, dS, block=256):
+    """``wkv6_bwd`` with the card kernel's order of sums in plain PyTorch.
+    A thread holds KI keys x JT columns (runs of 4 columns JB / NV apart);
+    its sums over its columns (dr, dk, dw) and keys (dv) are FMA chains;
+    the column lanes' sums meet in a tree, then the bonus terms (the first
+    block of a head: u k b_t, u r b_t), then the blocks' partials add;
+    dv's key lanes meet in a tree, then the warps' sums in a tree, then
+    q_t do_t.  b_t and q_t are chains over each lane's keys met in a
+    butterfly; du a chain over t.  D and the states round as the plain
+    loop's, so dS0 is its bit for bit.  The steps' sums are taken
+    ``block`` steps at a time (the same arithmetic, batched over t)."""
+    B, T, H, hd = r.shape
+    JB, KI, JT = WKV_BWD_TILE[hd]
+    NV, CL = JT // 4, JB // JT
+    KL = 32 // CL
+    NW = hd // (KL * KI)
+    LPS = 32 * NW // WKV_CHUNK[hd]
+    parts = hd // JB
+    cols = torch.tensor([[[jb * JB + (b // 4) * (JB // NV) + cl * 4 + b % 4
+                           for b in range(JT)] for cl in range(CL)]
+                         for jb in range(parts)])          # (parts, CL, JT)
+    S = r.new_zeros((B, H, hd, hd)) if S0 is None else S0.clone()
+    starts = {}                               # S_{t0 - 1} of each block
+    for t in range(T):
+        if t % block == 0:
+            starts[t] = S
+        S = (w[:, t, :, :, None] * S
+             + k[:, t, :, :, None] * v[:, t, :, None, :])
+    D = r.new_zeros((B, H, hd, hd)) if dS is None else dS.clone()
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = r.new_zeros((B, H, hd))
+    for t0 in reversed(range(0, T, block)):
+        t1 = min(T, t0 + block)
+        S, Sp = starts[t0], []
+        for t in range(t0, t1):
+            Sp.append(S)
+            S = (w[:, t, :, :, None] * S
+                 + k[:, t, :, :, None] * v[:, t, :, None, :])
+        Dt = [None] * (t1 - t0)
+        for t in reversed(range(t0, t1)):
+            Dt[t - t0] = D
+            D = (w[:, t, :, :, None] * D
+                 + r[:, t, :, :, None] * do[:, t, :, None, :])
+        Sp, Dt = torch.stack(Sp, 1), torch.stack(Dt, 1)  # (B, n, H, hd, hd)
+        rt, kt, vt, dot = (x[:, t0:t1] for x in (r, k, v, do))
+        n = t1 - t0
+        # b_t, q_t: lane p's chain over keys p * KPL ..., then xor butterfly
+        bs = qs = r.new_zeros((B, n, H, LPS))
+        ru = (rt * u).view(B, n, H, LPS, -1)
+        vv, dd, kk = (x.reshape(B, n, H, LPS, -1) for x in (vt, dot, kt))
+        for m in range(hd // LPS):
+            bs = _fma(vv[..., m], dd[..., m], bs)
+            qs = _fma(ru[..., m], kk[..., m], qs)
+        d = 1
+        while d < LPS:
+            perm = torch.arange(LPS) ^ d
+            bs, qs = bs + bs[..., perm], qs + qs[..., perm]
+            d *= 2
+        bt, qt = bs[..., :1], qs[..., :1]                   # (B, n, H, 1)
+        # sums over columns: chains over a thread's JT columns, lanes' tree
+        Sg, Dg = Sp[..., cols], Dt[..., cols]  # (B, n, H, hd, parts, CL, JT)
+        dg, vg = dot[..., cols][:, :, :, None], vt[..., cols][:, :, :, None]
+        pr = pk = pw = r.new_zeros(Sg.shape[:-1])
+        for b in range(JT):
+            pr = _fma(Sg[..., b], dg[..., b], pr)
+            pk = _fma(Dg[..., b], vg[..., b], pk)
+            pw = _fma(Dg[..., b], Sg[..., b], pw)
+        pr, pk, pw = (_tree(x, -1) for x in (pr, pk, pw))  # (.., hd, parts)
+        pr[..., 0] = _fma(u * kt, bt, pr[..., 0])
+        pk[..., 0] = _fma(u * rt, bt, pk[..., 0])
+        dr[:, t0:t1], dk[:, t0:t1], dw[:, t0:t1] = (
+            x.sum(-1) if parts > 1 else x[..., 0] for x in (pr, pk, pw))
+        rk = rt * kt
+        for t in reversed(range(n)):
+            du = _fma(rk[:, t], bt[:, t], du)
+        # dv: chains over a thread's KI keys, the key lanes' tree, the warps'
+        pv = r.new_zeros((B, n, H, hd // KI, hd))
+        Dk = Dt.view(B, n, H, hd // KI, KI, hd)
+        kg = kt.reshape(B, n, H, hd // KI, KI)
+        for a in range(KI):
+            pv = _fma(Dk[..., a, :], kg[..., a, None], pv)
+        pv = _tree(_tree(pv.view(B, n, H, NW, KL, hd), 4), 3)
+        dv[:, t0:t1] = _fma(qt, dot, pv)
+    return dr, dk, dv, dw, du.sum(0), D
+
+
+def _wkv_bwd_case(B, T, H, hd, decay, seed):
+    rng = np.random.default_rng(seed)
+    r, k, v, w, u, S0, do, dS = _wkv_inputs(rng, B, T, H, hd,
+                                            "usual" if decay == "near_one"
+                                            else decay)
+    if decay == "near_one":
+        w = np.full_like(w, 1.0 - 2.0 ** -24)
+    return r, k, v, w, u, S0, do, dS
+
+
+WKV_ORDER_CASES = (
+    [("long", 1, 4097, 2, 64, "usual")]
+    + [("edge", 1, T, 2, hd, "usual") for hd in WKV_BWD_TILE
+       for T in sorted({WKV_CHUNK[hd] + d for d in (-1, 0, 1)}
+                       | {WKV_BWD_SUB[hd] + d for d in (-1, 0, 1)})]
+    + [("decay", 1, 2 * WKV_CHUNK[hd] + 5, 2, hd, decay)
+       for hd in WKV_BWD_TILE for decay in ("strong", "near_one")])
+
+
+@pytest.mark.parametrize("kind,B,T,H,hd,decay", WKV_ORDER_CASES)
+def test_wkv6_bwd_kernel_order_fits_the_card_limit(kind, B, T, H, hd, decay):
+    """The card's backward sums in another order than the plain reverse
+    loop (dr, dk, dw over columns, dv over keys, b_t and q_t, du): that
+    order, emulated here, holds every gradient but dS0 within the card's
+    limit, 1e-4 of its largest magnitude, against both ``ref.wkv6_bwd_ref``
+    and ``jax.vjp`` of the JAX package's ``_wkv_scan``, over 4097 steps,
+    at every head size at the edges of a chunk and of a sub-chunk, and at
+    the decays' edges (all below 1e-30; all 1 - 2^-24); dS0 is the plain
+    loop's bit for bit."""
+    r, k, v, w, u, S0, do, dS = _wkv_bwd_case(B, T, H, hd, decay,
+                                              T * hd + len(kind))
+    # thousands of small ops: one thread each (with workers beside it,
+    # more threads than cores slowed the 4097-step case a hundredfold)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = _wkv6_bwd_kernel_order(*(_t(x) for x in (r, k, v, w, u, S0,
+                                                         do, dS)))
+        plain = ref.wkv6_bwd_ref(*(_t(x) for x in (r, k, v, w, u, S0, do,
+                                                   dS)))
+    finally:
+        torch.set_num_threads(threads)
+    _, vjp = jax.vjp(JR._wkv_scan, *(jnp.asarray(x)
+                                     for x in (r, k, v, w, u, S0)))
+    jx = vjp((jnp.asarray(do), jnp.asarray(dS)))
+    names = ("dr", "dk", "dv", "dw", "du", "dS0")
+    for name, x, y, z in zip(names, got, plain, jx):
+        if name == "dS0":
+            assert torch.equal(x, y)
+            continue
+        for want in (y.numpy(), np.asarray(z)):
+            err = float(np.abs(x.numpy().astype(np.float64) - want).max())
+            assert err <= TOL_WKV6_BWD * float(np.abs(want).max()), (
+                name, err, float(np.abs(want).max()))

@@ -425,6 +425,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    CPU's state on both, the loss and each compressed leaf's P Qn^T held
    to 1e-4 (``compressed_card_vs_cpu`` says why not the trajectory).
    ``--only-recurrent-training`` runs phases 1 and 15 alone.
+16. The sharded LM (``make_train_step(cfg, tc, mesh)``: FSDP over
+   ``data``, tensor parallelism over ``model``, explicit collectives in
+   ``core/parallel.py``), on ``SL_RANKS`` gloo ranks sharing the card
+   (``torchrun --standalone``, this script with ``--sharded-lm-rank DIR``
+   as in 10.2; gloo through the host, not NCCL between cards).  16.1:
+   qwen3-0.6b at full width, **cut to ``SL_LAYERS`` = 2 of 28 layers and
+   ``SL_STEPS`` = 2 steps for the script's time**, on a (2, 2) data x
+   model mesh, 8 x 2048 bigram tokens global, bf16, ``loss_chunks`` 8, held
+   to the one-process steps the parent runs first on the same weights
+   and batches (the first loss within ``TOL_SL_LOSS``, the parameters
+   within ``TOL_SL_MATRICES`` / ``TOL_SL_PARAMS`` of their norm), the
+   loss falls, ranks holding a shard hold the same bits, every step's
+   collectives equal ``training/schedule.py``'s schedule on every rank,
+   the attention's launches a step (forward twice a layer, the backward's
+   three kernels once, on ``wgmma``); ms a step and the share inside
+   collectives (each step with a sync on either side of each collective;
+   the second step's), peak memory a rank.  16.2: the ten archs' fp32 smoke configs, one step each on the
+   same ranks, within ``TOL_SL_SMOKE`` of the one-process step (the MoE
+   configs of ``moe_by_shard``, the JAX package's per-shard MoE run in one
+   process).  Then the attention forward (with ``lse``) and backward at
+   a rank's local heads beside their bounds, plain versions and SDPA.
+   ``--only-sharded-lm`` runs phases 1 and 16 alone.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches in the
 run of its path, and its times; the block sweeps as ``<name>/tf32x3``
@@ -448,7 +470,8 @@ solve) and the same with ``[bf16]`` (from the bf16 solve); before them an
 line with phase 10's, a ``{"serving": {...}}`` line with phase 11's and
 a ``{"training": {...}}`` line with phase 12's, an ``{"analysis":
 {...}}`` line with phase 13's, an ``{"lm_families": {...}}`` line with
-phase 14's, a ``{"recurrent_training": {...}}`` line with phase 15's; the recurrences as ``rglru_scan`` and ``wkv6``, launches
+phase 14's, a ``{"recurrent_training": {...}}`` line with phase 15's, a
+``{"sharded_lm": {...}}`` line with phase 16's; the recurrences as ``rglru_scan`` and ``wkv6``, launches
 from phase 14's served models (prefill and decode), each with its
 ``share_of_bound`` (``bound_ms`` over ``ms``);
 the sharded path's launches (10.1, one rank) as
@@ -463,7 +486,9 @@ its log-sum-exp), ``block_matvec/tf32x3[compression]`` and
 ``block_rmatvec/tf32x3[compression]`` (one step's eight sweeps, their
 times summed); the recurrences' backward kernels as ``rglru_scan_bwd``
 and ``wkv6_bwd``, launches from phase 15.2's training steps, timed at a
-training step's shapes; and each phase's seconds.
+training step's shapes; the sharded LM's (16.1, rank 0's three steps) as
+``local_attention_bwd/wgmma[sharded lm]`` and ``local_attention[sharded
+lm]``, timed at a rank's local heads; and each phase's seconds.
 Exits 2 without a CUDA device or without ``src/repro_torch`` beside this
 script.
 """
@@ -4588,7 +4613,8 @@ def ffma_bwd(torch, la, q, k, v, o, do, lse, window, softcap):
     return grads
 
 
-def attention_bwd_path(torch, ops, ref, la, g, dev, planted=None) -> dict:
+def attention_bwd_path(torch, ops, ref, la, g, dev, planted=None,
+                       shapes=None) -> dict:
     """The backward kernel at the path's shapes (``BWD_PATH``, bf16, on
     the route ``bwd_route`` names): within its limits, two runs bitwise
     equal, then timed beside its bound, its plain version and, with no cap
@@ -4601,10 +4627,11 @@ def attention_bwd_path(torch, ops, ref, la, g, dev, planted=None) -> dict:
     ``planted`` (phase 1's builds), the qwen3 and gemma2-9b global rows
     also read the ``BWD_PLANTED`` builds of the tensor-core route on the
     same inputs (printed: what two bf16 terms, or sums left in the tensor
-    cores, would cost against the limit)."""
+    cores, would cost against the limit).  ``shapes``: other entries of
+    ``BWD_PATH``'s form (phase 16's local heads)."""
     import torch.nn.functional as F
     rows = {}
-    for (label, B, H, Hkv, S, D, window, softcap) in BWD_PATH:
+    for (label, B, H, Hkv, S, D, window, softcap) in shapes or BWD_PATH:
         q, k, v = attn_inputs(torch, g, dev, B, H, Hkv, S, D, torch.bfloat16)
         do = attn_inputs(torch, g, dev, B, H, Hkv, S, D, torch.bfloat16)[0]
         lse = torch.empty((B, H, S), device=dev)
@@ -6360,9 +6387,482 @@ def recurrent_training(torch, ops, ref, la, dev) -> tuple:
     return summary, line
 
 
+# ---------------------------------------------------------------------------
+# 16. the sharded LM: FSDP x TP on four gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+SL_ARCH = "qwen3-0.6b"
+# cut for the script's time only (all 28 layers, ~9.6 GB with moments,
+# fit four ranks): 4 layers and 3 steps took 64.1 s of phase 16 in a whole
+# run of 1015.4 s (NVIDIA H100 80GB HBM3, 700 W), over the phase's 60 s
+SL_LAYERS = 2            # of 28
+SL_MESH = (2, 2)         # data x model
+SL_BATCH, SL_SEQ, SL_CHUNKS, SL_STEPS = 8, 2048, 8, 2
+SL_RANKS = 4
+SL_TIMEOUT = 300         # seconds for the four ranks
+SL_SMOKE_LR = TR_CPU_LR
+TOL_SL_SMOKE = 1e-4      # 16.2: the sharded step vs the one-process one
+# 16.1, bf16 at full width, the sharded step against the one-process step
+# on the same weights and batch: partial sums rounded to bf16 before the
+# tensor-parallel all-reduce, where one process rounds
+# once (NVIDIA H100 80GB HBM3, 700 W; readings: loss 3.67e-6; the
+# matrices 3.44e-3 of their norm, every parameter 2.94e-2: a norm scale,
+# zero at init, whose whole value is three AdamW updates of about lr an
+# entry, each entry's sign that of its gradient, which the other rounding
+# flips where the gradient is smallest).  A gradient summed over the
+# wrong ranks moves whole tensors, O(1) of their norm
+TOL_SL_LOSS = 1e-4       # the first step's loss, relative
+TOL_SL_MATRICES = 1e-2   # each parameter of 2+ dims after SL_STEPS steps
+TOL_SL_PARAMS = 1e-1     # every parameter after SL_STEPS steps, of its norm
+
+
+def sl_config(dataclasses, configs):
+    return dataclasses.replace(configs.get_config(SL_ARCH),
+                               num_layers=SL_LAYERS, loss_chunks=SL_CHUNKS)
+
+
+def sl_train_config(AdamWConfig, TrainConfig):
+    return TrainConfig(adamw=AdamWConfig(lr=TR_LR, warmup_steps=2,
+                                         total_steps=SL_STEPS))
+
+
+def sl_smoke(configs, AdamWConfig, TrainConfig, DataConfig,
+             SyntheticLMDataset, arch) -> tuple:
+    """16.2's config, train config and batch for ``arch``."""
+    cfg = configs.smoke_config(configs.get_config(arch))
+    tc = TrainConfig(adamw=AdamWConfig(lr=SL_SMOKE_LR, warmup_steps=1,
+                                       total_steps=1))
+    batch = SyntheticLMDataset(DataConfig(
+        cfg.vocab_size, 32, 4, family=cfg.family,
+        num_codebooks=cfg.num_codebooks, patch_positions=cfg.patch_positions,
+        d_model=cfg.d_model)).batch(0)
+    return cfg, tc, batch
+
+
+def moe_by_shard(torch, M, n_data):
+    """The MoE of one process as the sharded step computes it on a
+    ``(n_data, model)`` mesh (``models/mlp.py``, the JAX package's
+    ``_moe_local``): each data shard's rows routed and dispatched with
+    its own capacity, the experts' output of shard ``d`` kept for its D
+    slice ``d`` and each rank's tokens combining the ``(E, C, D)`` those
+    slices make up; the aux loss the shards' mean."""
+    def apply(p, cfg, x):
+        B, S, D = x.shape
+        E, k = cfg.num_experts, cfg.experts_per_token
+        b, dl = B // n_data, D // n_data
+        routes, ys = [], []
+        for j in range(n_data):
+            xj = x[j * b:(j + 1) * b]
+            rt = M.moe_route(p, cfg, xj)
+            xk = xj.reshape(b * S, D).repeat_interleave(k, dim=0)
+            C = rt["C"]
+            buf = xj.new_zeros((E * C, D)).index_add_(
+                0, rt["slot"], torch.where(rt["keep"][:, None], xk, 0)
+            ).view(E, C, D)
+            h = M._act(cfg.mlp_act)(torch.bmm(buf, p.w_gate)) * \
+                torch.bmm(buf, p.w_in)
+            routes.append(rt)
+            ys.append(torch.bmm(h, p.w_out))
+        y = torch.cat([ys[j][..., j * dl:(j + 1) * dl]
+                       for j in range(n_data)], dim=-1)
+        outs = []
+        for rt in routes:
+            C, keep, slot = rt["C"], rt["keep"], rt["slot"]
+            o = y.reshape(E * C, D)[slot] * (
+                keep[:, None] * rt["gates"].reshape(b * S * k, 1))
+            outs.append(o.view(b * S, k, D).sum(dim=1).view(b, S, D))
+        aux = sum(rt["aux"] for rt in routes) / n_data
+        return torch.cat(outs).to(x.dtype), aux
+    return apply
+
+
+def param_rel_errs(torch, got: dict, want: dict, matrices=False) -> tuple:
+    """(largest ||got - want|| / ||want|| over the parameters, its name,
+    the largest single entry's difference); ``matrices``: over those of
+    two dims or more only."""
+    rel, worst, entry = 0.0, "", 0.0
+    for n, w in want.items():
+        if matrices and w.ndim < 2:
+            continue
+        w = w.detach().to(torch.float32).cpu()
+        d = got[n].to(torch.float32) - w
+        r = float(d.norm() / max(float(w.norm()), 1e-30))
+        if r > rel:
+            rel, worst = r, n
+        entry = max(entry, float(d.abs().max()))
+    return rel, worst, entry
+
+
+def sharded_lm_rank(outdir: str) -> int:
+    """16, one of ``SL_RANKS`` gloo ranks sharing the card (this script
+    with ``--sharded-lm-rank DIR``): 16.1's sharded steps and 16.2's smoke
+    steps, the numbers into ``DIR/rank<r>.json`` (rank 0 also the gathered
+    parameters into ``DIR/*.pt``) for the parent to compare."""
+    import dataclasses
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    from repro_torch import configs
+    from repro_torch.core import collectives as coll
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.convert import gather_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training import (TrainConfig, init_train_state,
+                                      make_train_step)
+    from repro_torch.training.schedule import record_counter, step_collectives
+    t_start = time.time()
+    dist.init_process_group("gloo")
+    rank = dist.get_rank()
+    mesh = make_host_mesh(*SL_MESH, device="cuda")
+    sizes = dict(zip(mesh.mesh_dim_names, SL_MESH))
+    rows = SL_BATCH // SL_MESH[0]
+    out = {"rank": rank, "coord": dict(zip(mesh.mesh_dim_names,
+                                           mesh.get_coordinate()))}
+
+    # 16.1 qwen3-0.6b at full width
+    cfg = sl_config(dataclasses, configs)
+    tc = sl_train_config(AdamWConfig, TrainConfig)
+    ds = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=SL_SEQ, global_batch=SL_BATCH))
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tc, mesh=mesh)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    step = make_train_step(cfg, tc, mesh)
+    want = step_collectives(cfg, sizes, rows, SL_SEQ)
+    in_coll = [0.0]
+    timed = {name: getattr(coll, name) for name in (
+        "all_reduce", "all_gather", "reduce_scatter")}
+
+    def timing(fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            in_coll[0] += time.perf_counter() - t
+            return r
+        return wrapped
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t_ready = time.time()
+    losses, norms, ms, sched, per_step = [], [], [], [], []
+    first_coll = 0.0
+    for i in range(SL_STEPS):
+        # collectives timed, a sync on either side of each (gloo waits for
+        # the work queued before a collective and its copies anyway)
+        instrument = True
+        if i == SL_STEPS - 1:
+            first_coll, in_coll[0] = in_coll[0], 0.0
+        if instrument:
+            for name, fn in timed.items():
+                setattr(coll, name, timing(fn))
+        before = dict(ops.launches), dict(ops.route_launches)
+        coll.reset_record()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, ds.batch(i))
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        if instrument:
+            for name, fn in timed.items():
+                setattr(coll, name, fn)
+        losses.append(loss)
+        norms.append(float(m["grad_norm"]))
+        got = record_counter(coll.record)
+        sched.append("" if got == want else
+                     f"extra {dict(got - want)} missing {dict(want - got)}")
+        per_step.append({
+            "launches": {n: c - before[0].get(n, 0)
+                         for n, c in ops.launches.items()
+                         if c - before[0].get(n, 0)},
+            "routes": {n: c - before[1].get(n, 0)
+                       for n, c in ops.route_launches.items()
+                       if c - before[1].get(n, 0)},
+            "collectives": len(coll.record),
+            "collective_bytes": sum(c["bytes"] for c in coll.record)})
+    launches = {n: c for n, c in ops.launches.items() if c}
+    out["lm"] = {"losses": losses, "grad_norms": norms, "ms_steps": ms,
+                 "schedule": sched, "per_step": per_step,
+                 "launches": launches,
+                 "collective_ms": in_coll[0] * 1e3,
+                 "first_collective_ms": first_coll * 1e3,
+                 "ready_s": t_ready - t_start,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["lm"]["checksums"] = {
+        n: hashlib.sha1(p.detach().contiguous().view(torch.uint8).cpu()
+                        .numpy().tobytes()).hexdigest()
+        for n, p in state.model.named_parameters()}
+    out["lm"]["specs"] = {n: p.spec for n, p in
+                          state.model.named_parameters()}
+    t = time.perf_counter()
+    full = gather_params(state.model, state.plan)
+    if rank == 0:
+        torch.save({n: x.cpu() for n, x in full.items()},
+                   os.path.join(outdir, "lm.pt"))
+    out["lm"]["gather_save_s"] = time.perf_counter() - t
+    del state, full
+    torch.cuda.empty_cache()
+
+    # 16.2 the ten archs' smoke configs, one fp32 step each
+    t_smoke = time.perf_counter()
+    out["smoke"] = {}
+    for arch in configs.list_archs():
+        cfg, tc, batch = sl_smoke(configs, AdamWConfig, TrainConfig,
+                                  DataConfig, SyntheticLMDataset, arch)
+        st = init_train_state(cfg, tc, mesh=mesh)
+        coll.reset_record()
+        st, m = make_train_step(cfg, tc, mesh)(st, batch)
+        out["smoke"][arch] = {
+            "loss": float(m["loss"]),
+            "schedule": record_counter(coll.record) == step_collectives(
+                cfg, sizes, 4 // SL_MESH[0], 32)}
+        full = gather_params(st.model, st.plan)
+        if rank == 0:
+            torch.save({n: x.cpu() for n, x in full.items()},
+                       os.path.join(outdir, f"smoke_{arch}.pt"))
+    out["smoke_s"] = time.perf_counter() - t_smoke
+    out["start_s"] = t_start
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def sharded_lm(torch, ops, ref, la, dev) -> tuple:
+    """Phase 16 (see the module docstring); returns (its summary, its rows
+    of the ``kernels`` line)."""
+    import dataclasses
+    import signal
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import local_attn
+    from repro_torch.models import mlp as M
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training import (TrainConfig, init_train_state,
+                                      make_train_step)
+    t_phase = time.perf_counter()
+    cfg = sl_config(dataclasses, configs)
+    tc = sl_train_config(AdamWConfig, TrainConfig)
+    ds = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=SL_SEQ, global_batch=SL_BATCH))
+    # the one-process steps on the same weights and batches, first
+    state = init_train_state(cfg, tc, device=dev)
+    step = make_train_step(cfg, tc)
+    one = {"losses": [], "ms": []}
+    for i in range(SL_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, ds.batch(i))
+        one["losses"].append(float(m["loss"]))
+        torch.cuda.synchronize()
+        one["ms"].append((time.perf_counter() - t) * 1e3)
+    one_params = {n: p.detach().cpu() for n, p in
+                  state.model.named_parameters()}
+    del state
+    smoke_one = {}
+    for arch in configs.list_archs():
+        scfg, stc, batch = sl_smoke(configs, AdamWConfig, TrainConfig,
+                                    DataConfig, SyntheticLMDataset, arch)
+        st = init_train_state(scfg, stc, device=dev)
+        apply_moe = M.apply_moe
+        if scfg.is_moe:
+            M.apply_moe = moe_by_shard(torch, M, SL_MESH[0])
+        try:
+            st, m = make_train_step(scfg, stc)(st, batch)
+        finally:
+            M.apply_moe = apply_moe
+        smoke_one[arch] = (float(m["loss"]), {
+            n: p.detach().cpu() for n, p in st.model.named_parameters()})
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={SL_RANKS}", os.path.abspath(__file__),
+               "--sharded-lm-rank", tmp]
+        t = time.perf_counter()
+        t_launch = time.time()
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True,
+                                env=dict(os.environ, OMP_NUM_THREADS="2"))
+        try:
+            log = proc.communicate(timeout=SL_TIMEOUT)[0]
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            log = proc.communicate()[0]
+            print(log[-6000:])
+            fail(f"16: the {SL_RANKS} ranks did not finish in {SL_TIMEOUT} s")
+        if proc.returncode != 0:
+            print(log[-8000:])
+            fail(f"16: torchrun exited {proc.returncode}")
+        t_ranks = time.perf_counter() - t
+        ranks = []
+        for r in range(SL_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        lm_params = torch.load(os.path.join(tmp, "lm.pt"))
+        smoke_params = {arch: torch.load(os.path.join(
+            tmp, f"smoke_{arch}.pt")) for arch in configs.list_archs()}
+
+    first = ranks[0]["lm"]
+    print(f"16 seconds: the one-process references {t_ref:.1f}, the ranks "
+          f"{t_ranks:.1f} (to their first step {ranks[0]['start_s'] - t_launch + first['ready_s']:.1f}"
+          f", 16.1's steps {sum(first['ms_steps']) / 1e3:.1f}, of which the "
+          f"first {first['ms_steps'][0] / 1e3:.1f} with "
+          f"{first['first_collective_ms'] / 1e3:.1f} in collectives; gather "
+          f"and save {first['gather_save_s']:.1f}; 16.2 "
+          f"{ranks[0]['smoke_s']:.1f})")
+
+    # 16.1 against the one-process steps
+    for r in ranks:
+        lm = r["lm"]
+        if lm["losses"] != first["losses"]:
+            fail(f"16.1: rank {r['rank']}'s losses {lm['losses']} are not "
+                 f"rank 0's {first['losses']}")
+        if any(lm["schedule"]):
+            fail(f"16.1: rank {r['rank']}'s collectives are not the "
+                 f"schedule: {lm['schedule']}")
+    replicas = 0
+    for n, spec in first["specs"].items():
+        axes = sorted({a for e in spec if e
+                       for a in ([e] if isinstance(e, str) else e)})
+        for a in ranks:
+            for b in ranks:
+                if a["rank"] < b["rank"] and all(
+                        a["coord"][x] == b["coord"][x] for x in axes):
+                    replicas += 1
+                    if a["lm"]["checksums"][n] != b["lm"]["checksums"][n]:
+                        fail(f"16.1: {n} differs between ranks {a['rank']} "
+                             f"and {b['rank']}, which hold the same shard")
+    want = train_expected(cfg, 1, 0)
+    want = {n: c for n, c in want.items() if c}
+    bwd_route = la.bwd_route(torch.bfloat16, cfg.resolved_head_dim)
+    for i, ps in enumerate(first["per_step"]):
+        if ps["launches"] != want or ps["routes"] != {
+                f"local_attention_bwd/{bwd_route}":
+                want["local_attention_bwd"]}:
+            fail(f"16.1 step {i}: launches {ps['launches']} by route "
+                 f"{ps['routes']}; the accounting says {want}")
+    loss_rel = abs(first["losses"][0] / one["losses"][0] - 1)
+    rel, worst, entry = param_rel_errs(torch, lm_params, one_params)
+    mrel, mworst, _ = param_rel_errs(torch, lm_params, one_params, True)
+    ms_step = first["ms_steps"][1]
+    share = first["collective_ms"] / first["ms_steps"][-1]
+    peak = [r["lm"]["peak_gb"] for r in ranks]
+    print(f"16.1 {cfg.name} at full width, {SL_LAYERS} of 28 layers, on a "
+          f"{SL_MESH} data x model mesh of {SL_RANKS} gloo ranks sharing the "
+          f"card (each rank: {SL_BATCH // SL_MESH[0]} x {SL_SEQ} tokens, "
+          f"{cfg.num_heads // SL_MESH[1]} of {cfg.num_heads} query heads, "
+          f"{cfg.num_kv_heads // SL_MESH[1]} K/V heads), bf16, loss_chunks "
+          f"{SL_CHUNKS}: loss " + " ".join(f"{x:.4f}" for x in
+                                         first["losses"])
+          + f" (one process: " + " ".join(f"{x:.4f}" for x in one["losses"])
+          + f"; step 1 {loss_rel:.2e} relative, limit {TOL_SL_LOSS:.0e}); "
+          f"parameters after {SL_STEPS} steps within {rel:.2e} of their norm "
+          f"({worst}; limit {TOL_SL_PARAMS:.0e}; largest entry {entry:.2e}; "
+          f"the matrices within {mrel:.2e}, {mworst}, limit "
+          f"{TOL_SL_MATRICES:.0e}); "
+          f"{replicas} replica pairs bitwise; every step's collectives = the "
+          f"schedule ({first['per_step'][0]['collectives']} a step, "
+          f"{first['per_step'][0]['collective_bytes'] / 1e6:.1f} MB a rank); "
+          f"launches a step {first['per_step'][0]['launches']} by route "
+          f"{first['per_step'][0]['routes']}")
+    print(f"16.1 {ms_step:.1f} ms a step (step 2, a sync on either side of "
+          f"each collective; steps "
+          + ", ".join(f"{x:.1f}" for x in first["ms_steps"])
+          + f" ms; one process on the card {one['ms'][1]:.1f} ms), "
+          f"{share:.1%} of step 2 inside collectives (gloo "
+          f"through the host: four ranks on one card, not NCCL between "
+          f"cards; {first['collective_ms']:.1f} ms of "
+          f"{first['ms_steps'][-1]:.1f}), peak memory per rank "
+          + ", ".join(f"{x:.2f}" for x in peak) + " GB; init "
+          f"{ranks[0]['init_s']:.1f} s, gather + save "
+          f"{first['gather_save_s']:.1f} s")
+    if loss_rel > TOL_SL_LOSS:
+        fail(f"16.1: the first loss {first['losses'][0]} vs one process "
+             f"{one['losses'][0]}")
+    if rel > TOL_SL_PARAMS or mrel > TOL_SL_MATRICES:
+        fail(f"16.1: parameters {rel} of their norm from one process "
+             f"(the matrices {mrel})")
+    if not first["losses"][-1] < first["losses"][0]:
+        fail(f"16.1: the loss did not fall: {first['losses']}")
+
+    # 16.2 the smoke configs
+    smoke = {}
+    for arch in configs.list_archs():
+        got = [r["smoke"][arch] for r in ranks]
+        loss1, params1 = smoke_one[arch]
+        lerr = abs(got[0]["loss"] - loss1)
+        rel2, worst2, entry2 = param_rel_errs(torch, smoke_params[arch],
+                                              params1)
+        smoke[arch] = {"loss_err": lerr, "param_rel_err": rel2,
+                       "param_worst": worst2, "param_max_entry_err": entry2}
+        print(f"  16.2 {arch}-smoke fp32, one step on the {SL_MESH} mesh vs "
+              f"one process{' (the MoE shard by shard)' if configs.get_config(arch).is_moe else ''}: "
+              f"loss diff {lerr:.1e}, parameters {rel2:.1e} of their norm "
+              f"({worst2}; limit {TOL_SL_SMOKE:.0e} for both), largest entry "
+              f"{entry2:.1e}; collectives = the schedule on every rank: "
+              f"{all(g['schedule'] for g in got)}")
+        if not (lerr <= TOL_SL_SMOKE and rel2 <= TOL_SL_SMOKE
+                and all(g["schedule"] for g in got)
+                and all(g["loss"] == got[0]["loss"] for g in got)):
+            fail(f"16.2 {arch}: {smoke[arch]}")
+
+    # the attention kernels at the ranks' local heads
+    g = torch.Generator(device=dev).manual_seed(SEED + 160)
+    Hl, Kl = cfg.num_heads // SL_MESH[1], cfg.num_kv_heads // SL_MESH[1]
+    rows = attention_bwd_path(torch, ops, ref, la, g, dev, shapes=[(
+        "qwen3-0.6b local heads", SL_BATCH // SL_MESH[0], Hl, Kl, SL_SEQ,
+        cfg.resolved_head_dim, SL_SEQ, None)])
+    b_row, f_row = rows["qwen3-0.6b local heads"], \
+        rows["forward qwen3-0.6b local heads"]
+    kernels = [
+        {"name": f"local_attention_bwd/{b_row['route']}[sharded lm]",
+         "route": "cuda", "source": BWD_SOURCE, "replaces": BWD_REPLACES,
+         "launches": first["launches"].get("local_attention_bwd", 0),
+         **{k: b_row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}},
+        {"name": "local_attention[sharded lm]", "route": "cuda",
+         "source": SOURCES["local_attention"],
+         "replaces": REPLACES["local_attention"],
+         "launches": first["launches"].get("local_attention", 0),
+         **{k: f_row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}}]
+    for k in kernels:
+        if not k["launches"]:
+            fail(f"{k['name']} was not launched by the sharded LM's path")
+    summary = {"one_process": one, "ranks_s": t_ranks, "reference_s": t_ref,
+               "lm": {key: first[key] for key in (
+                   "losses", "grad_norms", "ms_steps", "launches",
+                   "collective_ms", "per_step")},
+               "peak_gb": peak, "loss_rel": loss_rel, "param_rel": rel,
+               "collective_share": share, "replica_pairs": replicas,
+               "smoke": smoke, "kernel_rows": rows,
+               "seconds": time.perf_counter() - t_phase}
+    summary["rank_start_s"] = ranks[0]["start_s"] - t_launch
+    summary["smoke_s"] = ranks[0]["smoke_s"]
+    print(f"phase 16: {summary['seconds']:.1f} s (the one-process "
+          f"references {t_ref:.1f} s, the ranks {t_ranks:.1f} s: "
+          f"{summary['rank_start_s']:.1f} s to start, 16.2 "
+          f"{summary['smoke_s']:.1f} s)")
+    return summary, kernels
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sharded-rank"]:      # one rank of phase 10.2
         return sharded_rank(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--sharded-lm-rank"]:   # one rank of phase 16
+        return sharded_lm_rank(sys.argv[2])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -6508,6 +7008,13 @@ def main() -> int:
         summary, line = recurrent_training(torch, ops, ref, local_attn, dev)
         mark("15")
         print(json.dumps({"recurrent_training": summary}))
+        print(json.dumps({"kernels": line}))
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--only-sharded-lm"]:     # phase 1, then phase 16
+        summary, line = sharded_lm(torch, ops, ref, local_attn, dev)
+        mark("16")
+        print(json.dumps({"sharded_lm": summary}))
         print(json.dumps({"kernels": line}))
         print(card_line())
         return 0
@@ -6998,6 +7505,11 @@ def main() -> int:
     print(json.dumps({"recurrent_training": rt_summary}))
     mark("15")
 
+    # -- 16. the sharded LM on four ranks sharing the card -----------------
+    sl_summary, sl_line = sharded_lm(torch, ops, ref, local_attn, dev)
+    print(json.dumps({"sharded_lm": sl_summary}))
+    mark("16")
+
     sweeps = ("block_matvec", "block_rmatvec", "block_gram_chain")
     rows = dict(dtable)
     # the fp32 solve's sweeps (3xTF32), the bf16 solve's chains (wgmma) and
@@ -7034,7 +7546,7 @@ def main() -> int:
         for name, row in rows.items()] + csr_kernel_line(
             csr_rows, csr_launches) + sharded_kernel_line(
             sh_counts, table, dtable, sh_rows) + sv_line + tr_line + lf_line \
-        + rt_line
+        + rt_line + sl_line
     print(json.dumps({"block_sweeps_by_route": [
         {"name": name, "dtype": "float32" if key[0] in (
             "float32", "tf32x3_cpasync") else "bfloat16",

@@ -15,8 +15,11 @@ itself, NCCL keeps them on the card.
 
 ``record`` is the per-process list of the collectives issued since the
 last ``reset_record()``, one dict each (``op``, ``shape``, ``dtype``,
-``bytes`` of the payload one rank contributes, ``group_size``); the
-tests and ``chip_smoke.py`` read it as they read ``ops.launches``.
+``bytes`` of the payload one rank contributes, ``group_size`` and, where
+the caller names them, the mesh ``axes`` of the group, e.g.
+``"pod+data"``); the tests and ``chip_smoke.py`` read it as they read
+``ops.launches``.  ``all_reduce(..., op="max")`` is recorded as
+``all_reduce_max``.
 """
 from __future__ import annotations
 
@@ -31,22 +34,30 @@ def reset_record() -> None:
     record.clear()
 
 
-def _log(op: str, x: torch.Tensor, group) -> None:
-    record.append({"op": op, "shape": tuple(x.shape),
-                   "dtype": str(x.dtype).rsplit(".", 1)[-1],
-                   "bytes": x.numel() * x.element_size(),
-                   "group_size": dist.get_world_size(group)})
+def _log(op: str, x: torch.Tensor, group, axes: str | None) -> None:
+    entry = {"op": op, "shape": tuple(x.shape),
+             "dtype": str(x.dtype).rsplit(".", 1)[-1],
+             "bytes": x.numel() * x.element_size(),
+             "group_size": dist.get_world_size(group)}
+    if axes is not None:
+        entry["axes"] = axes
+    record.append(entry)
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of ``x`` over ``group``, in place; returns ``x``.  Every
-    rank gets the same bits."""
-    _log("all_reduce", x, group)
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+def all_reduce(x: torch.Tensor, group, *, op: str = "sum",
+               axes: str | None = None) -> torch.Tensor:
+    """The sum (``op="max"``: the maximum) of ``x`` over ``group``, in
+    place; returns ``x``.  Every rank gets the same bits."""
+    if op not in ("sum", "max"):
+        raise ValueError(f"all_reduce: op {op!r} is not 'sum' or 'max'")
+    _log("all_reduce" if op == "sum" else "all_reduce_max", x, group, axes)
+    dist.all_reduce(x, op=dist.ReduceOp.SUM if op == "sum"
+                    else dist.ReduceOp.MAX, group=group)
     return x
 
 
-def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
+def reduce_scatter(x: torch.Tensor, group, *,
+                   axes: str | None = None) -> torch.Tensor:
     """Rows ``[r * c, (r + 1) * c)`` of the sum of ``x`` over ``group``
     for group rank ``r``, ``c = x.shape[0] // size``; the rows must
     divide evenly."""
@@ -54,7 +65,7 @@ def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     if x.shape[0] % size:
         raise ValueError(f"reduce_scatter: {x.shape[0]} rows do not divide "
                          f"over {size} ranks")
-    _log("reduce_scatter", x, group)
+    _log("reduce_scatter", x, group, axes)
     x = x.contiguous()
     out = torch.empty((x.shape[0] // size, *x.shape[1:]), dtype=x.dtype,
                       device=x.device)
@@ -64,10 +75,11 @@ def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def all_gather(x: torch.Tensor, group) -> torch.Tensor:
+def all_gather(x: torch.Tensor, group, *,
+               axes: str | None = None) -> torch.Tensor:
     """Every rank's ``x`` stacked along dim 0 in group-rank order."""
     size = dist.get_world_size(group)
-    _log("all_gather", x, group)
+    _log("all_gather", x, group, axes)
     x = x.contiguous()
     out = torch.empty((size * x.shape[0], *x.shape[1:]), dtype=x.dtype,
                       device=x.device)

@@ -67,14 +67,17 @@ def make_production_mesh(multi_pod: bool = False, *,
 
 
 def make_host_mesh(data: int | None = None, model: int = 1, *,
-                   device=None) -> DeviceMesh:
+                   pod: int | None = None, device=None) -> DeviceMesh:
     """A (data, model) mesh over the world (tests, examples, one host);
-    ``data`` defaults to world size // ``model``."""
+    ``data`` defaults to world size // (``model`` x ``pod``).  With
+    ``pod``, a (pod, data, model) mesh."""
     if not dist.is_initialized():
         _device_type(device)              # no card and no device: raise
         dist.init_process_group()         # torchrun's environment
     if data is None:
-        data = dist.get_world_size() // model
+        data = dist.get_world_size() // (model * (pod or 1))
+    if pod is not None:
+        return _mesh(device, (pod, data, model), ("pod", "data", "model"))
     return _mesh(device, (data, model), ("data", "model"))
 
 

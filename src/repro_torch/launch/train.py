@@ -5,6 +5,9 @@
         --batch 8 --seq 2048 --compress --loss-chunks 8      # one card
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --smoke --device cpu --steps 5 --batch 4 --seq 32
+    PYTHONPATH=src torchrun --standalone --nproc_per_node 4 \\
+        -m repro_torch.launch.train --mesh 2,2 --arch qwen3-0.6b --smoke \\
+        --device cpu --steps 5 --batch 4 --seq 32         # sharded
 
 ``--smoke`` trains the reduced same-family config.  The run is on the
 card unless ``--device cpu`` is given (and raises where no card is
@@ -14,8 +17,19 @@ power-method gradient compression (rank 8, ``optim/compression.py``);
 cross entropy in that many sequence chunks).  The runner checkpoints
 atomically into ``--ckpt-dir`` and resumes from its latest step, and the
 data are ``(seed, step)``-pure, so re-launching the command continues
-the run.  One process, no mesh: multi-rank training is ROADMAP.md
-queue 1 item 16.
+the run.
+
+``--mesh DATA,MODEL`` (or ``POD,DATA,MODEL``) trains the sharded LM
+(``make_train_step(cfg, tc, mesh)``, FSDP over ``data``, tensor
+parallel over ``model``, the batch over ``pod`` and ``data``) on the
+ranks ``torchrun`` starts; ``--mesh production`` takes the paper's
+``(16, 16)`` or ``(2, 16, 16)`` layout at 256 or 512 ranks.  The process
+group is gloo on the CPU, and on the card NCCL where each rank has a
+card of its own, else gloo (NCCL refuses two ranks on one card).  Each
+rank takes its rows of the global batch, the first rank logs and writes
+the checkpoints, and a relaunch resumes on any mesh.  Compressed
+training over a mesh is ROADMAP.md queue 1 item 16 (``--compress`` with
+``--mesh`` raises).
 """
 from __future__ import annotations
 
@@ -26,9 +40,11 @@ import os
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, list_archs, smoke_config
 from repro_torch.core.operator import resolve_device
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.data import DataConfig
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.compression import CompressionConfig
@@ -56,17 +72,25 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default; needs a card) or 'cpu'")
+    ap.add_argument("--mesh", default=None,
+                    help="DATA,MODEL or POD,DATA,MODEL (under torchrun), "
+                         "or 'production'")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    mesh = None if args.mesh is None else _mesh(args.mesh, dev)
+    first = mesh is None or dist.get_rank() == 0
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
     if args.loss_chunks is not None:
         cfg = dataclasses.replace(cfg, loss_chunks=args.loss_chunks)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
-          f"device={where}")
+    if first:
+        on = "" if mesh is None else " mesh=" + "x".join(
+            f"{n}{k}" for n, k in zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        print(f"arch={cfg.name} params={cfg.param_count() / 1e6:.1f}M "
+              f"device={where}{on}")
 
     tc = TrainConfig(
         adamw=AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
@@ -80,12 +104,34 @@ def main(argv=None) -> dict:
                     d_model=cfg.d_model)
     rc = RunnerConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
                       ckpt_dir=args.ckpt_dir, log_every=10)
-    runner = TrainingRunner(cfg, tc, rc, dc, device=dev)
+    runner = TrainingRunner(cfg, tc, rc, dc, mesh=mesh,
+                            device=dev if mesh is None else None)
     state = runner.run()
     losses = [h["loss"] for h in runner.history]
-    if losses:
+    if losses and first:
         print(f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     return {"losses": losses, "state": state}
+
+
+def _mesh(spec: str, dev):
+    """The mesh ``--mesh`` names, over the world ``torchrun`` set up (the
+    process group made here unless the caller made one)."""
+    if not dist.is_initialized():
+        gloo = dev.type == "cpu" or int(os.environ.get(
+            "LOCAL_WORLD_SIZE", 1)) > torch.cuda.device_count()
+        dist.init_process_group("gloo" if gloo else "nccl")
+    if spec == "production":
+        world = dist.get_world_size()
+        if world not in (256, 512):
+            raise ValueError(f"--mesh production takes 256 or 512 ranks, "
+                             f"the world has {world}")
+        return make_production_mesh(world == 512, device=dev.type)
+    dims = tuple(int(n) for n in spec.split(","))
+    if len(dims) == 2:
+        return make_host_mesh(*dims, device=dev.type)
+    if len(dims) == 3:
+        return make_host_mesh(dims[1], dims[2], pod=dims[0], device=dev.type)
+    raise ValueError(f"--mesh takes DATA,MODEL or POD,DATA,MODEL, got {spec!r}")
 
 
 if __name__ == "__main__":

@@ -166,6 +166,32 @@ def scatter(leaf: Leaf, value: torch.Tensor) -> dict:
     return {leaf.names[0]: value}
 
 
+def shard_params(full: dict, cfg: ModelConfig, mesh) -> dict:
+    """This rank's shards, on ``mesh`` (a ``DeviceMesh``, or its
+    ``core/parallel.Plan``), of a whole model: the JAX package's
+    parameter tree (numpy leaves) or a port state dict (``{name:
+    tensor}``); ``{name: tensor}`` on the mesh's device."""
+    from repro_torch.core.parallel import Plan
+    from repro_torch.models.transformer import resolved_specs
+    plan = mesh if isinstance(mesh, Plan) else Plan(mesh)
+    if "groups" in full or "tail" in full or any(
+            isinstance(v, dict) for v in full.values()):
+        full = from_jax_params(full, cfg)
+    specs = resolved_specs(cfg, plan.mesh)
+    return {n: plan.shard(torch.as_tensor(t), specs[n]).to(
+        plan.device).contiguous() for n, t in full.items()}
+
+
+def gather_params(shards: dict, plan) -> dict:
+    """The whole model from every rank's shards (``{name: tensor}`` whose
+    tensors carry ``.spec``, as a sharded model's parameters do, or a
+    module): the inverse of ``shard_params``, by all-gathers through
+    ``core/collectives.py`` on every rank."""
+    if isinstance(shards, torch.nn.Module):
+        shards = dict(shards.named_parameters())
+    return {n: plan.unshard(t, t.spec) for n, t in shards.items()}
+
+
 def decayed(layout: list[Leaf]) -> set[str]:
     """The port's parameters that AdamW decays: those of the leaves
     with ``ndim >= 2``."""

@@ -2,10 +2,20 @@
 
 The port of the JAX package's ``repro/models/layers.py``.  Each layer is
 an ``nn.Module`` holding its parameters under the JAX package's names,
-and the math is a plain function on tensors (``apply_rmsnorm``,
-``apply_rope``, ``apply_attention``, ``project_kv``).  One device, so
-the JAX package's sharding constraints have no counterpart: they never
-changed the math.
+with their logical axes (``specs``, the JAX package's ``*_specs``), and
+the math is a plain function on tensors (``apply_rmsnorm``,
+``apply_rope``, ``apply_attention``, ``project_kv``).
+
+In a sharded model (``core/parallel.py``: its parameters carry a
+``Plan``) the parameters are the rank's shards and ``weight`` fetches
+what a layer computes with.  Attention shards by heads over ``model`` where
+``num_heads`` divides and the rank's query heads read whole K/V heads
+(its ``H/tp`` query heads and the K/V heads they read; the input by
+``copy_in``, the output projection's partial sum by ``reduce_out``), and
+the ``local_attention`` kernel and its backward run on those local
+heads.  Elsewhere (llava-next's 56 heads at tp 16) attention runs whole
+on every model rank: the JAX package shards the query sequence there
+instead, a layout its compiler picks that leaves the results the same.
 
 Attention has two paths, as in the JAX package:
 
@@ -28,10 +38,12 @@ Attention has two paths, as in the JAX package:
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 from torch import nn
 
+from repro_torch.core import parallel
 from repro_torch.core.operator import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
@@ -54,8 +66,18 @@ def param(shape, dtype, device) -> nn.Parameter:
     modules built from these (``RMSNorm``, ``Attention``, ``MLP``,
     ``Layer``, ``Transformer``) raise without one unless the caller asks
     for the CPU."""
-    return nn.Parameter(torch.empty(shape, dtype=dtype,
-                                    device=resolve_device(device)))
+    meta = device is not None and torch.device(device).type == "meta"
+    return nn.Parameter(torch.empty(
+        shape, dtype=dtype,
+        device=torch.device("meta") if meta else resolve_device(device)))
+
+
+def weight(p: torch.Tensor, need: tuple | None = None,
+           fsdp: bool = True) -> torch.Tensor:
+    """The parameter itself, or for a rank's shard the weight the layer
+    computes with (``parallel.Plan.fetch``)."""
+    px = parallel.plan_of(p)
+    return p if px is None else px.fetch(p, need, fsdp)
 
 
 # ---------------------------------------------------------------------------
@@ -81,8 +103,12 @@ class RMSNorm(nn.Module):
     def inits(cfg: ModelConfig) -> dict:
         return {"scale": const(0.0)}
 
+    @staticmethod
+    def specs(cfg: ModelConfig) -> dict:
+        return {"scale": ("embed_p",)}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_rmsnorm(self.scale, x, self.eps)
+        return apply_rmsnorm(weight(self.scale), x, self.eps)
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +161,54 @@ class Attention(nn.Module):
                                            * cfg.resolved_head_dim)),
                 "q_norm": const(0.0), "k_norm": const(0.0)}
 
+    @staticmethod
+    def specs(cfg: ModelConfig) -> dict:
+        return {"wq": ("embed_p", "heads", "qkv"),
+                "wk": ("embed_p", "kv_heads", "qkv"),
+                "wv": ("embed_p", "kv_heads", "qkv"),
+                "wo": ("heads", "qkv", "embed_p"),
+                "q_norm": ("qkv",), "k_norm": ("qkv",)}
+
+
+def attention_heads(cfg: ModelConfig, px) -> tuple | None:
+    """The rank's query heads ``[h0, h1)`` and the K/V heads ``[k0, k1)``
+    they read, or ``None`` where attention runs whole on every model
+    rank (``num_heads`` does not divide ``model``, or the rank's query
+    heads would not read whole K/V heads in one group size)."""
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    G = H // Hkv
+    r = px.split(H)
+    if r is None:
+        return None
+    h0, h1 = r
+    hq = h1 - h0
+    if hq % G == 0:
+        return h0, h1, h0 // G, h1 // G
+    if G % hq == 0:
+        return h0, h1, h0 // G, h0 // G + 1
+    return None
+
+
+def _attention_weights(p: Attention, cfg: ModelConfig):
+    """(weights, plan): the layer's own parameters in one process; in a
+    sharded model, the fetched weights of the rank's heads (with the plan)
+    or of all of them (``None``: no collective on the activations)."""
+    px = parallel.plan_of(p.wq)
+    if px is None:
+        return p, None
+    names = ["wq", "wk", "wv", "wo"] + (["q_norm", "k_norm"]
+                                        if cfg.qk_norm else [])
+    heads = attention_heads(cfg, px)
+    if heads is None:
+        return SimpleNamespace(**{n: px.fetch(getattr(p, n))
+                                  for n in names}), None
+    h0, h1, k0, k1 = heads
+    Dh = cfg.resolved_head_dim
+    need = {"wq": (1, h0, h1), "wk": (1, k0, k1), "wv": (1, k0, k1),
+            "wo": (0, h0, h1), "q_norm": (0, 0, Dh), "k_norm": (0, 0, Dh)}
+    return SimpleNamespace(**{n: px.fetch(getattr(p, n), need[n])
+                              for n in names}), px
+
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk", x, w)`` as one matmul."""
@@ -173,13 +247,19 @@ def prefill_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     being what the cache stores (``project_kv``'s values, computed
     once)."""
     S = x.shape[1]
-    q = _project_q(p, cfg, x, positions)
-    k, v = project_kv(p, cfg, x, positions)
+    w, px = _attention_weights(p, cfg)
+    if px is not None:
+        x = px.copy_in(x)
+    q = _project_q(w, cfg, x, positions)
+    k, v = project_kv(w, cfg, x, positions)
     out = ops.local_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         window=cfg.window if local else max(S, 1),
         softcap=cfg.attn_softcap)
-    return _out_proj(p, out.transpose(1, 2)), k, v
+    y = _out_proj(w, out.transpose(1, 2))
+    if px is not None:
+        y = px.reduce_out(y)
+    return y, k, v
 
 
 def apply_attention(

@@ -15,8 +15,19 @@ dropped, the kept tokens are scattered into (E, C, D), the experts run
 as batched GEMMs (``torch.bmm``: the JAX package computes them with
 ``einsum``, outside any Pallas kernel), and each token gathers its k
 results back, weighted by its gates.  ``C`` comes from the call's own
-token count, so a decode step has its own, as in the JAX package.  The
-sharded form (expert weights over a mesh) waits with the sharded LM.
+token count, so a decode step has its own, as in the JAX package.
+
+In a sharded model (``core/parallel.py``) the dense MLP is
+column-parallel in ``w_gate``/``w_in`` and row-parallel in ``w_out`` over
+``model`` where ``d_ff`` divides (else whole on every model rank), its
+weights FSDP-gathered over ``data``.  The MoE is the JAX package's
+per-shard body ``_moe_local`` (``mlp.py:102-165`` there): the router fp32
+and whole, ``C`` and the slots from the rank's own tokens, the experts
+``(E, D/data, F/tp)`` gathered over ``data``, the partial output summed
+over ``model`` and then gathered over ``data`` along ``D`` (``w_out``
+keeps its ``D/data`` shard), exactly as there; the aux loss is meaned
+over the batch axes by the loss.  Where tokens drop this differs from
+the one-process MoE by design.
 """
 from __future__ import annotations
 
@@ -26,8 +37,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import sharding
+from repro_torch.core import parallel
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import normal, param
+from repro_torch.models.layers import normal, param, weight
 
 
 def _act(name: str):
@@ -53,6 +66,11 @@ class MLP(nn.Module):
         return {"w_in": si, "w_gate": si,
                 "w_out": normal(1 / math.sqrt(cfg.d_ff))}
 
+    @staticmethod
+    def specs(cfg: ModelConfig) -> dict:
+        return {"w_in": ("embed_p", "mlp"), "w_gate": ("embed_p", "mlp"),
+                "w_out": ("mlp", "embed_p")}
+
 
 class MoE(nn.Module):
     """router (D, E) fp32; w_gate, w_in (E, D, F); w_out (E, F, D)."""
@@ -74,6 +92,13 @@ class MoE(nn.Module):
         return {"router": si, "w_gate": si, "w_in": si,
                 "w_out": normal(1 / math.sqrt(cfg.d_ff))}
 
+    @staticmethod
+    def specs(cfg: ModelConfig) -> dict:
+        return {"router": ("embed_p", "expert"),
+                "w_gate": ("expert", "embed_p", "mlp"),
+                "w_in": ("expert", "embed_p", "mlp"),
+                "w_out": ("expert", "mlp", "embed_p")}
+
 
 def init_mlp(cfg: ModelConfig, device=None) -> MLP | MoE:
     """The FFN of an attention or RG-LRU layer: MoE for MoE configs."""
@@ -82,11 +107,24 @@ def init_mlp(cfg: ModelConfig, device=None) -> MLP | MoE:
 
 def apply_mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     act = _act(cfg.mlp_act)
+    px = parallel.plan_of(p.w_in)
+    cols = px.split(cfg.d_ff) if px is not None else None
+    if cols is None:
+        w_in, w_out = weight(p.w_in), weight(p.w_out)
+        w_gate = weight(p.w_gate) if cfg.mlp_variant == "glu" else None
+    else:                                # tensor parallel over d_ff
+        f0, f1 = cols
+        x = px.copy_in(x)
+        w_in, w_out = px.fetch(p.w_in, (1, f0, f1)), px.fetch(
+            p.w_out, (0, f0, f1))
+        w_gate = px.fetch(p.w_gate, (1, f0, f1)) \
+            if cfg.mlp_variant == "glu" else None
     if cfg.mlp_variant == "glu":
-        h = act(x @ p.w_gate) * (x @ p.w_in)
+        h = act(x @ w_gate) * (x @ w_in)
     else:
-        h = act(x @ p.w_in)
-    return h @ p.w_out
+        h = act(x @ w_in)
+    y = h @ w_out
+    return y if cols is None else px.reduce_out(y)
 
 
 def capacity(cfg: ModelConfig, tokens: int) -> int:
@@ -102,7 +140,7 @@ def moe_route(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> dict:
     (T k,) and ``slot`` (T k,) into the flat (E C) buffer."""
     E, k = cfg.num_experts, cfg.experts_per_token
     T = x.shape[0] * x.shape[1]
-    logits = x.reshape(T, -1).to(torch.float32) @ p.router      # (T, E)
+    logits = x.reshape(T, -1).to(torch.float32) @ weight(p.router)  # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gates, experts = torch.topk(probs, k, dim=-1)               # (T, k)
     gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
@@ -129,14 +167,32 @@ def apply_moe(p: MoE, cfg: ModelConfig, x: torch.Tensor):
     depend on which write lands last."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
+    px = parallel.plan_of(p.w_gate)
+    if px is None:
+        w_gate, w_in, w_out = p.w_gate, p.w_in, p.w_out
+    else:                                # ``_moe_local`` on this rank
+        cols = px.split(cfg.d_ff)
+        if cols is None:
+            raise ValueError(f"{cfg.name}: the sharded MoE needs d_ff "
+                             f"{cfg.d_ff} to divide over model={px.tp}")
+        w_gate = px.fetch(p.w_gate, (2, *cols))
+        w_in = px.fetch(p.w_in, (2, *cols))
+        w_out = px.fetch(p.w_out, (1, *cols), fsdp=False)
     rt = moe_route(p, cfg, x)
     C, keep, slot = rt["C"], rt["keep"], rt["slot"]
-    xk = x.reshape(B * S, D).repeat_interleave(k, dim=0)        # (T k, D)
+    xe = x if px is None else px.copy_in(x)
+    xk = xe.reshape(B * S, D).repeat_interleave(k, dim=0)       # (T k, D)
     buf = x.new_zeros((E * C, D)).index_add_(
         0, slot, torch.where(keep[:, None], xk, 0)).view(E, C, D)
-    h = _act(cfg.mlp_act)(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_in)
-    y = torch.bmm(h, p.w_out)                                   # (E, C, D)
-    out = y.view(E * C, D)[slot] * (keep[:, None]
+    h = _act(cfg.mlp_act)(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_in)
+    y = torch.bmm(h, w_out)                                     # (E, C, D)
+    if px is not None:
+        # partial over the rank's F: summed over model; w_out kept its
+        # D/data shard, so each rank's D slice is gathered over data
+        y = px.reduce_out(y)
+        axes = sharding.dim_axes(p.w_out.spec, 2)
+        y = parallel.gather(y, px.group(axes), 2, px.label(axes))
+    out = y.reshape(E * C, D)[slot] * (keep[:, None]
                                     * rt["gates"].reshape(B * S * k, 1))
     out = out.view(B * S, k, D).sum(dim=1)
     return out.view(B, S, D).to(x.dtype), rt["aux"]

@@ -46,6 +46,20 @@ launches the forward kernel twice a step (the forward, and again in the
 remat recompute; RWKV-6's also keeps its state at each chunk's start)
 and the backward kernel once; on the CPU autograd differentiates their
 plain loops.
+
+Sharded training (``training/train.py::make_train_step`` over a mesh,
+``core/parallel.py``): ``init_model(..., plan=)`` draws every leaf as the
+one-process init does and keeps the rank's shard (``model_specs``, the
+logical axes, resolved by ``repro_torch.sharding``; each carries the
+plan), and ``loss_fn`` of such a model runs on the rank's rows.  The
+embedding is vocab-parallel over ``model`` (ids outside the rank's rows masked, the
+lookups summed by ``reduce_out``) and gathered over ``data`` once a step;
+the head and the cross entropy are vocab-parallel inside ``loss_chunks``
+(the max, the sum of exponentials and the label's logit all-reduced over
+``model``); tied embeddings use the one gathered shard for both.  The
+loss is the global batch's: each rank's sum over the global count
+(``batch_sum``), the MoE aux loss ``batch_mean``-ed.  ``checkpoint``
+recomputes a layer's forward collectives in the backward.
 """
 from __future__ import annotations
 
@@ -55,6 +69,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
+from repro_torch.core import parallel
 from repro_torch.core.operator import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as M
@@ -112,14 +128,45 @@ class Transformer(nn.Module):
         s = L.normal(1 / math.sqrt(cfg.d_model))
         return {"embed": s, "head": s}
 
+    @staticmethod
+    def specs(cfg: ModelConfig) -> dict:
+        if cfg.family == "audio":
+            return {"embed": ("codebook", "vocab", "embed_p"),
+                    "head": ("codebook", "embed_p", "vocab")}
+        return {"embed": ("vocab", "embed_p"), "head": ("embed_p", "vocab")}
+
+
+def model_specs(cfg: ModelConfig) -> dict:
+    """``{parameter name: logical axes}`` of the port's parameters: each
+    module's ``specs``, the JAX package's ``model_specs`` leaf for leaf
+    (a stacked leaf's ``"layers"`` axis, never sharded, dropped)."""
+    model = Transformer(cfg, torch.device("meta"))
+    out = {}
+    for mod_name, mod in model.named_modules():
+        params = dict(mod.named_parameters(recurse=False))
+        if params:
+            table = type(mod).specs(cfg)
+            for name in params:
+                out[f"{mod_name}.{name}" if mod_name else name] = table[name]
+    return out
+
+
+def resolved_specs(cfg: ModelConfig, mesh) -> dict:
+    """``{parameter name: spec}`` on ``mesh`` (``sharding.resolve_spec``
+    with each parameter's shape)."""
+    model = Transformer(cfg, torch.device("meta"))
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    return {n: sharding.resolve_spec(spec, mesh, shapes[n])
+            for n, spec in model_specs(cfg).items()}
+
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def init_model(cfg: ModelConfig, *, seed: int = 0,
-               device=None) -> Transformer:
+def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
+               plan=None) -> Transformer:
     """Random weights with the JAX package's distributions and scales,
     keyed by module kind and parameter name (each module's ``inits``):
     the ``init_*`` functions of ``repro/models`` leaf for leaf, constants
@@ -127,9 +174,17 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     ``c_mu`` 0.5, ``w0`` -2).  A parameter no table names raises.  The
     numbers come from a ``torch.Generator`` on ``device`` seeded with
     ``seed`` (they cannot be ``jax.random``'s), drawn in fp32 and cast
-    to the parameter's dtype.  ``device=None`` is the card."""
-    dev = resolve_device(device)
-    model = Transformer(cfg, dev)
+    to the parameter's dtype.  ``device=None`` is the card.
+
+    With ``plan`` (``core/parallel.Plan``, on its mesh's device) each
+    parameter is the rank's shard, its spec in ``.spec`` and the plan in
+    ``.plan``: every leaf is
+    drawn whole, one at a time, in the same order, and cut, so a sharded
+    model starts bitwise the one-process one without the whole model
+    ever on the device."""
+    dev = resolve_device(device) if plan is None else plan.device
+    model = Transformer(cfg, dev if plan is None else torch.device("meta"))
+    specs = None if plan is None else resolved_specs(cfg, plan.mesh)
     g = torch.Generator(device=dev).manual_seed(seed)
     for mod_name, mod in model.named_modules():
         params = dict(mod.named_parameters(recurse=False))
@@ -141,11 +196,21 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
                 raise KeyError(f"{cfg.name}: no init for "
                                f"{mod_name}.{name} ({type(mod).__name__})")
             how, value = table[name]
-            if how == "const":
-                p.fill_(value)
-            else:
-                p.copy_(torch.randn(p.shape, generator=g, device=dev)
-                        .mul_(value))
+            if plan is None:
+                if how == "const":
+                    p.fill_(value)
+                else:
+                    p.copy_(torch.randn(p.shape, generator=g, device=dev)
+                            .mul_(value))
+                continue
+            full = (torch.full(p.shape, value, dtype=p.dtype, device=dev)
+                    if how == "const" else
+                    torch.randn(p.shape, generator=g, device=dev)
+                    .mul_(value).to(p.dtype))
+            spec = specs[f"{mod_name}.{name}" if mod_name else name]
+            p = nn.Parameter(plan.shard(full, spec).clone())
+            p.spec, p.plan = spec, plan
+            mod._parameters[name] = p
     return model
 
 
@@ -230,29 +295,63 @@ def _fill_cache(cache: dict, k_full: torch.Tensor, v_full: torch.Tensor,
 # Embedding / head
 # ---------------------------------------------------------------------------
 
+def _embed_weight(model: Transformer):
+    """(table, vocab range): the embedding itself in one process; in a
+    sharded model, the rank's vocab rows ``[v0, v1)`` gathered over
+    ``data`` (``None`` as the range where the vocab does not divide over
+    ``model``: the whole table on every model rank)."""
+    px = parallel.plan_of(model.embed)
+    if px is None:
+        return model.embed, None
+    vr = px.split(model.cfg.vocab_size)
+    vdim = 1 if model.cfg.family == "audio" else 0
+    return (px.fetch(model.embed) if vr is None
+            else px.fetch(model.embed, (vdim, *vr))), vr
+
+
+def _lookup(table: torch.Tensor, ids: torch.Tensor, vr) -> torch.Tensor:
+    """``table[ids]``; with a vocab range, ids outside it give zeros."""
+    if vr is None:
+        return table[ids]
+    inr = (ids >= vr[0]) & (ids < vr[1])
+    rows = table[torch.where(inr, ids - vr[0], 0)]
+    return torch.where(inr[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                         device=rows.device))
+
+
 def _embed_tokens(model: Transformer, tokens: torch.Tensor,
-                  patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
+                  patch_embeds: torch.Tensor | None = None,
+                  table: torch.Tensor | None = None,
+                  vr: tuple | None = None) -> torch.Tensor:
     """tokens (B, S) (audio: (B, K, S)) -> x (B, S, D) in the model dtype
     (VLM with ``patch_embeds`` (B, P, D): (B, P + S, D), the patches
-    first)."""
+    first).  ``table`` and ``vr``: ``_embed_weight``'s (a vocab-parallel
+    shard, whose lookups are summed over ``model``)."""
     cfg = model.cfg
+    table = model.embed if table is None else table
     if cfg.family == "audio":
         # one lookup a codebook, summed in order (MusicGen sums the streams)
-        x = model.embed[0][tokens[:, 0]]
+        x = _lookup(table[0], tokens[:, 0], vr)
         for c in range(1, cfg.num_codebooks):
-            x = x + model.embed[c][tokens[:, c]]
+            x = x + _lookup(table[c], tokens[:, c], vr)
     else:
-        x = model.embed[tokens]
+        x = _lookup(table, tokens, vr)
+    if vr is not None:
+        x = parallel.plan_of(model.embed).reduce_out(x)
     x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     if cfg.family == "vlm" and patch_embeds is not None:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     return x
 
 
-def _lm_head(model: Transformer, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) -> logits fp32 (B, S, V) (audio: (B, S, K, V))."""
+def _lm_head(model: Transformer, x: torch.Tensor,
+             w: torch.Tensor | None = None) -> torch.Tensor:
+    """x: (B, S, D) -> logits fp32 (B, S, V) (audio: (B, S, K, V)); ``w``
+    the head weight (D, V) (audio (K, D, V)) where the caller fetched
+    it."""
     cfg = model.cfg
-    w = model.embed.mT if cfg.tie_embeddings else model.head  # audio (K, D, V)
+    if w is None:
+        w = model.embed.mT if cfg.tie_embeddings else model.head
     if cfg.family == "audio":
         logits = torch.einsum("bsd,kdv->bskv", x, w).to(torch.float32)
     else:
@@ -285,9 +384,10 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
 # Training
 # ---------------------------------------------------------------------------
 
-def _hidden(model: Transformer, tokens, patch_embeds, remat: bool):
+def _hidden(model: Transformer, tokens, patch_embeds, remat: bool,
+            table=None, vr=None):
     cfg = model.cfg
-    x = _embed_tokens(model, tokens, patch_embeds)
+    x = _embed_tokens(model, tokens, patch_embeds, table, vr)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in model.layers:
@@ -344,6 +444,8 @@ def loss_fn(model: Transformer, batch: dict):
     sequence, each chunk under ``checkpoint``, as the JAX package's scan
     with remat does."""
     cfg = model.cfg
+    if parallel.plan_of(model.embed) is not None:
+        return _sharded_loss(model, batch, parallel.plan_of(model.embed))
     x, aux = forward_hidden(model, batch["tokens"],
                             patch_embeds=batch.get("patch_embeds"))
     labels = batch["labels"]
@@ -373,6 +475,82 @@ def loss_fn(model: Transformer, batch: dict):
                 tot = tot + torch.sum(nll * mask[:, sl])
                 cnt = cnt + torch.sum(mask[:, sl])
         loss = tot / torch.clamp(cnt, min=1.0)
+    total = loss + cfg.router_aux_coef * aux
+    return total, {"loss": loss, "aux": aux}
+
+
+def _xent_sharded(px, lg: torch.Tensor, lb: torch.Tensor,
+                  vr: tuple) -> torch.Tensor:
+    """``_xent`` over a vocab-parallel shard ``lg`` (..., V/tp) of the
+    logits, columns ``[v0, v1)``: the max over ``model`` (no gradient),
+    then the sum of exponentials and the label's logit (zero off the
+    rank's columns) summed over ``model`` in one all-reduce."""
+    m = px.model_max(lg.detach().amax(dim=-1))
+    e = torch.exp(lg - m[..., None]).sum(dim=-1)
+    inr = (lb >= vr[0]) & (lb < vr[1])
+    sel = torch.gather(lg, -1, torch.where(inr, lb - vr[0], 0)[..., None]
+                       .long())[..., 0]
+    both = px.reduce_out(torch.stack([e, torch.where(inr, sel, 0.0)], -1))
+    return m + torch.log(both[..., 0]) - both[..., 1]
+
+
+def _nll_sharded(model: Transformer, w: torch.Tensor, x: torch.Tensor,
+                 labels: torch.Tensor, vr) -> torch.Tensor:
+    """``_nll_block`` with the fetched head weight ``w`` (vocab-parallel
+    where ``vr`` is a range)."""
+    logits = _lm_head(model, x, w)
+    if model.cfg.family == "audio":
+        labels = labels.movedim(1, 2)
+    nll = (_xent(logits, labels) if vr is None
+           else _xent_sharded(parallel.plan_of(model.embed), logits, labels,
+                              vr))
+    return nll.mean(dim=-1) if model.cfg.family == "audio" else nll
+
+
+def _sharded_loss(model: Transformer, batch: dict, px):
+    """``loss_fn`` of a sharded model on the rank's rows: the loss of
+    the global batch (each rank's sum over the global count, summed over
+    the batch axes by ``batch_sum``; the aux loss ``batch_mean``-ed)."""
+    cfg = model.cfg
+    table, vr = _embed_weight(model)
+    x, aux = _hidden(model, batch["tokens"], batch.get("patch_embeds"),
+                     cfg.remat_policy in ("minimal", "full"), table, vr)
+    if cfg.tie_embeddings:
+        w = table.mT
+    else:
+        vdim = 2 if cfg.family == "audio" else 1
+        w = (px.fetch(model.head) if vr is None
+             else px.fetch(model.head, (vdim, *vr)))
+    labels = batch["labels"]
+    S = labels.shape[-1]
+    if cfg.family == "vlm":
+        x = x[:, -S:]                            # drop patch positions
+    if vr is not None:
+        x = px.copy_in(x)
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask.to(torch.float32)
+    lc = cfg.loss_chunks if cfg.loss_chunks > 1 and not S % \
+        cfg.loss_chunks else 1
+    c = S // lc
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(lc):
+        sl = slice(i * c, (i + 1) * c)
+        if lc == 1:
+            nll = _nll_sharded(model, w, x, labels, vr)
+        else:
+            nll = checkpoint(_nll_sharded, model, w, x[:, sl],
+                             labels[..., sl], vr, use_reentrant=False)
+        if mask is None:
+            tot = tot + torch.sum(nll)
+            cnt = cnt + float(nll.numel())
+        else:
+            tot = tot + torch.sum(nll * mask[:, sl])
+            cnt = cnt + torch.sum(mask[:, sl])
+    loss = px.batch_sum(tot / torch.clamp(px.batch_total(cnt), min=1.0))
+    if cfg.is_moe:
+        aux = px.batch_mean(aux)
     total = loss + cfg.router_aux_coef * aux
     return total, {"loss": loss, "aux": aux}
 

@@ -71,22 +71,26 @@ def global_norm(tensors) -> torch.Tensor:
                           for t in tensors))
 
 
-def clip_by_global_norm(grads: dict, max_norm: float):
+def clip_by_global_norm(grads: dict, max_norm: float, norm=None):
     """(grads scaled to a global norm of at most ``max_norm``, the norm
-    before); a new dict, the scale cast to each gradient's dtype."""
-    gn = global_norm(grads.values())
+    before); a new dict, the scale cast to each gradient's dtype.
+    ``norm``: the global norm where the caller computed it (a sharded
+    step: the norm of every rank's shards)."""
+    gn = global_norm(grads.values()) if norm is None else norm
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return {n: g * scale.to(g.dtype) for n, g in grads.items()}, gn
 
 
 @torch.no_grad()
 def apply_updates(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
-                  decay: set | None = None) -> dict:
+                  decay: set | None = None, norm=None) -> dict:
     """One AdamW step on ``params`` (tensors or ``nn.Parameter``s, written
     in place) with ``grads`` (same keys); ``state`` (``init_opt_state``)
     is updated in place.  ``decay`` names the parameters that take weight
-    decay (default: ``ndim >= 2``).  Returns ``{"grad_norm", "lr"}``."""
-    grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
+    decay (default: ``ndim >= 2``); ``norm`` is the gradients' global norm
+    where the caller computed it (``clip_by_global_norm``).  Returns
+    ``{"grad_norm", "lr"}``."""
+    grads, gn = clip_by_global_norm(grads, cfg.grad_clip, norm)
     state["count"] = state["count"] + 1
     c = state["count"].to(torch.float32)
     lr = schedule(cfg, c).to(c.device)

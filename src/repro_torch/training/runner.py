@@ -13,6 +13,13 @@ JAX package's ``repro/training/runner.py``).
 The data pipeline is ``(seed, step)``-pure and every kernel of the step
 sums in a fixed order, so a resumed run repeats the uninterrupted one
 bit for bit.
+
+With a ``mesh`` (every rank runs the runner): the state is the rank's
+shards on the mesh's device, each step takes the rank's rows of the
+global batch, a checkpoint is the whole state gathered through
+``core/collectives.py`` and written by the first rank (the others wait
+for it), a restore cuts each rank's shards from it (onto a mesh of any
+shape), and only the first rank logs.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import tempfile
 from typing import Callable
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.operator import resolve_device
@@ -49,7 +57,9 @@ class TrainingRunner:
                  failure_hook: Callable[[int], None] | None = None, *,
                  device=None, seed: int = 0):
         self.cfg, self.tc, self.rc = cfg, tc, rc
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else None
+        self.first = mesh is None or dist.get_rank() == 0
         self.seed = seed
         self.data = SyntheticLMDataset(data_cfg)
         self.ckpt = CheckpointManager(rc.ckpt_dir, keep=3)
@@ -60,11 +70,18 @@ class TrainingRunner:
 
     def _fresh_state(self) -> TrainState:
         return init_train_state(self.cfg, self.tc, seed=self.seed,
-                                device=self.device)
+                                device=self.device, mesh=self.mesh)
 
     def _restore(self, state: TrainState, step: int) -> TrainState:
-        state.load_tree(self.ckpt.restore(step, state.tree()))
+        state.load_tree(self.ckpt.restore(step, state.like()))
         return state
+
+    def _save(self, step: int, state: TrainState) -> None:
+        tree = state.tree()              # gathered on every rank
+        if self.first:
+            self.ckpt.save(step, tree)
+        if self.mesh is not None:
+            dist.barrier()
 
     def run(self) -> TrainState:
         state = self._fresh_state()
@@ -84,12 +101,12 @@ class TrainingRunner:
                 if not np.isfinite(loss):
                     raise FloatingPointError(f"non-finite loss at {step}")
                 self.history.append({"step": step, "loss": loss})
-                if step % self.rc.log_every == 0:
+                if step % self.rc.log_every == 0 and self.first:
                     log.info("step %d loss %.4f", step, loss)
                 step += 1
                 if step % self.rc.ckpt_every == 0 or \
                         step == self.rc.total_steps:
-                    self.ckpt.save(step, state.tree())
+                    self._save(step, state)
             except Exception as e:  # noqa: BLE001 — the watchdog boundary
                 self.restarts += 1
                 log.warning("step %d failed (%s); restart %d/%d",

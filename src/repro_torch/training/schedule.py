@@ -1,0 +1,266 @@
+"""The collectives of one sharded train step, predicted from the config
+and the mesh (the schedule that ``collectives.record`` of a step must
+equal, op for op: the tests and ``chip_smoke.py`` phase 16 hold it).
+
+``step_collectives`` returns a ``Counter`` of ``(op, shape, dtype,
+axes)``: ``op`` one of ``all_gather``, ``reduce_scatter``,
+``all_reduce``, ``all_reduce_max``; ``shape`` the payload one rank hands
+the collective (a gather or scatter along dim ``i`` moves ``i`` to the
+front); ``axes`` the mesh axes of its group.  Axes of size 1 issue
+nothing.  The rules, per microbatch:
+
+* a weight (``Plan.fetch``): each ``data``-sharded dim gathered
+  (``all_gather`` forward, ``reduce_scatter`` backward; the MoE's
+  ``w_out`` keeps its shard); its ``model`` dim kept where the rank's
+  part is its shard, else gathered whole for a replicated layer
+  (forward only), or a replicated weight cut after ``copy_in``
+  (``all_reduce`` of its gradient over ``model``);
+* a tensor-parallel layer: ``copy_in`` of its input (an ``all_reduce``
+  of the input's gradient) and ``reduce_out`` of its output (an
+  ``all_reduce`` forward); RG-LRU's ``w_a``/``w_i`` products one
+  ``reduce_scatter`` forward / ``all_gather`` backward; the MoE's output
+  summed over ``model`` and gathered over ``data``; RWKV-6's receptance
+  gathered over ``model`` (forward only);
+* the embedding's lookups summed over ``model``; the head's input
+  ``copy_in``; each loss chunk one ``all_reduce_max`` and one
+  ``all_reduce`` of (sum of exponentials, label logit); the loss's count
+  and value summed over the batch axes, the MoE aux loss likewise;
+* every forward collective inside ``checkpoint`` (each layer when
+  ``remat_policy`` is "minimal" or "full"; each loss chunk when
+  ``loss_chunks > 1``) issued twice: the backward recomputes the whole
+  region (early stop off);
+
+and once a step: each gradient all-reduced over the batch axes its spec
+does not shard (fp32 after microbatches, else the parameter's dtype),
+and the squared norm over every axis.
+"""
+from __future__ import annotations
+
+from collections import Counter
+
+import torch
+
+from repro_torch import sharding
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.mlp import capacity
+from repro_torch.models.recurrent import LORA
+
+F32 = "float32"
+
+
+def _name(dtype) -> str:
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def step_collectives(cfg: ModelConfig, mesh, rows: int, seq: int,
+                     microbatches: int = 1) -> Counter:
+    """The collectives a rank issues in one step of ``make_train_step(cfg,
+    tc, mesh)``: ``rows`` the rank's rows of a microbatch, ``seq`` the
+    labels' length (VLM: the patch positions come on top)."""
+    sizes = sharding.mesh_axes(mesh)
+    names = tuple(sizes)
+    tp = sizes["model"]
+    batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    model = T.Transformer(cfg, torch.device("meta"))
+    params = dict(model.named_parameters())
+    specs = T.resolved_specs(cfg, sizes)
+    dt = cfg.dtype
+    out: Counter = Counter()
+
+    def count(axes) -> int:
+        n = 1
+        for a in axes:
+            n *= sizes[a]
+        return n
+
+    def add(op, shape, dtype, axes, n=1):
+        if count(axes) > 1 and n:
+            out[(op, tuple(shape), dtype, "+".join(axes))] += n
+
+    def moved(shape, i):
+        return [shape[i]] + shape[:i] + shape[i + 1:]
+
+    def fetch(name, need=None, fwd=1, fsdp=True):
+        spec, p = specs[name], params[name]
+        pdt = _name(p.dtype)
+        cur = list(sharding.local_shape(tuple(p.shape), spec, sizes))
+        mdim = None
+        for i in range(p.ndim):
+            axes = sharding.dim_axes(spec, i)
+            if "model" in axes:
+                mdim = i
+            elif axes and fsdp:
+                add("all_gather", moved(cur, i), pdt, axes, fwd)
+                cur[i] *= count(axes)
+                add("reduce_scatter", moved(cur, i), pdt, axes)
+        if need is None:
+            if mdim is not None:
+                add("all_gather", moved(cur, mdim), pdt, ("model",), fwd)
+        elif mdim is None:
+            add("all_reduce", cur, pdt, ("model",))
+        elif not (mdim == need[0] and need[2] - need[1] == cur[mdim]):
+            add("all_gather", moved(cur, mdim), pdt, ("model",), fwd)
+            cur[mdim] *= tp
+            add("reduce_scatter", moved(cur, mdim), pdt, ("model",))
+
+    def copy_in(shape, dtype=dt):
+        add("all_reduce", shape, dtype, ("model",))
+
+    def reduce_out(shape, fwd, dtype=dt):
+        add("all_reduce", shape, dtype, ("model",), fwd)
+
+    def split(n):
+        return (0, n // tp) if n % tp == 0 else None
+
+    D, V = cfg.d_model, cfg.vocab_size
+    L = seq + (cfg.patch_positions if cfg.family == "vlm" else 0)
+    act = [rows, L, D]
+    f = 2 if cfg.remat_policy in ("minimal", "full") else 1
+
+    def layer(n, kind):
+        pre = f"layers.{n}."
+        fetch(pre + "norm1.scale", fwd=f)
+        if kind in ("attn", "local"):
+            H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, \
+                cfg.resolved_head_dim
+            G, hq = H // Hkv, H // tp
+            tp_attn = H % tp == 0 and (hq % G == 0 or G % hq == 0)
+            ws = ["wq", "wk", "wv", "wo"] + (["q_norm", "k_norm"]
+                                             if cfg.qk_norm else [])
+            if tp_attn:
+                nk = hq // G if hq % G == 0 else 1
+                need = {"wq": (1, 0, hq), "wk": (1, 0, nk),
+                        "wv": (1, 0, nk), "wo": (0, 0, hq),
+                        "q_norm": (0, 0, Dh), "k_norm": (0, 0, Dh)}
+                copy_in(act)
+                for w in ws:
+                    fetch(pre + "mix." + w, need[w], f)
+                reduce_out(act, f)
+            else:
+                for w in ws:
+                    fetch(pre + "mix." + w, None, f)
+        elif kind == "rglru":
+            R = cfg.resolved_rnn_width
+            c = split(R)
+            if c is None:
+                for w in ("w_x", "w_gate", "conv", "w_a", "w_i", "lam",
+                          "w_out"):
+                    fetch(pre + "mix." + w, None, f)
+            else:
+                copy_in(act)
+                for w in ("w_x", "w_gate", "conv"):
+                    fetch(pre + "mix." + w, (1, *c), f)
+                for w in ("w_a", "w_i", "lam", "w_out"):
+                    fetch(pre + "mix." + w, (0, *c), f)
+                add("reduce_scatter", [R, 2, rows, L], dt, ("model",), f)
+                add("all_gather", [R // tp, 2, rows, L], dt, ("model",))
+                reduce_out(act, f)
+        else:                                        # rwkv time mix
+            hd = cfg.rwkv_head_dim
+            fetch(pre + "ffn.mu", None, f)
+            fetch(pre + "ffn.w_lora_a", None, f)
+            c = split(D)
+            if c is None or c[1] % hd:
+                for w in ("w_r", "w_k", "w_v", "w_g", "w_lora_b", "w0", "u",
+                          "w_o"):
+                    fetch(pre + "ffn." + w, None, f)
+            else:
+                for _ in range(4):                   # xr, xk, xv, xg
+                    copy_in(act)
+                copy_in([rows, L, LORA])
+                for w in ("w_r", "w_k", "w_v", "w_g", "w_lora_b"):
+                    fetch(pre + "ffn." + w, (1, *c), f)
+                for w in ("w0", "u"):
+                    fetch(pre + "ffn." + w, (0, 0, c[1] // hd), f)
+                fetch(pre + "ffn.w_o", (0, *c), f)
+                reduce_out(act, f)
+        if cfg.post_block_norm:
+            fetch(pre + "norm1_post.scale", fwd=f)
+        fetch(pre + "norm2.scale", fwd=f)
+        if kind == "rwkv":                           # channel mix
+            fetch(pre + "ffn.c_mu", None, f)
+            c = split(cfg.d_ff)
+            if c is None:
+                fetch(pre + "ffn.c_k", None, f)
+                fetch(pre + "ffn.c_v", None, f)
+            else:
+                copy_in(act)
+                fetch(pre + "ffn.c_k", (1, *c), f)
+                fetch(pre + "ffn.c_v", (0, *c), f)
+                reduce_out(act, f)
+            c = split(D)
+            if c is None:
+                fetch(pre + "ffn.c_r", None, f)
+            else:
+                copy_in(act)
+                fetch(pre + "ffn.c_r", (1, *c), f)
+                add("all_gather", [D // tp, rows, L], dt, ("model",), f)
+        elif cfg.is_moe:
+            E = cfg.num_experts
+            c = split(cfg.d_ff)
+            fetch(pre + "ffn.router", None, f)
+            fetch(pre + "ffn.w_gate", (2, *c), f)
+            fetch(pre + "ffn.w_in", (2, *c), f)
+            fetch(pre + "ffn.w_out", (1, *c), f, fsdp=False)
+            copy_in(act)
+            C = capacity(cfg, rows * L)
+            daxes = sharding.dim_axes(specs[pre + "ffn.w_out"], 2)
+            dl = D // count(daxes)
+            reduce_out([E, C, dl], f)
+            add("all_gather", [dl, E, C], dt, daxes, f)
+            add("reduce_scatter", [D, E, C], dt, daxes)
+        else:
+            c = split(cfg.d_ff)
+            ws = ["w_in", "w_out"] + (["w_gate"] if cfg.mlp_variant == "glu"
+                                      else [])
+            if c is None:
+                for w in ws:
+                    fetch(pre + "ffn." + w, None, f)
+            else:
+                copy_in(act)
+                for w in ws:
+                    fetch(pre + "ffn." + w, (0 if w == "w_out" else 1, *c),
+                          f)
+                reduce_out(act, f)
+        if cfg.post_block_norm:
+            fetch(pre + "norm2_post.scale", fwd=f)
+
+    audio = cfg.family == "audio"
+    vr = split(V)
+    K = cfg.num_codebooks
+    for _ in range(microbatches):
+        fetch("embed", None if vr is None else (1 if audio else 0, *vr))
+        if vr is not None:
+            reduce_out([rows, seq, D], 1)
+        for n, kind in enumerate(cfg.blocks):
+            layer(n, kind)
+        fetch("final_norm.scale")
+        if not cfg.tie_embeddings:
+            fetch("head", None if vr is None else (2 if audio else 1, *vr))
+        lc = cfg.loss_chunks if cfg.loss_chunks > 1 and \
+            not seq % cfg.loss_chunks else 1
+        if vr is not None:
+            copy_in([rows, seq, D])
+            per = [rows, seq // lc] + ([K] if audio else [])
+            fc = 2 if lc > 1 else 1
+            add("all_reduce_max", per, F32, ("model",), fc * lc)
+            add("all_reduce", per + [2], F32, ("model",), fc * lc)
+        add("all_reduce", [], F32, batch_axes, 2)      # count, loss
+        if cfg.is_moe:
+            add("all_reduce", [], F32, batch_axes)     # aux
+    for name, p in params.items():
+        spec = specs[name]
+        held = {a for i in range(len(spec))
+                for a in sharding.dim_axes(spec, i)}
+        axes = tuple(a for a in batch_axes if a not in held)
+        add("all_reduce", sharding.local_shape(tuple(p.shape), spec, sizes),
+            F32 if microbatches > 1 else _name(p.dtype), axes)
+    add("all_reduce", [], F32, names)                  # the norm
+    return out
+
+
+def record_counter(record: list) -> Counter:
+    """``collectives.record`` in ``step_collectives``'s form."""
+    return Counter((c["op"], tuple(c["shape"]), c["dtype"],
+                    c.get("axes", "")) for c in record)

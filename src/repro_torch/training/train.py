@@ -10,10 +10,30 @@ block sweeps a compressed leaf, on the card the hand-written 3xTF32
 kernels), and applies AdamW.  Parameters, moments and compression state
 are updated in place; ``step`` returns the same ``TrainState``.
 
-Not ported: the cross-pod compressed mode (``train.py:181-229``), in
+The sharded mode, plain (``make_train_step(cfg, tc, mesh)`` on a
+``("data", "model")`` or ``("pod", "data", "model")`` ``DeviceMesh``;
+the JAX package's GSPMD step, as explicit SPMD): every rank runs the
+step on its shards (``init_train_state(..., mesh=)``) and its rows of the
+global batch, which split over ``("pod", "data")`` in the JAX rule's
+order (rank ``(p, d)`` takes row block ``p * |data| + d``; with
+microbatches, of each microbatch of the global batch, as the JAX
+package's ``_microbatch`` splits before GSPMD shards).  The layers issue
+their collectives (``core/parallel.py``); the loss and the metrics are
+the global batch's.  Gradients: an FSDP leaf's come reduce-scattered
+over ``data`` by the backward of its gather; every leaf is then
+all-reduced over the batch axes its spec does not shard (``pod``, and
+``data`` where it is replicated there).  ``grad_norm`` counts each
+element of the model once (a shard on the ranks at coordinate 0 of every
+axis it is replicated over), AdamW runs on the local shards, and
+``TrainState.tree`` gathers the whole state through
+``core/collectives.py`` for a checkpoint (``load_tree`` cuts it again,
+onto a mesh of any shape).
+
+Not ported: compressed training over a mesh (the JAX package's
+``train.py:150-178`` on a mesh and the cross-pod mode, ``:181-229``, in
 which each pod keeps its own error buffers and only the compressed
-factors cross pods, and any sharded single-program run; ``make_train_step``
-raises for a mesh, naming the ``ROADMAP.md`` item.
+factors cross pods); ``make_train_step`` raises for it, naming the
+``ROADMAP.md`` item (16).
 """
 from __future__ import annotations
 
@@ -21,7 +41,10 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
+from repro_torch.core import collectives as coll
+from repro_torch.core import parallel
 from repro_torch.core.operator import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -44,28 +67,95 @@ class TrainState:
     opt: dict                   # adamw.init_opt_state over the parameters
     comp: dict | None           # compression.init_state, when enabled
     step: int
+    plan: parallel.Plan | None = None   # the rank's plan when sharded
 
     def tree(self) -> dict:
-        """The state as a tree of tensors (what a checkpoint holds)."""
-        return {"params": dict(self.model.named_parameters()),
-                "opt": self.opt, "comp": self.comp,
+        """The state as a tree of tensors (what a checkpoint holds); when
+        sharded, the whole state, gathered on every rank (a collective)."""
+        params = dict(self.model.named_parameters())
+        o = self.opt
+        if self.plan is not None:
+            un = self.plan.unshard
+            o = {"m": {n: un(t, params[n].spec) for n, t in o["m"].items()},
+                 "v": {n: un(t, params[n].spec) for n, t in o["v"].items()},
+                 "count": o["count"]}
+            params = {n: un(p, p.spec) for n, p in params.items()}
+        return {"params": params, "opt": o, "comp": self.comp,
                 "step": torch.tensor(self.step, dtype=torch.int32)}
+
+    def like(self) -> dict:
+        """A tree of ``tree()``'s structure and dtypes for a checkpoint's
+        restore: ``tree()`` itself in one process; when sharded, 0-dim
+        host stand-ins (a restore keeps the saved shapes), so nothing is
+        gathered."""
+        if self.plan is None:
+            return self.tree()
+        stand = lambda t: torch.zeros((), dtype=t.dtype)
+        params = dict(self.model.named_parameters())
+        return {"params": {n: stand(p) for n, p in params.items()},
+                "opt": {"m": {n: stand(t) for n, t in self.opt["m"].items()},
+                        "v": {n: stand(t) for n, t in self.opt["v"].items()},
+                        "count": stand(self.opt["count"])},
+                "comp": self.comp,
+                "step": torch.zeros((), dtype=torch.int32)}
 
     @torch.no_grad()
     def load_tree(self, tree: dict) -> None:
-        """Take ``tree`` (``tree()``'s structure) as the state, in place."""
+        """Take ``tree`` (``tree()``'s structure: the whole state) as the
+        state, in place; when sharded, each rank keeps its shards."""
         params = dict(self.model.named_parameters())
+        cut = ((lambda t, n: t) if self.plan is None else
+               (lambda t, n: self.plan.shard(t, params[n].spec)))
         for name, value in tree["params"].items():
-            params[name].copy_(value)
-        self.opt, self.comp = tree["opt"], tree["comp"]
+            params[name].copy_(cut(value, name))
+        if self.plan is None:
+            self.opt = tree["opt"]
+        else:
+            for key in ("m", "v"):
+                for n, t in self.opt[key].items():
+                    t.copy_(cut(tree["opt"][key][n], n))
+            self.opt["count"] = tree["opt"]["count"].to(
+                self.opt["count"].device)
+        self.comp = tree["comp"]
         self.step = int(tree["step"])
 
 
+def train_state_specs(cfg: ModelConfig, tc: TrainConfig) -> dict:
+    """Logical axes of ``TrainState.tree()`` (the JAX package's
+    ``train_state_specs``, ``train.py:73-86``): the parameters' and the
+    moments' by the port's names (``models.transformer.model_specs``),
+    ``count`` and ``step`` scalars, and with compression ``Q`` replicated
+    and ``err`` as its JAX leaf (a stacked leaf with ``"layers"`` first),
+    by leaf path."""
+    pspecs = T.model_specs(cfg)
+    cspecs = None
+    if tc.compression.enabled:
+        leaves = [leaf for leaf in LV.leaf_layout(T.Transformer(
+            cfg, torch.device("meta"))) if comp.compressed(leaf,
+                                                          tc.compression)]
+        cspecs = {"Q": {leaf.path: (None, None) for leaf in leaves},
+                  "err": {leaf.path: (("layers",) if leaf.stacked else ())
+                          + tuple(pspecs[leaf.names[0]]) for leaf in leaves}}
+    return {"params": pspecs,
+            "opt": {"m": pspecs, "v": pspecs, "count": ()},
+            "comp": cspecs, "step": ()}
+
+
 def init_train_state(cfg: ModelConfig, tc: TrainConfig, *, seed: int = 0,
-                     device=None) -> TrainState:
+                     device=None, mesh=None) -> TrainState:
     """The model from ``seed`` (``models.transformer.init_model``), zero
     moments, and the compression's warm-start subspaces and zero error
-    buffers when enabled; on ``device`` (``None``: the card)."""
+    buffers when enabled; on ``device`` (``None``: the card).  With a
+    ``mesh`` (every rank calls it), the rank's shards of that same model
+    on the mesh's device, bitwise the one-process model's slices."""
+    if mesh is not None:
+        if tc.compression.enabled:
+            raise NotImplementedError(_ITEM_16)
+        plan = parallel.Plan(mesh)
+        model = T.init_model(cfg, seed=seed, plan=plan)
+        return TrainState(model=model, opt=opt.init_opt_state(
+            dict(model.named_parameters()), tc.adamw), comp=None, step=0,
+            plan=plan)
     dev = resolve_device(device)
     model = T.init_model(cfg, seed=seed, device=dev)
     params = dict(model.named_parameters())
@@ -74,6 +164,11 @@ def init_train_state(cfg: ModelConfig, tc: TrainConfig, *, seed: int = 0,
         c = comp.init_state(LV.leaf_layout(model), tc.compression, dev)
     return TrainState(model=model, opt=opt.init_opt_state(params, tc.adamw),
                       comp=c, step=0)
+
+
+_ITEM_16 = ("compressed training over a mesh is not ported yet (ROADMAP.md, "
+            "queue 1, item 16: cross-rank compressed training, only the "
+            "factors crossing ranks, per-rank error buffers)")
 
 
 def to_device(batch: dict, device) -> dict:
@@ -124,17 +219,95 @@ def _grads_and_metrics(model: T.Transformer, batch: dict, n_micro: int):
                                       device=loss_sum.device)}
 
 
+def local_rows(batch: dict, plan: parallel.Plan, n_micro: int = 1) -> dict:
+    """The rank's rows of a global batch: of each of the ``n_micro``
+    microbatches (row blocks of the global batch), block
+    ``plan.batch_index`` of ``plan.n_batch``, in microbatch order."""
+    out = {}
+    nb, j = plan.n_batch, plan.batch_index
+    for key, x in batch.items():
+        B = x.shape[0]
+        if B % (n_micro * nb):
+            raise ValueError(f"batch {B} does not split into {n_micro} "
+                             f"microbatches over {nb} batch shards")
+        b = B // (n_micro * nb)
+        x = x.reshape(n_micro, nb, b, *x.shape[1:])[:, j]
+        out[key] = x.reshape(n_micro * b, *x.shape[2:])
+    return out
+
+
+def _sync_grads(grads: dict, params: dict, plan: parallel.Plan) -> None:
+    """All-reduce each gradient, in place, over the batch axes its
+    parameter's spec does not shard (an FSDP shard's gradient is already
+    summed over ``data`` by the backward of its gather)."""
+    from repro_torch import sharding
+    for n, g in grads.items():
+        spec = params[n].spec
+        held = {a for i in range(len(spec))
+                for a in sharding.dim_axes(spec, i)}
+        axes = tuple(a for a in plan.batch_axes if a not in held)
+        group = plan.group(axes)
+        if group is not None:
+            coll.all_reduce(g, group, axes=plan.label(axes))
+
+
+def _sharded_norm(grads: dict, params: dict, plan: parallel.Plan):
+    """The global norm of the whole model's gradient: each shard's sum of
+    squares counted on the ranks at coordinate 0 of every axis it is
+    replicated over, summed over every rank."""
+    from repro_torch import sharding
+    dev = plan.device
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for n, g in grads.items():
+        spec = params[n].spec
+        held = {a for i in range(len(spec))
+                for a in sharding.dim_axes(spec, i)}
+        if all(plan.coord[a] == 0 for a in plan.names if a not in held):
+            total = total + torch.sum(torch.square(g.to(torch.float32)))
+    group = plan.group(plan.names)
+    if group is not None:
+        coll.all_reduce(total, group, axes=plan.label(plan.names))
+    return torch.sqrt(total)
+
+
+def _sharded_step(cfg: ModelConfig, tc: TrainConfig, mesh):
+    def step(state: TrainState, batch: dict):
+        plan = state.plan
+        if plan is None or plan.mesh is not mesh:
+            raise ValueError("a sharded step takes the state that "
+                             "init_train_state(..., mesh=) made on its mesh")
+        model = state.model
+        n_micro = tc.microbatches
+        local = to_device(local_rows(
+            {k: np.asarray(v) if not isinstance(v, torch.Tensor) else v
+             for k, v in batch.items()}, plan, n_micro), plan.device)
+        # a checkpointed region's recompute reissues all of its forward
+        # collectives (``training/schedule.py``), not a prefix of them
+        with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+            grads, metrics = _grads_and_metrics(model, local, n_micro)
+        params = dict(model.named_parameters())
+        _sync_grads(grads, params, plan)
+        gn = _sharded_norm(grads, params, plan)
+        layout = LV.leaf_layout(model)
+        om = opt.apply_updates(params, grads, state.opt, tc.adamw,
+                               LV.decayed(layout), norm=gn)
+        metrics.update(om)
+        state.step += 1
+        return state, metrics
+
+    return step
+
+
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None):
     """``step(state, batch) -> (state, metrics)``; ``batch`` holds numpy
-    arrays or tensors.  Metrics: ``loss``, ``aux``, ``grad_norm``, ``lr``
-    and, with compression, ``compress_ratio`` (0-dim tensors)."""
+    arrays or tensors (with a mesh, the global batch: each rank takes its
+    rows).  Metrics: ``loss``, ``aux``, ``grad_norm``, ``lr`` and, with
+    compression, ``compress_ratio`` (0-dim tensors)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "training over a mesh is not ported yet (ROADMAP.md, queue 1, "
-            + ("item 16: cross-rank compressed training, only the factors "
-               "crossing ranks, per-rank error buffers)"
-               if tc.compression.enabled else
-               "item 13: LM side, the sharded LM)"))
+        if tc.compression.enabled:
+            raise NotImplementedError(_ITEM_16)
+        return _sharded_step(cfg, tc, mesh)
+
     def step(state: TrainState, batch: dict):
         model = state.model
         layout = LV.leaf_layout(model)

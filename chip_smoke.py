@@ -446,7 +446,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    configs of ``moe_by_shard``, the JAX package's per-shard MoE run in one
    process).  Then the attention forward (with ``lse``) and backward at
    a rank's local heads beside their bounds, plain versions and SDPA.
-   ``--only-sharded-lm`` runs phases 1 and 16 alone.
+   16.3, compressed training across ranks (``optim/compression.py``'s
+   power step on the ranks' shards, rank ``TR_RANK``, ``min_size``
+   ``SC_MIN_SIZE``): the same model, ``SC_STEPS`` steps on a
+   ``SC_MESH`` pod x data x model mesh (each pod its own rows' gradient
+   and error buffers, only the factors and the uncompressed leaves
+   crossing ``pod``) and one on ``SL_MESH``; the parent first writes
+   one-process references (``sc_references``: the cross-pod step
+   emulated pod by pod, ``sc_pod_step``) and each rank step starts from
+   the parent's state, held one step at a time: the loss within
+   ``TOL_SC_LOSS``, ``M_hat = P Qn^T`` (from the factors) within
+   ``TOL_SC_HAT`` and each pod's error buffer within ``TOL_SC_ERR`` of
+   ``||M||``; ``Q`` bitwise on every rank, replicas bitwise, the
+   schedule exactly, the bytes across ``pod`` the schedule's; ms a step,
+   share inside collectives, cross-pod bytes plain against compressed,
+   peak memory a rank.  The sweeps at rank 0's shard shapes are timed as
+   ``block_matvec/tf32x3[sharded compression]`` and
+   ``block_rmatvec/tf32x3[sharded compression]``, launches from rank 0's
+   16.3 steps.  ``--only-sharded-lm`` runs phases 1 and 16 alone.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches in the
 run of its path, and its times; the block sweeps as ``<name>/tf32x3``
@@ -495,6 +512,7 @@ script.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -6493,6 +6511,450 @@ def param_rel_errs(torch, got: dict, want: dict, matrices=False) -> tuple:
     return rel, worst, entry
 
 
+# 16.3: compressed training across ranks (optim/compression.py on the
+# ranks' shards), held step by step against one process
+SC_MESH = (2, 1, 2)      # pod x data x model: each pod its own gradient
+SC_STEPS = 2             # there; one step on SL_MESH (no pod axis)
+SC_MIN_SIZE = 65536
+TOL_SC_LOSS = 1e-4       # each step's loss from the parent's state, relative
+# one step from the parent's state, of ||M|| (NVIDIA H100 80GB HBM3,
+# 700 W; readings 2.65e-3 / 1.41e-3 / 3.81e-3 and 1.02e-2 / 7.24e-3 /
+# 1.00e-2 for the three steps): M_hat = P Qn^T (from the factors) and each
+# pod's new error buffer, M - M_hat, which carries the bf16 gradients'
+# rounding in other sum orders whole, where M_hat keeps only its rank-8
+# projection.  A gradient summed over the wrong ranks, or not divided by
+# the pods, moves them O(1)
+TOL_SC_HAT = 1e-2
+TOL_SC_ERR = 3e-2
+
+
+def sc_train_config(AdamWConfig, TrainConfig, CompressionConfig):
+    return TrainConfig(adamw=AdamWConfig(lr=TR_LR, warmup_steps=2,
+                                         total_steps=SC_STEPS),
+                       compression=CompressionConfig(
+                           rank=TR_RANK, min_size=SC_MIN_SIZE))
+
+
+class FactorTap:
+    """Records ``optim/compression.py::_orthonormalize``'s calls during a
+    step: a compressed leaf's ``orth(P)`` and then ``orth(Qn)``, so
+    ``factors()`` gives each leaf's ``(P, Qn)`` in leaf order."""
+
+    def __init__(self, comp):
+        self.comp, self.orig, self.calls = comp, comp._orthonormalize, []
+
+    def __enter__(self):
+        def tap(x):
+            y = self.orig(x)
+            self.calls.append((x, y))
+            return y
+        self.comp._orthonormalize = tap
+        return self
+
+    def __exit__(self, *exc):
+        self.comp._orthonormalize = self.orig
+
+    def factors(self) -> list:
+        return [(self.calls[2 * j][1], self.calls[2 * j + 1][0])
+                for j in range(len(self.calls) // 2)]
+
+
+def hat_err(torch, a: tuple, b: tuple) -> float:
+    """``||Pa Qa^T - Pb Qb^T||_F`` from the factors alone (r x r products,
+    float64): the decompressed gradients' difference, never formed."""
+    (Pa, Qa), (Pb, Qb) = [(P.double(), Q.double().to(P.device))
+                          for P, Q in (a, b)]
+    Pb = Pb.to(Pa.device)
+    Qb = Qb.to(Pa.device)
+    g = lambda X, Y: X.mT @ Y
+    s = (torch.sum(g(Pa, Pa) * g(Qa, Qa)) - 2 * torch.sum(g(Pa, Pb) *
+                                                         g(Qa, Qb))
+         + torch.sum(g(Pb, Pb) * g(Qb, Qb)))
+    return float(s.clamp(min=0).sqrt())
+
+
+def sc_pod_step(torch, ops, train, comp, opt, LV, tc, state, errs, batch,
+                npods) -> tuple:
+    """One step of the cross-pod mode in one process (the JAX package's
+    ``per_pod``, ``train.py:183-203``): each pod's gradient of its own
+    rows, then for each compressed leaf ``P = orth(mean_p M_p Q)``, ``Qn
+    = mean_p M_p^T P``, ``M_hat = P Qn^T``, ``err_p = M_p - M_hat``, ``Q
+    = orth(Qn)``; the other leaves' pod mean; AdamW on the whole model.
+    ``errs``: one dict of error buffers a pod, updated in place.  Returns
+    (the loss, each compressed leaf's (P, Qn), ``{path: [||M_p||]}``)."""
+    model = state.model
+    dev = next(model.parameters()).device
+    layout = LV.leaf_layout(model)
+    rows = next(iter(batch.values())).shape[0] // npods
+    pods = [train._grads_and_metrics(model, train.to_device(
+        {k: v[p * rows:(p + 1) * rows] for k, v in batch.items()}, dev), 1)
+        for p in range(npods)]
+    mean = lambda xs: sum(xs[1:], xs[0]) / npods
+    grads, factors, norms = {}, [], {}
+    with torch.no_grad():
+        for leaf in layout:
+            gs = [LV.gather(leaf, g) for g, _ in pods]
+            if leaf.path not in state.comp["Q"]:
+                grads.update(LV.scatter(leaf, mean(gs)))
+                continue
+            ms = comp._mat_shape(leaf.shape)
+            Ms = [g.to(torch.float32).reshape(ms) + e[leaf.path].reshape(ms)
+                  for g, e in zip(gs, errs)]
+            Q = state.comp["Q"][leaf.path]
+            P = comp._orthonormalize(mean([ops.block_matvec(M, Q)
+                                           for M in Ms]))
+            Qn = mean([ops.block_rmatvec(M, P) for M in Ms])
+            M_hat = P @ Qn.mT
+            for e, M in zip(errs, Ms):
+                e[leaf.path] = (M - M_hat).reshape(leaf.shape)
+            grads.update(LV.scatter(leaf, M_hat.reshape(leaf.shape).to(
+                gs[0].dtype)))
+            state.comp["Q"][leaf.path] = comp._orthonormalize(Qn)
+            factors.append((P, Qn))
+            norms[leaf.path] = [float(M.norm()) for M in Ms]
+            del Ms, M_hat
+        opt.apply_updates(dict(model.named_parameters()), grads, state.opt,
+                          tc.adamw, LV.decayed(layout))
+    state.step += 1
+    return float(sum(m["loss"] for _, m in pods)) / npods, factors, norms
+
+
+def sc_references(torch, ops, dev, outdir) -> dict:
+    """16.3's one-process references on the card, written into
+    ``outdir`` for the ranks: the cross-pod mode's ``SC_STEPS`` steps
+    (``sc_b<i>.pt``: loss, factors, ``||M_p||``, the new ``Q`` and the
+    pods' error buffers; ``sc_state_b<i>.pt``: the rest of the state the
+    ranks' step ``i + 1`` starts from) and the no-pod mode's one step
+    (``sc_a1.pt``: the one-process compressed step)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.models import convert as LV
+    from repro_torch.optim import adamw as opt
+    from repro_torch.optim import compression as comp
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import CompressionConfig
+    from repro_torch.training import (TrainConfig, init_train_state,
+                                      make_train_step, train)
+    cfg = sl_config(dataclasses, configs)
+    tc = sc_train_config(AdamWConfig, TrainConfig, CompressionConfig)
+    ds = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=SL_SEQ, global_batch=SL_BATCH))
+    cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}
+    out = {"b": [], "a": []}
+    state = init_train_state(cfg, tc, device=dev)
+    errs = [dict(state.comp["err"]) for _ in range(SC_MESH[0])]
+    for i in range(SC_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with FactorTap(comp):
+            loss, factors, norms = sc_pod_step(
+                torch, ops, train, comp, opt, LV, tc, state, errs,
+                ds.batch(i), SC_MESH[0])
+        torch.cuda.synchronize()
+        out["b"].append({"loss": loss,
+                         "ms": (time.perf_counter() - t) * 1e3})
+        torch.save({"loss": loss, "norms": norms,
+                    "factors": [(P.cpu(), Qn.cpu()) for P, Qn in factors],
+                    "q": cpu(state.comp["Q"]),
+                    "err": {p: torch.stack([e[p] for e in errs]).cpu()
+                            for p in state.comp["Q"]}},
+                   os.path.join(outdir, f"sc_b{i + 1}.pt"))
+        if i + 1 < SC_STEPS:
+            params = cpu(dict(state.model.named_parameters()))
+            torch.save({"params": params,
+                        "opt": {"m": cpu(state.opt["m"]),
+                                "v": cpu(state.opt["v"]),
+                                "count": state.opt["count"].cpu()},
+                        "step": torch.tensor(state.step, dtype=torch.int32)},
+                       os.path.join(outdir, f"sc_state_b{i + 1}.pt"))
+    del state, errs
+    torch.cuda.empty_cache()
+    state = init_train_state(cfg, tc, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with FactorTap(comp) as tap:
+        state, m = make_train_step(cfg, tc)(state, ds.batch(0))
+    torch.cuda.synchronize()
+    factors = tap.factors()
+    norms = {}
+    for (path, e), (P, Qn) in zip(state.comp["err"].items(), factors):
+        norms[path] = [float((e.reshape(P.shape[0], Qn.shape[0])
+                              + P @ Qn.mT).norm())]
+    out["a"].append({"loss": float(m["loss"]),
+                     "ms": (time.perf_counter() - t) * 1e3})
+    torch.save({"loss": float(m["loss"]), "norms": norms,
+                "factors": [(P.cpu(), Qn.cpu()) for P, Qn in factors],
+                "q": cpu(state.comp["Q"]), "err": cpu(state.comp["err"])},
+               os.path.join(outdir, "sc_a1.pt"))
+    del state, factors
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_compression_rank(torch, ops, coll, outdir: str, rank: int
+                             ) -> dict:
+    """16.3 on one rank: the cross-pod mode on ``SC_MESH`` (``SC_STEPS``
+    steps, step ``i + 1`` from the parent's state after step ``i``), then
+    the no-pod mode on ``SL_MESH`` (one step), each step held against the
+    parent's references: the loss, each leaf's factors (``hat_err``), the
+    rank's shards of the pods' error buffers (squared differences, summed
+    over the shards by the parent), ``Q``'s hash, the schedule; ms, time
+    inside collectives, bytes across ``pod``, peak memory."""
+    import dataclasses
+    import hashlib
+    from repro_torch import configs, sharding
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import convert as LV
+    from repro_torch.optim import compression as comp
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import CompressionConfig
+    from repro_torch.training import (TrainConfig, init_train_state,
+                                      make_train_step)
+    from repro_torch.training.schedule import record_counter, step_collectives
+    cfg = sl_config(dataclasses, configs)
+    tc = sc_train_config(AdamWConfig, TrainConfig, CompressionConfig)
+    ds = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=SL_SEQ, global_batch=SL_BATCH))
+    in_coll = [0.0]
+    timed = {name: getattr(coll, name) for name in (
+        "all_reduce", "all_gather", "reduce_scatter")}
+
+    def timing(fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            in_coll[0] += time.perf_counter() - t
+            return r
+        return wrapped
+
+    out = {"steps": [], "shapes": []}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                 # 16.3's main path from here
+    for label, shape, steps in (("b", SC_MESH, SC_STEPS), ("a", SL_MESH, 1)):
+        if len(shape) == 3:
+            mesh = make_host_mesh(shape[1], shape[2], pod=shape[0],
+                                  device="cuda")
+        else:
+            mesh = make_host_mesh(*shape, device="cuda")
+        sizes = dict(zip(mesh.mesh_dim_names, shape))
+        nb = shape[0] * (shape[1] if len(shape) == 3 else 1)
+        want = step_collectives(cfg, sizes, SL_BATCH // nb, SL_SEQ, 1,
+                                tc.compression)
+        t = time.perf_counter()
+        state = init_train_state(cfg, tc, mesh=mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        step = make_train_step(cfg, tc, mesh)
+        layout = [leaf for leaf in LV.leaf_layout(state.model)
+                  if leaf.path in state.comp["Q"]]
+        if label == "b" and rank == 0:
+            out["shapes"] = [(leaf.path, math.prod(leaf.local_shape[:-1]),
+                              leaf.local_shape[-1]) for leaf in layout]
+        for i in range(steps):
+            load_s = 0.0
+            if i:
+                t = time.perf_counter()
+                prev = torch.load(os.path.join(outdir, f"sc_b{i}.pt"),
+                                  mmap=True)
+                tree = torch.load(os.path.join(outdir,
+                                               f"sc_state_b{i}.pt"),
+                                  mmap=True)
+                tree["comp"] = {"Q": prev["q"], "err": prev["err"]}
+                state.load_tree(tree)
+                del prev, tree
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t
+            ref = torch.load(os.path.join(outdir, f"sc_{label}{i + 1}.pt"),
+                             mmap=True)
+            for name, fn in timed.items():
+                setattr(coll, name, timing(fn))
+            in_coll[0] = 0.0
+            coll.reset_record()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with FactorTap(comp) as tap:
+                state, m = step(state, ds.batch(i))
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            for name, fn in timed.items():
+                setattr(coll, name, fn)
+            got = record_counter(coll.record)
+            leaves = {}
+            for leaf, mine, theirs in zip(layout, tap.factors(),
+                                          ref["factors"]):
+                e_ref = ref["err"][leaf.path]
+                if "pod" in sizes:
+                    e_ref = e_ref[state.plan.coord["pod"]]
+                d = state.comp["err"][leaf.path] - state.plan.shard(
+                    e_ref, leaf.spec).to(state.plan.device)
+                leaves[leaf.path] = {
+                    "hat": hat_err(torch, mine, theirs) / max(
+                        ref["norms"][leaf.path]),
+                    "err_sq": float(torch.sum(torch.square(d.double()))),
+                    "q_diff": float((state.comp["Q"][leaf.path].cpu()
+                                     - ref["q"][leaf.path]).abs().max()),
+                    "q_sha": hashlib.sha1(state.comp["Q"][leaf.path].cpu()
+                                          .numpy().tobytes()).hexdigest(),
+                    "norms": ref["norms"][leaf.path],
+                    "key": [state.plan.coord.get("pod", 0)] + [
+                        state.plan.coord[a] for i in range(leaf.ndim)
+                        for a in sharding.dim_axes(leaf.spec, i)]}
+            out["steps"].append({
+                "mode": label, "step": i + 1, "loss": loss,
+                "ref_loss": ref["loss"], "ms": ms, "init_s": init_s,
+                "load_s": load_s, "collective_ms": in_coll[0] * 1e3,
+                "ratio": float(m["compress_ratio"]),
+                "grad_norm": float(m["grad_norm"]),
+                "schedule": "" if got == want else
+                f"extra {dict(got - want)} missing {dict(want - got)}",
+                "collectives": len(coll.record),
+                "pod_bytes": sum(c["bytes"] for c in coll.record
+                                 if "pod" in c.get("axes", "").split("+")),
+                "pod_payload": max([c["bytes"] for c in coll.record
+                                    if "pod" in c.get("axes", "").split(
+                                        "+")] + [0]),
+                "coord": state.plan.coord, "leaves": leaves})
+            del ref
+        if label == "b":
+            out["checksums"] = {
+                n: hashlib.sha1(p.detach().contiguous().view(torch.uint8)
+                                .cpu().numpy().tobytes()).hexdigest()
+                for n, p in state.model.named_parameters()}
+            out["specs"] = {n: p.spec for n, p in
+                            state.model.named_parameters()}
+            out["coord"] = state.plan.coord
+        del state
+        torch.cuda.empty_cache()
+    out["launches"] = {n: c for n, c in ops.launches.items() if c}
+    out["routes"] = {n: c for n, c in ops.route_launches.items() if c}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def sc_check(torch, ops, ref, ranks, refs, cfg) -> tuple:
+    """16.3's readings from the ranks' results (``sharded_compression_
+    rank``) and the references (``sc_references``): fails on a loss, a
+    factor, an error buffer or a schedule outside its limit, ``Q`` or a
+    replica not bitwise, or a kernel not launched; returns (its summary,
+    its rows of the ``kernels`` line)."""
+    import importlib
+    from repro_torch.optim.compression import CompressionConfig
+    from repro_torch.training.schedule import pod_bytes, step_collectives
+    bm = importlib.import_module("repro_torch.kernels.block_matvec")
+    comp = [r["comp"] for r in ranks]
+    first = comp[0]
+    steps = []
+    for k, st in enumerate(first["steps"]):
+        tag = f"16.3 {st['mode']} step {st['step']}"
+        worst = {"loss": 0.0, "hat": 0.0, "err": 0.0, "q_diff": 0.0}
+        for c in comp:
+            s = c["steps"][k]
+            if s["schedule"]:
+                fail(f"{tag}: rank {c['steps'][k]['coord']}'s collectives "
+                     f"are not the schedule: {s['schedule']}")
+            worst["loss"] = max(worst["loss"],
+                                abs(s["loss"] / s["ref_loss"] - 1))
+            for path, leaf in s["leaves"].items():
+                if leaf["q_sha"] != st["leaves"][path]["q_sha"]:
+                    fail(f"{tag}: Q of {path} differs between ranks")
+                worst["hat"] = max(worst["hat"], leaf["hat"])
+                worst["q_diff"] = max(worst["q_diff"], leaf["q_diff"])
+        for path in st["leaves"]:
+            shards = {}
+            for c in comp:
+                leaf = c["steps"][k]["leaves"][path]
+                shards[tuple(leaf["key"])] = leaf["err_sq"]
+            for p, norm in enumerate(st["leaves"][path]["norms"]):
+                sq = sum(v for key, v in shards.items() if key[0] == p)
+                worst["err"] = max(worst["err"], sq ** 0.5 / norm)
+        s0 = [c["steps"][k] for c in comp]
+        steps.append({**{key: st[key] for key in (
+            "mode", "step", "loss", "ref_loss", "ms", "collective_ms",
+            "ratio", "grad_norm", "collectives", "pod_bytes", "pod_payload",
+            "init_s", "load_s")}, "worst": worst,
+            "ms_ranks": [x["ms"] for x in s0]})
+        print(f"{tag}: loss {st['loss']:.6f} (one process "
+              f"{st['ref_loss']:.6f}; {worst['loss']:.2e} relative, limit "
+              f"{TOL_SC_LOSS:.0e}); M_hat = P Qn^T within {worst['hat']:.2e} "
+              f"of ||M|| (limit {TOL_SC_HAT:.0e}), each pod's error buffer "
+              f"{worst['err']:.2e} (limit {TOL_SC_ERR:.0e}); Q bitwise on "
+              f"every rank "
+              f"({worst['q_diff']:.1e} from one process); compress_ratio "
+              f"{st['ratio']:.3f}; {st['ms']:.1f} ms, "
+              f"{st['collective_ms'] / st['ms']:.1%} inside collectives; "
+              f"{st['collectives']} collectives, {st['pod_bytes']} bytes "
+              f"across pod a rank (largest {st['pod_payload']})")
+        if worst["loss"] > TOL_SC_LOSS or worst["hat"] > TOL_SC_HAT or \
+                worst["err"] > TOL_SC_ERR:
+            fail(f"{tag}: {worst}")
+    replicas = 0
+    for n, spec in first["specs"].items():
+        axes = sorted({a for e in spec if e
+                       for a in ([e] if isinstance(e, str) else e)})
+        for i, a in enumerate(comp):
+            for b in comp[i + 1:]:
+                if all(a["coord"][x] == b["coord"][x] for x in axes):
+                    replicas += 1
+                    if a["checksums"][n] != b["checksums"][n]:
+                        fail(f"16.3: {n} differs between ranks at "
+                             f"{a['coord']} and {b['coord']}")
+    cc = CompressionConfig(rank=TR_RANK, min_size=SC_MIN_SIZE)
+    sizes = dict(zip(("pod", "data", "model"), SC_MESH))
+    rows = SL_BATCH // (SC_MESH[0] * SC_MESH[1])
+    plain_pod = pod_bytes(step_collectives(cfg, sizes, rows, SL_SEQ))
+    comp_pod = pod_bytes(step_collectives(cfg, sizes, rows, SL_SEQ, 1, cc))
+    n_steps = SC_STEPS + 1
+    want = {"block_matvec": len(first["shapes"]) * n_steps,
+            "block_rmatvec": len(first["shapes"]) * n_steps}
+    got = {n: first["launches"].get(n, 0) for n in want}
+    print(f"16.3 {cfg.name} at full width, {SL_LAYERS} of 28 layers, rank "
+          f"{TR_RANK}, min_size {SC_MIN_SIZE}: {SC_STEPS} steps on a "
+          f"{SC_MESH} pod x data x model mesh (each pod its own gradient "
+          f"and error buffers) and one on {SL_MESH}; {replicas} replica "
+          f"pairs bitwise; across pod a step a rank: {comp_pod} bytes "
+          f"compressed against {plain_pod} plain (the schedule; "
+          f"{plain_pod / max(comp_pod, 1):.1f}x); peak memory per rank "
+          + ", ".join(f"{c['peak_gb']:.2f}" for c in comp) + " GB; "
+          f"launches {first['launches']} by route {first['routes']}")
+    if got != want:
+        fail(f"16.3: launches {got}, the accounting says {want}")
+    if not comp_pod or max(s["pod_bytes"] for s in steps
+                           if s["mode"] == "b") != comp_pod:
+        fail(f"16.3: bytes across pod {[s['pod_bytes'] for s in steps]} "
+             f"against the schedule's {comp_pod}")
+    sums = compression_sweeps(torch, ops, ref, bm, torch.device("cuda"),
+                              first["shapes"])
+    kernels = [{"name": f"{name}/tf32x3[sharded compression]",
+                "route": "cuda", "source": TF32_SOURCE,
+                "replaces": REPLACES[name],
+                "launches": first["routes"].get(f"{name}/tf32x3", 0),
+                **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")}}
+               for name, row in sums.items()]
+    for k in kernels:
+        if not k["launches"]:
+            fail(f"{k['name']} was not launched by 16.3's path")
+    last = [st for st in steps if st["mode"] == "b"][-1]
+    summary = {"ms_step": last["ms"],
+               "collective_share": last["collective_ms"] / last["ms"],
+               "ms_step_no_pod": steps[-1]["ms"],
+               "collective_share_no_pod": steps[-1]["collective_ms"]
+               / steps[-1]["ms"],
+               "steps": steps, "replica_pairs": replicas,
+               "pod_bytes_plain": plain_pod, "pod_bytes_compressed": comp_pod,
+               "peak_gb": [c["peak_gb"] for c in comp],
+               "launches": first["launches"], "routes": first["routes"],
+               "shapes": first["shapes"], "references": refs,
+               "sweeps": sums}
+    return summary, kernels
+
+
 def sharded_lm_rank(outdir: str) -> int:
     """16, one of ``SL_RANKS`` gloo ranks sharing the card (this script
     with ``--sharded-lm-rank DIR``): 16.1's sharded steps and 16.2's smoke
@@ -6628,6 +7090,11 @@ def sharded_lm_rank(outdir: str) -> int:
             torch.save({n: x.cpu() for n, x in full.items()},
                        os.path.join(outdir, f"smoke_{arch}.pt"))
     out["smoke_s"] = time.perf_counter() - t_smoke
+
+    # 16.3 compressed training across ranks
+    t = time.perf_counter()
+    out["comp"] = sharded_compression_rank(torch, ops, coll, outdir, rank)
+    out["comp_s"] = time.perf_counter() - t
     out["start_s"] = t_start
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -6686,6 +7153,9 @@ def sharded_lm(torch, ops, ref, la, dev) -> tuple:
     t_ref = time.perf_counter() - t_phase
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
+        t = time.perf_counter()
+        sc_refs = sc_references(torch, ops, dev, tmp)
+        t_sc_ref = time.perf_counter() - t
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                f"--nproc_per_node={SL_RANKS}", os.path.abspath(__file__),
                "--sharded-lm-rank", tmp]
@@ -6841,6 +7311,10 @@ def sharded_lm(torch, ops, ref, la, dev) -> tuple:
     for k in kernels:
         if not k["launches"]:
             fail(f"{k['name']} was not launched by the sharded LM's path")
+
+    # 16.3 compressed training across ranks
+    sc_summary, sc_kernels = sc_check(torch, ops, ref, ranks, sc_refs, cfg)
+    kernels += sc_kernels
     summary = {"one_process": one, "ranks_s": t_ranks, "reference_s": t_ref,
                "lm": {key: first[key] for key in (
                    "losses", "grad_norms", "ms_steps", "launches",
@@ -6851,10 +7325,13 @@ def sharded_lm(torch, ops, ref, la, dev) -> tuple:
                "seconds": time.perf_counter() - t_phase}
     summary["rank_start_s"] = ranks[0]["start_s"] - t_launch
     summary["smoke_s"] = ranks[0]["smoke_s"]
+    summary["compressed"] = {**sc_summary, "reference_s": t_sc_ref,
+                             "ranks_s": ranks[0]["comp_s"]}
     print(f"phase 16: {summary['seconds']:.1f} s (the one-process "
-          f"references {t_ref:.1f} s, the ranks {t_ranks:.1f} s: "
-          f"{summary['rank_start_s']:.1f} s to start, 16.2 "
-          f"{summary['smoke_s']:.1f} s)")
+          f"references {t_ref:.1f} s and 16.3's {t_sc_ref:.1f} s, the "
+          f"ranks {t_ranks:.1f} s: {summary['rank_start_s']:.1f} s to "
+          f"start, 16.2 {summary['smoke_s']:.1f} s, 16.3 "
+          f"{ranks[0]['comp_s']:.1f} s)")
     return summary, kernels
 
 

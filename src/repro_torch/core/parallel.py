@@ -32,7 +32,9 @@ own collectives work.
 
 ``Plan(mesh)`` is one rank's view of a mesh: axis sizes, its
 coordinates, one process group per set of axes (``launch/mesh.py::
-axes_group``, created eagerly and in the same order on every rank).  A
+axes_group``; every set of the mesh's axes, created eagerly and in the
+same order on every rank: the compressed step reduces over the axes a
+leaf's dims are sharded on, plus ``pod``).  A
 sharded model's parameters carry it (``.plan``, beside their ``.spec``;
 ``plan_of``), as the JAX package's arrays carry their sharding; a layer
 whose parameters carry none runs its one-process code.  ``Plan.fetch``
@@ -41,6 +43,8 @@ every ``data``-sharded dim gathered (FSDP), and its ``model`` dim kept,
 cut or gathered as the layer asks (``need``).
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -170,10 +174,10 @@ class Plan:
         self.device = mesh_device(mesh)
         self.batch_axes = tuple(a for a in BATCH_AXES if a in self.names)
         self._groups = {}
-        for axes in [(a,) for a in self.names] + [self.batch_axes,
-                                                  self.names]:                     # collective: every rank
-            if self.count(axes) > 1 and axes not in self._groups:
-                self._groups[axes] = axes_group(mesh, axes)
+        for k in range(1, len(self.names) + 1):     # collective: every rank
+            for axes in itertools.combinations(self.names, k):
+                if self.count(axes) > 1:
+                    self._groups[axes] = axes_group(mesh, axes)
         self.tp = self.sizes["model"]
         self.m = self.coord["model"]
 
@@ -201,9 +205,10 @@ class Plan:
             raise KeyError(f"no group over {axes} was created")
         return self._groups[axes]
 
-    @staticmethod
-    def label(axes) -> str:
-        return "+".join(axes)
+    def label(self, axes) -> str:
+        """The axes as ``collectives.record`` names them, in mesh
+        order."""
+        return "+".join(a for a in self.names if a in tuple(axes))
 
     @property
     def n_batch(self) -> int:

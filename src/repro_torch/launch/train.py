@@ -9,10 +9,13 @@
         -m repro_torch.launch.train --mesh 2,2 --arch qwen3-0.6b --smoke \\
         --device cpu --steps 5 --batch 4 --seq 32         # sharded
 
-``--smoke`` trains the reduced same-family config.  The run is on the
+``--arch`` is qwen3-0.6b unless given; ``--smoke`` trains the reduced
+same-family config.  The run is on the
 card unless ``--device cpu`` is given (and raises where no card is
 visible and none was asked for).  ``--compress`` turns on the paper's
-power-method gradient compression (rank 8, ``optim/compression.py``);
+power-method gradient compression (rank 8, ``optim/compression.py``;
+it factors leaves of 65536 elements or more, which no leaf of a
+``--smoke`` config reaches, so there every leaf passes whole);
 ``--loss-chunks`` sets the config's ``loss_chunks`` (the LM head and
 cross entropy in that many sequence chunks).  The runner checkpoints
 atomically into ``--ckpt-dir`` and resumes from its latest step, and the
@@ -27,9 +30,17 @@ ranks ``torchrun`` starts; ``--mesh production`` takes the paper's
 group is gloo on the CPU, and on the card NCCL where each rank has a
 card of its own, else gloo (NCCL refuses two ranks on one card).  Each
 rank takes its rows of the global batch, the first rank logs and writes
-the checkpoints, and a relaunch resumes on any mesh.  Compressed
-training over a mesh is ROADMAP.md queue 1 item 16 (``--compress`` with
-``--mesh`` raises).
+the checkpoints, and a relaunch resumes on any mesh (with ``--compress``,
+on any mesh of the same pod count: each pod keeps its own error
+buffers).  ``--compress`` with ``--mesh`` compresses across ranks: on
+``POD,DATA,MODEL`` each pod takes its own rows' gradient and only the
+rank-r factors and the uncompressed leaves cross pods; on
+``DATA,MODEL`` the synced gradients' leaves are factored from their
+shards::
+
+    PYTHONPATH=src torchrun --standalone --nproc_per_node 4 \\
+        -m repro_torch.launch.train --mesh 2,1,2 --compress --smoke \\
+        --device cpu --steps 3
 """
 from __future__ import annotations
 
@@ -56,7 +67,7 @@ def main(argv=None) -> dict:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=list_archs())
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)

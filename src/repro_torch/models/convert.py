@@ -31,7 +31,12 @@ not on the port's per-layer tensors:
 Each ``Leaf`` names its JAX path (``"groups/b0/mix/wq"``), the port's
 parameters it stacks (one per group, in group order; one for an
 unstacked leaf) and its JAX shape.  ``gather`` stacks a leaf from a dict
-of per-parameter tensors, ``scatter`` splits a stacked value back.
+of per-parameter tensors, ``scatter`` splits a stacked value back.  Over
+a mesh (a sharded model's parameters carry ``.spec`` and ``.plan``, or
+the caller gives ``specs`` and the mesh's ``sizes``) a leaf also carries
+its spec (the stacked ``"layers"`` dim never sharded, then its
+parameters') and the shape of one rank's stack of shards; ``shape``
+stays the whole leaf's, as the JAX package's global arrays.
 """
 from __future__ import annotations
 
@@ -105,6 +110,8 @@ class Leaf:
     names: tuple[str, ...]       # the port's parameters, in group order
     stacked: bool                # a leading group axis over ``names``
     shape: tuple[int, ...]       # the JAX leaf's shape
+    spec: tuple = ()             # over a mesh: one entry a dim
+    shard: tuple | None = None   # over a mesh: a rank's stack of shards
 
     @property
     def ndim(self) -> int:
@@ -114,18 +121,47 @@ class Leaf:
     def size(self) -> int:
         return math.prod(self.shape)
 
+    @property
+    def local_shape(self) -> tuple[int, ...]:
+        return self.shape if self.shard is None else self.shard
+
 
 def _sort_key(parts: tuple):
     # JAX sorts dict keys as strings and keeps list order (the tail)
     return tuple((0, p) if isinstance(p, int) else (1, p) for p in parts)
 
 
-def leaf_layout(model) -> list[Leaf]:
+def leaf_layout(model, specs: dict | None = None,
+                sizes: dict | None = None) -> list[Leaf]:
     """The JAX package's leaves over ``model``'s parameters, in its
-    flattening order."""
+    flattening order; with each leaf's spec and shard shape where the
+    parameters carry their plan (or ``specs`` and ``sizes`` are given for
+    a whole model)."""
+    from repro_torch import sharding
     cfg = model.cfg
     pat, n_groups, tail = group_layout(cfg)
-    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    params = dict(model.named_parameters())
+    shapes = {n: tuple(p.shape) for n, p in params.items()}
+    plan = next((p.plan for p in params.values()
+                 if getattr(p, "plan", None) is not None), None)
+    local = plan is not None
+    if local:
+        specs, sizes = {n: p.spec for n, p in params.items()}, plan.sizes
+
+    def count(spec, i):
+        return math.prod(sizes[a] for a in sharding.dim_axes(spec, i))
+
+    def placed(names, stacked, shape):
+        """(the whole leaf's shape, its spec, a rank's stack of shards)"""
+        if specs is None:
+            return shape, (), None
+        spec = tuple(specs[names[0]])
+        lead = (None,) if stacked else ()
+        spec = lead + spec + (None,) * (len(shape) - len(lead) - len(spec))
+        if local:
+            return tuple(n * count(spec, i) for i, n in enumerate(shape)), \
+                spec, shape
+        return shape, spec, sharding.local_shape(shape, spec, sizes)
     entries = []
     for name in ("embed", "final_norm.scale", "head"):
         if name in shapes:
@@ -147,7 +183,8 @@ def leaf_layout(model) -> list[Leaf]:
             entries.append((("tail", t, *sub.split(".")), (name,), False,
                             shapes[name]))
     entries.sort(key=lambda e: _sort_key(e[0]))
-    return [Leaf("/".join(str(p) for p in parts), names, stacked, shape)
+    return [Leaf("/".join(str(p) for p in parts), names, stacked,
+                 *placed(names, stacked, shape))
             for parts, names, stacked, shape in entries]
 
 

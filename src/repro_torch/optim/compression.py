@@ -7,9 +7,9 @@ factored to rank ``r`` by one block power-iteration step from a
 warm-started subspace ``Q`` (the paper's Alg 2 with the JAX package's
 warm start), and only the skinny factors would cross the links:
 
-    P = M Q          ops.block_matvec   (pmean over ``group``)
+    P = M Q          ops.block_matvec
     P = orth(P)
-    Qn = M^T P       ops.block_rmatvec  (pmean over ``group``)
+    Qn = M^T P       ops.block_rmatvec
     M_hat = P Qn^T;  err <- M - M_hat;  Q <- orth(Qn)
 
 Both products are fp32, so on the card they run the hand-written block
@@ -26,18 +26,38 @@ count, ``p q`` against ``r (p + q)`` elements a compressed leaf.
 seeded from ``(seed, leaf index)``, the leaf index being the JAX
 package's, as its ``fold_in(PRNGKey(seed), i)``; the two generators'
 numbers differ, so the tests hand the JAX package's ``Q0`` to the port.
-With ``group`` (a ``torch.distributed`` process group, the counterpart
-of ``axis_name``) ``P``, ``Qn`` and every uncompressed leaf are
-mean-all-reduced through ``core/collectives.py``; without it the math
-is the same with no collective.
+
+Over a mesh (``plan``, a ``core/parallel.Plan``; the JAX package's
+``train.py:150-229``) each rank holds its shard of every gradient and
+of its error buffer, and the two products become the paper's
+distributed step on a 2-D-sharded matrix.  ``M_loc`` is the rank's
+stack of shards plus its error buffer, ``(p_loc, q_loc)``:
+
+    P   = M_loc Q[cols]    summed over the axes of the last dim (+ pod),
+                           gathered over the leading dims' axes in
+                           global row order (``Plan.unshard``), orth
+    Qn  = M_loc^T P[rows]  summed over the leading dims' axes (+ pod),
+                           gathered over the last dim's axes
+    M_hat[rows, cols] = P[rows] Qn[cols]^T;  err <- M_loc - M_hat[...]
+
+With a ``pod`` axis (the cross-pod mode) each pod's ``M`` is its own
+gradient plus its own error buffer, both sums also run over ``pod`` and
+are divided by the pod count (``pmean``), and each uncompressed leaf is
+mean-all-reduced over ``pod`` whole; without one the gradients came
+synced and only the factors' partial sums cross ranks.  Every rank
+orthonormalizes the same gathered bits, so ``P`` and the new ``Q`` are
+bitwise equal on every rank; only rank-r factors and the uncompressed
+leaves cross ``pod``, never a gradient-sized payload.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch.core import collectives
 from repro_torch.kernels import ops
 from repro_torch.models import convert as LV
@@ -70,7 +90,8 @@ def _generator_seed(seed: int, index: int) -> int:
 def init_state(layout: list[LV.Leaf], cfg: CompressionConfig,
                device) -> dict:
     """``{"Q": {path: (q, r) fp32}, "err": {path: zeros of the leaf's
-    shape, fp32}}`` over the compressed leaves of ``layout``."""
+    shape (over a mesh: of the rank's stack of shards), fp32}}`` over the
+    compressed leaves of ``layout``."""
     qs, errs = {}, {}
     for i, leaf in enumerate(layout):
         if not compressed(leaf, cfg):
@@ -80,8 +101,8 @@ def init_state(layout: list[LV.Leaf], cfg: CompressionConfig,
         Q = torch.randn((leaf.shape[-1], cfg.rank), generator=g,
                         device=device)
         qs[leaf.path] = _orthonormalize(Q)
-        errs[leaf.path] = torch.zeros(leaf.shape, dtype=torch.float32,
-                                      device=device)
+        errs[leaf.path] = torch.zeros(leaf.local_shape,
+                                      dtype=torch.float32, device=device)
     return {"Q": qs, "err": errs}
 
 
@@ -92,40 +113,94 @@ def _orthonormalize(P: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def compress_grads(grads: dict, state: dict, cfg: CompressionConfig,
-                   layout: list[LV.Leaf], group=None):
+                   layout: list[LV.Leaf], plan=None):
     """Compress and decompress ``grads`` (``{name: tensor}`` over the
     port's parameters) leaf by leaf with error feedback.  Returns (a new
     dict of decompressed gradients in each gradient's dtype, the new
-    state, ``{"compress_ratio"}``)."""
-    if group is None:
-        pmean = lambda x: x
-    else:
-        size = torch.distributed.get_world_size(group)
-        pmean = lambda x: collectives.all_reduce(x, group).div_(size)
+    state, ``{"compress_ratio"}``).  With ``plan`` the gradients, the
+    error buffers and ``layout``'s shard shapes are the rank's (a layout
+    with specs: ``models.convert.leaf_layout`` of the sharded model)."""
+    if plan is not None:
+        return _compress_sharded(grads, state, cfg, layout, plan)
     out = dict(grads)
     new_q, new_e = {}, {}
-    bytes_full = bytes_sent = 0
     for leaf in layout:
-        if leaf.path not in state["Q"]:     # not compressed: plain mean
-            if group is not None:
-                for n in leaf.names:
-                    out[n] = pmean(grads[n].clone())
-            bytes_full += leaf.size * 4
-            bytes_sent += leaf.size * 4
+        if leaf.path not in state["Q"]:     # not compressed
             continue
         g = LV.gather(leaf, grads)
         ms = _mat_shape(leaf.shape)
         M = g.to(torch.float32).reshape(ms) + state["err"][leaf.path].reshape(
             ms)
-        P = pmean(ops.block_matvec(M, state["Q"][leaf.path]))
-        P = _orthonormalize(P)
-        Qn = pmean(ops.block_rmatvec(M, P))
+        P = _orthonormalize(ops.block_matvec(M, state["Q"][leaf.path]))
+        Qn = ops.block_rmatvec(M, P)
         M_hat = P @ Qn.mT
         new_e[leaf.path] = (M - M_hat).reshape(leaf.shape)
         out.update(LV.scatter(leaf, M_hat.reshape(leaf.shape).to(g.dtype)))
         new_q[leaf.path] = _orthonormalize(Qn)
-        bytes_full += M.numel() * 4
-        bytes_sent += (P.numel() + Qn.numel()) * 4
-    stats = {"compress_ratio": torch.tensor(bytes_full / max(bytes_sent, 1),
-                                            dtype=torch.float32)}
-    return out, {"Q": new_q, "err": new_e}, stats
+    return out, {"Q": new_q, "err": new_e}, _stats(layout, state, cfg)
+
+
+def _stats(layout: list[LV.Leaf], state: dict, cfg: CompressionConfig):
+    """``{"compress_ratio"}``: ``p q`` against ``r (p + q)`` elements a
+    compressed leaf (``r`` its ``Q``'s width: ``min(rank, q)``), the whole
+    leaf a passed one, over whole leaves."""
+    full = sent = 0
+    for leaf in layout:
+        full += leaf.size * 4
+        if leaf.path in state["Q"]:
+            p, q = _mat_shape(leaf.shape)
+            sent += state["Q"][leaf.path].shape[1] * (p + q) * 4
+        else:
+            sent += leaf.size * 4
+    return {"compress_ratio": torch.tensor(full / max(sent, 1),
+                                           dtype=torch.float32)}
+
+
+def _compress_sharded(grads, state, cfg, layout, plan):
+    """``compress_grads`` over a mesh (see the module docstring)."""
+    pods = ("pod",) if "pod" in plan.names else ()
+    npods = plan.count(pods)
+
+    def mean(x, axes):
+        """``x`` summed over ``axes`` (+ pod) in place, the pods' sum
+        divided by their count."""
+        axes = tuple(axes) + pods
+        group = plan.group(axes)
+        if group is not None:
+            collectives.all_reduce(x, group, axes=plan.label(axes))
+        return x.div_(npods) if npods > 1 else x
+
+    out = dict(grads)
+    new_q, new_e = {}, {}
+    for leaf in layout:
+        if leaf.path not in state["Q"]:     # not compressed
+            if npods > 1:
+                g = LV.gather(leaf, grads)
+                out.update(LV.scatter(leaf, mean(
+                    g if leaf.stacked else g.clone(), ())))
+            continue
+        spec, nd = leaf.spec, leaf.ndim
+        lead = tuple(a for i in range(nd - 1)
+                     for a in sharding.dim_axes(spec, i))
+        last = sharding.dim_axes(spec, nd - 1)
+        lead_spec = spec[:-1] + (None,)
+        g = LV.gather(leaf, grads)
+        p_loc, q_loc = math.prod(g.shape[:-1]), g.shape[-1]
+        # row-major for the card's sweeps (a shard's gradient may come
+        # with the strides of a transposed use)
+        M = (g.to(torch.float32).reshape(p_loc, q_loc) +
+             state["err"][leaf.path].reshape(p_loc, q_loc)).contiguous()
+        r = state["Q"][leaf.path].shape[1]
+        Q = plan.shard(state["Q"][leaf.path], (spec[-1],)).contiguous()
+        P = mean(ops.block_matvec(M, Q), last)
+        P = plan.unshard(P.reshape(*g.shape[:-1], r), lead_spec)
+        P = _orthonormalize(P.reshape(-1, r))
+        P_loc = plan.shard(P.reshape(*leaf.shape[:-1], r),
+                           lead_spec).reshape(p_loc, r).contiguous()
+        Qn_loc = mean(ops.block_rmatvec(M, P_loc), lead)
+        Qn = plan.unshard(Qn_loc, (spec[-1],))
+        M_hat = P_loc @ Qn_loc.mT
+        new_e[leaf.path] = (M - M_hat).reshape(g.shape)
+        out.update(LV.scatter(leaf, M_hat.reshape(g.shape).to(g.dtype)))
+        new_q[leaf.path] = _orthonormalize(Qn)
+    return out, {"Q": new_q, "err": new_e}, _stats(layout, state, cfg)

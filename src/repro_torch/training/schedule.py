@@ -33,18 +33,33 @@ nothing.  The rules, per microbatch:
 and once a step: each gradient all-reduced over the batch axes its spec
 does not shard (fp32 after microbatches, else the parameter's dtype),
 and the squared norm over every axis.
+
+With ``compression`` (``optim/compression.py`` on the mesh), after the
+sync (over ``data`` only on a mesh with ``pod``: each pod its own
+gradient), each compressed leaf (``models.convert.leaf_layout`` with
+its spec) issues, in fp32 at ``r = min(rank, q)``: ``M Q``'s partial ``(p_loc,
+r)`` all-reduced over its last dim's axes (+ ``pod``), ``P`` gathered
+over each sharded leading dim in turn (``Plan.unshard`` of ``(*lead_loc,
+r)``), ``M^T P``'s partial ``(q_loc, r)`` all-reduced over the leading
+dims' axes (+ ``pod``) and gathered over the last dim's; with ``pod``,
+each uncompressed leaf is all-reduced whole over ``pod``.
+``pod_bytes`` sums a schedule's payloads on groups that span ``pod``:
+what crosses the pods a step, a rank.
 """
 from __future__ import annotations
 
+import math
 from collections import Counter
 
 import torch
 
 from repro_torch import sharding
+from repro_torch.models import convert as LV
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import capacity
 from repro_torch.models.recurrent import LORA
+from repro_torch.optim import compression as comp
 
 F32 = "float32"
 
@@ -54,12 +69,17 @@ def _name(dtype) -> str:
 
 
 def step_collectives(cfg: ModelConfig, mesh, rows: int, seq: int,
-                     microbatches: int = 1) -> Counter:
+                     microbatches: int = 1,
+                     compression: comp.CompressionConfig | None = None
+                     ) -> Counter:
     """The collectives a rank issues in one step of ``make_train_step(cfg,
     tc, mesh)``: ``rows`` the rank's rows of a microbatch, ``seq`` the
-    labels' length (VLM: the patch positions come on top)."""
+    labels' length (VLM: the patch positions come on top);
+    ``compression`` is ``tc.compression``."""
     sizes = sharding.mesh_axes(mesh)
     names = tuple(sizes)
+    compress = compression is not None and compression.enabled
+    per_pod = compress and "pod" in sizes
     tp = sizes["model"]
     batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
     model = T.Transformer(cfg, torch.device("meta"))
@@ -76,7 +96,8 @@ def step_collectives(cfg: ModelConfig, mesh, rows: int, seq: int,
 
     def add(op, shape, dtype, axes, n=1):
         if count(axes) > 1 and n:
-            out[(op, tuple(shape), dtype, "+".join(axes))] += n
+            label = "+".join(a for a in names if a in tuple(axes))
+            out[(op, tuple(shape), dtype, label)] += n
 
     def moved(shape, i):
         return [shape[i]] + shape[:i] + shape[i + 1:]
@@ -249,15 +270,45 @@ def step_collectives(cfg: ModelConfig, mesh, rows: int, seq: int,
         add("all_reduce", [], F32, batch_axes, 2)      # count, loss
         if cfg.is_moe:
             add("all_reduce", [], F32, batch_axes)     # aux
+    sync = ("data",) if per_pod else batch_axes
     for name, p in params.items():
         spec = specs[name]
         held = {a for i in range(len(spec))
                 for a in sharding.dim_axes(spec, i)}
-        axes = tuple(a for a in batch_axes if a not in held)
+        axes = tuple(a for a in sync if a not in held)
         add("all_reduce", sharding.local_shape(tuple(p.shape), spec, sizes),
             F32 if microbatches > 1 else _name(p.dtype), axes)
+    if compress:
+        pod = ("pod",) if per_pod else ()
+        for leaf in LV.leaf_layout(model, specs, sizes):
+            loc = list(leaf.local_shape)
+            if not comp.compressed(leaf, compression):
+                add("all_reduce", loc, F32 if microbatches > 1 else
+                    _name(params[leaf.names[0]].dtype), pod)
+                continue
+            nd, r = leaf.ndim, min(compression.rank, leaf.shape[-1])
+            lead = tuple(a for i in range(nd - 1)
+                         for a in sharding.dim_axes(leaf.spec, i))
+            last = sharding.dim_axes(leaf.spec, nd - 1)
+            add("all_reduce", [math.prod(loc[:-1]), r], F32, last + pod)
+            cur = loc[:-1] + [r]
+            for i in range(nd - 1):
+                axes = sharding.dim_axes(leaf.spec, i)
+                if axes:
+                    add("all_gather", moved(cur, i), F32, axes)
+                    cur[i] *= count(axes)
+            add("all_reduce", [loc[-1], r], F32, lead + pod)
+            add("all_gather", [loc[-1], r], F32, last)
     add("all_reduce", [], F32, names)                  # the norm
     return out
+
+
+def pod_bytes(schedule: Counter) -> int:
+    """The bytes a rank hands collectives whose group spans ``pod``, over
+    a schedule (``step_collectives`` or ``record_counter``)."""
+    return sum(n * math.prod(shape) * getattr(torch, dtype).itemsize
+               for (op, shape, dtype, axes), n in schedule.items()
+               if "pod" in axes.split("+"))
 
 
 def record_counter(record: list) -> Counter:

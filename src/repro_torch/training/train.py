@@ -29,11 +29,24 @@ axis it is replicated over), AdamW runs on the local shards, and
 ``core/collectives.py`` for a checkpoint (``load_tree`` cuts it again,
 onto a mesh of any shape).
 
-Not ported: compressed training over a mesh (the JAX package's
-``train.py:150-178`` on a mesh and the cross-pod mode, ``:181-229``, in
-which each pod keeps its own error buffers and only the compressed
-factors cross pods); ``make_train_step`` raises for it, naming the
-``ROADMAP.md`` item (16).
+The sharded mode, compressed (``TrainConfig.compression`` on a mesh;
+``optim/compression.py``'s power step on the ranks' shards):
+
+* on a mesh without ``pod`` (the JAX package's ``train.py:150-178``):
+  the gradients sync as in the plain step, then each compressed leaf is
+  factored whole from its shards;
+* on a ``("pod", "data", "model")`` mesh (its cross-pod mode,
+  ``:180-229``): each pod takes the gradient of its own rows (pod block
+  first, then microbatch, then data block, as the JAX package's
+  ``P("pod")`` batch and ``_microbatch``), synced over ``data`` only and
+  scaled by the pod count (the objective divides by the global batch,
+  ``per_pod`` by the pod's); each pod keeps its own error buffers, and
+  only the rank-r factors and the uncompressed leaves cross ``pod``.
+
+AdamW then runs on the decompressed shards, the same bits on every pod.
+``TrainState.tree`` holds ``Q`` replicated and ``err`` whole in the JAX
+package's layout (stacked ``(npods, ...)`` over ``pod`` in the cross-pod
+mode), and ``load_tree`` cuts it onto a mesh with the same pod count.
 """
 from __future__ import annotations
 
@@ -73,15 +86,43 @@ class TrainState:
         """The state as a tree of tensors (what a checkpoint holds); when
         sharded, the whole state, gathered on every rank (a collective)."""
         params = dict(self.model.named_parameters())
-        o = self.opt
+        o, c = self.opt, self.comp
         if self.plan is not None:
             un = self.plan.unshard
             o = {"m": {n: un(t, params[n].spec) for n, t in o["m"].items()},
                  "v": {n: un(t, params[n].spec) for n, t in o["v"].items()},
                  "count": o["count"]}
+            if c is not None:
+                c = {"Q": c["Q"], "err": {path: self._whole_err(leaf, e)
+                                          for (path, e), leaf in zip(
+                                              c["err"].items(),
+                                              self._leaves(c["err"]))}}
             params = {n: un(p, p.spec) for n, p in params.items()}
-        return {"params": params, "opt": o, "comp": self.comp,
+        return {"params": params, "opt": o, "comp": c,
                 "step": torch.tensor(self.step, dtype=torch.int32)}
+
+    def _leaves(self, paths) -> list:
+        """The layout's leaves of ``paths``, in their order."""
+        by_path = {leaf.path: leaf for leaf in LV.leaf_layout(self.model)}
+        return [by_path[p] for p in paths]
+
+    def _pods(self) -> int | None:
+        """The pod count the error buffers are stacked over (``None``:
+        not stacked)."""
+        if self.plan is None or "pod" not in self.plan.names:
+            return None
+        return self.plan.sizes["pod"]
+
+    def _whole_err(self, leaf, e):
+        """A rank's error buffer as the JAX package holds it: the whole
+        leaf, stacked over the pods in the cross-pod mode."""
+        whole = self.plan.unshard(e, leaf.spec)
+        if self._pods() is None:
+            return whole
+        group = self.plan.group(("pod",))
+        if group is None:
+            return whole[None]
+        return coll.all_gather(whole[None], group, axes="pod")
 
     def like(self) -> dict:
         """A tree of ``tree()``'s structure and dtypes for a checkpoint's
@@ -92,17 +133,29 @@ class TrainState:
             return self.tree()
         stand = lambda t: torch.zeros((), dtype=t.dtype)
         params = dict(self.model.named_parameters())
+        c = self.comp
+        if c is not None:
+            c = {key: {p: stand(t) for p, t in c[key].items()}
+                 for key in ("Q", "err")}
         return {"params": {n: stand(p) for n, p in params.items()},
                 "opt": {"m": {n: stand(t) for n, t in self.opt["m"].items()},
                         "v": {n: stand(t) for n, t in self.opt["v"].items()},
                         "count": stand(self.opt["count"])},
-                "comp": self.comp,
+                "comp": c,
                 "step": torch.zeros((), dtype=torch.int32)}
 
     @torch.no_grad()
     def load_tree(self, tree: dict) -> None:
         """Take ``tree`` (``tree()``'s structure: the whole state) as the
-        state, in place; when sharded, each rank keeps its shards."""
+        state, in place; when sharded, each rank keeps its shards.  Error
+        buffers stacked over another pod count than this state's (or
+        stacked where it keeps none, or the other way) raise
+        ``ValueError``: each pod's buffer is its own."""
+        comp_tree = tree.get("comp")
+        if self.plan is not None and self.comp is None:
+            comp_tree = None                # a plain sharded run
+        if comp_tree is not None:
+            self._check_pods(comp_tree["err"])
         params = dict(self.model.named_parameters())
         cut = ((lambda t, n: t) if self.plan is None else
                (lambda t, n: self.plan.shard(t, params[n].spec)))
@@ -116,8 +169,36 @@ class TrainState:
                     t.copy_(cut(tree["opt"][key][n], n))
             self.opt["count"] = tree["opt"]["count"].to(
                 self.opt["count"].device)
-        self.comp = tree["comp"]
+        if self.plan is None:
+            self.comp = comp_tree
+        elif comp_tree is not None:
+            pods = self._pods()
+            for path, q in comp_tree["Q"].items():
+                self.comp["Q"][path].copy_(q)
+            for leaf in self._leaves(comp_tree["err"]):
+                e = comp_tree["err"][leaf.path]
+                if pods is not None:
+                    e = e[self.plan.coord["pod"]]
+                self.comp["err"][leaf.path].copy_(
+                    self.plan.shard(e, leaf.spec))
         self.step = int(tree["step"])
+
+    def _check_pods(self, errs: dict) -> None:
+        want = self._pods()
+        for leaf in self._leaves(errs):
+            shape = tuple(errs[leaf.path].shape)
+            saved = (shape[0] if len(shape) == leaf.ndim + 1
+                     and shape[1:] == leaf.shape else None)
+            if saved is None and shape != leaf.shape:
+                raise ValueError(f"{leaf.path}: an error buffer of shape "
+                                 f"{shape} for a leaf of {leaf.shape}")
+            if saved != want:
+                name = lambda n: ("no pod axis" if n is None else
+                                  f"{n} pod" + "s" * (n != 1))
+                raise ValueError(
+                    f"the checkpoint's error buffers are of {name(saved)}, "
+                    f"this state's of {name(want)}: each pod keeps its own, "
+                    f"so they restore only onto the same pod count")
 
 
 def train_state_specs(cfg: ModelConfig, tc: TrainConfig) -> dict:
@@ -149,12 +230,14 @@ def init_train_state(cfg: ModelConfig, tc: TrainConfig, *, seed: int = 0,
     ``mesh`` (every rank calls it), the rank's shards of that same model
     on the mesh's device, bitwise the one-process model's slices."""
     if mesh is not None:
-        if tc.compression.enabled:
-            raise NotImplementedError(_ITEM_16)
         plan = parallel.Plan(mesh)
         model = T.init_model(cfg, seed=seed, plan=plan)
+        c = None
+        if tc.compression.enabled:
+            c = comp.init_state(LV.leaf_layout(model), tc.compression,
+                                plan.device)
         return TrainState(model=model, opt=opt.init_opt_state(
-            dict(model.named_parameters()), tc.adamw), comp=None, step=0,
+            dict(model.named_parameters()), tc.adamw), comp=c, step=0,
             plan=plan)
     dev = resolve_device(device)
     model = T.init_model(cfg, seed=seed, device=dev)
@@ -164,11 +247,6 @@ def init_train_state(cfg: ModelConfig, tc: TrainConfig, *, seed: int = 0,
         c = comp.init_state(LV.leaf_layout(model), tc.compression, dev)
     return TrainState(model=model, opt=opt.init_opt_state(params, tc.adamw),
                       comp=c, step=0)
-
-
-_ITEM_16 = ("compressed training over a mesh is not ported yet (ROADMAP.md, "
-            "queue 1, item 16: cross-rank compressed training, only the "
-            "factors crossing ranks, per-rank error buffers)")
 
 
 def to_device(batch: dict, device) -> dict:
@@ -219,25 +297,34 @@ def _grads_and_metrics(model: T.Transformer, batch: dict, n_micro: int):
                                       device=loss_sum.device)}
 
 
-def local_rows(batch: dict, plan: parallel.Plan, n_micro: int = 1) -> dict:
+def local_rows(batch: dict, plan: parallel.Plan, n_micro: int = 1,
+               pod_first: bool = False) -> dict:
     """The rank's rows of a global batch: of each of the ``n_micro``
     microbatches (row blocks of the global batch), block
-    ``plan.batch_index`` of ``plan.n_batch``, in microbatch order."""
+    ``plan.batch_index`` of ``plan.n_batch``, in microbatch order.
+    ``pod_first`` (the cross-pod compressed mode): the pod's row block
+    first, then each of its microbatches' ``data`` block."""
     out = {}
     nb, j = plan.n_batch, plan.batch_index
+    pods = plan.count(("pod",)) if "pod" in plan.names else 1
     for key, x in batch.items():
         B = x.shape[0]
         if B % (n_micro * nb):
             raise ValueError(f"batch {B} does not split into {n_micro} "
                              f"microbatches over {nb} batch shards")
         b = B // (n_micro * nb)
-        x = x.reshape(n_micro, nb, b, *x.shape[1:])[:, j]
+        if pod_first and pods > 1:
+            x = x.reshape(pods, n_micro, nb // pods, b, *x.shape[1:])[
+                plan.coord["pod"], :, plan.coord["data"]]
+        else:
+            x = x.reshape(n_micro, nb, b, *x.shape[1:])[:, j]
         out[key] = x.reshape(n_micro * b, *x.shape[2:])
     return out
 
 
-def _sync_grads(grads: dict, params: dict, plan: parallel.Plan) -> None:
-    """All-reduce each gradient, in place, over the batch axes its
+def _sync_grads(grads: dict, params: dict, plan: parallel.Plan,
+                batch_axes: tuple) -> None:
+    """All-reduce each gradient, in place, over the ``batch_axes`` its
     parameter's spec does not shard (an FSDP shard's gradient is already
     summed over ``data`` by the backward of its gather)."""
     from repro_torch import sharding
@@ -245,7 +332,7 @@ def _sync_grads(grads: dict, params: dict, plan: parallel.Plan) -> None:
         spec = params[n].spec
         held = {a for i in range(len(spec))
                 for a in sharding.dim_axes(spec, i)}
-        axes = tuple(a for a in plan.batch_axes if a not in held)
+        axes = tuple(a for a in batch_axes if a not in held)
         group = plan.group(axes)
         if group is not None:
             coll.all_reduce(g, group, axes=plan.label(axes))
@@ -271,6 +358,7 @@ def _sharded_norm(grads: dict, params: dict, plan: parallel.Plan):
 
 
 def _sharded_step(cfg: ModelConfig, tc: TrainConfig, mesh):
+    compress = tc.compression.enabled
     def step(state: TrainState, batch: dict):
         plan = state.plan
         if plan is None or plan.mesh is not mesh:
@@ -278,17 +366,29 @@ def _sharded_step(cfg: ModelConfig, tc: TrainConfig, mesh):
                              "init_train_state(..., mesh=) made on its mesh")
         model = state.model
         n_micro = tc.microbatches
+        per_pod = compress and "pod" in plan.names
         local = to_device(local_rows(
             {k: np.asarray(v) if not isinstance(v, torch.Tensor) else v
-             for k, v in batch.items()}, plan, n_micro), plan.device)
+             for k, v in batch.items()}, plan, n_micro, per_pod),
+            plan.device)
         # a checkpointed region's recompute reissues all of its forward
         # collectives (``training/schedule.py``), not a prefix of them
         with torch.utils.checkpoint.set_checkpoint_early_stop(False):
             grads, metrics = _grads_and_metrics(model, local, n_micro)
         params = dict(model.named_parameters())
-        _sync_grads(grads, params, plan)
-        gn = _sharded_norm(grads, params, plan)
         layout = LV.leaf_layout(model)
+        if per_pod:
+            # each pod's gradient of the mean over its own rows
+            _sync_grads(grads, params, plan, ("data",))
+            for g in grads.values():
+                g.mul_(plan.sizes["pod"])
+        else:
+            _sync_grads(grads, params, plan, plan.batch_axes)
+        if compress:
+            grads, state.comp, cs = comp.compress_grads(
+                grads, state.comp, tc.compression, layout, plan=plan)
+            metrics.update(cs)
+        gn = _sharded_norm(grads, params, plan)
         om = opt.apply_updates(params, grads, state.opt, tc.adamw,
                                LV.decayed(layout), norm=gn)
         metrics.update(om)
@@ -304,8 +404,6 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, mesh=None):
     rows).  Metrics: ``loss``, ``aux``, ``grad_norm``, ``lr`` and, with
     compression, ``compress_ratio`` (0-dim tensors)."""
     if mesh is not None:
-        if tc.compression.enabled:
-            raise NotImplementedError(_ITEM_16)
         return _sharded_step(cfg, tc, mesh)
 
     def step(state: TrainState, batch: dict):

@@ -342,38 +342,82 @@ def test_qwen3_full_width_compress_ratio_is_the_jax_count():
     assert (full, sent) == (2384199680, 41213952)
 
 
+_POD_RANKS = r"""
+import json, sys
+import numpy as np, torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch import configs
+from repro_torch.core import collectives
+from repro_torch.models import transformer as T
+from repro_torch.models.convert import leaf_layout
+from repro_torch.optim import compression as comp
+from repro_torch.training import TrainConfig, init_train_state
+
+dist.init_process_group("gloo")
+mesh = init_device_mesh("cpu", (2, 1, 1),
+                        mesh_dim_names=("pod", "data", "model"))
+cfg = configs.smoke_config(configs.get_config("qwen3-0.6b"))
+cc = comp.CompressionConfig(rank=4, min_size=512)
+st = init_train_state(cfg, TrainConfig(compression=cc), device="cpu",
+                      mesh=mesh)
+layout = leaf_layout(st.model)
+rng = np.random.default_rng(6)
+grads = {n: torch.from_numpy(rng.normal(size=p.shape).astype(np.float32))
+         for n, p in st.model.named_parameters()}
+plain = leaf_layout(T.Transformer(cfg, torch.device("meta")))
+want, wst, wstats = comp.compress_grads(
+    grads, comp.init_state(plain, cc, "cpu"), cc, plain)
+collectives.reset_record()
+got, gst, stats = comp.compress_grads(grads, st.comp, cc, layout,
+                                      plan=st.plan)
+same = lambda a, b: sorted(a) == sorted(b) and all(
+    torch.equal(a[k], b[k]) for k in a)
+expect = []
+for leaf in layout:
+    if leaf.path in gst["Q"]:
+        p, q = comp._mat_shape(leaf.shape)
+        expect += [[p, 4], [q, 4]]
+    else:
+        expect.append(list(leaf.shape))
+out = {"grads": same(got, want), "Q": same(gst["Q"], wst["Q"]),
+       "err": same(gst["err"], wst["err"]),
+       "ratio": [float(stats["compress_ratio"]),
+                 float(wstats["compress_ratio"])],
+       "shapes": [list(r["shape"]) for r in collectives.record],
+       "expect": expect, "ops": sorted({r["op"] for r in collectives.record}),
+       "axes": sorted({r["axes"] for r in collectives.record})}
+if dist.get_rank() == 0:
+    with open(sys.argv[1], "w") as f:
+        json.dump(out, f)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
 def test_compress_grads_over_a_group_all_reduces_the_factors(tmp_path):
-    """With a process group (here world 1, gloo: the mean is the value
-    itself) the result is the one without, and the collectives are two
-    all-reduces a compressed leaf, of (p, r) and (q, r), and one an
-    uncompressed tensor."""
-    import torch.distributed as dist
-    from repro_torch.core import collectives
-    _, model, _, pc = _pair("qwen3-0.6b", seed=3)
-    layout = leaf_layout(model)
-    cc = comp.CompressionConfig(rank=4, min_size=512)
-    rng = np.random.default_rng(6)
-    grads = {n: torch.from_numpy(rng.normal(size=p.shape).astype(np.float32))
-             for n, p in model.named_parameters()}
-    st = comp.init_state(layout, cc, "cpu")
-    want, _, wstats = comp.compress_grads(grads, st, cc, layout)
-    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 's'}",
-                            world_size=1, rank=0)
-    try:
-        collectives.reset_record()
-        got, _, stats = comp.compress_grads(grads, st, cc, layout,
-                                            group=dist.group.WORLD)
-        record = list(collectives.record)
-    finally:
-        dist.destroy_process_group()
-    assert all(torch.equal(got[n], want[n]) for n in want)
-    assert float(stats["compress_ratio"]) == float(wstats["compress_ratio"])
-    expect = []
-    for leaf in layout:
-        if leaf.path in st["Q"]:
-            p, q = comp._mat_shape(leaf.shape)
-            expect += [(p, 4), (q, 4)]
-        else:
-            expect += [tuple(grads[n].shape) for n in leaf.names]
-    assert [r["shape"] for r in record] == expect
-    assert {r["op"] for r in record} == {"all_reduce"}
+    """Across ranks (``plan=``, two gloo ranks on a ``(2, 1, 1)`` pod x
+    data x model mesh, the same gradients on both pods: the pods' mean
+    is the value itself) the result is bitwise the one-process one, and
+    the collectives are two all-reduces over ``pod`` a compressed leaf,
+    of (p, r) and (q, r), and one a whole uncompressed leaf."""
+    import json
+    import os
+    import subprocess
+    import sys
+    script, result = tmp_path / "ranks.py", tmp_path / "out.json"
+    script.write_text(_POD_RANKS)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=2", str(script), str(result)],
+        env=dict(os.environ, PYTHONPATH=os.path.join(repo, "src"),
+                 OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, (proc.stdout + proc.stderr)[-6000:]
+    out = json.loads(result.read_text())
+    assert out["grads"] and out["Q"] and out["err"]
+    assert out["ratio"][0] == out["ratio"][1]
+    assert out["shapes"] == out["expect"]
+    assert out["ops"] == ["all_reduce"]
+    # labelled with the leaf's sharded axes too, each of one rank here
+    assert all("pod" in a.split("+") for a in out["axes"]), out["axes"]

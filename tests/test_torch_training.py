@@ -17,8 +17,9 @@ package's, on the CPU.
   power step's subspace is only as well conditioned as ``M Q``).
 * The runner resumed after a planted failure repeats the uninterrupted
   run bitwise; ``python -m repro_torch.launch.train --smoke --device
-  cpu`` trains; compressed training over a mesh raises, naming its
-  ROADMAP item, and a plain mesh gives the sharded step.
+  cpu`` trains; a mesh gives the sharded step, plain or compressed
+  (trained in ``tests/test_torch_sharded_lm.py`` and
+  ``tests/test_torch_sharded_compression.py``).
 """
 import dataclasses
 
@@ -210,16 +211,12 @@ def test_train_steps_match_jax(which, compress, micro):
 
 @pytest.mark.parametrize("compressed", [True, False])
 def test_train_step_over_a_mesh_names_its_roadmap_item(compressed):
-    """Compressed training over a mesh raises, naming its ROADMAP item
-    (16); a plain mesh returns the sharded step (trained in
-    ``tests/test_torch_sharded_lm.py``)."""
+    """A mesh returns the sharded step, plain or compressed (ROADMAP item
+    16, done; trained in ``tests/test_torch_sharded_lm.py`` and
+    ``tests/test_torch_sharded_compression.py``)."""
     cfg = ModelConfig(**TINY)
-    if compressed:
-        tc = TrainConfig(compression=comp.CompressionConfig(enabled=True))
-        with pytest.raises(NotImplementedError, match="item 16"):
-            make_train_step(cfg, tc, mesh=object())
-    else:
-        assert callable(make_train_step(cfg, TrainConfig(), mesh=object()))
+    tc = TrainConfig(compression=comp.CompressionConfig(enabled=compressed))
+    assert callable(make_train_step(cfg, tc, mesh=object()))
 
 
 def _runner(tmp_path, label, hook=None):

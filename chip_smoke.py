@@ -328,8 +328,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    through ``init_train_state`` and ``make_train_step``: the loss falls in
    both, every step's launches equal the accounting (``train_expected``),
    ``compress_ratio`` is the JAX package's 2384199680 / 41213952, ms a
-   step, tokens/s, peak memory, and one compressed step's profile (whose
-   backward kernels must be the route's: delta, dK/dV, dQ); the
+   step, tokens/s, peak memory, and one step's profile each (whose
+   backward kernels must be the route's: delta, dK/dV, dQ); then
+   ``TR_REMAT_STEPS`` steps under ``remat_policy`` "full" (each layer
+   recomputed whole) against the plain run's "minimal" (the weight GEMMs'
+   outputs saved): the same losses bitwise, ms a step and peak memory of
+   both, and fewer cuBLAS GEMM launches in "minimal"'s profiled step than
+   in "full"'s (kernels named by ``GEMM_NAME``); then both timed in
+   ``TR_REMAT_PAIRS`` pairs of steps in turns (``remat_turns``); the
    compression's sweeps at their eight shapes, each against its plain
    version and timed.  12.3: the
    runner with a failure planted before step 5 and a checkpoint every 4
@@ -463,7 +469,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    peak memory a rank.  The sweeps at rank 0's shard shapes are timed as
    ``block_matvec/tf32x3[sharded compression]`` and
    ``block_rmatvec/tf32x3[sharded compression]``, launches from rank 0's
-   16.3 steps.  ``--only-sharded-lm`` runs phases 1 and 16 alone.
+   16.3 steps.  16.4, sharded prefill and decode (``transformer.prefill``
+   / ``decode_step`` of a model built with the mesh, on ``SL_MESH``; each
+   rank its rows, its shards of the weights and of the caches, the KV
+   ring's time axis over ``model``): qwen3-0.6b at full width and
+   ``SL_LAYERS`` layers, an ``SS_BATCH`` x ``SS_PROMPT`` prompt into a
+   cache of ``SS_MAX_SEQ`` positions and ``SS_STEPS`` decode steps;
+   recurrentgemma-9b at full width, ``SS_RG_LAYERS`` layers (one rglru,
+   rglru, local group; MQA, a group of 16 over one K/V head), its
+   2048-slot ring full after the prompt and wrapped by ``SS_RG_STEPS``
+   steps; the ten archs' fp32 smoke configs, prefill and
+   ``SS_SMOKE_STEPS`` steps.  The parent runs each on one process first
+   (``ss_references``; the MoE shard by shard) on the same weights and
+   tokens, and every rank holds its rows' logits to them (bf16: max
+   difference over max logit within ``TOL_SS_BF16``; fp32 within
+   ``TOL_SL_SMOKE``); every prefill's and step's collectives equal
+   ``prefill_collectives`` / ``decode_collectives``, ``local_attention``
+   launches once an attention layer a prefill and never in a step, each
+   rank's cache has ``cache_specs``' local shapes; prefill s, decode ms a
+   step, share inside collectives, peak memory a rank, and 16.4's
+   seconds.  ``--only-sharded-lm`` runs phases 1 and 16 alone.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches in the
 run of its path, and its times; the block sweeps as ``<name>/tf32x3``
@@ -505,7 +530,9 @@ times summed); the recurrences' backward kernels as ``rglru_scan_bwd``
 and ``wkv6_bwd``, launches from phase 15.2's training steps, timed at a
 training step's shapes; the sharded LM's (16.1, rank 0's three steps) as
 ``local_attention_bwd/wgmma[sharded lm]`` and ``local_attention[sharded
-lm]``, timed at a rank's local heads; and each phase's seconds.
+lm]``, timed at a rank's local heads, and 16.4's prefills (rank 0) as
+``local_attention[sharded serve]``, timed at the same shape (qwen3-0.6b's
+prefill on a rank); and each phase's seconds.
 Exits 2 without a CUDA device or without ``src/repro_torch`` beside this
 script.
 """
@@ -514,6 +541,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -4471,6 +4499,8 @@ def serving(torch, repro_torch, ops, ref, bm, dev, table=None) -> tuple:
 TR_ARCH = "qwen3-0.6b"
 TR_BATCH, TR_SEQ, TR_CHUNKS = 8, 2048, 8   # tokens a step, loss_chunks
 TR_STEPS = 10                              # steps plain, then compressed
+TR_REMAT_STEPS = 5                         # steps under remat_policy "full"
+TR_REMAT_PAIRS = 6                         # "minimal" / "full" pairs in turns
 TR_RANK = 8
 # compress_ratio at qwen3-0.6b's full width, rank 8, min_size 65536 (the
 # JAX package's count): 8 compressed leaves and 6 plain ones
@@ -4758,15 +4788,24 @@ def tree_leaves(tree) -> list:
     return [] if tree is None else [tree]
 
 
+# a hand-written kernel's forward launches in a train step, by
+# remat_policy: once, and again in the recompute of a checkpointed layer.
+# The kernels fill their outputs through ctypes, out of the dispatcher's
+# sight, so "minimal" (which saves the outputs of aten.mm/addmm alone)
+# recomputes them as "full" does
+KERNEL_FORWARDS = {"none": 1, "minimal": 2, "full": 2}
+
+
 def train_expected(cfg, micro: int, n_comp: int) -> dict:
     """The kernels one train step launches, by its accounting: the
     attention forward once an attention layer and again in the remat
-    recompute, the backward's kernels once such a layer; a recurrent
-    layer's recurrence (``rglru_scan``, ``wkv6``) likewise twice and its
-    backward kernel once; and with compression one ``block_matvec`` and
-    one ``block_rmatvec`` a compressed leaf, on ``tf32x3``."""
+    recompute (``KERNEL_FORWARDS``), the backward's kernels once such a
+    layer; a recurrent layer's recurrence (``rglru_scan``, ``wkv6``)
+    likewise and its backward kernel once; and with compression one
+    ``block_matvec`` and one ``block_rmatvec`` a compressed leaf, on
+    ``tf32x3``."""
     from repro_torch.kernels import local_attn
-    remat = 2 if cfg.remat_policy in ("minimal", "full") else 1
+    remat = KERNEL_FORWARDS[cfg.remat_policy]
     n_attn = sum(kind in ("attn", "local") for kind in cfg.blocks)
     n_rglru, n_rwkv = cfg.blocks.count("rglru"), cfg.blocks.count("rwkv")
     return {"local_attention": n_attn * remat * micro,
@@ -4777,6 +4816,11 @@ def train_expected(cfg, micro: int, n_comp: int) -> dict:
             "wkv6_bwd": n_rwkv * micro,
             "block_matvec": n_comp,
             "block_rmatvec": n_comp}
+
+
+# cuBLAS's GEMM kernels on the card, by name (the port's own kernels are
+# named local_attn*, bwd_*, *_tf32, *_tc, rglru_*, wkv6_*)
+GEMM_NAME = re.compile(r"gemm|nvjet|xmma|gemv", re.I)
 
 
 def train_run(torch, ops, dev, cfg, tc, batches, profile=False,
@@ -4832,8 +4876,9 @@ def train_run(torch, ops, dev, cfg, tc, batches, profile=False,
         _, metrics = step(state, batches[0])
         out["first_loss_after"] = float(metrics["loss"])
     if profile:
+        calls = {}
         _, wall, busy, n, by_name = profile_window(
-            torch, lambda: step(state, batches[-1]))
+            torch, lambda: step(state, batches[-1]), calls)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         share = lambda key: sum(t for nm, t in by_name.items()
                                 if key in nm) / max(busy, 1e-12)
@@ -4860,6 +4905,16 @@ def train_run(torch, ops, dev, cfg, tc, batches, profile=False,
             fail(f"the profiled step's recurrence backward kernels: "
                  f"{sorted(rec_ms)}")
         out["profile"] = {
+            # the step's GEMMs, cuBLAS's kernels by name (the host's
+            # aten::mm events cannot count them: the profiler records an
+            # op that a selective checkpoint answers from its saved
+            # outputs, and records twice one it runs)
+            "gemm_launches": sum(c for nm, c in calls.items()
+                                 if GEMM_NAME.search(nm)),
+            "gemm_ms": sum(t for nm, t in by_name.items()
+                           if GEMM_NAME.search(nm)) * 1e3,
+            "gemm_names": sorted({nm[:48] for nm in calls
+                                  if GEMM_NAME.search(nm)})[:6],
             "wall_ms": wall * 1e3, "busy_ms": busy * 1e3,
             "busy_share": busy / wall, "activities": n,
             "attention_bwd_ms": bwd_ms,
@@ -4930,6 +4985,42 @@ def compression_sweeps(torch, ops, ref, bm, dev, shapes) -> dict:
         row["bound_by"] = "bytes"
     torch.cuda.empty_cache()
     return sums
+
+
+def remat_turns(torch, dev, cfg, tc, batches) -> dict:
+    """12.2's remat pair timed in turns on one card: a state under
+    ``remat_policy`` "minimal" and one under "full", from the same init,
+    stepping on the same batches in ``TR_REMAT_PAIRS`` pairs whose order
+    alternates (after a warm-up step each); ms a step by policy, and the
+    pairs "minimal" won."""
+    import dataclasses
+    from repro_torch.training import init_train_state, make_train_step
+    cfgs = {"minimal": cfg, "full": dataclasses.replace(
+        cfg, remat_policy="full")}
+    states = {k: init_train_state(c, tc, device=dev) for k, c in cfgs.items()}
+    steps = {k: make_train_step(c, tc) for k, c in cfgs.items()}
+    ms = {k: [] for k in cfgs}
+    for i in range(TR_REMAT_PAIRS + 1):
+        order = ("minimal", "full") if i % 2 else ("full", "minimal")
+        for k in order:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            states[k], m = steps[k](states[k], batches[i])
+            float(m["loss"])
+            torch.cuda.synchronize()
+            if i:                        # the first pair warms up
+                ms[k].append((time.perf_counter() - t) * 1e3)
+    del states
+    torch.cuda.empty_cache()
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    wins = sum(a < b for a, b in zip(ms["minimal"], ms["full"]))
+    print(f"  {cfg.name} remat in turns ({TR_REMAT_PAIRS} pairs, order "
+          f"alternating): 'minimal' " + ", ".join(f"{x:.1f}" for x in
+                                                ms["minimal"])
+          + " ms, 'full' " + ", ".join(f"{x:.1f}" for x in ms["full"])
+          + f" ms; medians {med['minimal']:.1f} / {med['full']:.1f}; "
+          f"'minimal' faster in {wins} of {TR_REMAT_PAIRS} pairs")
+    return {"ms": ms, "median_ms": med, "minimal_wins": wins}
 
 
 def train_restart(torch, dev) -> dict:
@@ -5088,7 +5179,7 @@ def training(torch, ops, ref, la, bm, dev, planted=None) -> tuple:
                                            total_steps=TR_STEPS),
                          compression=CompressionConfig(enabled=enabled,
                                                        rank=TR_RANK))
-        r = train_run(torch, ops, dev, cfg, tc, batches, profile=enabled)
+        r = train_run(torch, ops, dev, cfg, tc, batches, profile=True)
         ms = sorted(r["ms_steps"][1:])[len(r["ms_steps"][1:]) // 2]
         r.update(ms_step=ms, tokens_s=TR_BATCH * TR_SEQ / (ms / 1e3))
         runs[label] = r
@@ -5102,6 +5193,37 @@ def training(torch, ops, ref, la, bm, dev, planted=None) -> tuple:
               f"{r['launches_per_step']}")
         if not r["losses"][-1] < r["losses"][0]:
             fail(f"{label} training: the loss did not fall: {r['losses']}")
+    # the same step under remat_policy "full" (the whole layer
+    # recomputed), against the default "minimal" (the weight GEMMs'
+    # outputs saved): fewer GEMMs a step, more memory
+    # (the plain run above is "minimal", the configs' default)
+    tc = TrainConfig(adamw=AdamWConfig(lr=TR_LR, warmup_steps=2,
+                                       total_steps=TR_STEPS),
+                     compression=CompressionConfig(enabled=False))
+    remat = {"minimal": runs["plain"],
+             "full": train_run(torch, ops, dev, dataclasses.replace(
+                 cfg, remat_policy="full"), tc, batches[:TR_REMAT_STEPS],
+                 profile=True)}
+    remat["full"]["ms_step"] = sorted(remat["full"]["ms_steps"][1:])[
+        (TR_REMAT_STEPS - 1) // 2]
+    for label, r in remat.items():
+        p = r["profile"]
+        print(f"  {cfg.name} remat_policy {label!r}: {r['ms_step']:.1f} ms a "
+              f"step (median of steps 2-{len(r['ms_steps'])}), peak "
+              f"{r['peak_gb']:.2f} GB; the profiled step: "
+              f"{p['gemm_launches']} cuBLAS GEMM launches "
+              f"({p['gemm_ms']:.1f} ms) of {p['activities']} device "
+              f"activities, busy {p['busy_ms']:.1f} of {p['wall_ms']:.1f} "
+              f"ms; GEMM kernels {p['gemm_names']}")
+    if remat["full"]["losses"] != runs["plain"]["losses"][:TR_REMAT_STEPS]:
+        fail(f"12.2: remat 'full' losses {remat['full']['losses']} are not "
+             f"'minimal''s {runs['plain']['losses'][:TR_REMAT_STEPS]}")
+    pm, pf = remat["minimal"]["profile"], remat["full"]["profile"]
+    if not 0 < pm["gemm_launches"] < pf["gemm_launches"]:
+        fail(f"12.2: remat 'minimal' launches {pm['gemm_launches']} GEMMs a "
+             f"step, 'full' {pf['gemm_launches']} (the profiled step's "
+             f"top kernels: {pm['top_ms']})")
+    turns = remat_turns(torch, dev, cfg, tc, batches)
     comp_run = runs["compressed"]
     ratio = comp_run["compress_ratio"]
     if ratio != float(torch.tensor(TR_RATIO, dtype=torch.float32)):
@@ -5154,6 +5276,9 @@ def training(torch, ops, ref, la, bm, dev, planted=None) -> tuple:
                    "launches_per_step", "compress_ratio", "ms_steps")}
                    for label, r in runs.items()},
                "profile": prof, "compression_step_share": comp_share,
+               "remat": {**{label: {key: r[key] for key in (
+                   "losses", "ms_step", "ms_steps", "peak_gb", "profile")}
+                   for label, r in remat.items()}, "turns": turns},
                "compression_sweeps": sweeps,
                "restart": restart, "card_vs_cpu": cpu}
     return summary, kernels
@@ -6692,6 +6817,33 @@ def sc_references(torch, ops, dev, outdir) -> dict:
     return out
 
 
+def timed_collectives(torch, coll):
+    """Wrap ``coll``'s collectives so each is timed with a sync on either
+    side (gloo waits for the work queued before a collective anyway);
+    returns (the one-element list of seconds they add to, a function that
+    restores them)."""
+    spent = [0.0]
+    kept = {name: getattr(coll, name) for name in (
+        "all_reduce", "all_gather", "reduce_scatter")}
+
+    def timing(fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t
+            return r
+        return wrapped
+    for name, fn in kept.items():
+        setattr(coll, name, timing(fn))
+
+    def restore():
+        for name, fn in kept.items():
+            setattr(coll, name, fn)
+    return spent, restore
+
+
 def sharded_compression_rank(torch, ops, coll, outdir: str, rank: int
                              ) -> dict:
     """16.3 on one rank: the cross-pod mode on ``SC_MESH`` (``SC_STEPS``
@@ -6717,20 +6869,6 @@ def sharded_compression_rank(torch, ops, coll, outdir: str, rank: int
     tc = sc_train_config(AdamWConfig, TrainConfig, CompressionConfig)
     ds = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
                                        seq_len=SL_SEQ, global_batch=SL_BATCH))
-    in_coll = [0.0]
-    timed = {name: getattr(coll, name) for name in (
-        "all_reduce", "all_gather", "reduce_scatter")}
-
-    def timing(fn):
-        def wrapped(*a, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            r = fn(*a, **kw)
-            torch.cuda.synchronize()
-            in_coll[0] += time.perf_counter() - t
-            return r
-        return wrapped
-
     out = {"steps": [], "shapes": []}
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()                 # 16.3's main path from here
@@ -6770,9 +6908,7 @@ def sharded_compression_rank(torch, ops, coll, outdir: str, rank: int
                 load_s = time.perf_counter() - t
             ref = torch.load(os.path.join(outdir, f"sc_{label}{i + 1}.pt"),
                              mmap=True)
-            for name, fn in timed.items():
-                setattr(coll, name, timing(fn))
-            in_coll[0] = 0.0
+            spent, restore = timed_collectives(torch, coll)
             coll.reset_record()
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -6781,8 +6917,7 @@ def sharded_compression_rank(torch, ops, coll, outdir: str, rank: int
             loss = float(m["loss"])
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t) * 1e3
-            for name, fn in timed.items():
-                setattr(coll, name, fn)
+            restore()
             got = record_counter(coll.record)
             leaves = {}
             for leaf, mine, theirs in zip(layout, tap.factors(),
@@ -6807,7 +6942,7 @@ def sharded_compression_rank(torch, ops, coll, outdir: str, rank: int
             out["steps"].append({
                 "mode": label, "step": i + 1, "loss": loss,
                 "ref_loss": ref["loss"], "ms": ms, "init_s": init_s,
-                "load_s": load_s, "collective_ms": in_coll[0] * 1e3,
+                "load_s": load_s, "collective_ms": spent[0] * 1e3,
                 "ratio": float(m["compress_ratio"]),
                 "grad_norm": float(m["grad_norm"]),
                 "schedule": "" if got == want else
@@ -6955,6 +7090,269 @@ def sc_check(torch, ops, ref, ranks, refs, cfg) -> tuple:
     return summary, kernels
 
 
+# 16.4: sharded prefill and decode (transformer.prefill / decode_step of
+# a model built with a mesh) on SL_MESH, against one process on the same
+# weights and tokens
+SS_SEED = SEED + 170
+SS_BATCH, SS_PROMPT = 8, 2048
+SS_MAX_SEQ = 32768       # the decode_32k cell's cache: 16,384 slots a model rank
+SS_STEPS = 8
+# recurrentgemma-9b: one (rglru, rglru, local) group; after the prompt its
+# 2048-slot ring is full, so every decode step wraps it
+SS_RG_LAYERS, SS_RG_STEPS = 3, 2
+SS_SMOKE_BATCH, SS_SMOKE_PROMPT, SS_SMOKE_STEPS, SS_SMOKE_MAX = 4, 24, 4, 32
+# the full-width bf16 logits against one process, max |difference| over
+# max |logit|: partial sums rounded to bf16 before the tensor-parallel
+# all-reduce where one process rounds once, and the softmax summed over
+# the ranks' slots (NVIDIA H100 80GB HBM3, 700 W; readings over the
+# prefill and every step: qwen3-0.6b 5.05e-3, recurrentgemma-9b 5.78e-3,
+# greedy tokens all equal).  A softmax not reduced over the ranks, or a
+# slot written on the wrong rank, moves logits O(1)
+TOL_SS_BF16 = 2e-2
+
+
+def ss_cases(dataclasses, configs) -> list:
+    """16.4's ``(label, cfg, batch, prompt, max_seq, steps)``."""
+    out = [("qwen3-0.6b", dataclasses.replace(
+        configs.get_config(SL_ARCH), num_layers=SL_LAYERS), SS_BATCH,
+        SS_PROMPT, SS_MAX_SEQ, SS_STEPS),
+        ("recurrentgemma-9b", dataclasses.replace(
+            configs.get_config("recurrentgemma-9b"),
+            num_layers=SS_RG_LAYERS), SS_BATCH, SS_PROMPT,
+         SS_PROMPT + SS_RG_STEPS, SS_RG_STEPS)]
+    for arch in configs.list_archs():
+        out.append((arch + "-smoke",
+                    configs.smoke_config(configs.get_config(arch)),
+                    SS_SMOKE_BATCH, SS_SMOKE_PROMPT, SS_SMOKE_MAX,
+                    SS_SMOKE_STEPS))
+    return out
+
+
+def ss_inputs(torch, cfg, B, P, steps) -> tuple:
+    """The prompt, the decode steps' tokens and the VLM's patches (CPU
+    tensors, from ``SS_SEED``)."""
+    g = torch.Generator().manual_seed(SS_SEED)
+    lead = (B, cfg.num_codebooks) if cfg.family == "audio" else (B,)
+    prompt = torch.randint(0, cfg.vocab_size, lead + (P,), generator=g)
+    toks = torch.randint(0, cfg.vocab_size, lead + (steps,), generator=g)
+    pe = (torch.randn((B, cfg.patch_positions, cfg.d_model), generator=g)
+          if cfg.family == "vlm" else None)
+    return prompt, toks, pe
+
+
+def ss_references(torch, M, dev, outdir) -> dict:
+    """16.4's one-process runs on the card, each case's logits (prefill
+    and every step) into ``outdir`` for the ranks; the MoE shard by shard
+    (``moe_by_shard``).  Returns their times."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    times = {}
+    for label, cfg, B, P, L, steps in ss_cases(dataclasses, configs):
+        prompt, toks, pe = ss_inputs(torch, cfg, B, P, steps)
+        Pp = cfg.patch_positions if cfg.family == "vlm" else 0
+        model = T.init_model(cfg, seed=SS_SEED, device=dev)
+        cache = T.init_cache(cfg, B, L + Pp, dev)
+        apply_moe = M.apply_moe
+        if cfg.is_moe:
+            M.apply_moe = moe_by_shard(torch, M, SL_MESH[0])
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, _ = T.prefill(model, prompt.to(dev), cache,
+                                  patch_embeds=None if pe is None
+                                  else pe.to(dev))
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t
+            outs, ms = [logits.cpu()], []
+            for i in range(steps):
+                t = time.perf_counter()
+                logits, _ = T.decode_step(model, cache,
+                                          toks[..., i:i + 1].to(dev),
+                                          P + Pp + i)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+                outs.append(logits.cpu())
+        finally:
+            M.apply_moe = apply_moe
+        torch.save(outs, os.path.join(outdir, f"ss_{label}.pt"))
+        times[label] = {"prefill_s": t_pre,
+                        "decode_ms": sorted(ms)[len(ms) // 2]}
+        del model, cache
+        torch.cuda.empty_cache()
+    return times
+
+
+def sharded_serve_rank(torch, ops, coll, mesh, outdir: str) -> dict:
+    """16.4 on one rank: each case served by the sharded model (its rows,
+    its shards of the weights and the cache), every prefill's and step's
+    collectives against the schedule and its launches counted, its rows'
+    logits against the one-process references in ``outdir``."""
+    import dataclasses
+    from repro_torch import configs, sharding
+    from repro_torch.core.parallel import Plan
+    from repro_torch.models import transformer as T
+    from repro_torch.training.schedule import (decode_collectives,
+                                               prefill_collectives,
+                                               record_counter)
+    plan = Plan(mesh)
+    sizes = plan.sizes
+    out = {}
+    for label, cfg, B, P, L, steps in ss_cases(dataclasses, configs):
+        ref = torch.load(os.path.join(outdir, f"ss_{label}.pt"))
+        prompt, toks, pe = ss_inputs(torch, cfg, B, P, steps)
+        r0, r1 = T.batch_rows(plan, B)
+        dev = plan.device
+        Pp = cfg.patch_positions if cfg.family == "vlm" else 0
+        bf16 = cfg.dtype == "bfloat16"
+        torch.cuda.empty_cache()
+        model = T.init_model(cfg, seed=SS_SEED, plan=plan)
+        cache = T.init_cache(cfg, B, L + Pp, plan=plan)
+        # serving's peak: the init draws each leaf whole in fp32 first
+        torch.cuda.reset_peak_memory_stats()
+        specs = T.resolved_cache_specs(cfg, mesh, B, L + Pp)
+        shapes = T.cache_shapes(cfg, B, L + Pp)
+        local_ok = all(tuple(t.shape) == sharding.local_shape(
+            shapes[i][n][0], specs[i][n], sizes)
+            for i, c in enumerate(cache) for n, t in c.items())
+        kv_bytes = sum(c[n].numel() * c[n].element_size()
+                       for c in cache for n in ("k", "v") if n in c)
+        kv_whole = sum(math.prod(w[n][0]) * getattr(torch, cfg.dtype).itemsize
+                       for w in shapes for n in ("k", "v") if n in w)
+        spent, restore = timed_collectives(torch, coll)
+        sched, launches, errs, agree, ms = [], [], [], [], []
+        try:
+            def check(logits, want, i):
+                want = want[r0:r1].to(torch.float32)
+                got = logits.detach().to(torch.float32).cpu()
+                d = float((got - want).abs().max())
+                errs.append(d / max(float(want.abs().max()), 1e-30)
+                            if bf16 else d)
+                agree.append(float((got.argmax(-1) == want.argmax(-1))
+                                   .float().mean()))
+            ops.reset_launches()
+            coll.reset_record()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, _ = T.prefill(model, prompt[r0:r1].to(dev), cache,
+                                  patch_embeds=None if pe is None
+                                  else pe[r0:r1].to(dev))
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t
+            pre_coll = spent[0]
+            got = record_counter(coll.record)
+            want = prefill_collectives(cfg, sizes, r1 - r0, P, L + Pp)
+            sched.append("" if got == want else
+                         f"prefill: extra {dict(got - want)} missing "
+                         f"{dict(want - got)}")
+            launches.append({n: c for n, c in ops.launches.items() if c})
+            n_coll = [len(coll.record)]
+            check(logits, ref[0], 0)
+            for i in range(steps):
+                ops.reset_launches()
+                coll.reset_record()
+                t = time.perf_counter()
+                logits, _ = T.decode_step(model, cache,
+                                          toks[r0:r1, ..., i:i + 1].to(dev),
+                                          P + Pp + i)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+                got = record_counter(coll.record)
+                want = decode_collectives(cfg, sizes, r1 - r0, L + Pp)
+                sched.append("" if got == want else
+                             f"step {i}: extra {dict(got - want)} missing "
+                             f"{dict(want - got)}")
+                launches.append({n: c for n, c in ops.launches.items()
+                                 if c})
+                n_coll.append(len(coll.record))
+                check(logits, ref[i + 1], i + 1)
+        finally:
+            restore()
+        out[label] = {
+            "prefill_s": t_pre, "decode_ms": ms,
+            "collective_s": spent[0], "prefill_collective_s": pre_coll,
+            "schedule": sched, "launches": launches, "collectives": n_coll,
+            "errs": errs, "argmax_agree": agree,
+            "local_shapes": local_ok, "kv_bytes": kv_bytes,
+            "kv_whole_bytes": kv_whole, "rows": [r0, r1],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del model, cache
+    return out
+
+
+def ss_check(ranks, times, cfgs) -> dict:
+    """16.4's readings from the ranks: each case's logits within its
+    limit of one process, the collectives the schedule, the attention
+    kernel launched once an attention layer a prefill and never in a
+    decode step, the K/V a rank holds its share; printed, and returned."""
+    summary = {}
+    for label, cfg in cfgs.items():
+        rows = [r["serve"][label] for r in ranks]
+        first = rows[0]
+        full = not label.endswith("-smoke")
+        tol = TOL_SS_BF16 if cfg.dtype == "bfloat16" else TOL_SL_SMOKE
+        n_attn = sum(k in ("attn", "local") for k in cfg.blocks)
+        worst = max(max(r["errs"]) for r in rows)
+        kv_share = first["kv_bytes"] / max(first["kv_whole_bytes"], 1)
+        ms = sorted(first["decode_ms"])[len(first["decode_ms"]) // 2]
+        total = first["prefill_s"] + sum(first["decode_ms"]) / 1e3
+        row = {"prefill_s": first["prefill_s"], "decode_ms": ms,
+               "decode_ms_steps": first["decode_ms"],
+               "collective_share": first["collective_s"] / total,
+               "prefill_collective_share":
+                   first["prefill_collective_s"] / first["prefill_s"],
+               "peak_gb": [r["peak_gb"] for r in rows], "max_err": worst,
+               "limit": tol, "argmax_agree": min(min(r["argmax_agree"])
+                                                 for r in rows),
+               "kv_share": kv_share, "collectives": first["collectives"],
+               "launches": first["launches"], "one_process": times[label]}
+        summary[label] = row
+        if full:
+            print(f"16.4 {label} at full width ({cfg.num_layers} layers, "
+                  f"bf16) on the {SL_MESH} mesh: "
+                  f"{first['rows'][1] - first['rows'][0]} rows a rank, "
+                  f"prefill "
+                  f"{first['prefill_s']:.3f} s (one process "
+                  f"{times[label]['prefill_s']:.3f} s), decode {ms:.1f} ms "
+                  f"a step (median; one process "
+                  f"{times[label]['decode_ms']:.1f} ms), "
+                  f"{row['collective_share']:.1%} inside collectives "
+                  f"(prefill {row['prefill_collective_share']:.1%}), peak "
+                  + ", ".join(f"{x:.2f}" for x in row["peak_gb"])
+                  + f" GB a rank; K/V a rank {kv_share:.4f} of the whole "
+                  f"cache; logits within {worst:.2e} of one process (limit "
+                  f"{tol:.0e}), greedy tokens agree on "
+                  f"{row['argmax_agree']:.1%}; collectives a prefill / step "
+                  f"{first['collectives'][0]} / {first['collectives'][1]}; "
+                  f"launches prefill {first['launches'][0]}, a step "
+                  f"{first['launches'][1]}")
+        for r in ranks:
+            v = r["serve"][label]
+            if any(v["schedule"]):
+                fail(f"16.4 {label}: rank {r['rank']}'s collectives are not "
+                     f"the schedule: {[x for x in v['schedule'] if x][:2]}")
+            if not v["local_shapes"]:
+                fail(f"16.4 {label}: rank {r['rank']}'s cache shapes are not "
+                     f"cache_specs' local shapes")
+            if v["launches"][0].get("local_attention", 0) != n_attn or any(
+                    x.get("local_attention", 0) for x in v["launches"][1:]):
+                fail(f"16.4 {label}: rank {r['rank']} launched "
+                     f"local_attention {[x.get('local_attention', 0) for x in v['launches']]}"
+                     f", want {n_attn} a prefill and 0 a step")
+        if worst > tol:
+            fail(f"16.4 {label}: logits {worst} from one process, limit "
+                 f"{tol}")
+    smoke = {k: v["max_err"] for k, v in summary.items()
+             if k.endswith("-smoke")}
+    print(f"16.4 the ten archs' fp32 smoke configs, prefill + "
+          f"{SS_SMOKE_STEPS} steps on the {SL_MESH} mesh against one process "
+          f"(the MoE shard by shard): max |logit difference| "
+          + ", ".join(f"{k[:-6]} {v:.1e}" for k, v in smoke.items())
+          + f" (limit {TOL_SL_SMOKE:.0e}); collectives = the schedule and "
+          f"local_attention once an attention layer a prefill on every rank")
+    return summary
+
+
 def sharded_lm_rank(outdir: str) -> int:
     """16, one of ``SL_RANKS`` gloo ranks sharing the card (this script
     with ``--sharded-lm-rank DIR``): 16.1's sharded steps and 16.2's smoke
@@ -6996,34 +7394,13 @@ def sharded_lm_rank(outdir: str) -> int:
     out["init_s"] = time.perf_counter() - t0
     step = make_train_step(cfg, tc, mesh)
     want = step_collectives(cfg, sizes, rows, SL_SEQ)
-    in_coll = [0.0]
-    timed = {name: getattr(coll, name) for name in (
-        "all_reduce", "all_gather", "reduce_scatter")}
-
-    def timing(fn):
-        def wrapped(*a, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            r = fn(*a, **kw)
-            torch.cuda.synchronize()
-            in_coll[0] += time.perf_counter() - t
-            return r
-        return wrapped
-
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t_ready = time.time()
-    losses, norms, ms, sched, per_step = [], [], [], [], []
-    first_coll = 0.0
+    losses, norms, ms, sched, per_step, coll_s = [], [], [], [], [], []
     for i in range(SL_STEPS):
-        # collectives timed, a sync on either side of each (gloo waits for
-        # the work queued before a collective and its copies anyway)
-        instrument = True
-        if i == SL_STEPS - 1:
-            first_coll, in_coll[0] = in_coll[0], 0.0
-        if instrument:
-            for name, fn in timed.items():
-                setattr(coll, name, timing(fn))
+        # collectives timed, a sync on either side of each
+        spent, restore = timed_collectives(torch, coll)
         before = dict(ops.launches), dict(ops.route_launches)
         coll.reset_record()
         torch.cuda.synchronize()
@@ -7032,9 +7409,8 @@ def sharded_lm_rank(outdir: str) -> int:
         loss = float(m["loss"])
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t) * 1e3)
-        if instrument:
-            for name, fn in timed.items():
-                setattr(coll, name, fn)
+        restore()
+        coll_s.append(spent[0])
         losses.append(loss)
         norms.append(float(m["grad_norm"]))
         got = record_counter(coll.record)
@@ -7053,8 +7429,8 @@ def sharded_lm_rank(outdir: str) -> int:
     out["lm"] = {"losses": losses, "grad_norms": norms, "ms_steps": ms,
                  "schedule": sched, "per_step": per_step,
                  "launches": launches,
-                 "collective_ms": in_coll[0] * 1e3,
-                 "first_collective_ms": first_coll * 1e3,
+                 "collective_ms": coll_s[-1] * 1e3,
+                 "first_collective_ms": sum(coll_s[:-1]) * 1e3,
                  "ready_s": t_ready - t_start,
                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     out["lm"]["checksums"] = {
@@ -7095,6 +7471,12 @@ def sharded_lm_rank(outdir: str) -> int:
     t = time.perf_counter()
     out["comp"] = sharded_compression_rank(torch, ops, coll, outdir, rank)
     out["comp_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+
+    # 16.4 sharded prefill and decode
+    t = time.perf_counter()
+    out["serve"] = sharded_serve_rank(torch, ops, coll, mesh, outdir)
+    out["serve_s"] = time.perf_counter() - t
     out["start_s"] = t_start
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -7156,6 +7538,9 @@ def sharded_lm(torch, ops, ref, la, dev) -> tuple:
         t = time.perf_counter()
         sc_refs = sc_references(torch, ops, dev, tmp)
         t_sc_ref = time.perf_counter() - t
+        t = time.perf_counter()
+        ss_times = ss_references(torch, M, dev, tmp)
+        t_ss_ref = time.perf_counter() - t
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                f"--nproc_per_node={SL_RANKS}", os.path.abspath(__file__),
                "--sharded-lm-rank", tmp]
@@ -7315,6 +7700,23 @@ def sharded_lm(torch, ops, ref, la, dev) -> tuple:
     # 16.3 compressed training across ranks
     sc_summary, sc_kernels = sc_check(torch, ops, ref, ranks, sc_refs, cfg)
     kernels += sc_kernels
+
+    # 16.4 sharded prefill and decode; the attention kernel there runs at
+    # the shape of the row above (a rank's 4 x 2048 tokens, 8 of 16 query
+    # heads, 4 K/V heads, D 128)
+    ss_cfgs = {label: c for label, c, *_ in ss_cases(dataclasses, configs)}
+    ss_summary = ss_check(ranks, ss_times, ss_cfgs)
+    print(f"16.4 seconds: the one-process references {t_ss_ref:.1f}, the "
+          f"ranks {ranks[0]['serve_s']:.1f}")
+    kernels.append({
+        "name": "local_attention[sharded serve]", "route": "cuda",
+        "source": SOURCES["local_attention"],
+        "replaces": REPLACES["local_attention"],
+        "launches": sum(x.get("local_attention", 0)
+                        for v in ranks[0]["serve"].values()
+                        for x in v["launches"]),
+        **{k: f_row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")}})
     summary = {"one_process": one, "ranks_s": t_ranks, "reference_s": t_ref,
                "lm": {key: first[key] for key in (
                    "losses", "grad_norms", "ms_steps", "launches",
@@ -7327,11 +7729,16 @@ def sharded_lm(torch, ops, ref, la, dev) -> tuple:
     summary["smoke_s"] = ranks[0]["smoke_s"]
     summary["compressed"] = {**sc_summary, "reference_s": t_sc_ref,
                              "ranks_s": ranks[0]["comp_s"]}
+    summary["serve"] = {"cases": ss_summary, "reference_s": t_ss_ref,
+                        "ranks_s": ranks[0]["serve_s"],
+                        "seconds": t_ss_ref + ranks[0]["serve_s"]}
     print(f"phase 16: {summary['seconds']:.1f} s (the one-process "
-          f"references {t_ref:.1f} s and 16.3's {t_sc_ref:.1f} s, the "
-          f"ranks {t_ranks:.1f} s: {summary['rank_start_s']:.1f} s to "
-          f"start, 16.2 {summary['smoke_s']:.1f} s, 16.3 "
-          f"{ranks[0]['comp_s']:.1f} s)")
+          f"references {t_ref:.1f} s, 16.3's {t_sc_ref:.1f} s and 16.4's "
+          f"{t_ss_ref:.1f} s, the ranks {t_ranks:.1f} s: "
+          f"{summary['rank_start_s']:.1f} s to start, 16.2 "
+          f"{summary['smoke_s']:.1f} s, 16.3 {ranks[0]['comp_s']:.1f} s, "
+          f"16.4 {ranks[0]['serve_s']:.1f} s; 16.4 in all "
+          f"{summary['serve']['seconds']:.1f} s)")
     return summary, kernels
 
 

@@ -29,7 +29,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 __all__ = ["make_host_mesh", "make_production_mesh", "axes_group",
-           "mesh_device", "shard_count"]
+           "mesh_device", "shard_count", "mesh_from_arg"]
 
 
 def _device_type(device) -> str:
@@ -79,6 +79,29 @@ def make_host_mesh(data: int | None = None, model: int = 1, *,
     if pod is not None:
         return _mesh(device, (pod, data, model), ("pod", "data", "model"))
     return _mesh(device, (data, model), ("data", "model"))
+
+
+def mesh_from_arg(spec: str, dev: torch.device) -> DeviceMesh:
+    """The mesh a launcher's ``--mesh`` names (``DATA,MODEL``,
+    ``POD,DATA,MODEL`` or ``production``), over the world ``torchrun``
+    set up; the process group is made here unless the caller made one:
+    gloo on the CPU and where ranks share a card, else NCCL."""
+    if not dist.is_initialized():
+        gloo = dev.type == "cpu" or int(os.environ.get(
+            "LOCAL_WORLD_SIZE", 1)) > torch.cuda.device_count()
+        dist.init_process_group("gloo" if gloo else "nccl")
+    if spec == "production":
+        world = dist.get_world_size()
+        if world not in (256, 512):
+            raise ValueError(f"--mesh production takes 256 or 512 ranks, "
+                             f"the world has {world}")
+        return make_production_mesh(world == 512, device=dev.type)
+    dims = tuple(int(n) for n in spec.split(","))
+    if len(dims) == 2:
+        return make_host_mesh(*dims, device=dev.type)
+    if len(dims) == 3:
+        return make_host_mesh(dims[1], dims[2], pod=dims[0], device=dev.type)
+    raise ValueError(f"--mesh takes DATA,MODEL or POD,DATA,MODEL, got {spec!r}")
 
 
 def mesh_device(mesh) -> torch.device:

@@ -55,7 +55,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config, list_archs, smoke_config
 from repro_torch.core.operator import resolve_device
-from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.launch.mesh import mesh_from_arg
 from repro_torch.data import DataConfig
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.compression import CompressionConfig
@@ -89,7 +89,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    mesh = None if args.mesh is None else _mesh(args.mesh, dev)
+    mesh = None if args.mesh is None else mesh_from_arg(args.mesh, dev)
     first = mesh is None or dist.get_rank() == 0
     cfg = get_config(args.arch)
     if args.smoke:
@@ -122,27 +122,6 @@ def main(argv=None) -> dict:
     if losses and first:
         print(f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     return {"losses": losses, "state": state}
-
-
-def _mesh(spec: str, dev):
-    """The mesh ``--mesh`` names, over the world ``torchrun`` set up (the
-    process group made here unless the caller made one)."""
-    if not dist.is_initialized():
-        gloo = dev.type == "cpu" or int(os.environ.get(
-            "LOCAL_WORLD_SIZE", 1)) > torch.cuda.device_count()
-        dist.init_process_group("gloo" if gloo else "nccl")
-    if spec == "production":
-        world = dist.get_world_size()
-        if world not in (256, 512):
-            raise ValueError(f"--mesh production takes 256 or 512 ranks, "
-                             f"the world has {world}")
-        return make_production_mesh(world == 512, device=dev.type)
-    dims = tuple(int(n) for n in spec.split(","))
-    if len(dims) == 2:
-        return make_host_mesh(*dims, device=dev.type)
-    if len(dims) == 3:
-        return make_host_mesh(dims[1], dims[2], pod=dims[0], device=dev.type)
-    raise ValueError(f"--mesh takes DATA,MODEL or POD,DATA,MODEL, got {spec!r}")
 
 
 if __name__ == "__main__":

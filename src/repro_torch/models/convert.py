@@ -8,7 +8,10 @@ and the tail follows.  ``from_jax_params`` takes that tree as numpy
 arrays (``jax.tree.map(np.asarray, params)``) and returns the state dict
 of the port's ``Transformer`` (``model.load_state_dict(...)``), so both
 packages can be run on the same weights.  ``jax_layers`` does the same
-unstacking for any per-layer tree, such as a KV cache.
+unstacking for any per-layer tree; ``from_jax_cache`` / ``to_jax_cache``
+carry a KV cache each way, and ``shard_cache`` / ``unshard_cache`` cut a
+whole cache into a rank's shards under ``transformer.cache_specs`` and
+gather it back.
 
 bf16 arrays (numpy's ``bfloat16`` extension type) are carried bit for
 bit through an int16 view.  ``from_jax_params`` maps any tree of the
@@ -227,6 +230,58 @@ def gather_params(shards: dict, plan) -> dict:
     if isinstance(shards, torch.nn.Module):
         shards = dict(shards.named_parameters())
     return {n: plan.unshard(t, t.spec) for n, t in shards.items()}
+
+
+def from_jax_cache(np_tree: dict, cfg: ModelConfig) -> list[dict]:
+    """The JAX package's cache (``init_cache``'s ``{"groups", "tail"}``
+    tree, numpy leaves, stacked by ``group_layout``) as the port's
+    per-layer list of ``{leaf: tensor}`` (``transformer.init_cache``)."""
+    return [{k: _to_tensor(v) for k, v in layer.items()}
+            for layer in jax_layers(np_tree, cfg)]
+
+
+def to_jax_cache(cache: list, cfg: ModelConfig) -> dict:
+    """The port's per-layer cache in the JAX package's ``{"groups",
+    "tail"}`` layout: each group leaf the layers' tensors stacked in
+    group order, the tail a list (torch tensors; ``np.asarray`` each
+    for the JAX package)."""
+    pat, n_groups, tail = group_layout(cfg)
+    if len(cache) != cfg.num_layers:
+        raise ValueError(f"{cfg.name}: {len(cache)} layer caches, the "
+                         f"config has {cfg.num_layers} layers")
+    out: dict = {}
+    if n_groups:
+        out["groups"] = {f"b{i}": {k: torch.stack(
+            [cache[g * len(pat) + i][k] for g in range(n_groups)])
+            for k in cache[i]} for i in range(len(pat))}
+    if tail:
+        out["tail"] = list(cache[n_groups * len(pat):])
+    return out
+
+
+def shard_cache(full: list, cfg: ModelConfig, plan) -> list[dict]:
+    """This rank's shards of a whole cache (the port's per-layer list)
+    under ``transformer.cache_specs`` on ``plan`` (a
+    ``core/parallel.Plan``), on its device: what ``init_cache(...,
+    plan=)`` holds."""
+    from repro_torch import sharding
+    from repro_torch.models.transformer import cache_specs
+    return [{k: plan.shard(t, sharding.resolve_spec(
+        spec[k], plan.mesh, tuple(t.shape))).to(plan.device).contiguous()
+        for k, t in layer.items()}
+        for layer, spec in zip(full, cache_specs(cfg))]
+
+
+def unshard_cache(cache: list, cfg: ModelConfig, plan, batch: int,
+                  max_seq: int) -> list[dict]:
+    """The whole cache of a ``batch``-row, ``max_seq``-position request
+    from every rank's shards (``init_cache(..., plan=)``'s): the inverse
+    of ``shard_cache``, by all-gathers through ``core/collectives.py`` on
+    every rank."""
+    from repro_torch.models.transformer import resolved_cache_specs
+    specs = resolved_cache_specs(cfg, plan.mesh, batch, max_seq)
+    return [{k: plan.unshard(t, spec[k]) for k, t in layer.items()}
+            for layer, spec in zip(cache, specs)]
 
 
 def decayed(layout: list[Leaf]) -> set[str]:

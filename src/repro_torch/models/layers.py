@@ -33,7 +33,10 @@ Attention has two paths, as in the JAX package:
   operands are widened to fp32 first: a product of two bf16 values is
   exact in fp32, which is the JAX package's
   ``preferred_element_type=float32``), an fp32 softmax, probabilities
-  cast to V's dtype before the fp32-summed V product.
+  cast to V's dtype before the fp32-summed V product.  A sharded
+  model's step (``decode_attention``) gathers the step's query and K/V
+  heads over ``model`` and scores the rank's slots of a time-sharded
+  ring, its softmax reduced over ``model``.
 """
 from __future__ import annotations
 
@@ -241,11 +244,15 @@ def _out_proj(p: Attention, out: torch.Tensor) -> torch.Tensor:
 
 
 def prefill_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                      positions: torch.Tensor, *, local: bool):
+                      positions: torch.Tensor, *, local: bool,
+                      whole_kv: bool = False):
     """Attention over the prompt itself on the ``local_attention``
     kernel; returns ``(y, k, v)``, the roped K/V ``(B, S, Hkv, Dh)``
     being what the cache stores (``project_kv``'s values, computed
-    once)."""
+    once).  In a sharded model whose heads split over ``model``, ``k``/
+    ``v`` are the rank's K/V heads, or with ``whole_kv`` every K/V head
+    (``gather_heads``: one all-gather over ``model``), as a cache fill
+    needs them."""
     S = x.shape[1]
     w, px = _attention_weights(p, cfg)
     if px is not None:
@@ -259,7 +266,142 @@ def prefill_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     y = _out_proj(w, out.transpose(1, 2))
     if px is not None:
         y = px.reduce_out(y)
+        if whole_kv:
+            Hkv = cfg.num_kv_heads
+            k, v = gather_heads(px, [(k, Hkv), (v, Hkv)])
     return y, k, v
+
+
+def gather_heads(px, parts: list) -> list[torch.Tensor]:
+    """Every head on every model rank: ``parts`` holds ``(t, n)`` pairs,
+    ``t`` ``(B, S, h, Dh)`` the rank's heads of a tensor of ``n`` heads
+    (its query heads ``[h0, h1)``, or the K/V heads ``[k0, k1)`` they
+    read), concatenated along the heads and all-gathered over ``model`` in
+    ONE collective.  K/V heads that several ranks share (``G`` a multiple
+    of the rank's query heads) come back once each."""
+    tp = px.tp
+    widths = [t.shape[2] for t, _ in parts]
+    allh = px.gather_model(torch.cat([t for t, _ in parts], dim=2), 2)
+    B, S, Dh = allh.shape[0], allh.shape[1], allh.shape[-1]
+    allh = allh.view(B, S, tp, sum(widths), Dh)
+    out, c = [], 0
+    for (_, n), h in zip(parts, widths):
+        part = allh[:, :, :, c:c + h].reshape(B, S, tp * h, Dh)
+        out.append(part[:, :, ::tp * h // n])
+        c += h
+    return out
+
+
+def _decode_scores(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                   positions: torch.Tensor, kv_positions: torch.Tensor,
+                   kv_mask: torch.Tensor | None, local: bool):
+    """The masked fp32 scores ``(B, H, S, T)`` of the query ``q`` (B, S,
+    H, Dh) against the cache's keys ``k`` (B, T, Hkv, Dh), rounded as the
+    JAX package rounds (the query pre-scaled in the model dtype, the
+    products of fp32-widened operands); masked entries -1e30."""
+    B, S, H, Dh = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    T = k.shape[1]
+    q = q * torch.tensor(1.0 / math.sqrt(Dh), dtype=q.dtype)
+    # head h reads K/V head h // G: group the query heads by their K/V head
+    qg = q.view(B, S, Hkv, G, Dh).permute(0, 2, 3, 1, 4).reshape(
+        B, Hkv, G * S, Dh)
+    s = torch.matmul(qg.to(torch.float32),
+                     k.permute(0, 2, 3, 1).to(torch.float32))
+    s = s.view(B, H, S, T)
+    if cfg.attn_softcap is not None:
+        s = torch.tanh(s / cfg.attn_softcap) * cfg.attn_softcap
+    qp = positions[:, None, :, None]
+    kp = kv_positions[:, None, None, :]
+    m = kp <= qp
+    if local:
+        m = m & (kp > qp - cfg.window)
+    if kv_mask is not None:
+        m = m & kv_mask[:, None, None, :]
+    return torch.where(m, s, -1e30)
+
+
+def _probs_v(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``probs`` (B, H, S, T) fp32 cast to V's dtype, times ``v`` (B, T,
+    Hkv, Dh) summed in fp32: (B, H, S, Dh) fp32."""
+    B, H, S, T = probs.shape
+    Hkv, Dh = v.shape[2], v.shape[3]
+    G = H // Hkv
+    o = torch.matmul(probs.to(v.dtype).view(B, Hkv, G * S, T)
+                     .to(torch.float32),
+                     v.permute(0, 2, 1, 3).to(torch.float32))
+    return o.view(B, H, S, Dh)
+
+
+def _write_slot(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                pos: int, t0: int) -> torch.Tensor:
+    """Write the step's K/V (B, 1, Hkv, Dh) into slot ``pos % Lc`` of the
+    ring where this rank holds it (its slots ``[t0, t0 + Tl)``) and the
+    position into ``pos`` (whole); returns the positions of the rank's
+    slots, (B, Tl)."""
+    Lc, Tl = cache["pos"].shape[0], cache["k"].shape[1]
+    idx = pos % Lc
+    if t0 <= idx < t0 + Tl:
+        cache["k"][:, idx - t0] = k_new[:, 0]
+        cache["v"][:, idx - t0] = v_new[:, 0]
+    cache["pos"][idx] = pos
+    return cache["pos"][t0:t0 + Tl][None].expand(k_new.shape[0], Tl)
+
+
+def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                     positions: torch.Tensor, cache: dict, pos: int, *,
+                     local: bool) -> torch.Tensor:
+    """One decode step of a layer: the step's K/V written into slot
+    ``pos % Lc`` of the ring, then attention of the step's query over the
+    cache (``apply_attention``'s numerics).
+
+    In a sharded model the cache ``k``/``v`` hold the rank's rows and,
+    where ``Lc`` divides ``model`` (``cache_specs``' ``"cache_seq"``), its
+    slots ``[m Lc/tp, (m + 1) Lc/tp)``; ``pos`` (Lc,) is whole on every
+    rank.  Where the heads split over ``model`` the rank projects its own
+    heads and ONE all-gather over ``model`` gives every rank the step's
+    query at every head and its K/V heads (the JAX package constrains the
+    query replicated, ``layers.py:176-179`` there).  The rank owning the
+    slot writes it; each rank scores its own slots, the max over
+    ``model`` (``all_reduce_max``) and then the exp-sums and the partial
+    ``P V`` summed over ``model`` in ONE all-reduce of a stacked tensor
+    (context parallelism, ``layers.py:209-211`` there); the output
+    projection runs on the rank's heads (``reduce_out``), or whole where
+    attention is whole on every model rank."""
+    px = parallel.plan_of(p.wq)
+    if px is None:
+        k_new, v_new = project_kv(p, cfg, x, positions)
+        kv_pos = _write_slot(cache, k_new, v_new, pos, 0)
+        return apply_attention(p, cfg, x, positions, local=local,
+                               kv=(cache["k"], cache["v"]),
+                               kv_positions=kv_pos, kv_mask=kv_pos >= 0)
+    w, hp = _attention_weights(p, cfg)
+    heads = attention_heads(cfg, px) if hp is not None else None
+    q = _project_q(w, cfg, x, positions)
+    k_new, v_new = project_kv(w, cfg, x, positions)
+    if heads is not None:
+        H, Hkv = cfg.num_heads, cfg.num_kv_heads
+        q, k_new, v_new = gather_heads(px, [(q, H), (k_new, Hkv),
+                                            (v_new, Hkv)])
+    Lc, Tl = cache["pos"].shape[0], cache["k"].shape[1]
+    kv_pos = _write_slot(cache, k_new, v_new, pos,
+                         px.m * Tl if Tl < Lc else 0)
+    s = _decode_scores(cfg, q, cache["k"], positions, kv_pos, kv_pos >= 0,
+                       local)
+    if Tl == Lc:
+        o = _probs_v(torch.softmax(s, dim=-1), cache["v"])
+    else:
+        m = px.model_max(s.amax(dim=-1))                   # (B, H, S)
+        e = torch.exp(s - m[..., None])
+        both = px.reduce_out(torch.cat(
+            [_probs_v(e, cache["v"]), e.sum(dim=-1)[..., None]], dim=-1))
+        o = both[..., :-1] / both[..., -1:]
+    out = o.permute(0, 2, 1, 3).to(x.dtype)
+    if heads is None:
+        return _out_proj(w, out)
+    h0, h1 = heads[:2]
+    return px.reduce_out(_out_proj(w, out[:, :, h0:h1]))
 
 
 def apply_attention(
@@ -281,32 +423,8 @@ def apply_attention(
     """
     if kv is None:
         return prefill_attention(p, cfg, x, positions, local=local)[0]
-    B, S, _ = x.shape
-    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    G = H // Hkv
-    T = kv[0].shape[1]
     q = _project_q(p, cfg, x, positions)
-    q = q * torch.tensor(1.0 / math.sqrt(Dh), dtype=q.dtype)
-    # head h reads K/V head h // G: group the query heads by their K/V head
-    qg = q.view(B, S, Hkv, G, Dh).permute(0, 2, 3, 1, 4).reshape(
-        B, Hkv, G * S, Dh)
-    k = kv[0].permute(0, 2, 3, 1)                           # (B, Hkv, Dh, T)
-    v = kv[1].permute(0, 2, 1, 3)                           # (B, Hkv, T, Dh)
-    s = torch.matmul(qg.to(torch.float32), k.to(torch.float32))
-    s = s.view(B, H, S, T)
-    if cfg.attn_softcap is not None:
-        s = torch.tanh(s / cfg.attn_softcap) * cfg.attn_softcap
-    qp = positions[:, None, :, None]
-    kp = kv_positions[:, None, None, :]
-    m = kp <= qp
-    if local:
-        m = m & (kp > qp - cfg.window)
-    if kv_mask is not None:
-        m = m & kv_mask[:, None, None, :]
-    s = torch.where(m, s, -1e30)
-    probs = torch.softmax(s, dim=-1).to(v.dtype)          # fp32 softmax
-    o = torch.matmul(probs.view(B, Hkv, G * S, T).to(torch.float32),
-                     v.to(torch.float32))
-    out = o.view(B, Hkv, G, S, Dh).permute(0, 3, 1, 2, 4).reshape(
-        B, S, H, Dh).to(x.dtype)
-    return _out_proj(p, out)
+    s = _decode_scores(cfg, q, kv[0], positions, kv_positions, kv_mask,
+                       local)
+    o = _probs_v(torch.softmax(s, dim=-1), kv[1])          # fp32 softmax
+    return _out_proj(p, o.permute(0, 2, 1, 3).to(x.dtype))

@@ -138,12 +138,21 @@ def apply_rglru_block(p: RGLRUBlock, cfg: ModelConfig, x: torch.Tensor,
     return y, {"h": h[:, -1], "conv": new_conv}
 
 
-def init_rglru_state(cfg: ModelConfig, batch: int, device=None) -> dict:
-    dev = resolve_device(device)
+def rglru_state_shapes(cfg: ModelConfig, batch: int) -> dict:
+    """``{leaf: (shape, dtype, fill)}`` of the RG-LRU state."""
     R, W = cfg.resolved_rnn_width, cfg.conv_width
-    return {"h": torch.zeros((batch, R), dtype=torch.float32, device=dev),
-            "conv": torch.zeros((batch, W - 1, R),
-                                dtype=getattr(torch, cfg.dtype), device=dev)}
+    return {"h": ((batch, R), torch.float32, 0),
+            "conv": ((batch, W - 1, R), getattr(torch, cfg.dtype), 0)}
+
+
+def _filled(shapes: dict, device) -> dict:
+    dev = resolve_device(device)
+    return {n: torch.full(shape, fill, dtype=dt, device=dev)
+            for n, (shape, dt, fill) in shapes.items()}
+
+
+def init_rglru_state(cfg: ModelConfig, batch: int, device=None) -> dict:
+    return _filled(rglru_state_shapes(cfg, batch), device)
 
 
 # ---------------------------------------------------------------------------
@@ -288,11 +297,13 @@ def apply_rwkv_channel_mix(p: RWKVBlock, cfg: ModelConfig, x: torch.Tensor,
     return rr * vv, {"x_prev_c": x[:, -1]}
 
 
-def init_rwkv_state(cfg: ModelConfig, batch: int, device=None) -> dict:
-    dev = resolve_device(device)
+def rwkv_state_shapes(cfg: ModelConfig, batch: int) -> dict:
+    """``{leaf: (shape, dtype, fill)}`` of the RWKV-6 state."""
     D, hd = cfg.d_model, cfg.rwkv_head_dim
     dt = getattr(torch, cfg.dtype)
-    return {"x_prev_t": torch.zeros((batch, D), dtype=dt, device=dev),
-            "x_prev_c": torch.zeros((batch, D), dtype=dt, device=dev),
-            "S": torch.zeros((batch, D // hd, hd, hd), dtype=torch.float32,
-                             device=dev)}
+    return {"x_prev_t": ((batch, D), dt, 0), "x_prev_c": ((batch, D), dt, 0),
+            "S": ((batch, D // hd, hd, hd), torch.float32, 0)}
+
+
+def init_rwkv_state(cfg: ModelConfig, batch: int, device=None) -> dict:
+    return _filled(rwkv_state_shapes(cfg, batch), device)

@@ -32,14 +32,16 @@ object.
 Training (``forward_hidden``, ``loss_fn``; the JAX package's
 ``transformer.py:288-409``) runs with autograd: the attention is the
 ``local_attention`` kernel's autograd Function (its backward the
-hand-written backward kernel), ``remat_policy`` "minimal" or "full" puts
-each layer under ``torch.utils.checkpoint`` (recomputed in the backward;
-the math is the same), ``loss_chunks`` splits the LM head and the cross
-entropy over sequence chunks, each under checkpoint, so one chunk's fp32
-logits exist at a time.  Every backward on the path sums in a fixed
-order on the card (the embedding lookup's, torch's sort-based
-``index_put_`` with accumulation; the label logit's ``gather``, one add
-into each row), so two runs of a step give the same bits.  The
+hand-written backward kernel), ``remat_policy`` puts each layer under
+``torch.utils.checkpoint`` ("full": recomputed whole in the backward;
+"minimal": the weight GEMMs' outputs saved and the rest recomputed,
+``_run_layer``; the math is the same), ``loss_chunks`` splits the LM
+head and the cross entropy over sequence chunks, each under checkpoint,
+so one chunk's fp32 logits exist at a time.  Every backward on the path
+sums in a fixed order on the card (the embedding lookup's, torch's
+sort-based ``index_put_`` with accumulation; the label logit's
+``gather``, one add into each row), so two runs of a step give the same
+bits.  The
 recurrences of ``rglru``/``rwkv`` layers are their kernels' autograd
 Functions on the card (``ops.rglru_scan``, ``ops.wkv6``): a layer
 launches the forward kernel twice a step (the forward, and again in the
@@ -60,14 +62,27 @@ the head and the cross entropy are vocab-parallel inside ``loss_chunks``
 loss is the global batch's: each rank's sum over the global count
 (``batch_sum``), the MoE aux loss ``batch_mean``-ed.  ``checkpoint``
 recomputes a layer's forward collectives in the backward.
+
+Sharded serving (``prefill`` / ``decode_step`` of such a model): each
+rank serves its rows of the batch (``batch_rows``) from its shards of the
+weights and of the caches (``init_cache(..., plan=)``, the layout of
+``cache_specs``: the KV ring's time axis over ``model``, the RG-LRU
+state on the rank's channels, RWKV-6's matrix state on its heads).  The
+prefill runs the ``local_attention`` kernel on the rank's heads and
+gathers their K/V over ``model`` once a layer to fill the rank's slots;
+a decode step scores its slots and reduces the softmax over ``model``
+(``layers.decode_attention``); the vocab-parallel logits are gathered
+over ``model``, so every rank of a row block picks the same tokens.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import sharding
 from repro_torch.core import parallel
@@ -244,22 +259,15 @@ def _apply_layer(lp: Layer, cfg: ModelConfig, x: torch.Tensor,
         mix, st = R.apply_rwkv_time_mix(lp.ffn, cfg, h, cache)
         _update(cache, st)
     elif decode_pos is not None:
-        local = lp.kind == "local"
-        k_new, v_new = L.project_kv(lp.mix, cfg, h, positions)
-        Lc = cache["k"].shape[1]
-        idx = decode_pos % Lc
-        cache["k"][:, idx] = k_new[:, 0]
-        cache["v"][:, idx] = v_new[:, 0]
-        cache["pos"][idx] = decode_pos
-        kv_pos = cache["pos"][None].expand(x.shape[0], Lc)
-        mix = L.apply_attention(lp.mix, cfg, h, positions, local=local,
-                                kv=(cache["k"], cache["v"]),
-                                kv_positions=kv_pos, kv_mask=kv_pos >= 0)
+        mix = L.decode_attention(lp.mix, cfg, h, positions, cache,
+                                 decode_pos, local=lp.kind == "local")
     else:
         mix, k_full, v_full = L.prefill_attention(
-            lp.mix, cfg, h, positions, local=lp.kind == "local")
+            lp.mix, cfg, h, positions, local=lp.kind == "local",
+            whole_kv=cache is not None)
         if cache is not None:
-            _fill_cache(cache, k_full, v_full, positions)
+            _fill_cache(cache, k_full, v_full, positions,
+                        parallel.plan_of(lp.mix.wq))
     if cfg.post_block_norm:
         mix = lp.norm1_post(mix)
     x = x + mix
@@ -278,17 +286,24 @@ def _apply_layer(lp: Layer, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _fill_cache(cache: dict, k_full: torch.Tensor, v_full: torch.Tensor,
-                positions: torch.Tensor) -> None:
+                positions: torch.Tensor, px=None) -> None:
     """Write the last min(S, L_cache) positions of k/v into the ring, in
-    place."""
+    place; in a sharded model whose cache splits its slots over
+    ``model``, the rank's slots only (``pos`` is whole everywhere)."""
     S = positions.shape[1]
-    Lc = cache["k"].shape[1]
+    Lc, Tl = cache["pos"].shape[0], cache["k"].shape[1]
     take = min(S, Lc)
     pos_tail = positions[0, S - take:]
     slots = pos_tail % Lc
-    cache["k"][:, slots] = k_full[:, S - take:]
-    cache["v"][:, slots] = v_full[:, S - take:]
     cache["pos"][slots] = pos_tail.to(torch.int32)
+    k_tail, v_tail = k_full[:, S - take:], v_full[:, S - take:]
+    if Tl < Lc:                         # the rank's slots [t0, t0 + Tl)
+        t0 = px.m * Tl
+        mine = (slots >= t0) & (slots < t0 + Tl)
+        slots, k_tail, v_tail = slots[mine] - t0, k_tail[:, mine], \
+            v_tail[:, mine]
+    cache["k"][:, slots] = k_tail
+    cache["v"][:, slots] = v_tail
 
 
 # ---------------------------------------------------------------------------
@@ -376,7 +391,7 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
     """Full-sequence forward: tokens (B, S) -> logits fp32 (B, S, V)
     (audio: tokens (B, K, S) -> (B, S, K, V); VLM with ``patch_embeds``:
     (B, P + S, V))."""
-    x, _ = _hidden(model, tokens, patch_embeds, remat=False)
+    x, _ = _hidden(model, tokens, patch_embeds, "none")
     return _lm_head(model, x)
 
 
@@ -384,18 +399,55 @@ def forward(model: Transformer, tokens: torch.Tensor, *,
 # Training
 # ---------------------------------------------------------------------------
 
-def _hidden(model: Transformer, tokens, patch_embeds, remat: bool,
+#: the ops whose outputs ``remat_policy="minimal"`` saves: the 2-D
+#: products with no batch dims (the JAX package's
+#: ``dots_with_no_batch_dims_saveable``)
+SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _minimal_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _run_layer(lp: Layer, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor, remat: str):
+    """``_apply_layer`` under ``remat`` (``cfg.remat_policy``):
+
+    * ``"full"``: the layer under ``checkpoint``; the backward recomputes
+      all of it (the JAX package's ``nothing_saveable``);
+    * ``"minimal"``: the same with a selective policy that saves the
+      outputs of ``aten.mm``/``addmm`` (projections, MLP, router,
+      recurrent projections, RWKV's LoRA) and recomputes everything else:
+      batched products (the MoE's experts), elementwise ops, the
+      collectives (so the FSDP gathers run again, as under "full", and no
+      rank keeps a gathered weight), and the hand-written kernels, which
+      fill a ``torch.empty`` through ``ctypes`` where the dispatcher
+      cannot see them: their autograd Functions run again in the
+      recompute and launch again;
+    * ``"none"``: no checkpoint."""
+    if remat == "none":
+        return _apply_layer(lp, cfg, x, positions)
+    if remat == "full":
+        return checkpoint(_apply_layer, lp, cfg, x, positions,
+                          use_reentrant=False)
+    if remat == "minimal":
+        return checkpoint(_apply_layer, lp, cfg, x, positions,
+                          use_reentrant=False, context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _minimal_policy))
+    raise ValueError(f"remat_policy {remat!r} is not 'none', 'minimal' or "
+                     f"'full'")
+
+
+def _hidden(model: Transformer, tokens, patch_embeds, remat: str,
             table=None, vr=None):
     cfg = model.cfg
     x = _embed_tokens(model, tokens, patch_embeds, table, vr)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in model.layers:
-        if remat:
-            x, a = checkpoint(_apply_layer, lp, cfg, x, positions,
-                              use_reentrant=False)
-        else:
-            x, a = _apply_layer(lp, cfg, x, positions)
+        x, a = _run_layer(lp, cfg, x, positions, remat)
         if a is not None:
             aux = aux + a
     return model.final_norm(x), aux
@@ -405,12 +457,9 @@ def forward_hidden(model: Transformer, tokens: torch.Tensor, *,
                    patch_embeds: torch.Tensor | None = None):
     """Full-sequence forward up to the final norm, recording for
     autograd: tokens (B, S) (audio (B, K, S)) -> (x (B, S, D), aux), aux
-    the MoE router's loss summed over the layers (0 without MoE).  With
-    ``remat_policy`` "minimal" or "full" each layer runs under
-    ``checkpoint`` (its activations recomputed in the backward, attention
-    included)."""
-    return _hidden(model, tokens, patch_embeds,
-                   remat=model.cfg.remat_policy in ("minimal", "full"))
+    the MoE router's loss summed over the layers (0 without MoE).  Each
+    layer runs under ``cfg.remat_policy`` (``_run_layer``)."""
+    return _hidden(model, tokens, patch_embeds, model.cfg.remat_policy)
 
 
 def _xent(lg: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
@@ -514,13 +563,8 @@ def _sharded_loss(model: Transformer, batch: dict, px):
     cfg = model.cfg
     table, vr = _embed_weight(model)
     x, aux = _hidden(model, batch["tokens"], batch.get("patch_embeds"),
-                     cfg.remat_policy in ("minimal", "full"), table, vr)
-    if cfg.tie_embeddings:
-        w = table.mT
-    else:
-        vdim = 2 if cfg.family == "audio" else 1
-        w = (px.fetch(model.head) if vr is None
-             else px.fetch(model.head, (vdim, *vr)))
+                     cfg.remat_policy, table, vr)
+    w = _head_weight(model, table, vr)
     labels = batch["labels"]
     S = labels.shape[-1]
     if cfg.family == "vlm":
@@ -555,29 +599,134 @@ def _sharded_loss(model: Transformer, batch: dict, px):
     return total, {"loss": loss, "aux": aux}
 
 
+def cache_specs(cfg: ModelConfig) -> list[dict]:
+    """The logical axes of each layer's cache leaves, one dict a layer
+    (the JAX package's ``cache_specs``, ``transformer.py:432-458`` there,
+    unstacked): attention ``k``/``v`` ``("batch", "cache_seq", None,
+    None)``, the ring's TIME axis over ``model`` (K/V heads rarely divide
+    ``model``; positions do), ``pos`` whole; RG-LRU ``h`` ``("batch",
+    "rnn")`` and ``conv`` ``("batch", None, "rnn")``, the channels the
+    block computes on the rank (``models/recurrent.py``).
+
+    RWKV-6 differs from the reference, whose ``x_prev_*`` are ``("batch",
+    "rnn")`` and ``S`` ``("batch", None, None, None)``: here ``S`` is
+    ``("batch", "rnn", None, None)`` (the rank's heads: its time mix runs
+    ``wkv6`` on them alone) and ``x_prev_t``/``x_prev_c`` ``("batch",
+    None)`` (its token shifts read the whole row).  Either of the
+    reference's layouts would cost a collective a step that the layer
+    does not issue.  A rank of rwkv6-1.6b (32 heads of 64, D 2048) at
+    ``model`` 2 holds ``S`` of 16 heads, 262,144 bytes a row, and both
+    ``x_prev`` whole, 8,192 bytes a row in bf16, where the reference's
+    layout holds 524,288 and 4,096."""
+    out = []
+    for kind in cfg.blocks:
+        if kind in ("attn", "local"):
+            out.append({"k": ("batch", "cache_seq", None, None),
+                        "v": ("batch", "cache_seq", None, None),
+                        "pos": (None,)})
+        elif kind == "rglru":
+            out.append({"h": ("batch", "rnn"),
+                        "conv": ("batch", None, "rnn")})
+        else:
+            out.append({"x_prev_t": ("batch", None),
+                        "x_prev_c": ("batch", None),
+                        "S": ("batch", "rnn", None, None)})
+    return out
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> list[dict]:
+    """``{leaf: (whole shape, dtype, fill)}`` a layer: attention a ring of
+    ``Lc = max_seq`` (global) or ``min(window, max_seq)`` (local) slots,
+    ``pos`` -1 (empty); the recurrent states zeros
+    (``models/recurrent.py``)."""
+    Hkv, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    dt = getattr(torch, cfg.dtype)
+    out = []
+    for kind in cfg.blocks:
+        if kind == "rglru":
+            out.append(R.rglru_state_shapes(cfg, batch))
+        elif kind == "rwkv":
+            out.append(R.rwkv_state_shapes(cfg, batch))
+        else:
+            Lc = max_seq if kind == "attn" else min(cfg.window, max_seq)
+            out.append({"k": ((batch, Lc, Hkv, Dh), dt, 0),
+                        "v": ((batch, Lc, Hkv, Dh), dt, 0),
+                        "pos": ((Lc,), torch.int32, -1)})
+    return out
+
+
+def resolved_cache_specs(cfg: ModelConfig, mesh, batch: int,
+                         max_seq: int) -> list[dict]:
+    """``cache_specs`` on ``mesh`` (``sharding.resolve_spec`` with each
+    leaf's shape: a ring whose ``Lc`` does not divide ``model``, or a
+    batch that does not divide ``(pod, data)``, stays whole)."""
+    return [{n: sharding.resolve_spec(spec[n], mesh, shape[n][0])
+             for n in spec}
+            for spec, shape in zip(cache_specs(cfg),
+                                   cache_shapes(cfg, batch, max_seq))]
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device=None) -> list[dict]:
+               device=None, plan=None) -> list[dict]:
     """Empty caches, one dict per layer: attention a ring buffer (``k``/
     ``v`` (B, Lc, Hkv, Dh) in the model dtype, ``pos`` (Lc,) int32 of
     -1); ``rglru`` ``{"h", "conv"}`` and ``rwkv`` ``{"x_prev_t",
-    "x_prev_c", "S"}``, zeros (``models/recurrent.py``)."""
-    dev = resolve_device(device)
-    Hkv, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
-    dt = getattr(torch, cfg.dtype)
+    "x_prev_c", "S"}``, zeros (``models/recurrent.py``).
+
+    With ``plan`` (a sharded model's, on its device) each leaf is the
+    rank's shard under ``resolved_cache_specs``: K/V ``(B/|pod data|,
+    Lc/|model|, Hkv, Dh)``, its rows and its slots of the ring; ``pos``
+    whole; RG-LRU's ``h``/``conv`` its channels; RWKV-6's ``S`` its heads
+    and ``x_prev_*`` whole (``cache_specs``)."""
+    dev = resolve_device(device) if plan is None else plan.device
+    specs = None if plan is None else resolved_cache_specs(
+        cfg, plan.mesh, batch, max_seq)
     caches = []
-    for kind in cfg.blocks:
-        if kind == "rglru":
-            caches.append(R.init_rglru_state(cfg, batch, dev))
-            continue
-        if kind == "rwkv":
-            caches.append(R.init_rwkv_state(cfg, batch, dev))
-            continue
-        Lc = max_seq if kind == "attn" else min(cfg.window, max_seq)
-        caches.append({
-            "k": torch.zeros((batch, Lc, Hkv, Dh), dtype=dt, device=dev),
-            "v": torch.zeros((batch, Lc, Hkv, Dh), dtype=dt, device=dev),
-            "pos": torch.full((Lc,), -1, dtype=torch.int32, device=dev)})
+    for i, layer in enumerate(cache_shapes(cfg, batch, max_seq)):
+        c = {}
+        for name, (shape, dt, fill) in layer.items():
+            if specs is not None:
+                shape = sharding.local_shape(shape, specs[i][name],
+                                             plan.sizes)
+            c[name] = torch.full(shape, fill, dtype=dt, device=dev)
+        caches.append(c)
     return caches
+
+
+def batch_rows(plan, batch: int) -> tuple[int, int]:
+    """The rows ``[r0, r1)`` of a ``batch``-row request that the rank
+    serves: its block over ``(pod, data)`` (rank ``(p, d)`` block ``p
+    |data| + d``), or all of them where ``batch`` does not divide
+    (``cache_specs``' ``"batch"`` falls back to whole)."""
+    if plan is None or batch % plan.n_batch:
+        return 0, batch
+    b = batch // plan.n_batch
+    return plan.batch_index * b, (plan.batch_index + 1) * b
+
+
+def _head_weight(model: Transformer, table, vr):
+    """The head weight a sharded model computes its logits with (the
+    rank's vocab columns where ``vr`` is a range; ``table.mT`` tied);
+    ``None`` in one process (``_lm_head`` takes the model's own)."""
+    px = parallel.plan_of(model.embed)
+    if px is None:
+        return None
+    if model.cfg.tie_embeddings:
+        return table.mT
+    vdim = 2 if model.cfg.family == "audio" else 1
+    return (px.fetch(model.head) if vr is None
+            else px.fetch(model.head, (vdim, *vr)))
+
+
+def _logits(model: Transformer, x: torch.Tensor, table, vr) -> torch.Tensor:
+    """The final norm and the head on x (B, 1, D): logits fp32 (B, 1, V)
+    (audio (B, 1, K, V)); a vocab-parallel shard's gathered over
+    ``model``, so every rank holds the whole vocabulary of its rows."""
+    logits = _lm_head(model, model.final_norm(x),
+                      _head_weight(model, table, vr))
+    if vr is not None:
+        logits = parallel.plan_of(model.embed).gather_model(logits, -1)
+    return logits
 
 
 @torch.no_grad()
@@ -588,15 +737,25 @@ def prefill(model: Transformer, tokens: torch.Tensor,
     ``patch_embeds`` (B, P, D) ahead of them, at positions 0..P-1);
     returns (last-position logits (B, V) (audio (B, K, V)) fp32, cache).
     Only the final position is projected to the vocabulary.  ``cache=None``
-    runs the prompt without filling one."""
+    runs the prompt without filling one.
+
+    A sharded model (``init_model(..., plan=)``) takes the rank's rows
+    (``batch_rows``) of ``tokens`` and ``patch_embeds`` and the rank's
+    cache (``init_cache(..., plan=)``).  Its collectives
+    (``training/schedule.py::prefill_collectives``): the weights' FSDP
+    gathers over ``data``; the vocab-parallel lookups summed over
+    ``model``; each tensor-parallel block's ``reduce_out``; where the
+    heads split, one all-gather over ``model`` of the rank's K/V heads a
+    layer (the cache holds every head of the rank's slots); the logits
+    gathered over ``model``."""
     cfg = model.cfg
-    x = _embed_tokens(model, tokens, patch_embeds)
+    table, vr = _embed_weight(model)
+    x = _embed_tokens(model, tokens, patch_embeds, table, vr)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     for i, lp in enumerate(model.layers):
         x, _ = _apply_layer(lp, cfg, x, positions,
                             None if cache is None else cache[i])
-    logits = _lm_head(model, model.final_norm(x[:, -1:]))
-    return logits[:, 0], cache
+    return _logits(model, x[:, -1:], table, vr)[:, 0], cache
 
 
 @torch.no_grad()
@@ -604,12 +763,19 @@ def decode_step(model: Transformer, cache: list[dict], tokens: torch.Tensor,
                 pos: int):
     """One decode step: tokens (B, 1) (audio (B, K, 1)) at position
     ``pos`` (a Python int; for the VLM counting the patch positions).
-    Returns (logits (B, V) (audio (B, K, V)) fp32, cache)."""
+    Returns (logits (B, V) (audio (B, K, V)) fp32, cache).
+
+    A sharded model takes its rows and its cache, as ``prefill``.  Each
+    attention layer runs ``layers.decode_attention``: one all-gather of
+    the step's query and K/V heads over ``model`` where the heads split,
+    and over a time-sharded ring an ``all_reduce_max`` and one
+    ``all_reduce`` of the stacked exp-sums and partial ``P V``; the rest
+    as ``prefill`` (``training/schedule.py::decode_collectives``)."""
     cfg = model.cfg
-    x = _embed_tokens(model, tokens)
+    table, vr = _embed_weight(model)
+    x = _embed_tokens(model, tokens, None, table, vr)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
     for i, lp in enumerate(model.layers):
         x, _ = _apply_layer(lp, cfg, x, positions, cache[i], decode_pos=pos)
-    logits = _lm_head(model, model.final_norm(x))
-    return logits[:, 0], cache
+    return _logits(model, x, table, vr)[:, 0], cache

@@ -25,8 +25,15 @@ resolve without ranks.
 
 The JAX package's ``use_mesh`` and ``constrain`` are hints to GSPMD and
 have no counterpart: the port's layers issue their collectives
-themselves (``core/parallel.py``).  ``placements`` gives the DTensor
-placements of a spec, for the checkpoint boundary only.
+themselves (``core/parallel.py``), and a rank holds exactly the shards
+its specs give.  Training: the weights as above, the batch's rows over
+``(pod, data)``.  Serving (``models/transformer.py::cache_specs``): the
+same weights and rows, and each layer's cache with the KV ring's time
+axis over ``model`` (``"cache_seq"``), so a decode step's attention is
+context parallel (one ``all_reduce_max`` and one ``all_reduce`` over
+``model`` a layer); the per-step collectives are
+``training/schedule.py``'s.  ``placements`` gives the DTensor placements
+of a spec, for the checkpoint boundary only.
 """
 from __future__ import annotations
 

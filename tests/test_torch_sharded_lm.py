@@ -15,7 +15,9 @@ child gets it through ``models.convert.leaf_layout``) and take the same
   py:133-141``, rwkv6-1.6b's smoke config, and a dense config whose 3
   heads do not divide ``model`` (attention whole on every model rank);
   meshes ``(2, 2)`` data x model and ``(2, 1, 2)`` pod x data x model;
-  the MoE also at microbatches 2.  Three steps each: every loss within
+  the MoE also at microbatches 2; the dense config also under
+  ``remat_policy="full"`` (the others run the default "minimal", whose
+  recompute re-issues the same collectives).  Three steps each: every loss within
   1e-5 relative and every parameter within 1e-4 of the JAX package's
   (``tests/test_torch_training.py``'s tolerances); the MoE follows the
   JAX package's per-shard capacity.  The dense config also against the
@@ -61,6 +63,8 @@ BASE = dict(num_layers=4, d_model=64, num_heads=4, num_kv_heads=2,
             d_ff=128, vocab_size=64, dtype="float32")
 CONFIGS = {
     "dense": dict(name="d", family="dense", **BASE),
+    "dense_full": dict(name="d", family="dense", remat_policy="full",
+                       **BASE),
     "moe": dict(name="m", family="moe", num_experts=4, experts_per_token=2,
                 **BASE),
     "hybrid": dict(name="h", family="hybrid", block_pattern=(
@@ -73,6 +77,7 @@ CONFIGS = {
 CASES = {f"{c}/{'x'.join(map(str, shape))}/mb{mb}": (c, shape, mb)
          for c, shape, mb in [
              ("dense", (2, 2), 1), ("dense", (2, 1, 2), 1),
+             ("dense_full", (2, 2), 1),
              ("moe", (2, 2), 1), ("moe", (2, 1, 2), 1), ("moe", (2, 2), 2),
              ("hybrid", (2, 2), 1), ("hybrid", (2, 1, 2), 1),
              ("rwkv", (2, 2), 1), ("rwkv", (2, 1, 2), 1),

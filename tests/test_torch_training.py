@@ -8,7 +8,11 @@ package's, on the CPU.
   arch's fp32 smoke config (norm scales moved off zero), with
   ``loss_chunks`` 1 and 4 and with a ``loss_mask``: the loss within 1e-5
   relative, each gradient within 1e-5 of its largest element (fp32 sums
-  in other orders).  ``remat_policy`` changes neither.
+  in other orders).  ``remat_policy`` changes neither: "none", "minimal"
+  and "full" give the same bits.  "minimal"'s backward runs as many
+  ``aten.mm`` as "none"'s (it saves the weight GEMMs' outputs), "full"'s
+  those and the layers' forward ones again, and the bytes a step holds
+  for its backward order full < minimal < none.
 * Five train steps of the JAX package's ``TINY`` model and of a smoke
   config, with and without compression, at microbatches 1 and 4, against
   its ``make_train_step`` on the same weights (the compression fed the
@@ -22,12 +26,15 @@ package's, on the CPU.
   ``tests/test_torch_sharded_compression.py``).
 """
 import dataclasses
+import gc
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro import configs as jax_configs
 from repro.data import DataConfig as JDataConfig
@@ -151,6 +158,81 @@ def test_remat_changes_no_math(policy):
     tot0, _, g0 = _port_grads(base, batch)
     assert tot == tot0
     assert all(torch.equal(g[n], g0[n]) for n in g)
+
+
+class _Tally(TorchDispatchMode):
+    """Counts the aten ops that run, and keeps a weak reference to every
+    storage an op makes: those still alive after the forward are what
+    the step holds for its backward."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops, self.made = {}, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.ops[func] = self.ops.get(func, 0) + 1
+        for t in (out if isinstance(out, (tuple, list)) else [out]):
+            if isinstance(t, torch.Tensor) and t.untyped_storage().nbytes():
+                self.made.append((StorageWeakRef(t.untyped_storage()),
+                                  t.untyped_storage().nbytes()))
+        return out
+
+    def mm(self) -> int:
+        return sum(self.ops.get(op, 0) for op in T.SAVED_OPS)
+
+    def alive_bytes(self) -> int:
+        gc.collect()
+        return sum({w.cdata: n for w, n in self.made
+                    if not w.expired()}.values())
+
+
+REMAT_ARCHS = ["gemma2-9b", "rwkv6-1.6b", "recurrentgemma-9b",
+               "grok-1-314b"]
+
+
+def _remat_step(arch, policy):
+    """(forward tally, backward tally, mm of the layers' forward) of one
+    loss and gradient of ``arch``'s fp32 smoke config under ``policy``."""
+    cfg = dataclasses.replace(configs.smoke_config(configs.get_config(arch)),
+                              dtype="float32", remat_policy=policy)
+    model = T.init_model(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 12)))
+    # early stop off: a recompute runs its whole region (the sharded
+    # step's setting), so "full" recomputes every GEMM of the forward
+    with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+        with _Tally() as fwd:
+            total, _ = T.loss_fn(model, {"tokens": toks, "labels": toks})
+        fwd.alive = fwd.alive_bytes()
+        with _Tally() as bwd:
+            torch.autograd.grad(total, list(model.parameters()))
+    with torch.no_grad(), _Tally() as layers:
+        T._hidden(model, toks, None, "none")
+    return fwd, bwd, layers.mm()
+
+
+@pytest.mark.parametrize("arch", REMAT_ARCHS)
+def test_remat_minimal_recomputes_no_weight_gemm(arch):
+    """The backward of "minimal" runs as many ``aten.mm`` as that of
+    "none" (the weight GEMMs' outputs are saved, not recomputed); that of
+    "full" as many plus every one of the layers' forward."""
+    runs = {p: _remat_step(arch, p) for p in ("none", "minimal", "full")}
+    none, minimal, full = (runs[p][1].mm() for p in ("none", "minimal",
+                                                     "full"))
+    assert runs["none"][0].mm() == runs["minimal"][0].mm()
+    assert minimal == none
+    assert full == none + runs["none"][2] and runs["none"][2] > 0
+
+
+@pytest.mark.parametrize("arch", REMAT_ARCHS)
+def test_remat_minimal_holds_between_none_and_full(arch):
+    """The bytes a step holds after its forward for the backward: "full"
+    (each layer's input) < "minimal" (those and the GEMMs' outputs) <
+    "none" (every activation)."""
+    held = {p: _remat_step(arch, p)[0].alive
+            for p in ("none", "minimal", "full")}
+    assert held["full"] < held["minimal"] < held["none"], held
 
 
 # ---------------------------------------------------------------------------
